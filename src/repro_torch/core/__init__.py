@@ -1,0 +1,55 @@
+"""repro_torch.core — the work-forwarding infrastructure over rank-stacked
+tensors (the counterpart of ``repro.core``).
+
+Device interface: WorkQueue, make_queue, enqueue, get_incoming,
+  num_incoming, clear, DISCARD.
+Host context: RafiContext, ForwardConfig, forward_work, run_until_done,
+  StackedCollectives (the collective layer and its call recorder).
+Item typing: work_item, item_nbytes, pack_payload, unpack_payload.
+"""
+from repro_torch.core.collectives import StackedCollectives
+from repro_torch.core.context import RafiContext, queue_from_reference, queue_to_reference
+from repro_torch.core.forwarding import ForwardConfig, forward_work
+from repro_torch.core.queue import (
+    DISCARD,
+    WorkQueue,
+    clear,
+    enqueue,
+    get_incoming,
+    make_queue,
+    num_incoming,
+)
+from repro_torch.core.termination import run_until_done
+from repro_torch.core.types import (
+    PackSpec,
+    batched_zeros,
+    item_nbytes,
+    pack_payload,
+    pack_spec,
+    unpack_payload,
+    work_item,
+)
+
+__all__ = [
+    "DISCARD",
+    "ForwardConfig",
+    "PackSpec",
+    "RafiContext",
+    "StackedCollectives",
+    "WorkQueue",
+    "batched_zeros",
+    "clear",
+    "enqueue",
+    "forward_work",
+    "get_incoming",
+    "item_nbytes",
+    "make_queue",
+    "num_incoming",
+    "pack_payload",
+    "pack_spec",
+    "queue_from_reference",
+    "queue_to_reference",
+    "run_until_done",
+    "unpack_payload",
+    "work_item",
+]

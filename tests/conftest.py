@@ -88,6 +88,12 @@ def pytest_configure(config):
         "scales to S payload + S count collectives.  Part of tier-1; CI can "
         "select with `-m pipeline`.",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card and nvcc — runs the PyTorch port's "
+        "hand-written CUDA kernels against their plain versions.  Skips with "
+        "a reason where no card is present; select with `-m cuda`.",
+    )
 
 
 @pytest.fixture(autouse=True)
