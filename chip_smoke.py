@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
-``nvcc`` per source, started together, into ``build/``) and runs four phases
-on ``cuda:0``:
+``nvcc`` call into one library under ``build/``) and runs four phases on
+``cuda:0``:
 
   1. kernels     — K3 pack_and_histogram, K1 gather_rows, K2 unmarshal and
                    K8 rk4_step, each held against its plain PyTorch version
@@ -18,7 +18,9 @@ on ``cuda:0``:
                    of primary rays), S=65,536 peer slots: equal to the
                    onehot oracle on the card and to the same round run on
                    the CPU; one payload and one count all_to_all; one launch
-                   each of K1, K2 and K3; median round time and stage split;
+                   each of K1, K2 and K3; median round time and the stage
+                   split of the same ``forward_work`` call (CUDA events
+                   recorded at its stage boundaries);
   3. streamlines — the main path: ``apps.streamlines.run`` through
                    ``RafiContext.run_until_done``, R=8, 131,072 particles,
                    64 steps, ABC field (tornado and Taylor-Green at 16,384):
@@ -131,13 +133,18 @@ def phase_kernels(dev, R=8, C=262144, S=65536, W=11, N_PART=2097152, timer=cuda_
     p_keys, p_hist = SO.pack_and_histogram_plain(dest, count, num_ranks=R, idx_bits=ib)
     ok = torch.equal(k_keys, p_keys) and torch.equal(k_hist, p_hist)
     check(ok, f"K3 pack_and_histogram dest {tuple(dest.shape)}: keys and histogram bit-equal to plain")
-    nbytes = dest.numel() * 4 + count.numel() * 4 + k_keys.numel() * 8 + k_hist.numel() * 4
+    # the function writes 4-byte uint32 keys: the bound counts those; the
+    # kernel writes them widened to int64 for torch.sort (printed beside)
+    nbytes = dest.numel() * 4 + count.numel() * 4 + k_keys.numel() * 4 + k_hist.numel() * 4
+    int64_bytes = nbytes + k_keys.numel() * 4
+    print(f"  pack_and_histogram: bound counts 4-byte keys ({nbytes} B); with the "
+          f"int64 keys it writes, {int64_bytes} B = {bound_ms(int64_bytes)[0]:.4f} ms", flush=True)
     rows["pack_and_histogram"] = dict(
         max_abs_err=0.0 if ok else float((k_keys - p_keys).abs().max()),
         ms=timer(lambda: SO.pack_and_histogram(dest, count, num_ranks=R, idx_bits=ib)),
         plain_ms=timer(lambda: SO.pack_and_histogram_plain(dest, count, num_ranks=R, idx_bits=ib)),
         library_ms=None, nbytes=nbytes, ops=0.0,
-        library_call=None,
+        library_call=None, int64_key_bytes=int64_bytes,
     )
 
     # K1: the forward round's composed send gather
@@ -266,9 +273,7 @@ def phase_forward(dev, R=8, C=262144, S=65536, reps=10, timer_events=True):
 
     from repro_torch import kernels as KN
     from repro_torch.core import ForwardConfig, StackedCollectives, WorkQueue, forward_work
-    from repro_torch.core import stages as ST
     from repro_torch.core import types as T
-    from repro_torch.kernels.sort_keys import ops as SO
 
     Ray44 = _ray44_types()
     gen = torch.Generator(device=dev).manual_seed(44)
@@ -288,7 +293,7 @@ def phase_forward(dev, R=8, C=262144, S=65536, reps=10, timer_events=True):
     want = {"pack_and_histogram": 1, "gather_rows": 1, "unmarshal": 1, "rk4_step": 0}
     if dev.type == "cuda":
         check(launches == want, f"one padded round launched K3, K1, K2 once each: {launches}")
-    kinds = sorted((c.kind, c.shape) for c in comm.calls)
+    kinds = sorted((c.kind, c.shape) for c in comm.calls.elements())
     check(kinds == sorted([("all_to_all", (R, R, 1)), ("all_to_all", (R, R, S, 11)), ("psum", (R,))]),
           f"call recorder: one payload and one count all_to_all + the psum: {kinds}")
 
@@ -303,39 +308,34 @@ def phase_forward(dev, R=8, C=262144, S=65536, reps=10, timer_events=True):
     print(f"  round: {R}x{C} rays of 44 B, S={S}: delivered {int(total)}, "
           f"drops {int(new_q.drops.sum())}", flush=True)
 
-    # timing: the whole round, then the stage split from the same stage objects
-    whole = cuda_ms(lambda: forward_work(q, cfg), reps=reps) if timer_events else None
-    splits = {"plan.keys": [], "plan.sort": [], "plan.pack": [], "marshal": [],
-              "collectives": [], "unmarshal": []}
-    if timer_events:
-        ib = max(1, (C - 1).bit_length())
-        for i in range(reps + 2):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(splits) + 1)]
-            ev[0].record()
-            keys, hist = SO.pack_and_histogram(q.dest, q.count, num_ranks=R, idx_bits=ib)
-            ev[1].record()
-            perm = (torch.sort(keys, dim=-1).values & ((1 << ib) - 1)).to(torch.int32)
-            ev[2].record()
-            packed, spec = T.pack_payload(q.items, batch_dims=2)
-            ev[3].record()
-            st = ST.RoundState(packed=packed, perm=perm, send_counts=hist[:, :R])
-            st = ST.Marshal(R, S)(ST.SpillExtract(R, C, S)(st))
-            ev[4].record()
-            st = ST.PayloadExchange(comm)(ST.CountExchange(comm)(st))
-            ev[5].record()
-            st = ST.Unmarshal(C)(st)
-            T.unpack_payload(st.out, spec)
-            comm.psum(st.new_count)
-            ev[6].record()
-            ev[6].synchronize()
-            if i >= 2:
-                for k, (a, b) in zip(splits, zip(ev, ev[1:])):
-                    splits[k].append(a.elapsed_time(b))
-        split = {k: statistics.median(v) for k, v in splits.items()}
-        print(f"  round median {whole:.3f} ms; stages (median ms): "
-              + ", ".join(f"{k} {v:.3f}" for k, v in split.items()), flush=True)
-        return {"round_ms": whole, "stages_ms": split, "delivered": int(total)}
-    return {"delivered": int(total)}
+    if not timer_events:
+        return {"delivered": int(total)}
+    # timing: the whole round, then its stage split from the same call, with
+    # a CUDA event recorded at each stage boundary through ``on_stage``
+    whole = cuda_ms(lambda: forward_work(q, cfg), reps=reps)
+    splits, marked = {}, []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marked.append((name, ev))
+
+    for i in range(reps + 3):
+        marked.clear()
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        forward_work(q, cfg, on_stage=mark)
+        marked[-1][1].synchronize()
+        if i >= 3:
+            prev = start
+            for name, ev in marked:
+                splits.setdefault(name, []).append(prev.elapsed_time(ev))
+                prev = ev
+    split = {k: statistics.median(v) for k, v in splits.items()}
+    print(f"  round median {whole:.3f} ms; stages of forward_work (median ms, sum "
+          f"{sum(split.values()):.3f}): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()),
+          flush=True)
+    return {"round_ms": whole, "stages_ms": split, "delivered": int(total)}
 
 
 # ----------------------------------------------------------- 3. streamlines
@@ -429,7 +429,7 @@ def main() -> int:
     torch.cuda.set_device(dev)
     smi = nvidia_smi()
     print(smi, flush=True)
-    t_build = build.build_all()
+    t_build = build.build()
     print(f"torch {torch.__version__} CUDA {torch.version.cuda} python {sys.version.split()[0]}; "
           f"kernel build {t_build:.1f} s; card {torch.cuda.get_device_name(0)} [{smi}]", flush=True)
     record = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda, "build_s": t_build}

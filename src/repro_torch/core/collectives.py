@@ -11,16 +11,18 @@ issues inside ``shard_map`` becomes a tensor operation on that axis:
   psum(x)         x (R, ...) → the sum over ranks; the replicated result is
                   held once, without the rank axis
 
-:class:`StackedCollectives` records each call (kind and bytes) in its
-``calls`` list.  The port has no lowered HLO to audit, so the recorder is how
-the collective budget is guarded: on ``exchange="padded"`` a round issues
+:class:`StackedCollectives` counts its calls in ``calls``, a Counter keyed
+by :class:`Call` (kind, bytes, shape): a long drive adds counts, not
+entries.  The port has no lowered HLO to audit, so the recorder is how the
+collective budget is guarded: on ``exchange="padded"`` a round issues
 exactly one payload ``all_to_all`` and one count ``all_to_all``.  A
 ``torch.distributed`` backend will sit behind the same three methods.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import List, Tuple
+from typing import Counter, Tuple
 
 import torch
 
@@ -38,10 +40,10 @@ class Call:
 class StackedCollectives:
     """Rank-stacked collectives with a call recorder."""
 
-    calls: List[Call] = dataclasses.field(default_factory=list)
+    calls: Counter[Call] = dataclasses.field(default_factory=collections.Counter)
 
     def _record(self, kind: str, x: torch.Tensor) -> None:
-        self.calls.append(Call(kind, x.numel() * x.element_size(), tuple(x.shape)))
+        self.calls[Call(kind, x.numel() * x.element_size(), tuple(x.shape))] += 1
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         if x.dim() < 2 or x.shape[0] != x.shape[1]:
@@ -58,7 +60,7 @@ class StackedCollectives:
         return x.sum(dim=0, dtype=x.dtype)
 
     def count(self, kind: str) -> int:
-        return sum(c.kind == kind for c in self.calls)
+        return sum(n for c, n in self.calls.items() if c.kind == kind)
 
     def reset(self) -> None:
         self.calls.clear()

@@ -17,6 +17,8 @@ and counted exactly once.  ``ragged`` and ``hierarchical`` come later
 """
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import torch
 
 from repro_torch.core import stages as ST
@@ -41,9 +43,11 @@ def exchange_padded(
     num_ranks: int,
     capacity: int,
     peer_capacity: int,
+    on_stage: Optional[Callable[[str], None]] = None,
 ):
     """Padded-slot exchange.  Returns ``(recv_packed (R, capacity, W),
-    recv_counts (R, R), new_count (R,), drops (R,))``."""
+    recv_counts (R, R), new_count (R,), drops (R,))``.  ``on_stage`` is
+    passed to :func:`core.stages.compose`."""
     R, S = num_ranks, peer_capacity
     st = ST.RoundState(packed=packed, perm=perm, send_counts=send_counts)
     st = ST.compose(
@@ -52,6 +56,7 @@ def exchange_padded(
         ST.CountExchange(comm),
         ST.PayloadExchange(comm),
         ST.Unmarshal(capacity),
+        on_stage=on_stage,
     )(st)
     return st.out, st.recv_counts, st.new_count, st.send_drops + st.recv_drops
 

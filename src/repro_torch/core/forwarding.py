@@ -13,16 +13,17 @@ Per round, for all R ranks at once:
 
 The reference's ``use_pallas`` and ``axis_name`` have no counterpart: the
 rank axis is dim 0, and the tensors' device picks kernel or plain version.
+The plan always goes through K3, as the reference's kernel path did: on CPU
+tensors that is K3's plain version.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from repro_torch.core import exchange as X
-from repro_torch.core import sorting as S
 from repro_torch.core import types as T
 from repro_torch.core.collectives import StackedCollectives
 from repro_torch.core.queue import DISCARD, WorkQueue
@@ -56,7 +57,9 @@ class ForwardConfig:
       exchange: "padded" | "onehot" (test oracle); "ragged" and
         "hierarchical" come in later slices.
       marshal: "sort" ("scatter" comes later).
-      sort_method: "pack" (keys through kernel K3) | "argsort".
+      sort_method: "pack" | "argsort", validated as in the reference.  The
+        round plans through kernel K3 either way, as the reference's kernel
+        path did; the keys are unique, so both give the same permutation.
       The remaining fields mirror the reference and must keep their
       defaults until their slice lands.
     """
@@ -182,14 +185,22 @@ class ForwardConfig:
 
 
 def forward_work(
-    q: WorkQueue, cfg: ForwardConfig, *, comm: StackedCollectives | None = None
+    q: WorkQueue,
+    cfg: ForwardConfig,
+    *,
+    comm: StackedCollectives | None = None,
+    on_stage: Optional[Callable[[str], None]] = None,
 ) -> Tuple[WorkQueue, torch.Tensor]:
     """One collective forwarding round over the rank-stacked queue ``q``.
 
     Returns ``(new_queue, total_in_flight)``; ``total_in_flight`` is the
     §4.2.3 global reduce (a 0-d tensor: the number of items alive across all
     ranks after the exchange).  ``comm`` records the round's collectives.
+    ``on_stage(name)``, if given, is called after each step of the round
+    ("plan", "pack", each exchange stage on ``padded``, "unpack", "psum"),
+    e.g. to record a CUDA event there; it must not change the round.
     """
+    mark = on_stage or (lambda name: None)
     if q.num_ranks != cfg.num_ranks or q.capacity != cfg.capacity:
         raise ValueError(
             f"queue is ({q.num_ranks}, {q.capacity}) but the config is "
@@ -197,25 +208,28 @@ def forward_work(
         )
     comm = StackedCollectives() if comm is None else comm
     R = cfg.num_ranks
-    if cfg.sort_method == "pack":
-        perm, _sorted_dest, hist = sk_ops.sort_permutation(q.dest, q.count, R)
-    else:
-        perm, _sorted_dest, hist = S.sort_permutation(q.dest, q.count, R, method="argsort")
+    perm, _sorted_dest, hist = sk_ops.sort_permutation(q.dest, q.count, R)
     send_counts = hist[:, :R]  # segments are fully described by the histogram
+    mark("plan")
 
     packed, spec = T.pack_payload(q.items, batch_dims=2)  # (R, C, W) wire format
+    mark("pack")
     kwargs = dict(comm=comm, num_ranks=R, capacity=cfg.capacity)
     if cfg.exchange == "padded":
-        kwargs.update(peer_capacity=cfg.peer_capacity)
+        kwargs.update(peer_capacity=cfg.peer_capacity, on_stage=on_stage)
     recv_packed, _recv_counts, new_count, drops = _EXCHANGES[cfg.exchange](
         packed, perm, send_counts, **kwargs
     )
+    if cfg.exchange != "padded":
+        mark("exchange")
     new_q = WorkQueue(
         items=T.unpack_payload(recv_packed, spec),
         dest=torch.full_like(q.dest, DISCARD),
         count=new_count.to(torch.int32),
         drops=(q.drops + drops).to(torch.int32),
     )
+    mark("unpack")
     # §4.2.3: "a final MPI reduce-add on the number of rays received"
     total = comm.psum(new_q.count)
+    mark("psum")
     return new_q, total

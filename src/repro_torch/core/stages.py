@@ -19,7 +19,7 @@ later slices of the port (ROADMAP Queue 1 items 6, 7, 9 and 10).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
@@ -178,12 +178,16 @@ class Unmarshal:
         return st
 
 
-def compose(*stage_seq):
-    """Run stages in sequence over a :class:`RoundState` — the bulk graph."""
+def compose(*stage_seq, on_stage: Optional[Callable[[str], None]] = None):
+    """Run stages in sequence over a :class:`RoundState` — the bulk graph.
+    ``on_stage(name)``, if given, is called after each stage with the
+    stage's class name (where a timer marks the stage boundaries)."""
 
     def run(st: RoundState) -> RoundState:
         for stage in stage_seq:
             st = stage(st)
+            if on_stage is not None:
+                on_stage(type(stage).__name__)
         return st
 
     return run

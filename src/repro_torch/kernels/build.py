@@ -1,12 +1,12 @@
 """Build the CUDA C++ kernels with ``nvcc`` and load them with ``ctypes``.
 
-Each source ``csrc/<name>.cu`` exposes a plain C interface and compiles, on
-the machine with the card, into its own shared library
-``build/lib<name>-<hash>.so`` at the repository root (the hash covers the
+Every source ``csrc/*.cu`` exposes a plain C interface.  One ``nvcc`` call
+compiles them all, on the machine with the card, into one shared library
+``build/librafi-<hash>.so`` at the repository root (the hash covers every
 source and the flags, so an edited kernel is rebuilt, never reused stale).
-No PyTorch header is included: a build takes seconds, not minutes.
-:func:`build_all` starts one ``nvcc`` per source at once; a wrapper's first
-launch builds just its own library.  Nothing here runs at import time.
+No PyTorch header is included: the build takes seconds, not minutes.  The
+first launch of any wrapper builds and loads the library; nothing here runs
+at import time.
 """
 from __future__ import annotations
 
@@ -16,90 +16,68 @@ import os
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 from repro_torch import compat
 
-__all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("sort_keys", "marshal", "rk4_advect")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-_LOADED: Dict[str, ctypes.CDLL] = {}
+_LIB: Optional[ctypes.CDLL] = None
+_BOUND: set = set()
 
 
-def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
 
 
-def _nvcc() -> str:
+def _lib_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"librafi-{h.hexdigest()[:12]}.so"
+
+
+def build() -> float:
+    """Build the library unless it exists.  Returns the wall seconds taken."""
+    t0 = time.perf_counter()
+    out = _lib_path()
+    if out.exists():
+        return 0.0
     nvcc = compat.nvcc_path()
     if nvcc is None:
         raise RuntimeError(
             "nvcc not found: the CUDA kernels build only where the CUDA "
             "toolkit is installed (tensors on the CPU use the plain path)"
         )
-    return nvcc
-
-
-def _start(name: str):
-    """Start one nvcc for ``name`` unless its library exists; returns
-    ``(popen, tmp_path, final_path)`` or ``None``."""
-    out = _lib_path(name)
-    if out.exists():
-        return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    return proc, tmp, out
-
-
-def _finish(name: str, job) -> None:
-    proc, tmp, out = job
-    stdout, stderr = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{stdout}{stderr}")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed (rc {res.returncode}):\n{res.stdout}{res.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent loader sees a whole library
-
-
-def build_all(names: Sequence[str] = SOURCES) -> float:
-    """Build every missing library, one ``nvcc`` per source started together.
-    Returns the wall seconds the builds took."""
-    t0 = time.perf_counter()
-    jobs = {n: _start(n) for n in names}
-    try:
-        for n, job in jobs.items():
-            if job is not None:
-                _finish(n, job)
-    finally:
-        for job in jobs.values():
-            if job is not None and job[0].poll() is None:
-                job[0].kill()
-                job[0].wait()
     return time.perf_counter() - t0
 
 
-def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
-    """The loaded library ``name`` (built first if missing), with
-    ``argtypes`` set from ``signatures`` and ``restype`` = ``c_int`` (each C
-    entry point returns ``cudaGetLastError()``)."""
-    lib = _LOADED.get(name)
-    if lib is None:
-        job = _start(name)
-        if job is not None:
-            _finish(name, job)
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        for fn, argtypes in signatures.items():
-            f = getattr(lib, fn)
+def load(signatures: Dict[str, Sequence]) -> ctypes.CDLL:
+    """The loaded library (built first if missing), with ``argtypes`` set
+    from ``signatures`` and ``restype`` = ``c_int`` (each C entry point
+    returns ``cudaGetLastError()``)."""
+    global _LIB
+    if _LIB is None:
+        build()
+        _LIB = ctypes.CDLL(str(_lib_path()))
+    for fn, argtypes in signatures.items():
+        if fn not in _BOUND:
+            f = getattr(_LIB, fn)
             f.argtypes = list(argtypes)
             f.restype = ctypes.c_int
-        _LOADED[name] = lib
-    return lib
+            _BOUND.add(fn)
+    return _LIB

@@ -65,7 +65,7 @@ def gather_rows(src: torch.Tensor, row_idx: torch.Tensor) -> torch.Tensor:
     _check_words("gather_rows", rows, max(n, cap) * w, src, row_idx)
     src, row_idx = src.contiguous(), row_idx.contiguous()
     out = torch.empty(rows, n, w, dtype=src.dtype, device=src.device)
-    lib = build.load("marshal", _SIGS)
+    lib = build.load(_SIGS)
     rc = lib.rafi_gather_rows(
         src.data_ptr(), row_idx.data_ptr(), out.data_ptr(), rows, cap, n, w,
         KN.stream_handle(),
@@ -119,7 +119,7 @@ def unmarshal(
     recv_buf = recv_buf.contiguous()
     recv_offsets, recv_counts = recv_offsets.contiguous(), recv_counts.contiguous()
     out = torch.zeros(rows, capacity, w, dtype=recv_buf.dtype, device=recv_buf.device)
-    lib = build.load("marshal", _SIGS)
+    lib = build.load(_SIGS)
     rc = lib.rafi_unmarshal(
         recv_buf.data_ptr(), recv_offsets.data_ptr(), recv_counts.data_ptr(),
         out.data_ptr(), rows, g, slot, w, capacity, KN.stream_handle(),

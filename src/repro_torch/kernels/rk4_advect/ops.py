@@ -70,7 +70,7 @@ def rk4_step(
     # the float32 constants the plain version's Python-scalar products use
     h, dt32, dt6 = (float(np.float32(v)) for v in (0.5 * dt, dt, dt / 6.0))
     a, b, c = (float(np.float32(v)) for v in params)
-    lib = build.load("rk4_advect", _SIGS)
+    lib = build.load(_SIGS)
     rc = lib.rafi_rk4_step(
         pos.data_ptr(), new_pos.data_ptr(), vel.data_ptr(), pos.shape[0],
         field_id, h, dt32, dt6, a, b, c, KN.stream_handle(),

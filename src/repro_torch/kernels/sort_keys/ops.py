@@ -70,7 +70,7 @@ def pack_and_histogram(
     rows, cap = dest.shape
     keys = torch.empty(rows, cap, dtype=torch.int64, device=dest.device)
     hist = torch.zeros(rows, num_ranks + 1, dtype=torch.int32, device=dest.device)
-    lib = build.load("sort_keys", _SIGS)
+    lib = build.load(_SIGS)
     rc = lib.rafi_pack_and_histogram(
         dest.data_ptr(), count.data_ptr(), keys.data_ptr(), hist.data_ptr(),
         rows, cap, num_ranks, idx_bits, KN.stream_handle(),

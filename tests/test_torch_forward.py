@@ -165,13 +165,51 @@ def test_round_issues_one_payload_and_one_count_all_to_all():
     fields, dest, count, _ = _case("uniform")
     comm = StackedCollectives()
     _port_round("padded", 16, fields, dest, count, comm=comm)
-    kinds = [c.kind for c in comm.calls]
+    kinds = [c.kind for c in comm.calls.elements()]
     assert sorted(kinds) == ["all_to_all", "all_to_all", "psum"]
-    shapes = sorted(c.shape for c in comm.calls if c.kind == "all_to_all")
+    shapes = sorted(c.shape for c in comm.calls.elements() if c.kind == "all_to_all")
     assert shapes == [(R, R, 1), (R, R, 16, 11)]
     comm.reset()
     _port_round("onehot", 0, fields, dest, count, comm=comm)
-    assert [c.kind for c in comm.calls].count("all_gather") == 2
+    assert comm.count("all_gather") == 2
+
+
+@pytest.mark.parametrize("sort_method", ["pack", "argsort"])
+def test_round_plans_through_k3_for_every_sort_method(monkeypatch, sort_method):
+    """No config routes the plan around K3's wrapper (on CUDA tensors that
+    wrapper launches the kernel); both methods give the same round."""
+    from repro_torch.kernels.sort_keys import ops as SO
+
+    calls = []
+    real = SO.pack_and_histogram
+
+    def spy(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(SO, "pack_and_histogram", spy)
+    fields, dest, count, _ = _case("count_below_c")
+    q = queue_from_reference(fields, dest, count, np.zeros(R, np.int32), R, _tproto(), device="cpu")
+    nq, total = forward_work(q, ForwardConfig(R, C, sort_method=sort_method))
+    assert calls == [1]
+    _assert_same((*queue_to_reference(nq)[:1], nq.count.numpy(), nq.drops.numpy(), int(total)),
+                 _port_round("padded", 0, fields, dest, count))
+
+
+def test_stage_hook_marks_every_step_and_leaves_the_round_unchanged():
+    """``on_stage`` is called once after each step of the padded round, in
+    order; the round's result is the same as without it.  Bit-equal."""
+    fields, dest, count, _ = _case("sender_overflow", seed=3)
+    q = queue_from_reference(fields, dest, count, np.zeros(R, np.int32), R, _tproto(), device="cpu")
+    names = []
+    nq, total = forward_work(q, ForwardConfig(R, C, peer_capacity=4), on_stage=names.append)
+    assert names == ["plan", "pack", "SpillExtract", "Marshal", "CountExchange",
+                     "PayloadExchange", "Unmarshal", "unpack", "psum"]
+    _assert_same((*queue_to_reference(nq)[:1], nq.count.numpy(), nq.drops.numpy(), int(total)),
+                 _port_round("padded", 4, fields, dest, count))
+    names.clear()
+    forward_work(q, ForwardConfig(R, C, exchange="onehot"), on_stage=names.append)
+    assert names == ["plan", "pack", "exchange", "unpack", "psum"]
 
 
 def test_exchange_counts_equals_reference(mesh8):
@@ -185,7 +223,7 @@ def test_exchange_counts_equals_reference(mesh8):
     comm = StackedCollectives()
     got = exchange_counts(torch.from_numpy(counts), comm)
     np.testing.assert_array_equal(got.numpy(), np.asarray(f(jnp.asarray(counts))))
-    assert [(c.kind, c.shape) for c in comm.calls] == [("all_to_all", (R, R, 1))]
+    assert [(c.kind, c.shape) for c in comm.calls.elements()] == [("all_to_all", (R, R, 1))]
 
 
 def test_clamp_subsegments_equals_reference():

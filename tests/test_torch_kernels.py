@@ -206,10 +206,11 @@ def test_kernel_build_raises_without_nvcc(monkeypatch):
     from repro_torch import compat
 
     monkeypatch.setattr(compat, "nvcc_path", lambda: None)
-    monkeypatch.setattr(build, "_LOADED", {})
+    monkeypatch.setattr(build, "_LIB", None)
     monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR / "__absent__")
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        build.load("marshal", {})
+        build.load({})
+    assert build._LIB is None
 
 
 # ------------------------------------------------------------- on the card
