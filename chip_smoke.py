@@ -4,30 +4,45 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
-``nvcc`` call into one library under ``build/``) and runs four phases on
+``nvcc`` call into one library under ``build/``) and runs five phases on
 ``cuda:0``:
 
-  1. kernels     — K3 pack_and_histogram, K1 gather_rows, K2 unmarshal and
-                   K8 rk4_step, each held against its plain PyTorch version
-                   on the card at the main path's shapes (bit-equal; K8
+  1. kernels     — all eight kernels (K1 gather_rows, K2 unmarshal, K3
+                   pack_and_histogram, K4 rank_and_histogram, K5
+                   scatter_rows, K6 compact_positions, K7 marshal, K8
+                   rk4_step), each held against its plain PyTorch version
+                   on the card at the main paths' shapes (bit-equal; K8
                    within 1e-5) and timed with CUDA events beside its plain
                    version, a PyTorch library call where one exists, and
-                   its bound (bytes over 3.35 TB/s);
+                   its bound (bytes over 3.35 TB/s); plus the two-pass
+                   marshal path (K3 + sort + K7) against K1's fused marshal;
   2. forward     — one ``forward_work`` round of the Fig-8 44-byte ray, R=8
                    ranks × C=262,144 (2,097,152 rays, about one 1080p frame
-                   of primary rays), S=65,536 peer slots: equal to the
-                   onehot oracle on the card and to the same round run on
-                   the CPU; one payload and one count all_to_all; one launch
-                   each of K1, K2 and K3; median round time and the stage
-                   split of the same ``forward_work`` call (CUDA events
-                   recorded at its stage boundaries);
-  3. streamlines — the main path: ``apps.streamlines.run`` through
+                   of primary rays), S=65,536 peer slots, in both marshal
+                   modes: the sort round equal to the onehot oracle on the
+                   card and to the same round run on the CPU, the scatter
+                   round equal to both; one payload and one count
+                   all_to_all each; K1, K2, K3 once in the sort round, K4,
+                   K5, K2 once in the scatter round; median round times and
+                   the stage splits (CUDA events at the stage boundaries);
+  3. streamlines — ``apps.streamlines.run`` through
                    ``RafiContext.run_until_done``, R=8, 131,072 particles,
                    64 steps, ABC field (tornado and Taylor-Green at 16,384):
-                   traces equal the single-rank oracle exactly;
-  4. report      — one JSON line of the kernels (launches on the main path,
-                   errors, times, bounds), the card's name and power limit,
-                   and a last line ``{"ok": true, "device": {...}}``.
+                   traces equal the single-rank oracle exactly; K6 launched
+                   once per ``enqueue``;
+  4. vopat       — ``apps.vopat.render`` at 1024×1024 (1,048,576 primary
+                   rays), R=8, ``marshal="scatter"``: drops 0, the image
+                   bit-equal to the R=1 render and to the R=8 sort render,
+                   finite and in [0, 1]; rounds, wall time and the
+                   device-busy share; two witnesses independent of the
+                   card: the threefry words of 2,097,152 (pixel, event)
+                   pairs bit-equal to the same words on the CPU, and a
+                   64×64 render equal to the port's plain CPU render within
+                   the port-against-reference tolerance of the tests;
+  5. report      — one JSON line of the kernels (launches on the paths that
+                   run them, errors, times, bounds), the card's name and
+                   power limit, and a last line
+                   ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the last line, when there is no CUDA card, when the
 port's sources are not beside this script, or when any check fails.  The
@@ -57,6 +72,23 @@ KERNELS = {  # name → (source in the repo, the TPU kernel it replaces)
                   "src/repro/kernels/marshal/kernel.py:140"),
     "rk4_step": ("src/repro_torch/kernels/csrc/rk4_advect.cu",
                  "src/repro/kernels/rk4_advect/kernel.py:63"),
+    "rank_and_histogram": ("src/repro_torch/kernels/csrc/bucket_scatter.cu",
+                           "src/repro/kernels/bucket_scatter/kernel.py:82"),
+    "scatter_rows": ("src/repro_torch/kernels/csrc/bucket_scatter.cu",
+                     "src/repro/kernels/bucket_scatter/kernel.py:147"),
+    "compact_positions": ("src/repro_torch/kernels/csrc/compact.cu",
+                          "src/repro/kernels/compact/kernel.py:43"),
+    "marshal": ("src/repro_torch/kernels/csrc/marshal.cu",
+                "src/repro/kernels/marshal/kernel.py:50"),
+}
+# the paths whose launches the report counts, per kernel (each path is run
+# with the counts set to 0 just before it and read just after)
+LAUNCH_PATHS = {
+    "pack_and_histogram": ("streamlines",), "gather_rows": ("streamlines",),
+    "unmarshal": ("streamlines",), "rk4_step": ("streamlines",),
+    "compact_positions": ("streamlines", "vopat"),
+    "rank_and_histogram": ("vopat",), "scatter_rows": ("vopat",),
+    "marshal": ("two_pass_marshal",),
 }
 
 FAILURES: list = []
@@ -112,10 +144,14 @@ def _fig8_dest(gen, R, C, dev):
     return torch.where(discard, -1, dest)
 
 
-def phase_kernels(dev, R=8, C=262144, S=65536, W=11, N_PART=2097152, timer=cuda_ms):
+def phase_kernels(dev, R=8, C=262144, S=65536, W=11, N_PART=2097152,
+                  MASKS=((8, 131072), (8, 1048576)), timer=cuda_ms):
     import torch
 
+    from repro_torch import kernels as KN
     from repro_torch.core import stages as ST
+    from repro_torch.kernels.bucket_scatter import ops as BS
+    from repro_torch.kernels.compact import ops as CO
     from repro_torch.kernels.marshal import ops as MO
     from repro_torch.kernels.rk4_advect import ops as RO
     from repro_torch.kernels.sort_keys import ops as SO
@@ -219,13 +255,109 @@ def phase_kernels(dev, R=8, C=262144, S=65536, W=11, N_PART=2097152, timer=cuda_
         library_ms=None, nbytes=N_PART * 12 + 2 * N_PART * 12, ops=N_PART * (4 * 15 + 18 + 21),
         library_call=None,
     )
+    # K4: the scatter plan, on K3's destinations (DISCARD, out-of-range
+    # lanes, count < C on some ranks)
+    k4 = BS.rank_and_histogram(dest, count, num_ranks=R)
+    p4 = BS.rank_and_histogram_plain(dest, count, num_ranks=R)
+    ok = all(torch.equal(a, b) for a, b in zip(k4, p4))
+    check(ok, f"K4 rank_and_histogram dest {tuple(dest.shape)}: d_clean, rank and histogram bit-equal to plain")
+    rows["rank_and_histogram"] = dict(
+        max_abs_err=0.0 if ok else float(max((a - b).abs().max() for a, b in zip(k4, p4))),
+        ms=timer(lambda: BS.rank_and_histogram(dest, count, num_ranks=R)),
+        plain_ms=timer(lambda: BS.rank_and_histogram_plain(dest, count, num_ranks=R)),
+        library_ms=None, nbytes=dest.numel() * 4 * 3 + count.numel() * 4 + k4[2].numel() * 4,
+        ops=0.0, library_call=None,
+    )
+
+    # K5: the scatter marshal's send pass at the round's positions
+    # d_clean·S + rank (rank >= S and invalid lanes dropped)
+    src = torch.randint(-2**31, 2**31 - 1, (R, C, W), generator=gen, device=dev, dtype=torch.int32)
+    d_clean, rank, _ = k4
+    keep = (d_clean < R) & (rank < S)
+    dstpos = torch.where(keep, d_clean * S + rank, R * S)
+    k_out = BS.scatter_rows(src, dstpos, num_slots=R * S)
+    p_out = BS.scatter_rows_plain(src, dstpos, num_slots=R * S)
+    bb, pos_long = torch.arange(R, device=dev)[:, None].expand(R, C), dstpos.long()
+
+    def library_k5():
+        out = torch.zeros(R, R * S + 1, W, dtype=torch.int32, device=dev)
+        return out.index_put_((bb, pos_long), src)
+
+    ok = torch.equal(k_out, p_out) and torch.equal(library_k5()[:, :R * S], p_out)
+    check(ok, f"K5 scatter_rows src {tuple(src.shape)} -> {tuple(k_out.shape)}: bit-equal to plain")
+    landed = int(keep.sum())
+    rows["scatter_rows"] = dict(
+        max_abs_err=0.0 if ok else float((k_out - p_out).abs().max()),
+        ms=timer(lambda: BS.scatter_rows(src, dstpos, num_slots=R * S)),
+        plain_ms=timer(lambda: BS.scatter_rows_plain(src, dstpos, num_slots=R * S)),
+        library_ms=timer(library_k5),
+        nbytes=landed * W * 4 + dstpos.numel() * 4 + k_out.numel() * 4, ops=0.0,
+        library_call="zeros + index_put_ at the positions",
+    )
+    del k_out, p_out
+
+    # K6: emit masks of the streamlines shape and of the VoPaT shape; the
+    # larger one goes in the report
+    for shape in MASKS:
+        mask = torch.rand(shape, generator=gen, device=dev) < 0.6
+        kp, kt = CO.compact_positions(mask)
+        pp, pt = CO.compact_positions_plain(mask)
+        ok = torch.equal(kp, pp) and torch.equal(kt, pt)
+        check(ok, f"K6 compact_positions mask {shape}: positions and totals bit-equal to plain")
+        rows["compact_positions"] = dict(
+            max_abs_err=0.0 if ok else float((kp - pp).abs().max()),
+            ms=timer(lambda: CO.compact_positions(mask)),
+            plain_ms=timer(lambda: CO.compact_positions_plain(mask)),
+            library_ms=timer(lambda: torch.cumsum(mask, dim=1, dtype=torch.int32)),
+            nbytes=mask.numel() * (1 + 4) + kt.numel() * 4, ops=0.0,
+            library_call="torch.cumsum", shape=shape,
+        )
+        print(f"  compact_positions {shape}: kernel_ms {rows['compact_positions']['ms']:.4f} "
+              f"plain_ms {rows['compact_positions']['plain_ms']:.4f} "
+              f"cumsum_ms {rows['compact_positions']['library_ms']:.4f}", flush=True)
+
+    # K7 on the sorted Fig-8 payload.  The two-pass marshal path is timed
+    # from the counts set to 0: K3 + sort, the sorted payload (K1 gathers
+    # it, with an S-row tail so no segment start is clipped), K7 copies the
+    # segments; it must give K1's fused send buffer on every valid row.
+    KN.reset_launch_counts()
+    perm, _, hist = SO.sort_permutation(dest, count, R)
+    tail = torch.zeros(R, S, dtype=torch.int32, device=dev)
+    sorted_buf = MO.gather_rows(src, torch.cat([perm, tail], dim=1))  # (R, C+S, W)
+    off = torch.cumsum(hist[:, :R], 1, dtype=torch.int32) - hist[:, :R]
+    two_pass = MO.marshal(sorted_buf, off, num_ranks=R, slot=S)
+    two_pass_launches = KN.launch_counts()
+    fused = ST.padded_send_buffer(src, perm, hist[:, :R], num_ranks=R, peer_capacity=S)
+    valid = torch.arange(S, device=dev) < torch.clamp(hist[:, :R], max=S)[:, :, None]
+    check(torch.equal(two_pass[valid], fused[valid]),
+          f"K3 + sort + K7 == K1's fused marshal on the {int(valid.sum())} valid rows")
+    if dev.type == "cuda":
+        check(two_pass_launches["marshal"] == 1, f"two-pass marshal launched K7 once: {two_pass_launches}")
+    k_out = MO.marshal(sorted_buf, off, num_ranks=R, slot=S)
+    p_out = MO.marshal_plain(sorted_buf, off, num_ranks=R, slot=S)
+    cap2 = sorted_buf.shape[1]
+    seg = (off.long().clamp(0, cap2 - S)[:, :, None] + torch.arange(S, device=dev)).reshape(R, -1)
+    seg_w = seg[:, :, None].expand(-1, -1, W)
+    ok = torch.equal(k_out, p_out) and torch.equal(torch.gather(sorted_buf, 1, seg_w).reshape(k_out.shape), p_out)
+    check(ok, f"K7 marshal sorted {tuple(sorted_buf.shape)} -> {tuple(k_out.shape)}: bit-equal to plain")
+    read = torch.zeros(R, cap2, dtype=torch.bool, device=dev).scatter_(1, seg, True)
+    rows["marshal"] = dict(
+        max_abs_err=0.0 if ok else float((k_out - p_out).abs().max()),
+        ms=timer(lambda: MO.marshal(sorted_buf, off, num_ranks=R, slot=S)),
+        plain_ms=timer(lambda: MO.marshal_plain(sorted_buf, off, num_ranks=R, slot=S)),
+        library_ms=timer(lambda: torch.gather(sorted_buf, 1, seg_w)),
+        nbytes=int(read.sum()) * W * 4 + off.numel() * 4 + k_out.numel() * 4, ops=0.0,
+        library_call="torch.gather at the segment rows",
+    )
+    del k_out, p_out, two_pass, fused, sorted_buf, src
+
     for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound_ms(r["nbytes"], r["ops"])
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"  {name}: kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms {lib} "
               f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}: {r['nbytes']} B, {r['ops']:.0f} ops) "
               f"max_abs_err {r['max_abs_err']:.3e}", flush=True)
-    return rows
+    return rows, {"two_pass_marshal": two_pass_launches}
 
 
 # --------------------------------------------------------------- 2. forward
@@ -290,7 +422,8 @@ def phase_forward(dev, R=8, C=262144, S=65536, reps=10, timer_events=True):
     KN.reset_launch_counts()
     new_q, total = forward_work(q, cfg, comm=comm)
     launches = KN.launch_counts()
-    want = {"pack_and_histogram": 1, "gather_rows": 1, "unmarshal": 1, "rk4_step": 0}
+    want = dict.fromkeys(launches, 0)
+    want.update(pack_and_histogram=1, gather_rows=1, unmarshal=1)
     if dev.type == "cuda":
         check(launches == want, f"one padded round launched K3, K1, K2 once each: {launches}")
     kinds = sorted((c.kind, c.shape) for c in comm.calls.elements())
@@ -308,10 +441,42 @@ def phase_forward(dev, R=8, C=262144, S=65536, reps=10, timer_events=True):
     print(f"  round: {R}x{C} rays of 44 B, S={S}: delivered {int(total)}, "
           f"drops {int(new_q.drops.sum())}", flush=True)
 
+    # the scatter round: K4 plans, K5 marshals, K2 compacts; no K1, no K3
+    scfg = ForwardConfig(R, C, peer_capacity=S, marshal="scatter")
+    scomm = StackedCollectives()
+    KN.reset_launch_counts()
+    sq, stotal = forward_work(q, scfg, comm=scomm)
+    launches = KN.launch_counts()
+    if dev.type == "cuda":
+        want = dict.fromkeys(launches, 0)
+        want.update(rank_and_histogram=1, scatter_rows=1, unmarshal=1)
+        check(launches == want, f"one scatter round launched K4, K5, K2 once each and no K1, K3: {launches}")
+    skinds = sorted((c.kind, c.shape) for c in scomm.calls.elements())
+    check(skinds == kinds, f"scatter round: one payload and one count all_to_all + the psum: {skinds}")
+    check(_same_queue(sq, new_q, all_lanes=False) and int(stotal) == int(total),
+          "scatter round == sort round: count, drops, total, lanes < count")
+    check(_same_queue(sq, oq, all_lanes=False) and int(stotal) == int(ototal),
+          "scatter round == onehot oracle: count, drops, total, lanes < count")
+
     if not timer_events:
         return {"delivered": int(total)}
-    # timing: the whole round, then its stage split from the same call, with
-    # a CUDA event recorded at each stage boundary through ``on_stage``
+    out = {"delivered": int(total)}
+    for label, c in (("sort", cfg), ("scatter", scfg)):
+        whole, split = _time_round(q, c, reps)
+        out[label] = {"round_ms": whole, "stages_ms": split}
+        print(f"  {label} round median {whole:.3f} ms; stages of forward_work (median ms, sum "
+              f"{sum(split.values()):.3f}): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()),
+              flush=True)
+    return out
+
+
+def _time_round(q, cfg, reps):
+    """Median round time, then the stage split of the same ``forward_work``
+    call, with a CUDA event recorded at each stage boundary (``on_stage``)."""
+    import torch
+
+    from repro_torch.core import forward_work
+
     whole = cuda_ms(lambda: forward_work(q, cfg), reps=reps)
     splits, marked = {}, []
 
@@ -331,11 +496,7 @@ def phase_forward(dev, R=8, C=262144, S=65536, reps=10, timer_events=True):
             for name, ev in marked:
                 splits.setdefault(name, []).append(prev.elapsed_time(ev))
                 prev = ev
-    split = {k: statistics.median(v) for k, v in splits.items()}
-    print(f"  round median {whole:.3f} ms; stages of forward_work (median ms, sum "
-          f"{sum(split.values()):.3f}): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()),
-          flush=True)
-    return {"round_ms": whole, "stages_ms": split, "delivered": int(total)}
+    return whole, {k: statistics.median(v) for k, v in splits.items()}
 
 
 # ----------------------------------------------------------- 3. streamlines
@@ -404,11 +565,95 @@ def phase_streamlines(dev, fields=(("ABC", 0, 131072), ("tornado", 1, 16384), ("
             for k in ("pack_and_histogram", "gather_rows", "unmarshal"):
                 check(run_launches[k] == rounds + 1,
                       f"{name}: {k} launches {run_launches[k]} == forwarding rounds {rounds + 1}")
+            # one enqueue builds the first queue, one per body round re-emits
+            check(run_launches["compact_positions"] == rounds + 1,
+                  f"{name}: K6 launches {run_launches['compact_positions']} == enqueue calls {rounds + 1}")
         out[name] = {"n": n, "rounds": rounds, "mean_length": float(lengths.mean()),
                      "wall_s": wall, "oracle_max_err": err}
         if profile and dev.type == "cuda" and name == fields[0][0]:
             out[name]["profile"] = profile_drive(lambda: sl.run(cfg, num_ranks=8, device=dev), dev)
     return out, main_launches
+
+
+# ----------------------------------------------------------------- 4. vopat
+def phase_vopat(dev, size=1024, R=8, profile=True, N_WORDS=2097152, CPU_SIZE=64):
+    """The VoPaT main path: ``render`` through ``run_until_done`` with the
+    scatter marshal, held against the R=1 render and the R=8 sort render,
+    and against the CPU (the uniforms, and a ``CPU_SIZE``² render)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as KN
+    from repro_torch.apps import rng, vopat
+
+    scene = vopat.VopatScene(width=size, height=size, spp=1, max_bounces=4, albedo=0.85, num_blobs=6)
+    render = lambda r, marshal: vopat.render(scene, num_ranks=r, marshal=marshal, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    KN.reset_launch_counts()
+    t0 = time.perf_counter()
+    img, st = render(R, "scatter")  # ends in a copy to the host: synchronised
+    wall = time.perf_counter() - t0
+    launches = KN.launch_counts()
+    rounds = st["rounds"]
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else float("nan")
+    print(f"  {size}x{size}, R={R}, scatter: rounds {rounds} wall {wall:.3f} s "
+          f"({1e3 * wall / (rounds + 1):.2f} ms per forwarding round) drops {st['drops']} "
+          f"queue capacity {st['capacity']} peak device memory {peak:.2f} GiB", flush=True)
+    check(st["drops"] == 0, f"vopat: drops == 0 ({st['drops']})")
+    if dev.type == "cuda":
+        for k in ("rank_and_histogram", "scatter_rows", "unmarshal"):
+            check(launches[k] == rounds + 1, f"vopat: {k} launches {launches[k]} == forwarding rounds {rounds + 1}")
+        check(launches["compact_positions"] == rounds + 1,
+              f"vopat: K6 launches {launches['compact_positions']} == enqueue calls {rounds + 1}")
+        check(launches["gather_rows"] == 0 and launches["pack_and_histogram"] == 0,
+              f"vopat: the scatter drive launched no K1 and no K3: {launches}")
+    t1 = time.perf_counter()
+    img1, st1 = render(1, "sort")
+    wall1 = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    img_sort, st_sort = render(R, "sort")
+    wall_sort = time.perf_counter() - t1
+    print(f"  R=1 render: rounds {st1['rounds']} wall {wall1:.3f} s; R={R} sort render: rounds "
+          f"{st_sort['rounds']} wall {wall_sort:.3f} s; image mean {img.mean():.6f}", flush=True)
+    check(np.array_equal(img, img1), f"vopat: R={R} scatter image == R=1 image, bit for bit")
+    check(np.array_equal(img, img_sort), f"vopat: R={R} scatter image == R={R} sort image, bit for bit")
+    check(bool(np.isfinite(img).all()) and img.min() >= 0.0 and img.max() <= 1.0,
+          f"vopat: image finite and in [0, 1] (min {img.min()}, max {img.max()})")
+    check(img.std() > 0.01, f"vopat: image is not constant (std {img.std():.4f})")
+
+    # witnesses that share no arithmetic with the card: the uniforms'
+    # threefry words on the CPU (bit for bit), and a small render on the CPU
+    # (>= 99% of pixels within 1e-5, means within 1e-4: the tolerance of
+    # tests/test_torch_vopat.py, since the card's expf/logf may differ by ulps)
+    gen = torch.Generator().manual_seed(2024)
+    pix = torch.randint(0, 2**31 - 1, (N_WORDS,), generator=gen, dtype=torch.int32)
+    ev = torch.randint(0, 2**31 - 1, (N_WORDS,), generator=gen, dtype=torch.int32)
+    u_dev = rng.event_uniforms(rng.key_from_seed(scene.seed, device=dev), pix.to(dev), ev.to(dev), 3).cpu()
+    u_cpu = rng.event_uniforms(rng.key_from_seed(scene.seed), pix, ev, 3)
+    check(torch.equal(u_dev.view(torch.int32), u_cpu.view(torch.int32)),
+          f"vopat: uniforms of {N_WORDS} (pixel, event) pairs on {dev.type} == on the CPU, bit for bit")
+    small = dataclasses.replace(scene, width=CPU_SIZE, height=CPU_SIZE)
+    img_dev, _ = vopat.render(small, num_ranks=R, marshal="scatter", device=dev)
+    img_cpu, _ = vopat.render(small, num_ranks=R, marshal="scatter", device="cpu")
+    close = float((np.abs(img_dev - img_cpu) <= 1e-5).mean())
+    mean_gap = abs(float(img_dev.mean()) - float(img_cpu.mean()))
+    print(f"  {CPU_SIZE}x{CPU_SIZE} render on {dev.type} against the CPU: max abs diff "
+          f"{float(np.abs(img_dev - img_cpu).max())!r}, share within 1e-5 {close!r}, "
+          f"mean gap {mean_gap!r}", flush=True)
+    check(close >= 0.99 and mean_gap <= 1e-4,
+          f"vopat: {CPU_SIZE}x{CPU_SIZE} R={R} scatter render on {dev.type} == CPU render "
+          f"({100 * close:.2f}% of pixels within 1e-5, mean gap {mean_gap:.2e})")
+    out = {"size": size, "num_ranks": R, "rounds": rounds, "wall_s": wall,
+           "ms_per_round": 1e3 * wall / (rounds + 1), "peak_gib": peak, "r1_wall_s": wall1,
+           "sort_wall_s": wall_sort, "image_mean": float(img.mean()),
+           "cpu_witness": {"size": CPU_SIZE, "max_abs_diff": float(np.abs(img_dev - img_cpu).max()),
+                           "share_within_1e-5": close, "mean_gap": mean_gap}}
+    if profile and dev.type == "cuda":
+        out["profile"] = profile_drive(lambda: render(R, "scatter"), dev)
+    return out, launches
 
 
 # ------------------------------------------------------------------- main
@@ -434,29 +679,31 @@ def main() -> int:
           f"kernel build {t_build:.1f} s; card {torch.cuda.get_device_name(0)} [{smi}]", flush=True)
     record = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda, "build_s": t_build}
 
-    kernels, launches = {}, None
-    for title, fn in (("kernels", lambda: phase_kernels(dev)),
-                      ("forward", lambda: phase_forward(dev)),
-                      ("streamlines", lambda: phase_streamlines(dev))):
+    run = {"kernels": lambda: phase_kernels(dev), "forward": lambda: phase_forward(dev),
+           "streamlines": lambda: phase_streamlines(dev), "vopat": lambda: phase_vopat(dev)}
+    kernels, paths = {}, {}  # paths: launches per path, counted from 0
+    for title in run:
         print(f"# phase {title}", flush=True)
         t0 = time.perf_counter()
         try:
-            res = fn()
+            res = run[title]()
         except Exception:  # report every phase; any failure fails the run below
             traceback.print_exc()
             FAILURES.append(f"phase {title} raised")
             continue
         if title == "kernels":
-            kernels = res
-        elif title == "streamlines":
-            record["streamlines"], launches = res
+            kernels, more = res
+            paths.update(more)
+        elif title in ("streamlines", "vopat"):
+            record[title], paths[title] = res
         else:
             record[title] = res
         print(f"# phase {title} done in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    if launches is not None:
-        for k in KERNELS:
-            check(launches.get(k, 0) > 0, f"main path launched {k} {launches.get(k, 0)} times")
+    launches = {}
+    for k in KERNELS:
+        launches[k] = sum(paths.get(p, {}).get(k, 0) for p in LAUNCH_PATHS[k])
+        check(launches[k] > 0, f"{k}: {launches[k]} launches on {' + '.join(LAUNCH_PATHS[k])}")
     report = []
     for k, (source, replaces) in KERNELS.items():
         r = kernels.get(k)
@@ -464,12 +711,13 @@ def main() -> int:
             continue
         report.append({
             "name": k, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": (launches or {}).get(k, 0), "max_abs_err": r["max_abs_err"],
+            "launches": launches[k], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
     record["kernels"] = report
     record["kernel_details"] = kernels
+    record["paths"] = paths
     record["failures"] = FAILURES
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,8 +1,8 @@
 """Host-side RaFI context (paper §3.4) over rank-stacked queues.
 
 ``RafiContext`` owns the static configuration (item type, capacities,
-exchange backend), builds the rank-stacked queues and wraps the collective
-entry points.  The paper's host operations:
+exchange backend, marshal mode), builds the rank-stacked queues and wraps
+the collective entry points.  The paper's host operations:
 
   resizeRayQueues(N)   → ``capacity`` / ``peer_capacity`` in the constructor
   getDeviceInterface() → ``core.queue`` (enqueue / get_incoming / num_incoming)
@@ -45,6 +45,8 @@ class RafiContext:
         capacity: int,
         peer_capacity: int = 0,
         exchange: str = "padded",
+        marshal: str = "sort",
+        sort_method: str = "pack",
         device=None,
     ):
         self.proto = proto
@@ -52,7 +54,7 @@ class RafiContext:
         self.device = compat.resolve_device(device)
         self.cfg = ForwardConfig(
             num_ranks=num_ranks, capacity=capacity, peer_capacity=peer_capacity,
-            exchange=exchange,
+            exchange=exchange, marshal=marshal, sort_method=sort_method,
         )
         self.comm = StackedCollectives()
 

@@ -9,6 +9,10 @@ The caller packs the work items into ONE ``(R, C, W)`` buffer of words
 * ``onehot`` — the all-gather reference oracle, a deliberately different
   code path used by the tests and the chip smoke run.
 
+Both take either marshal plan: ``marshal="sort"`` with the destination-sort
+``perm``, or ``marshal="scatter"`` with the bucket plan ``dest_clean`` /
+``dest_rank`` (``perm`` is then None).
+
 Budget per round on ``padded``: 1 payload ``all_to_all`` + 1 count
 ``all_to_all`` (recorded by ``core.collectives``).  Segment overflow —
 sender-side ``> peer_capacity`` or receiver-side ``> capacity`` — is dropped
@@ -23,6 +27,7 @@ import torch
 
 from repro_torch.core import stages as ST
 from repro_torch.core.collectives import StackedCollectives
+from repro_torch.kernels.bucket_scatter import ops as bs_ops
 
 __all__ = ["exchange_counts", "exchange_onehot", "exchange_padded"]
 
@@ -43,13 +48,19 @@ def exchange_padded(
     num_ranks: int,
     capacity: int,
     peer_capacity: int,
+    marshal: str = "sort",
+    dest_clean: Optional[torch.Tensor] = None,
+    dest_rank: Optional[torch.Tensor] = None,
     on_stage: Optional[Callable[[str], None]] = None,
 ):
     """Padded-slot exchange.  Returns ``(recv_packed (R, capacity, W),
     recv_counts (R, R), new_count (R,), drops (R,))``.  ``on_stage`` is
     passed to :func:`core.stages.compose`."""
     R, S = num_ranks, peer_capacity
-    st = ST.RoundState(packed=packed, perm=perm, send_counts=send_counts)
+    st = ST.RoundState(
+        packed=packed, perm=perm, send_counts=send_counts,
+        marshal=marshal, dest_clean=dest_clean, dest_rank=dest_rank,
+    )
     st = ST.compose(
         ST.SpillExtract(R, capacity, S),
         ST.Marshal(R, S),
@@ -70,15 +81,25 @@ def exchange_onehot(
     num_ranks: int,
     capacity: int,
     peer_capacity: int = 0,
+    marshal: str = "sort",
+    dest_clean: Optional[torch.Tensor] = None,
+    dest_rank: Optional[torch.Tensor] = None,
 ):
     """All-gather reference oracle: every rank sees every rank's sorted
     queue, selects what is addressed to it, and compacts stably by
-    (source, lane).  Same returns as :func:`exchange_padded`."""
+    (source, lane).  In scatter mode the queue is placed into sorted order
+    with kernel K5's ``scatter_rows`` (the only step that differs).
+    Same returns as :func:`exchange_padded`."""
     del peer_capacity
     R = num_ranks
     rows, cap, w = packed.shape
     dev = packed.device
-    sorted_packed = torch.gather(packed, 1, perm.to(torch.int64)[:, :, None].expand(-1, -1, w))
+    if marshal == "scatter":
+        off = torch.cumsum(send_counts, dim=1, dtype=torch.int32) - send_counts
+        pos = torch.gather(off, 1, dest_clean.clamp(0, R - 1).to(torch.int64)) + dest_rank
+        sorted_packed = bs_ops.scatter_rows(packed, torch.where(dest_clean < R, pos, cap), num_slots=cap)
+    else:
+        sorted_packed = torch.gather(packed, 1, perm.to(torch.int64)[:, :, None].expand(-1, -1, w))
     lane = torch.arange(cap, dtype=torch.int32, device=dev)
     # per-item dest from the segments: dest[i] = r iff off[r] <= i < off[r] + cnt[r]
     seg_end = torch.cumsum(send_counts, dim=1, dtype=torch.int32)

@@ -2,19 +2,24 @@
 
 Per round, for all R ranks at once:
 
-  1. marshal plan (§4.2.1): pack (dest, lane) keys and histogram them in one
-     pass (kernel K3), sort the keys, keep only the permutation;
+  1. marshal plan (§4.2.1).  ``marshal="sort"``: pack (dest, lane) keys and
+     histogram them in one pass (kernel K3), sort the keys, keep only the
+     permutation.  ``marshal="scatter"``: one counting pass (kernel K4)
+     gives each lane's sanitised destination and stable in-bucket rank and
+     the histogram — no keys, no sort;
   2. pack the items into ONE ``(R, C, W)`` word buffer (the wire format);
-  3. exchange (§4.2.2): sender clamp, ONE composed send gather (K1), one
-     count and one payload ``all_to_all``, receive compaction (K2);
+  3. exchange (§4.2.2): sender clamp, ONE send-side payload pass (the
+     composed gather K1, or the bucket scatter K5), one count and one
+     payload ``all_to_all``, receive compaction (K2);
   4. wrap up (§4.2.3): unpack into the next input queue, destinations reset
      to DISCARD, and a ``psum`` of the received counts gives the global
      in-flight total for termination.
 
 The reference's ``use_pallas`` and ``axis_name`` have no counterpart: the
 rank axis is dim 0, and the tensors' device picks kernel or plain version.
-The plan always goes through K3, as the reference's kernel path did: on CPU
-tensors that is K3's plain version.
+The sort plan always goes through K3 and the scatter plan through K4, as
+the reference's kernel path did: on CPU tensors those are the kernels'
+plain versions.  The two marshals place every item identically.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from repro_torch.core import exchange as X
 from repro_torch.core import types as T
 from repro_torch.core.collectives import StackedCollectives
 from repro_torch.core.queue import DISCARD, WorkQueue
+from repro_torch.kernels.bucket_scatter import ops as bs_ops
 from repro_torch.kernels.sort_keys import ops as sk_ops
 
 __all__ = ["ForwardConfig", "forward_work"]
@@ -56,10 +62,13 @@ class ForwardConfig:
         buffer (default 2·ceil(C/R)).
       exchange: "padded" | "onehot" (test oracle); "ragged" and
         "hierarchical" come in later slices.
-      marshal: "sort" ("scatter" comes later).
+      marshal: "sort" (key sort, then one composed gather) | "scatter"
+        (the sort-free bucket plan, then one scatter); bit-identical
+        placement.
       sort_method: "pack" | "argsort", validated as in the reference.  The
-        round plans through kernel K3 either way, as the reference's kernel
-        path did; the keys are unique, so both give the same permutation.
+        sort round plans through kernel K3 either way, as the reference's
+        kernel path did; the keys are unique, so both give the same
+        permutation.  The scatter round does not read it.
       The remaining fields mirror the reference and must keep their
       defaults until their slice lands.
     """
@@ -154,8 +163,6 @@ class ForwardConfig:
             raise _later("exchange='hierarchical'", "7")
         if self.exchange == "ragged":
             raise _later("exchange='ragged'", "16")
-        if self.marshal == "scatter":
-            raise _later("marshal='scatter'", "2-3 (with kernels K4/K5, Queue 2)")
         if self.flow == "credit":
             raise _later("flow='credit'", "10")
         if self.overflow == "retain":
@@ -208,13 +215,20 @@ def forward_work(
         )
     comm = StackedCollectives() if comm is None else comm
     R = cfg.num_ranks
-    perm, _sorted_dest, hist = sk_ops.sort_permutation(q.dest, q.count, R)
+    perm = dest_clean = dest_rank = None
+    if cfg.marshal == "scatter":
+        dest_clean, dest_rank, hist = bs_ops.rank_and_histogram(q.dest, q.count, num_ranks=R)
+    else:
+        perm, _sorted_dest, hist = sk_ops.sort_permutation(q.dest, q.count, R)
     send_counts = hist[:, :R]  # segments are fully described by the histogram
     mark("plan")
 
     packed, spec = T.pack_payload(q.items, batch_dims=2)  # (R, C, W) wire format
     mark("pack")
-    kwargs = dict(comm=comm, num_ranks=R, capacity=cfg.capacity)
+    kwargs = dict(
+        comm=comm, num_ranks=R, capacity=cfg.capacity,
+        marshal=cfg.marshal, dest_clean=dest_clean, dest_rank=dest_rank,
+    )
     if cfg.exchange == "padded":
         kwargs.update(peer_capacity=cfg.peer_capacity, on_stage=on_stage)
     recv_packed, _recv_counts, new_count, drops = _EXCHANGES[cfg.exchange](

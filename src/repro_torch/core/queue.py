@@ -5,8 +5,9 @@ One queue holds every rank's queue: item leaves ``(R, C, ...)``, ``dest
 ``RafiContext`` global queue with the rank axis split out.  Entries
 ``[0, count[r])`` of rank r are valid and contiguous.  Kernels emit
 ``(item, dest, mask)`` lanes; :func:`enqueue` appends the masked lanes in
-lane order by an exclusive prefix sum — the deterministic, order-stable
-form of the paper's atomic append — and drops and counts emits past
+lane order by an exclusive prefix sum (kernel K6, ``kernels/compact``) —
+the deterministic, order-stable form of the paper's atomic append — and
+drops and counts emits past
 capacity ("calls that would exceed the output queue size will simply get
 dropped").  Destination ``-1`` (``DISCARD``) marks an item that goes nowhere.
 """
@@ -19,6 +20,7 @@ import torch
 
 from repro_torch import compat
 from repro_torch.core import types as T
+from repro_torch.kernels.compact import ops as compact_ops
 
 __all__ = [
     "DISCARD", "WorkQueue", "clear", "enqueue", "get_incoming", "make_queue", "num_incoming",
@@ -119,14 +121,13 @@ def enqueue(q: WorkQueue, items, dest, mask, *, num_ranks: int | None = None) ->
                 "target a rank on the mesh (or DISCARD)"
             )
     emit = emit & (dest >= 0)
-    m32 = emit.to(torch.int32)
-    # exclusive prefix sum → append slots (K6 will back this scan later)
-    pos = q.count[:, None] + torch.cumsum(m32, dim=1, dtype=torch.int32) - m32
+    # exclusive prefix sum → append slots (kernel K6 on CUDA tensors)
+    excl, n_emit = compact_ops.compact_positions(emit)
+    pos = q.count[:, None] + excl
     ok = emit & (pos < cap)
     slot = torch.where(ok, pos, cap).to(torch.int64)
     new_items = T.tree_map(lambda b, v: _scatter_rows(b, slot, v), q.items, items)
     new_dest = _scatter_rows(q.dest, slot, dest.to(torch.int32))
-    n_emit = m32.sum(dim=1, dtype=torch.int32)
     new_count = torch.clamp(q.count + n_emit, max=cap)
     dropped = q.count + n_emit - new_count
     return WorkQueue(new_items, new_dest, new_count.to(torch.int32), (q.drops + dropped).to(torch.int32))

@@ -6,8 +6,10 @@ Keys ``(dest << idx_bits) | lane`` pack into 32 bits whenever
 unique keys is a stable sort on the sanitised destination.  Invalid items
 (lane >= count, dest < 0 or dest >= R) get destination R and sort to the
 tail.  Every function takes ``dest (B, C)`` and ``count (B,)``: one row per
-rank.  The forwarding round reaches the ``"pack"`` method through kernel K3
-(``kernels/sort_keys``); these are the plain-tensor formulations.
+rank.  These are the plain-tensor formulations: the forwarding round plans
+through kernel K3 (``kernels/sort_keys``, the ``"pack"`` keys) or kernel K4
+(``kernels/bucket_scatter``, whose plain version is
+:func:`destination_rank`).
 """
 from __future__ import annotations
 
@@ -17,8 +19,10 @@ import torch
 
 __all__ = [
     "destination_histogram",
+    "destination_rank",
     "pack_keys",
     "segment_bounds_from_histogram",
+    "segment_bounds_from_sorted",
     "segment_offsets",
     "sort_permutation",
     "unpack_keys",
@@ -63,6 +67,25 @@ def destination_histogram(dest: torch.Tensor, count: torch.Tensor, num_ranks: in
     return hist.scatter_add_(1, d, torch.ones_like(d, dtype=torch.int32))
 
 
+def destination_rank(
+    dest: torch.Tensor, count: torch.Tensor, num_ranks: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bucket-scatter marshal plan in one pass over the destinations.
+
+    Returns ``(d_clean, rank, hist)``: the sanitised destination ``(B, C)``
+    (invalid lanes → R), each lane's stable rank among earlier lanes with the
+    same sanitised destination ``(B, C)``, and the ``(B, R+1)`` histogram —
+    all int32.  ``off[d_clean] + rank`` is the §4.2.1 stable sort's
+    placement, with no keys and no sort: the one-hot exclusive prefix sum
+    over the lane axis (kernel K4's plain version).
+    """
+    d = _sanitized(dest, count, num_ranks)
+    onehot = (d[:, :, None] == torch.arange(num_ranks + 1, device=dest.device)).to(torch.int32)
+    excl = torch.cumsum(onehot, dim=1, dtype=torch.int32) - onehot
+    rank = torch.gather(excl, 2, d[:, :, None])[:, :, 0]
+    return d.to(torch.int32), rank, onehot.sum(dim=1, dtype=torch.int32)
+
+
 def segment_offsets(send_counts: torch.Tensor) -> torch.Tensor:
     """Exclusive prefix sum along the last axis → start of each segment."""
     return torch.cumsum(send_counts, dim=-1, dtype=send_counts.dtype) - send_counts
@@ -72,6 +95,35 @@ def segment_bounds_from_histogram(send_counts: torch.Tensor) -> Tuple[torch.Tens
     """(begin, end) of every rank's segment, in O(R) from the histogram."""
     off = segment_offsets(send_counts)
     return off, off + send_counts
+
+
+def segment_bounds_from_sorted(sorted_dest: torch.Tensor, num_ranks: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The paper's §4.2.2-step-1 boundary detection, kept for
+    cross-validation: ``(begin, end)`` of each rank's segment, ``(B, R)``
+    int32, found by comparing neighbours of the sorted destinations, with
+    the gaps of ranks that received nothing filled by the next segment's
+    begin.  ``end - begin`` equals the histogram counts."""
+    rows, n = sorted_dest.shape
+    dev = sorted_dest.device
+    i = torch.arange(n, dtype=torch.int32, device=dev).expand(rows, n)
+    edge = lambda v: torch.full((rows, 1), v, dtype=sorted_dest.dtype, device=dev)
+    prev = torch.cat([edge(-1), sorted_dest[:, :-1]], dim=1)
+    nxt = torch.cat([sorted_dest[:, 1:], edge(num_ranks + 1)], dim=1)
+    d = torch.clamp(sorted_dest, 0, num_ranks).to(torch.int64)
+    # each begin/end is found by exactly one lane; slot R collects the rest
+    begin = torch.full((rows, num_ranks + 1), -1, dtype=torch.int32, device=dev)
+    end = torch.full((rows, num_ranks + 1), -1, dtype=torch.int32, device=dev)
+    begin.scatter_reduce_(1, torch.where(sorted_dest != prev, d, num_ranks), i, "amax")
+    end.scatter_reduce_(1, torch.where(sorted_dest != nxt, d, num_ranks), i + 1, "amax")
+    begin, end = begin[:, :num_ranks], end[:, :num_ranks]
+    # gap fill, from the last rank down: an empty rank begins and ends
+    # where the next non-empty segment begins (the valid total at the tail)
+    nxt_begin = ((sorted_dest >= 0) & (sorted_dest < num_ranks)).sum(dim=1, dtype=torch.int32)
+    for r in range(num_ranks - 1, -1, -1):
+        begin[:, r] = torch.where(begin[:, r] < 0, nxt_begin, begin[:, r])
+        end[:, r] = torch.where(end[:, r] < 0, nxt_begin, end[:, r])
+        nxt_begin = begin[:, r]
+    return begin, end
 
 
 def sort_permutation(

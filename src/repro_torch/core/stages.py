@@ -6,8 +6,11 @@ an explicit :class:`RoundState`:
   SpillExtract    the §3.3 sender clamp: per-destination counts truncated to
                   the slot budget, the cut rows counted as drops.
   Marshal         the send-side payload pass into the ``(R, R, S, W)`` peer
-                  slot layout: the sort permutation composed into ONE gather
-                  (kernel K1).
+                  slot layout, ONE pass in either marshal mode, picked by
+                  ``RoundState.marshal``: ``"sort"`` composes the sort
+                  permutation into one gather (kernel K1), ``"scatter"``
+                  stores every row at ``d_clean·S + rank`` (kernel K5) from
+                  the bucket plan (kernel K4).
   CountExchange   the control plane: ``all_to_all`` of the clamped counts.
   PayloadExchange the payload collective: ONE ``all_to_all`` of the buffer.
   Unmarshal       receive compaction into the destination queue (kernel K2),
@@ -24,6 +27,7 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from repro_torch.core.collectives import StackedCollectives
+from repro_torch.kernels.bucket_scatter import ops as bs_ops
 from repro_torch.kernels.marshal import ops as marshal_ops
 
 __all__ = [
@@ -83,16 +87,28 @@ def send_rows(perm: torch.Tensor, send_counts: torch.Tensor, *, peer_capacity: i
 
 def padded_send_buffer(
     packed: torch.Tensor,  # (B, C, W) UNSORTED packed payload
-    perm: torch.Tensor,  # (B, C) destination-sort permutation
+    perm: Optional[torch.Tensor],  # (B, C) sort mode: destination-sort permutation
     send_counts: torch.Tensor,  # (B, R) valid-destination counts
     *,
     num_ranks: int,
     peer_capacity: int,
+    marshal: str = "sort",
+    dest_clean: Optional[torch.Tensor] = None,  # (B, C) scatter mode: sanitised dest
+    dest_rank: Optional[torch.Tensor] = None,  # (B, C) scatter mode: in-bucket rank
 ) -> torch.Tensor:
     """The padded exchange's send-side marshal — the round's ONE payload
-    pass: row ``(r, s)`` of rank b's buffer is ``packed[b, perm[b, off[b, r]
-    + s]]``.  Returns ``(B, R, S, W)``; rows past a segment's clamped count
-    are garbage, masked downstream by the exchanged counts."""
+    pass.  Sort mode: row ``(r, s)`` of rank b's buffer is ``packed[b,
+    perm[b, off[b, r] + s]]``.  Scatter mode: lane ``i`` goes to row
+    ``d_clean·S + rank`` where ``d_clean < R`` and ``rank < S``, else it is
+    dropped (position ``R·S``).  Returns ``(B, R, S, W)``; rows past a
+    segment's clamped count are garbage (sort) or zeros (scatter), masked
+    downstream by the exchanged counts."""
+    R, S = num_ranks, peer_capacity
+    if marshal == "scatter":
+        keep = (dest_clean < R) & (dest_rank < S)
+        dstpos = torch.where(keep, dest_clean * S + dest_rank, R * S)
+        send_buf = bs_ops.scatter_rows(packed, dstpos, num_slots=R * S)
+        return send_buf.reshape(packed.shape[0], R, S, packed.shape[-1])
     src = send_rows(perm, send_counts, peer_capacity=peer_capacity)
     return marshal_ops.fused_marshal(packed, src, num_ranks=num_ranks, slot=peer_capacity)
 
@@ -102,8 +118,11 @@ class RoundState:
     """Carried state a stage composition threads from stage to stage."""
 
     packed: Any = None  # (B, C, W) packed payload
-    perm: Any = None  # (B, C) destination-sort permutation
+    perm: Any = None  # (B, C) sort mode: destination-sort permutation
     send_counts: Any = None  # (B, R) per-destination counts
+    marshal: str = "sort"  # "sort" | "scatter"
+    dest_clean: Any = None  # (B, C) scatter mode: sanitised destination
+    dest_rank: Any = None  # (B, C) scatter mode: stable in-bucket rank
     clamped: Any = None  # (B, R) sender-clamped counts
     send_drops: Any = None  # (B,) rows the sender clamp cut
     send_buf: Any = None  # (B, R, S, W)
@@ -130,7 +149,8 @@ class SpillExtract:
 
 @dataclasses.dataclass(frozen=True)
 class Marshal:
-    """The send-side payload pass into the ``(R, R, S, W)`` peer slots."""
+    """The send-side payload pass into the ``(R, R, S, W)`` peer slots, in
+    the state's marshal mode (sort gather or bucket scatter)."""
 
     num_peers: int
     slot: int
@@ -139,6 +159,7 @@ class Marshal:
         st.send_buf = padded_send_buffer(
             st.packed, st.perm, st.send_counts,
             num_ranks=self.num_peers, peer_capacity=self.slot,
+            marshal=st.marshal, dest_clean=st.dest_clean, dest_rank=st.dest_rank,
         )
         return st
 

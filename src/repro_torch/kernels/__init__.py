@@ -5,10 +5,15 @@ with an ``ops.py`` that holds the wrapper, the plain PyTorch version (the
 counterpart of the JAX ``ref.py``) and the wrapper's launch counter.  The
 CUDA C++ sources live in ``csrc/`` and are built by ``build.py``.
 
-  sort_keys/   K3 pack_and_histogram (§4.2.1 key pack + histogram)
-  marshal/     K1 gather_rows (the sort marshal's send gather),
-               K2 unmarshal (receive compaction)
-  rk4_advect/  K8 rk4_step (§5.4 RK4 particle advection)
+  sort_keys/       K3 pack_and_histogram (§4.2.1 key pack + histogram)
+  bucket_scatter/  K4 rank_and_histogram (the sort-free plan: in-bucket
+                   rank + histogram), K5 scatter_rows (the scatter
+                   marshal's send pass)
+  compact/         K6 compact_positions (the prefix sum behind enqueue)
+  marshal/         K1 gather_rows (the sort marshal's send gather),
+                   K2 unmarshal (receive compaction), K7 marshal (the
+                   two-pass marshal's segment copy)
+  rk4_advect/      K8 rk4_step (§5.4 RK4 particle advection)
 
 Dispatch is by the tensors' device and never falls back: CPU tensors run
 the plain version, CUDA tensors launch the kernel or raise.
@@ -54,15 +59,21 @@ def stream_handle() -> int:
 
 
 def kernel_wrappers() -> Dict[str, object]:
-    """The four kernel wrappers of the ported path, by kernel name."""
+    """The kernel wrappers of the ported paths, by kernel name."""
+    from repro_torch.kernels.bucket_scatter import ops as bs_ops
+    from repro_torch.kernels.compact import ops as compact_ops
     from repro_torch.kernels.marshal import ops as marshal_ops
     from repro_torch.kernels.rk4_advect import ops as rk4_ops
     from repro_torch.kernels.sort_keys import ops as sk_ops
 
     return {
-        "pack_and_histogram": sk_ops.pack_and_histogram,
         "gather_rows": marshal_ops.gather_rows,
         "unmarshal": marshal_ops.unmarshal,
+        "pack_and_histogram": sk_ops.pack_and_histogram,
+        "rank_and_histogram": bs_ops.rank_and_histogram,
+        "scatter_rows": bs_ops.scatter_rows,
+        "compact_positions": compact_ops.compact_positions,
+        "marshal": marshal_ops.marshal,
         "rk4_step": rk4_ops.rk4_step,
     }
 

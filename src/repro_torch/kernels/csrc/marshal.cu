@@ -1,8 +1,10 @@
 // K1 gather_rows and K2 unmarshal — the packed payload's two passes around
-// the exchange, for sm_90a.
+// the exchange — and K7 marshal, the two-pass marshal's segment copy, for
+// sm_90a.
 //
 // Replaces: src/repro/kernels/marshal/kernel.py, gather_rows (the Pallas
-// kernel _gather_rows_kernel) and unmarshal (_unmarshal_kernel).
+// kernel _gather_rows_kernel), unmarshal (_unmarshal_kernel) and marshal
+// (_marshal_kernel).
 //
 // K1: out[b, i, :] = src[b, clip(idx[b, i], 0, C-1), :] over rank-stacked
 //     (B, C, W) 32-bit words.  The caller has composed the destination-sort
@@ -14,10 +16,15 @@
 //     caller zero-fills the output, so every row no block writes is zero.
 //     Offsets are the exclusive prefix of the counts, so valid rows never
 //     collide and the scatter has no races.
+// K7: out[b, r, s, :] = sorted[b, clip(off[b, r], 0, C-S) + s, :] — each
+//     peer's contiguous S-row segment of a destination-sorted (B, C, W)
+//     buffer into the (B, R, S, W) send layout (the cross-check of K1's
+//     fused marshal: sort first, then copy segments).
 //
 // Bound on the H100: bytes.  K1 reads each gathered row and writes each
-// output row once; K2 reads each valid received row and writes the output.
-// Neither does arithmetic beyond index math.
+// output row once; K2 reads each valid received row and writes the output;
+// K7 reads each segment row and writes the output.  None does arithmetic
+// beyond index math.
 //
 // Design: one thread per 32-bit word, grid-stride, a 2-D grid of (word
 // tile, rank).  Inside a rank the word index stays 32-bit (the wrapper
@@ -92,6 +99,30 @@ __global__ void unmarshal_kernel(const int32_t* __restrict__ recv,
   }
 }
 
+// blockIdx.y = rank b; e = (r * slot + s) * w + col indexes rank b's
+// (R, S, W) output words
+__global__ void marshal_kernel(const int32_t* __restrict__ sorted,
+                               const int32_t* __restrict__ off,
+                               int32_t* __restrict__ out, uint32_t cap,
+                               uint32_t num_ranks, uint32_t slot, uint32_t w) {
+  const int64_t b = blockIdx.y;
+  const int32_t* sorted_b = sorted + b * (int64_t)cap * w;
+  const int32_t* off_b = off + b * (int64_t)num_ranks;
+  int32_t* out_b = out + b * (int64_t)num_ranks * slot * w;
+  const uint32_t total = num_ranks * slot * w;
+  const int32_t hi = (int32_t)(cap - slot);
+  for (uint32_t e = blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += gridDim.x * blockDim.x) {
+    const uint32_t row = e / w;
+    const uint32_t col = e - row * w;
+    const uint32_t r = row / slot;
+    const uint32_t s = row - r * slot;
+    int32_t o = off_b[r];
+    o = o < 0 ? 0 : (o > hi ? hi : o);
+    out_b[e] = sorted_b[((int64_t)o + s) * w + col];
+  }
+}
+
 }  // namespace
 
 // src (B, C, W), idx (B, N) int32 -> out (B, N, W); N*W and C*W < 2^31.
@@ -118,6 +149,20 @@ extern "C" int rafi_unmarshal(const void* recv, const void* off,
         (const int32_t*)recv, (const int32_t*)off, (const int32_t*)counts,
         (int32_t*)out, (uint32_t)g_blocks, (uint32_t)slot, (uint32_t)w,
         (uint32_t)cap);
+  }
+  return (int)cudaGetLastError();
+}
+
+// sorted (B, C, W), off (B, R) int32 -> out (B, R, S, W); S <= C,
+// R*S*W and C*W < 2^31.
+extern "C" int rafi_marshal(const void* sorted, const void* off, void* out,
+                            int64_t rows, int64_t cap, int64_t num_ranks,
+                            int64_t slot, int64_t w, void* stream) {
+  if (rows > 0 && num_ranks * slot * w > 0) {
+    marshal_kernel<<<grid_for(num_ranks * slot * w, rows), kThreads, 0,
+                     (cudaStream_t)stream>>>(
+        (const int32_t*)sorted, (const int32_t*)off, (int32_t*)out,
+        (uint32_t)cap, (uint32_t)num_ranks, (uint32_t)slot, (uint32_t)w);
   }
   return (int)cudaGetLastError();
 }

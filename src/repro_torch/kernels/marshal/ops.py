@@ -1,5 +1,7 @@
 """K1 ``gather_rows`` and K2 ``unmarshal`` — the payload passes around the
-exchange — with the plain versions of ``repro/kernels/marshal/ref.py``.
+exchange — and K7 ``marshal``, the two-pass marshal's segment copy, with the
+plain versions of ``repro/kernels/marshal/ref.py`` and the per-leaf wrappers
+``marshal_items`` / ``unmarshal_items`` of ``repro/kernels/marshal/ops.py``.
 
 All tensors are rank-stacked: a leading axis B (one row per rank) in front
 of the per-rank shapes of the JAX kernels, so one launch covers every rank.
@@ -9,9 +11,12 @@ from __future__ import annotations
 
 import ctypes
 
+from typing import Any
+
 import torch
 
 from repro_torch import kernels as KN
+from repro_torch.core import types as T
 from repro_torch.kernels import build
 
 __all__ = [
@@ -19,7 +24,11 @@ __all__ = [
     "fused_unmarshal",
     "gather_rows",
     "gather_rows_plain",
+    "marshal",
+    "marshal_items",
+    "marshal_plain",
     "unmarshal",
+    "unmarshal_items",
     "unmarshal_plain",
 ]
 
@@ -27,6 +36,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int64
 _SIGS = {
     "rafi_gather_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
     "rafi_unmarshal": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "rafi_marshal": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -150,3 +160,70 @@ def fused_unmarshal(
         recv_buf, recv_offsets.to(torch.int32), recv_counts.to(torch.int32),
         capacity=capacity,
     )
+
+
+def marshal_plain(sorted_buf: torch.Tensor, offsets: torch.Tensor, *, num_ranks: int, slot: int) -> torch.Tensor:
+    """``out[b, r, s] = sorted_buf[b, clip(offsets[b, r], 0, C-S) + s]``."""
+    rows, cap, w = sorted_buf.shape
+    off = offsets.to(torch.int64).clamp(0, cap - slot)
+    src = off[:, :, None] + torch.arange(slot, device=sorted_buf.device)
+    out = torch.gather(sorted_buf, 1, src.reshape(rows, -1, 1).expand(-1, -1, w))
+    return out.reshape(rows, num_ranks, slot, w)
+
+
+def marshal(sorted_buf: torch.Tensor, offsets: torch.Tensor, *, num_ranks: int, slot: int) -> torch.Tensor:
+    """K7: each peer's contiguous ``slot``-row segment of a destination-
+    sorted ``(B, C, W)`` buffer, from ``offsets (B, R)`` clipped to
+    ``[0, C-S]``, into the ``(B, R, S, W)`` send layout."""
+    if sorted_buf.dim() != 3 or offsets.shape != (sorted_buf.shape[0], num_ranks):
+        raise ValueError(
+            f"marshal takes sorted (B, C, W) and offsets (B, {num_ranks}), got "
+            f"{tuple(sorted_buf.shape)}, {tuple(offsets.shape)}"
+        )
+    rows, cap, w = sorted_buf.shape
+    if slot > cap:
+        raise ValueError(f"peer slot {slot} exceeds capacity {cap}")
+    if KN.use_plain(sorted_buf, offsets):
+        return marshal_plain(sorted_buf, offsets, num_ranks=num_ranks, slot=slot)
+    _check_words("marshal", rows, max(num_ranks * slot, cap) * w, sorted_buf, offsets)
+    sorted_buf, offsets = sorted_buf.contiguous(), offsets.contiguous()
+    out = torch.empty(rows, num_ranks, slot, w, dtype=sorted_buf.dtype, device=sorted_buf.device)
+    lib = build.load(_SIGS)
+    rc = lib.rafi_marshal(
+        sorted_buf.data_ptr(), offsets.data_ptr(), out.data_ptr(), rows, cap,
+        num_ranks, slot, w, KN.stream_handle(),
+    )
+    KN.check_launch(rc, "marshal")
+    marshal.launches += 1
+    return out
+
+
+marshal.launches = 0
+
+
+def marshal_items(sorted_items: Any, offsets: torch.Tensor, *, num_ranks: int, slot: int) -> Any:
+    """Pytree of ``(B, C, ...)`` destination-sorted leaves → pytree of
+    ``(B, R, S, ...)``: each leaf bitcast to words, copied by K7, bitcast
+    back."""
+
+    def one(a: torch.Tensor) -> torch.Tensor:
+        words, spec = T.pack_payload(a, batch_dims=2)
+        return T.unpack_payload(marshal(words, offsets, num_ranks=num_ranks, slot=slot), spec)
+
+    return T.tree_map(one, sorted_items)
+
+
+def unmarshal_items(
+    recv_items: Any, recv_offsets: torch.Tensor, recv_counts: torch.Tensor, *, capacity: int
+) -> Any:
+    """Pytree of ``(B, G, S, ...)`` received blocks → pytree of ``(B,
+    capacity, ...)``: each leaf bitcast to words, compacted by K2, bitcast
+    back."""
+
+    def one(a: torch.Tensor) -> torch.Tensor:
+        words, spec = T.pack_payload(a, batch_dims=3)
+        return T.unpack_payload(
+            fused_unmarshal(words, recv_offsets, recv_counts, capacity=capacity), spec
+        )
+
+    return T.tree_map(one, recv_items)

@@ -362,8 +362,6 @@ def test_forward_config_rejects_features_of_later_slices():
         ForwardConfig(R, C, pipeline_shards=2)
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         ForwardConfig(R, C, telemetry=True)
-    with pytest.raises(NotImplementedError, match="marshal='scatter'"):
-        ForwardConfig(R, C, marshal="scatter")
     with pytest.raises(ValueError, match="requires overflow='retain'"):
         ForwardConfig(R, C, flow="credit")
     with pytest.raises(ValueError, match="does not apply"):

@@ -227,10 +227,34 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_cuda_kernels_equal_plain_versions(cuda_device):
-    """On the card: K1/K2/K3 bit-equal to their plain versions, K8 within
-    1e-5 absolute (nvcc contracts to FMA)."""
+    """On the card: K1-K7 bit-equal to their plain versions (K4 with
+    DISCARD, out-of-range lanes and count < C; K5 with negative and
+    past-the-end positions; K6 on a ragged tile edge; K7 with a clipped
+    offset), K8 within 1e-5 absolute (nvcc contracts to FMA)."""
+    from repro_torch.kernels.bucket_scatter import ops as BS
+    from repro_torch.kernels.compact import ops as CO
+
     rng = np.random.default_rng(8)
     dev = cuda_device
+    dest, count = _dest_rows(rng, 4, 3000, 8)
+    args = (torch.from_numpy(dest), torch.from_numpy(count))
+    for a, b in zip(BS.rank_and_histogram(*(t.to(dev) for t in args), num_ranks=8),
+                    BS.rank_and_histogram_plain(*args, num_ranks=8)):
+        assert torch.equal(a.cpu(), b)
+    src = torch.from_numpy(rng.integers(-(2**31), 2**31 - 1, (2, 100, 11), dtype=np.int32))
+    pos = np.where(rng.random((2, 100)) < 0.5, -2, 90).astype(np.int32)
+    for b in range(2):
+        lanes = rng.permutation(100)[:60]
+        pos[b, lanes] = rng.permutation(80)[:60]
+    pos = torch.from_numpy(pos)
+    assert torch.equal(BS.scatter_rows(src.to(dev), pos.to(dev), num_slots=80).cpu(),
+                       BS.scatter_rows_plain(src, pos, num_slots=80))
+    mask = torch.from_numpy(rng.random((3, 4096 * 2 + 77)) < 0.3)
+    for a, b in zip(CO.compact_positions(mask.to(dev)), CO.compact_positions_plain(mask)):
+        assert torch.equal(a.cpu(), b)
+    off = torch.tensor([[0, 10, 40, 70], [5, 5, 64, 90]], dtype=torch.int32)
+    assert torch.equal(MO.marshal(src.to(dev), off.to(dev), num_ranks=4, slot=16).cpu(),
+                       MO.marshal_plain(src, off, num_ranks=4, slot=16))
     dest, count = _dest_rows(rng, 4, 512, 8)
     args = (torch.from_numpy(dest), torch.from_numpy(count))
     kk = SO.pack_and_histogram(*(a.to(dev) for a in args), num_ranks=8, idx_bits=9)
