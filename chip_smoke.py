@@ -4,18 +4,23 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
-``nvcc`` call into one library under ``build/``) and runs five phases on
-``cuda:0``:
+``nvcc`` per source, all started together, linked into one library under
+``build/``) and runs six phases on ``cuda:0``:
 
-  1. kernels     — all eight kernels (K1 gather_rows, K2 unmarshal, K3
+  1. kernels     — all ten kernels (K1 gather_rows, K2 unmarshal, K3
                    pack_and_histogram, K4 rank_and_histogram, K5
                    scatter_rows, K6 compact_positions, K7 marshal, K8
-                   rk4_step), each held against its plain PyTorch version
-                   on the card at the main paths' shapes (bit-equal; K8
-                   within 1e-5) and timed with CUDA events beside its plain
-                   version, a PyTorch library call where one exists, and
-                   its bound (bytes over 3.35 TB/s); plus the two-pass
-                   marshal path (K3 + sort + K7) against K1's fused marshal;
+                   rk4_step, K9 pairwise_accel, K10 track), each held against
+                   its plain PyTorch version on the card at the main paths'
+                   shapes (bit-equal; K8 within 1e-5; K9 and its plain
+                   version against a float64 witness on a sample, each
+                   within 1e-5 of the row's sum of |terms|, K9 within 2x the
+                   plain version's error; K10's t within rtol 1e-6, statuses
+                   equal but for near-ties) and timed with CUDA events beside
+                   its plain version, a PyTorch library call where one
+                   exists, and its bound (bytes over 3.35 TB/s or float32
+                   operations over 67e12/s); plus the two-pass marshal path
+                   (K3 + sort + K7) against K1's fused marshal;
   2. forward     — one ``forward_work`` round of the Fig-8 44-byte ray, R=8
                    ranks × C=262,144 (2,097,152 rays, about one 1080p frame
                    of primary rays), S=65,536 peer slots, in both marshal
@@ -39,7 +44,15 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    pairs bit-equal to the same words on the CPU, and a
                    64×64 render equal to the port's plain CPU render within
                    the port-against-reference tolerance of the tests;
-  5. report      — one JSON line of the kernels (launches on the paths that
+  5. nbody       — ``apps.nbody.run``, R=8, 262,144 particles, 8 steps (dt
+                   5e-4, θ 0.3, ε² 1e-3, G = 64/N): every particle conserved
+                   (totals N every step, drops 0), positions within 1e-2 of
+                   the direct-sum oracle, the R=1 run within 1e-5 of it, K9
+                   launched once a step and K3, K1, K2 four times (four
+                   forwarding contexts a step); a 512-particle R=8 run on the
+                   card against the same run on the CPU; wall time per step,
+                   the device-busy share and K9's share of device time;
+  6. report      — one JSON line of the kernels (launches on the paths that
                    run them, errors, times, bounds), the card's name and
                    power limit, and a last line
                    ``{"ok": true, "device": {...}}``.
@@ -80,15 +93,20 @@ KERNELS = {  # name → (source in the repo, the TPU kernel it replaces)
                           "src/repro/kernels/compact/kernel.py:43"),
     "marshal": ("src/repro_torch/kernels/csrc/marshal.cu",
                 "src/repro/kernels/marshal/kernel.py:50"),
+    "pairwise_accel": ("src/repro_torch/kernels/csrc/nbody_forces.cu",
+                       "src/repro/kernels/nbody_forces/kernel.py:41"),
+    "track": ("src/repro_torch/kernels/csrc/delta_tracking.cu",
+              "src/repro/kernels/delta_tracking/kernel.py:64"),
 }
 # the paths whose launches the report counts, per kernel (each path is run
 # with the counts set to 0 just before it and read just after)
 LAUNCH_PATHS = {
-    "pack_and_histogram": ("streamlines",), "gather_rows": ("streamlines",),
-    "unmarshal": ("streamlines",), "rk4_step": ("streamlines",),
-    "compact_positions": ("streamlines", "vopat"),
+    "pack_and_histogram": ("streamlines", "nbody"), "gather_rows": ("streamlines", "nbody"),
+    "unmarshal": ("streamlines", "vopat", "nbody"), "rk4_step": ("streamlines",),
+    "compact_positions": ("streamlines", "vopat", "nbody"),
     "rank_and_histogram": ("vopat",), "scatter_rows": ("vopat",),
     "marshal": ("two_pass_marshal",),
+    "pairwise_accel": ("nbody",), "track": ("woodcock_check",),
 }
 
 FAILURES: list = []
@@ -145,7 +163,8 @@ def _fig8_dest(gen, R, C, dev):
 
 
 def phase_kernels(dev, R=8, C=262144, S=65536, W=11, N_PART=2097152,
-                  MASKS=((8, 131072), (8, 1048576)), timer=cuda_ms):
+                  MASKS=((8, 131072), (8, 1048576)), NBODY=(8, 262144, 262288), SAMPLE=4096,
+                  RAYS=1024, timer=cuda_ms):
     import torch
 
     from repro_torch import kernels as KN
@@ -351,13 +370,143 @@ def phase_kernels(dev, R=8, C=262144, S=65536, W=11, N_PART=2097152,
     )
     del k_out, p_out, two_pass, fused, sorted_buf, src
 
+    rows["pairwise_accel"] = _kernel_k9(dev, gen, timer, *NBODY, SAMPLE)
+    KN.reset_launch_counts()
+    rows["track"], woodcock_launches = _kernel_k10(dev, gen, timer, RAYS)
+
     for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound_ms(r["nbytes"], r["ops"])
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"  {name}: kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms {lib} "
               f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}: {r['nbytes']} B, {r['ops']:.0f} ops) "
               f"max_abs_err {r['max_abs_err']:.3e}", flush=True)
-    return rows, {"two_pass_marshal": two_pass_launches}
+    return rows, {"two_pass_marshal": two_pass_launches, "woodcock_check": woodcock_launches}
+
+
+def _kernel_k9(dev, gen, timer, B, N, M, sample, eps2=1e-3):
+    """K9 at the nbody path's shape: B ranks × N targets (every rank's queue
+    capacity) against M = N + 2·72 sources (the local lanes, the roots and
+    the octants), positions drawn like the app's (0.5 ± 0.15, clipped), the
+    last 144 sources spread over the box with octant-sized masses or none.
+    K9 and the float32 plain version are held against a float64 evaluation
+    of the first ``sample`` targets of ranks 0 and B-1: per component, the
+    error over the row's sum of |terms| must be at most 1e-5, and K9's at
+    most 2× the plain version's."""
+    import torch
+
+    from repro_torch.kernels.nbody_forces import ops as NO
+
+    xi = torch.clamp(0.5 + 0.15 * torch.randn((B, N, 3), generator=gen, device=dev), 0.05, 0.95)
+    extra = M - N
+    xj = torch.cat([xi, torch.rand((B, extra, 3), generator=gen, device=dev)], dim=1)
+    m_far = (N / 64) * (0.5 + torch.rand((B, extra), generator=gen, device=dev))
+    m_far[:, extra // 2:] = 0.0
+    mj = torch.cat([0.5 + torch.rand((B, N), generator=gen, device=dev), m_far], dim=1)
+    got = NO.pairwise_accel(xi, xj, mj, eps2=eps2)
+    rows = [0, B - 1]
+    sx, sj, sm = xi[rows, :sample], xj[rows], mj[rows]
+    plain = NO.pairwise_accel_plain(sx, sj, sm, eps2=eps2)
+    want, scale = _accel_float64(sx, sj, sm, eps2)
+    k_err = ((got[rows, :sample].double() - want).abs() / scale).max().item()
+    p_err = ((plain.double() - want).abs() / scale).max().item()
+    kp_err = ((got[rows, :sample] - plain).abs().double() / scale).max().item()
+    max_abs = (got[rows, :sample] - plain).abs().max().item()
+    print(f"  K9 against float64 on {len(rows)}x{sample} targets x {M} sources: error / sum|terms| "
+          f"K9 {k_err:.3e}, plain {p_err:.3e}, K9 - plain {kp_err:.3e} (max abs {max_abs:.3e})", flush=True)
+    check(bool(torch.isfinite(got).all()), f"K9 pairwise_accel ({B}, {N}) x ({B}, {M}): finite")
+    check(k_err <= 1e-5 and p_err <= 1e-5,
+          "K9 and its plain version within 1e-5 of the float64 sum (relative to sum|terms|)")
+    check(k_err <= 2 * p_err, f"K9's error {k_err:.3e} <= 2x the plain version's {p_err:.3e}")
+    return dict(
+        max_abs_err=max_abs, ms=timer(lambda: NO.pairwise_accel(xi, xj, mj, eps2=eps2), reps=5, warmup=1),
+        plain_ms=timer(lambda: NO.pairwise_accel_plain(sx, sj, sm, eps2=eps2), reps=3, warmup=1),
+        plain_shape=f"({len(rows)}, {sample}) targets x ({len(rows)}, {M}) sources",
+        library_ms=None, library_call=None,
+        nbytes=B * N * 12 + B * M * 16 + B * N * 12, ops=20.0 * B * N * M,
+        float64_err={"kernel": k_err, "plain": p_err, "kernel_vs_plain": kp_err},
+    )
+
+
+def _accel_float64(xi, xj, mj, eps2, rows=64):
+    """The accelerations in float64 and, per component, the sum of the
+    absolute terms, a few targets at a time."""
+    import torch
+
+    xi, xj, mj = xi.double(), xj.double(), mj.double()
+    acc, scale = torch.empty_like(xi), torch.empty_like(xi)
+    for s in range(0, xi.shape[1], rows):
+        dx = xj[:, None] - xi[:, s:s + rows, None]
+        r2 = (dx * dx).sum(-1) + eps2
+        terms = (mj[:, None] / (r2 * torch.sqrt(r2)))[..., None] * dx
+        acc[:, s:s + rows], scale[:, s:s + rows] = terms.sum(2), terms.abs().sum(2)
+    return acc, scale
+
+
+def _kernel_k10(dev, gen, timer, size, steps=8):
+    """K10 at the VoPaT scene's shape: the ``size``² camera rays that enter
+    [0,1]³, from the domain entry to the domain exit, K = 8 steps through the
+    scene's 6 blobs.  ``t`` within rtol 1e-6 and statuses equal to the plain
+    version's, except on near-ties (|u₁·μ̄ − σ| < 1e-5·μ̄ at a step the ray
+    took), which must be under 0.01% of the rays.  Its launches are those of
+    the one checked call."""
+    import torch
+
+    from repro_torch import kernels as KN
+    from repro_torch.apps import fields as F
+    from repro_torch.kernels.delta_tracking import ops as DO
+
+    o, d = F.camera_rays(size, size, device=dev)
+    t_in, inside = F.ray_domain_entry(o, d)
+    o, d, t0 = o[inside].contiguous(), d[inside].contiguous(), t_in[inside]
+    t_exit, _, _ = F.ray_box_exit(o, d, t0, torch.zeros_like(t0), torch.ones_like(t0))
+    blobs = torch.from_numpy(F.default_blobs(6, 0)).to(dev)
+    maj = F.majorant(blobs)
+    u = torch.rand((o.shape[0], steps, 2), generator=gen, device=dev)
+    args = (o, d, t0, t_exit, u, blobs)
+    kt, ks = DO.track(*args, majorant=maj, steps=steps)
+    launches = KN.launch_counts()
+    pt, ps = DO.track_plain(*args, majorant=maj, steps=steps)
+    tie = _woodcock_near_tie(*args, maj, steps)
+    n, n_tie = o.shape[0], int(tie.sum())
+    differ = ks != ps
+    t_bad = ~torch.isclose(kt, pt, rtol=1e-6, atol=0.0) & ~tie
+    print(f"  K10 track on {n} rays x {steps} steps: statuses differ on {int(differ.sum())} rays, "
+          f"all near-ties: {not bool((differ & ~tie).any())}; near-ties {n_tie}; "
+          f"statuses STILL/HIT/EXITED {[int((ps == k).sum()) for k in (0, 1, 2)]}", flush=True)
+    check(not bool((differ & ~tie).any()) and not bool(t_bad.any()),
+          f"K10 track ({n} rays): t within rtol 1e-6 and statuses equal to plain but for near-ties")
+    check(int(differ.sum()) < 1e-4 * n, f"K10: {int(differ.sum())} status differences < 0.01% of {n} rays")
+    per_ray = 12 + 12 + 4 + 4 + 8 * steps + 4 + 4
+    return dict(
+        max_abs_err=(kt - pt)[~tie].abs().max().item(),
+        ms=timer(lambda: DO.track(*args, majorant=maj, steps=steps)),
+        plain_ms=timer(lambda: DO.track_plain(*args, majorant=maj, steps=steps)),
+        library_ms=None, library_call=None, nbytes=n * per_ray + blobs.numel() * 4,
+        ops=float(n * steps * blobs.shape[0] * 14), rays=n, near_ties=n_tie,
+    ), launches
+
+
+def _woodcock_near_tie(o, d, t0, t_exit, u, blobs, maj, steps):
+    """Rays whose walk in the plain version meets |u₁·μ̄ − σ| < 1e-5·μ̄ at a
+    step where the ray is still tracking and inside its exit: an ulp of
+    ``expf`` or ``log1pf`` may flip such a step."""
+    import torch
+
+    from repro_torch.kernels.delta_tracking import ops as DO
+
+    mu = torch.tensor(maj, dtype=torch.float32, device=t0.device)
+    t, status = t0, torch.zeros_like(t0, dtype=torch.int32)
+    tie = torch.zeros_like(t0, dtype=torch.bool)
+    for k in range(steps):
+        active = status == DO.STILL
+        t_new = t - torch.log1p(-u[:, k, 0]) / mu
+        sigma = DO.density(o + t_new[:, None] * d, blobs)
+        inside = active & (t_new < t_exit)
+        tie |= inside & ((u[:, k, 1] * mu - sigma).abs() < 1e-5 * mu)
+        hit = inside & (u[:, k, 1] * mu < sigma)
+        t = torch.where(active, t_new, t)
+        status = torch.where(active & ~inside, DO.EXITED, torch.where(hit, DO.HIT, status)).to(torch.int32)
+    return tie
 
 
 # --------------------------------------------------------------- 2. forward
@@ -500,11 +649,12 @@ def _time_round(q, cfg, reps):
 
 
 # ----------------------------------------------------------- 3. streamlines
-def profile_drive(run, dev):
+def profile_drive(run, dev, kernel=None):
     """Device-busy share of one drive under ``torch.profiler``: summed
     device time of every kernel and copy over the drive's wall time (the
     profiler's own overhead lengthens the wall time, so the share is a
-    lower bound).  Returns None when the profiler reports no device time."""
+    lower bound), and, given a ``kernel`` name, that kernel's share of the
+    device time.  Returns None when the profiler reports no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -527,8 +677,13 @@ def profile_drive(run, dev):
     print(f"  profiled drive: wall {wall:.3f} s, device busy {busy_us / 1e3:.1f} ms "
           f"({100 * share:.1f}%), top device time: "
           + "; ".join(f"{e.key[:60]} {dev_us(e) / 1e3:.2f} ms" for e in top), flush=True)
-    return {"wall_s": wall, "device_busy_ms": busy_us / 1e3, "busy_share": share,
-            "top": [(e.key[:200], dev_us(e) / 1e3) for e in top]}
+    out = {"wall_s": wall, "device_busy_ms": busy_us / 1e3, "busy_share": share,
+           "top": [(e.key[:200], dev_us(e) / 1e3) for e in top]}
+    if kernel is not None:
+        k_us = sum(dev_us(e) for e in stats if kernel in e.key)
+        out[f"{kernel}_share"] = k_us / busy_us
+        print(f"  {kernel}: {k_us / 1e3:.1f} ms, {100 * k_us / busy_us:.1f}% of the device time", flush=True)
+    return out
 
 
 def phase_streamlines(dev, fields=(("ABC", 0, 131072), ("tornado", 1, 16384), ("Taylor-Green", 2, 16384)),
@@ -656,6 +811,78 @@ def phase_vopat(dev, size=1024, R=8, profile=True, N_WORDS=2097152, CPU_SIZE=64)
     return out, launches
 
 
+# ----------------------------------------------------------------- 5. nbody
+def phase_nbody(dev, N=262144, R=8, steps=8, WITNESS_N=512, profile=True):
+    """The N-body main path: ``run`` at R=8 against the direct-sum oracle,
+    the R=1 run, launches per run, and a small run on the card against the
+    same run on the CPU.  G = 64/N keeps G·M_total at the value of the
+    64-particle, G = 1 system under which the reference set its 1e-2 bound
+    (``tests/test_apps.py``); at the 256-particle example's G·M_total of 256
+    the reference itself misses that bound (``examples/nbody_sim.py``)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import kernels as KN
+    from repro_torch.apps import nbody
+
+    cfg = nbody.NBodyConfig(num_particles=N, steps=steps, dt=5e-4, theta=0.3, eps2=1e-3, g=64.0 / N)
+    KN.reset_launch_counts()
+    t0 = time.perf_counter()
+    pos, vel, st = nbody.run(cfg, num_ranks=R, device=dev)  # ends in copies to the host
+    wall = time.perf_counter() - t0
+    launches = KN.launch_counts()
+    po, vo = nbody.oracle(cfg, device=dev)
+    err = float(np.abs(pos - po).max())
+    t1 = time.perf_counter()
+    p1, _, st1 = nbody.run(cfg, num_ranks=1, device=dev)
+    wall1 = time.perf_counter() - t1
+    err1 = float(np.abs(p1 - po).max())
+    print(f"  N={N}, R={R}, {steps} steps: wall {wall:.3f} s ({1e3 * wall / steps:.1f} ms per step), "
+          f"totals {st['totals']}, drops {st['drops']}, max |pos - oracle| {err!r}, "
+          f"rms |vel - oracle| {float(np.sqrt(((vel - vo) ** 2).mean()))!r}; R=1: wall {wall1:.3f} s, "
+          f"max |pos - oracle| {err1!r}", flush=True)
+    # K9 runs over every lane of every rank's queue (capacity N), as the
+    # reference does; the final owners say how many of those pairs are live
+    cell = lambda a, g: np.clip((a * g).astype(np.int32), 0, g - 1)
+    gx, gy, gz = st["dims"]
+    live = np.bincount(cell(pos[:, 0], gx) + gx * (cell(pos[:, 1], gy) + gy * cell(pos[:, 2], gz)),
+                       minlength=R)
+    m_src = N + 2 * max(16, 9 * R)
+    live_share = float((live * (live + m_src - N)).sum()) / (R * N * m_src)
+    print(f"  particles per rank at the end {live.tolist()}; K9 computes {R * N * m_src:.3e} pairs a step, "
+          f"{100 * live_share:.2f}% of them between live lanes", flush=True)
+    check(st["totals"] == [N] * steps and st["drops"] == 0,
+          f"nbody: every particle conserved (totals {N} each step, drops {st['drops']})")
+    check(bool(np.isfinite(pos).all() and np.isfinite(vel).all()), "nbody: positions and velocities finite")
+    check(err < 1e-2, f"nbody: R={R} positions within 1e-2 of the direct-sum oracle ({err:.3e})")
+    check(st1["totals"] == [N] * steps and err1 <= 1e-5, f"nbody: R=1 positions within 1e-5 of the oracle ({err1!r})")
+    if dev.type == "cuda":
+        want = dict.fromkeys(launches, 0)
+        want.update(pairwise_accel=steps, pack_and_histogram=4 * steps, gather_rows=4 * steps,
+                    unmarshal=4 * steps, compact_positions=4 * steps + 1)
+        check(launches == want, f"nbody: K9 once a step, K3/K1/K2 four times, K6 once per enqueue: {launches}")
+
+    # a witness off the card: the same small run on the CPU (plain versions)
+    small = dataclasses.replace(cfg, num_particles=WITNESS_N, g=64.0 / WITNESS_N)
+    t2 = time.perf_counter()
+    pd, vd, sd = nbody.run(small, num_ranks=R, device=dev)
+    wall_small = time.perf_counter() - t2  # a step's fixed cost: launches of four small rounds
+    pc, vc, sc = nbody.run(small, num_ranks=R, device="cpu")
+    gap_p, gap_v = float(np.abs(pd - pc).max()), float(np.abs(vd - vc).max())
+    print(f"  N={WITNESS_N} R={R} on {dev.type}: wall {wall_small:.3f} s ({1e3 * wall_small / steps:.2f} ms "
+          f"per step); against the CPU: max |pos| gap {gap_p!r}, max |vel| gap {gap_v!r}", flush=True)
+    check(sd == sc and gap_p <= 1e-5 and gap_v <= 1e-4,
+          f"nbody: N={WITNESS_N} run on {dev.type} == CPU run (totals, drops; pos 1e-5, vel 1e-4)")
+    out = {"n": N, "num_ranks": R, "steps": steps, "g": cfg.g, "wall_s": wall, "ms_per_step": 1e3 * wall / steps,
+           "oracle_max_err": err, "r1_wall_s": wall1, "live_per_rank": live.tolist(), "k9_live_pair_share": live_share, "r1_oracle_max_err": err1,
+           "cpu_witness": {"n": WITNESS_N, "pos_gap": gap_p, "vel_gap": gap_v, "wall_s": wall_small}}
+    if profile and dev.type == "cuda":
+        out["profile"] = profile_drive(lambda: nbody.run(cfg, num_ranks=R, device=dev), dev,
+                                       kernel="pairwise_accel")
+    return out, launches
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -680,7 +907,8 @@ def main() -> int:
     record = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda, "build_s": t_build}
 
     run = {"kernels": lambda: phase_kernels(dev), "forward": lambda: phase_forward(dev),
-           "streamlines": lambda: phase_streamlines(dev), "vopat": lambda: phase_vopat(dev)}
+           "streamlines": lambda: phase_streamlines(dev), "vopat": lambda: phase_vopat(dev),
+           "nbody": lambda: phase_nbody(dev)}
     kernels, paths = {}, {}  # paths: launches per path, counted from 0
     for title in run:
         print(f"# phase {title}", flush=True)
@@ -694,7 +922,7 @@ def main() -> int:
         if title == "kernels":
             kernels, more = res
             paths.update(more)
-        elif title in ("streamlines", "vopat"):
+        elif title in ("streamlines", "vopat", "nbody"):
             record[title], paths[title] = res
         else:
             record[title] = res

@@ -10,13 +10,15 @@ issues inside ``shard_map`` becomes a tensor operation on that axis:
                   (a broadcast view, no copy)
   psum(x)         x (R, ...) → the sum over ranks; the replicated result is
                   held once, without the rank axis
+  pmin(x)         x (R, ...) → the minimum over ranks, held once
+                  (``jax.lax.pmin``)
 
 :class:`StackedCollectives` counts its calls in ``calls``, a Counter keyed
 by :class:`Call` (kind, bytes, shape): a long drive adds counts, not
 entries.  The port has no lowered HLO to audit, so the recorder is how the
 collective budget is guarded: on ``exchange="padded"`` a round issues
 exactly one payload ``all_to_all`` and one count ``all_to_all``.  A
-``torch.distributed`` backend will sit behind the same three methods.
+``torch.distributed`` backend will sit behind the same four methods.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ __all__ = ["Call", "StackedCollectives"]
 
 @dataclasses.dataclass(frozen=True)
 class Call:
-    kind: str  # "all_to_all" | "all_gather" | "psum"
+    kind: str  # "all_to_all" | "all_gather" | "psum" | "pmin"
     nbytes: int  # bytes of the stacked input (every rank's contribution)
     shape: Tuple[int, ...]
 
@@ -58,6 +60,10 @@ class StackedCollectives:
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         self._record("psum", x)
         return x.sum(dim=0, dtype=x.dtype)
+
+    def pmin(self, x: torch.Tensor) -> torch.Tensor:
+        self._record("pmin", x)
+        return x.amin(dim=0)
 
     def count(self, kind: str) -> int:
         return sum(n for c, n in self.calls.items() if c.kind == kind)

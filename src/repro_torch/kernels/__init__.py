@@ -14,6 +14,9 @@ CUDA C++ sources live in ``csrc/`` and are built by ``build.py``.
                    K2 unmarshal (receive compaction), K7 marshal (the
                    two-pass marshal's segment copy)
   rk4_advect/      K8 rk4_step (§5.4 RK4 particle advection)
+  nbody_forces/    K9 pairwise_accel (§5.5 softened all-pairs gravity)
+  delta_tracking/  K10 track (§5.1 Woodcock steps through Gaussian blobs;
+                   no app calls it)
 
 Dispatch is by the tensors' device and never falls back: CPU tensors run
 the plain version, CUDA tensors launch the kernel or raise.
@@ -59,10 +62,12 @@ def stream_handle() -> int:
 
 
 def kernel_wrappers() -> Dict[str, object]:
-    """The kernel wrappers of the ported paths, by kernel name."""
+    """The wrappers of all ten kernels, by kernel name."""
     from repro_torch.kernels.bucket_scatter import ops as bs_ops
     from repro_torch.kernels.compact import ops as compact_ops
+    from repro_torch.kernels.delta_tracking import ops as dt_ops
     from repro_torch.kernels.marshal import ops as marshal_ops
+    from repro_torch.kernels.nbody_forces import ops as nb_ops
     from repro_torch.kernels.rk4_advect import ops as rk4_ops
     from repro_torch.kernels.sort_keys import ops as sk_ops
 
@@ -75,6 +80,8 @@ def kernel_wrappers() -> Dict[str, object]:
         "compact_positions": compact_ops.compact_positions,
         "marshal": marshal_ops.marshal,
         "rk4_step": rk4_ops.rk4_step,
+        "pairwise_accel": nb_ops.pairwise_accel,
+        "track": dt_ops.track,
     }
 
 

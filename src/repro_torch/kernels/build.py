@@ -1,12 +1,13 @@
 """Build the CUDA C++ kernels with ``nvcc`` and load them with ``ctypes``.
 
-Every source ``csrc/*.cu`` exposes a plain C interface.  One ``nvcc`` call
-compiles them all, on the machine with the card, into one shared library
-``build/librafi-<hash>.so`` at the repository root (the hash covers every
-source and the flags, so an edited kernel is rebuilt, never reused stale).
-No PyTorch header is included: the build takes seconds, not minutes.  The
-first launch of any wrapper builds and loads the library; nothing here runs
-at import time.
+Every source ``csrc/*.cu`` exposes a plain C interface.  On the machine with
+the card, one ``nvcc`` per source compiles it to an object file, all of them
+started together, and one more ``nvcc`` links the objects into one shared
+library ``build/librafi-<hash>.so`` at the repository root (the hash covers
+every source and the flags, so an edited kernel is rebuilt, never reused
+stale).  No PyTorch header is included: the build takes seconds, not
+minutes.  The first launch of any wrapper builds and loads the library;
+nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -24,9 +25,9 @@ __all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-NVCC_FLAGS = (
+NVCC_FLAGS = (  # compile flags; the link adds -shared
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -58,10 +59,24 @@ def build() -> float:
         )
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc {res.returncode}):\n{res.stdout}{res.stderr}")
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in _sources()]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(_sources(), objs)
+    ]
+    logs = [(p, p.communicate()[0]) for p in procs]
+    try:
+        failed = [f"{p.args[-1]} (rc {p.returncode}):\n{log}" for p, log in logs if p.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (rc {res.returncode}):\n{res.stdout}{res.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)  # atomic: a concurrent loader sees a whole library
     return time.perf_counter() - t0
 

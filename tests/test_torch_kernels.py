@@ -4,17 +4,25 @@ On the CPU each wrapper runs its plain PyTorch version; that version is held
 against the JAX ``ref.py`` AND the Pallas kernel called standalone with
 ``interpret=True``.  K1, K2 and K3 move or count data: bit for bit.  K8 is
 float arithmetic: rtol 1e-6 with an atol of 1e-6 for components near zero
-(the libm of torch and of XLA may differ by an ulp per sin/cos).  Tests
-marked ``cuda`` hold the CUDA kernels against the plain versions on a card
-and skip here.
+(the libm of torch and of XLA may differ by an ulp per sin/cos).  K9 sums
+its sources in another order than XLA: rtol = atol = 2e-5, the bound of
+``tests/test_kernels.py`` between the Pallas kernel and its ``ref.py``.  K10:
+``t`` within rtol 1e-6 and every status equal, that file's bound too (an
+ulp of ``exp``/``log1p`` could flip a near-tie, and none lies in these
+inputs).  Tests marked ``cuda`` hold the CUDA kernels against the plain
+versions on a card and skip here.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels.delta_tracking import kernel as JDK
+from repro.kernels.delta_tracking import ref as JDR
 from repro.kernels.marshal import kernel as JMK
 from repro.kernels.marshal import ref as JMR
+from repro.kernels.nbody_forces import kernel as JNK
+from repro.kernels.nbody_forces import ref as JNR
 from repro.kernels.rk4_advect import kernel as JRK
 from repro.kernels.rk4_advect import ref as JRR
 from repro.kernels.sort_keys import kernel as JSK
@@ -23,7 +31,9 @@ from repro.kernels.sort_keys import ref as JSR
 from repro_torch import kernels as KN
 from repro_torch.core import sorting as TS
 from repro_torch.kernels import build
+from repro_torch.kernels.delta_tracking import ops as DO
 from repro_torch.kernels.marshal import ops as MO
+from repro_torch.kernels.nbody_forces import ops as NO
 from repro_torch.kernels.rk4_advect import ops as RO
 from repro_torch.kernels.sort_keys import ops as SO
 
@@ -182,6 +192,120 @@ def test_k8_plain_matches_ref_and_pallas(field_id):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
 
 
+# ------------------------------------------------------------------- K9
+@pytest.mark.parametrize("n,m,ti,tj", [(64, 64, 16, 16), (128, 256, 128, 128), (96, 32, 32, 32)])
+def test_k9_plain_matches_ref_and_pallas(n, m, ti, tj):
+    """The shapes of ``tests/test_kernels.py``; rtol = atol = 2e-5."""
+    rng = np.random.default_rng(n + m)
+    xi = rng.normal(size=(n, 3)).astype(np.float32)
+    xj = rng.normal(size=(m, 3)).astype(np.float32)
+    mj = rng.random(m).astype(np.float32)
+    got = NO.pairwise_accel(*map(torch.from_numpy, (xi, xj, mj)))
+    assert got.shape == (n, 3) and got.dtype == torch.float32
+    want = JNR.pairwise_accel(jnp.asarray(xi), jnp.asarray(xj), jnp.asarray(mj))
+    pallas = JNK.pairwise_accel(jnp.asarray(xi), jnp.asarray(xj), jnp.asarray(mj),
+                                ti=ti, tj=tj, interpret=True)
+    for ref in (want, pallas):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)
+
+
+def test_k9_batched_and_chunked_equal_unbatched_bit_for_bit(monkeypatch):
+    """A B = 3 call equals three unbatched calls, and a chunked evaluation
+    equals an unchunked one, bit for bit: a target's sum over M does not
+    depend on the other targets or rows of the call."""
+    rng = np.random.default_rng(9)
+    xi = torch.from_numpy(rng.normal(size=(3, 70, 3)).astype(np.float32))
+    xj = torch.from_numpy(rng.normal(size=(3, 133, 3)).astype(np.float32))
+    mj = torch.from_numpy(rng.random((3, 133)).astype(np.float32))
+    batched = NO.pairwise_accel(xi, xj, mj, eps2=1e-3)
+    assert batched.shape == (3, 70, 3)
+    for b in range(3):
+        one = NO.pairwise_accel(xi[b], xj[b], mj[b], eps2=1e-3)
+        assert torch.equal(batched[b], one)
+    for rows in (1, 7, 64):  # targets per chunk: temporaries of rows · (3, 133, 3) floats
+        monkeypatch.setattr(NO, "_TEMP_BYTES", rows * 3 * 133 * 12)
+        assert torch.equal(NO.pairwise_accel(xi, xj, mj, eps2=1e-3), batched)
+
+
+def test_k9_zero_mass_sources_are_inert():
+    """All-zero masses give zeros (``tests/test_kernels.py``), and zero-mass
+    sources appended to a source list change no bit of the result."""
+    xj = torch.from_numpy(np.random.default_rng(1).normal(size=(16, 3)).astype(np.float32))
+    assert torch.equal(NO.pairwise_accel(torch.zeros(8, 3), xj, torch.zeros(16)), torch.zeros(8, 3))
+    rng = np.random.default_rng(2)
+    xi = torch.from_numpy(rng.normal(size=(2, 10, 3)).astype(np.float32))
+    xj = torch.from_numpy(rng.normal(size=(2, 64, 3)).astype(np.float32))
+    mj = torch.from_numpy(rng.random((2, 64)).astype(np.float32))
+    mj[:, 32:] = 0.0
+    np.testing.assert_allclose(NO.pairwise_accel(xi, xj, mj).numpy(),
+                               NO.pairwise_accel(xi, xj[:, :32], mj[:, :32]).numpy(), rtol=2e-6, atol=1e-6)
+
+
+def test_k9_wrapper_rejects_bad_shapes_and_types():
+    f = lambda *s: torch.zeros(*s)
+    with pytest.raises(ValueError, match="pairwise_accel takes"):
+        NO.pairwise_accel(f(2, 4, 3), f(3, 5, 3), f(3, 5))
+    with pytest.raises(ValueError, match="pairwise_accel takes"):
+        NO.pairwise_accel(f(4, 3), f(5, 3), f(4))
+    with pytest.raises(TypeError, match="float32"):
+        NO.pairwise_accel(f(4, 3), f(5, 3).double(), f(5))
+    with pytest.raises(ValueError, match="eps2"):
+        NO.pairwise_accel(f(4, 3), f(5, 3), f(5), eps2=0.0)
+
+
+# ------------------------------------------------------------------ K10
+def _track_inputs(rng, n, steps, g):
+    """The inputs of ``tests/test_kernels.py::test_delta_tracking_matches_ref``."""
+    o = rng.normal(size=(n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    t0 = np.zeros(n, np.float32)
+    texit = (rng.random(n) * 4 + 0.5).astype(np.float32)
+    u = rng.random((n, steps, 2)).astype(np.float32)
+    blobs = np.concatenate(
+        [rng.normal(size=(g, 3)), rng.random((g, 1)) + 0.3, rng.random((g, 1)) * 2], axis=1
+    ).astype(np.float32)
+    return o, d, t0, texit, u, blobs
+
+
+@pytest.mark.parametrize("n,steps,g", [(64, 4, 4), (256, 8, 8), (128, 1, 2)])
+def test_k10_plain_matches_ref_and_pallas(n, steps, g):
+    """``t`` within rtol 1e-6, statuses equal, against ``ref.track`` and the
+    Pallas kernel in interpret mode."""
+    args = _track_inputs(np.random.default_rng(n + steps), n, steps, g)
+    t, status = DO.track(*map(torch.from_numpy, args), majorant=4.0, steps=steps)
+    assert t.dtype == torch.float32 and status.dtype == torch.int32
+    jargs = tuple(map(jnp.asarray, args))
+    for jt, js in (JDR.track(*jargs, majorant=4.0, steps=steps),
+                   JDK.track(*jargs, majorant=4.0, steps=steps, tile=32, interpret=True)):
+        np.testing.assert_allclose(t.numpy(), np.asarray(jt), rtol=1e-6)
+        np.testing.assert_array_equal(status.numpy(), np.asarray(js))
+    assert {DO.STILL, DO.HIT, DO.EXITED} <= set(status.tolist()) or steps == 1
+
+
+def test_k10_all_rays_exit_in_an_empty_field():
+    """Zero density and an exit just past the origin: every ray EXITED
+    (``tests/test_kernels.py::test_delta_tracking_statuses_are_consistent``)."""
+    n = 128
+    u = torch.from_numpy(np.random.default_rng(0).random((n, 4, 2)).astype(np.float32))
+    d = torch.tensor([[1.0, 0.0, 0.0]]).expand(n, 3)
+    blobs = torch.tensor([[0.0, 0.0, 0.0, 1.0, 0.0]])
+    t, s = DO.track(torch.zeros(n, 3), d, torch.zeros(n), torch.full((n,), 0.01), u, blobs,
+                    majorant=1.0, steps=4)
+    assert bool((s == DO.EXITED).all())
+    assert bool((t > 0.0).all())
+
+
+def test_k10_wrapper_rejects_bad_shapes_and_steps():
+    z = torch.zeros
+    with pytest.raises(ValueError, match="track takes"):
+        DO.track(z(4, 3), z(4, 3), z(4), z(5), z(4, 2, 2), z(1, 5), majorant=1.0, steps=2)
+    with pytest.raises(ValueError, match="steps"):
+        DO.track(z(4, 3), z(4, 3), z(4), z(4), z(4, 2, 2), z(1, 5), majorant=1.0, steps=3)
+    with pytest.raises(TypeError, match="float32"):
+        DO.track(z(4, 3), z(4, 3), z(4), z(4), z(4, 2, 2).double(), z(1, 5), majorant=1.0, steps=2)
+
+
 # ------------------------------------------------------- dispatch, no fallback
 def test_wrappers_take_plain_path_only_for_cpu_tensors():
     """A tensor on neither the CPU nor a CUDA device raises; nothing falls
@@ -198,6 +322,11 @@ def test_wrappers_take_plain_path_only_for_cpu_tensors():
         RO.rk4_step(torch.empty(4, 3, device="meta"), dt=0.1)
     with pytest.raises(ValueError, match="CPU tensors run the plain"):
         MO.gather_rows(torch.zeros(1, 4, 3, dtype=torch.int32), meta(1, 2))  # mixed
+    fmeta = lambda *s: torch.empty(*s, device="meta")
+    with pytest.raises(ValueError, match="CPU tensors run the plain"):
+        NO.pairwise_accel(fmeta(2, 4, 3), fmeta(2, 5, 3), fmeta(2, 5))
+    with pytest.raises(ValueError, match="CPU tensors run the plain"):
+        DO.track(fmeta(4, 3), fmeta(4, 3), fmeta(4), fmeta(4), fmeta(4, 2, 2), fmeta(1, 5), majorant=1.0, steps=2)
     assert KN.launch_counts() == dict.fromkeys(KN.launch_counts(), 0)
 
 
@@ -230,7 +359,10 @@ def test_cuda_kernels_equal_plain_versions(cuda_device):
     """On the card: K1-K7 bit-equal to their plain versions (K4 with
     DISCARD, out-of-range lanes and count < C; K5 with negative and
     past-the-end positions; K6 on a ragged tile edge; K7 with a clipped
-    offset), K8 within 1e-5 absolute (nvcc contracts to FMA)."""
+    offset), K8 within 1e-5 absolute (nvcc contracts to FMA); K9 within
+    rtol = atol = 2e-5 (another summation order; a ragged source tile and
+    B = 3 in one launch); K10 with ``t`` within rtol 1e-6 and statuses equal
+    (the same rounded operations and libm calls on both sides)."""
     from repro_torch.kernels.bucket_scatter import ops as BS
     from repro_torch.kernels.compact import ops as CO
 
@@ -275,3 +407,14 @@ def test_cuda_kernels_equal_plain_versions(cuda_device):
         pn, pv = RO.rk4_step_plain(pos.to(dev), dt=0.1, field_id=fid)
         assert float((kn - pn).abs().max()) <= 1e-5
         assert float((kv - pv).abs().max()) <= 1e-5
+    xi = torch.from_numpy(rng.normal(size=(3, 300, 3)).astype(np.float32))
+    xj = torch.from_numpy(rng.normal(size=(3, 777, 3)).astype(np.float32))
+    mj = torch.from_numpy(rng.random((3, 777)).astype(np.float32))
+    got = NO.pairwise_accel(xi.to(dev), xj.to(dev), mj.to(dev), eps2=1e-3).cpu()
+    np.testing.assert_allclose(got.numpy(), NO.pairwise_accel_plain(xi, xj, mj, eps2=1e-3).numpy(),
+                               rtol=2e-5, atol=2e-5)
+    args = tuple(map(torch.from_numpy, _track_inputs(rng, 5000, 8, 6)))
+    kt, ks = DO.track(*(a.to(dev) for a in args), majorant=4.0, steps=8)
+    pt, ps = DO.track_plain(*(a.to(dev) for a in args), majorant=4.0, steps=8)
+    np.testing.assert_allclose(kt.cpu().numpy(), pt.cpu().numpy(), rtol=1e-6)
+    assert torch.equal(ks.cpu(), ps.cpu())

@@ -620,6 +620,6 @@ def test_new_wrappers_take_plain_path_only_for_cpu_tensors():
         BS.scatter_rows(torch.zeros(1, 4, 3, dtype=torch.int32), meta(1, 4), num_slots=4)  # mixed
     assert set(KN.kernel_wrappers()) == {
         "gather_rows", "unmarshal", "pack_and_histogram", "rank_and_histogram",
-        "scatter_rows", "compact_positions", "marshal", "rk4_step",
+        "scatter_rows", "compact_positions", "marshal", "rk4_step", "pairwise_accel", "track",
     }
     assert KN.launch_counts() == dict.fromkeys(KN.launch_counts(), 0)
