@@ -16,11 +16,17 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    version against a float64 witness on a sample, each
                    within 1e-5 of the row's sum of |terms|, K9 within 2x the
                    plain version's error; K10's t within rtol 1e-6, statuses
-                   equal but for near-ties) and timed with CUDA events beside
-                   its plain version, a PyTorch library call where one
-                   exists, and its bound (bytes over 3.35 TB/s or float32
-                   operations over 67e12/s); plus the two-pass marshal path
-                   (K3 + sort + K7) against K1's fused marshal;
+                   equal but for near-ties) and timed beside its plain
+                   version, a PyTorch library call where one exists, and its
+                   bound (bytes over 3.35 TB/s or float32 operations over
+                   67e12/s), each two ways: ``device_ms`` (the device time of
+                   every kernel, fill and memset of a call, from
+                   ``torch.profiler`` over 20 back-to-back calls) and
+                   ``call_ms`` (one CUDA event pair around one call, host
+                   issue time included); K2 and K6 must make one kernel
+                   launch a call and no fill; K2 also at VoPaT's shape, K6
+                   at the streamlines and VoPaT shapes; plus the two-pass
+                   marshal path (K3 + sort + K7) against K1's fused marshal;
   2. forward     — one ``forward_work`` round of the Fig-8 44-byte ray, R=8
                    ranks × C=262,144 (2,097,152 rays, about one 1080p frame
                    of primary rays), S=65,536 peer slots, in both marshal
@@ -53,7 +59,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    card against the same run on the CPU; wall time per step,
                    the device-busy share and K9's share of device time;
   6. report      — one JSON line of the kernels (launches on the paths that
-                   run them, errors, times, bounds), the card's name and
+                   run them, errors, bounds; ``ms``, ``plain_ms`` and
+                   ``library_ms`` are device times, ``call_ms`` the event
+                   pair's; device events a call), the card's name and
                    power limit, and a last line
                    ``{"ok": true, "device": {...}}``.
 
@@ -74,7 +82,9 @@ import traceback
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+L2_BYTES = 50e6  # H100 L2 cache
 REPS = 20
+DEVICE_CALLS = 20  # calls a device_ms profile averages over
 
 KERNELS = {  # name → (source in the repo, the TPU kernel it replaces)
     "pack_and_histogram": ("src/repro_torch/kernels/csrc/sort_keys.cu",
@@ -120,7 +130,10 @@ def check(cond: bool, what: str) -> bool:
 
 
 def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn()`` after warm-up."""
+    """Median of ``reps`` CUDA-event timings of ``fn()`` after warm-up: one
+    event pair around one call, so the span also holds the host's issue
+    time (allocations, the library load, the ``ctypes`` call) whenever the
+    card waits on it.  Reported as ``call_ms``."""
     import torch
 
     for _ in range(warmup):
@@ -135,6 +148,90 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _device_events(prof):
+    """Device-side events of a profile (kernels, copies, fills, memsets):
+    an aten op's own entry repeats the device time of the kernels it
+    launched, so only these are summed."""
+    import torch
+
+    return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _short(key: str) -> str:
+    """A device event's name without its argument list."""
+    key = key.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return key.split("(")[0][:90] if not key.startswith("Mem") else key
+
+
+def device_ms(fn, calls: int = DEVICE_CALLS, warmup: int = 3, attempts: int = 3):
+    """Device time of one call of ``fn``: ``calls`` back-to-back calls after
+    warm-up under ``torch.profiler``; for every device event (kernels,
+    fills, memsets, copies) its mean ``self_device_time_total`` times its
+    launches a call, summed.  The host's issue time is left out.  The
+    profiler may miss a few of an event's launches (on the H100 it
+    recorded 15 to 19 of 20 in some profiles), so launches a call are the
+    recorded count over ``calls`` rounded, and at least 1.  Returns ``(ms,
+    events)``, ``events`` the launches a call by event name.  A profile
+    that recorded no device event is taken again, up to ``attempts`` times
+    in all; after that the calls are timed between one CUDA event pair (an
+    upper bound: it also holds any host time the card waits on) and
+    ``events`` is None."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        stats = [e for e in _device_events(prof) if e.count > 0]
+        if sum(e.self_device_time_total for e in stats) > 0:
+            break
+    else:
+        print(f"  device_ms: the profiler saw no device time in {attempts} profiles; timing "
+              f"{calls} calls between one CUDA event pair instead", flush=True)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / calls, None
+    us, events = 0.0, {}
+    for e in stats:
+        per_call = max(1, round(e.count / calls))
+        us += e.self_device_time_total / e.count * per_call
+        events[_short(e.key)] = events.get(_short(e.key), 0) + per_call
+        if e.count != per_call * calls:
+            print(f"  device_ms: the profiler recorded {e.count} launches of {_short(e.key)} "
+                  f"in {calls} calls; counted {per_call} a call", flush=True)
+    return us / 1e3, events
+
+
+def kernels_a_call(events):
+    """Kernel launches a call among ``device_ms``'s events (copies and
+    memsets are not kernels); None where the profiler recorded none."""
+    return None if events is None else sum(v for k, v in events.items() if not k.startswith("Mem"))
+
+
+def _timed(timer, dtimer, kernel, plain, library=None, *, reps=REPS, calls=DEVICE_CALLS, warmup=3):
+    """The kernel's wrapper, its plain version and the library call (where
+    there is one), each timed by the event pair (``call_ms``,
+    ``plain_call_ms``, ``library_call_ms``) and by device time
+    (``device_ms``, ``events``, and the same with the prefixes)."""
+    out = {}
+    for pre, fn in (("", kernel), ("plain_", plain), ("library_", library)):
+        if fn is None:
+            out.update({f"{pre}call_ms": None, f"{pre}device_ms": None, f"{pre}events": None})
+            continue
+        out[f"{pre}call_ms"] = timer(fn, reps=reps, warmup=warmup)
+        out[f"{pre}device_ms"], out[f"{pre}events"] = dtimer(fn, calls=calls, warmup=warmup)
+    return out
 
 
 def bound_ms(nbytes: float, ops: float = 0.0):
@@ -164,7 +261,7 @@ def _fig8_dest(gen, R, C, dev):
 
 def phase_kernels(dev, R=8, C=262144, S=65536, W=11, N_PART=2097152,
                   MASKS=((8, 131072), (8, 1048576)), NBODY=(8, 262144, 262288), SAMPLE=4096,
-                  RAYS=1024, timer=cuda_ms):
+                  RAYS=1024, K2_VOPAT=(8, 8, 1048576, 15), timer=cuda_ms, dtimer=device_ms):
     import torch
 
     from repro_torch import kernels as KN
@@ -177,6 +274,7 @@ def phase_kernels(dev, R=8, C=262144, S=65536, W=11, N_PART=2097152,
 
     gen = torch.Generator(device=dev).manual_seed(1234)
     rows = {}
+    T = lambda *fns: _timed(timer, dtimer, *fns)
 
     # K3: dest (R, C) with DISCARD, out-of-range lanes and count < C on some ranks
     dest = _fig8_dest(gen, R, C, dev)
@@ -196,9 +294,9 @@ def phase_kernels(dev, R=8, C=262144, S=65536, W=11, N_PART=2097152,
           f"int64 keys it writes, {int64_bytes} B = {bound_ms(int64_bytes)[0]:.4f} ms", flush=True)
     rows["pack_and_histogram"] = dict(
         max_abs_err=0.0 if ok else float((k_keys - p_keys).abs().max()),
-        ms=timer(lambda: SO.pack_and_histogram(dest, count, num_ranks=R, idx_bits=ib)),
-        plain_ms=timer(lambda: SO.pack_and_histogram_plain(dest, count, num_ranks=R, idx_bits=ib)),
-        library_ms=None, nbytes=nbytes, ops=0.0,
+        **T(lambda: SO.pack_and_histogram(dest, count, num_ranks=R, idx_bits=ib),
+            lambda: SO.pack_and_histogram_plain(dest, count, num_ranks=R, idx_bits=ib)),
+        nbytes=nbytes, ops=0.0,
         library_call=None, int64_key_bytes=int64_bytes,
     )
 
@@ -217,9 +315,9 @@ def phase_kernels(dev, R=8, C=262144, S=65536, W=11, N_PART=2097152,
     nbytes = idx.numel() * 4 + uniq * W * 4 + k_out.numel() * 4
     rows["gather_rows"] = dict(
         max_abs_err=0.0 if ok else float((k_out - p_out).abs().max()),
-        ms=timer(lambda: MO.gather_rows(src, idx)),
-        plain_ms=timer(lambda: MO.gather_rows_plain(src, idx)),
-        library_ms=timer(lambda: src[b_idx, idx_long]), nbytes=nbytes, ops=0.0,
+        **T(lambda: MO.gather_rows(src, idx), lambda: MO.gather_rows_plain(src, idx),
+            lambda: src[b_idx, idx_long]),
+        nbytes=nbytes, ops=0.0,
         library_call="advanced indexing src[b, idx]",
     )
     del k_out, p_out, lib_out, src
@@ -249,12 +347,14 @@ def phase_kernels(dev, R=8, C=262144, S=65536, W=11, N_PART=2097152,
     nbytes = landed * W * 4 + 2 * off.numel() * 4 + k_out.numel() * 4
     rows["unmarshal"] = dict(
         max_abs_err=0.0 if ok else float((k_out - p_out).abs().max()),
-        ms=timer(lambda: MO.unmarshal(recv, off, counts, capacity=C)),
-        plain_ms=timer(lambda: MO.unmarshal_plain(recv, off, counts, capacity=C)),
-        library_ms=timer(library), nbytes=nbytes, ops=0.0,
+        **T(lambda: MO.unmarshal(recv, off, counts, capacity=C),
+            lambda: MO.unmarshal_plain(recv, off, counts, capacity=C), library),
+        nbytes=nbytes, ops=0.0,
         library_call="zeros + index_put_ at precomputed positions",
     )
-    del k_out, p_out, recv, flat
+    _one_launch("unmarshal", "unmarshal_kernel", rows["unmarshal"]["events"], dev)
+    del k_out, p_out, recv, flat, dst, bb, keep
+    rows["unmarshal"]["vopat_shape"] = _kernel_k2_at(dev, gen, timer, dtimer, *K2_VOPAT)
 
     # K8: all three fields; the ABC timing goes in the report
     pos = torch.rand((N_PART, 3), generator=gen, device=dev) * 6.283185307179586
@@ -269,9 +369,9 @@ def phase_kernels(dev, R=8, C=262144, S=65536, W=11, N_PART=2097152,
     # flops forming the stage inputs, 21 in the final combination
     rows["rk4_step"] = dict(
         max_abs_err=max(errs),
-        ms=timer(lambda: RO.rk4_step(pos, dt=0.1, field_id=RO.ABC)),
-        plain_ms=timer(lambda: RO.rk4_step_plain(pos, dt=0.1, field_id=RO.ABC)),
-        library_ms=None, nbytes=N_PART * 12 + 2 * N_PART * 12, ops=N_PART * (4 * 15 + 18 + 21),
+        **T(lambda: RO.rk4_step(pos, dt=0.1, field_id=RO.ABC),
+            lambda: RO.rk4_step_plain(pos, dt=0.1, field_id=RO.ABC)),
+        nbytes=N_PART * 12 + 2 * N_PART * 12, ops=N_PART * (4 * 15 + 18 + 21),
         library_call=None,
     )
     # K4: the scatter plan, on K3's destinations (DISCARD, out-of-range
@@ -282,9 +382,9 @@ def phase_kernels(dev, R=8, C=262144, S=65536, W=11, N_PART=2097152,
     check(ok, f"K4 rank_and_histogram dest {tuple(dest.shape)}: d_clean, rank and histogram bit-equal to plain")
     rows["rank_and_histogram"] = dict(
         max_abs_err=0.0 if ok else float(max((a - b).abs().max() for a, b in zip(k4, p4))),
-        ms=timer(lambda: BS.rank_and_histogram(dest, count, num_ranks=R)),
-        plain_ms=timer(lambda: BS.rank_and_histogram_plain(dest, count, num_ranks=R)),
-        library_ms=None, nbytes=dest.numel() * 4 * 3 + count.numel() * 4 + k4[2].numel() * 4,
+        **T(lambda: BS.rank_and_histogram(dest, count, num_ranks=R),
+            lambda: BS.rank_and_histogram_plain(dest, count, num_ranks=R)),
+        nbytes=dest.numel() * 4 * 3 + count.numel() * 4 + k4[2].numel() * 4,
         ops=0.0, library_call=None,
     )
 
@@ -307,33 +407,34 @@ def phase_kernels(dev, R=8, C=262144, S=65536, W=11, N_PART=2097152,
     landed = int(keep.sum())
     rows["scatter_rows"] = dict(
         max_abs_err=0.0 if ok else float((k_out - p_out).abs().max()),
-        ms=timer(lambda: BS.scatter_rows(src, dstpos, num_slots=R * S)),
-        plain_ms=timer(lambda: BS.scatter_rows_plain(src, dstpos, num_slots=R * S)),
-        library_ms=timer(library_k5),
+        **T(lambda: BS.scatter_rows(src, dstpos, num_slots=R * S),
+            lambda: BS.scatter_rows_plain(src, dstpos, num_slots=R * S), library_k5),
         nbytes=landed * W * 4 + dstpos.numel() * 4 + k_out.numel() * 4, ops=0.0,
         library_call="zeros + index_put_ at the positions",
     )
     del k_out, p_out
 
     # K6: emit masks of the streamlines shape and of the VoPaT shape; the
-    # larger one goes in the report
+    # last (VoPaT's) goes in the report, each one is kept under at_shapes
+    at_shapes = {}
     for shape in MASKS:
         mask = torch.rand(shape, generator=gen, device=dev) < 0.6
         kp, kt = CO.compact_positions(mask)
         pp, pt = CO.compact_positions_plain(mask)
         ok = torch.equal(kp, pp) and torch.equal(kt, pt)
         check(ok, f"K6 compact_positions mask {shape}: positions and totals bit-equal to plain")
-        rows["compact_positions"] = dict(
+        r = dict(
             max_abs_err=0.0 if ok else float((kp - pp).abs().max()),
-            ms=timer(lambda: CO.compact_positions(mask)),
-            plain_ms=timer(lambda: CO.compact_positions_plain(mask)),
-            library_ms=timer(lambda: torch.cumsum(mask, dim=1, dtype=torch.int32)),
+            **T(lambda: CO.compact_positions(mask), lambda: CO.compact_positions_plain(mask),
+                lambda: torch.cumsum(mask, dim=1, dtype=torch.int32)),
             nbytes=mask.numel() * (1 + 4) + kt.numel() * 4, ops=0.0,
             library_call="torch.cumsum", shape=shape,
         )
-        print(f"  compact_positions {shape}: kernel_ms {rows['compact_positions']['ms']:.4f} "
-              f"plain_ms {rows['compact_positions']['plain_ms']:.4f} "
-              f"cumsum_ms {rows['compact_positions']['library_ms']:.4f}", flush=True)
+        _one_launch("compact_positions", "compact_kernel", r["events"], dev)
+        _print_row(f"compact_positions {shape}", r)
+        at_shapes[str(shape)] = {k: v for k, v in r.items() if k != "at_shapes"}
+        rows["compact_positions"] = r
+    rows["compact_positions"]["at_shapes"] = at_shapes
 
     # K7 on the sorted Fig-8 payload.  The two-pass marshal path is timed
     # from the counts set to 0: K3 + sort, the sorted payload (K1 gathers
@@ -362,28 +463,76 @@ def phase_kernels(dev, R=8, C=262144, S=65536, W=11, N_PART=2097152,
     read = torch.zeros(R, cap2, dtype=torch.bool, device=dev).scatter_(1, seg, True)
     rows["marshal"] = dict(
         max_abs_err=0.0 if ok else float((k_out - p_out).abs().max()),
-        ms=timer(lambda: MO.marshal(sorted_buf, off, num_ranks=R, slot=S)),
-        plain_ms=timer(lambda: MO.marshal_plain(sorted_buf, off, num_ranks=R, slot=S)),
-        library_ms=timer(lambda: torch.gather(sorted_buf, 1, seg_w)),
+        **T(lambda: MO.marshal(sorted_buf, off, num_ranks=R, slot=S),
+            lambda: MO.marshal_plain(sorted_buf, off, num_ranks=R, slot=S),
+            lambda: torch.gather(sorted_buf, 1, seg_w)),
         nbytes=int(read.sum()) * W * 4 + off.numel() * 4 + k_out.numel() * 4, ops=0.0,
         library_call="torch.gather at the segment rows",
     )
     del k_out, p_out, two_pass, fused, sorted_buf, src
 
-    rows["pairwise_accel"] = _kernel_k9(dev, gen, timer, *NBODY, SAMPLE)
+    rows["pairwise_accel"] = _kernel_k9(dev, gen, timer, dtimer, *NBODY, SAMPLE)
     KN.reset_launch_counts()
-    rows["track"], woodcock_launches = _kernel_k10(dev, gen, timer, RAYS)
+    rows["track"], woodcock_launches = _kernel_k10(dev, gen, timer, dtimer, RAYS)
 
     for name, r in rows.items():
-        r["bound_ms"], r["bound_by"] = bound_ms(r["nbytes"], r["ops"])
-        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        print(f"  {name}: kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms {lib} "
-              f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}: {r['nbytes']} B, {r['ops']:.0f} ops) "
-              f"max_abs_err {r['max_abs_err']:.3e}", flush=True)
+        _print_row(name, r)
     return rows, {"two_pass_marshal": two_pass_launches, "woodcock_check": woodcock_launches}
 
 
-def _kernel_k9(dev, gen, timer, B, N, M, sample, eps2=1e-3):
+def _print_row(name, r):
+    """Bound, L2 state and one line of times: device ms (call ms) of the
+    kernel, its plain version and the library call."""
+    r["bound_ms"], r["bound_by"] = bound_ms(r["nbytes"], r["ops"])
+    r["l2_warm"] = r["nbytes"] <= L2_BYTES  # back-to-back calls find the working set in L2
+    fmt = lambda pre: ("n/a" if r[f"{pre}device_ms"] is None
+                       else f"{r[f'{pre}device_ms']:.4f} ({r[f'{pre}call_ms']:.4f})")
+    print(f"  {name}: device ms (call ms) kernel {fmt('')} plain {fmt('plain_')} library "
+          f"{fmt('library_')}; bound {r['bound_ms']:.4f} ({r['bound_by']}: {r['nbytes']} B, "
+          f"{r['ops']:.0f} ops; L2-{'warm' if r['l2_warm'] else 'cold'}); "
+          f"{kernels_a_call(r['events'])} kernels a call {r['events']}; "
+          f"max_abs_err {r['max_abs_err']:.3e}", flush=True)
+
+
+def _one_launch(name, kernel, events, dev):
+    """The wrapper ``name`` made one launch of its CUDA ``kernel`` a call, at
+    most one memset, and no other device work (no fill kernel)."""
+    if dev.type != "cuda":
+        return
+    if events is None:
+        check(False, f"{name}: launches a call not seen (the profiler recorded no device event)")
+        return
+    kern = {k: v for k, v in events.items() if not k.startswith("Mem")}
+    memset = sum(v for k, v in events.items() if k.startswith("Memset"))
+    other = sum(v for k, v in events.items() if k.startswith("Memcpy"))
+    check(len(kern) == 1 and kernel in next(iter(kern)) and next(iter(kern.values())) == 1
+          and memset <= 1 and other == 0,
+          f"{name}: one kernel launch a call, at most one memset, no fill: {events}")
+
+
+def _kernel_k2_at(dev, gen, timer, dtimer, B, G, S, W):
+    """K2 at VoPaT's shape (capacity S): counts uniform in [0, S/4), about
+    S rows offered a rank, so some ranks overflow; bit-equal to plain, and
+    the kernel's times beside its bound."""
+    import torch
+
+    from repro_torch.kernels.marshal import ops as MO
+
+    recv = torch.randint(-2**31, 2**31 - 1, (B, G, S, W), generator=gen, device=dev, dtype=torch.int32)
+    counts = torch.randint(0, S // 4, (B, G), generator=gen, device=dev, dtype=torch.int32)
+    off = torch.cumsum(counts, 1, dtype=torch.int32) - counts
+    ok = torch.equal(MO.unmarshal(recv, off, counts, capacity=S),
+                     MO.unmarshal_plain(recv, off, counts, capacity=S))
+    check(ok, f"K2 unmarshal recv {(B, G, S, W)} capacity {S}: bit-equal to plain")
+    landed = int(torch.clamp(counts.sum(1), max=S).sum())
+    r = dict(max_abs_err=0.0 if ok else float("nan"), shape=(B, G, S, W), offered=int(counts.sum()),
+             **_timed(timer, dtimer, lambda: MO.unmarshal(recv, off, counts, capacity=S), None),
+             nbytes=landed * W * 4 + 2 * counts.numel() * 4 + B * S * W * 4, ops=0.0)
+    _print_row(f"unmarshal at {(B, G, S, W)}", r)
+    return r
+
+
+def _kernel_k9(dev, gen, timer, dtimer, B, N, M, sample, eps2=1e-3):
     """K9 at the nbody path's shape: B ranks × N targets (every rank's queue
     capacity) against M = N + 2·72 sources (the local lanes, the roots and
     the octants), positions drawn like the app's (0.5 ± 0.15, clipped), the
@@ -418,10 +567,11 @@ def _kernel_k9(dev, gen, timer, B, N, M, sample, eps2=1e-3):
           "K9 and its plain version within 1e-5 of the float64 sum (relative to sum|terms|)")
     check(k_err <= 2 * p_err, f"K9's error {k_err:.3e} <= 2x the plain version's {p_err:.3e}")
     return dict(
-        max_abs_err=max_abs, ms=timer(lambda: NO.pairwise_accel(xi, xj, mj, eps2=eps2), reps=5, warmup=1),
-        plain_ms=timer(lambda: NO.pairwise_accel_plain(sx, sj, sm, eps2=eps2), reps=3, warmup=1),
+        max_abs_err=max_abs,
+        **_timed(timer, dtimer, lambda: NO.pairwise_accel(xi, xj, mj, eps2=eps2),
+                 lambda: NO.pairwise_accel_plain(sx, sj, sm, eps2=eps2), reps=5, warmup=1),
         plain_shape=f"({len(rows)}, {sample}) targets x ({len(rows)}, {M}) sources",
-        library_ms=None, library_call=None,
+        library_call=None,
         nbytes=B * N * 12 + B * M * 16 + B * N * 12, ops=20.0 * B * N * M,
         float64_err={"kernel": k_err, "plain": p_err, "kernel_vs_plain": kp_err},
     )
@@ -442,7 +592,7 @@ def _accel_float64(xi, xj, mj, eps2, rows=64):
     return acc, scale
 
 
-def _kernel_k10(dev, gen, timer, size, steps=8):
+def _kernel_k10(dev, gen, timer, dtimer, size, steps=8):
     """K10 at the VoPaT scene's shape: the ``size``² camera rays that enter
     [0,1]³, from the domain entry to the domain exit, K = 8 steps through the
     scene's 6 blobs.  ``t`` within rtol 1e-6 and statuses equal to the plain
@@ -479,9 +629,9 @@ def _kernel_k10(dev, gen, timer, size, steps=8):
     per_ray = 12 + 12 + 4 + 4 + 8 * steps + 4 + 4
     return dict(
         max_abs_err=(kt - pt)[~tie].abs().max().item(),
-        ms=timer(lambda: DO.track(*args, majorant=maj, steps=steps)),
-        plain_ms=timer(lambda: DO.track_plain(*args, majorant=maj, steps=steps)),
-        library_ms=None, library_call=None, nbytes=n * per_ray + blobs.numel() * 4,
+        **_timed(timer, dtimer, lambda: DO.track(*args, majorant=maj, steps=steps),
+                 lambda: DO.track_plain(*args, majorant=maj, steps=steps)),
+        library_call=None, nbytes=n * per_ray + blobs.numel() * 4,
         ops=float(n * steps * blobs.shape[0] * 14), rays=n, near_ties=n_tie,
     ), launches
 
@@ -664,9 +814,7 @@ def profile_drive(run, dev, kernel=None):
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # device-side events only (kernels, copies, fills): an aten op's own
-    # entry repeats the device time of the kernels it launched
-    stats = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    stats = _device_events(prof)
     dev_us = lambda e: e.self_device_time_total
     busy_us = sum(dev_us(e) for e in stats)
     if busy_us <= 0:
@@ -940,8 +1088,11 @@ def main() -> int:
         report.append({
             "name": k, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[k], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "ms": r["device_ms"], "plain_ms": r["plain_device_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_device_ms"],
+            "device_ms": r["device_ms"], "call_ms": r["call_ms"],
+            "kernels_a_call": kernels_a_call(r["events"]), "device_events": r["events"],
+            "l2_warm": r["l2_warm"],
         })
     record["kernels"] = report
     record["kernel_details"] = kernels

@@ -9,21 +9,43 @@
 //   total[b]   = #{j : mask[b, j]}                ((B,) int32)
 //
 // Bound on the H100: bytes (1 B of mask read, 4 B of position written per
-// lane).  The arithmetic is one add per lane.
+// lane).  The arithmetic is one add per lane.  At (8, 1,048,576), VoPaT's
+// enqueue, that is 41.9 MB: 0.0125 ms at 3.35 TB/s.
 //
-// Design: a tile scan in two launches over a (tile, row) grid.  The TPU
-// kernel carried the running sum across sequential grid steps in SMEM;
-// blocks here run in no order, so
-//   1. tile_count: each block counts its tile of 4096 lanes
-//      (__syncthreads_count over 16 strided passes) into tile_sums[b, t];
-//   2. tile_scan: each block sums the counts of the tiles before its own
-//      (at most n / 4096 reads), then scans its tile in 16 passes of 256
-//      lanes: a warp scan with __shfl_up_sync, the eight warp totals
-//      scanned by warp 0, and a running sum carried from pass to pass.
-//      The block of the last tile writes total[b].
-// Lane k*256 + tid of a tile is handled by thread tid in pass k, so every
-// load and store of a warp is coalesced.  It is a scan, not an atomic
-// append: a lane's position depends only on the lanes before it.
+// Design: one launch, a single pass with a decoupled look-back (Merrill and
+// Garland, "Single-pass Parallel Prefix Scan with Decoupled Look-back";
+// CUB's DeviceScan scheme).  The TPU kernel carried the running sum across
+// sequential grid steps in SMEM; blocks here run in no order, and counting
+// the tiles in one launch and scanning them in a second would read the mask
+// twice.  Here:
+//   - a block scans one tile of 8192 lanes (1,024 blocks at VoPaT's
+//     (8, 1,048,576): one wave on 132 SMs): each warp owns 1024 contiguous
+//     lanes as 8 groups of 128, and thread k takes lanes 4k..4k+3 of each
+//     group, so a warp's mask load of a group is 128 contiguous bytes (one
+//     4-byte load a thread where n % 4 == 0, bytes otherwise) and its store
+//     of the group's positions 512 contiguous bytes (one int4 a thread);
+//   - each thread turns its mask bytes into 0/1 and counts each group with
+//     __dp4a; the 8 counts, packed one byte each into two words, take two
+//     warp scans (a byte sums at most 128), and one pass over the 8 warp
+//     totals in shared memory gives each warp its base and the tile's sum;
+//   - the tile's prefix comes from a per-(row, tile) status word: flag and
+//     value in one 64-bit word, so relaxed loads and stores suffice (an
+//     acquire load at gpu scope would also invalidate the SM's L1 on every
+//     spin).  A tile
+//     first publishes its own sum (AGGREGATE); warp 0 then looks back 32
+//     predecessors at a time, waiting while any lane up to the nearest
+//     INCLUSIVE one is unpublished, sums them, and publishes its own
+//     INCLUSIVE prefix;
+//   - the last tile of a row writes total[b], so no output needs a fill.
+// The tile index is blockIdx.x and the row blockIdx.y, so a tile waits
+// only on blocks with lower linear indices, which the card has dispatched
+// before it.  The status words are scratch the caller keeps per device;
+// each word carries the call's epoch beside its flag, so words left by
+// earlier calls read as not yet published and no reset is needed between
+// calls.  When the caller passes epoch 1 (a new scratch, or the epoch
+// counter wrapped), the words are cleared first with one cudaMemsetAsync.
+// It is a scan, not an atomic append: a lane's position depends only on
+// the lanes before it.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -31,99 +53,180 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kPasses = 16;
-constexpr int64_t kTile = (int64_t)kThreads * kPasses;  // 4096 lanes
+constexpr int kGroups = 8;                                  // 4-lane groups a thread
+constexpr int kWarpLanes = 32 * 4 * kGroups;                // 1024 lanes a warp
+constexpr int64_t kTile = (int64_t)kWarps * kWarpLanes;     // 8192 lanes a block
 constexpr unsigned kFull = 0xffffffffu;
+constexpr uint32_t kAggregate = 1, kInclusive = 2;          // status flags
 
-__global__ void tile_count_kernel(const uint8_t* __restrict__ mask,
-                                  int32_t* __restrict__ tile_sums, int64_t n,
-                                  int64_t n_tiles) {
-  const int64_t b = blockIdx.y;
-  const int64_t lo = (int64_t)blockIdx.x * kTile;
-  const uint8_t* m_row = mask + b * n;
-  int total = 0;
-  for (int k = 0; k < kPasses; ++k) {
-    const int64_t i = lo + k * kThreads + threadIdx.x;
-    total += __syncthreads_count(i < n && m_row[i] != 0);
-  }
-  if (threadIdx.x == 0) tile_sums[b * n_tiles + blockIdx.x] = total;
+// The flag and the value share one 64-bit word, so relaxed accesses
+// suffice: no other memory is published with it.
+__device__ __forceinline__ void store_relaxed(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
 }
 
-// Exclusive scan of one value per thread across the block; *block_total
-// receives the sum over the block.  Uses and releases warp_sums.
-__device__ int block_exclusive_scan(int v, int* warp_sums, int* block_total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
+__device__ __forceinline__ unsigned long long load_relaxed(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long status_word(uint32_t tag, int32_t value) {
+  return ((unsigned long long)tag << 32) | (uint32_t)value;
+}
+
+// 0x00 stays 0, any other byte becomes 1
+__device__ __forceinline__ uint32_t bytes_to_bits(uint32_t x) {
+  return ((((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x) & 0x80808080u) >> 7;
+}
+
+__device__ __forceinline__ unsigned warp_inclusive_sum(unsigned x, int lane) {
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(kFull, x, o);
+    const unsigned y = __shfl_up_sync(kFull, x, o);
     if (lane >= o) x += y;
   }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int s = lane < kWarps ? warp_sums[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < kWarps; o <<= 1) {
-      const int y = __shfl_up_sync(kFull, s, o);
-      if (lane >= o) s += y;
-    }
-    if (lane < kWarps) warp_sums[lane] = s;
-  }
-  __syncthreads();
-  const int before = warp > 0 ? warp_sums[warp - 1] : 0;
-  *block_total = warp_sums[kWarps - 1];
-  __syncthreads();  // warp_sums is reused by the next call
-  return before + x - v;
+  return x;
 }
 
-__global__ void tile_scan_kernel(const uint8_t* __restrict__ mask,
-                                 const int32_t* __restrict__ tile_sums,
-                                 int32_t* __restrict__ pos,
-                                 int32_t* __restrict__ total, int64_t n,
-                                 int64_t n_tiles) {
+// Lane i of a tile: warp w = i / 1024, group q = (i / 128) % 8, thread k =
+// (i / 4) % 32 of the warp, byte i % 4 of the thread's 4-lane group.
+__global__ void __launch_bounds__(kThreads) compact_kernel(
+    const uint8_t* __restrict__ mask, int32_t* __restrict__ pos, int32_t* __restrict__ total,
+    unsigned long long* __restrict__ status, int64_t n, uint32_t n_tiles, uint32_t epoch,
+    bool vec_load, bool vec_store) {
   __shared__ int warp_sums[kWarps];
+  __shared__ int tile_prefix;
   const int64_t b = blockIdx.y;
-  const int64_t t = blockIdx.x;
-  // base of this tile: the counts of every tile before it
-  int partial = 0;
-  for (int64_t u = threadIdx.x; u < t; u += kThreads) partial += tile_sums[b * n_tiles + u];
-  int base;
-  block_exclusive_scan(partial, warp_sums, &base);
-
-  const int64_t lo = t * kTile;
+  const uint32_t t = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t first = (int64_t)t * kTile + (int64_t)warp * kWarpLanes + 4 * lane;
   const uint8_t* m_row = mask + b * n;
   int32_t* p_row = pos + b * n;
-  int running = base;
-  for (int k = 0; k < kPasses; ++k) {
-    const int64_t i = lo + k * kThreads + threadIdx.x;
-    const int v = (i < n && m_row[i] != 0) ? 1 : 0;
-    int pass_total;
-    const int excl = block_exclusive_scan(v, warp_sums, &pass_total);
-    if (i < n) p_row[i] = running + excl;
-    running += pass_total;
+
+  // the thread's 8 groups of 4 lanes, one 0/1 byte a lane; packed[h] holds
+  // the counts (0..4) of groups 4h..4h+3, one byte each
+  uint32_t bits[kGroups];
+  unsigned packed[kGroups / 4] = {};
+#pragma unroll
+  for (int q = 0; q < kGroups; ++q) {
+    const int64_t i = first + 128 * q;
+    uint32_t m = 0u;
+    if (vec_load) {
+      if (i < n) m = __ldg(reinterpret_cast<const unsigned*>(m_row + i));
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (i + k < n) m |= (uint32_t)m_row[i + k] << (8 * k);
+    }
+    bits[q] = bytes_to_bits(m);
+    packed[q >> 2] += __dp4a(bits[q], 0x01010101u, 0u) << (8 * (q & 3));
   }
-  if (t == n_tiles - 1 && threadIdx.x == 0) total[b] = running;
+
+  // warp scans of the packed counts (a field sums at most 32 x 4 = 128)
+  unsigned incl[kGroups / 4], wtot[kGroups / 4];
+#pragma unroll
+  for (int h = 0; h < kGroups / 4; ++h) {
+    incl[h] = warp_inclusive_sum(packed[h], lane);
+    wtot[h] = __shfl_sync(kFull, incl[h], 31);
+  }
+  int warp_total = 0;
+#pragma unroll
+  for (int q = 0; q < kGroups; ++q) warp_total += (int)((wtot[q >> 2] >> (8 * (q & 3))) & 0xffu);
+  if (lane == 0) warp_sums[warp] = warp_total;
+  __syncthreads();
+  int before = 0, agg = 0;
+#pragma unroll
+  for (int k = 0; k < kWarps; ++k) {
+    const int s = warp_sums[k];
+    before += k < warp ? s : 0;
+    agg += s;
+  }
+
+  // the tile's prefix: decoupled look-back by warp 0
+  if (warp == 0) {
+    unsigned long long* st_row = status + b * (int64_t)n_tiles;
+    const uint32_t tag_agg = (epoch << 2) | kAggregate, tag_inc = (epoch << 2) | kInclusive;
+    int prefix = 0;
+    if (t == 0) {
+      if (lane == 0) store_relaxed(&st_row[0], status_word(tag_inc, agg));
+    } else {
+      if (lane == 0) store_relaxed(&st_row[t], status_word(tag_agg, agg));
+      int64_t nearest = (int64_t)t - 1;  // lane k reads tile nearest - k
+      for (;;) {
+        const int64_t j = nearest - lane;
+        unsigned long long s;
+        unsigned inc, upto;
+        for (;;) {
+          s = j >= 0 ? load_relaxed(&st_row[j]) : status_word(tag_inc, 0);
+          const uint32_t tag = (uint32_t)(s >> 32);
+          inc = __ballot_sync(kFull, tag == tag_inc);
+          // lanes up to the nearest inclusive prefix (all 32 if none)
+          upto = inc ? ((inc & (0u - inc)) << 1) - 1u : kFull;
+          const unsigned unready = __ballot_sync(kFull, tag != tag_inc && tag != tag_agg);
+          if (!(unready & upto)) break;
+        }
+        int v = (upto >> lane & 1u) ? (int32_t)(uint32_t)s : 0;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+        prefix += v;
+        if (inc) break;
+        nearest -= 32;
+      }
+      if (lane == 0) store_relaxed(&st_row[t], status_word(tag_inc, prefix + agg));
+    }
+    if (lane == 0) tile_prefix = prefix;
+  }
+  __syncthreads();
+
+  if (t == n_tiles - 1 && threadIdx.x == 0) total[b] = tile_prefix + agg;
+  // a warp's store of group q covers 512 contiguous bytes
+  int group_base = tile_prefix + before;
+#pragma unroll
+  for (int q = 0; q < kGroups; ++q) {
+    const int shift = 8 * (q & 3);
+    const int own = (int)((packed[q >> 2] >> shift) & 0xffu);
+    int run = group_base + (int)((incl[q >> 2] >> shift) & 0xffu) - own;
+    group_base += (int)((wtot[q >> 2] >> shift) & 0xffu);
+    int4 v;
+    v.x = run; run += (int)(bits[q] & 1u);
+    v.y = run; run += (int)((bits[q] >> 8) & 1u);
+    v.z = run; run += (int)((bits[q] >> 16) & 1u);
+    v.w = run;
+    const int64_t i = first + 128 * q;
+    if (vec_store && i + 4 <= n) {
+      *reinterpret_cast<int4*>(p_row + i) = v;
+    } else {
+      if (i < n) p_row[i] = v.x;
+      if (i + 1 < n) p_row[i + 1] = v.y;
+      if (i + 2 < n) p_row[i + 2] = v.z;
+      if (i + 3 < n) p_row[i + 3] = v.w;
+    }
+  }
 }
 
 }  // namespace
 
-// mask (B, n) bool, pos (B, n) int32, total (B,) int32 (zeroed by the
-// caller), tile_sums (B, ceil(n / 4096)) int32 scratch.  n < 2^31.
-// Returns cudaGetLastError() after the two launches.
+// mask (B, n) bool, pos (B, n) int32, total (B,) int32, both written in
+// full; status: status_words 64-bit words of scratch kept by the caller,
+// at least B * ceil(n / 8192); epoch in [1, 2^30), a new one each call on
+// this scratch, 1 clearing the scratch first.  n < 2^31.
 extern "C" int rafi_compact_positions(const void* mask, void* pos, void* total,
-                                      void* tile_sums, int64_t rows, int64_t n,
-                                      void* stream) {
+                                      void* status, int64_t status_words, int64_t rows,
+                                      int64_t n, int64_t epoch, void* stream) {
   if (rows <= 0 || n <= 0) return (int)cudaGetLastError();
   const int64_t n_tiles = (n + kTile - 1) / kTile;
-  const dim3 grid((unsigned)n_tiles, (unsigned)rows);
+  if (epoch < 1 || epoch >= (1 << 30) || status_words < rows * n_tiles)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  tile_count_kernel<<<grid, kThreads, 0, s>>>((const uint8_t*)mask,
-                                              (int32_t*)tile_sums, n, n_tiles);
-  int rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  tile_scan_kernel<<<grid, kThreads, 0, s>>>(
-      (const uint8_t*)mask, (const int32_t*)tile_sums, (int32_t*)pos,
-      (int32_t*)total, n, n_tiles);
+  if (epoch == 1) {
+    const cudaError_t rc = cudaMemsetAsync(status, 0, status_words * sizeof(unsigned long long), s);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  const bool vec_load = n % 4 == 0 && (uintptr_t)mask % 4 == 0;
+  const bool vec_store = n % 4 == 0 && (uintptr_t)pos % 16 == 0;
+  compact_kernel<<<dim3((unsigned)n_tiles, (unsigned)rows), kThreads, 0, s>>>(
+      (const uint8_t*)mask, (int32_t*)pos, (int32_t*)total, (unsigned long long*)status, n,
+      (uint32_t)n_tiles, (uint32_t)epoch, vec_load, vec_store);
   return (int)cudaGetLastError();
 }

@@ -94,7 +94,9 @@ def unmarshal_plain(
 ) -> torch.Tensor:
     """Receive compaction, as ``ref.unmarshal`` per rank: block g's first
     ``recv_counts[b, g]`` rows land at ``clip(off, 0, cap) + s``; rows at or
-    past ``capacity`` are cut; every other row is zero."""
+    past ``capacity`` are cut; every other row is zero.  Blocks are written
+    in order of g, so where they overlap the last one wins, as in the
+    Pallas kernel's sequential grid."""
     rows, g, slot, w = recv_buf.shape
     dev = recv_buf.device
     off = recv_offsets.to(torch.int64).clamp(0, capacity)
@@ -102,11 +104,15 @@ def unmarshal_plain(
     dstpos = off[:, :, None] + s[None, None, :]
     ok = s[None, None, :] < recv_counts[:, :, None]
     dstpos = torch.where(ok & (dstpos < capacity), dstpos, capacity)
-    b_idx = torch.arange(rows, device=dev)[:, None, None].expand_as(dstpos)
+    b_idx = torch.arange(rows, device=dev)[:, None].expand(rows, slot)
     # one trash row per rank absorbs every cut row; it is sliced off below
     out = torch.zeros(rows, capacity + 1, w, dtype=recv_buf.dtype, device=dev)
-    out.index_put_((b_idx.reshape(-1), dstpos.reshape(-1)), recv_buf.reshape(-1, w))
+    for k in range(g):  # within one block the rows that land are distinct
+        out.index_put_((b_idx, dstpos[:, k]), recv_buf[:, k])
     return out[:, :capacity]
+
+
+_MAX_BLOCKS = 1024  # K2's table of G blocks in shared memory: csrc/marshal.cu
 
 
 def unmarshal(
@@ -114,7 +120,8 @@ def unmarshal(
     *, capacity: int,
 ) -> torch.Tensor:
     """K2: ``recv_buf (B, G, S, W)``, ``recv_offsets``/``recv_counts (B, G)``
-    → ``(B, capacity, W)``."""
+    → ``(B, capacity, W)``.  The kernel writes every output word once, so
+    the output is allocated uninitialised."""
     if recv_buf.dim() != 4 or recv_offsets.shape != recv_buf.shape[:2] or (
         recv_counts.shape != recv_buf.shape[:2]
     ):
@@ -126,9 +133,11 @@ def unmarshal(
         return unmarshal_plain(recv_buf, recv_offsets, recv_counts, capacity=capacity)
     rows, g, slot, w = recv_buf.shape
     _check_words("unmarshal", rows, max(g * slot, capacity) * w, recv_buf, recv_offsets, recv_counts)
+    if g > _MAX_BLOCKS:
+        raise ValueError(f"unmarshal: {g} received blocks a rank exceed the kernel's {_MAX_BLOCKS}")
     recv_buf = recv_buf.contiguous()
     recv_offsets, recv_counts = recv_offsets.contiguous(), recv_counts.contiguous()
-    out = torch.zeros(rows, capacity, w, dtype=recv_buf.dtype, device=recv_buf.device)
+    out = torch.empty(rows, capacity, w, dtype=recv_buf.dtype, device=recv_buf.device)
     lib = build.load(_SIGS)
     rc = lib.rafi_unmarshal(
         recv_buf.data_ptr(), recv_offsets.data_ptr(), recv_counts.data_ptr(),

@@ -176,6 +176,89 @@ def test_k2_plain_clips_offsets_like_ref():
     np.testing.assert_array_equal(U32(out[0].numpy()), np.asarray(want))
 
 
+# The cases the output-driven K2 branches on: (G, S, W, capacity, offsets,
+# counts) per rank, two ranks each.  cap·W % 4 == 0 takes the kernel's int4
+# stores, anything else its scalar stores.
+K2_CASES = {
+    "spills_past_capacity": (3, 8, 11, 20, [[0, 8, 14], [0, 6, 12]], [[8, 6, 8], [6, 6, 8]]),
+    "offsets_past_capacity_and_negative": (3, 6, 5, 16, [[-4, 20, 3], [16, -1, 40]], [[5, 6, 6], [6, 2, 3]]),
+    "counts_past_slot_zero_negative": (4, 5, 15, 24, [[0, 5, 10, 15], [0, 3, 3, 9]], [[9, 0, -3, 5], [-1, 5, 7, 0]]),
+    "one_block": (1, 9, 11, 12, [[2], [0]], [[9], [4]]),
+    "capw_not_multiple_of_4": (2, 7, 5, 13, [[0, 7], [1, 5]], [[7, 7], [4, 6]]),
+    "overlapping_last_block_wins": (4, 6, 11, 16, [[0, 2, 2, -3], [5, 1, 0, 4]], [[6, 6, 3, 2], [9, 6, -1, 6]]),
+    "w15_exclusive_prefix": (4, 16, 15, 40, [[0, 10, 23, 39], [0, 0, 16, 16]], [[10, 13, 16, 4], [0, 16, 0, 16]]),
+}
+
+
+def _k2_case(name):
+    g, s, w, cap, off, counts = K2_CASES[name]
+    rng = np.random.default_rng(len(name))
+    recv = rng.integers(0, 2**32, (2, g, s, w), dtype=np.uint64).astype(np.uint32)
+    return recv, np.array(off, np.int32), np.array(counts, np.int32), cap
+
+
+def _k2_reference(recv, off, counts, cap):
+    """Per rank: ``ref.unmarshal`` and the Pallas kernel in interpret mode."""
+    outs = []
+    for b in range(recv.shape[0]):
+        args = (jnp.asarray(recv[b]), jnp.asarray(off[b]), jnp.asarray(counts[b]))
+        want = np.asarray(JMR.unmarshal(*args, capacity=cap))
+        np.testing.assert_array_equal(np.asarray(JMK.unmarshal(*args, capacity=cap, interpret=True)), want)
+        outs.append(want)
+    return np.stack(outs)
+
+
+def _k2_output_driven(recv, off, counts, cap):
+    """A numpy model of ``csrc/marshal.cu``'s unmarshal_kernel: the word
+    table [start_g, end_g) and base_g = g·S·W − start_g, then 4 output words
+    at a time, each taken from the highest g whose range covers it (reading
+    recv word base_g + e), or 0."""
+    rows, g_blocks, slot, w = recv.shape
+    out = np.empty((rows, cap * w), np.uint32)
+    for b in range(rows):
+        o = np.clip(off[b].astype(np.int64), 0, cap)
+        n = np.clip(counts[b].astype(np.int64), 0, slot)
+        start, end = o * w, np.minimum(o + n, cap) * w
+        base = np.arange(g_blocks) * slot * w - start
+        flat = recv[b].reshape(-1)
+        for e0 in range(0, cap * w, 4):
+            src, todo = [-1] * 4, 0xF
+            for g in range(g_blocks - 1, -1, -1):
+                if not todo:
+                    break
+                lo, hi = (int(np.clip(x - e0, 0, 4)) for x in (start[g], end[g]))
+                if lo >= hi:
+                    continue
+                cover = ((1 << hi) - 1) & ~((1 << lo) - 1)
+                for k in range(4):
+                    if cover & todo & (1 << k):
+                        src[k] = int(base[g]) + e0 + k
+                todo &= ~cover
+            for k in range(min(4, cap * w - e0)):
+                out[b, e0 + k] = flat[src[k]] if src[k] >= 0 else 0
+    return out.reshape(rows, cap, w)
+
+
+@pytest.mark.parametrize("case", sorted(K2_CASES))
+def test_k2_plain_equals_ref_and_pallas_on_kernel_branches(case):
+    """The plain version on every case the kernel branches on: bit-equal to
+    ``ref.unmarshal`` and the Pallas kernel (overlapping blocks: the last
+    one wins in all three)."""
+    recv, off, counts, cap = _k2_case(case)
+    out = MO.unmarshal(torch.from_numpy(recv.view(np.int32)), torch.from_numpy(off),
+                       torch.from_numpy(counts), capacity=cap)
+    np.testing.assert_array_equal(U32(out.numpy()), _k2_reference(recv, off, counts, cap))
+
+
+@pytest.mark.parametrize("case", sorted(K2_CASES))
+def test_k2_output_driven_index_math_equals_ref(case):
+    """The kernel's index math (word ranges, scan from the highest block,
+    source base) modelled in numpy: bit-equal to the reference."""
+    recv, off, counts, cap = _k2_case(case)
+    np.testing.assert_array_equal(_k2_output_driven(recv, off, counts, cap),
+                                  _k2_reference(recv, off, counts, cap))
+
+
 # ------------------------------------------------------------------- K8
 @pytest.mark.parametrize("field_id", [RO.ABC, RO.TORNADO, RO.TAYLOR_GREEN],
                          ids=["abc", "tornado", "taylor_green"])
@@ -418,3 +501,27 @@ def test_cuda_kernels_equal_plain_versions(cuda_device):
     pt, ps = DO.track_plain(*(a.to(dev) for a in args), majorant=4.0, steps=8)
     np.testing.assert_allclose(kt.cpu().numpy(), pt.cpu().numpy(), rtol=1e-6)
     assert torch.equal(ks.cpu(), ps.cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_k2_output_driven_equals_plain_on_kernel_branches(cuda_device):
+    """On the card: K2 bit-equal to its plain version on every case of
+    ``K2_CASES`` (int4 and scalar stores, aligned and unaligned source
+    words, overlapping blocks) and at a Fig-8-like shape with many 4-word
+    groups a thread; more than 1024 blocks a rank raise before a launch."""
+    dev = cuda_device
+    for case in sorted(K2_CASES):
+        recv, off, counts, cap = _k2_case(case)
+        args = (torch.from_numpy(recv.view(np.int32)), torch.from_numpy(off), torch.from_numpy(counts))
+        got = MO.unmarshal(*(a.to(dev) for a in args), capacity=cap).cpu()
+        assert torch.equal(got, MO.unmarshal_plain(*args, capacity=cap)), case
+    rng = np.random.default_rng(11)
+    for w, cap in ((11, 9000), (5, 9001), (15, 4099)):
+        recv = torch.from_numpy(rng.integers(-(2**31), 2**31 - 1, (3, 8, 2048, w), dtype=np.int32))
+        counts = torch.from_numpy(rng.integers(-5, 2100, (3, 8)).astype(np.int32))
+        off = torch.cumsum(counts.clamp(min=0), 1, dtype=torch.int32) - counts.clamp(min=0)
+        got = MO.unmarshal(recv.to(dev), off.to(dev), counts.to(dev), capacity=cap).cpu()
+        assert torch.equal(got, MO.unmarshal_plain(recv, off, counts, capacity=cap)), (w, cap)
+    z = torch.zeros(1, 1025, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="1025 received blocks"):
+        MO.unmarshal(torch.zeros(1, 1025, 1, 1, dtype=torch.int32, device=dev), z, z, capacity=4)

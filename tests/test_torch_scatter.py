@@ -181,6 +181,158 @@ def test_k6_positions_are_the_stable_append():
         assert int(total[b]) == m.sum()
 
 
+# (rows, n, Pallas tile): the cases the single-pass K6 branches on (its
+# tiles hold 8192 lanes).  Row 0 is all true and row 1 all false wherever
+# there are two rows or more.
+K6_CASES = {
+    "n_below_16": (1, 7, 7),
+    "two_rows_n_below_16": (2, 13, 13),
+    "ragged_n_mod_16_three_tiles_b9": (9, 3 * 8192 + 8, 6146),
+    "odd_n_three_tiles_b9": (9, 3 * 8192 + 5, 523),
+    "aligned_three_tiles": (3, 3 * 8192, 8192),
+    "aligned_four_tiles_plus_16": (2, 3 * 8192 + 16, 6148),
+}
+
+
+def _k6_mask(rows, n, seed):
+    rng = np.random.default_rng(seed)
+    mask = rng.random((rows, n)) < rng.random((rows, 1))
+    if rows >= 2:
+        mask[0], mask[1] = True, False
+    return mask
+
+
+@pytest.mark.parametrize("case", sorted(K6_CASES))
+def test_k6_plain_equals_ref_and_pallas_on_kernel_branches(case):
+    """Positions and totals bit-equal to ``ref.compact_positions`` and the
+    Pallas kernel, at n < 16, n % 16 != 0, odd n, n over three of the
+    kernel's 8192-lane tiles, all-true and all-false rows, B = 1 and B = 9."""
+    rows, n, tile = K6_CASES[case]
+    mask = _k6_mask(rows, n, n)
+    pos, total = CO.compact_positions(torch.from_numpy(mask))
+    assert pos.shape == (rows, n) and total.shape == (rows,)
+    for b in range(rows):
+        rpos, rtot = JCR.compact_positions(jnp.asarray(mask[b]))
+        kpos, ktot = JCK.compact_positions(jnp.asarray(mask[b]), tile=tile, interpret=True)
+        np.testing.assert_array_equal(pos[b].numpy(), np.asarray(rpos))
+        np.testing.assert_array_equal(pos[b].numpy(), np.asarray(kpos))
+        assert int(total[b]) == int(rtot[0]) == int(ktot[0])
+    if rows >= 2:
+        assert int(total[0]) == n and int(total[1]) == 0
+
+
+_INVALID, _AGGREGATE, _INCLUSIVE = 0, 1, 2
+
+
+def _bytes_to_bits(words):
+    """csrc/compact.cu bytes_to_bits: each byte of a uint32 word to 0/1."""
+    return ((((words & 0x7F7F7F7F) + 0x7F7F7F7F) | words) & 0x80808080) >> 7
+
+
+def _k6_single_pass(mask_u8, warps, rng):
+    """A numpy model of ``csrc/compact.cu``'s compact_kernel with ``warps``
+    warps a tile: lane i of a tile is byte i % 4 of thread (i / 4) % 32's
+    group (i / 128) % 8 in warp i / 1024; mask bytes turned to 0/1 four at a
+    time; group counts scanned over the warp's threads, then over the groups
+    and the warps; and the decoupled look-back run with the tiles' steps
+    interleaved in a random order: each tile publishes its aggregate (tile 0
+    its inclusive prefix), then reads 32 predecessors a window, waits while
+    any lane up to the nearest inclusive one is unpublished, sums those
+    lanes, and moves 32 tiles back until it meets an inclusive prefix."""
+    rows, n = mask_u8.shape
+    tile = warps * 1024
+    n_tiles = -(-n // tile)
+    padded = np.zeros((rows, n_tiles * tile), np.uint8)
+    padded[:, :n] = mask_u8
+    bits = _bytes_to_bits(padded.view("<u4")).view(np.uint8).reshape(rows, n_tiles, warps, 8, 32, 4)
+    count = bits.sum(-1, dtype=np.int64)  # (row, tile, warp, group, thread)
+    incl = np.cumsum(count, -1)
+    group_total = incl[..., -1]
+    warp_total = group_total.sum(-1)
+    agg = warp_total.sum(-1)
+    flag = np.full((rows, n_tiles), _INVALID)
+    value = np.zeros((rows, n_tiles), np.int64)
+    prefix = np.zeros((rows, n_tiles), np.int64)
+    todo = {(b, t): [False, t - 1, 0] for b in range(rows) for t in range(n_tiles)}
+    spins = 0
+    while todo:
+        key = list(todo)[rng.integers(len(todo))]
+        (b, t), st = key, todo[key]
+        if not st[0]:  # publish
+            st[0] = True
+            flag[b, t], value[b, t] = (_INCLUSIVE if t == 0 else _AGGREGATE), agg[b, t]
+            if t == 0:
+                del todo[key]
+            continue
+        j = st[1] - np.arange(32)
+        f = np.where(j >= 0, flag[b, np.maximum(j, 0)], _INCLUSIVE)
+        v = np.where(j >= 0, value[b, np.maximum(j, 0)], 0)
+        inc = sum(1 << k for k in range(32) if f[k] == _INCLUSIVE)
+        upto = ((inc & -inc) << 1) - 1 if inc else 0xFFFFFFFF
+        unready = sum(1 << k for k in range(32) if f[k] == _INVALID)
+        if unready & upto:
+            spins += 1
+            continue
+        st[2] += int(sum(v[k] for k in range(32) if upto >> k & 1))
+        if inc:
+            prefix[b, t] = st[2]
+            flag[b, t], value[b, t] = _INCLUSIVE, st[2] + agg[b, t]
+            del todo[key]
+        else:
+            st[1] -= 32
+    warp_base = prefix[:, :, None] + np.cumsum(warp_total, -1) - warp_total
+    group_base = warp_base[..., None] + np.cumsum(group_total, -1) - group_total
+    thread_base = group_base[..., None] + incl - count
+    pos = thread_base[..., None] + np.cumsum(bits, -1, dtype=np.int64) - bits
+    return pos.reshape(rows, -1)[:, :n], prefix[:, -1] + agg[:, -1], spins
+
+
+@pytest.mark.parametrize("rows,n,warps,seed", [(3, 100 * 1024 + 13, 1, 0), (2, 40 * 1024, 1, 1),
+                                                (4, 9, 1, 2), (1, 35 * 2048 + 6, 2, 3)])
+def test_k6_single_pass_lookback_model_equals_ref(rows, n, warps, seed):
+    """The kernel's scheme modelled in numpy, at tiles of one or two warps
+    so that a row holds up to 101 tiles and the look-back crosses several
+    32-tile windows; mask bytes other than 0 and 1 count as true.  Positions
+    and totals equal ``ref.compact_positions`` of the mask != 0, whatever
+    order the tiles' steps run in."""
+    rng = np.random.default_rng(seed)
+    mask_u8 = np.where(rng.random((rows, n)) < 0.5, rng.integers(1, 256, (rows, n)), 0).astype(np.uint8)
+    if rows >= 2:
+        mask_u8[1] = 0
+    pos, total, spins = _k6_single_pass(mask_u8, warps, rng)
+    for b in range(rows):
+        rpos, rtot = JCR.compact_positions(jnp.asarray(mask_u8[b] != 0))
+        np.testing.assert_array_equal(pos[b], np.asarray(rpos))
+        assert int(total[b]) == int(rtot[0])
+    if n > 33 * warps * 1024:
+        assert spins > 0  # some tile really found an unpublished predecessor
+
+
+@pytest.mark.cuda
+def test_cuda_k6_single_pass_equals_plain_on_kernel_branches():
+    """On the card: K6 bit-equal to its plain version on every case of
+    ``K6_CASES``, on rows of 100 tiles (look-back across several 32-tile
+    windows), on 300 rows, on a mask that starts off a 16-byte boundary
+    (the byte loads) and over repeated calls (a new epoch each)."""
+    from repro_torch import compat as port_compat
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    if port_compat.nvcc_path() is None:
+        pytest.skip("needs nvcc to build the CUDA kernels")
+    dev = torch.device("cuda")
+    masks = [torch.from_numpy(_k6_mask(rows, n, n)) for rows, n, _ in K6_CASES.values()]
+    masks += [torch.from_numpy(_k6_mask(4, 100 * 8192 + 3, 5)), torch.from_numpy(_k6_mask(300, 5000, 6))]
+    for mask in masks:
+        for _ in range(3):
+            for a, b in zip(CO.compact_positions(mask.to(dev)), CO.compact_positions_plain(mask)):
+                assert torch.equal(a.cpu(), b), tuple(mask.shape)
+    flat = torch.from_numpy(np.random.default_rng(7).random(1 + 3 * 8192) < 0.5)
+    odd = flat.to(dev)[1:].view(3, 8192)  # data pointer 1 byte past an aligned block
+    for a, b in zip(CO.compact_positions(odd), CO.compact_positions_plain(flat[1:].view(3, 8192))):
+        assert torch.equal(a.cpu(), b)
+
+
 def test_k6_compact_equals_reference():
     """The dense-pack helper: packed lanes and counts, with overflow past
     the capacity dropped."""
