@@ -23,10 +23,13 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    every kernel, fill and memset of a call, from
                    ``torch.profiler`` over 20 back-to-back calls) and
                    ``call_ms`` (one CUDA event pair around one call, host
-                   issue time included); K2 and K6 must make one kernel
-                   launch a call and no fill; K2 also at VoPaT's shape, K6
-                   at the streamlines and VoPaT shapes; plus the two-pass
-                   marshal path (K3 + sort + K7) against K1's fused marshal;
+                   issue time included); K2, K4 and K6 must make one kernel
+                   launch a call and no fill; K8 must give each particle
+                   the same bits wherever it sits (``pos[k:]`` against
+                   ``pos``); K2 and K4 also at VoPaT's shapes, K6 at the
+                   streamlines and VoPaT shapes, K8 at the streamlines
+                   shape; plus the two-pass marshal path (K3 + sort + K7)
+                   against K1's fused marshal;
   2. forward     — one ``forward_work`` round of the Fig-8 44-byte ray, R=8
                    ranks × C=262,144 (2,097,152 rays, about one 1080p frame
                    of primary rays), S=65,536 peer slots, in both marshal
@@ -261,7 +264,8 @@ def _fig8_dest(gen, R, C, dev):
 
 def phase_kernels(dev, R=8, C=262144, S=65536, W=11, N_PART=2097152,
                   MASKS=((8, 131072), (8, 1048576)), NBODY=(8, 262144, 262288), SAMPLE=4096,
-                  RAYS=1024, K2_VOPAT=(8, 8, 1048576, 15), timer=cuda_ms, dtimer=device_ms):
+                  RAYS=1024, K2_VOPAT=(8, 8, 1048576, 15), K4_VOPAT=(8, 1048576),
+                  K8_STREAMLINES=1048576, timer=cuda_ms, dtimer=device_ms):
     import torch
 
     from repro_torch import kernels as KN
@@ -365,15 +369,18 @@ def phase_kernels(dev, R=8, C=262144, S=65536, W=11, N_PART=2097152,
         err = max(float((kn - pn).abs().max()), float((kv - pv).abs().max()))
         errs.append(err)
         check(err <= 1e-5, f"K8 rk4_step pos {tuple(pos.shape)} {name}: max abs diff {err:.3e} <= 1e-5")
-    # per particle: 4 velocity evaluations of 6 sin/cos + 9 flops (ABC), 18
-    # flops forming the stage inputs, 21 in the final combination
+        # each particle in another thread, slot and alignment: the streamlines oracle's need
+        same = all(torch.equal(a, b[k:]) for k in (1, 2, 3)
+                   for a, b in zip(RO.rk4_step(pos[k:], dt=0.1, field_id=fid), (kn, kv)))
+        check(same, f"K8 {name}: rk4_step(pos[k:]) == rk4_step(pos)[k:] bit for bit, k = 1, 2, 3")
     rows["rk4_step"] = dict(
         max_abs_err=max(errs),
         **T(lambda: RO.rk4_step(pos, dt=0.1, field_id=RO.ABC),
             lambda: RO.rk4_step_plain(pos, dt=0.1, field_id=RO.ABC)),
-        nbytes=N_PART * 12 + 2 * N_PART * 12, ops=N_PART * (4 * 15 + 18 + 21),
-        library_call=None,
+        **_k8_work(N_PART), library_call=None,
     )
+    del pos, kn, kv, pn, pv
+    rows["rk4_step"]["streamlines_shape"] = _kernel_k8_at(dev, gen, timer, dtimer, K8_STREAMLINES)
     # K4: the scatter plan, on K3's destinations (DISCARD, out-of-range
     # lanes, count < C on some ranks)
     k4 = BS.rank_and_histogram(dest, count, num_ranks=R)
@@ -387,6 +394,8 @@ def phase_kernels(dev, R=8, C=262144, S=65536, W=11, N_PART=2097152,
         nbytes=dest.numel() * 4 * 3 + count.numel() * 4 + k4[2].numel() * 4,
         ops=0.0, library_call=None,
     )
+    _one_launch("rank_and_histogram", "rank_hist_kernel", rows["rank_and_histogram"]["events"], dev)
+    rows["rank_and_histogram"]["vopat_shape"] = _kernel_k4_at(dev, gen, timer, dtimer, *K4_VOPAT)
 
     # K5: the scatter marshal's send pass at the round's positions
     # d_clean·S + rank (rank >= S and invalid lanes dropped)
@@ -529,6 +538,52 @@ def _kernel_k2_at(dev, gen, timer, dtimer, B, G, S, W):
              **_timed(timer, dtimer, lambda: MO.unmarshal(recv, off, counts, capacity=S), None),
              nbytes=landed * W * 4 + 2 * counts.numel() * 4 + B * S * W * 4, ops=0.0)
     _print_row(f"unmarshal at {(B, G, S, W)}", r)
+    return r
+
+
+def _k8_work(n):
+    """K8's bytes (12 B read, 24 B written a particle) and float32
+    operations: per particle 4 velocity evaluations of 6 sin/cos + 9 flops
+    (ABC), 18 flops forming the stage inputs, 21 in the final combination."""
+    return dict(nbytes=n * 12 + 2 * n * 12, ops=n * (4 * 15 + 18 + 21))
+
+
+def _kernel_k8_at(dev, gen, timer, dtimer, n):
+    """K8 at the streamlines drive's shape (8 ranks x 131,072 particles):
+    ABC within 1e-5 of plain, and the kernel's times beside its bound."""
+    import torch
+
+    from repro_torch.kernels.rk4_advect import ops as RO
+
+    pos = torch.rand((n, 3), generator=gen, device=dev) * 6.283185307179586
+    err = max(float((a - b).abs().max()) for a, b in
+              zip(RO.rk4_step(pos, dt=0.1), RO.rk4_step_plain(pos, dt=0.1)))
+    check(err <= 1e-5, f"K8 rk4_step pos {(n, 3)} ABC: max abs diff {err:.3e} <= 1e-5")
+    r = dict(max_abs_err=err, shape=(n, 3), **_timed(timer, dtimer, lambda: RO.rk4_step(pos, dt=0.1), None),
+             **_k8_work(n))
+    _print_row(f"rk4_step at {(n, 3)}", r)
+    return r
+
+
+def _kernel_k4_at(dev, gen, timer, dtimer, B, C):
+    """K4 at VoPaT's shape (the scatter marshal's plan of its 1,048,576-lane
+    queues): Fig-8-like destinations, count < C on some rows; bit-equal to
+    plain, one launch a call, and the kernel's times beside its bound."""
+    import torch
+
+    from repro_torch.kernels.bucket_scatter import ops as BS
+
+    dest = _fig8_dest(gen, B, C, dev)
+    count = torch.full((B,), C, dtype=torch.int32, device=dev)
+    count[1::3] = C // 3
+    got = BS.rank_and_histogram(dest, count, num_ranks=B)
+    ok = all(torch.equal(a, b) for a, b in zip(got, BS.rank_and_histogram_plain(dest, count, num_ranks=B)))
+    check(ok, f"K4 rank_and_histogram dest {(B, C)}: d_clean, rank and histogram bit-equal to plain")
+    r = dict(max_abs_err=0.0 if ok else float("nan"), shape=(B, C),
+             **_timed(timer, dtimer, lambda: BS.rank_and_histogram(dest, count, num_ranks=B), None),
+             nbytes=dest.numel() * 4 * 3 + count.numel() * 4 + got[2].numel() * 4, ops=0.0)
+    _one_launch(f"rank_and_histogram at {(B, C)}", "rank_hist_kernel", r["events"], dev)
+    _print_row(f"rank_and_histogram at {(B, C)}", r)
     return r
 
 

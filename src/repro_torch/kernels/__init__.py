@@ -23,14 +23,19 @@ the plain version, CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
 __all__ = [
-    "check_launch", "kernel_wrappers", "launch_counts", "reset_launch_counts",
-    "stream_handle", "use_plain",
+    "check_launch", "kernel_wrappers", "launch_counts", "lookback_status",
+    "reset_launch_counts", "stream_handle", "use_plain",
 ]
+
+LOOKBACK_EPOCHS = 2**30 - 1  # epochs 1 .. 2^30 - 1 fit beside the flag in a status word
+# per CUDA device: [status words (int64 scratch), the last call's epoch];
+# calls on one device are ordered by its current stream
+_LOOKBACK: Dict[int, list] = {}
 
 
 def use_plain(*tensors: torch.Tensor) -> bool:
@@ -59,6 +64,19 @@ def check_launch(rc: int, name: str) -> None:
 
 def stream_handle() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def lookback_status(device: torch.device, words: int) -> Tuple[torch.Tensor, int]:
+    """The device's look-back status words (at least ``words``) and a new
+    epoch for this call: the scratch of ``csrc/lookback.cuh``, shared by K4
+    and K6.  A new scratch starts at epoch 1, which the kernels' entry
+    points clear first; so does every 2^30 - 1-th call."""
+    ent = _LOOKBACK.get(device.index)
+    if ent is None or ent[0].numel() < words:
+        ent = [torch.empty(max(words, 1024), dtype=torch.int64, device=device), 0]
+        _LOOKBACK[device.index] = ent
+    ent[1] = ent[1] % LOOKBACK_EPOCHS + 1
+    return ent[0], ent[1]
 
 
 def kernel_wrappers() -> Dict[str, object]:

@@ -33,11 +33,11 @@ __all__ = [
 
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 _SIGS = {
-    "rafi_rank_and_histogram": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "rafi_rank_and_histogram": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "rafi_scatter_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
 }
-_TILE = 1024  # lanes per block: csrc/bucket_scatter.cu kTile
-_MAX_SHARED_BINS = 48 * 1024 // 4  # static shared memory without opt-in
+_WARP_LANES = 1024  # lanes a warp: csrc/bucket_scatter.cu kWarpLanes (a tile holds 1 to 8 warps)
+_MAX_BINS = 12288
 
 
 def rank_and_histogram_plain(
@@ -53,9 +53,9 @@ def rank_and_histogram(
     dest: torch.Tensor, count: torch.Tensor, *, num_ranks: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K4: the sanitised destination (invalid lanes → R), the stable
-    in-bucket rank and the ``(B, R+1)`` histogram in one pass.  Counts are
-    int32, exact at any capacity (the TPU kernel's 2**24 float cap does not
-    apply)."""
+    in-bucket rank and the ``(B, R+1)`` histogram in one single-pass
+    launch that writes all three in full.  Counts are int32, exact at any
+    capacity (the TPU kernel's 2**24 float cap does not apply)."""
     if dest.dim() != 2 or count.shape != dest.shape[:1]:
         raise ValueError(f"dest must be (B, C) and count (B,), got {tuple(dest.shape)}, {tuple(count.shape)}")
     if KN.use_plain(dest, count):
@@ -63,21 +63,23 @@ def rank_and_histogram(
     if dest.dtype != torch.int32 or count.dtype != torch.int32:
         raise TypeError("rank_and_histogram takes int32 dest and count")
     rows, cap = dest.shape
-    if num_ranks < 1 or num_ranks + 1 > _MAX_SHARED_BINS or rows > 65535 or cap >= 2**31:
+    if num_ranks < 1 or num_ranks + 1 > _MAX_BINS or rows > 65535 or cap >= 2**31:
         raise ValueError(
             f"{rows} rows of {cap} lanes over {num_ranks} ranks exceed the kernel's "
-            f"limits ({_MAX_SHARED_BINS - 1} ranks in shared memory, 65535 rows, < 2^31 lanes)"
+            f"limits ({_MAX_BINS - 1} ranks, 65535 rows, < 2^31 lanes)"
         )
     dest, count = dest.contiguous(), count.contiguous()
-    n_tiles = max(1, -(-cap // _TILE))
     d_clean = torch.empty_like(dest)
     rank = torch.empty_like(dest)
+    if rows == 0 or cap == 0:
+        return d_clean, rank, torch.zeros(rows, num_ranks + 1, dtype=torch.int32, device=dest.device)
     hist = torch.empty(rows, num_ranks + 1, dtype=torch.int32, device=dest.device)
-    tile_hist = torch.empty(rows, n_tiles, num_ranks + 1, dtype=torch.int32, device=dest.device)
+    # enough words for the smallest tile (one warp) the kernel picks
+    status, epoch = KN.lookback_status(dest.device, rows * (num_ranks + 1) * -(-cap // _WARP_LANES))
     lib = build.load(_SIGS)
     rc = lib.rafi_rank_and_histogram(
-        dest.data_ptr(), count.data_ptr(), d_clean.data_ptr(), rank.data_ptr(),
-        hist.data_ptr(), tile_hist.data_ptr(), rows, cap, num_ranks, KN.stream_handle(),
+        dest.data_ptr(), count.data_ptr(), d_clean.data_ptr(), rank.data_ptr(), hist.data_ptr(),
+        status.data_ptr(), status.numel(), rows, cap, num_ranks, epoch, KN.stream_handle(),
     )
     KN.check_launch(rc, "rank_and_histogram")
     rank_and_histogram.launches += 1

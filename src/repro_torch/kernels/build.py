@@ -3,11 +3,12 @@
 Every source ``csrc/*.cu`` exposes a plain C interface.  On the machine with
 the card, one ``nvcc`` per source compiles it to an object file, all of them
 started together, and one more ``nvcc`` links the objects into one shared
-library ``build/librafi-<hash>.so`` at the repository root (the hash covers
-every source and the flags, so an edited kernel is rebuilt, never reused
-stale).  No PyTorch header is included: the build takes seconds, not
-minutes.  The first launch of any wrapper builds and loads the library;
-nothing here runs at import time.
+library ``build/librafi-<hash>.so`` at the repository root.  The hash
+covers every source, every header ``csrc/*.cuh`` the sources include, and
+the flags, so an edited kernel or header is rebuilt, never reused stale.
+No PyTorch header is included: the build takes seconds, not minutes.  The
+first launch of any wrapper builds and loads the library; nothing here runs
+at import time.
 """
 from __future__ import annotations
 
@@ -40,7 +41,7 @@ def _sources():
 
 def _lib_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     return BUILD_DIR / f"librafi-{h.hexdigest()[:12]}.so"
 

@@ -8,7 +8,7 @@ launch.
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, Tuple
+from typing import Any, Tuple
 
 import torch
 
@@ -21,22 +21,6 @@ __all__ = ["compact", "compact_positions", "compact_positions_plain"]
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 _SIGS = {"rafi_compact_positions": (_P, _P, _P, _P, _I, _I, _I, _I, _P)}
 _TILE = 8192  # lanes per block: csrc/compact.cu kTile
-_EPOCHS = 2**30 - 1  # epochs 1 .. 2^30 - 1 fit beside the flag in a status word
-# per CUDA device: [status words (int64 scratch), the last call's epoch];
-# calls on one device are ordered by its current stream
-_STATUS: Dict[int, list] = {}
-
-
-def _status(device: torch.device, words: int) -> Tuple[torch.Tensor, int]:
-    """The device's look-back status words (at least ``words``) and a new
-    epoch for this call.  A new scratch starts at epoch 1, which the kernel's
-    entry point clears first; so does every 2^30 - 1-th call."""
-    ent = _STATUS.get(device.index)
-    if ent is None or ent[0].numel() < words:
-        ent = [torch.empty(max(words, 1024), dtype=torch.int64, device=device), 0]
-        _STATUS[device.index] = ent
-    ent[1] = ent[1] % _EPOCHS + 1
-    return ent[0], ent[1]
 
 
 def compact_positions_plain(mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -62,7 +46,7 @@ def compact_positions(mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if n == 0:
         return pos, torch.zeros(rows, dtype=torch.int32, device=mask.device)
     total = torch.empty(rows, dtype=torch.int32, device=mask.device)
-    status, epoch = _status(mask.device, rows * -(-n // _TILE))
+    status, epoch = KN.lookback_status(mask.device, rows * -(-n // _TILE))
     lib = build.load(_SIGS)
     rc = lib.rafi_compact_positions(
         mask.data_ptr(), pos.data_ptr(), total.data_ptr(), status.data_ptr(), status.numel(),

@@ -28,26 +28,21 @@
 //     __dp4a; the 8 counts, packed one byte each into two words, take two
 //     warp scans (a byte sums at most 128), and one pass over the 8 warp
 //     totals in shared memory gives each warp its base and the tile's sum;
-//   - the tile's prefix comes from a per-(row, tile) status word: flag and
-//     value in one 64-bit word, so relaxed loads and stores suffice (an
-//     acquire load at gpu scope would also invalidate the SM's L1 on every
-//     spin).  A tile
-//     first publishes its own sum (AGGREGATE); warp 0 then looks back 32
-//     predecessors at a time, waiting while any lane up to the nearest
-//     INCLUSIVE one is unpublished, sums them, and publishes its own
-//     INCLUSIVE prefix;
+//   - the tile's prefix comes from the decoupled look-back of
+//     csrc/lookback.cuh over one 64-bit status word a (row, tile), run by
+//     warp 0;
 //   - the last tile of a row writes total[b], so no output needs a fill.
 // The tile index is blockIdx.x and the row blockIdx.y, so a tile waits
-// only on blocks with lower linear indices, which the card has dispatched
-// before it.  The status words are scratch the caller keeps per device;
-// each word carries the call's epoch beside its flag, so words left by
-// earlier calls read as not yet published and no reset is needed between
-// calls.  When the caller passes epoch 1 (a new scratch, or the epoch
-// counter wrapped), the words are cleared first with one cudaMemsetAsync.
+// only on blocks with lower linear indices.  The status words are scratch
+// the caller keeps per device (shared with K4); when the caller passes
+// epoch 1 (a new scratch, or the epoch counter wrapped), the words are
+// cleared first with one cudaMemsetAsync.
 // It is a scan, not an atomic append: a lane's position depends only on
 // the lanes before it.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "lookback.cuh"
 
 namespace {
 
@@ -57,23 +52,6 @@ constexpr int kGroups = 8;                                  // 4-lane groups a t
 constexpr int kWarpLanes = 32 * 4 * kGroups;                // 1024 lanes a warp
 constexpr int64_t kTile = (int64_t)kWarps * kWarpLanes;     // 8192 lanes a block
 constexpr unsigned kFull = 0xffffffffu;
-constexpr uint32_t kAggregate = 1, kInclusive = 2;          // status flags
-
-// The flag and the value share one 64-bit word, so relaxed accesses
-// suffice: no other memory is published with it.
-__device__ __forceinline__ void store_relaxed(unsigned long long* p, unsigned long long v) {
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long load_relaxed(const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ unsigned long long status_word(uint32_t tag, int32_t value) {
-  return ((unsigned long long)tag << 32) | (uint32_t)value;
-}
 
 // 0x00 stays 0, any other byte becomes 1
 __device__ __forceinline__ uint32_t bytes_to_bits(uint32_t x) {
@@ -146,35 +124,8 @@ __global__ void __launch_bounds__(kThreads) compact_kernel(
   // the tile's prefix: decoupled look-back by warp 0
   if (warp == 0) {
     unsigned long long* st_row = status + b * (int64_t)n_tiles;
-    const uint32_t tag_agg = (epoch << 2) | kAggregate, tag_inc = (epoch << 2) | kInclusive;
-    int prefix = 0;
-    if (t == 0) {
-      if (lane == 0) store_relaxed(&st_row[0], status_word(tag_inc, agg));
-    } else {
-      if (lane == 0) store_relaxed(&st_row[t], status_word(tag_agg, agg));
-      int64_t nearest = (int64_t)t - 1;  // lane k reads tile nearest - k
-      for (;;) {
-        const int64_t j = nearest - lane;
-        unsigned long long s;
-        unsigned inc, upto;
-        for (;;) {
-          s = j >= 0 ? load_relaxed(&st_row[j]) : status_word(tag_inc, 0);
-          const uint32_t tag = (uint32_t)(s >> 32);
-          inc = __ballot_sync(kFull, tag == tag_inc);
-          // lanes up to the nearest inclusive prefix (all 32 if none)
-          upto = inc ? ((inc & (0u - inc)) << 1) - 1u : kFull;
-          const unsigned unready = __ballot_sync(kFull, tag != tag_inc && tag != tag_agg);
-          if (!(unready & upto)) break;
-        }
-        int v = (upto >> lane & 1u) ? (int32_t)(uint32_t)s : 0;
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-        prefix += v;
-        if (inc) break;
-        nearest -= 32;
-      }
-      if (lane == 0) store_relaxed(&st_row[t], status_word(tag_inc, prefix + agg));
-    }
+    if (lane == 0) lookback::publish_aggregate(st_row, t, agg, epoch);
+    const int prefix = lookback::exclusive_prefix(st_row, t, agg, epoch, lane);
     if (lane == 0) tile_prefix = prefix;
   }
   __syncthreads();

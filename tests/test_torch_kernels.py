@@ -275,6 +275,42 @@ def test_k8_plain_matches_ref_and_pallas(field_id):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
 
 
+def _k8_thread_map(n, base, threads, max_blocks):
+    """A numpy model of ``csrc/rk4_advect.cu``'s particle-to-thread map: the
+    grid's thread i (grid-stride) takes 4-particle group g = i, i + stride,
+    ...: floats 12g .. 12g+11 of pos, particle 4g + k in slot k; a whole
+    group whose base lies on 16 bytes (``base``: pos's start in floats past
+    a 16-byte boundary) moves as three 16-byte accesses, the rest as 4-byte
+    ones.  Returns, per float of pos, the (thread, slot, group) that reads
+    it, and whether it moves in a 16-byte access."""
+    groups = -(-n // 4)
+    stride = min(-(-groups // threads), max_blocks) * threads
+    f = np.arange(3 * n)
+    g = f // 12
+    whole = 12 * g + 12 <= 3 * n
+    vec = whole & ((base + 12 * g) % 4 == 0)
+    return g % stride, (f % 12) // 3, g, vec
+
+
+@pytest.mark.parametrize("n", [1, 4, 5, 1023, 4 * 256 * 3 + 2])
+@pytest.mark.parametrize("base", [0, 1, 2, 3])
+@pytest.mark.parametrize("threads,max_blocks", [(256, 132 * 64), (32, 2)], ids=["grid", "grid_stride"])
+def test_k8_thread_map_covers_every_particle_once(n, base, threads, max_blocks):
+    """Every particle is read and written exactly once, all three of its
+    floats by one thread in one slot; 16-byte accesses only at 16-byte
+    addresses and only in whole groups; the tail group of a ragged N and a
+    base off 16 bytes take 4-byte accesses."""
+    thread, slot, group, vec = _k8_thread_map(n, base, threads, max_blocks)
+    particle = 4 * group + slot
+    np.testing.assert_array_equal(np.bincount(particle, minlength=n), np.full(n, 3))
+    np.testing.assert_array_equal(particle, np.arange(3 * n) // 3)  # a particle's floats, in order
+    per = lambda a: a.reshape(n, 3)
+    assert (per(thread) == per(thread)[:, :1]).all() and (per(slot) == per(slot)[:, :1]).all()
+    starts = (base + np.arange(3 * n))[vec]
+    assert (starts.reshape(-1, 4)[:, 0] % 4 == 0).all()  # each 16-byte access starts aligned
+    assert vec.sum() % 12 == 0 and vec.all() == (base == 0 and n % 4 == 0)
+
+
 # ------------------------------------------------------------------- K9
 @pytest.mark.parametrize("n,m,ti,tj", [(64, 64, 16, 16), (128, 256, 128, 128), (96, 32, 32, 32)])
 def test_k9_plain_matches_ref_and_pallas(n, m, ti, tj):
@@ -425,6 +461,22 @@ def test_kernel_build_raises_without_nvcc(monkeypatch):
     assert build._LIB is None
 
 
+def test_kernel_library_name_hashes_sources_and_headers(monkeypatch, tmp_path):
+    """The library's name changes with any source and with any header the
+    sources include (``lookback.cuh``), so an edited header is never served
+    by a stale library; the headers are hashed, not compiled."""
+    assert (build.CSRC / "lookback.cuh").exists()
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert [p.name for p in build._sources()] == ["a.cu"]
+    before = build._lib_path()
+    (tmp_path / "h.cuh").write_text("// two\n")
+    after = build._lib_path()
+    (tmp_path / "a.cu").write_text('#include "h.cuh" // edited\n')
+    assert len({before, after, build._lib_path()}) == 3
+
+
 # ------------------------------------------------------------- on the card
 @pytest.fixture
 def cuda_device():
@@ -501,6 +553,30 @@ def test_cuda_kernels_equal_plain_versions(cuda_device):
     pt, ps = DO.track_plain(*(a.to(dev) for a in args), majorant=4.0, steps=8)
     np.testing.assert_allclose(kt.cpu().numpy(), pt.cpu().numpy(), rtol=1e-6)
     assert torch.equal(ks.cpu(), ps.cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_k8_within_tolerance_and_lane_invariant(cuda_device):
+    """On the card: K8 within 1e-5 of its plain version on all three fields
+    at a ragged N, and bit-equal to itself on ``pos[k:]`` against ``pos``
+    for k = 0..3 (each particle in another thread, slot, alignment and, at
+    the end, the 4-byte tail path), also where some coordinates are large
+    enough for sincosf's slow range reduction: the lane invariance the
+    streamlines oracle needs."""
+    dev = cuda_device
+    rng = np.random.default_rng(9)
+    pos = torch.from_numpy(rng.uniform(0, 2 * np.pi, (100003, 3)).astype(np.float32)).to(dev)
+    far = pos.clone()
+    far[::97] *= 1e5
+    for fid in (RO.ABC, RO.TORNADO, RO.TAYLOR_GREEN):
+        kn, kv = RO.rk4_step(pos, dt=0.1, field_id=fid)
+        pn, pv = RO.rk4_step_plain(pos, dt=0.1, field_id=fid)
+        assert float((kn - pn).abs().max()) <= 1e-5 and float((kv - pv).abs().max()) <= 1e-5
+        for p in (pos, far):
+            whole = RO.rk4_step(p, dt=0.1, field_id=fid)
+            for k in range(4):
+                part = RO.rk4_step(p[k:], dt=0.1, field_id=fid)
+                assert all(torch.equal(a, b[k:]) for a, b in zip(part, whole)), (fid, k)
 
 
 @pytest.mark.cuda

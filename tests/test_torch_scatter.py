@@ -229,31 +229,19 @@ def _bytes_to_bits(words):
     return ((((words & 0x7F7F7F7F) + 0x7F7F7F7F) | words) & 0x80808080) >> 7
 
 
-def _k6_single_pass(mask_u8, warps, rng):
-    """A numpy model of ``csrc/compact.cu``'s compact_kernel with ``warps``
-    warps a tile: lane i of a tile is byte i % 4 of thread (i / 4) % 32's
-    group (i / 128) % 8 in warp i / 1024; mask bytes turned to 0/1 four at a
-    time; group counts scanned over the warp's threads, then over the groups
-    and the warps; and the decoupled look-back run with the tiles' steps
-    interleaved in a random order: each tile publishes its aggregate (tile 0
-    its inclusive prefix), then reads 32 predecessors a window, waits while
-    any lane up to the nearest inclusive one is unpublished, sums those
-    lanes, and moves 32 tiles back until it meets an inclusive prefix."""
-    rows, n = mask_u8.shape
-    tile = warps * 1024
-    n_tiles = -(-n // tile)
-    padded = np.zeros((rows, n_tiles * tile), np.uint8)
-    padded[:, :n] = mask_u8
-    bits = _bytes_to_bits(padded.view("<u4")).view(np.uint8).reshape(rows, n_tiles, warps, 8, 32, 4)
-    count = bits.sum(-1, dtype=np.int64)  # (row, tile, warp, group, thread)
-    incl = np.cumsum(count, -1)
-    group_total = incl[..., -1]
-    warp_total = group_total.sum(-1)
-    agg = warp_total.sum(-1)
-    flag = np.full((rows, n_tiles), _INVALID)
-    value = np.zeros((rows, n_tiles), np.int64)
-    prefix = np.zeros((rows, n_tiles), np.int64)
-    todo = {(b, t): [False, t - 1, 0] for b in range(rows) for t in range(n_tiles)}
+def _lookback(agg, rng):
+    """A numpy model of ``csrc/lookback.cuh``'s decoupled look-back over the
+    independent tile sequences of ``agg (S, n_tiles)``, with the tiles'
+    steps interleaved in a random order: each tile publishes its aggregate
+    (tile 0 its inclusive prefix), then reads 32 predecessors a window,
+    waits while any lane up to the nearest inclusive one is unpublished,
+    sums those lanes, and moves 32 tiles back until it meets an inclusive
+    prefix.  Returns each tile's exclusive prefix and the number of waits."""
+    seqs, n_tiles = agg.shape
+    flag = np.full((seqs, n_tiles), _INVALID)
+    value = np.zeros((seqs, n_tiles), np.int64)
+    prefix = np.zeros((seqs, n_tiles), np.int64)
+    todo = {(b, t): [False, t - 1, 0] for b in range(seqs) for t in range(n_tiles)}
     spins = 0
     while todo:
         key = list(todo)[rng.integers(len(todo))]
@@ -280,6 +268,27 @@ def _k6_single_pass(mask_u8, warps, rng):
             del todo[key]
         else:
             st[1] -= 32
+    return prefix, spins
+
+
+def _k6_single_pass(mask_u8, warps, rng):
+    """A numpy model of ``csrc/compact.cu``'s compact_kernel with ``warps``
+    warps a tile: lane i of a tile is byte i % 4 of thread (i / 4) % 32's
+    group (i / 128) % 8 in warp i / 1024; mask bytes turned to 0/1 four at a
+    time; group counts scanned over the warp's threads, then over the groups
+    and the warps; and the tiles' prefixes from :func:`_lookback`."""
+    rows, n = mask_u8.shape
+    tile = warps * 1024
+    n_tiles = -(-n // tile)
+    padded = np.zeros((rows, n_tiles * tile), np.uint8)
+    padded[:, :n] = mask_u8
+    bits = _bytes_to_bits(padded.view("<u4")).view(np.uint8).reshape(rows, n_tiles, warps, 8, 32, 4)
+    count = bits.sum(-1, dtype=np.int64)  # (row, tile, warp, group, thread)
+    incl = np.cumsum(count, -1)
+    group_total = incl[..., -1]
+    warp_total = group_total.sum(-1)
+    agg = warp_total.sum(-1)
+    prefix, spins = _lookback(agg, rng)
     warp_base = prefix[:, :, None] + np.cumsum(warp_total, -1) - warp_total
     group_base = warp_base[..., None] + np.cumsum(group_total, -1) - group_total
     thread_base = group_base[..., None] + incl - count
@@ -331,6 +340,110 @@ def test_cuda_k6_single_pass_equals_plain_on_kernel_branches():
     odd = flat.to(dev)[1:].view(3, 8192)  # data pointer 1 byte past an aligned block
     for a, b in zip(CO.compact_positions(odd), CO.compact_positions_plain(flat[1:].view(3, 8192))):
         assert torch.equal(a.cpu(), b)
+
+
+def _k4_single_pass(dest, count, num_ranks, warps, rng):
+    """A numpy model of ``csrc/bucket_scatter.cu``'s rank_hist_kernel with
+    ``warps`` warps a tile: warp w of tile t owns lanes (t * warps + w) *
+    1024 + 32 k + l (step k, lane l); a step's lanes of one bucket rank by
+    the warp's running count plus their earlier lanes in the step (the
+    ``__match_any_sync`` group), then the count moves by the group's size;
+    warp bases by an exclusive scan over the warps; each (row, bucket) a
+    tile sequence for :func:`_lookback`; the last tile's prefix plus its
+    aggregate is the histogram."""
+    rows, cap = dest.shape
+    nb, tile = num_ranks + 1, warps * 1024
+    n_tiles = -(-cap // tile)
+    lane = np.arange(cap)
+    valid = (lane < count[:, None]) & (dest >= 0) & (dest < num_ranks)
+    d = np.full((rows, n_tiles * tile), -1, np.int64)  # -1 past the row's end
+    d[:, :cap] = np.where(valid, dest, num_ranks)
+    d = d.reshape(rows, n_tiles, warps, 32, 32)
+    running = np.zeros((rows, n_tiles, warps, nb), np.int64)
+    in_warp = np.zeros_like(d)
+    earlier = np.tri(32, k=-1, dtype=bool)  # [l, j]: lane j before lane l
+    for k in range(32):
+        dk = d[..., k, :]
+        group_before = ((dk[..., :, None] == dk[..., None, :]) & earlier).sum(-1)
+        base = np.take_along_axis(running, np.maximum(dk, 0), axis=-1)
+        in_warp[..., k, :] = np.where(dk >= 0, base + group_before, 0)
+        running += (dk[..., None] == np.arange(nb)).sum(-2)
+    warp_base = np.cumsum(running, axis=2) - running
+    agg = running.sum(axis=2)  # (row, tile, bucket)
+    prefix, spins = _lookback(agg.transpose(0, 2, 1).reshape(rows * nb, n_tiles), rng)
+    prefix = prefix.reshape(rows, nb, n_tiles).transpose(0, 2, 1)
+    at = np.maximum(d, 0)
+    rank = (np.take_along_axis(prefix[:, :, None, None, :], at, -1)
+            + np.take_along_axis(warp_base[:, :, :, None, :], at, -1) + in_warp)
+    cut = lambda a: a.reshape(rows, -1)[:, :cap]
+    return cut(d), cut(rank), prefix[:, -1] + agg[:, -1], spins
+
+
+# (rows, lanes, warps a tile, R, seed): a ragged last tile, fewer lanes than
+# one tile, R = 1, R + 1 below and above 32, look-back windows crossed
+K4_MODEL_CASES = [(2, 3 * 8192 + 77, 8, 8, 0), (3, 700, 8, 8, 1), (2, 40 * 1024 + 5, 1, 40, 2),
+                  (1, 35 * 2048, 2, 1, 3), (3, 5000, 3, 63, 4), (2, 34 * 1024 + 1000, 1, 8, 5)]
+
+
+@pytest.mark.parametrize("rows,cap,warps,num_ranks,seed", K4_MODEL_CASES)
+def test_k4_single_pass_lookback_model_equals_ref(rows, cap, warps, num_ranks, seed):
+    """The kernel's scheme modelled in numpy, over destinations with
+    DISCARD and out-of-range lanes, counts below, at and past C, and an
+    all-DISCARD row: d_clean, rank and histogram bit-equal to
+    ``ref.rank_and_histogram``, whatever order the tiles' steps run in."""
+    rng = np.random.default_rng(seed)
+    dest = rng.integers(-3, num_ranks + 3, (rows, cap)).astype(np.int32)
+    count = rng.integers(0, cap + 5, rows).astype(np.int32)
+    count[0] = cap
+    if rows >= 2:
+        dest[1] = DISCARD
+    d_clean, rank, hist, spins = _k4_single_pass(dest, count, num_ranks, warps, rng)
+    for b in range(rows):
+        want = JBR.rank_and_histogram(jnp.asarray(dest[b]), jnp.int32(count[b]), num_ranks=num_ranks)
+        for got, w in zip((d_clean[b], rank[b], hist[b]), want):
+            np.testing.assert_array_equal(got, np.asarray(w))
+    if -(-cap // (warps * 1024)) > 33:
+        assert spins > 0  # some tile really found an unpublished predecessor
+
+
+@pytest.mark.cuda
+def test_cuda_k4_single_pass_equals_plain_on_kernel_branches():
+    """On the card: K4 bit-equal to its plain version on all-DISCARD rows,
+    count 0, count < C and count > C, out-of-range destinations, a ragged
+    last tile, fewer lanes than a tile, more tiles than one wave (8 rows of
+    128 tiles), R = 1, R + 1 > 32, R + 1 = 12,288 (3 warps a tile, dynamic
+    shared memory above 48 KB), and across the epoch counter's wrap (the
+    scratch cleared, then reused)."""
+    from repro_torch import compat as port_compat
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    if port_compat.nvcc_path() is None:
+        pytest.skip("needs nvcc to build the CUDA kernels")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(15)
+    cases = [(4, 3 * 8192 + 77, 8), (3, 700, 8), (8, 1 << 20, 8), (2, 40 * 1024 + 5, 1),
+             (3, 5000, 40), (2, 50000, 12287), (1, 1, 8)]
+
+    def check(dest, count, num_ranks):
+        args = (torch.from_numpy(dest), torch.from_numpy(count))
+        got = BS.rank_and_histogram(*(a.to(dev) for a in args), num_ranks=num_ranks)
+        for a, b in zip(got, BS.rank_and_histogram_plain(*args, num_ranks=num_ranks)):
+            assert torch.equal(a.cpu(), b), (dest.shape, num_ranks)
+
+    for rows, cap, num_ranks in cases:
+        dest = rng.integers(-3, num_ranks + 3, (rows, cap)).astype(np.int32)
+        count = rng.integers(0, cap + 5, rows).astype(np.int32)
+        count[0] = cap
+        if rows >= 3:
+            dest[1], count[2] = DISCARD, 0
+        check(dest, count, num_ranks)
+    ent = KN._LOOKBACK[dev.index or 0]
+    ent[1] = KN.LOOKBACK_EPOCHS - 1  # the next calls take the last epoch, then 1, then 2
+    dest = rng.integers(-1, 9, (4, 9000)).astype(np.int32)
+    for _ in range(3):
+        check(dest, np.full(4, 9000, np.int32), 8)
+    assert ent[1] == 2
 
 
 def test_k6_compact_equals_reference():
