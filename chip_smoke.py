@@ -19,7 +19,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    equal but for near-ties) and timed beside its plain
                    version, a PyTorch library call where one exists, and its
                    bound (bytes over 3.35 TB/s or float32 operations over
-                   67e12/s), each two ways: ``device_ms`` (the device time of
+                   67e12/s; K10's counted from the steps its rays take),
+                   each two ways: ``device_ms`` (the device time of
                    every kernel, fill and memset of a call, from
                    ``torch.profiler`` over 20 back-to-back calls) and
                    ``call_ms`` (one CUDA event pair around one call, host
@@ -647,54 +648,78 @@ def _accel_float64(xi, xj, mj, eps2, rows=64):
     return acc, scale
 
 
-def _kernel_k10(dev, gen, timer, dtimer, size, steps=8):
-    """K10 at the VoPaT scene's shape: the ``size``² camera rays that enter
-    [0,1]³, from the domain entry to the domain exit, K = 8 steps through the
-    scene's 6 blobs.  ``t`` within rtol 1e-6 and statuses equal to the plain
-    version's, except on near-ties (|u₁·μ̄ − σ| < 1e-5·μ̄ at a step the ray
-    took), which must be under 0.01% of the rays.  Its launches are those of
-    the one checked call."""
+def k10_inputs(dev, gen, size, steps=8):
+    """K10's inputs at the VoPaT scene's shape: the ``size``² camera rays
+    that enter [0,1]³, from the domain entry to the domain exit, uniforms
+    ``(N, steps, 2)`` drawn from ``gen``, and the scene's 6 blobs.  Returns
+    ``(args, majorant)``, ``args`` as ``track`` takes them."""
     import torch
 
-    from repro_torch import kernels as KN
     from repro_torch.apps import fields as F
-    from repro_torch.kernels.delta_tracking import ops as DO
 
     o, d = F.camera_rays(size, size, device=dev)
     t_in, inside = F.ray_domain_entry(o, d)
     o, d, t0 = o[inside].contiguous(), d[inside].contiguous(), t_in[inside]
     t_exit, _, _ = F.ray_box_exit(o, d, t0, torch.zeros_like(t0), torch.ones_like(t0))
     blobs = torch.from_numpy(F.default_blobs(6, 0)).to(dev)
-    maj = F.majorant(blobs)
     u = torch.rand((o.shape[0], steps, 2), generator=gen, device=dev)
-    args = (o, d, t0, t_exit, u, blobs)
+    return (o, d, t0, t_exit, u, blobs), F.majorant(blobs)
+
+
+def k10_work(steps_taken, blobs):
+    """K10's bound inputs, counted from the steps each ray takes (the walk
+    ends at the first status change): a ray reads o, d (12 B each), t0,
+    t_exit and writes t, status (4 B each), and reads 8 B of uniforms a step
+    it takes; 14 float32 operations a blob a step.  Returns ``(bytes, ops)``."""
+    n, total = steps_taken.numel(), int(steps_taken.sum())
+    return n * (12 + 12 + 4 + 4 + 4 + 4) + 8 * total + blobs.numel() * 4, float(total * blobs.shape[0] * 14)
+
+
+def _kernel_k10(dev, gen, timer, dtimer, size, steps=8):
+    """K10 at the VoPaT scene's shape (``k10_inputs``), K = 8 steps through
+    the scene's 6 blobs.  ``t`` within rtol 1e-6 and statuses equal to the
+    plain version's, except on near-ties (|u₁·μ̄ − σ| < 1e-5·μ̄ at a step the
+    ray took), which must be under 0.01% of the rays.  The bound counts the
+    steps the rays take in the plain version's walk (``k10_work``).  Its
+    launches are those of the one checked call."""
+    import torch
+
+    from repro_torch import kernels as KN
+    from repro_torch.kernels.delta_tracking import ops as DO
+
+    args, maj = k10_inputs(dev, gen, size, steps)
     kt, ks = DO.track(*args, majorant=maj, steps=steps)
     launches = KN.launch_counts()
     pt, ps = DO.track_plain(*args, majorant=maj, steps=steps)
-    tie = _woodcock_near_tie(*args, maj, steps)
-    n, n_tie = o.shape[0], int(tie.sum())
+    tie, taken = _woodcock_near_tie(*args, maj, steps)
+    n, n_tie = args[0].shape[0], int(tie.sum())
     differ = ks != ps
     t_bad = ~torch.isclose(kt, pt, rtol=1e-6, atol=0.0) & ~tie
+    hist = torch.bincount(taken, minlength=steps + 1).tolist()
+    nbytes, ops = k10_work(taken, args[5])
     print(f"  K10 track on {n} rays x {steps} steps: statuses differ on {int(differ.sum())} rays, "
           f"all near-ties: {not bool((differ & ~tie).any())}; near-ties {n_tie}; "
-          f"statuses STILL/HIT/EXITED {[int((ps == k).sum()) for k in (0, 1, 2)]}", flush=True)
+          f"statuses STILL/HIT/EXITED {[int((ps == k).sum()) for k in (0, 1, 2)]}; "
+          f"steps taken over 0..{steps} {hist}, mean {int(taken.sum()) / n:.4f}, "
+          f"so {nbytes / n:.2f} B a ray", flush=True)
     check(not bool((differ & ~tie).any()) and not bool(t_bad.any()),
           f"K10 track ({n} rays): t within rtol 1e-6 and statuses equal to plain but for near-ties")
     check(int(differ.sum()) < 1e-4 * n, f"K10: {int(differ.sum())} status differences < 0.01% of {n} rays")
-    per_ray = 12 + 12 + 4 + 4 + 8 * steps + 4 + 4
     return dict(
         max_abs_err=(kt - pt)[~tie].abs().max().item(),
         **_timed(timer, dtimer, lambda: DO.track(*args, majorant=maj, steps=steps),
                  lambda: DO.track_plain(*args, majorant=maj, steps=steps)),
-        library_call=None, nbytes=n * per_ray + blobs.numel() * 4,
-        ops=float(n * steps * blobs.shape[0] * 14), rays=n, near_ties=n_tie,
+        library_call=None, nbytes=nbytes, ops=ops, rays=n, near_ties=n_tie,
+        steps_histogram=hist, mean_steps=int(taken.sum()) / n,
     ), launches
 
 
 def _woodcock_near_tie(o, d, t0, t_exit, u, blobs, maj, steps):
-    """Rays whose walk in the plain version meets |u₁·μ̄ − σ| < 1e-5·μ̄ at a
-    step where the ray is still tracking and inside its exit: an ulp of
-    ``expf`` or ``log1pf`` may flip such a step."""
+    """The plain version's walk, replayed: ``(tie, taken)``.  ``tie`` marks
+    the rays that meet |u₁·μ̄ − σ| < 1e-5·μ̄ at a step where the ray is still
+    tracking and inside its exit (an ulp of ``expf`` or ``log1pf`` may flip
+    such a step); ``taken`` (int64) counts the steps each ray takes, those
+    at which it is still tracking."""
     import torch
 
     from repro_torch.kernels.delta_tracking import ops as DO
@@ -702,8 +727,10 @@ def _woodcock_near_tie(o, d, t0, t_exit, u, blobs, maj, steps):
     mu = torch.tensor(maj, dtype=torch.float32, device=t0.device)
     t, status = t0, torch.zeros_like(t0, dtype=torch.int32)
     tie = torch.zeros_like(t0, dtype=torch.bool)
+    taken = torch.zeros_like(t0, dtype=torch.int64)
     for k in range(steps):
         active = status == DO.STILL
+        taken += active
         t_new = t - torch.log1p(-u[:, k, 0]) / mu
         sigma = DO.density(o + t_new[:, None] * d, blobs)
         inside = active & (t_new < t_exit)
@@ -711,7 +738,7 @@ def _woodcock_near_tie(o, d, t0, t_exit, u, blobs, maj, steps):
         hit = inside & (u[:, k, 1] * mu < sigma)
         t = torch.where(active, t_new, t)
         status = torch.where(active & ~inside, DO.EXITED, torch.where(hit, DO.HIT, status)).to(torch.int32)
-    return tie
+    return tie, taken
 
 
 # --------------------------------------------------------------- 2. forward

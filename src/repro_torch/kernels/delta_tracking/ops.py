@@ -24,8 +24,9 @@ __all__ = ["EXITED", "HIT", "STILL", "density", "track", "track_plain"]
 STILL, HIT, EXITED = 0, 1, 2
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
-_SIGS = {"rafi_track": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)}
-_MAX_BLOBS = 48 * 1024 // 20  # the blobs live in shared memory, 20 B each
+_SIGS = {"rafi_track": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+         "rafi_track_quotients": (_P, _P, _P, _P, _I, _P)}
+_MAX_BLOBS = 48 * 1024 // 32  # each blob's constants take 32 B of shared memory
 
 
 def density(p: torch.Tensor, blobs: torch.Tensor) -> torch.Tensor:
@@ -84,6 +85,8 @@ def track(origins: torch.Tensor, dirs: torch.Tensor, t0: torch.Tensor, t_exit: t
     if blobs.shape[0] > _MAX_BLOBS:
         raise ValueError(f"track: {blobs.shape[0]} blobs exceed the kernel's {_MAX_BLOBS}")
     args = tuple(a.contiguous() for a in args)
+    if args[4].data_ptr() % 8:  # the kernel reads a step's two uniforms as one 8-byte word
+        args = args[:4] + (args[4].clone(),) + args[5:]
     t = torch.empty(n, dtype=torch.float32, device=t0.device)
     status = torch.empty(n, dtype=torch.int32, device=t0.device)
     lib = build.load(_SIGS)
@@ -98,3 +101,17 @@ def track(origins: torch.Tensor, dirs: torch.Tensor, t0: torch.Tensor, t_exit: t
 
 
 track.launches = 0
+
+
+def _quotients(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's two divisions on the card, elementwise over ``(n,)``
+    float32 CUDA tensors: ``(a / b, (−0.5·a) / (b·b))`` as ``track`` computes
+    ``log1p(−u₀) / μ̄`` and a blob's ``(−0.5·r²) / s²`` (``a`` as r², ``b`` as
+    s).  For the tests that hold them against IEEE division; not a launch of
+    ``track``."""
+    a, b = a.contiguous(), b.contiguous()
+    q, q_gauss = torch.empty_like(a), torch.empty_like(a)
+    rc = build.load(_SIGS).rafi_track_quotients(a.data_ptr(), b.data_ptr(), q.data_ptr(),
+                                                q_gauss.data_ptr(), a.numel(), KN.stream_handle())
+    KN.check_launch(rc, "track quotients")
+    return q, q_gauss

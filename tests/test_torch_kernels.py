@@ -425,6 +425,82 @@ def test_k10_wrapper_rejects_bad_shapes_and_steps():
         DO.track(z(4, 3), z(4, 3), z(4), z(4), z(4, 2, 2).double(), z(1, 5), majorant=1.0, steps=2)
 
 
+def _vopat_track_inputs(width, height, steps, seed):
+    """K10's inputs at the VoPaT scene: the camera rays of a ``width`` x
+    ``height`` image that enter [0,1]³, from the domain entry to the domain
+    exit, ``fields.default_blobs(6, 0)`` and its majorant, uniforms from
+    numpy."""
+    from repro_torch.apps import fields as F
+
+    o, d = F.camera_rays(width, height)
+    t_in, inside = F.ray_domain_entry(o, d)
+    o, d, t0 = o[inside].contiguous(), d[inside].contiguous(), t_in[inside].contiguous()
+    t_exit, _, _ = F.ray_box_exit(o, d, t0, torch.zeros_like(t0), torch.ones_like(t0))
+    blobs = torch.from_numpy(F.default_blobs(6, 0))
+    u = torch.from_numpy(np.random.default_rng(seed).random((o.shape[0], steps, 2)).astype(np.float32))
+    return (o, d, t0, t_exit.contiguous(), u, blobs), F.majorant(blobs)
+
+
+def _near_ties(o, d, t0, t_exit, u, blobs, maj, steps):
+    """Rays whose plain walk meets |u₁·μ̄ − σ| < 1e-5·μ̄ at a step where the
+    ray is still tracking and inside its exit (``chip_smoke.py``'s rule: an
+    ulp of ``expf`` or ``log1pf`` may flip such a step)."""
+    mu = torch.tensor(np.float32(maj), device=t0.device)
+    t, status = t0, torch.zeros_like(t0, dtype=torch.int32)
+    tie = torch.zeros_like(t0, dtype=torch.bool)
+    for k in range(steps):
+        active = status == DO.STILL
+        t_new = t - torch.log1p(-u[:, k, 0]) / mu
+        sigma = DO.density(o + t_new[:, None] * d, blobs)
+        inside = active & (t_new < t_exit)
+        tie |= inside & ((u[:, k, 1] * mu - sigma).abs() < 1e-5 * mu)
+        t = torch.where(active, t_new, t)
+        status = torch.where(active & ~inside, DO.EXITED,
+                             torch.where(inside & (u[:, k, 1] * mu < sigma), DO.HIT, status)).to(torch.int32)
+    return tie
+
+
+def _assert_track_close(t, status, want_t, want_status, tie):
+    """``t`` within rtol 1e-6 and statuses equal, except on near-ties."""
+    t, status, want_t, want_status, tie = (np.asarray(x) for x in (t, status, want_t, want_status, tie))
+    np.testing.assert_allclose(t[~tie], want_t[~tie], rtol=1e-6, atol=0.0)
+    np.testing.assert_array_equal(status[~tie], want_status[~tie])
+
+
+def test_k10_plain_matches_ref_and_pallas_at_the_vopat_scene():
+    """At the VoPaT scene (camera rays of a 32x32 image, the default 6
+    blobs and their majorant, K = 8): ``t`` within rtol 1e-6 and statuses
+    equal, but for near-ties, against ``ref.track`` and the Pallas kernel in
+    interpret mode; every status occurs."""
+    args, maj = _vopat_track_inputs(32, 32, 8, seed=16)
+    t, status = DO.track(*args, majorant=maj, steps=8)
+    tie = _near_ties(*args, maj, 8)
+    jargs = tuple(jnp.asarray(a.numpy()) for a in args)
+    for jt, js in (JDR.track(*jargs, majorant=maj, steps=8),
+                   JDK.track(*jargs, majorant=maj, steps=8, tile=32, interpret=True)):
+        _assert_track_close(t, status, np.asarray(jt), np.asarray(js), tie)
+    assert {DO.STILL, DO.HIT, DO.EXITED} <= set(status.tolist())
+    assert int(tie.sum()) < 0.01 * t.numel()
+
+
+@pytest.mark.parametrize("scene", ["vopat", "random_blobs"])
+def test_k10_plain_invariant_under_a_permutation_of_the_rays(scene):
+    """A ray's result does not depend on where it sits: the plain version on
+    permuted rays gives the permuted results, bit for bit, and so on
+    ``args[k:]`` (the property the kernel's lane refill must keep)."""
+    if scene == "vopat":
+        args, maj = _vopat_track_inputs(48, 40, 8, seed=3)
+    else:
+        args, maj = tuple(map(torch.from_numpy, _track_inputs(np.random.default_rng(5), 3001, 8, 6))), 4.0
+    t, status = DO.track(*args, majorant=maj, steps=8)
+    perm = torch.from_numpy(np.random.default_rng(11).permutation(t.numel()))
+    tp, sp = DO.track(*(a[perm] for a in args[:5]), args[5], majorant=maj, steps=8)
+    assert torch.equal(tp.view(torch.int32), t[perm].view(torch.int32)) and torch.equal(sp, status[perm])
+    for k in (1, 3):
+        tk, sk = DO.track(*(a[k:] for a in args[:5]), args[5], majorant=maj, steps=8)
+        assert torch.equal(tk.view(torch.int32), t[k:].view(torch.int32)) and torch.equal(sk, status[k:])
+
+
 # ------------------------------------------------------- dispatch, no fallback
 def test_wrappers_take_plain_path_only_for_cpu_tensors():
     """A tensor on neither the CPU nor a CUDA device raises; nothing falls
@@ -601,3 +677,82 @@ def test_cuda_k2_output_driven_equals_plain_on_kernel_branches(cuda_device):
     z = torch.zeros(1, 1025, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="1025 received blocks"):
         MO.unmarshal(torch.zeros(1, 1025, 1, 1, dtype=torch.int32, device=dev), z, z, capacity=4)
+
+
+@pytest.mark.cuda
+def test_cuda_k10_lane_invariant(cuda_device):
+    """On the card: K10 bit-equal to itself on ``args[k:]`` against
+    ``args`` for k = 0..3 and on a random permutation of the rays: each ray
+    then sits in another lane and another span and is taken at another
+    refill, so this holds the lane refill to per-ray arithmetic (as the K8
+    test does for K8), at the VoPaT scene and on random blobs."""
+    dev = cuda_device
+    cases = [_vopat_track_inputs(320, 320, 8, seed=4),
+             (tuple(map(torch.from_numpy, _track_inputs(np.random.default_rng(12), 50000, 8, 6))), 4.0)]
+    for args, maj in cases:
+        args = tuple(a.to(dev) for a in args)
+        t, status = DO.track(*args, majorant=maj, steps=8)
+        for k in range(4):
+            tk, sk = DO.track(*(a[k:] for a in args[:5]), args[5], majorant=maj, steps=8)
+            assert torch.equal(tk.view(torch.int32), t[k:].view(torch.int32)), k
+            assert torch.equal(sk, status[k:]), k
+        perm = torch.from_numpy(np.random.default_rng(13).permutation(t.numel())).to(dev)
+        tp, sp = DO.track(*(a[perm] for a in args[:5]), args[5], majorant=maj, steps=8)
+        assert torch.equal(tp.view(torch.int32), t[perm].view(torch.int32))
+        assert torch.equal(sp, status[perm])
+
+
+@pytest.mark.cuda
+def test_cuda_k10_ragged_vopat_scene_matches_plain(cuda_device):
+    """On the card, at a ragged N (100,003 VoPaT-scene rays: spans that do
+    not divide it) and at steps < K: ``t`` within rtol 1e-6 and statuses
+    equal to the plain version but on near-ties, which stay under 0.01% of
+    the rays (``chip_smoke.py``'s check); steps = 0 returns t0, STILL; and
+    uniforms off an 8-byte boundary give the same answer."""
+    dev = cuda_device
+    args, maj = _vopat_track_inputs(420, 420, 8, seed=6)
+    args = tuple(a[:100003].contiguous() for a in args[:5]) + (args[5],)
+    assert args[0].shape[0] == 100003
+    args = tuple(a.to(dev) for a in args)
+    for steps in (8, 5):
+        kt, ks = DO.track(*args, majorant=maj, steps=steps)
+        pt, ps = DO.track_plain(*args, majorant=maj, steps=steps)
+        tie = _near_ties(*args, maj, steps)
+        _assert_track_close(kt.cpu(), ks.cpu(), pt.cpu(), ps.cpu(), tie.cpu())
+        assert int((ks != ps).sum()) < 1e-4 * ks.numel()
+    kt, ks = DO.track(*args, majorant=maj, steps=0)
+    assert torch.equal(kt, args[2]) and not bool(ks.any())
+    # uniforms off an 8-byte boundary (the kernel reads a step's pair as one word)
+    flat = torch.empty(args[4].numel() + 1, device=dev)
+    odd = flat[1:].view(args[4].shape)
+    odd.copy_(args[4])
+    assert odd.data_ptr() % 8 == 4
+    got = DO.track(*args[:4], odd, args[5], majorant=maj, steps=8)
+    want = DO.track(*args, majorant=maj, steps=8)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_cuda_k10_divisions_bit_equal_to_ieee_division(cuda_device):
+    """On the card: the kernel's two divisions (Markstein's correction from
+    the correctly rounded reciprocal, with ``__fdiv_rn`` outside its range)
+    are bit-equal to IEEE float32 division on 2^24 random pairs over the
+    ranges the rays meet and on the edges of the range check: ``a / b`` as
+    ``log1p(−u₀) / μ̄`` and ``(−0.5·a) / (b·b)`` as a blob's
+    ``(−0.5·r²) / s²``."""
+    dev = cuda_device
+    rng = np.random.default_rng(14)
+    n = 2**24
+    mag = (64.0 * np.exp2(-30.0 * rng.random(n)) * (1 - 0.5 * rng.random(n))).astype(np.float32)
+    edges = np.array([0.0, -0.0, 1e-45, -1e-45, 2.0**-60, -(2.0**-60), 2.0**-59, 2.0**-61, 2.0**60,
+                      -(2.0**61), 3e38, -3e38, np.inf, -np.inf, 1.0, -16.635532], np.float32)
+    odd = np.array([15.357529, 0.05, 2.0**-61, 2.0**61], np.float32)
+    for a, b in ((-mag, rng.uniform(1.0, 64.0, n)), (mag, rng.uniform(0.05, 0.15, n))):
+        b = b.astype(np.float32)
+        a = np.concatenate([a, np.repeat(edges, len(odd)), a[:4096] * np.float32(2.0**-100)])
+        b = np.concatenate([b, np.tile(odd, len(edges)), b[:4096]])
+        q, q_gauss = DO._quotients(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev))
+        with np.errstate(all="ignore"):
+            want, want_gauss = a / b, (np.float32(-0.5) * a) / (b * b)
+        assert np.array_equal(q.cpu().numpy().view(np.uint32), want.view(np.uint32))
+        assert np.array_equal(q_gauss.cpu().numpy().view(np.uint32), want_gauss.view(np.uint32))
