@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all started together, linked into one library under
-``build/``) and runs six phases on ``cuda:0``:
+``build/``) and runs seven phases on ``cuda:0``:
 
   1. kernels     — all ten kernels (K1 gather_rows, K2 unmarshal, K3
                    pack_and_histogram, K4 rank_and_histogram, K5
@@ -29,8 +29,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    the same bits wherever it sits (``pos[k:]`` against
                    ``pos``); K2 and K4 also at VoPaT's shapes, K6 at the
                    streamlines and VoPaT shapes, K8 at the streamlines
-                   shape; plus the two-pass marshal path (K3 + sort + K7)
-                   against K1's fused marshal;
+                   shape; K2 also with offsets shifted by a retain spill
+                   front inside (0, C) and at or past C; plus the two-pass
+                   marshal path (K3 + sort + K7) against K1's fused marshal;
   2. forward     — one ``forward_work`` round of the Fig-8 44-byte ray, R=8
                    ranks × C=262,144 (2,097,152 rays, about one 1080p frame
                    of primary rays), S=65,536 peer slots, in both marshal
@@ -40,12 +41,29 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    all_to_all each; K1, K2, K3 once in the sort round, K4,
                    K5, K2 once in the scatter round; median round times and
                    the stage splits (CUDA events at the stage boundaries);
-  3. streamlines — ``apps.streamlines.run`` through
+  3. lossless    — ``overflow="retain"`` and the hierarchical route, the
+                   Fig-8 ray's 11 words with a scenario uid in the first:
+                   (a) ``chaos.rotating_hotspot(8, 8, 32768)`` through the
+                   flat padded retain drive (C=262,144, 8,192 peer slots)
+                   in both marshals, equal to the port's numpy oracle
+                   forward for forward (11 rounds, retained rows and their
+                   largest age) and to ``expected_by_rank``, timed, with
+                   the seed round's stage split; (b) one hierarchical drop
+                   round of the Fig-8 rays on 2×4 and 2×2×2 in both
+                   marshals, equal to the flat onehot round and to the CPU,
+                   one payload and one count ``all_to_all`` per tier, timed
+                   with stage splits beside the flat padded round; (c) the
+                   scenario of (a) through the hierarchical retain drive at
+                   tight tier capacities on both layouts: checksums equal,
+                   0 drops, rows parked after a later tier, sort and
+                   scatter equal after every forward; launches counted on
+                   every path;
+  4. streamlines — ``apps.streamlines.run`` through
                    ``RafiContext.run_until_done``, R=8, 131,072 particles,
                    64 steps, ABC field (tornado and Taylor-Green at 16,384):
                    traces equal the single-rank oracle exactly; K6 launched
                    once per ``enqueue``;
-  4. vopat       — ``apps.vopat.render`` at 1024×1024 (1,048,576 primary
+  5. vopat       — ``apps.vopat.render`` at 1024×1024 (1,048,576 primary
                    rays), R=8, ``marshal="scatter"``: drops 0, the image
                    bit-equal to the R=1 render and to the R=8 sort render,
                    finite and in [0, 1]; rounds, wall time and the
@@ -54,7 +72,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    pairs bit-equal to the same words on the CPU, and a
                    64×64 render equal to the port's plain CPU render within
                    the port-against-reference tolerance of the tests;
-  5. nbody       — ``apps.nbody.run``, R=8, 262,144 particles, 8 steps (dt
+  6. nbody       — ``apps.nbody.run``, R=8, 262,144 particles, 8 steps (dt
                    5e-4, θ 0.3, ε² 1e-3, G = 64/N): every particle conserved
                    (totals N every step, drops 0), positions within 1e-2 of
                    the direct-sum oracle, the R=1 run within 1e-5 of it, K9
@@ -62,7 +80,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    forwarding contexts a step); a 512-particle R=8 run on the
                    card against the same run on the CPU; wall time per step,
                    the device-busy share and K9's share of device time;
-  6. report      — one JSON line of the kernels (launches on the paths that
+  7. report      — one JSON line of the kernels (launches on the paths that
                    run them, errors, bounds; ``ms``, ``plain_ms`` and
                    ``library_ms`` are device times, ``call_ms`` the event
                    pair's; device events a call), the card's name and
@@ -114,11 +132,17 @@ KERNELS = {  # name → (source in the repo, the TPU kernel it replaces)
 }
 # the paths whose launches the report counts, per kernel (each path is run
 # with the counts set to 0 just before it and read just after)
+LOSSLESS_PATHS = tuple(
+    [f"lossless_flat_{m}" for m in ("sort", "scatter")]
+    + [f"hier_round_{t}_{m}" for t in ("2x4", "2x2x2") for m in ("sort", "scatter")]
+    + [f"lossless_hier_{t}" for t in ("2x4", "2x2x2")]
+)
 LAUNCH_PATHS = {
-    "pack_and_histogram": ("streamlines", "nbody"), "gather_rows": ("streamlines", "nbody"),
-    "unmarshal": ("streamlines", "vopat", "nbody"), "rk4_step": ("streamlines",),
-    "compact_positions": ("streamlines", "vopat", "nbody"),
-    "rank_and_histogram": ("vopat",), "scatter_rows": ("vopat",),
+    "pack_and_histogram": ("streamlines", "nbody") + LOSSLESS_PATHS,
+    "gather_rows": ("streamlines", "nbody") + LOSSLESS_PATHS,
+    "unmarshal": ("streamlines", "vopat", "nbody") + LOSSLESS_PATHS, "rk4_step": ("streamlines",),
+    "compact_positions": ("streamlines", "vopat", "nbody") + LOSSLESS_PATHS,
+    "rank_and_histogram": ("vopat",) + LOSSLESS_PATHS, "scatter_rows": ("vopat",) + LOSSLESS_PATHS,
     "marshal": ("two_pass_marshal",),
     "pairwise_accel": ("nbody",), "track": ("woodcock_check",),
 }
@@ -358,7 +382,17 @@ def phase_kernels(dev, R=8, C=262144, S=65536, W=11, N_PART=2097152,
         library_call="zeros + index_put_ at precomputed positions",
     )
     _one_launch("unmarshal", "unmarshal_kernel", rows["unmarshal"]["events"], dev)
-    del k_out, p_out, recv, flat, dst, bb, keep
+    # the retain round's compaction: offsets shifted by a spill front inside
+    # (0, C) on six ranks, at C and past it on two (nothing lands there)
+    front = torch.randint(1, C, (R,), generator=gen, device=dev, dtype=torch.int32)
+    front[2], front[5] = C, C + 4096
+    k_f = MO.unmarshal(recv, off + front[:, None], counts, capacity=C)
+    p_f = MO.unmarshal_plain(recv, off + front[:, None], counts, capacity=C)
+    below = torch.arange(C, device=dev)[None, :] < front[:, None]
+    check(torch.equal(k_f, p_f) and not bool(k_f[below].any()) and not bool(k_f[[2, 5]].any()),
+          f"K2 unmarshal with a spill front (fronts {front.tolist()}): bit-equal to plain, rows below "
+          "the front zero, nothing lands at or past capacity")
+    del k_out, p_out, k_f, p_f, recv, flat, dst, bb, keep
     rows["unmarshal"]["vopat_shape"] = _kernel_k2_at(dev, gen, timer, dtimer, *K2_VOPAT)
 
     # K8: all three fields; the ABC timing goes in the report
@@ -851,6 +885,11 @@ def phase_forward(dev, R=8, C=262144, S=65536, reps=10, timer_events=True):
     return out
 
 
+def _print_split(label, whole, split):
+    print(f"  {label}: median {whole:.3f} ms; stages (median ms, sum {sum(split.values()):.3f}): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items()), flush=True)
+
+
 def _time_round(q, cfg, reps):
     """Median round time, then the stage split of the same ``forward_work``
     call, with a CUDA event recorded at each stage boundary (``on_stage``)."""
@@ -880,7 +919,334 @@ def _time_round(q, cfg, reps):
     return whole, {k: statistics.median(v) for k, v in splits.items()}
 
 
-# ----------------------------------------------------------- 3. streamlines
+# -------------------------------------------------------------- 3. lossless
+def _chaos_ray_type():
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import work_item
+
+    @work_item
+    @dataclasses.dataclass
+    class ChaosRay:
+        """The Fig-8 ray's 11 words, the scenario's uid in the first."""
+
+        uid: torch.Tensor  # () i32
+        ballast: torch.Tensor  # (10,) f32, derived from the uid
+
+    return ChaosRay
+
+
+def _ballast(uid):
+    import torch
+
+    return uid.to(torch.float32)[..., None] * torch.arange(1, 11, device=uid.device) * 0.25
+
+
+class ScenarioDrive:
+    """A schedule of ``repro_torch.chaos`` driven through ``run_until_done``'s
+    pieces, as ``repro.chaos.run_scenario`` drives it: round 0's emissions
+    seed the queue; body round ``rnd`` folds its arrivals into per-rank
+    (count, Σuid, Σuid²) mod 2³² checksums (and counts arrivals whose
+    ballast lost its bits) and emits schedule row ``rnd + 1`` (K6 under
+    ``enqueue``).  ``step()`` runs one forwarding round; ``observe()`` reads
+    the retained rows, their largest age, and how many of them sit on a
+    rank other than their source (parked after a later tier)."""
+
+    def __init__(self, sc, cfg, dev):
+        import torch
+
+        from repro_torch.core import DISCARD, StackedCollectives, enqueue, make_queue
+        from repro_torch.core import termination as TERM
+
+        self.sc, self.cfg, self.dev, self.TERM = sc, cfg, dev, TERM
+        R, E, C = sc.num_ranks, sc.emits_per_round, cfg.capacity
+        ChaosRay = _chaos_ray_type()
+        proto = ChaosRay(uid=torch.zeros((), dtype=torch.int32), ballast=torch.zeros(10))
+        dests = torch.from_numpy(sc.dests).to(dev)
+        me = torch.arange(R, dtype=torch.int64, device=dev)[:, None]
+        lane = torch.arange(C, device=dev)[None, :]
+        e_idx = torch.arange(E, device=dev)
+
+        def emit(rnd):
+            q = make_queue(proto, C, num_ranks=R, device=dev)
+            row = dests[min(rnd, sc.rounds - 1)]
+            mask = (row >= 0) & (rnd < sc.rounds)
+            uid = ((rnd * R + me) * E + e_idx).to(torch.int32)
+            return enqueue(q, ChaosRay(uid=uid, ballast=_ballast(uid)), torch.where(mask, row, DISCARD), mask)
+
+        def round_fn(q_in, acc, rnd):
+            valid = lane < q_in.count[:, None]
+            u = q_in.items.uid.to(torch.int64)
+            bad = (valid[:, :, None] & (q_in.items.ballast != _ballast(q_in.items.uid))).sum(1).sum(1)
+            z = torch.zeros_like(u)
+            acc = acc + torch.stack([valid.sum(1), torch.where(valid, u, z).sum(1),
+                                     torch.where(valid, u * u, z).sum(1), bad], dim=1)
+            return emit(rnd + 1), acc & 0xFFFFFFFF
+
+        self.round_fn, self.emit, self.lane, self.me = round_fn, emit, lane, me
+        self.comm = StackedCollectives()
+        self.carry = None
+
+    def start(self):
+        import torch
+
+        q0 = self.emit(0)
+        acc0 = torch.zeros(self.sc.num_ranks, 4, dtype=torch.int64, device=self.dev)
+        self.carry = self.TERM.drive_start(q0, acc0, self.cfg, comm=self.comm)
+
+    def running(self, max_rounds=64):
+        return self.carry["rnd"] < max_rounds and int(self.carry["total"]) > 0
+
+    def step(self):
+        self.carry = self.TERM.drive_segment(self.round_fn, self.carry, self.cfg,
+                                             seg_end=self.carry["rnd"] + 1, comm=self.comm)
+
+    def observe(self):
+        import torch
+
+        q = self.carry["q"]
+        held = (self.lane < q.count[:, None]) & (q.dest >= 0)
+        src = (q.items.uid.to(torch.int64) // self.sc.emits_per_round) % self.sc.num_ranks
+        return (int(held.sum()), int(self.carry["age"].max()), int((held & (src != self.me)).sum()))
+
+    def result(self):
+        import numpy as np
+
+        q, acc, rounds, done, _age = self.TERM.drive_finalize(self.carry, self.cfg)
+        acc = acc.cpu().numpy()
+        return {"delivered": acc[:, :3].astype(np.uint32), "bad_ballast": int(acc[:, 3].sum()),
+                "drops": int(q.drops.sum()), "rounds": rounds, "done": done,
+                "resident": int(q.count.sum())}
+
+    def run(self, max_rounds=64):
+        """The whole drive through ``run_until_done`` (one host sync a
+        round); returns ``(result, wall seconds)``."""
+        import time as _time
+
+        import torch
+
+        from repro_torch.core import run_until_done
+
+        q0 = self.emit(0)
+        acc0 = torch.zeros(self.sc.num_ranks, 4, dtype=torch.int64, device=self.dev)
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = _time.perf_counter()
+        q, acc, rounds, done, _age = run_until_done(self.round_fn, q0, acc0, self.cfg, max_rounds=max_rounds)
+        acc = acc.cpu()
+        wall = _time.perf_counter() - t0
+        return {"delivered": acc[:, :3].numpy().astype("uint32"), "bad_ballast": int(acc[:, 3].sum()),
+                "drops": int(q.drops.sum()), "rounds": rounds, "done": done,
+                "resident": int(q.count.sum())}, wall
+
+
+def _same_result(a, b) -> bool:
+    import numpy as np
+
+    return a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def _same_state(a, b):
+    """Two drives' carries hold the same queue, drops and ages, bit for bit."""
+    import torch
+
+    from repro_torch.core import types as T
+
+    qa, qb = a.carry["q"], b.carry["q"]
+    same = (torch.equal(qa.count, qb.count) and torch.equal(qa.drops, qb.drops)
+            and torch.equal(a.carry["age"], b.carry["age"]) and int(a.carry["total"]) == int(b.carry["total"]))
+    if not same:
+        return False
+    mask = a.lane < qa.count[:, None]
+    pa, _ = T.pack_payload(qa.items, batch_dims=2)
+    pb, _ = T.pack_payload(qb.items, batch_dims=2)
+    return torch.equal(pa[mask], pb[mask]) and torch.equal(qa.dest[mask], qb.dest[mask])
+
+
+def phase_lossless(dev, R=8, C=262144, E=32768, S=8192, FIG8_S=65536, reps=10,
+                   HIER_CAPS=(((2, 4), (32768, 16384)), ((2, 2, 2), (32768, 32768, 32768))),
+                   oracle_numbers=(11, 246311, 3), cpu_witness=True, timer=cuda_ms, stage_split=True):
+    """``overflow="retain"`` and the hierarchical route on the card:
+    (a) the flat padded retain drive of ``rotating_hotspot(R, 8, E)`` in both
+    marshals against the port's numpy oracle, forward for forward; (b) one
+    hierarchical drop round of the Fig-8 rays on 2×4 and 2×2×2 against the
+    flat onehot round and the CPU, with its collective budget and times
+    beside the flat padded round's; (c) the scenario of (a) through the
+    hierarchical retain drive at tight tier capacities, sort and scatter in
+    lockstep, rows parked after a later tier.  Round times are medians of
+    ``reps``; with ``stage_split`` (CUDA events at the ``on_stage`` marks)
+    each comes with its stage split, and the seed round of (a) is timed so
+    too.  Returns ``(record, launches per path)``."""
+    import numpy as np
+    import torch
+
+    from repro_torch import chaos as TC
+    from repro_torch import kernels as KN
+    from repro_torch.core import ForwardConfig, StackedCollectives, WorkQueue, forward_work
+    from repro_torch.core import types as T
+
+    out, paths = {}, {}
+    sc = TC.rotating_hotspot(R, 8, E)
+    expected = TC.expected_by_rank(sc)
+    t0 = time.perf_counter()
+    sim = TC.simulate_flat_retain(sc, peer_capacity=S, capacity=C)
+    oracle_s = time.perf_counter() - t0
+    peak = max(sim["retained_trace"])
+    print(f"  oracle: rotating_hotspot({R}, 8, {E}), capacity {C}, peer_capacity {S}: {sim['rounds']} "
+          f"rounds, retained peak {peak}, age max {sim['age_max']}, drops {sim['drops']} ({oracle_s:.1f} s)",
+          flush=True)
+    check((sim["rounds"], peak, sim["age_max"]) == oracle_numbers and sim["drops"] == 0 and sim["done"],
+          f"oracle: (rounds, retained peak, age max) {(sim['rounds'], peak, sim['age_max'])} == "
+          f"{oracle_numbers}, 0 drops")
+    check(np.array_equal(sim["delivered"], expected), "oracle delivers expected_by_rank")
+
+    # (a) the flat retain drive, each marshal: observed forward by forward,
+    # then (warm) through run_until_done, timed, its launches counted
+    for marshal in ("sort", "scatter"):
+        cfg = ForwardConfig(R, C, peer_capacity=S, marshal=marshal, overflow="retain")
+        d = ScenarioDrive(sc, cfg, dev)
+        d.start()
+        trace = [d.observe()]
+        while d.running():
+            d.step()
+            trace.append(d.observe())
+        res = d.result()
+        ok = ([t[0] for t in trace] == sim["retained_trace"] and [t[1] for t in trace] == sim["age_trace"]
+              and res["rounds"] == sim["rounds"] and res["done"] and res["drops"] == 0
+              and np.array_equal(res["delivered"], expected) and res["bad_ballast"] == 0)
+        check(ok, f"(a) flat retain drive, {marshal}: rounds {res['rounds']}, retained and age traces, "
+                  f"drops {res['drops']}, done, checksums == oracle and expected_by_rank")
+        check(d.comm.count("all_to_all") == 2 * (res["rounds"] + 1),
+              f"(a) {marshal}: one payload and one count all_to_all a forward")
+        KN.reset_launch_counts()
+        res2, wall = d.run()
+        launches = KN.launch_counts()
+        paths[f"lossless_flat_{marshal}"] = launches
+        f = res2["rounds"] + 1
+        check(_same_result(res2, res), f"(a) {marshal}: run_until_done == the observed drive")
+        if dev.type == "cuda":
+            # a forward: the plan, the send pass, the spill gather (K1), K2;
+            # an enqueue (K6) seeds the drive and ends every body round
+            want = dict.fromkeys(launches, 0)
+            want.update(compact_positions=f, unmarshal=f)
+            if marshal == "sort":
+                want.update(pack_and_histogram=f, gather_rows=2 * f)
+            else:
+                want.update(rank_and_histogram=f, scatter_rows=f, gather_rows=f)
+            check(launches == want, f"(a) {marshal}: launches over {f} forwards {launches}")
+        print(f"  (a) {marshal}: {res['rounds']} rounds, wall {wall:.4f} s, {1e3 * wall / f:.3f} ms a "
+              f"forwarding round (round_fn included); launches {launches}", flush=True)
+        out[f"flat_retain_{marshal}"] = {"rounds": res["rounds"], "wall_s": wall, "ms_per_round": 1e3 * wall / f,
+                                         "retained_trace": [t[0] for t in trace], "age_trace": [t[1] for t in trace]}
+        if stage_split:  # the seed forward: round 0's emissions, the most spilled
+            whole, split = _time_round(d.emit(0), cfg, reps)
+            out[f"flat_retain_{marshal}"].update(seed_round_ms=whole, seed_stages_ms=split)
+            _print_split(f"(a) {marshal} seed round ({sim['retained_trace'][0]} rows retained)", whole, split)
+    out["oracle"] = {"rounds": sim["rounds"], "retained_peak": peak, "age_max": sim["age_max"], "seconds": oracle_s}
+
+    # (b) one hierarchical drop round of the Fig-8 rays, default tier capacities
+    Ray44 = _ray44_types()
+    gen = torch.Generator(device=dev).manual_seed(45)
+    f32 = lambda *s: torch.randn((R, C) + s, generator=gen, device=dev)
+    q = WorkQueue(
+        items=Ray44(origin=f32(3), direction=f32(3), tmin=f32(),
+                    pixel=torch.arange(R * C, dtype=torch.int32, device=dev).reshape(R, C),
+                    integral=f32(), extra=f32(2)),
+        dest=_fig8_dest(gen, R, C, dev), count=torch.full((R,), C, dtype=torch.int32, device=dev),
+        drops=torch.zeros(R, dtype=torch.int32, device=dev),
+    )
+    cpu_q = WorkQueue(items=T.tree_map(lambda t: t.cpu(), q.items), dest=q.dest.cpu(),
+                      count=q.count.cpu(), drops=q.drops.cpu())
+    oq, ototal = forward_work(q, ForwardConfig(R, C, exchange="onehot"))
+    times, splits = {}, {}
+
+    def timed(label, c):
+        if stage_split:
+            times[label], splits[label] = _time_round(q, c, reps)
+            _print_split(f"(b) {label}", times[label], splits[label])
+        else:
+            times[label] = timer(lambda: forward_work(q, c), reps=reps)
+
+    for marshal in ("sort", "scatter"):
+        timed(f"flat_padded_{marshal}", ForwardConfig(R, C, peer_capacity=FIG8_S, marshal=marshal))
+    for sizes, _caps in HIER_CAPS:
+        tiers = [l for l in range(len(sizes)) if sizes[l] > 1]
+        for marshal in ("sort", "scatter"):
+            cfg = ForwardConfig(R, C, exchange="hierarchical", level_sizes=sizes, marshal=marshal)
+            comm = StackedCollectives()
+            KN.reset_launch_counts()
+            hq, htotal = forward_work(q, cfg, comm=comm)
+            launches = KN.launch_counts()
+            name = "x".join(map(str, sizes))
+            paths[f"hier_round_{name}_{marshal}"] = launches
+            check(_same_queue(hq, oq, all_lanes=False) and int(htotal) == int(ototal),
+                  f"(b) {name} {marshal} round == flat onehot round: count, drops, total {int(htotal)}, lanes < count")
+            a2a = sorted((c.tier, len(c.shape)) for c in comm.calls.elements() if c.kind == "all_to_all")
+            check(a2a == sorted([(l, 3) for l in tiers] + [(l, 4) for l in tiers]) and comm.count("psum") == 1,
+                  f"(b) {name} {marshal}: one count and one payload all_to_all per tier {tiers}: {a2a}")
+            if cpu_witness:
+                cq, ctotal = forward_work(cpu_q, cfg)
+                check(_same_queue(hq, cq, all_lanes=True) and int(htotal) == int(ctotal),
+                      f"(b) {name} {marshal} round on {dev.type} == the same round on the CPU, every lane")
+            if dev.type == "cuda":
+                # the first tier's send pass is K1 (sort) or K5 (scatter), every
+                # later tier gathers its buffer (K1), K2 compacts the last one
+                want = dict.fromkeys(launches, 0)
+                want.update(unmarshal=1)
+                if marshal == "sort":
+                    want.update(pack_and_histogram=1, gather_rows=len(tiers))
+                else:
+                    want.update(rank_and_histogram=1, scatter_rows=1, gather_rows=len(tiers) - 1)
+                check(launches == want, f"(b) {name} {marshal}: launches {launches}")
+            timed(f"hier_{name}_{marshal}", cfg)
+    print("  (b) median round ms: " + ", ".join(f"{k} {v:.3f}" for k, v in times.items()), flush=True)
+    out["round_ms"], out["stages_ms"] = times, splits
+    out["hier_delivered"] = int(ototal)
+    del oq, hq, cpu_q
+
+    # (c) the hierarchical retain drive at tight tier capacities; sort and
+    # scatter in lockstep, equal after every forward
+    for sizes, caps in HIER_CAPS:
+        name = "x".join(map(str, sizes))
+        drives = {m: ScenarioDrive(sc, ForwardConfig(R, C, exchange="hierarchical", level_sizes=sizes,
+                                                     level_capacities=caps, marshal=m, overflow="retain"), dev)
+                  for m in ("sort", "scatter")}
+        KN.reset_launch_counts()
+        for d in drives.values():
+            d.start()
+        same, trace = _same_state(drives["sort"], drives["scatter"]), [drives["sort"].observe()]
+        while drives["sort"].running() and drives["scatter"].running():
+            for d in drives.values():
+                d.step()
+            same = same and _same_state(drives["sort"], drives["scatter"])
+            trace.append(drives["sort"].observe())
+        launches = KN.launch_counts()
+        paths[f"lossless_hier_{name}"] = launches
+        res = {m: d.result() for m, d in drives.items()}
+        parked = sum(t[2] for t in trace)
+        print(f"  (c) {name} caps {caps}: {res['sort']['rounds']} rounds, retained peak {max(t[0] for t in trace)}, "
+              f"age max {max(t[1] for t in trace)}, rows parked after a later tier {parked} "
+              f"(peak {max(t[2] for t in trace)}); launches (sort + scatter) {launches}", flush=True)
+        r = res["sort"]
+        check(np.array_equal(r["delivered"], expected) and r["drops"] == 0 and r["done"] and r["resident"] == 0
+              and r["bad_ballast"] == 0,
+              f"(c) {name} retain drive: checksums == expected_by_rank, 0 drops, done")
+        check(parked > 0, f"(c) {name}: {parked} rows parked after a later tier (> 0)")
+        check(same and _same_result(res["sort"], res["scatter"]), f"(c) {name}: scatter drive == sort drive after every forward")
+        res2, wall = drives["sort"].run()  # warm: the whole sort drive through run_until_done
+        check(_same_result(res2, r), f"(c) {name}: run_until_done == the observed drive")
+        print(f"  (c) {name} sort drive: wall {wall:.4f} s, {1e3 * wall / (r['rounds'] + 1):.3f} ms a "
+              "forwarding round (round_fn included)", flush=True)
+        out[f"hier_retain_{name}"] = {"caps": caps, "rounds": r["rounds"], "parked_after_later_tier": parked,
+                                      "retained_trace": [t[0] for t in trace], "age_trace": [t[1] for t in trace],
+                                      "parked_trace": [t[2] for t in trace], "sort_wall_s": wall,
+                                      "ms_per_round": 1e3 * wall / (r["rounds"] + 1)}
+    return out, paths
+
+
+# ----------------------------------------------------------- 4. streamlines
 def profile_drive(run, dev, kernel=None):
     """Device-busy share of one drive under ``torch.profiler``: summed
     device time of every kernel and copy over the drive's wall time (the
@@ -960,7 +1326,7 @@ def phase_streamlines(dev, fields=(("ABC", 0, 131072), ("tornado", 1, 16384), ("
     return out, main_launches
 
 
-# ----------------------------------------------------------------- 4. vopat
+# ----------------------------------------------------------------- 5. vopat
 def phase_vopat(dev, size=1024, R=8, profile=True, N_WORDS=2097152, CPU_SIZE=64):
     """The VoPaT main path: ``render`` through ``run_until_done`` with the
     scatter marshal, held against the R=1 render and the R=8 sort render,
@@ -1041,7 +1407,7 @@ def phase_vopat(dev, size=1024, R=8, profile=True, N_WORDS=2097152, CPU_SIZE=64)
     return out, launches
 
 
-# ----------------------------------------------------------------- 5. nbody
+# ----------------------------------------------------------------- 6. nbody
 def phase_nbody(dev, N=262144, R=8, steps=8, WITNESS_N=512, profile=True):
     """The N-body main path: ``run`` at R=8 against the direct-sum oracle,
     the R=1 run, launches per run, and a small run on the card against the
@@ -1137,6 +1503,7 @@ def main() -> int:
     record = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda, "build_s": t_build}
 
     run = {"kernels": lambda: phase_kernels(dev), "forward": lambda: phase_forward(dev),
+           "lossless": lambda: phase_lossless(dev),
            "streamlines": lambda: phase_streamlines(dev), "vopat": lambda: phase_vopat(dev),
            "nbody": lambda: phase_nbody(dev)}
     kernels, paths = {}, {}  # paths: launches per path, counted from 0
@@ -1151,6 +1518,9 @@ def main() -> int:
             continue
         if title == "kernels":
             kernels, more = res
+            paths.update(more)
+        elif title == "lossless":
+            record[title], more = res
             paths.update(more)
         elif title in ("streamlines", "vopat", "nbody"):
             record[title], paths[title] = res

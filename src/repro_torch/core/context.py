@@ -9,8 +9,13 @@ the collective entry points.  The paper's host operations:
   forwardRays()        → :meth:`forward_rays` (one round) and
                          :meth:`run_until_done` (the whole drive loop)
 
-There is no mesh: R ranks share one device, each a row of the leading axis.
-The context's ``comm`` records every collective its entry points issue.
+There is no mesh: R ranks share one device, each a row of the leading axis;
+a multi-tier layout for ``exchange="hierarchical"`` is given as
+``level_sizes`` (``core.collectives.node_layout`` / ``pod_layout`` /
+``joint_tiers`` give the reference's meshes).  The context's ``comm``
+records every collective its entry points issue.  Under
+``overflow="retain"`` both entry points also return the per-lane ``age``,
+as the reference's context does.
 
 :func:`queue_from_reference` and :func:`queue_to_reference` carry queue
 state across from the JAX package's global layout (``(R·C, …)`` leaves, as
@@ -47,6 +52,11 @@ class RafiContext:
         exchange: str = "padded",
         marshal: str = "sort",
         sort_method: str = "pack",
+        fast_size: int = 0,
+        node_capacity: int = 0,
+        level_sizes=(),
+        level_capacities=(),
+        overflow: str = "drop",
         device=None,
     ):
         self.proto = proto
@@ -55,6 +65,9 @@ class RafiContext:
         self.cfg = ForwardConfig(
             num_ranks=num_ranks, capacity=capacity, peer_capacity=peer_capacity,
             exchange=exchange, marshal=marshal, sort_method=sort_method,
+            fast_size=fast_size, node_capacity=node_capacity,
+            level_sizes=tuple(level_sizes), level_capacities=tuple(level_capacities),
+            overflow=overflow,
         )
         self.comm = StackedCollectives()
 
@@ -68,8 +81,10 @@ class RafiContext:
             self.proto, self.cfg.capacity, num_ranks=self.num_ranks, device=self.device
         )
 
-    def forward_rays(self) -> Callable[[Q.WorkQueue], Tuple[Q.WorkQueue, torch.Tensor]]:
-        """The paper's ``forwardRays()``: ``q -> (forwarded_queue, total)``."""
+    def forward_rays(self) -> Callable[[Q.WorkQueue], Tuple]:
+        """The paper's ``forwardRays()``: ``q -> (forwarded_queue, total)``,
+        plus the per-lane ``age`` under retain (each standalone call starts
+        ages fresh; the drive is where ages thread across rounds)."""
         cfg, comm = self.cfg, self.comm
 
         def step(q: Q.WorkQueue):
@@ -80,7 +95,8 @@ class RafiContext:
     def run_until_done(self, round_fn: Callable, *, max_rounds: int = 64) -> Callable:
         """The drive: ``(q0, aux0) -> (q, aux, rounds, done)``; ``done`` is
         True when the global in-flight count hit zero, False when
-        ``max_rounds`` truncated the run with work in flight."""
+        ``max_rounds`` truncated the run with work in flight.  Under retain
+        the final per-lane ``age`` follows ``done``."""
         cfg, comm = self.cfg, self.comm
 
         def drive(q0: Q.WorkQueue, aux0: Any):

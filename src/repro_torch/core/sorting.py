@@ -1,4 +1,4 @@
-"""Sort-by-destination plan (§4.2.1), flat part, over rank-stacked tensors.
+"""Sort-by-destination plan (§4.2.1) over rank-stacked tensors.
 
 Keys ``(dest << idx_bits) | lane`` pack into 32 bits whenever
 ``bit_length(R+1) + bit_length(C-1) <= 32``; the port holds them in int64 so
@@ -10,9 +10,17 @@ rank.  These are the plain-tensor formulations: the forwarding round plans
 through kernel K3 (``kernels/sort_keys``, the ``"pack"`` keys) or kernel K4
 (``kernels/bucket_scatter``, whose plain version is
 :func:`destination_rank`).
+
+The hierarchical route's keys are lexicographic N-level bit-fields
+``(d_0, …, d_{L-1}, slot)`` (:func:`pack_keys_hierarchical`).  Global ranks
+are lexicographic in the tier digits, so their order is the flat key order:
+the route's sort plan goes through K3 like the flat one
+(``kernels/sort_keys.ops.sort_permutation_hierarchical``), and only the key
+width check (:func:`hierarchical_key_bits`) is the N-level layout's own.
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -20,12 +28,16 @@ import torch
 __all__ = [
     "destination_histogram",
     "destination_rank",
+    "hierarchical_key_bits",
     "pack_keys",
+    "pack_keys_hierarchical",
     "segment_bounds_from_histogram",
     "segment_bounds_from_sorted",
     "segment_offsets",
     "sort_permutation",
+    "sort_permutation_hierarchical",
     "unpack_keys",
+    "unpack_keys_hierarchical",
 ]
 
 
@@ -146,3 +158,85 @@ def sort_permutation(
     else:
         raise ValueError(f"unknown sort method {method!r}")
     return perm, d_sorted, destination_histogram(dest, count, num_ranks)
+
+
+def _field_bits(n_values: int) -> int:
+    return max(1, (n_values - 1).bit_length())
+
+
+def _level_bits(level_sizes: Tuple[int, ...]) -> list:
+    """Bit widths of the N-level key's digit fields, slowest first (the
+    slowest field also holds the invalid marker ``A_0``)."""
+    return [_field_bits(level_sizes[0] + 1)] + [_field_bits(a) for a in level_sizes[1:]]
+
+
+def hierarchical_key_bits(level_sizes: Tuple[int, ...], capacity: int) -> list:
+    """:func:`_level_bits`; raises where the key with its
+    ``idx_bits(capacity)`` slot field exceeds 32 bits, as the reference's
+    ``pack_keys_hierarchical`` does."""
+    ib = _idx_bits(capacity)
+    bits = _level_bits(level_sizes)
+    if sum(bits) + ib > 32:
+        raise ValueError(
+            f"hierarchical key needs {'+'.join(map(str, bits))}+{ib} bits > 32; "
+            "use method='argsort'"
+        )
+    return bits
+
+
+def pack_keys_hierarchical(dest: torch.Tensor, count: torch.Tensor, level_sizes) -> torch.Tensor:
+    """Lexicographic N-level keys ``(d_0, …, d_{L-1}, slot)`` held as int64
+    (uint32 values): one bit-field per tier, slowest on top.  Invalid lanes
+    get slowest digit ``A_0`` and sort past every valid key."""
+    level_sizes = tuple(int(a) for a in level_sizes)
+    cap = dest.shape[-1]
+    bits = hierarchical_key_bits(level_sizes, cap)
+    num_ranks = math.prod(level_sizes)
+    lane = torch.arange(cap, dtype=torch.int64, device=dest.device)
+    valid = (lane[None, :] < count[:, None]) & (dest >= 0) & (dest < num_ranks)
+    d = torch.where(valid, dest, 0).to(torch.int64)
+    key = lane[None, :].expand_as(d)
+    shift = _idx_bits(cap)
+    # fastest digit sits just above the slot bits; slowest ends up on top
+    for a, b in zip(reversed(level_sizes[1:]), reversed(bits[1:])):
+        key = key | ((d % a) << shift)
+        d = d // a
+        shift += b
+    return key | (torch.where(valid, d, level_sizes[0]) << shift)
+
+
+def unpack_keys_hierarchical(keys: torch.Tensor, capacity: int, level_sizes):
+    """Inverse of :func:`pack_keys_hierarchical` → ``((d_0, …, d_{L-1}),
+    slot)``, int32, digits slowest first."""
+    level_sizes = tuple(int(a) for a in level_sizes)
+    ib = _idx_bits(capacity)
+    bits = _level_bits(level_sizes)
+    slot = (keys & ((1 << ib) - 1)).to(torch.int32)
+    digits, shift = [], ib
+    for b in reversed(bits[1:]):
+        digits.append(((keys >> shift) & ((1 << b) - 1)).to(torch.int32))
+        shift += b
+    digits.append((keys >> shift).to(torch.int32))
+    return tuple(reversed(digits)), slot
+
+
+def sort_permutation_hierarchical(
+    dest: torch.Tensor, count: torch.Tensor, level_sizes, *, method: str = "pack"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The N-level route's ONE key sort: ``(perm (B, C), count_tensor (B,
+    *level_sizes))``, ``perm`` the flat destination order (ranks are
+    lexicographic in the digits) and ``count_tensor`` the per-destination
+    histogram shaped by tier."""
+    level_sizes = tuple(int(a) for a in level_sizes)
+    num_ranks = math.prod(level_sizes)
+    cap = dest.shape[-1]
+    if method == "pack":
+        keys = pack_keys_hierarchical(dest, count, level_sizes)
+        _digits, perm = unpack_keys_hierarchical(torch.sort(keys, dim=-1).values, cap, level_sizes)
+    elif method == "argsort":
+        d = _sanitized(dest, count, num_ranks)
+        perm = torch.sort(d, dim=-1, stable=True).indices.to(torch.int32)
+    else:
+        raise ValueError(f"unknown sort method {method!r}")
+    hist = destination_histogram(dest, count, num_ranks)
+    return perm, hist[:, :num_ranks].reshape((dest.shape[0],) + level_sizes)

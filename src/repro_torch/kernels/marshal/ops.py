@@ -20,6 +20,7 @@ from repro_torch.core import types as T
 from repro_torch.kernels import build
 
 __all__ = [
+    "check_blocks",
     "fused_marshal",
     "fused_unmarshal",
     "gather_rows",
@@ -115,6 +116,14 @@ def unmarshal_plain(
 _MAX_BLOCKS = 1024  # K2's table of G blocks in shared memory: csrc/marshal.cu
 
 
+def check_blocks(g: int, *tensors: torch.Tensor) -> None:
+    """Raise when K2 would have to compact ``g`` received blocks a rank, more
+    than its table holds, on CUDA tensors: a round calls this before it
+    launches anything.  The plain version has no such limit."""
+    if g > _MAX_BLOCKS and not KN.use_plain(*tensors):
+        raise ValueError(f"unmarshal: {g} received blocks a rank exceed the kernel's {_MAX_BLOCKS}")
+
+
 def unmarshal(
     recv_buf: torch.Tensor, recv_offsets: torch.Tensor, recv_counts: torch.Tensor,
     *, capacity: int,
@@ -133,8 +142,7 @@ def unmarshal(
         return unmarshal_plain(recv_buf, recv_offsets, recv_counts, capacity=capacity)
     rows, g, slot, w = recv_buf.shape
     _check_words("unmarshal", rows, max(g * slot, capacity) * w, recv_buf, recv_offsets, recv_counts)
-    if g > _MAX_BLOCKS:
-        raise ValueError(f"unmarshal: {g} received blocks a rank exceed the kernel's {_MAX_BLOCKS}")
+    check_blocks(g, recv_buf)
     recv_buf = recv_buf.contiguous()
     recv_offsets, recv_counts = recv_offsets.contiguous(), recv_counts.contiguous()
     out = torch.empty(rows, capacity, w, dtype=recv_buf.dtype, device=recv_buf.device)

@@ -9,14 +9,19 @@ stays ``torch.sort``: the TPU kernel never sorted either (XLA's
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Tuple
 
 import torch
 
 from repro_torch import kernels as KN
+from repro_torch.core import sorting
 from repro_torch.kernels import build
 
-__all__ = ["pack_and_histogram", "pack_and_histogram_plain", "sort_permutation"]
+__all__ = [
+    "pack_and_histogram", "pack_and_histogram_plain", "sort_permutation",
+    "sort_permutation_hierarchical",
+]
 
 _SIGS = {
     "rafi_pack_and_histogram": (
@@ -97,3 +102,19 @@ def sort_permutation(
     d_sorted = (sorted_keys >> ib).to(torch.int32)
     perm = (sorted_keys & ((1 << ib) - 1)).to(torch.int32)
     return perm, d_sorted, hist
+
+
+def sort_permutation_hierarchical(
+    dest: torch.Tensor, count: torch.Tensor, level_sizes, *, method: str = "pack"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel-path ``core.sorting.sort_permutation_hierarchical``: the flat
+    key sort of :func:`sort_permutation` (K3), whose order is the N-level
+    key order because ranks are lexicographic in the tier digits.  With
+    ``method="pack"`` the N-level key's width is checked first, so the
+    configurations the reference's packed keys refuse are refused here too.
+    Returns ``(perm (B, C), count_tensor (B, *level_sizes))``."""
+    level_sizes = tuple(int(a) for a in level_sizes)
+    if method == "pack":
+        sorting.hierarchical_key_bits(level_sizes, dest.shape[-1])
+    perm, _d_sorted, hist = sort_permutation(dest, count, math.prod(level_sizes))
+    return perm, hist[:, :-1].reshape((dest.shape[0],) + level_sizes)

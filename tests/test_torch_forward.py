@@ -352,10 +352,13 @@ def test_run_until_done_equals_reference(mesh8, max_rounds):
 
 
 def test_forward_config_rejects_features_of_later_slices():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        ForwardConfig(R, C, exchange="hierarchical")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        ForwardConfig(R, C, overflow="retain")
+    # items 6 and 7 are ported: retain and the hierarchical route construct
+    assert ForwardConfig(R, C, overflow="retain").overflow == "retain"
+    assert ForwardConfig(R, C, exchange="hierarchical", fast_size=4).level_sizes == (2, 4)
+    assert ForwardConfig(R, C, exchange="hierarchical", level_sizes=(2, 2, 2),
+                         overflow="retain").level_capacities == (C, C, C)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
+        ForwardConfig(R, C, exchange="ragged")
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         ForwardConfig(R, C, overflow="retain", flow="credit")
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):

@@ -259,6 +259,35 @@ def test_k2_output_driven_index_math_equals_ref(case):
                                   _k2_reference(recv, off, counts, cap))
 
 
+_FRONTS = {"inside": [3, 17], "at_capacity": [40, 0], "past_capacity": [55, 9]}
+
+
+@pytest.mark.parametrize("front", sorted(_FRONTS))
+def test_k2_with_a_front_equals_reference(front):
+    """The retain round's receive compaction (``compact_blocks`` with
+    ``front=``): offsets shifted by a front inside ``(0, capacity)``, at
+    ``capacity`` and past it.  Output, new counts and drops equal the
+    reference's ``compact_blocks`` per rank; the output-driven kernel's
+    numpy model gives the same words, with rows ``[0, front)`` zero."""
+    from repro.core import stages as JST
+    from repro_torch.core import stages as TST
+
+    recv, _off, counts, cap = _k2_case("w15_exclusive_prefix")
+    fr = np.array(_FRONTS[front], np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    out, new_count, drops = TST.compact_blocks(t(recv.view(np.int32)), t(counts), cap, front=t(fr))
+    for b in range(recv.shape[0]):
+        jo, jn, jd = JST.compact_blocks(jnp.asarray(recv[b]), jnp.asarray(counts[b]), cap,
+                                        use_pallas=False, front=jnp.asarray(fr[b]))
+        np.testing.assert_array_equal(U32(out[b].numpy()), np.asarray(jo))
+        assert (int(new_count[b]), int(drops[b])) == (int(jn), int(jd))
+        assert not U32(out[b, :min(fr[b], cap)].numpy()).any()
+    shifted = np.cumsum(counts, 1).astype(np.int32) - counts + fr[:, None]
+    np.testing.assert_array_equal(_k2_output_driven(recv, shifted, counts, cap), U32(out.numpy()))
+    if front == "past_capacity":
+        assert int(new_count[0]) == 0 and int(drops[0]) == int(counts[0].sum())
+
+
 # ------------------------------------------------------------------- K8
 @pytest.mark.parametrize("field_id", [RO.ABC, RO.TORNADO, RO.TAYLOR_GREEN],
                          ids=["abc", "tornado", "taylor_green"])
@@ -756,3 +785,40 @@ def test_cuda_k10_divisions_bit_equal_to_ieee_division(cuda_device):
             want, want_gauss = a / b, (np.float32(-0.5) * a) / (b * b)
         assert np.array_equal(q.cpu().numpy().view(np.uint32), want.view(np.uint32))
         assert np.array_equal(q_gauss.cpu().numpy().view(np.uint32), want_gauss.view(np.uint32))
+
+
+@pytest.mark.cuda
+def test_cuda_k2_with_a_front_equals_plain(cuda_device):
+    """On the card: ``compact_blocks`` with a retain front inside ``(0,
+    capacity)``, at it and past it — K2 bit-equal to the CPU round's plain
+    version, counts and drops equal."""
+    from repro_torch.core import stages as TST
+
+    dev = cuda_device
+    rng = np.random.default_rng(12)
+    recv = torch.from_numpy(rng.integers(-(2**31), 2**31 - 1, (4, 8, 2048, 11), dtype=np.int32))
+    counts = torch.from_numpy(rng.integers(0, 2049, (4, 8)).astype(np.int32))
+    cap = 9000
+    front = torch.tensor([1, 4321, cap, cap + 77], dtype=torch.int32)
+    got = TST.compact_blocks(recv.to(dev), counts.to(dev), cap, front=front.to(dev))
+    want = TST.compact_blocks(recv, counts, cap, front=front)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_cuda_round_refuses_more_k2_blocks_before_any_launch(cuda_device):
+    """A hierarchical layout whose last stage would hand K2 1,025 blocks a
+    rank raises before the round launches anything."""
+    from repro_torch.core import ForwardConfig, WorkQueue, forward_work
+
+    dev = cuda_device
+    R = 1025
+    cfg = ForwardConfig(R, 2, exchange="hierarchical", level_sizes=(R, 1))
+    q = WorkQueue(items=torch.zeros(R, 2, 3, device=dev), dest=torch.zeros(R, 2, dtype=torch.int32, device=dev),
+                  count=torch.full((R,), 2, dtype=torch.int32, device=dev),
+                  drops=torch.zeros(R, dtype=torch.int32, device=dev))
+    KN.reset_launch_counts()
+    with pytest.raises(ValueError, match="1025 received blocks"):
+        forward_work(q, cfg)
+    assert sum(KN.launch_counts().values()) == 0
