@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all started together, linked into one library under
-``build/``) and runs seven phases on ``cuda:0``:
+``build/``) and runs nine phases on ``cuda:0``:
 
   1. kernels     — all ten kernels (K1 gather_rows, K2 unmarshal, K3
                    pack_and_histogram, K4 rank_and_histogram, K5
@@ -58,12 +58,32 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    0 drops, rows parked after a later tier, sort and
                    scatter equal after every forward; launches counted on
                    every path;
-  4. streamlines — ``apps.streamlines.run`` through
+  4. telemetry   — the flight recorder and the capacity controller: (a) the
+                   Fig-8 round (flat sort and scatter, 2×2×2) with
+                   ``telemetry=True`` bit-equal to the telemetry-off round,
+                   with its calls and launches and no more synchronizing
+                   calls (``torch.cuda`` sync debug mode), its stats equal
+                   to the CPU round's and across marshals, medians and
+                   splits on and off; (b) phase 3 (a)'s retain drive with
+                   the ring: ``ring_trace`` equal to the oracle's retained
+                   and age traces; (c) ``tune.autotune_forward`` on the
+                   drifting hot-spot of ``tests/test_tune.py`` (flat and
+                   2×2×2): the card's report equal to the CPU's at the
+                   test's size, and at card size (262,144 11-word rows a
+                   rank, 24,576 emissions a round, from 2,048-row slots)
+                   converged drop-free within the §6.3 bounds, wall time a
+                   burst;
+  5. pipeline    — ``pipeline_shards``: the Fig-8 round at 2 and 4 shards
+                   (both marshals), phase 3 (a)'s retain seed round at 4
+                   and the 2×2×2 round at 2, each bit-equal to one shard,
+                   n payload and n count calls a tier, K1 or K5 n times a
+                   tier and K2 never; medians and per-shard splits;
+  6. streamlines — ``apps.streamlines.run`` through
                    ``RafiContext.run_until_done``, R=8, 131,072 particles,
                    64 steps, ABC field (tornado and Taylor-Green at 16,384):
                    traces equal the single-rank oracle exactly; K6 launched
                    once per ``enqueue``;
-  5. vopat       — ``apps.vopat.render`` at 1024×1024 (1,048,576 primary
+  7. vopat       — ``apps.vopat.render`` at 1024×1024 (1,048,576 primary
                    rays), R=8, ``marshal="scatter"``: drops 0, the image
                    bit-equal to the R=1 render and to the R=8 sort render,
                    finite and in [0, 1]; rounds, wall time and the
@@ -72,7 +92,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    pairs bit-equal to the same words on the CPU, and a
                    64×64 render equal to the port's plain CPU render within
                    the port-against-reference tolerance of the tests;
-  6. nbody       — ``apps.nbody.run``, R=8, 262,144 particles, 8 steps (dt
+  8. nbody       — ``apps.nbody.run``, R=8, 262,144 particles, 8 steps (dt
                    5e-4, θ 0.3, ε² 1e-3, G = 64/N): every particle conserved
                    (totals N every step, drops 0), positions within 1e-2 of
                    the direct-sum oracle, the R=1 run within 1e-5 of it, K9
@@ -80,7 +100,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    forwarding contexts a step); a 512-particle R=8 run on the
                    card against the same run on the CPU; wall time per step,
                    the device-busy share and K9's share of device time;
-  7. report      — one JSON line of the kernels (launches on the paths that
+  9. report      — one JSON line of the kernels (launches on the paths that
                    run them, errors, bounds; ``ms``, ``plain_ms`` and
                    ``library_ms`` are device times, ``call_ms`` the event
                    pair's; device events a call), the card's name and
@@ -137,12 +157,22 @@ LOSSLESS_PATHS = tuple(
     + [f"hier_round_{t}_{m}" for t in ("2x4", "2x2x2") for m in ("sort", "scatter")]
     + [f"lossless_hier_{t}" for t in ("2x4", "2x2x2")]
 )
+TELEMETRY_PATHS = tuple(
+    [f"telemetry_round_{t}_{m}" for t in ("flat", "2x2x2") for m in ("sort", "scatter")]
+    + [f"telemetry_retain_{m}" for m in ("sort", "scatter")] + ["autotune_padded", "autotune_hierarchical"]
+)
+PIPELINE_PATHS = tuple(
+    [f"pipeline_flat_{m}_S{n}" for m in ("sort", "scatter") for n in (2, 4)]
+    + [f"pipeline_retain_seed_{m}_S4" for m in ("sort", "scatter")]
+    + [f"pipeline_2x2x2_{m}_S2" for m in ("sort", "scatter")]
+)
+ROUND_PATHS = LOSSLESS_PATHS + TELEMETRY_PATHS + PIPELINE_PATHS
 LAUNCH_PATHS = {
-    "pack_and_histogram": ("streamlines", "nbody") + LOSSLESS_PATHS,
-    "gather_rows": ("streamlines", "nbody") + LOSSLESS_PATHS,
-    "unmarshal": ("streamlines", "vopat", "nbody") + LOSSLESS_PATHS, "rk4_step": ("streamlines",),
-    "compact_positions": ("streamlines", "vopat", "nbody") + LOSSLESS_PATHS,
-    "rank_and_histogram": ("vopat",) + LOSSLESS_PATHS, "scatter_rows": ("vopat",) + LOSSLESS_PATHS,
+    "pack_and_histogram": ("streamlines", "nbody") + ROUND_PATHS,
+    "gather_rows": ("streamlines", "nbody") + ROUND_PATHS,
+    "unmarshal": ("streamlines", "vopat", "nbody") + ROUND_PATHS, "rk4_step": ("streamlines",),
+    "compact_positions": ("streamlines", "vopat", "nbody") + ROUND_PATHS,
+    "rank_and_histogram": ("vopat",) + ROUND_PATHS, "scatter_rows": ("vopat",) + ROUND_PATHS,
     "marshal": ("two_pass_marshal",),
     "pairwise_accel": ("nbody",), "track": ("woodcock_check",),
 }
@@ -816,22 +846,10 @@ def _same_queue(a, b, *, all_lanes: bool) -> bool:
 
 
 def phase_forward(dev, R=8, C=262144, S=65536, reps=10, timer_events=True):
-    import torch
-
     from repro_torch import kernels as KN
-    from repro_torch.core import ForwardConfig, StackedCollectives, WorkQueue, forward_work
-    from repro_torch.core import types as T
+    from repro_torch.core import ForwardConfig, StackedCollectives, forward_work
 
-    Ray44 = _ray44_types()
-    gen = torch.Generator(device=dev).manual_seed(44)
-    f32 = lambda *s: torch.randn((R, C) + s, generator=gen, device=dev)
-    pixel = torch.arange(R * C, dtype=torch.int32, device=dev).reshape(R, C)
-    q = WorkQueue(
-        items=Ray44(origin=f32(3), direction=f32(3), tmin=f32(), pixel=pixel, integral=f32(), extra=f32(2)),
-        dest=_fig8_dest(gen, R, C, dev),
-        count=torch.full((R,), C, dtype=torch.int32, device=dev),
-        drops=torch.zeros(R, dtype=torch.int32, device=dev),
-    )
+    q = _fig8_queue(dev, R, C)
     cfg = ForwardConfig(R, C, peer_capacity=S)
     comm = StackedCollectives()
     KN.reset_launch_counts()
@@ -848,9 +866,7 @@ def phase_forward(dev, R=8, C=262144, S=65536, reps=10, timer_events=True):
     oq, ototal = forward_work(q, ForwardConfig(R, C, exchange="onehot"))
     check(_same_queue(new_q, oq, all_lanes=False) and int(total) == int(ototal),
           f"padded round == onehot oracle on {dev.type}: count, drops, total {int(total)}, lanes < count")
-    cpu_q = WorkQueue(items=T.tree_map(lambda t: t.cpu(), q.items), dest=q.dest.cpu(),
-                      count=q.count.cpu(), drops=q.drops.cpu())
-    cq, ctotal = forward_work(cpu_q, cfg)
+    cq, ctotal = forward_work(_to_cpu(q), cfg)
     check(_same_queue(new_q, cq, all_lanes=True) and int(total) == int(ctotal),
           "round on the card == the same round on the CPU (plain versions), every lane")
     print(f"  round: {R}x{C} rays of 44 B, S={S}: delivered {int(total)}, "
@@ -952,7 +968,9 @@ class ScenarioDrive:
     ballast lost its bits) and emits schedule row ``rnd + 1`` (K6 under
     ``enqueue``).  ``step()`` runs one forwarding round; ``observe()`` reads
     the retained rows, their largest age, and how many of them sit on a
-    rank other than their source (parked after a later tier)."""
+    rank other than their source (parked after a later tier).  With a
+    telemetry config, ``result()`` and ``run()`` leave the drive's
+    ``StatsRing`` in ``self.ring``."""
 
     def __init__(self, sc, cfg, dev):
         import torch
@@ -987,7 +1005,7 @@ class ScenarioDrive:
 
         self.round_fn, self.emit, self.lane, self.me = round_fn, emit, lane, me
         self.comm = StackedCollectives()
-        self.carry = None
+        self.carry = self.ring = None
 
     def start(self):
         import torch
@@ -1014,7 +1032,8 @@ class ScenarioDrive:
     def result(self):
         import numpy as np
 
-        q, acc, rounds, done, _age = self.TERM.drive_finalize(self.carry, self.cfg)
+        q, acc, rounds, done, _age, *ring = self.TERM.drive_finalize(self.carry, self.cfg)
+        self.ring = ring[0] if ring else None
         acc = acc.cpu().numpy()
         return {"delivered": acc[:, :3].astype(np.uint32), "bad_ballast": int(acc[:, 3].sum()),
                 "drops": int(q.drops.sum()), "rounds": rounds, "done": done,
@@ -1034,7 +1053,8 @@ class ScenarioDrive:
         if self.dev.type == "cuda":
             torch.cuda.synchronize()
         t0 = _time.perf_counter()
-        q, acc, rounds, done, _age = run_until_done(self.round_fn, q0, acc0, self.cfg, max_rounds=max_rounds)
+        q, acc, rounds, done, _age, *ring = run_until_done(self.round_fn, q0, acc0, self.cfg, max_rounds=max_rounds)
+        self.ring = ring[0] if ring else None
         acc = acc.cpu()
         wall = _time.perf_counter() - t0
         return {"delivered": acc[:, :3].numpy().astype("uint32"), "bad_ballast": int(acc[:, 3].sum()),
@@ -1065,6 +1085,20 @@ def _same_state(a, b):
     return torch.equal(pa[mask], pb[mask]) and torch.equal(qa.dest[mask], qb.dest[mask])
 
 
+_ORACLE: dict = {}
+
+
+def lossless_oracle(sc, S, C):
+    """``chaos.simulate_flat_retain`` of phase ``lossless`` (a), computed once
+    a process: phase ``telemetry`` holds its ring against the same run."""
+    from repro_torch import chaos as TC
+
+    key = (sc.name, sc.num_ranks, sc.emits_per_round, S, C)
+    if key not in _ORACLE:
+        _ORACLE[key] = TC.simulate_flat_retain(sc, peer_capacity=S, capacity=C)
+    return _ORACLE[key]
+
+
 def phase_lossless(dev, R=8, C=262144, E=32768, S=8192, FIG8_S=65536, reps=10,
                    HIER_CAPS=(((2, 4), (32768, 16384)), ((2, 2, 2), (32768, 32768, 32768))),
                    oracle_numbers=(11, 246311, 3), cpu_witness=True, timer=cuda_ms, stage_split=True):
@@ -1080,18 +1114,16 @@ def phase_lossless(dev, R=8, C=262144, E=32768, S=8192, FIG8_S=65536, reps=10,
     each comes with its stage split, and the seed round of (a) is timed so
     too.  Returns ``(record, launches per path)``."""
     import numpy as np
-    import torch
 
     from repro_torch import chaos as TC
     from repro_torch import kernels as KN
-    from repro_torch.core import ForwardConfig, StackedCollectives, WorkQueue, forward_work
-    from repro_torch.core import types as T
+    from repro_torch.core import ForwardConfig, StackedCollectives, forward_work
 
     out, paths = {}, {}
     sc = TC.rotating_hotspot(R, 8, E)
     expected = TC.expected_by_rank(sc)
     t0 = time.perf_counter()
-    sim = TC.simulate_flat_retain(sc, peer_capacity=S, capacity=C)
+    sim = lossless_oracle(sc, S, C)
     oracle_s = time.perf_counter() - t0
     peak = max(sim["retained_trace"])
     print(f"  oracle: rotating_hotspot({R}, 8, {E}), capacity {C}, peer_capacity {S}: {sim['rounds']} "
@@ -1147,18 +1179,8 @@ def phase_lossless(dev, R=8, C=262144, E=32768, S=8192, FIG8_S=65536, reps=10,
     out["oracle"] = {"rounds": sim["rounds"], "retained_peak": peak, "age_max": sim["age_max"], "seconds": oracle_s}
 
     # (b) one hierarchical drop round of the Fig-8 rays, default tier capacities
-    Ray44 = _ray44_types()
-    gen = torch.Generator(device=dev).manual_seed(45)
-    f32 = lambda *s: torch.randn((R, C) + s, generator=gen, device=dev)
-    q = WorkQueue(
-        items=Ray44(origin=f32(3), direction=f32(3), tmin=f32(),
-                    pixel=torch.arange(R * C, dtype=torch.int32, device=dev).reshape(R, C),
-                    integral=f32(), extra=f32(2)),
-        dest=_fig8_dest(gen, R, C, dev), count=torch.full((R,), C, dtype=torch.int32, device=dev),
-        drops=torch.zeros(R, dtype=torch.int32, device=dev),
-    )
-    cpu_q = WorkQueue(items=T.tree_map(lambda t: t.cpu(), q.items), dest=q.dest.cpu(),
-                      count=q.count.cpu(), drops=q.drops.cpu())
+    q = _fig8_queue(dev, R, C, seed=45)
+    cpu_q = _to_cpu(q)
     oq, ototal = forward_work(q, ForwardConfig(R, C, exchange="onehot"))
     times, splits = {}, {}
 
@@ -1246,7 +1268,330 @@ def phase_lossless(dev, R=8, C=262144, E=32768, S=8192, FIG8_S=65536, reps=10,
     return out, paths
 
 
-# ----------------------------------------------------------- 4. streamlines
+# -------------------------------------------------------------- 4. telemetry
+def _fig8_queue(dev, R, C, seed=44):
+    """Phase ``forward``'s Fig-8 queue (the same generator and seed)."""
+    import torch
+
+    from repro_torch.core import WorkQueue
+
+    Ray44 = _ray44_types()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f32 = lambda *s: torch.randn((R, C) + s, generator=gen, device=dev)
+    pixel = torch.arange(R * C, dtype=torch.int32, device=dev).reshape(R, C)
+    return WorkQueue(
+        items=Ray44(origin=f32(3), direction=f32(3), tmin=f32(), pixel=pixel, integral=f32(), extra=f32(2)),
+        dest=_fig8_dest(gen, R, C, dev),
+        count=torch.full((R,), C, dtype=torch.int32, device=dev),
+        drops=torch.zeros(R, dtype=torch.int32, device=dev),
+    )
+
+
+def _to_cpu(q):
+    from repro_torch.core import WorkQueue
+    from repro_torch.core import types as T
+
+    return WorkQueue(items=T.tree_map(lambda t: t.cpu(), q.items), dest=q.dest.cpu(), count=q.count.cpu(),
+                     drops=q.drops.cpu())
+
+
+def _same_stats(a, b) -> bool:
+    import dataclasses
+
+    import torch
+
+    return all(torch.equal(getattr(a, f.name).cpu(), getattr(b, f.name).cpu()) for f in dataclasses.fields(a))
+
+
+def _sync_warnings(fn, calls: int = 2) -> int:
+    """Synchronizing calls ``fn`` makes, as ``torch.cuda``'s sync debug mode
+    warns them: the fewest over ``calls`` calls (a sync of every call shows
+    in each; the mode's own first-use warning in one only)."""
+    import warnings
+
+    import torch
+
+    counts = []
+    for _ in range(calls):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        counts.append(sum("synchroniz" in str(w.message) for w in caught))
+    return min(counts)
+
+
+def drift_run_burst(dev, *, capacity, n_emit, rounds, R=8, words=1):
+    """``tests/test_tune.py``'s drifting hot-spot burst through the port's
+    drive: half of each rank's ``n_emit`` emissions chase a hot destination
+    that moves every second round, the rest spread; body round ``rnd`` emits
+    round ``rnd + 1``'s, DISCARD from ``rounds`` on.  Rows are ``words``
+    words (1: the test's unit item; 11: the Fig-8 ray, a uid and ten words
+    of ballast).  Returns ``run_burst(cfg) -> (cumulative drops, ring)``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import DISCARD, enqueue, make_queue, run_until_done, work_item
+
+    @work_item
+    @dataclasses.dataclass
+    class DriftRow:
+        uid: torch.Tensor  # () i32
+        ballast: torch.Tensor  # (words - 1,) f32
+
+    proto = DriftRow(uid=torch.zeros((), dtype=torch.int32), ballast=torch.zeros(words - 1))
+    me = torch.arange(R, device=dev)[:, None]
+    lane = torch.arange(n_emit, device=dev)[None, :]
+    ones = torch.ones(R, n_emit, dtype=torch.bool, device=dev)
+
+    def emits(rnd):
+        hot = (rnd // 2) % R
+        dest = torch.where(lane % 2 == 0, hot, (me + lane) % R).to(torch.int32)
+        uid = ((rnd * R + me) * n_emit + lane).to(torch.int32)
+        ballast = uid.to(torch.float32)[..., None] * torch.ones(words - 1, device=dev)
+        return DriftRow(uid=uid, ballast=ballast), dest if rnd < rounds else torch.full_like(dest, DISCARD)
+
+    def round_fn(q_in, acc, rnd):
+        items, dest = emits(rnd + 1)
+        return enqueue(make_queue(proto, capacity, num_ranks=R, device=dev), items, dest, ones), acc
+
+    def run_burst(cfg):
+        items, dest = emits(0)
+        q0 = enqueue(make_queue(proto, capacity, num_ranks=R, device=dev), items, dest, ones)
+        q, _acc, _rounds, _done, ring = run_until_done(round_fn, q0, torch.zeros(R, device=dev), cfg,
+                                                       max_rounds=rounds + 2)
+        return int(q.drops.sum()), ring
+
+    return run_burst
+
+
+def _autotune(dev, exchange, *, capacity, n_emit, rounds, caps, words=1, max_bursts=8):
+    """``autotune_forward`` on the drift burst from ``caps``: ``(final cfg,
+    report, bounds, wall seconds a burst)``; the bounds are the §6.3 worst
+    case, ``(n_emit,)`` flat and ``(4, 2, 1)·n_emit`` on 2×2×2."""
+    import torch
+
+    from repro_torch.core import ForwardConfig
+    from repro_torch.tune import TunePolicy, autotune_forward
+
+    R = 8
+    kw = dict(telemetry=True, telemetry_window=rounds + 2, telemetry_buckets=8)
+    if exchange == "padded":
+        cfg, bounds = ForwardConfig(R, capacity, peer_capacity=caps[0], **kw), (n_emit,)
+    else:
+        cfg = ForwardConfig(R, capacity, exchange="hierarchical", level_sizes=(2, 2, 2), level_capacities=caps, **kw)
+        bounds = (4 * n_emit, 2 * n_emit, n_emit)
+    run_burst = drift_run_burst(dev, capacity=capacity, n_emit=n_emit, rounds=rounds, words=words)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, report = autotune_forward(run_burst, cfg, policy=TunePolicy(headroom=1.25, granularity=8), bounds=bounds,
+                                     max_bursts=max_bursts)
+    return final, report, bounds, (time.perf_counter() - t0) / max(report.bursts, 1)
+
+
+def phase_telemetry(dev, R=8, C=262144, S=65536, reps=10, E=32768, RETAIN_S=8192,
+                    TUNE_TEST=(1024, 96, 8), TUNE_CARD=(262144, 24576, 8, 2048), cpu_witness=True,
+                    stage_split=True):
+    """The flight recorder and the capacity controller on the card: (a) the
+    Fig-8 round (flat sort and scatter, and 2×2×2) with ``telemetry=True``
+    against the telemetry-off round (queue bit-equal, the same calls and
+    launches, no more synchronizing calls), its stats against the CPU's and
+    across marshals, medians and splits on and off; (b) phase ``lossless``
+    (a)'s flat retain drive with the ring, its ``ring_trace`` against the
+    oracle's traces; (c) ``autotune_forward`` on the drifting hot-spot of
+    ``tests/test_tune.py``, flat and 2×2×2, at the test's size against the
+    CPU's report step for step, and at card size (11-word rays, ``n_emit``
+    at the test's ratio) to a drop-free fixed point within the §6.3 bounds.
+    Returns ``(record, launches per path)``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import chaos as TC
+    from repro_torch import kernels as KN
+    from repro_torch import telemetry as TM
+    from repro_torch.core import ForwardConfig, StackedCollectives, forward_work
+
+    out, paths = {}, {}
+    q = _fig8_queue(dev, R, C)
+    cpu_q = _to_cpu(q) if cpu_witness else None
+    cases = [(f"flat_{m}", dict(peer_capacity=S, marshal=m)) for m in ("sort", "scatter")]
+    cases += [(f"2x2x2_{m}", dict(exchange="hierarchical", level_sizes=(2, 2, 2), marshal=m))
+              for m in ("sort", "scatter")]
+    stats = {}
+    for label, kw in cases:
+        off_cfg, on_cfg = ForwardConfig(R, C, **kw), ForwardConfig(R, C, telemetry=True, **kw)
+        comm_off, comm_on = StackedCollectives(), StackedCollectives()
+        KN.reset_launch_counts()
+        oq, ototal = forward_work(q, off_cfg, comm=comm_off)
+        off_launches = KN.launch_counts()
+        KN.reset_launch_counts()
+        nq, total, st = forward_work(q, on_cfg, comm=comm_on)
+        paths[f"telemetry_round_{label}"] = launches = KN.launch_counts()
+        stats[label] = st
+        check(_same_queue(nq, oq, all_lanes=True) and int(total) == int(ototal),
+              f"(a) {label}: telemetry round == telemetry-off round, every lane, drops, total {int(total)}")
+        check(comm_on.calls == comm_off.calls,
+              f"(a) {label}: telemetry adds no collective call ({sum(comm_on.calls.values())} calls)")
+        if dev.type == "cuda":
+            check(launches == off_launches, f"(a) {label}: the same kernel launches as telemetry off: {launches}")
+            syncs = {k: _sync_warnings(lambda c=c: forward_work(q, c)) for k, c in (("off", off_cfg), ("on", on_cfg))}
+            check(syncs["on"] <= syncs["off"],
+                  f"(a) {label}: synchronizing calls in the round, telemetry on {syncs['on']} <= off {syncs['off']}")
+            out[f"syncs_{label}"] = syncs
+        if cpu_witness and label.endswith("sort"):
+            cst = forward_work(cpu_q, on_cfg)[-1]
+            check(_same_stats(st, cst), f"(a) {label}: RoundStats == the CPU round's, field by field")
+        print(f"  (a) {label}: demand max per tier {st.demand_max.amax(0).tolist()}, stage drops "
+              f"{st.stage_drops.sum(0).tolist()}, recv drops {int(st.recv_drops.sum())}, sent "
+              f"{st.sent_rows.sum(0).tolist()}", flush=True)
+        if stage_split:
+            for tag, c in (("off", off_cfg), ("on", on_cfg)):
+                out[f"{label}_{tag}"] = _time_and_profile(f"(a) {label} telemetry {tag}", q, c, reps)
+    for layout in ("flat", "2x2x2"):
+        check(_same_stats(stats[f"{layout}_sort"], stats[f"{layout}_scatter"]),
+              f"(a) {layout}: the same RoundStats from the sort and the scatter marshal")
+    del cpu_q
+
+    # (b) the flat retain drive of phase lossless (a), with the ring
+    sc = TC.rotating_hotspot(R, 8, E)
+    sim = lossless_oracle(sc, RETAIN_S, C)
+    window = sim["rounds"] + 1
+    for marshal in ("sort", "scatter"):
+        cfg = ForwardConfig(R, C, peer_capacity=RETAIN_S, marshal=marshal, overflow="retain", telemetry=True,
+                            telemetry_window=max(12, window))
+        d = ScenarioDrive(sc, cfg, dev)
+        KN.reset_launch_counts()
+        res, wall = d.run()
+        paths[f"telemetry_retain_{marshal}"] = KN.launch_counts()
+        tr = TM.ring_trace(d.ring)
+        check(tr["retained_rows"].tolist() == sim["retained_trace"] and tr["age_max"].tolist() == sim["age_trace"],
+              f"(b) {marshal}: ring_trace retained_rows and age_max == the oracle's traces over {window} forwards")
+        check(res["rounds"] == sim["rounds"] and res["drops"] == 0 and res["done"]
+              and np.array_equal(res["delivered"], TC.expected_by_rank(sc)),
+              f"(b) {marshal}: {res['rounds']} rounds, 0 drops, checksums == expected_by_rank")
+        summ = TM.summarize(d.ring, tier_capacities=TM.tier_capacities(cfg))
+        print(f"  (b) {marshal}: wall {wall:.4f} s, {1e3 * wall / window:.3f} ms a forwarding round; summary: "
+              f"{summ['retained_rows']} retained row-rounds, age max {summ['age_max']}, rows held "
+              f"{summ['rows_held'].tolist()}, drops {summ['drops']}", flush=True)
+        out[f"retain_drive_{marshal}"] = {"wall_s": wall, "ms_per_round": 1e3 * wall / window,
+                                          "retained_trace": tr["retained_rows"].tolist()}
+
+    # (c) the capacity controller on the drifting hot-spot
+    cap, n_emit, rounds = TUNE_TEST
+    for exchange, caps in (("padded", (8,)), ("hierarchical", (8, 8, 8))):
+        final, rep_card, _b, _w = _autotune(dev, exchange, capacity=cap, n_emit=n_emit, rounds=rounds, caps=caps)
+        if cpu_witness:
+            _f, rep_cpu, _b, _w = _autotune(torch.device("cpu"), exchange, capacity=cap, n_emit=n_emit,
+                                            rounds=rounds, caps=caps)
+            same = (rep_card.converged == rep_cpu.converged and rep_card.bursts == rep_cpu.bursts
+                    and all(dataclasses.asdict(a) == dataclasses.asdict(b)
+                            for a, b in zip(rep_card.steps, rep_cpu.steps)))
+            check(same, f"(c) test size {exchange}: the card's TuneReport == the CPU's, step by step "
+                        f"({rep_card.bursts} bursts, final {TM.tier_capacities(final)})")
+    cap, n_emit, rounds, start = TUNE_CARD
+    for exchange, caps in (("padded", (start,)), ("hierarchical", (start,) * 3)):
+        KN.reset_launch_counts()
+        final, report, bounds, wall = _autotune(dev, exchange, capacity=cap, n_emit=n_emit, rounds=rounds,
+                                                caps=caps, words=11)
+        paths[f"autotune_{exchange}"] = KN.launch_counts()
+        caps_f = TM.tier_capacities(final)
+        ok = (report.converged and report.steps[0].drops > 0 and report.final_drops == 0
+              and all(c <= b for c, b in zip(caps_f, bounds)) and (exchange == "padded" or report.bursts > 2))
+        check(ok, f"(c) card size {exchange}: converged in {report.bursts} bursts {caps} -> {caps_f} <= {bounds}, "
+                  f"first burst drops {report.steps[0].drops}, final drops {report.final_drops}")
+        for s in report.steps:
+            print(f"    burst {s.burst}: caps {s.capacities} -> {s.planned}, drops {s.drops}, demand max "
+                  f"{s.demand_max}, rounds {s.rounds}", flush=True)
+        print(f"  (c) card size {exchange}: {wall:.4f} s a burst ({rounds + 1} forwards of {R}x{cap} "
+              f"11-word rows, {n_emit} emissions a rank a round)", flush=True)
+        out[f"autotune_{exchange}"] = {"bursts": report.bursts, "final": list(caps_f), "bounds": list(bounds),
+                                       "wall_s_per_burst": wall,
+                                       "steps": [dataclasses.asdict(s) for s in report.steps]}
+    return out, paths
+
+
+# --------------------------------------------------------------- 5. pipeline
+def phase_pipeline(dev, R=8, C=262144, S=65536, reps=10, E=32768, RETAIN_S=8192, stage_split=True):
+    """Micro-shard pipelining on the card: the Fig-8 round at 2 and 4
+    shards (both marshals, drop), phase ``lossless`` (a)'s retain seed round
+    at 4 shards and the 2×2×2 round at 2 shards (both marshals), each
+    bit-equal on every lane to its one-shard round, with n payload and n
+    count calls per tier and the launches of each path (K1 or K5 n times a
+    tier, K2 none); medians beside one shard, with the per-shard split.
+    Returns ``(record, launches per path)``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import chaos as TC
+    from repro_torch import kernels as KN
+    from repro_torch.core import ForwardConfig, StackedCollectives, forward_work
+
+    out, paths = {}, {}
+    q = _fig8_queue(dev, R, C)
+    sc = TC.rotating_hotspot(R, 8, E)
+    seed_q = ScenarioDrive(sc, ForwardConfig(R, C, peer_capacity=RETAIN_S, overflow="retain"), dev).emit(0)
+    cases = [(f"flat_{m}", q, dict(peer_capacity=S, marshal=m), (2, 4), 1) for m in ("sort", "scatter")]
+    cases += [(f"retain_seed_{m}", seed_q, dict(peer_capacity=RETAIN_S, marshal=m, overflow="retain"), (4,), 1)
+              for m in ("sort", "scatter")]
+    cases += [(f"2x2x2_{m}", q, dict(exchange="hierarchical", level_sizes=(2, 2, 2), marshal=m), (2,), 3)
+              for m in ("sort", "scatter")]
+    for label, qq, kw, shards, L in cases:
+        base = ForwardConfig(R, C, **kw)
+        ref = forward_work(qq, base)
+        for n in shards:
+            comm = StackedCollectives()
+            KN.reset_launch_counts()
+            got = forward_work(qq, dataclasses.replace(base, pipeline_shards=n), comm=comm)
+            paths[f"pipeline_{label}_S{n}"] = launches = KN.launch_counts()
+            same = _same_queue(got[0], ref[0], all_lanes=True) and int(got[1]) == int(ref[1])
+            if len(got) == 3:  # retain: the destinations and ages too
+                same = same and torch.equal(got[2], ref[2]) and torch.equal(got[0].dest, ref[0].dest)
+            check(same, f"{label} at {n} shards == one shard: every lane, drops, total {int(got[1])}")
+            pay = sorted(c.tier or 0 for c in comm.calls.elements() if c.kind == "all_to_all" and len(c.shape) == 4)
+            cnt = sorted(c.tier or 0 for c in comm.calls.elements() if c.kind == "all_to_all" and len(c.shape) == 3)
+            check(len(set(pay)) == L and pay == cnt and pay == sorted(sorted(set(pay)) * n),
+                  f"{label} at {n} shards: {n} payload and {n} count all_to_all on each of {L} tier(s)")
+            if dev.type == "cuda":
+                retain = kw.get("overflow") == "retain"
+                want = dict.fromkeys(launches, 0)
+                if kw["marshal"] == "sort":
+                    want.update(pack_and_histogram=1, gather_rows=n * L + retain)
+                else:
+                    want.update(rank_and_histogram=1, scatter_rows=n, gather_rows=n * (L - 1) + retain)
+                check(launches == want, f"{label} at {n} shards: launches {launches} (K2 none)")
+        if stage_split:
+            for n in (1,) + shards:
+                c = dataclasses.replace(base, pipeline_shards=n)
+                out[f"{label}_S{n}"] = rec = _time_and_profile(f"{label} at {n} shard(s)", qq, c, reps)
+                rec["sync_warnings"] = _sync_warnings(lambda: forward_work(qq, c))
+                print(f"    synchronizing calls in the round: {rec['sync_warnings']}", flush=True)
+    return out, paths
+
+
+def _time_and_profile(label, q, cfg, reps):
+    """The round's median (one CUDA event pair a round, host issue
+    included), its stage split, and its device time (``device_ms``: the
+    kernels, copies and fills of a round under ``torch.profiler``, no
+    idle): where the median exceeds the device time, the card waited on
+    the host."""
+    from repro_torch.core import forward_work
+
+    whole, split = _time_round(q, cfg, reps)
+    busy, _events = device_ms(lambda: forward_work(q, cfg), calls=reps)
+    _print_split(f"{label} (device time {busy:.3f} ms)", whole, split)
+    return {"round_ms": whole, "device_ms": busy, "stages_ms": split}
+
+
+# ----------------------------------------------------------- 6. streamlines
 def profile_drive(run, dev, kernel=None):
     """Device-busy share of one drive under ``torch.profiler``: summed
     device time of every kernel and copy over the drive's wall time (the
@@ -1326,7 +1671,7 @@ def phase_streamlines(dev, fields=(("ABC", 0, 131072), ("tornado", 1, 16384), ("
     return out, main_launches
 
 
-# ----------------------------------------------------------------- 5. vopat
+# ----------------------------------------------------------------- 7. vopat
 def phase_vopat(dev, size=1024, R=8, profile=True, N_WORDS=2097152, CPU_SIZE=64):
     """The VoPaT main path: ``render`` through ``run_until_done`` with the
     scatter marshal, held against the R=1 render and the R=8 sort render,
@@ -1407,7 +1752,7 @@ def phase_vopat(dev, size=1024, R=8, profile=True, N_WORDS=2097152, CPU_SIZE=64)
     return out, launches
 
 
-# ----------------------------------------------------------------- 6. nbody
+# ----------------------------------------------------------------- 8. nbody
 def phase_nbody(dev, N=262144, R=8, steps=8, WITNESS_N=512, profile=True):
     """The N-body main path: ``run`` at R=8 against the direct-sum oracle,
     the R=1 run, launches per run, and a small run on the card against the
@@ -1503,7 +1848,8 @@ def main() -> int:
     record = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda, "build_s": t_build}
 
     run = {"kernels": lambda: phase_kernels(dev), "forward": lambda: phase_forward(dev),
-           "lossless": lambda: phase_lossless(dev),
+           "lossless": lambda: phase_lossless(dev), "telemetry": lambda: phase_telemetry(dev),
+           "pipeline": lambda: phase_pipeline(dev),
            "streamlines": lambda: phase_streamlines(dev), "vopat": lambda: phase_vopat(dev),
            "nbody": lambda: phase_nbody(dev)}
     kernels, paths = {}, {}  # paths: launches per path, counted from 0
@@ -1519,7 +1865,7 @@ def main() -> int:
         if title == "kernels":
             kernels, more = res
             paths.update(more)
-        elif title == "lossless":
+        elif title in ("lossless", "telemetry", "pipeline"):
             record[title], more = res
             paths.update(more)
         elif title in ("streamlines", "vopat", "nbody"):

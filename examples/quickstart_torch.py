@@ -1,11 +1,13 @@
-"""Quickstart on the PyTorch port: the work-forwarding core in ~80 lines.
+"""Quickstart on the PyTorch port: the work-forwarding core in ~100 lines.
 
-Sections 1–3 of ``examples/quickstart.py`` (telemetry stays off until the
-port has it): define a work-item type, emit items to destination ranks from
-a per-rank round kernel, and drive the computation to distributed
-termination with the sort-free ``marshal="scatter"`` round.  All R ranks
-are rows of one rank-stacked tensor on one device.  Section 4 drives the
-same computation through the lossless law (``overflow="retain"``, peer
+Sections 1–5 of ``examples/quickstart.py``: define a work-item type, emit
+items to destination ranks from a per-rank round kernel, drive the
+computation to distributed termination with the sort-free
+``marshal="scatter"`` round and the flight recorder on
+(``telemetry=True``), read the recorder's summary back, and run the same
+drive pipelined (``pipeline_shards=2``), bit-exact with the bulk one.  All R
+ranks are rows of one rank-stacked tensor on one device.  Section 6 drives
+the same computation through the lossless law (``overflow="retain"``, peer
 slots too small for the traffic) and the hierarchical route on a 2×4
 (node, device) layout: the same deposits, nothing dropped.
 
@@ -17,6 +19,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import telemetry as TM
 from repro_torch.core import DISCARD, ForwardConfig, enqueue, make_queue, run_until_done, work_item
 from repro_torch.core.collectives import node_layout
 
@@ -45,7 +48,7 @@ class Ray:
 
 PROTO = Ray(value=torch.zeros(()), hops=torch.zeros((), dtype=torch.int32))
 R, CAP = 8, 128
-cfg = ForwardConfig(num_ranks=R, capacity=CAP, exchange="padded", marshal="scatter")
+cfg = ForwardConfig(num_ranks=R, capacity=CAP, exchange="padded", marshal="scatter", telemetry=True)
 
 # 2. A per-rank "kernel", here for all ranks at once: read incoming work,
 #    emit outgoing work (§3.3).
@@ -65,7 +68,8 @@ def round_fn(q_in, acc, rnd):
     return out, acc
 
 
-# 3. Drive to distributed termination (§4.2.3): one host sync a round.
+# 3. Drive to distributed termination (§4.2.3): one host sync a round.  With
+#    telemetry on, the StatsRing of the last W rounds rides the drive.
 section(3, "drive to distributed termination")
 
 
@@ -80,19 +84,40 @@ def drive(c, max_rounds=16):
     return run_until_done(round_fn, seed_queue(), torch.zeros(R, device=device), c, max_rounds=max_rounds)
 
 
-q, acc, rounds, _done = drive(cfg)
+q, acc, rounds, _done, ring = drive(cfg)
 print(f"deposited per rank: {acc.cpu().numpy()}")
 print(f"rounds to distributed termination: {rounds}")
 expected = sum((r + 1) * 4 for r in range(R)) * 0.5**4
 print(f"total deposited: {float(acc.sum()):.3f}  (expected {expected:.3f})")
 assert abs(float(acc.sum()) - expected) < 1e-3
 
-# 4. The lossless law and the hierarchical route.  ``overflow="retain"``
+# 4. Read the flight recorder back on the host: what the burst's traffic
+#    looked like, and what repro_torch.tune would size the send slots to.
+section(4, "telemetry summary")
+summary = TM.summarize(ring, tier_capacities=TM.tier_capacities(cfg))
+print(
+    f"telemetry: {summary['rounds']} rounds recorded, "
+    f"max segment demand {summary['demand_max'][0]} "
+    f"(peer slots sized {summary['tier_capacities'][0]}), "
+    f"clamp drops {summary['drops']}"
+)
+assert summary["drops"] == 0
+
+# 5. The overlap law: ``pipeline_shards=S`` splits every peer segment into S
+#    micro-shards, each on its own payload + count collective pair.
+#    Pipelining changes the schedule, never the answer: the same drive is
+#    bit-exact with the bulk one.
+section(5, "pipelined overlap, bit-exact")
+q2, acc2, rounds2, _done2, _ring2 = drive(dataclasses.replace(cfg, pipeline_shards=2))
+assert torch.equal(acc2, acc) and rounds2 == rounds
+print(f"pipelined (S=2) drive bit-exact with bulk: {float(acc2.sum()):.3f}")
+
+# 6. The lossless law and the hierarchical route.  ``overflow="retain"``
 #    keeps every row a clamp would cut at the front of its queue and
 #    retries it next round, oldest first; with 1-row peer slots the ring
 #    now takes more rounds, and deposits the same.  The hierarchical route
 #    ships each hop fastest tier first over a (node, device) layout.
-section(4, "lossless and hierarchical drives")
+section(6, "lossless and hierarchical drives")
 for label, c in (
     ("retain, 1-row peer slots", ForwardConfig(R, CAP, peer_capacity=1, marshal="scatter", overflow="retain")),
     ("hierarchical 2x4", ForwardConfig(R, CAP, exchange="hierarchical", level_sizes=node_layout(2, 4))),

@@ -4,10 +4,10 @@ ray forwarding (§5.1).
 Renders the blob scene of ``examples/vopat_render.py`` on 8 ranks (the
 sort-free ``marshal="scatter"`` round) and on 1 rank, checks that the
 images are bitwise identical (the paper's "images will not differ in any
-way"), and writes the 8-rank image as a PPM under ``build/``.  The
-telemetry summary of the reference example waits for the port's telemetry
-(ROADMAP Queue 1 item 8).  Runs on the CUDA card; ``--cpu`` runs the plain
-PyTorch path.
+way"), prints the 8-rank render's telemetry summary (the measured basis
+for sizing its queues below the §6.3 worst case), and writes the 8-rank
+image as a PPM under ``build/``.  Runs on the CUDA card; ``--cpu`` runs the
+plain PyTorch path.
 
 Run:  PYTHONPATH=src python examples/vopat_render_torch.py [--cpu]
 """
@@ -28,14 +28,17 @@ device = "cpu" if args.cpu else None
 scene = vopat.VopatScene(width=96, height=96, spp=1, max_bounces=4, albedo=0.85)
 
 t0 = time.time()
-img8, s8 = vopat.render(scene, num_ranks=8, marshal="scatter", device=device)
+img8, s8 = vopat.render(scene, num_ranks=8, marshal="scatter", telemetry=True, device=device)
 print(f"8-rank render: {time.time() - t0:.1f}s  rounds={s8['rounds']} drops={s8['drops']}")
+tel = s8["telemetry"]
+print(f"telemetry: {tel['rounds']} rounds recorded, max segment demand {tel['demand_max'][0]} "
+      f"(peer slots sized {tel['tier_capacities'][0]}), clamp drops {tel['drops']}")
 t0 = time.time()
 img1, s1 = vopat.render(scene, num_ranks=1, device=device)
 print(f"1-rank render: {time.time() - t0:.1f}s  rounds={s1['rounds']}")
 same = np.array_equal(img1, img8)
 print("bitwise identical across rank counts:", same)
-assert same and s8["drops"] == 0
+assert same and s8["drops"] == 0 and tel["drops"] == 0
 
 out = pathlib.Path(__file__).resolve().parents[1] / "build" / "vopat_8rank_torch.ppm"
 out.parent.mkdir(exist_ok=True)

@@ -39,6 +39,7 @@ from repro_torch import compat
 from repro_torch.apps import fields as F
 from repro_torch.apps import rng
 from repro_torch.core import DISCARD, RafiContext, enqueue, make_queue, work_item
+from repro_torch.telemetry import stats as TS
 
 __all__ = ["PathRay", "VopatScene", "render"]
 
@@ -202,15 +203,16 @@ def render(
     exchange: str = "padded",
     marshal: str = "sort",
     telemetry: bool = False,
+    telemetry_window: int = 32,
     device=None,
 ) -> Tuple[np.ndarray, dict]:
     """Distributed render on ``num_ranks`` stacked ranks.  Returns ``(image
     (H, W) float32, stats)``; stats hold rounds, drops, the majorant and the
-    queue capacity.  ``device=None`` is the CUDA card."""
-    if telemetry:
-        raise NotImplementedError(
-            "telemetry=True is not ported yet: ROADMAP.md Queue 1 item 8"
-        )
+    queue capacity.  With ``telemetry`` the drive carries the flight
+    recorder's ring and stats gain ``"telemetry"``, its
+    ``telemetry.summarize`` (per-tier demand histogram and max, clamp
+    drops): the measured basis for sizing the queues below their §6.3
+    worst case.  ``device=None`` is the CUDA card."""
     dev = compat.resolve_device(device)
     R = num_ranks
     if blobs is None:
@@ -224,14 +226,17 @@ def render(
     ctx = RafiContext(
         R, _proto(), capacity=cap, exchange=exchange, marshal=marshal, device=dev,
         peer_capacity=cap if exchange == "padded" else 0,
+        telemetry=telemetry, telemetry_window=telemetry_window,
     )
     key = rng.key_from_seed(scene.seed, device=dev)
     me = torch.arange(R, dtype=torch.int32, device=dev)[:, None]
     round_fn = partial(_round_fn, part=part, blobs=blobs, mu=mu, key=key, scene=scene, cap=cap, me=me)
 
     q0, fb = _raygen(part=part, scene=scene, cap=cap, num_ranks=R, me=me, device=dev)
-    q, fb, rounds, _done = ctx.run_until_done(round_fn, max_rounds=max_rounds)(q0, fb)
+    q, fb, rounds, _done, *ring = ctx.run_until_done(round_fn, max_rounds=max_rounds)(q0, fb)
     img = fb[:, :-_TRASH].sum(dim=0)  # the distributed frame buffer's reduce
     img = img.cpu().numpy().reshape(scene.height, scene.width) / scene.spp
     stats = {"rounds": int(rounds), "drops": int(q.drops.sum()), "majorant": mu, "capacity": cap}
+    if telemetry:
+        stats["telemetry"] = TS.summarize(ring[0], tier_capacities=TS.tier_capacities(ctx.cfg))
     return img, stats

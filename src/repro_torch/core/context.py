@@ -15,7 +15,9 @@ a multi-tier layout for ``exchange="hierarchical"`` is given as
 ``joint_tiers`` give the reference's meshes).  The context's ``comm``
 records every collective its entry points issue.  Under
 ``overflow="retain"`` both entry points also return the per-lane ``age``,
-as the reference's context does.
+and with ``telemetry`` the round's ``RoundStats`` or the drive's
+``StatsRing`` last, as the reference's context does.  While a tracer is
+installed (``obs.trace``) every drive is one ``drive.run_until_done`` span.
 
 :func:`queue_from_reference` and :func:`queue_to_reference` carry queue
 state across from the JAX package's global layout (``(R·C, …)`` leaves, as
@@ -35,6 +37,7 @@ from repro_torch.core import termination as term
 from repro_torch.core import types as T
 from repro_torch.core.collectives import StackedCollectives
 from repro_torch.core.forwarding import ForwardConfig, forward_work
+from repro_torch.obs import trace as OT
 
 __all__ = ["RafiContext", "queue_from_reference", "queue_to_reference"]
 
@@ -56,7 +59,11 @@ class RafiContext:
         node_capacity: int = 0,
         level_sizes=(),
         level_capacities=(),
+        telemetry: bool = False,
+        telemetry_window: int = 16,
+        telemetry_buckets: int = 8,
         overflow: str = "drop",
+        pipeline_shards: int = 1,
         device=None,
     ):
         self.proto = proto
@@ -67,7 +74,8 @@ class RafiContext:
             exchange=exchange, marshal=marshal, sort_method=sort_method,
             fast_size=fast_size, node_capacity=node_capacity,
             level_sizes=tuple(level_sizes), level_capacities=tuple(level_capacities),
-            overflow=overflow,
+            telemetry=telemetry, telemetry_window=telemetry_window, telemetry_buckets=telemetry_buckets,
+            overflow=overflow, pipeline_shards=pipeline_shards,
         )
         self.comm = StackedCollectives()
 
@@ -84,7 +92,8 @@ class RafiContext:
     def forward_rays(self) -> Callable[[Q.WorkQueue], Tuple]:
         """The paper's ``forwardRays()``: ``q -> (forwarded_queue, total)``,
         plus the per-lane ``age`` under retain (each standalone call starts
-        ages fresh; the drive is where ages thread across rounds)."""
+        ages fresh; the drive is where ages thread across rounds) and the
+        round's ``RoundStats`` with telemetry."""
         cfg, comm = self.cfg, self.comm
 
         def step(q: Q.WorkQueue):
@@ -96,13 +105,22 @@ class RafiContext:
         """The drive: ``(q0, aux0) -> (q, aux, rounds, done)``; ``done`` is
         True when the global in-flight count hit zero, False when
         ``max_rounds`` truncated the run with work in flight.  Under retain
-        the final per-lane ``age`` follows ``done``."""
+        the final per-lane ``age`` follows ``done``; with telemetry the
+        ``StatsRing`` of the drive's last ``telemetry_window`` rounds is the
+        last output (feed it to ``telemetry.summarize`` /
+        ``tune.plan_capacities``)."""
         cfg, comm = self.cfg, self.comm
 
         def drive(q0: Q.WorkQueue, aux0: Any):
-            return term.run_until_done(
-                round_fn, q0, aux0, cfg, max_rounds=max_rounds, comm=comm
-            )
+            if not OT.enabled():
+                return term.run_until_done(round_fn, q0, aux0, cfg, max_rounds=max_rounds, comm=comm)
+            with OT.span(
+                "drive.run_until_done", OT.CAT_DRIVE, exchange=cfg.exchange, flow=cfg.flow,
+                overflow=cfg.overflow, max_rounds=max_rounds, num_ranks=self.num_ranks,
+            ) as sp:
+                out = term.run_until_done(round_fn, q0, aux0, cfg, max_rounds=max_rounds, comm=comm)
+                sp.set(rounds=out[2], done=out[3])
+            return out
 
         return drive
 

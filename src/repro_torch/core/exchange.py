@@ -21,19 +21,26 @@ All take either marshal plan: ``marshal="sort"`` with the destination-sort
 
 Budget per round: 1 payload ``all_to_all`` + 1 count ``all_to_all`` on
 ``padded``, one of each per non-trivial tier on ``hierarchical`` (recorded
-by ``core.collectives``).  Segment overflow — sender-side, tier-side or
-receiver-side — is dropped and counted exactly once.  Every backend returns
-``(recv_packed, recv_counts, new_count, drops, pending)``.  With
-``overflow="retain"`` ``pending`` holds the spill blocks ``(rows, dest, age,
-n)`` of every sender or tier clamp (the rows it would have cut, compacted,
-with their global destination and aged counter), and the receive compaction
-lands the arrivals behind them; otherwise it is empty.  The onehot oracle
-has no sender clamp, so its plan is empty by construction.  ``ragged``
+by ``core.collectives``); ``pipeline_shards=S`` makes it S of each, the
+shards' chains run in turn (``stages.Pipelined``), payload bytes conserved
+and placement bit-exact with S=1.  Segment overflow — sender-side,
+tier-side or receiver-side — is dropped and counted exactly once.  Every
+backend returns ``(recv_packed, recv_counts, new_count, drops, pending,
+stats)``.  With ``overflow="retain"`` ``pending`` holds the spill blocks
+``(rows, dest, age, n)`` of every sender or tier clamp (the rows it would
+have cut, compacted, with their global destination and aged counter), and
+the receive compaction lands the arrivals behind them; otherwise it is
+empty.  The onehot oracle has no sender clamp, so its plan is empty by
+construction.  With ``telemetry=True`` ``stats`` is the round's
+``telemetry.RoundStats``, read from control-plane values the round already
+holds (no collective, no host sync); otherwise it is None.  ``ragged``
 comes later (ROADMAP Queue 1 item 16).
 """
 from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
+
+import dataclasses
 
 import torch
 
@@ -41,6 +48,7 @@ from repro_torch.core import stages as ST
 from repro_torch.core.collectives import StackedCollectives
 from repro_torch.kernels.bucket_scatter import ops as bs_ops
 from repro_torch.kernels.marshal import ops as marshal_ops
+from repro_torch.telemetry import stats as TS
 
 __all__ = ["exchange_counts", "exchange_hierarchical", "exchange_onehot", "exchange_padded"]
 
@@ -66,13 +74,20 @@ def exchange_padded(
     dest_rank: Optional[torch.Tensor] = None,
     overflow: str = "drop",
     age: Optional[torch.Tensor] = None,  # (R, C) retain: rounds each lane has waited
+    telemetry: bool = False,
+    telemetry_buckets: int = 8,
+    pipeline_shards: int = 1,
     on_stage: Optional[Callable[[str], None]] = None,
 ):
     """Padded-slot exchange.  Returns ``(recv_packed (R, capacity, W),
-    recv_counts (R, R), new_count (R,), drops (R,), pending)``; under retain
-    ``pending`` is the sender clamp's one spill block and ``drops`` only the
-    receiver-side admission cut.  ``on_stage`` is passed to
-    :func:`core.stages.compose`."""
+    recv_counts (R, R), new_count (R,), drops (R,), pending, stats)``; under
+    retain ``pending`` is the sender clamp's one spill block and ``drops``
+    only the receiver-side admission cut.  With ``pipeline_shards=S > 1``
+    the Marshal → … → Unmarshal chain runs S times over slot-row
+    micro-shards (the spill stays outside the shard loop).  With
+    ``telemetry`` the stats record the per-peer send counts as the segment
+    demand against ``peer_capacity``.  ``on_stage`` is passed to
+    :func:`core.stages.compose` (shards mark ``"Stage#k"``)."""
     R, S = num_ranks, peer_capacity
     retain = overflow == "retain"
     st = ST.RoundState(
@@ -80,15 +95,24 @@ def exchange_padded(
         dest_clean=dest_clean, dest_rank=dest_rank, retain=retain,
         age=_fresh_age(packed) if retain and age is None else age,
     )
-    st = ST.compose(
-        ST.SpillExtract(R, capacity, S, retain=retain),
-        ST.Marshal(R, S),
+    inner = (
+        ST.Marshal(R, S, shards=pipeline_shards),
         ST.CountExchange(comm),
         ST.PayloadExchange(comm),
-        ST.Unmarshal(capacity),
-        on_stage=on_stage,
-    )(st)
-    return st.out, st.recv_counts, st.new_count, st.send_drops + st.recv_drops, tuple(st.pending)
+        ST.Unmarshal(capacity, shards=pipeline_shards, slot=S),
+    )
+    if pipeline_shards > 1:
+        inner = (ST.Pipelined(inner, pipeline_shards, on_stage=on_stage),)
+    st = ST.compose(ST.SpillExtract(R, capacity, S, retain=retain), *inner, on_stage=on_stage)(st)
+    stats = None
+    if telemetry:
+        stats = TS.single_tier_stats(
+            send_counts, S, telemetry_buckets,
+            sent_rows=st.clamped.sum(dim=1, dtype=torch.int32), stage_drops=st.send_drops,
+            recv_total=st.recv_counts.sum(dim=1, dtype=torch.int32), recv_drops=st.recv_drops,
+            rows_held=st.stage_held if retain else None,
+        )
+    return st.out, st.recv_counts, st.new_count, st.send_drops + st.recv_drops, tuple(st.pending), stats
 
 
 def _fresh_age(packed: torch.Tensor) -> torch.Tensor:
@@ -110,6 +134,9 @@ def exchange_hierarchical(
     dest_rank: Optional[torch.Tensor] = None,
     overflow: str = "drop",
     age: Optional[torch.Tensor] = None,
+    telemetry: bool = False,
+    telemetry_buckets: int = 8,
+    pipeline_shards: int = 1,
     on_stage: Optional[Callable[[str], None]] = None,
 ):
     """N-stage packed exchange over the tier layout ``level_sizes``.
@@ -122,20 +149,31 @@ def exchange_hierarchical(
     (the sort permutation composed into its gather, or the scatter straight
     into its slots); every stage's counts derive from the one histogram and
     the per-stage count collectives.  Returns ``(recv_packed, recv_counts,
-    new_count, drops, pending)``; ``recv_counts`` are per source group of
-    the last stage.  ``on_stage(name)``, if given, is called after each
-    stage with its class name and tier, e.g. ``"Marshal@1"``.
+    new_count, drops, pending, stats)``; ``recv_counts`` are per source
+    group of the last stage.  ``on_stage(name)``, if given, is called after
+    each stage with its class name and tier, e.g. ``"Marshal@1"`` (or
+    ``"Marshal#0@1"`` for shard 0 of a pipelined tier).
 
     With ``overflow="retain"`` every stage clamp parks its cut rows where
     they sit: the first stage spills input lanes (ages carried forward),
     later stages park mid-route buffer rows re-addressed through
     ``seg_dest`` (ages restart at 1).  One pending block per non-trivial
-    stage; the final compaction lands the arrivals behind them."""
+    stage; the final compaction lands the arrivals behind them.
+
+    With ``pipeline_shards=S > 1`` each tier's Marshal → CountExchange →
+    PayloadExchange chain runs S times over ``level_capacities[l]/S``-row
+    micro-shards; non-final tiers reassemble the bulk stage buffer
+    (``stages.Reassemble``), the final tier's shards compact straight into
+    the queue.  With ``telemetry`` tier ``l``'s segment demand is the
+    pre-clamp row total per peer slot column of stage ``l``, after the
+    faster tiers' clamps, recorded at its ``level_sizes`` index (extent-1
+    tiers stay zero)."""
     level_sizes = tuple(int(a) for a in level_sizes)
     R = num_ranks
     B, C, W = packed.shape
     retain = overflow == "retain"
     tiers = [l for l in reversed(range(len(level_sizes))) if level_sizes[l] > 1]
+    rec = TS.make_stats(len(level_sizes), telemetry_buckets, num_ranks=B, device=packed.device) if telemetry else None
     st = ST.RoundState(
         packed=packed, perm=perm, send_counts=send_counts, marshal=marshal,
         dest_clean=dest_clean, dest_rank=dest_rank, retain=retain,
@@ -162,31 +200,58 @@ def exchange_hierarchical(
             rows = torch.gather(perm, 1, torch.arange(capacity, device=packed.device).clamp(0, C - 1).expand(B, -1))
             out = marshal_ops.fused_marshal(packed, rows, num_ranks=1, slot=capacity)[:, 0]
         drops = (st.cnt - allowed).sum(dim=1, dtype=torch.int32)
-        return out, allowed, allowed[:, 0], drops, ()
+        if telemetry:  # no stage ran: only the local compaction is observable
+            rec = dataclasses.replace(rec, recv_total=st.cnt.sum(dim=1, dtype=torch.int32), recv_drops=drops)
+        return out, allowed, allowed[:, 0], drops, (), rec
 
+    shards = pipeline_shards
     for i, l in enumerate(tiers):
         A, S = level_sizes[l], level_capacities[l]
+        final = i == len(tiers) - 1
         mark = None if on_stage is None else (lambda name, l=l: on_stage(f"{name}@{l}"))
-        head = (ST.SpillExtract(R, capacity, S, retain=retain, kind="tier", extent=A),
-                ST.Marshal(A, S, kind="tier", num_ranks=R))
-        if i == len(tiers) - 1:
+        st = ST.compose(ST.SpillExtract(R, capacity, S, retain=retain, kind="tier", extent=A), on_stage=mark)(st)
+        if telemetry:
+            _record_tier(rec, st, l, A, S, telemetry_buckets, retain)
+        chain = (
+            ST.Marshal(A, S, shards=shards, kind="tier", num_ranks=R),
             # final stage: per-source-group totals suffice — blocks are
-            # contiguous prefixes, compacted straight into the receive queue
-            st = ST.compose(
-                *head,
-                ST.CountExchange(comm, kind="final", digits=level_sizes, tier=l),
-                ST.PayloadExchange(comm, digits=level_sizes, tier=l),
-                ST.Unmarshal(capacity, kind="final"),
-                on_stage=mark,
-            )(st)
-            return st.out, st.recv_counts, st.new_count, st.drops + st.recv_drops, tuple(st.pending)
-        st = ST.compose(
-            *head,
-            ST.CountExchange(comm, kind="tier", digits=level_sizes, tier=l),
-            ST.PayloadExchange(comm, digits=level_sizes, tier=l),
-            ST.AdvanceTier(A, S, level_sizes, l, retain=retain),
-            on_stage=mark,
-        )(st)
+            # contiguous prefixes, compacted straight into the receive
+            # queue; other stages ship the per-sub-segment survivors
+            ST.CountExchange(comm, kind="final" if final else "tier", digits=level_sizes, tier=l,
+                             shards=shards, slot=S),
+            ST.PayloadExchange(comm, digits=level_sizes, tier=l, collect=shards > 1 and not final),
+        )
+        if final:
+            chain += (ST.Unmarshal(capacity, shards=shards, slot=S, kind="final"),)
+        if shards > 1:
+            chain = (ST.Pipelined(chain, shards, on_stage=mark),) + (() if final else (ST.Reassemble(A, S),))
+        if not final:
+            chain += (ST.AdvanceTier(A, S, level_sizes, l, retain=retain),)
+        st = ST.compose(*chain, on_stage=mark)(st)
+    if telemetry:
+        # wasted wire: every row discarded after crossing a wire — the
+        # receiver cut plus the stage clamps past the first hop (zero under
+        # retain, where the later stages hold instead of dropping)
+        late = sum((rec.stage_drops[:, j] for j in tiers[1:]), torch.zeros_like(st.recv_drops))
+        rec = dataclasses.replace(
+            rec, recv_total=st.recv_counts.sum(dim=1, dtype=torch.int32),
+            recv_drops=st.recv_drops.to(torch.int32), wasted_wire_rows=(st.recv_drops + late).to(torch.int32),
+        )
+    return st.out, st.recv_counts, st.new_count, st.drops + st.recv_drops, tuple(st.pending), rec
+
+
+def _record_tier(rec, st, l: int, A: int, S: int, buckets: int, retain: bool) -> None:
+    """Fill tier ``l``'s row of ``rec`` right after its clamp: the segment
+    demand is the pre-clamp rows per peer slot column."""
+    B = st.cnt.shape[0]
+    col = st.cnt.reshape(B, -1, A).sum(dim=1, dtype=torch.int32)  # (B, A)
+    rec.demand_hist[:, l] = TS.occupancy_histogram(col, S, buckets)
+    rec.demand_max[:, l] = col.amax(dim=1)
+    rec.demand_total[:, l] = col.sum(dim=1, dtype=torch.int32)
+    rec.sent_rows[:, l] = st.allowed.sum(dim=(1, 2), dtype=torch.int32)
+    rec.stage_drops[:, l] = st.stage_drops
+    if retain:
+        rec.rows_held[:, l] = st.stage_held
 
 
 def exchange_onehot(
@@ -202,6 +267,8 @@ def exchange_onehot(
     dest_rank: Optional[torch.Tensor] = None,
     overflow: str = "drop",
     age: Optional[torch.Tensor] = None,
+    telemetry: bool = False,
+    telemetry_buckets: int = 8,
 ):
     """All-gather reference oracle: every rank sees every rank's sorted
     queue, selects what is addressed to it, and compacts stably by
@@ -209,7 +276,8 @@ def exchange_onehot(
     with kernel K5's ``scatter_rows`` (the only step that differs).  No
     sender clamp exists, so a retain round's spill plan is empty; the
     receiver clamp stays a counted drop.  Same returns as
-    :func:`exchange_padded`."""
+    :func:`exchange_padded`; its stats record the per-destination send
+    counts against the receiver queue, the only clamp it has."""
     del overflow, age
     R = num_ranks
     rows, cap, w = packed.shape
@@ -237,5 +305,12 @@ def exchange_onehot(
     total = mine.sum(dim=1, dtype=torch.int32)
     new_count = torch.clamp(total, max=capacity)
     recv_counts = (all_dest == me).sum(dim=2, dtype=torch.int32)
-    return gathered, recv_counts, new_count, total - new_count, ()
+    stats = None
+    if telemetry:
+        stats = TS.single_tier_stats(
+            send_counts, capacity, telemetry_buckets,
+            sent_rows=send_counts.sum(dim=1, dtype=torch.int32), stage_drops=torch.zeros_like(total),
+            recv_total=total, recv_drops=total - new_count,
+        )
+    return gathered, recv_counts, new_count, total - new_count, (), stats
 

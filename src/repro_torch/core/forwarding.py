@@ -22,6 +22,10 @@ into the FRONT of the next queue with their destination intact (FIFO
 oldest-first through the stable marshal); the arrivals sit behind them with
 DISCARD.  The round then also returns the per-lane ``age`` counter.
 
+With ``telemetry=True`` the round's ``telemetry.RoundStats`` rides along as
+the last output; with ``pipeline_shards=S`` each exchange runs as S
+micro-shard chains, bit-exact with S=1 (``core.stages.Pipelined``).
+
 The reference's ``use_pallas`` and ``axis_name`` have no counterpart: the
 rank axis is dim 0, and the tensors' device picks kernel or plain version.
 The sort plan always goes through K3 and the scatter plan through K4, as
@@ -91,9 +95,14 @@ class ForwardConfig:
         aliases ``level_capacities[-1]`` there.
       overflow: "drop" (the §3.3 oracle) | "retain" (spill and retry: the
         lossless law).
-      telemetry, pipeline_shards > 1, flow="credit" and exchange="ragged"
-        are validated as in the reference and refused until their slice
-        lands (ROADMAP Queue 1 items 8, 9, 10, 16).
+      telemetry: record every round's ``telemetry.RoundStats`` (a trailing
+        output of ``forward_work``; ``run_until_done`` carries a ring of the
+        last ``telemetry_window`` rounds, ``telemetry_buckets`` demand
+        buckets per tier).
+      pipeline_shards: S micro-shards a round (the overlap law), bit-exact
+        with S=1; must divide ``capacity`` and every per-peer slot budget.
+      flow="credit" and exchange="ragged" are validated as in the reference
+        and refused until their slice lands (ROADMAP Queue 1 items 10, 16).
     """
 
     num_ranks: int
@@ -190,10 +199,6 @@ class ForwardConfig:
             raise _later("exchange='ragged'", "16")
         if self.flow == "credit":
             raise _later("flow='credit'", "10")
-        if self.pipeline_shards > 1:
-            raise _later("pipeline_shards > 1", "9")
-        if self.telemetry:
-            raise _later("telemetry=True", "8")
 
     def _init_flat(self):
         for field in ("fast_size", "node_capacity", "level_sizes", "level_capacities"):
@@ -207,6 +212,12 @@ class ForwardConfig:
             if self.peer_capacity <= 0:
                 object.__setattr__(
                     self, "peer_capacity", max(1, -(-self.capacity // self.num_ranks) * 2)
+                )
+            if self.peer_capacity % self.pipeline_shards:
+                raise ValueError(
+                    f"pipeline_shards ({self.pipeline_shards}) must divide "
+                    f"peer_capacity ({self.peer_capacity}): micro-shards are "
+                    "equal slices of the per-peer slot rows"
                 )
         elif self.peer_capacity:
             raise ValueError(
@@ -307,10 +318,14 @@ def forward_work(
     ``(new_queue, total, age_out)``: clamp-cut rows come back at the FRONT
     of ``new_queue`` with their ``dest`` intact, ``total`` counts them, and
     ``age_out (R, C)`` is the per-lane rounds-waiting counter to feed back
-    through ``age=`` (None: every lane fresh).  ``comm`` records the round's
-    collectives.  ``on_stage(name)``, if given, is called after each step of
-    the round ("plan", "pack", each exchange stage on ``padded`` and, with
-    its tier, on ``hierarchical``, or "exchange" on ``onehot``, "merge"
+    through ``age=`` (None: every lane fresh).  With ``cfg.telemetry`` the
+    round's ``RoundStats`` is the last output: ``(new_queue, total,
+    stats)``, or ``(new_queue, total, age_out, stats)`` under retain, with
+    ``retained_rows`` and ``age_max`` stamped after the merge.  ``comm``
+    records the round's collectives.  ``on_stage(name)``, if given, is
+    called after each step of the round ("plan", "pack", each exchange stage
+    on ``padded`` and, with its tier, on ``hierarchical`` — ``"Stage#k"``
+    for shard k of a pipelined round — or "exchange" on ``onehot``, "merge"
     under retain, "unpack", "psum"), e.g. to record a CUDA event there; it
     must not change the round.
     """
@@ -350,15 +365,17 @@ def forward_work(
     kwargs = dict(
         comm=comm, num_ranks=R, capacity=C, marshal=cfg.marshal,
         dest_clean=dest_clean, dest_rank=dest_rank, overflow=cfg.overflow, age=age,
+        telemetry=cfg.telemetry, telemetry_buckets=cfg.telemetry_buckets,
     )
     if cfg.exchange == "padded":
-        kwargs.update(peer_capacity=cfg.peer_capacity, on_stage=on_stage)
+        kwargs.update(peer_capacity=cfg.peer_capacity, pipeline_shards=cfg.pipeline_shards, on_stage=on_stage)
     elif cfg.exchange == "hierarchical":
         kwargs.update(level_sizes=cfg.level_sizes, level_capacities=cfg.level_capacities,
-                      on_stage=on_stage)
-    recv_packed, _recv_counts, new_count, drops, pending = _EXCHANGES[cfg.exchange](
+                      pipeline_shards=cfg.pipeline_shards, on_stage=on_stage)
+    recv_packed, _recv_counts, new_count, drops, pending, stats = _EXCHANGES[cfg.exchange](
         packed, perm, send_counts, **kwargs
     )
+    tail = () if stats is None else (stats,)
     if cfg.exchange == "onehot":
         mark("exchange")
     if not retain:
@@ -372,7 +389,7 @@ def forward_work(
         # §4.2.3: "a final MPI reduce-add on the number of rays received"
         total = comm.psum(new_q.count)
         mark("psum")
-        return new_q, total
+        return (new_q, total) + tail
 
     # Merge: retained lanes FIRST (their dest survives), arrivals behind
     # (dest DISCARD) — pure local work, zero collectives.  Each clamp site
@@ -418,4 +435,8 @@ def forward_work(
     mark("unpack")
     total = comm.psum(new_q.count)
     mark("psum")
-    return new_q, total, age_out.to(torch.int32)
+    age_out = age_out.to(torch.int32)
+    if stats is not None:
+        tail = (dataclasses.replace(stats, retained_rows=ret_count.to(torch.int32),
+                                    age_max=age_out.amax(dim=1)),)
+    return (new_q, total, age_out) + tail

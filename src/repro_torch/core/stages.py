@@ -1,4 +1,4 @@
-"""The exchange round as composable stages (open flow, S=1).
+"""The exchange round as composable stages (open flow).
 
 The same five stages as ``repro.core.stages``, over rank-stacked tensors and
 an explicit :class:`RoundState`:
@@ -27,10 +27,26 @@ an explicit :class:`RoundState`:
                   next tier's buffer, their sub-segment counts and offsets
                   derived from the tier's count exchange.
 
+  Reassemble      between the micro-shards of a pipelined tier: the
+                  received chunk blocks stitched back into the bulk stage
+                  buffer (local data movement, no collective).
+
+Micro-shard pipelining (the overlap law, ``pipeline_shards=S``): every
+shard-aware stage also has ``.shard(state, k)``, which issues shard ``k``'s
+slice of the work — slot rows ``[k·S/shards, (k+1)·S/shards)`` of every
+peer segment — and :class:`Pipelined` runs the per-shard chains one after
+the other (marshal 0, counts 0, payload 0, unmarshal 0, marshal 1, …), as
+the reference issues them.  The flat and final count exchanges repeat the
+FULL count vector on every shard, so each shard derives its landing
+offsets alone; a tier's count exchange ships each shard's own chunk counts
+and sums them on receive.  Each shard lands its rows at their bulk
+positions, so the round is bit-exact with S=1.  On one card the chains run
+in order on one stream: nothing overlaps until a real wire exists.
+
 Each rank's digit on a tier (``jax.lax.axis_index`` of the reference) is
 read from the stacked axis (``collectives.tier_digit``), so ``seg_dest``
-stays per rank.  Credit flow and micro-shard pipelining belong to later
-slices of the port (ROADMAP Queue 1 items 10 and 9).
+stays per rank.  Credit flow belongs to a later slice of the port (ROADMAP
+Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -48,11 +64,14 @@ __all__ = [
     "CountExchange",
     "Marshal",
     "PayloadExchange",
+    "Pipelined",
+    "Reassemble",
     "RoundState",
     "SpillExtract",
     "Unmarshal",
     "clamp_subsegments",
     "compact_blocks",
+    "compact_shard",
     "compose",
     "lanes_spill",
     "padded_send_buffer",
@@ -167,23 +186,71 @@ def compact_blocks(
     if front is not None:
         roff = roff + front[:, None]
     out = marshal_ops.fused_unmarshal(recv_buf, roff, recv_counts, capacity=capacity)
+    return (out,) + _admit(recv_counts, capacity, front)
+
+
+def _admit(recv_counts: torch.Tensor, capacity: int, front: Optional[torch.Tensor]):
+    """``(new_count, drops)`` of a receive compaction: the arrivals admitted
+    into the room behind ``front`` (all of ``capacity`` without one)."""
     total_recv = recv_counts.sum(dim=1, dtype=torch.int32)
     if front is None:
         new_count = torch.clamp(total_recv, max=capacity)
     else:
         new_count = torch.minimum(total_recv, torch.clamp(capacity - front, min=0))
-    return out, new_count, total_recv - new_count
+    return new_count, total_recv - new_count
 
 
-def send_rows(perm: torch.Tensor, send_counts: torch.Tensor, *, peer_capacity: int) -> torch.Tensor:
-    """Source lane of every send-buffer row, ``(B, R·S)`` int32: slot ``s``
-    of peer ``r`` reads lane ``perm[b, clip(off[b, r] + s, 0, C-1)]`` — the
-    sort permutation composed with the padded send layout."""
-    rows, cap = perm.shape
+def compact_shard(
+    acc: Optional[torch.Tensor],  # (B·capacity + B·G·chunk, W) accumulator, None at the first shard
+    recv_buf: torch.Tensor,  # (B, G, chunk, W) shard k's received blocks
+    recv_counts: torch.Tensor,  # (B, G) FULL per-block counts (shard-independent)
+    capacity: int,
+    *,
+    row_offset: int,  # k·chunk — where this shard's rows sit in each block
+    front: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One micro-shard's slice of the receive compaction: shard rows land at
+    the SAME positions :func:`compact_blocks` gives them (``front[b] +
+    roff[b, g] + row_offset + s``, valid while ``row_offset + s <
+    recv_counts[b, g]``), so the union over shards is bit-exact with it.
+
+    Plain PyTorch, as the reference's is plain XLA: K2 is output-driven (it
+    writes every row of its output) and would erase the earlier shards'
+    rows.  ``acc`` is the rank-stacked queue flattened, ``(B·capacity, W)``,
+    then one trash row per slot of a shard: slot ``i`` that lies past its
+    block's count or past capacity lands in row ``B·capacity + i`` (the
+    reference's ``mode="drop"``), so no two slots write one row.  Given
+    ``acc=None`` it is allocated with the queue zeroed; ``acc[:B·capacity]``
+    viewed as ``(B, capacity, W)`` is the compacted queue."""
+    B, G, chunk, W = recv_buf.shape
+    if acc is None:
+        acc = recv_buf.new_empty(B * (capacity + G * chunk), W)
+        acc[:B * capacity].zero_()
+    roff = _excl_cumsum(recv_counts, 1)
+    if front is not None:
+        roff = roff + front[:, None]
+    s = torch.arange(chunk, dtype=roff.dtype, device=roff.device) + row_offset
+    dstpos = roff[:, :, None] + s
+    ok = (s < recv_counts[:, :, None]) & (dstpos < capacity)
+    base = torch.arange(B, dtype=torch.int64, device=roff.device)[:, None, None] * capacity
+    trash = torch.arange(B * capacity, B * (capacity + G * chunk), device=roff.device).view(B, G, chunk)
+    slot = torch.where(ok, base + dstpos, trash)
+    return acc.index_copy_(0, slot.reshape(-1), recv_buf.reshape(-1, W))
+
+
+def send_rows(
+    perm: torch.Tensor, send_counts: torch.Tensor, *, peer_capacity: int, lo: int = 0, rows: Optional[int] = None
+) -> torch.Tensor:
+    """Source lane of every send-buffer row, ``(B, R·n)`` int32: slot ``s``
+    of peer ``r`` (``lo <= s < lo + n``, ``n = rows or peer_capacity``) reads
+    lane ``perm[b, clip(off[b, r] + s, 0, C-1)]`` — the sort permutation
+    composed with the padded send layout."""
+    rows_b, cap = perm.shape
     off = _excl_cumsum(send_counts, 1)  # segment starts in sorted order
-    s_idx = torch.arange(peer_capacity, dtype=torch.int32, device=perm.device)
+    n = peer_capacity if rows is None else rows
+    s_idx = torch.arange(lo, lo + n, dtype=torch.int32, device=perm.device)
     slotpos = (off[:, :, None] + s_idx[None, None, :]).clamp(0, cap - 1)
-    return torch.gather(perm, 1, slotpos.reshape(rows, -1).to(torch.int64))
+    return torch.gather(perm, 1, slotpos.reshape(rows_b, -1).to(torch.int64))
 
 
 def padded_send_buffer(
@@ -196,22 +263,32 @@ def padded_send_buffer(
     marshal: str = "sort",
     dest_clean: Optional[torch.Tensor] = None,  # (B, C) scatter mode: sanitised dest
     dest_rank: Optional[torch.Tensor] = None,  # (B, C) scatter mode: in-bucket rank
+    shards: int = 1,
+    k: int = 0,
 ) -> torch.Tensor:
     """The padded exchange's send-side marshal — the round's ONE payload
-    pass.  Sort mode: row ``(r, s)`` of rank b's buffer is ``packed[b,
-    perm[b, off[b, r] + s]]``.  Scatter mode: lane ``i`` goes to row
-    ``d_clean·S + rank`` where ``d_clean < R`` and ``rank < S``, else it is
-    dropped (position ``R·S``).  Returns ``(B, R, S, W)``; rows past a
-    segment's clamped count are garbage (sort) or zeros (scatter), masked
-    downstream by the exchanged counts."""
-    R, S = num_ranks, peer_capacity
+    pass (a micro-shard's: slot rows ``[k·chunk, (k+1)·chunk)`` of every
+    peer segment, ``chunk = S / shards``).  Sort mode: row ``(r, s)`` of
+    rank b's buffer is ``packed[b, perm[b, off[b, r] + k·chunk + s]]``.
+    Scatter mode: lane ``i`` goes to row ``d_clean·chunk + rank − k·chunk``
+    where ``d_clean < R`` and the rank lies in the shard's chunk, else it is
+    dropped (position ``R·chunk``).  Returns ``(B, R, chunk, W)``; rows past
+    a segment's clamped count are garbage (sort) or zeros (scatter), masked
+    downstream by the exchanged counts.  The union over shards is row for
+    row the one-shard buffer."""
+    R = num_ranks
+    chunk = peer_capacity // shards
+    lo = k * chunk
+    B, _, W = packed.shape
     if marshal == "scatter":
-        keep = (dest_clean < R) & (dest_rank < S)
-        dstpos = torch.where(keep, dest_clean * S + dest_rank, R * S)
-        send_buf = bs_ops.scatter_rows(packed, dstpos, num_slots=R * S)
-        return send_buf.reshape(packed.shape[0], R, S, packed.shape[-1])
-    src = send_rows(perm, send_counts, peer_capacity=peer_capacity)
-    return marshal_ops.fused_marshal(packed, src, num_ranks=num_ranks, slot=peer_capacity)
+        rank = dest_rank - lo if lo else dest_rank  # position in the shard's chunk
+        keep = (dest_clean < R) & (rank < chunk)
+        if lo:
+            keep = keep & (rank >= 0)
+        dstpos = torch.where(keep, dest_clean * chunk + rank, R * chunk)
+        return bs_ops.scatter_rows(packed, dstpos, num_slots=R * chunk).reshape(B, R, chunk, W)
+    src = send_rows(perm, send_counts, peer_capacity=peer_capacity, lo=lo, rows=chunk)
+    return marshal_ops.fused_marshal(packed, src, num_ranks=R, slot=chunk)
 
 
 @dataclasses.dataclass
@@ -233,6 +310,8 @@ class RoundState:
     allowed: Any = None  # tier: (B, G, A) surviving sub-segment sizes
     starts: Any = None  # tier: slot-local sub-segment starts
     send_drops: Any = None  # (B,) rows the sender clamp cut
+    stage_drops: Any = None  # tier: (B,) this tier's clamp loss (telemetry reads it)
+    stage_held: Any = None  # retain: (B,) rows the current clamp held locally
     pending: List[Any] = dataclasses.field(default_factory=list)  # retain spill blocks
     front: Any = None  # flat retain: (B,) spill front
     spill_run: Any = None  # hierarchical: (B,) rows parked so far
@@ -245,14 +324,17 @@ class RoundState:
     n_rows: int = 0
     via_perm: bool = True  # True until the round's first payload pass
     seg_dest: Any = None  # retain: (B, R) sub-segment → global destination
+    stage_pos: Any = None  # tier: cached (B, A, S) source positions (sharded gathers)
 
     # exchange working set (Marshal / CountExchange / PayloadExchange)
     send_buf: Any = None  # (B, A, S, W)
     recv_counts: Any = None  # (B, A)
     recv_buf: Any = None  # (B, A, S, W)
     rcv: Any = None  # tier: (B, A, G) per-sub-segment survivors received
+    recv_blocks: List[Any] = dataclasses.field(default_factory=list)  # sharded tier receives
 
     # results (Unmarshal)
+    acc: Any = None  # sharded: (B·capacity + B·G·chunk, W) accumulator (compact_shard)
     out: Any = None  # (B, capacity, W)
     new_count: Any = None  # (B,)
     recv_drops: Any = None  # (B,)
@@ -289,6 +371,7 @@ class SpillExtract:
                 dest_clean=st.dest_clean, dest_rank=st.dest_rank,
             ))
             st.front = torch.clamp(send_drops, max=self.capacity)
+            st.stage_held = send_drops
             send_drops = torch.zeros_like(send_drops)
         st.send_drops = send_drops
         return st
@@ -322,8 +405,10 @@ class SpillExtract:
                     stage_drops,
                 ))
             st.spill_run = st.spill_run + stage_drops
-        else:
-            st.drops = st.drops + stage_drops
+            st.stage_held = stage_drops
+            stage_drops = torch.zeros_like(stage_drops)
+        st.stage_drops = stage_drops
+        st.drops = st.drops + stage_drops
         return st
 
 
@@ -333,25 +418,33 @@ class Marshal:
     W)`` peer-slot layout.  ``kind="tier"``: a hierarchical stage's ``(A,
     S, W)`` layout — sort permutation composed into the first stage's gather
     (K1), or the sort-free scatter straight into sub-segment slots (K5);
-    later stages gather from the received buffer (K1)."""
+    later stages gather from the received buffer (K1).  ``.shard(st, k)``
+    builds only slot rows ``[k·chunk, (k+1)·chunk)`` of every segment."""
 
     num_peers: int  # flat: R ranks; tier: A_l, the stage's axis size
     slot: int
+    shards: int = 1
     kind: str = "flat"
     num_ranks: int = 0  # tier: the global rank count R
 
     def __call__(self, st: RoundState) -> RoundState:
+        return self.shard(st, None)
+
+    def shard(self, st: RoundState, k: Optional[int]) -> RoundState:
         if self.kind == "tier":
-            return self._tier(st)
+            return self._tier(st, k)
         st.send_buf = padded_send_buffer(
             st.packed, st.perm, st.send_counts,
             num_ranks=self.num_peers, peer_capacity=self.slot,
             marshal=st.marshal, dest_clean=st.dest_clean, dest_rank=st.dest_rank,
+            shards=1 if k is None else self.shards, k=k or 0,
         )
         return st
 
-    def _tier(self, st: RoundState) -> RoundState:
+    def _tier(self, st: RoundState, k: Optional[int]) -> RoundState:
         A, S, R = self.num_peers, self.slot, self.num_ranks
+        chunk = S if k is None else S // self.shards
+        lo = 0 if k is None else k * chunk
         B, C, W = st.packed.shape
         if st.via_perm and st.marshal == "scatter":
             # first non-trivial stage, sort-free: each row straight to its
@@ -363,18 +456,23 @@ class Marshal:
             cell = row * A + col
             allowed, starts = st.allowed.reshape(B, R), st.starts.reshape(B, R)
             keep = (st.dest_clean < R) & (st.dest_rank < _take(allowed, cell))
-            dstpos = torch.where(keep, col * S + _take(starts, cell) + st.dest_rank, A * S)
-            st.send_buf = bs_ops.scatter_rows(st.packed, dstpos.to(torch.int32), num_slots=A * S).reshape(B, A, S, W)
+            s_in = _take(starts, cell) + st.dest_rank  # slot position in the column
+            keep = keep & (s_in >= lo) & (s_in < lo + chunk)
+            dstpos = torch.where(keep, col * chunk + s_in - lo, A * chunk)
+            send = bs_ops.scatter_rows(st.packed, dstpos.to(torch.int32), num_slots=A * chunk)
+            st.send_buf = send.reshape(B, A, chunk, W)
             return st
-        pos = subsegment_gather(st.allowed, st.starts, st.base.reshape(B, R // A, A), S).reshape(B, -1)
+        if k is None or st.stage_pos is None:
+            st.stage_pos = subsegment_gather(st.allowed, st.starts, st.base.reshape(B, R // A, A), S)
+        pos = (st.stage_pos if k is None else st.stage_pos[:, :, lo:lo + chunk]).reshape(B, -1)
         if st.via_perm:
             # first non-trivial stage: the sort permutation composed into
             # the send gather — the payload's single read of the round
             rows = _take(st.perm, pos.clamp(0, C - 1))
-            st.send_buf = marshal_ops.fused_marshal(st.packed, rows.to(torch.int32), num_ranks=A, slot=S)
+            st.send_buf = marshal_ops.fused_marshal(st.packed, rows.to(torch.int32), num_ranks=A, slot=chunk)
         else:
             rows = pos.clamp(0, st.n_rows - 1).to(torch.int32)
-            st.send_buf = marshal_ops.fused_marshal(st.buf, rows, num_ranks=A, slot=S)
+            st.send_buf = marshal_ops.fused_marshal(st.buf, rows, num_ranks=A, slot=chunk)
         return st
 
 
@@ -385,46 +483,74 @@ class CountExchange:
     ``tier`` of the per-sub-segment survivor counts (so the receiver can
     address every sub-segment of each incoming block).  ``kind="final"``:
     the per-source-group totals — blocks are contiguous prefixes at the
-    last tier."""
+    last tier.  Sharded, the flat and final kinds repeat the FULL vector on
+    every shard; the tier kind ships each shard's own chunk counts
+    ``clip(allowed − k·chunk, 0, chunk)`` and sums them on receive."""
 
     comm: StackedCollectives
     kind: str = "flat"
     digits: Optional[Sequence[int]] = None  # tier/final: the tier layout
     tier: Optional[int] = None
+    shards: int = 1
+    slot: int = 0  # tier: full per-peer slot rows (shard chunking)
+
+    def _a2a(self, x: torch.Tensor) -> torch.Tensor:
+        return self.comm.all_to_all(x, digits=self.digits, tier=self.tier)
 
     def __call__(self, st: RoundState) -> RoundState:
-        a2a = lambda x: self.comm.all_to_all(x, digits=self.digits, tier=self.tier)
         if self.kind == "tier":
-            st.rcv = a2a(st.allowed.transpose(1, 2).contiguous())  # (B, A, G): [src digit, sub-seg]
+            st.rcv = self._a2a(st.allowed.transpose(1, 2).contiguous())  # (B, A, G): [src digit, sub-seg]
         elif self.kind == "final":
             sums = st.allowed.sum(dim=1, dtype=st.allowed.dtype)
-            st.recv_counts = a2a(sums[:, :, None]).reshape(sums.shape)
+            st.recv_counts = self._a2a(sums[:, :, None]).reshape(sums.shape)
         else:
-            st.recv_counts = a2a(st.clamped[:, :, None]).reshape(st.clamped.shape)
+            st.recv_counts = self._a2a(st.clamped[:, :, None]).reshape(st.clamped.shape)
+        return st
+
+    def shard(self, st: RoundState, k: int) -> RoundState:
+        if self.kind != "tier":
+            return self(st)
+        # Σ_k clip(allowed − k·chunk, 0, chunk) = allowed
+        chunk = self.slot // self.shards
+        allowed_k = torch.clamp(st.allowed - k * chunk, 0, chunk)
+        part = self._a2a(allowed_k.transpose(1, 2).contiguous())
+        st.rcv = part if k == 0 else st.rcv + part
         return st
 
 
 @dataclasses.dataclass(frozen=True)
 class PayloadExchange:
-    """The payload collective: ONE ``all_to_all`` of the send buffer (over
-    tier ``tier`` of ``digits`` on the hierarchical route)."""
+    """The payload collective: ONE ``all_to_all`` of the (current shard's)
+    send buffer (over tier ``tier`` of ``digits`` on the hierarchical route).
+    With ``collect=True`` (sharded non-final tiers) the received blocks are
+    kept for :class:`Reassemble`."""
 
     comm: StackedCollectives
     digits: Optional[Sequence[int]] = None
     tier: Optional[int] = None
+    collect: bool = False
 
     def __call__(self, st: RoundState) -> RoundState:
         st.recv_buf = self.comm.all_to_all(st.send_buf, digits=self.digits, tier=self.tier)
+        if self.collect:
+            st.recv_blocks.append(st.recv_buf)
         return st
+
+    def shard(self, st: RoundState, k: int) -> RoundState:
+        return self(st)
 
 
 @dataclasses.dataclass(frozen=True)
 class Unmarshal:
     """Receive-side compaction into the destination queue.  ``kind="flat"``
     reads the spill front SpillExtract reserved; ``kind="final"`` (the last
-    hierarchical tier) reserves the accumulated spill run."""
+    hierarchical tier) reserves the accumulated spill run.  Sharded, each
+    shard's rows land at their bulk positions (:func:`compact_shard`) and
+    the last shard closes the count and drop accounting."""
 
     capacity: int
+    shards: int = 1
+    slot: int = 0  # full per-peer slot rows (shard row offsets)
     kind: str = "flat"
 
     def _front(self, st: RoundState):
@@ -436,6 +562,32 @@ class Unmarshal:
         st.out, st.new_count, st.recv_drops = compact_blocks(
             st.recv_buf, st.recv_counts, self.capacity, front=self._front(st)
         )
+        return st
+
+    def shard(self, st: RoundState, k: int) -> RoundState:
+        B, _, chunk, W = st.recv_buf.shape
+        front = self._front(st)
+        st.acc = compact_shard(None if k == 0 else st.acc, st.recv_buf, st.recv_counts, self.capacity, row_offset=k * chunk, front=front)
+        if k == self.shards - 1:
+            st.out = st.acc[:B * self.capacity].view(B, self.capacity, W)
+            st.new_count, st.recv_drops = _admit(st.recv_counts, self.capacity, front)
+        return st
+
+
+@dataclasses.dataclass(frozen=True)
+class Reassemble:
+    """Stitch a sharded tier's received chunk blocks back into the bulk
+    ``(B, A, S, W)`` stage buffer, ``full[b, a, k·chunk + s] =
+    recv_k[b, a, s]``: local data movement, no collective, bit-exact with
+    the bulk receive."""
+
+    extent: int
+    slot: int
+
+    def __call__(self, st: RoundState) -> RoundState:
+        B, A, _, W = st.recv_blocks[0].shape
+        st.recv_buf = torch.stack(st.recv_blocks, dim=2).reshape(B, A, self.slot, W)  # (B, A, shards, chunk, W)
+        st.recv_blocks = []
         return st
 
 
@@ -461,6 +613,7 @@ class AdvanceTier:
         st.buf = st.recv_buf.reshape(B, A * S, W)
         st.n_rows = A * S
         st.via_perm = False
+        st.stage_pos = None
         if self.retain:
             # sub-segment k of the NEW order (s_l, rest) holds the
             # destination whose digit l equals MINE, shared with every peer
@@ -471,15 +624,36 @@ class AdvanceTier:
         return st
 
 
+@dataclasses.dataclass(frozen=True)
+class Pipelined:
+    """Run shard-aware stages as per-shard chains, one after the other
+    (marshal k → counts k → payload k → unmarshal k → marshal k+1 → …): the
+    overlap law's schedule.  ``on_stage(name)``, if given, is called after
+    each stage of each shard as ``"Stage#k"``."""
+
+    stages: Tuple[Any, ...]
+    shards: int
+    on_stage: Optional[Callable[[str], None]] = None
+
+    def __call__(self, st: RoundState) -> RoundState:
+        for k in range(self.shards):
+            for stage in self.stages:
+                st = stage.shard(st, k)
+                if self.on_stage is not None:
+                    self.on_stage(f"{type(stage).__name__}#{k}")
+        return st
+
+
 def compose(*stage_seq, on_stage: Optional[Callable[[str], None]] = None):
     """Run stages in sequence over a :class:`RoundState` — the bulk graph.
     ``on_stage(name)``, if given, is called after each stage with the
-    stage's class name (where a timer marks the stage boundaries)."""
+    stage's class name (where a timer marks the stage boundaries); a
+    :class:`Pipelined` stage marks its own shards."""
 
     def run(st: RoundState) -> RoundState:
         for stage in stage_seq:
             st = stage(st)
-            if on_stage is not None:
+            if on_stage is not None and not isinstance(stage, Pipelined):
                 on_stage(type(stage).__name__)
         return st
 

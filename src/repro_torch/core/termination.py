@@ -19,6 +19,12 @@ merge bit for bit when nothing is retained, so the port always shifts and
 adds no host sync.  The termination ``psum`` counts retained rows, so the
 loop cannot end with work still spilled.
 
+With ``telemetry=True`` a ``telemetry.StatsRing`` of the last
+``telemetry_window`` rounds rides the carry: every forward is pushed,
+including the initial routing round, with ``emit_overflow`` stamped by the
+drive.  The push selects its slot on the device, so the ring adds no host
+sync either.
+
 Factored like the reference into ``drive_start`` (the initial routing
 forward → carry), ``drive_segment`` (body rounds while ``rnd < seg_end``)
 and ``drive_finalize`` (carry → results).
@@ -34,6 +40,7 @@ from repro_torch.core import types as T
 from repro_torch.core.collectives import StackedCollectives
 from repro_torch.core.forwarding import ForwardConfig, forward_work
 from repro_torch.core.queue import DISCARD, WorkQueue
+from repro_torch.telemetry import stats as TS
 
 __all__ = ["drive_finalize", "drive_segment", "drive_start", "run_until_done"]
 
@@ -87,24 +94,32 @@ def _merge_retained(
 
 
 def _fwd(q, age, cfg, comm):
-    """``forward_work`` with a uniform return: ``(new_q, total, age_out)``,
-    ``age_out`` None in drop mode."""
+    """``forward_work`` with a uniform return: ``(new_q, total, age_out,
+    stats)``, ``age_out`` None in drop mode and ``stats`` None without
+    telemetry."""
     if cfg.overflow == "retain":
-        return forward_work(q, cfg, age=age, comm=comm)
-    new_q, total = forward_work(q, cfg, comm=comm)
-    return new_q, total, None
+        out = forward_work(q, cfg, age=age, comm=comm)
+    else:
+        out = forward_work(q, cfg, comm=comm)
+        out = out[:2] + (None,) + out[2:]
+    return out if cfg.telemetry else out + (None,)
 
 
 def drive_start(
     q0: WorkQueue, aux0: Any, cfg: ForwardConfig, *, comm: StackedCollectives | None = None
 ) -> Dict[str, Any]:
     """The drive's initial forward: route the ray-gen output to its owners
-    and build the carry (``q``, ``aux``, ``total``, ``rnd``, ``drops``, and
-    ``age`` under retain)."""
-    q1, total0, age1 = _fwd(q0, None, cfg, comm)
+    and build the carry (``q``, ``aux``, ``total``, ``rnd``, ``drops``,
+    ``age`` under retain, ``ring`` with telemetry — its first push has the
+    input queue's drops as ``emit_overflow``)."""
+    q1, total0, age1, stats0 = _fwd(q0, None, cfg, comm)
     carry = {"q": q1, "aux": aux0, "total": total0, "rnd": 0, "drops": q1.drops}
     if cfg.overflow == "retain":
         carry["age"] = age1
+    if cfg.telemetry:
+        ring = TS.make_ring(TS.num_tiers(cfg), window=cfg.telemetry_window, buckets=cfg.telemetry_buckets,
+                            num_ranks=cfg.num_ranks, device=q0.dest.device)
+        carry["ring"] = TS.ring_push(ring, TS.attach_emit_overflow(stats0, q0.drops))
     return carry
 
 
@@ -141,11 +156,15 @@ def drive_segment(
             kw = {"headroom": cfg.capacity} if wants_headroom else {}
             fwd_q, c["aux"] = round_fn(q, c["aux"], c["rnd"], **kw)
             age_in = None
-        new_q, c["total"], age_out = _fwd(fwd_q, age_in, cfg, comm)
+        new_q, c["total"], age_out, stats = _fwd(fwd_q, age_in, cfg, comm)
         c["drops"] = c["drops"] + new_q.drops
         c["q"] = new_q
         if retain:
             c["age"] = age_out
+        if cfg.telemetry:
+            # the round's local emission loss: round_fn's enqueue overflow
+            # plus the merge's cut, rows lost before the wire
+            c["ring"] = TS.ring_push(c["ring"], TS.attach_emit_overflow(stats, fwd_q.drops))
         c["rnd"] += 1
     return c
 
@@ -153,12 +172,14 @@ def drive_segment(
 def drive_finalize(carry: Dict[str, Any], cfg: ForwardConfig):
     """Carry → ``(final_queue, final_aux, rounds_executed, done)`` with the
     cumulative drops folded into the final queue, plus the final per-lane
-    ``age`` under retain."""
+    ``age`` under retain and the ``StatsRing`` with telemetry (last)."""
     q = carry["q"]
     q = WorkQueue(items=q.items, dest=q.dest, count=q.count, drops=carry["drops"])
     out = (q, carry["aux"], carry["rnd"], bool(int(carry["total"]) == 0))
     if cfg.overflow == "retain":
         out = out + (carry["age"],)
+    if cfg.telemetry:
+        out = out + (carry["ring"],)
     return out
 
 
@@ -181,7 +202,9 @@ def run_until_done(
     count hit zero, False when ``max_rounds`` ran out with work in flight.
     Under ``overflow="retain"`` the final per-lane ``age (R, C)`` follows as
     a fifth output: on a truncated run, the live rounds-waiting counters of
-    the rows still queued.
+    the rows still queued.  With ``cfg.telemetry`` the ``StatsRing`` of the
+    last ``telemetry_window`` forwards is the last output (a drive of
+    ``rounds`` body rounds records ``rounds + 1``).
     """
     carry = drive_start(q0, aux0, cfg, comm=comm)
     carry = drive_segment(round_fn, carry, cfg, seg_end=max_rounds, comm=comm)

@@ -1,9 +1,11 @@
 """The port's examples run on the CPU (``--cpu``) and print what the JAX
-examples print: ``quickstart_torch.py`` the drained totals of sections 1–3
-of ``examples/quickstart.py`` (deposits per rank, 4 rounds, 9.000), then
-the same totals through retain and the hierarchical route;
-``vopat_render_torch.py`` an 8-rank image bit-equal to the 1-rank one.
-Neither imports JAX or the reference package."""
+examples print: ``quickstart_torch.py`` the drained totals of sections 1–5
+of ``examples/quickstart.py`` (deposits per rank, 4 rounds, 9.000, the
+telemetry summary of 5 recorded rounds with no drop, the pipelined drive
+bit-exact with bulk), then the same totals through retain and the
+hierarchical route; ``vopat_render_torch.py`` an 8-rank image bit-equal to
+the 1-rank one and its drop-free telemetry summary.  Neither imports JAX or
+the reference package."""
 import os
 import pathlib
 import subprocess
@@ -35,9 +37,12 @@ def test_quickstart_torch_prints_the_reference_totals():
     assert "deposited per rank: [1.5  1.75 2.   0.25 0.5  0.75 1.   1.25]" in out
     assert "rounds to distributed termination: 4" in out
     assert "total deposited: 9.000  (expected 9.000)" in out
+    assert "telemetry: 5 rounds recorded, max segment demand 4 (peer slots sized 32), clamp drops 0" in out
+    assert "pipelined (S=2) drive bit-exact with bulk: 9.000" in out
     assert out.count("total deposited 9.000") == 3 and out.rstrip().endswith("OK")
 
 
 def test_vopat_render_torch_is_bit_equal_across_rank_counts():
     out = _run("vopat_render_torch.py")
     assert "bitwise identical across rank counts: True" in out and "drops=0" in out
+    assert "clamp drops 0" in out and "telemetry:" in out

@@ -359,12 +359,15 @@ def test_forward_config_rejects_features_of_later_slices():
                          overflow="retain").level_capacities == (C, C, C)
     with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
         ForwardConfig(R, C, exchange="ragged")
+    # items 8 and 9 are ported: telemetry and micro-shard pipelining construct
+    assert ForwardConfig(R, C, telemetry=True).telemetry
+    assert ForwardConfig(R, C, pipeline_shards=2).pipeline_shards == 2
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         ForwardConfig(R, C, overflow="retain", flow="credit")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        ForwardConfig(R, C, pipeline_shards=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        ForwardConfig(R, C, telemetry=True)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        ForwardConfig(R, C, overflow="retain", flow="credit", telemetry=True, pipeline_shards=2)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
+        ForwardConfig(R, C, exchange="ragged", telemetry=True)
     with pytest.raises(ValueError, match="requires overflow='retain'"):
         ForwardConfig(R, C, flow="credit")
     with pytest.raises(ValueError, match="does not apply"):

@@ -415,13 +415,14 @@ def test_config_rejects_hierarchical_fields_on_flat_backends():
 
 
 def test_config_pipeline_shards_must_divide_every_tier():
-    """Checked before the refusal of ``pipeline_shards > 1`` (item 9)."""
+    """The divisibility check; a divisible configuration constructs (item 9
+    is ported)."""
     with pytest.raises(ValueError, match="must divide every"):
         ForwardConfig(R, CAP, exchange="hierarchical", level_sizes=(2, 4), level_capacities=(6, 9),
                       pipeline_shards=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        ForwardConfig(R, CAP, exchange="hierarchical", level_sizes=(2, 4), level_capacities=(6, 8),
-                      pipeline_shards=2)
+    cfg = ForwardConfig(R, CAP, exchange="hierarchical", level_sizes=(2, 4), level_capacities=(6, 8),
+                        pipeline_shards=2)
+    assert (cfg.level_capacities, cfg.pipeline_shards) == ((6, 8), 2)
 
 
 def test_default_capacities_match_reference():

@@ -342,7 +342,8 @@ def scenario_drive(sc, cfg, *, max_rounds=64):
     Σuid²) mod 2³² checksums and emits schedule row ``rnd + 1`` (the
     ``repro.chaos.run_scenario``'s law).  One segment per round, so the retained
     rows and their largest age are read after every forward.  Returns the
-    accounting dict."""
+    accounting dict (with the ``StatsRing`` under ``"ring"`` when ``cfg``
+    records telemetry)."""
     R_, C, E = sc.num_ranks, cfg.capacity, sc.emits_per_round
     dests = torch.from_numpy(np.asarray(sc.dests, np.int32))
     me = torch.arange(R_, dtype=torch.int64)[:, None]
@@ -378,11 +379,11 @@ def scenario_drive(sc, cfg, *, max_rounds=64):
     while carry["rnd"] < max_rounds and int(carry["total"]) > 0:
         carry = TTERM.drive_segment(round_fn, carry, cfg, seg_end=carry["rnd"] + 1, comm=comm)
         observe(carry)
-    q, acc, rounds, done, age = TTERM.drive_finalize(carry, cfg)
+    q, acc, rounds, done, age, *ring = TTERM.drive_finalize(carry, cfg)
     return {"delivered": acc.numpy().astype(np.uint32), "drops": int(q.drops.sum()),
             "rounds": rounds, "done": done, "resident": int(q.count.sum()),
             "retained_trace": retained, "age_trace": ages, "bad_ballast": sum(bad),
-            "final_age": age, "final_q": q, "comm": comm}
+            "final_age": age, "final_q": q, "comm": comm, "ring": ring[0] if ring else None}
 
 
 @pytest.mark.parametrize("marshal", ["sort", "scatter"])

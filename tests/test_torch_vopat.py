@@ -195,9 +195,12 @@ def test_render_onehot_exchange_equals_padded(port_renders):
     np.testing.assert_array_equal(img, port_renders[(8, "scatter")][0])
 
 
-def test_render_refuses_telemetry_and_a_missing_card():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        TV.render(TV.VopatScene(**SCENE), num_ranks=8, telemetry=True, device="cpu")
+def test_render_refuses_telemetry_and_a_missing_card(port_renders):
+    # telemetry is ported (Queue 1 item 8): the render is the telemetry-off
+    # one and its summary records every round, drop-free
+    img, st = TV.render(TV.VopatScene(**SCENE), num_ranks=8, telemetry=True, device="cpu")
+    np.testing.assert_array_equal(img, port_renders[(8, "sort")][0])
+    assert st["telemetry"]["drops"] == 0 and st["telemetry"]["rounds"] == st["rounds"] + 1
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TV.render(TV.VopatScene(**SCENE), num_ranks=8)
