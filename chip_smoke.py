@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all started together, linked into one library under
-``build/``) and runs nine phases on ``cuda:0``:
+``build/``) and runs eleven phases on ``cuda:0``:
 
   1. kernels     — all ten kernels (K1 gather_rows, K2 unmarshal, K3
                    pack_and_histogram, K4 rank_and_histogram, K5
@@ -78,12 +78,46 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    and the 2×2×2 round at 2, each bit-equal to one shard,
                    n payload and n count calls a tier, K1 or K5 n times a
                    tier and K2 never; medians and per-shard splits;
-  6. streamlines — ``apps.streamlines.run`` through
+  6. credit      — ``flow="credit"``, the backpressure law: (a) the two
+                   test-size credit drives (``sustained_overload`` C=16 S=4,
+                   ``incast_collapse`` C=32 S=8) in sort, scatter and sort
+                   at 2 shards, and ``sustained_overload(8,
+                   emits_per_round=256)`` at C=1,024 S=128 (848 rounds),
+                   each equal to ``chaos.simulate_flat_credit`` forward for
+                   forward; (b) the overload shapes at full width (C=262,144,
+                   S=65,536, the tests' ratios): open flow to its end,
+                   dropping rows, against 48 credit forwards in sort and
+                   scatter in lockstep (no drop, no wasted wire, the first
+                   forward ships nothing, rows conserved), ms a forwarding
+                   round and the credit drain rate; ``incast_collapse(8,
+                   10, 8192)`` through the flat, 2×4 and 2×2×2 credit drives
+                   to ``expected_by_rank``; (c) one credit round of the
+                   Fig-8 rays, flat, 2×4 and 2×2×2, both marshals, equal to
+                   the CPU (queues, ages, credits, stats), its calls the
+                   open retain round's with each count call one int32
+                   column wider, no more synchronizing calls, timed beside
+                   the open round;
+  7. balance     — the health remap, rebalancing and cycling: (a) the
+                   Fig-8 round with ranks 2 and 5 unhealthy equal to the
+                   round of the remapped ``dest`` and to the CPU, an
+                   all-True mask equal to no mask, no call or launch added;
+                   ``rank_brownout`` under ``brownout_mask`` through the
+                   retain drive equal to ``simulate_flat_retain(health=)``;
+                   (b) ``rebalance`` of a skewed Fig-8 population (global
+                   flat, 2×4, 2×2×2; intra 2×4, 2×2×2; an evacuation):
+                   floor or ceil of the mean plus the pending rows, intra
+                   calls at the last tier only, equal to the CPU; (c)
+                   ``deliver_by_cycling`` (sort and scatter, drop and
+                   retain): each rank's rows sorted by pixel equal to the
+                   padded round's, R payload and R count ``ppermute``
+                   calls, K3 and K1 or K5, and K6, every hop; timed beside
+                   the padded round;
+  8. streamlines — ``apps.streamlines.run`` through
                    ``RafiContext.run_until_done``, R=8, 131,072 particles,
                    64 steps, ABC field (tornado and Taylor-Green at 16,384):
                    traces equal the single-rank oracle exactly; K6 launched
                    once per ``enqueue``;
-  7. vopat       — ``apps.vopat.render`` at 1024×1024 (1,048,576 primary
+  9. vopat       — ``apps.vopat.render`` at 1024×1024 (1,048,576 primary
                    rays), R=8, ``marshal="scatter"``: drops 0, the image
                    bit-equal to the R=1 render and to the R=8 sort render,
                    finite and in [0, 1]; rounds, wall time and the
@@ -92,7 +126,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    pairs bit-equal to the same words on the CPU, and a
                    64×64 render equal to the port's plain CPU render within
                    the port-against-reference tolerance of the tests;
-  8. nbody       — ``apps.nbody.run``, R=8, 262,144 particles, 8 steps (dt
+ 10. nbody       — ``apps.nbody.run``, R=8, 262,144 particles, 8 steps (dt
                    5e-4, θ 0.3, ε² 1e-3, G = 64/N): every particle conserved
                    (totals N every step, drops 0), positions within 1e-2 of
                    the direct-sum oracle, the R=1 run within 1e-5 of it, K9
@@ -100,7 +134,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    forwarding contexts a step); a 512-particle R=8 run on the
                    card against the same run on the CPU; wall time per step,
                    the device-busy share and K9's share of device time;
-  9. report      — one JSON line of the kernels (launches on the paths that
+ 11. report      — one JSON line of the kernels (launches on the paths that
                    run them, errors, bounds; ``ms``, ``plain_ms`` and
                    ``library_ms`` are device times, ``call_ms`` the event
                    pair's; device events a call), the card's name and
@@ -166,7 +200,21 @@ PIPELINE_PATHS = tuple(
     + [f"pipeline_retain_seed_{m}_S4" for m in ("sort", "scatter")]
     + [f"pipeline_2x2x2_{m}_S2" for m in ("sort", "scatter")]
 )
-ROUND_PATHS = LOSSLESS_PATHS + TELEMETRY_PATHS + PIPELINE_PATHS
+_LAYOUTS = ("2x4", "2x2x2")
+CREDIT_PATHS = tuple(
+    [f"credit_twin_{n}_{m}" for n in ("sustained_overload", "incast_collapse") for m in ("sort", "scatter", "sort_S2")]
+    + ["credit_twin_big"]
+    + [f"credit_{k}_{n}" for k in ("open", "full") for n in ("incast_collapse", "sustained_overload")]
+    + [f"credit_fit_{t}_{m}" for t in ("flat",) + _LAYOUTS for m in ("sort", "scatter")]
+    + [f"credit_round_{t}_{m}" for t in ("flat",) + _LAYOUTS for m in ("sort", "scatter")]
+)
+BALANCE_PATHS = tuple(
+    [f"balance_{k}_{m}" for k in ("masked", "brownout") for m in ("sort", "scatter")]
+    + [f"balance_rebalance_{v}" for v in ("global_flat",) + tuple(f"{s}_{t}" for t in _LAYOUTS
+                                                                    for s in ("global", "intra")) + ("evacuate_flat",)]
+    + [f"balance_cycle_{m}_{o}" for m in ("sort", "scatter") for o in ("drop", "retain")]
+)
+ROUND_PATHS = LOSSLESS_PATHS + TELEMETRY_PATHS + PIPELINE_PATHS + CREDIT_PATHS + BALANCE_PATHS
 LAUNCH_PATHS = {
     "pack_and_histogram": ("streamlines", "nbody") + ROUND_PATHS,
     "gather_rows": ("streamlines", "nbody") + ROUND_PATHS,
@@ -960,6 +1008,45 @@ def _ballast(uid):
     return uid.to(torch.float32)[..., None] * torch.arange(1, 11, device=uid.device) * 0.25
 
 
+def flat_schedule(sc):
+    """The schedule flattened per rank in emission order, as
+    ``repro.chaos.driver._flat_schedule`` lays it out: ``(dest (R, K) i32,
+    uid (R, K) i32, prefix (R, rounds) i32)``, ``prefix[rank, r]`` the
+    entries of rounds ``0..r``; short ranks zero-padded."""
+    import numpy as np
+
+    d = np.asarray(sc.dests).transpose(1, 0, 2).reshape(sc.num_ranks, -1)  # rank, then round, then lane
+    R, E = sc.num_ranks, sc.emits_per_round
+    uid = ((np.arange(sc.rounds)[None, :, None] * R + np.arange(R)[:, None, None]) * E
+           + np.arange(E)[None, None, :]).reshape(R, -1)
+    valid = d >= 0
+    n = valid.sum(axis=1)
+    K = max(1, int(n.max()))
+    order = np.argsort(~valid, axis=1, kind="stable")[:, :K]  # valid entries first, in order
+    keep = np.arange(K)[None, :] < n[:, None]
+    dest = np.where(keep, np.take_along_axis(d, order, 1), 0).astype(np.int32)
+    uids = np.where(keep, np.take_along_axis(uid, order, 1), 0).astype(np.int32)
+    prefix = np.cumsum((np.asarray(sc.dests) >= 0).sum(axis=2), axis=0).T.astype(np.int32)
+    return dest, uids, prefix
+
+
+def expected_fast(sc):
+    """``chaos.expected_by_rank`` vectorised (uint64 sums wrap mod 2⁶⁴, so
+    mod 2³² they agree): the full-width schedules have ~10⁷ entries."""
+    import numpy as np
+
+    d = np.asarray(sc.dests)
+    R, E = sc.num_ranks, sc.emits_per_round
+    uid = ((np.arange(sc.rounds)[:, None, None] * R + np.arange(R)[None, :, None]) * E
+           + np.arange(E)[None, None, :]).astype(np.uint64)
+    sq = (uid * uid) & np.uint64(0xFFFFFFFF)
+    out = np.zeros((R, 3), np.uint64)
+    for r in range(R):
+        sel = d == r
+        out[r] = (sel.sum(), uid[sel].sum(dtype=np.uint64), sq[sel].sum(dtype=np.uint64))
+    return (out & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+
+
 class ScenarioDrive:
     """A schedule of ``repro_torch.chaos`` driven through ``run_until_done``'s
     pieces, as ``repro.chaos.run_scenario`` drives it: round 0's emissions
@@ -970,15 +1057,23 @@ class ScenarioDrive:
     the retained rows, their largest age, and how many of them sit on a
     rank other than their source (parked after a later tier).  With a
     telemetry config, ``result()`` and ``run()`` leave the drive's
-    ``StatsRing`` in ``self.ring``."""
+    ``StatsRing`` in ``self.ring``.
 
-    def __init__(self, sc, cfg, dev):
+    With ``gated`` the emitter is the credit law's (``repro.chaos.driver.
+    _make_gated_round_fn``): a cursor walks the flattened schedule
+    (:func:`flat_schedule`) and each round emits the due entries that fit
+    the drive's ``headroom``.  ``health`` is a constant ``(R,) bool`` mask
+    or ``forward_idx -> mask`` (forward 0 is the seed routing), re-read at
+    every ``step()``; ``run()`` takes a constant mask only."""
+
+    def __init__(self, sc, cfg, dev, *, gated=False, health=None):
         import torch
 
         from repro_torch.core import DISCARD, StackedCollectives, enqueue, make_queue
         from repro_torch.core import termination as TERM
 
         self.sc, self.cfg, self.dev, self.TERM = sc, cfg, dev, TERM
+        self.gated, self.health = gated, health
         R, E, C = sc.num_ranks, sc.emits_per_round, cfg.capacity
         ChaosRay = _chaos_ray_type()
         proto = ChaosRay(uid=torch.zeros((), dtype=torch.int32), ballast=torch.zeros(10))
@@ -994,32 +1089,63 @@ class ScenarioDrive:
             uid = ((rnd * R + me) * E + e_idx).to(torch.int32)
             return enqueue(q, ChaosRay(uid=uid, ballast=_ballast(uid)), torch.where(mask, row, DISCARD), mask)
 
-        def round_fn(q_in, acc, rnd):
+        def consume(q_in, acc):
             valid = lane < q_in.count[:, None]
             u = q_in.items.uid.to(torch.int64)
             bad = (valid[:, :, None] & (q_in.items.ballast != _ballast(q_in.items.uid))).sum(1).sum(1)
             z = torch.zeros_like(u)
             acc = acc + torch.stack([valid.sum(1), torch.where(valid, u, z).sum(1),
                                      torch.where(valid, u * u, z).sum(1), bad], dim=1)
-            return emit(rnd + 1), acc & 0xFFFFFFFF
+            return acc & 0xFFFFFFFF
+
+        def round_fn(q_in, acc, rnd):
+            return emit(rnd + 1), consume(q_in, acc)
+
+        if gated:
+            f_dest, f_uid, prefix = (torch.from_numpy(a).to(dev) for a in flat_schedule(sc))
+            K = f_dest.shape[1]
+
+            def round_fn(q_in, aux, rnd, headroom):
+                acc, cursor = aux
+                acc = consume(q_in, acc)
+                n = torch.minimum(torch.clamp(prefix[:, min(rnd + 1, sc.rounds - 1)] - cursor, min=0), headroom)
+                idx = (cursor[:, None] + lane).clamp(0, K - 1)
+                mask = lane < n[:, None]
+                uid = torch.gather(f_uid, 1, idx)
+                out = enqueue(make_queue(proto, C, num_ranks=R, device=dev), ChaosRay(uid=uid, ballast=_ballast(uid)),
+                              torch.where(mask, torch.gather(f_dest, 1, idx), DISCARD), mask)
+                return out, (acc, (cursor + n).to(torch.int32))
+
+            self.cursor0 = prefix[:, 0].clone()
 
         self.round_fn, self.emit, self.lane, self.me = round_fn, emit, lane, me
         self.comm = StackedCollectives()
         self.carry = self.ring = None
 
-    def start(self):
+    def _aux0(self):
         import torch
 
-        q0 = self.emit(0)
         acc0 = torch.zeros(self.sc.num_ranks, 4, dtype=torch.int64, device=self.dev)
-        self.carry = self.TERM.drive_start(q0, acc0, self.cfg, comm=self.comm)
+        return (acc0, self.cursor0) if self.gated else acc0
+
+    def _mask(self, f):
+        import numpy as np
+        import torch
+
+        if self.health is None:
+            return None
+        h = self.health(f) if callable(self.health) else self.health
+        return torch.from_numpy(np.asarray(h, bool)).to(self.dev)
+
+    def start(self):
+        self.carry = self.TERM.drive_start(self.emit(0), self._aux0(), self.cfg, health=self._mask(0), comm=self.comm)
 
     def running(self, max_rounds=64):
         return self.carry["rnd"] < max_rounds and int(self.carry["total"]) > 0
 
     def step(self):
-        self.carry = self.TERM.drive_segment(self.round_fn, self.carry, self.cfg,
-                                             seg_end=self.carry["rnd"] + 1, comm=self.comm)
+        self.carry = self.TERM.drive_segment(self.round_fn, self.carry, self.cfg, seg_end=self.carry["rnd"] + 1,
+                                             health=self._mask(self.carry["rnd"] + 1), comm=self.comm)
 
     def observe(self):
         import torch
@@ -1030,14 +1156,19 @@ class ScenarioDrive:
         return (int(held.sum()), int(self.carry["age"].max()), int((held & (src != self.me)).sum()))
 
     def result(self):
+        q, aux, rounds, done, _age, *ring = self.TERM.drive_finalize(self.carry, self.cfg)
+        self.ring = ring[0] if ring else None
+        return self._result(q, aux, rounds, done)
+
+    def _result(self, q, aux, rounds, done):
         import numpy as np
 
-        q, acc, rounds, done, _age, *ring = self.TERM.drive_finalize(self.carry, self.cfg)
-        self.ring = ring[0] if ring else None
-        acc = acc.cpu().numpy()
-        return {"delivered": acc[:, :3].astype(np.uint32), "bad_ballast": int(acc[:, 3].sum()),
-                "drops": int(q.drops.sum()), "rounds": rounds, "done": done,
-                "resident": int(q.count.sum())}
+        acc = (aux[0] if self.gated else aux).cpu().numpy()
+        res = {"delivered": acc[:, :3].astype(np.uint32), "bad_ballast": int(acc[:, 3].sum()),
+               "drops": int(q.drops.sum()), "rounds": rounds, "done": done, "resident": int(q.count.sum())}
+        if self.gated:
+            res["emitted"] = int(aux[1].sum())
+        return res
 
     def run(self, max_rounds=64):
         """The whole drive through ``run_until_done`` (one host sync a
@@ -1048,18 +1179,15 @@ class ScenarioDrive:
 
         from repro_torch.core import run_until_done
 
-        q0 = self.emit(0)
-        acc0 = torch.zeros(self.sc.num_ranks, 4, dtype=torch.int64, device=self.dev)
+        q0, aux0 = self.emit(0), self._aux0()
         if self.dev.type == "cuda":
             torch.cuda.synchronize()
         t0 = _time.perf_counter()
-        q, acc, rounds, done, _age, *ring = run_until_done(self.round_fn, q0, acc0, self.cfg, max_rounds=max_rounds)
+        q, aux, rounds, done, _age, *ring = run_until_done(self.round_fn, q0, aux0, self.cfg, max_rounds=max_rounds,
+                                                           health=self._mask(0))
         self.ring = ring[0] if ring else None
-        acc = acc.cpu()
-        wall = _time.perf_counter() - t0
-        return {"delivered": acc[:, :3].numpy().astype("uint32"), "bad_ballast": int(acc[:, 3].sum()),
-                "drops": int(q.drops.sum()), "rounds": rounds, "done": done,
-                "resident": int(q.count.sum())}, wall
+        res = self._result(q, aux, rounds, done)
+        return res, _time.perf_counter() - t0
 
 
 def _same_result(a, b) -> bool:
@@ -1591,7 +1719,508 @@ def _time_and_profile(label, q, cfg, reps):
     return {"round_ms": whole, "device_ms": busy, "stages_ms": split}
 
 
-# ----------------------------------------------------------- 6. streamlines
+# ----------------------------------------------------------------- 6. credit
+CREDIT_TWIN_CASES = (("sustained_overload", 16, 4, 73), ("incast_collapse", 32, 8, 80))
+CREDIT_MODES = (("sort", {"marshal": "sort"}), ("scatter", {"marshal": "scatter"}),
+                ("sort_S2", {"marshal": "sort", "pipeline_shards": 2}))
+
+
+def _widened(calls):
+    """A round's calls with every count call (a 3-d ``all_to_all``) one
+    int32 column wider: what a credit round must record."""
+    out = []
+    for c in calls.elements():
+        shape = c.shape
+        if c.kind == "all_to_all" and len(shape) == 3:
+            shape = shape[:-1] + (shape[-1] + 1,)
+        out.append((c.kind, -1 if c.tier is None else c.tier, shape))
+    return sorted(out)
+
+
+def _calls(comm):
+    return sorted((c.kind, -1 if c.tier is None else c.tier, c.shape) for c in comm.calls.elements())
+
+
+def _twin_drive(sc, cfg, dev, tw, label, max_rounds):
+    """A gated credit drive observed forward by forward against the twin
+    ``tw``: ``(ok, launches, rounds)``."""
+    import numpy as np
+
+    from repro_torch import kernels as KN
+    from repro_torch.telemetry import stats as TS
+
+    KN.reset_launch_counts()
+    d = ScenarioDrive(sc, cfg, dev, gated=True)
+    d.start()
+    trace = [d.observe()]
+    while d.running(max_rounds):
+        d.step()
+        trace.append(d.observe())
+    res = d.result()
+    launches = KN.launch_counts()
+    tr = TS.ring_trace(d.ring)
+    summary = TS.summarize(d.ring, tier_capacities=TS.tier_capacities(cfg))
+    ok = (res["rounds"] == tw["rounds"] and res["done"] and res["drops"] == 0 and res["bad_ballast"] == 0
+          and np.array_equal(res["delivered"], tw["delivered"]) and res["emitted"] == tw["emitted"]
+          and [t[0] for t in trace] == tw["retained_trace"] and [t[1] for t in trace] == tw["age_trace"]
+          and tr["recv_total"].tolist() == tw["recv_trace"] and tw["recv_trace"][0] == 0
+          and summary["emit_overflow"] == 0 and summary["wasted_wire_rows"] == 0)
+    check(ok, f"(a) {label}: {res['rounds']} rounds, delivered, retained / age / receive traces == the twin, "
+              "0 drops, 0 emission cut, 0 wasted wire, first forward ships nothing")
+    return ok, launches, res["rounds"]
+
+
+def phase_credit(dev, R=8, C=262144, S=65536, TWIN_BIG=(256, 1024, 128, 848),
+                 FULL=(("incast_collapse", 10, 65536), ("sustained_overload", 12, 196608)), FULL_ROUNDS=48,
+                 FIT=("incast_collapse", 10, 8192), HIER=((2, 4), (2, 2, 2)), reps=10, cpu_witness=True,
+                 timer=cuda_ms, dtimer=device_ms, syncs=True):
+    """Credit flow control (the backpressure law) on the card: (a) the two
+    test-size credit drives (``sustained_overload`` C=16 S=4, 73 rounds;
+    ``incast_collapse`` C=32 S=8, 80 rounds) in sort, scatter and sort at 2
+    shards, and ``sustained_overload(8, emits_per_round=256)`` at C=1,024,
+    S=128 (848 rounds), each equal to the port's numpy twin forward for
+    forward; (b) the overload shapes at full width (C=262,144, S=65,536, the
+    tests' ratios): open flow to its end, dropping rows, against credit flow
+    for ``FULL_ROUNDS`` forwards in sort and scatter in lockstep — no drop,
+    no wasted wire, the first forward ships nothing, rows conserved — with
+    ms a forwarding round and the credit drain rate; then ``FIT`` (a shape
+    whose hot receiver keeps up) through the flat and hierarchical credit
+    drives to its end, delivering ``expected_by_rank``; (c) one credit round
+    of the Fig-8 rays, flat and on each layout of ``HIER``, both marshals,
+    equal to the CPU round (queues, ages, credits, stats), its calls the
+    open retain round's with each count call one column wider, no more
+    synchronizing calls than the open round, timed beside it (event medians
+    and device time).  Returns ``(record, launches per path)``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import chaos as TC
+    from repro_torch import kernels as KN
+    from repro_torch.core import ForwardConfig, StackedCollectives, forward_work
+    from repro_torch.telemetry import stats as TS
+
+    out, paths = {}, {}
+
+    def credit_cfg(Cc, Sc, window=0, **kw):
+        tel = dict(telemetry=True, telemetry_window=window) if window else {}
+        return ForwardConfig(R, Cc, peer_capacity=Sc, overflow="retain", flow="credit", **tel, **kw)
+
+    # (a) the twin, at the tests' sizes and at 256 emissions a rank a round
+    for name, Ct, St, rounds in CREDIT_TWIN_CASES:
+        sc = getattr(TC, name)(R)
+        tw = TC.simulate_flat_credit(sc, peer_capacity=St, capacity=Ct, max_rounds=256)
+        check(tw["rounds"] == rounds and tw["done"] and tw["drops"] == 0, f"(a) twin {name}: {tw['rounds']} rounds")
+        for label, kw in CREDIT_MODES:
+            _ok, launches, _r = _twin_drive(sc, credit_cfg(Ct, St, 257, **kw), dev, tw, f"{name} {label}", 256)
+            paths[f"credit_twin_{name}_{label}"] = launches
+    E_big, C_big, S_big, r_big = TWIN_BIG
+    sc = TC.sustained_overload(R, emits_per_round=E_big)
+    t0 = time.perf_counter()
+    tw = TC.simulate_flat_credit(sc, peer_capacity=S_big, capacity=C_big, max_rounds=2048)
+    twin_s = time.perf_counter() - t0
+    check(tw["rounds"] == r_big and tw["done"], f"(a) twin sustained_overload E={E_big}: {tw['rounds']} rounds "
+                                                f"({twin_s:.1f} s on the host)")
+    _ok, launches, _r = _twin_drive(sc, credit_cfg(C_big, S_big, 2049), dev, tw, f"sustained_overload E={E_big}", 2048)
+    paths["credit_twin_big"] = launches
+    out["twin"] = {"big_rounds": tw["rounds"], "big_twin_s": twin_s}
+    print(f"  (a) twin drives equal; sustained_overload E={E_big} C={C_big} S={S_big}: {tw['rounds']} rounds "
+          f"(twin {twin_s:.1f} s on the host)", flush=True)
+
+    # (b) full width, the tests' ratios: open to its end, credit for FULL_ROUNDS
+    for name, rounds_sc, E in FULL:
+        sc = getattr(TC, name)(R, rounds_sc, E)
+        total_rows = sc.emitted
+        KN.reset_launch_counts()
+        od = ScenarioDrive(sc, ForwardConfig(R, C, peer_capacity=S, overflow="retain", telemetry=True,
+                                             telemetry_window=129), dev)
+        ores, owall = od.run(max_rounds=128)
+        paths[f"credit_open_{name}"] = KN.launch_counts()
+        osum = TS.summarize(od.ring, tier_capacities=(S,))
+        otr = TS.ring_trace(od.ring)
+        delivered = int(ores["delivered"][:, 0].sum())
+        check(ores["done"] and ores["drops"] > 0 and ores["drops"] == osum["emit_overflow"] + osum["wasted_wire_rows"]
+              and delivered + ores["drops"] == total_rows and ores["bad_ballast"] == 0,
+              f"(b) {name} open: {ores['rounds']} rounds, drops {ores['drops']} == emission cut "
+              f"{osum['emit_overflow']} + wasted wire {osum['wasted_wire_rows']}, delivered {delivered} + drops == "
+              f"{total_rows}")
+        o_ms = 1e3 * owall / (ores["rounds"] + 1)
+        drives = {m: ScenarioDrive(sc, credit_cfg(C, S, FULL_ROUNDS + 1, marshal=m), dev, gated=True)
+                  for m in ("sort", "scatter")}
+        KN.reset_launch_counts()
+        for d in drives.values():
+            d.start()
+        first = drives["sort"].observe()
+        in_flight = int(drives["sort"].carry["q"].count.sum())
+        same = _same_state(drives["sort"], drives["scatter"])
+        while drives["sort"].running(FULL_ROUNDS):
+            for d in drives.values():
+                d.step()
+            same = same and _same_state(drives["sort"], drives["scatter"])
+        paths[f"credit_full_{name}"] = KN.launch_counts()
+        res = {m: d.result() for m, d in drives.items()}
+        r = res["sort"]
+        csum = TS.summarize(drives["sort"].ring, tier_capacities=(S,))
+        ctr = TS.ring_trace(drives["sort"].ring)
+        got = int(r["delivered"][:, 0].sum())
+        check(first[0] == in_flight and ctr["recv_total"][0] == 0,
+              f"(b) {name} credit: the first forward ships nothing ({first[0]} of {in_flight} rows held)")
+        check(r["drops"] == 0 and csum["emit_overflow"] == 0 and csum["wasted_wire_rows"] == 0
+              and got + r["resident"] == r["emitted"] and r["bad_ballast"] == 0,
+              f"(b) {name} credit, {r['rounds']} forwards: 0 drops, 0 emission cut, 0 wasted wire, delivered "
+              f"{got} + in flight {r['resident']} == emitted {r['emitted']}")
+        if r["done"]:
+            check(np.array_equal(r["delivered"], expected_fast(sc)), f"(b) {name} credit: checksums == expected_by_rank")
+        check(same and _same_result(res["sort"], res["scatter"]), f"(b) {name} credit: scatter == sort after every forward")
+        _cres, cwall = ScenarioDrive(sc, credit_cfg(C, S), dev, gated=True).run(max_rounds=FULL_ROUNDS)
+        c_ms = 1e3 * cwall / (r["rounds"] + 1)
+        tail = ctr["recv_total"][len(ctr["recv_total"]) // 2:]
+        tail_rate = float(np.mean(tail)) if len(tail) else 0.0
+        print(f"  (b) {name}({R}, {rounds_sc}, {E}) C={C} S={S}: {total_rows} rows. open: {ores['rounds']} rounds, "
+              f"drops {ores['drops']} (emission cut {osum['emit_overflow']}, wasted wire {osum['wasted_wire_rows']} "
+              f"of {int(otr['recv_total'].sum())}), {o_ms:.3f} ms a forwarding round. credit: {r['rounds']} forwards "
+              f"delivered {got}, {c_ms:.3f} ms a forwarding round, arrivals a forward over the last half "
+              f"{tail_rate:.1f} (projected rounds to drain {total_rows / max(tail_rate, 1):.0f})", flush=True)
+        out[f"full_{name}"] = {"rows": total_rows, "open_rounds": ores["rounds"], "open_drops": ores["drops"],
+                               "open_emit_overflow": osum["emit_overflow"], "open_wasted": osum["wasted_wire_rows"],
+                               "open_wire": int(otr["recv_total"].sum()), "open_ms_per_round": o_ms,
+                               "credit_forwards": FULL_ROUNDS, "credit_delivered": got, "credit_ms_per_round": c_ms,
+                               "credit_done": r["done"], "credit_recv_trace": ctr["recv_total"].tolist(),
+                               "credit_tail_rate": tail_rate}
+
+    # (b) FIT: a full-width shape whose hot receiver keeps up, to its end
+    name, rounds_sc, E = FIT
+    sc = getattr(TC, name)(R, rounds_sc, E)
+    expected = expected_fast(sc)
+    fit = {}
+    for label, cfg in [("flat", credit_cfg(C, S))] + [
+            ("x".join(map(str, sizes)), ForwardConfig(R, C, exchange="hierarchical", level_sizes=sizes,
+                                                      level_capacities=(S,) * len(sizes), overflow="retain",
+                                                      flow="credit")) for sizes in HIER]:
+        runs = {}
+        for m in ("sort", "scatter"):
+            KN.reset_launch_counts()
+            d = ScenarioDrive(sc, dataclasses.replace(cfg, marshal=m), dev, gated=True)
+            d.start()
+            first = (d.observe()[0], int(d.carry["q"].count.sum()))
+            while d.running(1024):
+                d.step()
+            runs[m] = d.result()
+            paths[f"credit_fit_{label}_{m}"] = KN.launch_counts()
+        r = runs["sort"]
+        check(np.array_equal(r["delivered"], expected) and r["drops"] == 0 and r["done"] and r["resident"] == 0
+              and r["bad_ballast"] == 0 and first[0] == first[1] and _same_result(runs["sort"], runs["scatter"]),
+              f"(b) {name}({R}, {rounds_sc}, {E}) {label} credit drive: {r['rounds']} rounds, checksums == "
+              "expected_by_rank, 0 drops, first forward ships nothing, scatter == sort")
+        _res, wall = ScenarioDrive(sc, cfg, dev, gated=True).run(max_rounds=1024)
+        fit[label] = {"rounds": r["rounds"], "wall_s": wall, "ms_per_round": 1e3 * wall / (r["rounds"] + 1)}
+        print(f"  (b) {name}({R}, {rounds_sc}, {E}) {label}: {r['rounds']} rounds, {fit[label]['ms_per_round']:.3f} ms "
+              "a forwarding round", flush=True)
+    ores, owall = ScenarioDrive(sc, ForwardConfig(R, C, peer_capacity=S, overflow="retain"), dev).run(max_rounds=1024)
+    fit["open_flat"] = {"rounds": ores["rounds"], "drops": ores["drops"], "ms_per_round": 1e3 * owall / (ores["rounds"] + 1)}
+    print(f"  (b) the same shape under open flow: {ores['rounds']} rounds, drops {ores['drops']}, "
+          f"{fit['open_flat']['ms_per_round']:.3f} ms a forwarding round", flush=True)
+    out["fit"] = fit
+
+    # (c) one credit round of the Fig-8 rays against the CPU; calls, syncs, times
+    q = _fig8_queue(dev, R, C, seed=46)
+    cpu_q = _to_cpu(q)
+    gen = torch.Generator(device="cpu").manual_seed(46)
+    credits = torch.randint(-64, C // 2, (R, R), generator=gen, dtype=torch.int32)
+    credits_dev = credits.to(dev)
+    full = torch.full((R, R), C, dtype=torch.int32, device=dev)
+    times = {}
+    for layout in ("flat",) + tuple("x".join(map(str, s)) for s in HIER):
+        sizes = None if layout == "flat" else tuple(int(a) for a in layout.split("x"))
+        for m in ("sort", "scatter"):
+            kw = dict(overflow="retain", marshal=m, telemetry=True)
+            if sizes:
+                kw.update(exchange="hierarchical", level_sizes=sizes)
+            else:
+                kw.update(peer_capacity=S)
+            ccfg, ocfg = ForwardConfig(R, C, flow="credit", **kw), ForwardConfig(R, C, **kw)
+            comm, ocomm = StackedCollectives(), StackedCollectives()
+            KN.reset_launch_counts()
+            nq, total, age, cr, st = forward_work(q, ccfg, credits=credits_dev, comm=comm)
+            paths[f"credit_round_{layout}_{m}"] = KN.launch_counts()
+            forward_work(q, ocfg, comm=ocomm)
+            check(_calls(comm) == _widened(ocomm.calls),
+                  f"(c) {layout} {m}: the open retain round's calls, each count call one column wider")
+            held = int(((torch.arange(C, device=dev)[None] < nq.count[:, None]) & (nq.dest >= 0)).sum())
+            if cpu_witness:
+                cq, ctotal, cage, ccr, cst = forward_work(cpu_q, ccfg, credits=credits)
+                check(_same_queue(nq, cq, all_lanes=True) and torch.equal(nq.dest.cpu(), cq.dest)
+                      and torch.equal(age.cpu(), cage) and torch.equal(cr.cpu(), ccr) and _same_stats(st, cst)
+                      and int(total) == int(ctotal),
+                      f"(c) {layout} {m} credit round on the card == on the CPU: every lane, ages, credits, stats "
+                      f"({held} rows held for want of credit)")
+            if syncs and dev.type == "cuda":
+                cs = _sync_warnings(lambda: forward_work(q, ccfg, credits=credits_dev))
+                os_ = _sync_warnings(lambda: forward_work(q, ocfg))
+                check(cs <= os_, f"(c) {layout} {m}: synchronizing calls, credit {cs} <= open retain {os_}")
+            tc = dataclasses.replace(ccfg, telemetry=False)
+            to = dataclasses.replace(ocfg, telemetry=False)
+            times[f"{layout}_{m}"] = {"credit_ms": timer(lambda: forward_work(q, tc, credits=full), reps=reps),
+                                      "open_retain_ms": timer(lambda: forward_work(q, to), reps=reps),
+                                      "credit_device_ms": dtimer(lambda: forward_work(q, tc, credits=full))[0],
+                                      "open_retain_device_ms": dtimer(lambda: forward_work(q, to))[0]}
+    print("  (c) round ms, credit (fully credited) / open retain: event medians " + ", ".join(
+        f"{k} {v['credit_ms']:.3f} / {v['open_retain_ms']:.3f}" for k, v in times.items()) + "; device "
+        + ", ".join(f"{k} {v['credit_device_ms']:.3f} / {v['open_retain_device_ms']:.3f}" for k, v in times.items()),
+        flush=True)
+    out["round_ms"] = times
+    if syncs and dev.type == "cuda":
+        # the drive's emission gate (the merge's limit cut) adds no sync: a
+        # body round of the credit drive makes the open retain drive's syncs
+        n = {}
+        for flow in ("credit", "open"):
+            cfg = ForwardConfig(R, C, peer_capacity=S, overflow="retain", flow=flow)
+            d = ScenarioDrive(TC.incast_collapse(R, 10, FIT[2]), cfg, dev, gated=flow == "credit")
+            d.start()
+            d.step()
+            n[flow] = _sync_warnings(d.step, calls=2)
+        check(n["credit"] <= n["open"], f"(c) a body round of the drive: synchronizing calls, credit {n['credit']} "
+                                        f"<= open retain {n['open']}")
+        out["drive_round_syncs"] = n
+    return out, paths
+
+
+# ---------------------------------------------------------------- 7. balance
+def _rebalance_population(dev, R, C, N1, P, seed=49):
+    """Rank 0 full (C residents), every other rank ``N1`` residents behind
+    ``P`` pending rows to its ring successor; Fig-8 rays."""
+    import torch
+
+    q = _fig8_queue(dev, R, C, seed=seed)
+    lane = torch.arange(C, device=dev)[None, :]
+    me = torch.arange(R, device=dev)[:, None]
+    count = torch.full((R,), P + N1, dtype=torch.int32, device=dev)
+    count[0] = C
+    pending = (me > 0) & (lane < P)
+    dest = torch.where(pending, (me + 1) % R, -1).to(torch.int32)
+    dest = torch.where(lane < count[:, None], dest, -1)
+    return type(q)(items=q.items, dest=dest, count=count, drops=q.drops)
+
+
+def _sorted_by_pixel(q, r):
+    """Rank ``r``'s rows of ``q`` (lanes < count) as packed words, in pixel order."""
+    import torch
+
+    from repro_torch.core import types as T
+
+    n = int(q.count[r])
+    packed, _ = T.pack_payload(q.items, batch_dims=2)
+    order = torch.argsort(q.items.pixel[r, :n])
+    return packed[r, :n][order]
+
+
+def phase_balance(dev, R=8, C=262144, S=65536, N1=65536, P=4096, BROWNOUT=(8, 16384, 2048), reps=5,
+                  cpu_witness=True, timer=cuda_ms, dtimer=device_ms,
+                  cycle_cpu=(("sort", "drop"), ("scatter", "retain"))):
+    """The health remap, rebalancing and queue cycling on the card, Fig-8
+    rays at R=8, C=262,144: (a) the padded round with ranks 2 and 5
+    unhealthy (both marshals) equal to the round whose ``dest`` was remapped
+    before the call and to the CPU, an all-True mask bit-equal to no mask,
+    the unmasked round's calls and launches, timed beside it (event medians
+    and device time); ``rank_brownout`` under
+    ``brownout_mask`` through the retain drive equal to the port's
+    ``simulate_flat_retain(health=)`` forward for forward; (b) ``rebalance``
+    of a skewed population (rank 0 full, the others ``N1`` residents behind
+    ``P`` pending rows): global on the flat, 2×4 and 2×2×2 routes, intra on
+    2×4 and 2×2×2, and a health-aware evacuation, slots sized so no clamp
+    fires: every rank ends at floor or ceil of its mean plus the pending
+    rows addressed to it, the intra round calls the last tier only, each
+    equal to the CPU; (c) ``deliver_by_cycling`` of the Fig-8 rays (sort and
+    scatter, drop and retain): every rank's delivered rows, sorted by
+    pixel, those of the padded round; R payload and R count ``ppermute``
+    calls; K3 and K1, or K5, and K6 every hop; equal to the CPU on
+    ``cycle_cpu``; timed beside one padded round.  Returns ``(record,
+    launches per path)``."""
+    import numpy as np
+    import torch
+
+    from repro_torch import chaos as TC
+    from repro_torch import kernels as KN
+    from repro_torch.core import (ForwardConfig, StackedCollectives, WorkQueue, deliver_by_cycling, forward_work,
+                                  rebalance, remap_dest)
+
+    out, paths = {}, {}
+    cuda = dev.type == "cuda"
+
+    # (a) the masked round, and the brownout drive against the oracle
+    q = _fig8_queue(dev, R, C, seed=47)
+    cpu_q = _to_cpu(q)
+    h = torch.ones(R, dtype=torch.bool)
+    h[[2, 5]] = False
+    masked = {}
+    for m in ("sort", "scatter"):
+        cfg = ForwardConfig(R, C, peer_capacity=S, marshal=m)
+        comm, pcomm = StackedCollectives(), StackedCollectives()
+        KN.reset_launch_counts()
+        nq, total = forward_work(q, cfg, health=h.to(dev), comm=comm)
+        launches = KN.launch_counts()
+        paths[f"balance_masked_{m}"] = launches
+        KN.reset_launch_counts()
+        pq, ptotal = forward_work(q, cfg, comm=pcomm)
+        plain_launches = KN.launch_counts()
+        check(comm.calls == pcomm.calls and launches == plain_launches,
+              f"(a) {m}: the health mask adds no call and no launch ({launches})")
+        pre = WorkQueue(items=q.items, dest=remap_dest(q.dest, h.to(dev)), count=q.count, drops=q.drops)
+        rq, rtotal = forward_work(pre, cfg)
+        check(_same_queue(nq, rq, all_lanes=True) and int(total) == int(rtotal),
+              f"(a) {m}: masked round == the round of the remapped dest, every lane")
+        tq, ttotal = forward_work(q, cfg, health=torch.ones(R, dtype=torch.bool, device=dev))
+        check(_same_queue(tq, pq, all_lanes=True) and torch.equal(tq.dest, pq.dest) and int(ttotal) == int(ptotal),
+              f"(a) {m}: an all-True mask == no mask, every lane")
+        check(int(nq.count[2]) == 0 and int(nq.count[5]) == 0 and int(total) == int(nq.count.sum()),
+              f"(a) {m}: ranks 2 and 5 receive nothing; drops at the doubled ranks {nq.drops.tolist()}")
+        if cpu_witness:
+            cq, ctotal = forward_work(cpu_q, cfg, health=h)
+            check(_same_queue(nq, cq, all_lanes=True) and int(total) == int(ctotal),
+                  f"(a) {m}: masked round on the card == on the CPU, every lane")
+        hd = h.to(dev)
+        masked[m] = {"masked_ms": timer(lambda: forward_work(q, cfg, health=hd), reps=reps),
+                     "plain_ms": timer(lambda: forward_work(q, cfg), reps=reps),
+                     "masked_device_ms": dtimer(lambda: forward_work(q, cfg, health=hd))[0],
+                     "plain_device_ms": dtimer(lambda: forward_work(q, cfg))[0]}
+    print("  (a) round ms, masked / unmasked: " + ", ".join(
+        f"{m} {v['masked_ms']:.3f} / {v['plain_ms']:.3f} (device {v['masked_device_ms']:.3f} / "
+        f"{v['plain_device_ms']:.3f})" for m, v in masked.items()), flush=True)
+    out["masked_round_ms"] = masked
+    rounds_b, E_b, S_b = BROWNOUT
+    sc = TC.rank_brownout(R, rounds_b, E_b)
+    t0 = time.perf_counter()
+    sim = TC.simulate_flat_retain(sc, peer_capacity=S_b, capacity=C, health=TC.brownout_mask(R))
+    oracle_s = time.perf_counter() - t0
+    check(sim["done"] and sim["drops"] == 0, f"(a) oracle: rank_brownout({R}, {rounds_b}, {E_b}) with the brownout "
+                                             f"mask, S={S_b}: {sim['rounds']} rounds ({oracle_s:.1f} s on the host)")
+    for m in ("sort", "scatter"):
+        KN.reset_launch_counts()
+        d = ScenarioDrive(sc, ForwardConfig(R, C, peer_capacity=S_b, marshal=m, overflow="retain"), dev,
+                          health=TC.brownout_mask(R))
+        d.start()
+        trace = [d.observe()]
+        while d.running():
+            d.step()
+            trace.append(d.observe())
+        res = d.result()
+        paths[f"balance_brownout_{m}"] = KN.launch_counts()
+        check(res["rounds"] == sim["rounds"] and res["done"] and res["drops"] == 0 and res["bad_ballast"] == 0
+              and np.array_equal(res["delivered"], sim["delivered"]) and [t[0] for t in trace] == sim["retained_trace"]
+              and [t[1] for t in trace] == sim["age_trace"],
+              f"(a) brownout drive {m}: {res['rounds']} rounds, checksums, retained and age traces == the oracle")
+    out["brownout"] = {"rounds": sim["rounds"], "retained_peak": max(sim["retained_trace"]), "oracle_s": oracle_s}
+
+    # (b) rebalance of a skewed population
+    pq = _rebalance_population(dev, R, C, N1, P)
+    cpu_pq = _to_cpu(pq)
+    n_res = np.array([C] + [N1] * (R - 1))
+    pend_to = np.zeros(R, np.int64)
+    for r in range(1, R):
+        pend_to[(r + 1) % R] += P
+    variants = [("global_flat", ForwardConfig(R, C, peer_capacity=C // 2), "global", None)]
+    for sizes in ((2, 4), (2, 2, 2)):
+        caps = tuple(C * int(np.prod(sizes[l + 1:])) for l in range(len(sizes)))
+        name = "x".join(map(str, sizes))
+        hcfg = ForwardConfig(R, C, exchange="hierarchical", level_sizes=sizes, level_capacities=caps)
+        variants += [(f"global_{name}", hcfg, "global", None), (f"intra_{name}", hcfg, "intra", None)]
+    hbad = torch.ones(R, dtype=torch.bool)
+    hbad[3] = False
+    variants.append(("evacuate_flat", ForwardConfig(R, C, peer_capacity=C // 2), "global", hbad))
+    times = {}
+    for label, cfg, scope, health in variants:
+        comm = StackedCollectives()
+        KN.reset_launch_counts()
+        bq, btotal = rebalance(pq, cfg, scope=scope, health=None if health is None else health.to(dev), comm=comm)
+        paths[f"balance_rebalance_{label}"] = KN.launch_counts()
+        counts = bq.count.cpu().numpy().astype(np.int64)
+        ok = int(bq.drops.sum()) == 0 and int(btotal) == int(pq.count.sum()) == counts.sum()
+        if scope == "intra":
+            F = cfg.level_sizes[-1]
+            want = np.zeros(R, np.int64)
+            for g in range(R // F):
+                grp = slice(g * F, (g + 1) * F)
+                want[grp] = n_res[grp].sum() // F
+                for r in range(g * F, (g + 1) * F):
+                    src = (r - 1) % R
+                    if src > 0 and src // F == g:  # in-group pending delivered
+                        want[r] += P
+                    if r > 0 and (r + 1) % R // F != g:  # cross-group pending held back
+                        want[r] += P
+            ok = ok and (counts == want).all()
+            fast = len(cfg.level_sizes) - 1
+            tiers = sorted((c.kind, -1 if c.tier is None else c.tier) for c in comm.calls.elements())
+            check(tiers == sorted([("all_gather", fast), ("all_to_all", fast), ("all_to_all", fast), ("psum", fast),
+                                   ("psum", -1)]),
+                  f"(b) {label}: every call at the last tier but the total's psum: {tiers}")
+        elif health is None:
+            mean = n_res.sum() / R
+            base = counts - pend_to
+            ok = ok and set(base.tolist()) <= {int(np.floor(mean)), int(np.ceil(mean))}
+        else:
+            ok = ok and counts[3] == 0
+        check(ok, f"(b) rebalance {label}: counts {counts.tolist()}, 0 drops, conserved")
+        if cpu_witness:
+            cq, ctotal = rebalance(cpu_pq, cfg, scope=scope, health=health)
+            check(_same_queue(bq, cq, all_lanes=False) and torch.equal(
+                      torch.where(torch.arange(C)[None] < cq.count[:, None], bq.dest.cpu(), 0),
+                      torch.where(torch.arange(C)[None] < cq.count[:, None], cq.dest, 0)),
+                  f"(b) rebalance {label} on the card == on the CPU, lanes < count")
+        times[label] = timer(lambda: rebalance(pq, cfg, scope=scope, health=None if health is None else health.to(dev)),
+                             reps=reps)
+    print("  (b) rebalance median ms: " + ", ".join(f"{k} {v:.3f}" for k, v in times.items()), flush=True)
+    out["rebalance_ms"] = times
+
+    # (c) queue cycling of the Fig-8 rays
+    q = _fig8_queue(dev, R, C, seed=48)
+    cpu_q = _to_cpu(q)
+    pcfg = ForwardConfig(R, C, peer_capacity=S)
+    fq, ftotal = forward_work(q, pcfg)
+    check(int(fq.drops.sum()) == 0, "(c) the padded round drops nothing")
+    ref_rows = [_sorted_by_pixel(fq, r) for r in range(R)]
+    cyc = {}
+    first = None
+    for m in ("sort", "scatter"):
+        for ov in ("drop", "retain"):
+            cfg = ForwardConfig(R, C, marshal=m, overflow=ov)
+            comm = StackedCollectives()
+            KN.reset_launch_counts()
+            absorbed, total = deliver_by_cycling(q, cfg, comm=comm)
+            launches = KN.launch_counts()
+            paths[f"balance_cycle_{m}_{ov}"] = launches
+            kinds = sorted((c.kind, c.shape) for c in comm.calls.elements())
+            check(kinds == sorted([("ppermute", (R, C, 12))] * R + [("ppermute", (R,))] * R + [("psum", (R,))]),
+                  f"(c) cycling {m} {ov}: {R} payload and {R} count ppermute calls, one psum")
+            if cuda:
+                want = dict.fromkeys(launches, 0)
+                park = 1 if ov == "retain" else 0
+                if m == "sort":
+                    want.update(pack_and_histogram=R, gather_rows=R, compact_positions=R + park)
+                else:
+                    want.update(scatter_rows=R, compact_positions=2 * R + park)
+                check(launches == want, f"(c) cycling {m} {ov}: launches {launches}")
+            ok = int(total) == int(ftotal) and int(absorbed.drops.sum()) == 0 and torch.equal(absorbed.count, fq.count)
+            ok = ok and all(torch.equal(_sorted_by_pixel(absorbed, r), ref_rows[r]) for r in range(R))
+            check(ok, f"(c) cycling {m} {ov}: every rank's rows, sorted by pixel, == the padded round's")
+            if first is None:
+                first = absorbed
+            else:
+                check(_same_queue(absorbed, first, all_lanes=False), f"(c) cycling {m} {ov} == sort drop, lanes < count")
+            if cpu_witness and (m, ov) in cycle_cpu:
+                ca, ctotal = deliver_by_cycling(cpu_q, cfg)
+                check(_same_queue(absorbed, ca, all_lanes=False) and int(total) == int(ctotal),
+                      f"(c) cycling {m} {ov} on the card == on the CPU, lanes < count")
+            cyc[f"{m}_{ov}"] = timer(lambda: deliver_by_cycling(q, cfg), reps=reps)
+    for m in ("sort", "scatter"):
+        cyc[f"padded_round_{m}"] = timer(lambda: forward_work(q, ForwardConfig(R, C, peer_capacity=S, marshal=m)),
+                                         reps=reps)
+    print("  (c) median ms: " + ", ".join(f"{k} {v:.3f}" for k, v in cyc.items()), flush=True)
+    out["cycling_ms"] = cyc
+    return out, paths
+
+
+# ----------------------------------------------------------- 8. streamlines
 def profile_drive(run, dev, kernel=None):
     """Device-busy share of one drive under ``torch.profiler``: summed
     device time of every kernel and copy over the drive's wall time (the
@@ -1671,7 +2300,7 @@ def phase_streamlines(dev, fields=(("ABC", 0, 131072), ("tornado", 1, 16384), ("
     return out, main_launches
 
 
-# ----------------------------------------------------------------- 7. vopat
+# ----------------------------------------------------------------- 9. vopat
 def phase_vopat(dev, size=1024, R=8, profile=True, N_WORDS=2097152, CPU_SIZE=64):
     """The VoPaT main path: ``render`` through ``run_until_done`` with the
     scatter marshal, held against the R=1 render and the R=8 sort render,
@@ -1752,7 +2381,7 @@ def phase_vopat(dev, size=1024, R=8, profile=True, N_WORDS=2097152, CPU_SIZE=64)
     return out, launches
 
 
-# ----------------------------------------------------------------- 8. nbody
+# ---------------------------------------------------------------- 10. nbody
 def phase_nbody(dev, N=262144, R=8, steps=8, WITNESS_N=512, profile=True):
     """The N-body main path: ``run`` at R=8 against the direct-sum oracle,
     the R=1 run, launches per run, and a small run on the card against the
@@ -1849,7 +2478,8 @@ def main() -> int:
 
     run = {"kernels": lambda: phase_kernels(dev), "forward": lambda: phase_forward(dev),
            "lossless": lambda: phase_lossless(dev), "telemetry": lambda: phase_telemetry(dev),
-           "pipeline": lambda: phase_pipeline(dev),
+           "pipeline": lambda: phase_pipeline(dev), "credit": lambda: phase_credit(dev),
+           "balance": lambda: phase_balance(dev),
            "streamlines": lambda: phase_streamlines(dev), "vopat": lambda: phase_vopat(dev),
            "nbody": lambda: phase_nbody(dev)}
     kernels, paths = {}, {}  # paths: launches per path, counted from 0
@@ -1865,7 +2495,7 @@ def main() -> int:
         if title == "kernels":
             kernels, more = res
             paths.update(more)
-        elif title in ("lossless", "telemetry", "pipeline"):
+        elif title in ("lossless", "telemetry", "pipeline", "credit", "balance"):
             record[title], more = res
             paths.update(more)
         elif title in ("streamlines", "vopat", "nbody"):

@@ -2,14 +2,15 @@
 
 The port's own copies of ``repro.chaos.scenarios`` (seeded emission
 schedules: capacity drought, rotating hot spot, burst storm, convergecast,
-and the brownout and overload shapes) and of the retain half of
-``repro.chaos.oracle`` (:func:`expected_by_rank`, the checksums the
-schedule alone implies, and :func:`simulate_flat_retain`, the round-by-round
-numpy twin of the flat padded retain drive).  The device drive
-(``run_scenario``) and the credit twin come with ROADMAP Queue 1 items 13
-and 10.
+and the brownout and overload shapes) and of ``repro.chaos.oracle``
+(:func:`expected_by_rank`, the checksums the schedule alone implies;
+:func:`simulate_flat_retain`, the round-by-round numpy twin of the flat
+padded retain drive, rank-health remap included; and
+:func:`simulate_flat_credit`, the twin of the flat credit drive with the
+cursor-gated emitter).  The device drive (``run_scenario``) comes with
+ROADMAP Queue 1 item 13.
 """
-from repro_torch.chaos.oracle import expected_by_rank, simulate_flat_retain
+from repro_torch.chaos.oracle import expected_by_rank, simulate_flat_credit, simulate_flat_retain
 from repro_torch.chaos.scenarios import (
     Scenario,
     all_scenarios,
@@ -36,6 +37,7 @@ __all__ = [
     "overload_scenarios",
     "rank_brownout",
     "rotating_hotspot",
+    "simulate_flat_credit",
     "simulate_flat_retain",
     "sustained_overload",
 ]

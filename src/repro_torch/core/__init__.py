@@ -4,12 +4,16 @@ tensors (the counterpart of ``repro.core``).
 Device interface: WorkQueue, make_queue, enqueue, get_incoming,
   num_incoming, clear, DISCARD.
 Host context: RafiContext, ForwardConfig, forward_work, run_until_done,
+  rebalance, cycle_step / deliver_by_cycling (the ring alternative),
   StackedCollectives (the collective layer and its call recorder).
+Recovery: health_table / remap_dest (the rank-draining destination remap).
 Item typing: work_item, item_nbytes, pack_payload, unpack_payload.
 """
 from repro_torch.core.collectives import StackedCollectives
 from repro_torch.core.context import RafiContext, queue_from_reference, queue_to_reference
+from repro_torch.core.cycling import cycle_step, deliver_by_cycling
 from repro_torch.core.forwarding import ForwardConfig, forward_work
+from repro_torch.core.health import health_table, remap_dest
 from repro_torch.core.queue import (
     DISCARD,
     WorkQueue,
@@ -19,6 +23,7 @@ from repro_torch.core.queue import (
     make_queue,
     num_incoming,
 )
+from repro_torch.core.rebalance import rebalance
 from repro_torch.core.termination import run_until_done
 from repro_torch.core.types import (
     PackSpec,
@@ -39,9 +44,12 @@ __all__ = [
     "WorkQueue",
     "batched_zeros",
     "clear",
+    "cycle_step",
+    "deliver_by_cycling",
     "enqueue",
     "forward_work",
     "get_incoming",
+    "health_table",
     "item_nbytes",
     "make_queue",
     "num_incoming",
@@ -49,6 +57,8 @@ __all__ = [
     "pack_spec",
     "queue_from_reference",
     "queue_to_reference",
+    "rebalance",
+    "remap_dest",
     "run_until_done",
     "unpack_payload",
     "work_item",

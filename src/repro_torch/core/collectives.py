@@ -13,8 +13,16 @@ issues inside ``shard_map`` becomes a tensor operation on that axis:
                   (``stages.a2a`` over mesh axis l)
   all_gather(x)   x (R, ...) → (R, R, ...): every rank sees every row
                   (a broadcast view, no copy)
+  all_gather(x, digits=, tier=l)
+                  the same within ONE tier's group: x (R, ...) → (R, A_l,
+                  ...), rank r sees the A_l ranks that share every digit
+                  of r but digit l, in digit-l order
+  ppermute(x)     x (R, ...) → out[(i + 1) % R] = x[i]: the node-major
+                  ring hop of ``repro.core.cycling`` (``jax.lax.ppermute``)
   psum(x)         x (R, ...) → the sum over ranks; the replicated result is
                   held once, without the rank axis
+  psum(x, digits=, tier=l)
+                  the sum within each tier-l group, held per rank: (R, ...)
   pmin(x)         x (R, ...) → the minimum over ranks, held once
                   (``jax.lax.pmin``)
 
@@ -25,7 +33,7 @@ collective budget is guarded: on ``exchange="padded"`` a round issues
 exactly one payload ``all_to_all`` and one count ``all_to_all``, on
 ``exchange="hierarchical"`` one of each per non-trivial tier (a call's
 ``tier`` names it).  A ``torch.distributed`` backend will sit behind the
-same four methods.
+same methods.
 
 Tier layouts.  A multi-tier rank axis is a tuple of digit sizes, slowest
 first; rank ``r``'s digits are lexicographic, slowest-major (``r = (d_0·A_1
@@ -51,10 +59,10 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class Call:
-    kind: str  # "all_to_all" | "all_gather" | "psum" | "pmin"
+    kind: str  # "all_to_all" | "all_gather" | "ppermute" | "psum" | "pmin"
     nbytes: int  # bytes of the stacked input (every rank's contribution)
     shape: Tuple[int, ...]
-    tier: Optional[int] = None  # the tier of a one-tier all_to_all
+    tier: Optional[int] = None  # the tier of a one-tier call
 
 
 def node_layout(nodes: int = 2, devices_per_node: int = 4) -> Tuple[int, int]:
@@ -84,6 +92,15 @@ def tier_digit(level_sizes: Sequence[int], tier: int, device=None) -> torch.Tens
     stride = math.prod(level_sizes[tier + 1:])
     r = torch.arange(math.prod(level_sizes), device=device)
     return (r // stride) % level_sizes[tier]
+
+
+def _group_members(level_sizes: Sequence[int], tier: int, device=None) -> torch.Tensor:
+    """``(R, A_l)`` int64: the ranks of every rank's tier-``tier`` group,
+    in digit order (rank r's digit l replaced by 0 … A_l − 1)."""
+    stride = math.prod(level_sizes[tier + 1:])
+    r = torch.arange(math.prod(level_sizes), device=device)
+    base = r - tier_digit(level_sizes, tier, device=device) * stride
+    return base[:, None] + torch.arange(level_sizes[tier], device=device)[None, :] * stride
 
 
 @dataclasses.dataclass
@@ -117,13 +134,32 @@ class StackedCollectives:
         view = x.reshape(digits + (digits[tier],) + rest)
         return view.transpose(tier, len(digits)).reshape(x.shape).contiguous()
 
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        self._record("all_gather", x)
-        return x.unsqueeze(0).expand((x.shape[0],) + tuple(x.shape))
+    def all_gather(
+        self, x: torch.Tensor, *, digits: Optional[Sequence[int]] = None, tier: Optional[int] = None
+    ) -> torch.Tensor:
+        """Flat: ``(R, ...) → (R, R, ...)``.  With ``digits`` and ``tier``
+        l: ``(R, ...) → (R, A_l, ...)``, each rank's tier-l group."""
+        if digits is None:
+            self._record("all_gather", x)
+            return x.unsqueeze(0).expand((x.shape[0],) + tuple(x.shape))
+        self._record("all_gather", x, tier)
+        return x[_group_members(digits, tier, x.device)]
 
-    def psum(self, x: torch.Tensor) -> torch.Tensor:
-        self._record("psum", x)
-        return x.sum(dim=0, dtype=x.dtype)
+    def ppermute(self, x: torch.Tensor) -> torch.Tensor:
+        """The ring hop: rank i's ``x[i]`` lands on rank ``(i + 1) % R``."""
+        self._record("ppermute", x)
+        return torch.roll(x, 1, dims=0)
+
+    def psum(
+        self, x: torch.Tensor, *, digits: Optional[Sequence[int]] = None, tier: Optional[int] = None
+    ) -> torch.Tensor:
+        """Flat: the sum over ranks, held once.  With ``digits`` and
+        ``tier``: each rank's tier-group sum, held per rank."""
+        if digits is None:
+            self._record("psum", x)
+            return x.sum(dim=0, dtype=x.dtype)
+        self._record("psum", x, tier)
+        return x[_group_members(digits, tier, x.device)].sum(dim=1, dtype=x.dtype)
 
     def pmin(self, x: torch.Tensor) -> torch.Tensor:
         self._record("pmin", x)

@@ -16,7 +16,10 @@ a multi-tier layout for ``exchange="hierarchical"`` is given as
 records every collective its entry points issue.  Under
 ``overflow="retain"`` both entry points also return the per-lane ``age``,
 and with ``telemetry`` the round's ``RoundStats`` or the drive's
-``StatsRing`` last, as the reference's context does.  While a tracer is
+``StatsRing`` last, as the reference's context does.  ``flow="credit"``
+(with ``emit_reserve``) turns on the backpressure law; the drive's
+callable takes an optional third argument, a ``(R,) bool`` rank-health
+mask (the reference's ``with_health``).  While a tracer is
 installed (``obs.trace``) every drive is one ``drive.run_until_done`` span.
 
 :func:`queue_from_reference` and :func:`queue_to_reference` carry queue
@@ -64,6 +67,8 @@ class RafiContext:
         telemetry_buckets: int = 8,
         overflow: str = "drop",
         pipeline_shards: int = 1,
+        flow: str = "open",
+        emit_reserve: int = -1,
         device=None,
     ):
         self.proto = proto
@@ -75,7 +80,7 @@ class RafiContext:
             fast_size=fast_size, node_capacity=node_capacity,
             level_sizes=tuple(level_sizes), level_capacities=tuple(level_capacities),
             telemetry=telemetry, telemetry_window=telemetry_window, telemetry_buckets=telemetry_buckets,
-            overflow=overflow, pipeline_shards=pipeline_shards,
+            overflow=overflow, pipeline_shards=pipeline_shards, flow=flow, emit_reserve=emit_reserve,
         )
         self.comm = StackedCollectives()
 
@@ -92,8 +97,9 @@ class RafiContext:
     def forward_rays(self) -> Callable[[Q.WorkQueue], Tuple]:
         """The paper's ``forwardRays()``: ``q -> (forwarded_queue, total)``,
         plus the per-lane ``age`` under retain (each standalone call starts
-        ages fresh; the drive is where ages thread across rounds) and the
-        round's ``RoundStats`` with telemetry."""
+        ages fresh; the drive is where ages thread across rounds), the
+        ``(R, R)`` credits under credit flow (each standalone call starts
+        fully credited) and the round's ``RoundStats`` with telemetry."""
         cfg, comm = self.cfg, self.comm
 
         def step(q: Q.WorkQueue):
@@ -102,23 +108,26 @@ class RafiContext:
         return step
 
     def run_until_done(self, round_fn: Callable, *, max_rounds: int = 64) -> Callable:
-        """The drive: ``(q0, aux0) -> (q, aux, rounds, done)``; ``done`` is
-        True when the global in-flight count hit zero, False when
-        ``max_rounds`` truncated the run with work in flight.  Under retain
-        the final per-lane ``age`` follows ``done``; with telemetry the
-        ``StatsRing`` of the drive's last ``telemetry_window`` rounds is the
-        last output (feed it to ``telemetry.summarize`` /
-        ``tune.plan_capacities``)."""
+        """The drive: ``(q0, aux0[, health]) -> (q, aux, rounds, done)``;
+        ``done`` is True when the global in-flight count hit zero, False
+        when ``max_rounds`` truncated the run with work in flight.  Under
+        retain the final per-lane ``age`` follows ``done``; with telemetry
+        the ``StatsRing`` of the drive's last ``telemetry_window`` rounds is
+        the last output (feed it to ``telemetry.summarize`` /
+        ``tune.plan_capacities``).  ``health``, an optional ``(R,) bool``
+        mask, re-addresses traffic away from unhealthy ranks for the whole
+        drive (``core.health``)."""
         cfg, comm = self.cfg, self.comm
 
-        def drive(q0: Q.WorkQueue, aux0: Any):
+        def drive(q0: Q.WorkQueue, aux0: Any, health=None):
+            kw = dict(max_rounds=max_rounds, health=health, comm=comm)
             if not OT.enabled():
-                return term.run_until_done(round_fn, q0, aux0, cfg, max_rounds=max_rounds, comm=comm)
+                return term.run_until_done(round_fn, q0, aux0, cfg, **kw)
             with OT.span(
                 "drive.run_until_done", OT.CAT_DRIVE, exchange=cfg.exchange, flow=cfg.flow,
                 overflow=cfg.overflow, max_rounds=max_rounds, num_ranks=self.num_ranks,
             ) as sp:
-                out = term.run_until_done(round_fn, q0, aux0, cfg, max_rounds=max_rounds, comm=comm)
+                out = term.run_until_done(round_fn, q0, aux0, cfg, **kw)
                 sp.set(rounds=out[2], done=out[3])
             return out
 

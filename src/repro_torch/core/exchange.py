@@ -26,15 +26,19 @@ shards' chains run in turn (``stages.Pipelined``), payload bytes conserved
 and placement bit-exact with S=1.  Segment overflow — sender-side,
 tier-side or receiver-side — is dropped and counted exactly once.  Every
 backend returns ``(recv_packed, recv_counts, new_count, drops, pending,
-stats)``.  With ``overflow="retain"`` ``pending`` holds the spill blocks
+credits_out, stats)``.  With ``overflow="retain"`` ``pending`` holds the spill blocks
 ``(rows, dest, age, n)`` of every sender or tier clamp (the rows it would
 have cut, compacted, with their global destination and aged counter), and
 the receive compaction lands the arrivals behind them; otherwise it is
 empty.  The onehot oracle has no sender clamp, so its plan is empty by
 construction.  With ``telemetry=True`` ``stats`` is the round's
 ``telemetry.RoundStats``, read from control-plane values the round already
-holds (no collective, no host sync); otherwise it is None.  ``ragged``
-comes later (ROADMAP Queue 1 item 16).
+holds (no collective, no host sync); otherwise it is None.  With
+``flow="credit"`` (padded and hierarchical, under retain) the carried
+``credits (R, R)`` gate the first clamp (``stages.CreditGate``), each count
+call carries one more int32 column of adverts, and ``credits_out`` is the
+updated ``(R, R)`` estimate; otherwise it is None.  ``ragged`` comes later
+(ROADMAP Queue 1 item 16, its credit branch too).
 """
 from __future__ import annotations
 
@@ -78,32 +82,45 @@ def exchange_padded(
     telemetry_buckets: int = 8,
     pipeline_shards: int = 1,
     on_stage: Optional[Callable[[str], None]] = None,
+    flow: str = "open",
+    credits: Optional[torch.Tensor] = None,  # (R, R) credit: carried adverts, one round stale
+    credit_reserve: int = 0,  # credit: receive rows withheld from adverts
+    digits: Optional[Tuple[int, ...]] = None,
+    tier: Optional[int] = None,
 ):
-    """Padded-slot exchange.  Returns ``(recv_packed (R, capacity, W),
-    recv_counts (R, R), new_count (R,), drops (R,), pending, stats)``; under
-    retain ``pending`` is the sender clamp's one spill block and ``drops``
-    only the receiver-side admission cut.  With ``pipeline_shards=S > 1``
-    the Marshal → … → Unmarshal chain runs S times over slot-row
-    micro-shards (the spill stays outside the shard loop).  With
-    ``telemetry`` the stats record the per-peer send counts as the segment
-    demand against ``peer_capacity``.  ``on_stage`` is passed to
-    :func:`core.stages.compose` (shards mark ``"Stage#k"``)."""
+    """Padded-slot exchange, ``[CreditGate →] SpillExtract → Marshal →
+    CountExchange → PayloadExchange → Unmarshal``.  Returns ``(recv_packed
+    (R, capacity, W), recv_counts (R, R), new_count (R,), drops (R,),
+    pending, credits_out, stats)``; under retain ``pending`` is the sender
+    clamp's one spill block and ``drops`` only the receiver-side admission
+    cut.  With ``pipeline_shards=S > 1`` the Marshal → … → Unmarshal chain
+    runs S times over slot-row micro-shards (the gate and the spill stay
+    outside the shard loop).  With ``telemetry`` the stats record the
+    per-peer send counts as the segment demand against ``peer_capacity``
+    (and, under credit, ``credits_granted = Σ min(grant, S)``).
+    ``on_stage`` is passed to :func:`core.stages.compose` (shards mark
+    ``"Stage#k"``).  With ``digits`` and ``tier`` the ``num_ranks`` peers
+    are each rank's tier-``tier`` group and both calls are tier calls."""
     R, S = num_ranks, peer_capacity
     retain = overflow == "retain"
+    credit = flow == "credit"
     st = ST.RoundState(
         packed=packed, perm=perm, send_counts=send_counts, marshal=marshal,
         dest_clean=dest_clean, dest_rank=dest_rank, retain=retain,
         age=_fresh_age(packed) if retain and age is None else age,
+        flow=flow, credits=credits,
     )
     inner = (
         ST.Marshal(R, S, shards=pipeline_shards),
-        ST.CountExchange(comm),
-        ST.PayloadExchange(comm),
+        ST.CountExchange(comm, digits=digits, tier=tier),
+        ST.PayloadExchange(comm, digits=digits, tier=tier),
         ST.Unmarshal(capacity, shards=pipeline_shards, slot=S),
     )
     if pipeline_shards > 1:
         inner = (ST.Pipelined(inner, pipeline_shards, on_stage=on_stage),)
-    st = ST.compose(ST.SpillExtract(R, capacity, S, retain=retain), *inner, on_stage=on_stage)(st)
+    head = (ST.CreditGate(R),) if credit else ()
+    st = ST.compose(*head, ST.SpillExtract(R, capacity, S, retain=retain, reserve=credit_reserve), *inner,
+                    on_stage=on_stage)(st)
     stats = None
     if telemetry:
         stats = TS.single_tier_stats(
@@ -111,8 +128,10 @@ def exchange_padded(
             sent_rows=st.clamped.sum(dim=1, dtype=torch.int32), stage_drops=st.send_drops,
             recv_total=st.recv_counts.sum(dim=1, dtype=torch.int32), recv_drops=st.recv_drops,
             rows_held=st.stage_held if retain else None,
+            credits_granted=torch.clamp(st.credit_allow, max=S).sum(dim=1, dtype=torch.int32) if credit else None,
         )
-    return st.out, st.recv_counts, st.new_count, st.send_drops + st.recv_drops, tuple(st.pending), stats
+    drops = st.send_drops + st.recv_drops
+    return st.out, st.recv_counts, st.new_count, drops, tuple(st.pending), st.credits_out if credit else None, stats
 
 
 def _fresh_age(packed: torch.Tensor) -> torch.Tensor:
@@ -138,6 +157,9 @@ def exchange_hierarchical(
     telemetry_buckets: int = 8,
     pipeline_shards: int = 1,
     on_stage: Optional[Callable[[str], None]] = None,
+    flow: str = "open",
+    credits: Optional[torch.Tensor] = None,
+    credit_reserve: int = 0,
 ):
     """N-stage packed exchange over the tier layout ``level_sizes``.
 
@@ -160,6 +182,14 @@ def exchange_hierarchical(
     ``seg_dest`` (ages restart at 1).  One pending block per non-trivial
     stage; the final compaction lands the arrivals behind them.
 
+    With ``flow="credit"`` the carried ``credits`` gate the route's FIRST
+    clamp, so a saturated destination throttles every tier at the source
+    and the un-granted tail parks in the sender's first spill block.  Each
+    tier's count call carries the minimum estimate of the sender's subtree
+    on that tier (the final tier folds in the rank's fresh post-spill room
+    first), fanned back over the subtree by the receiver;
+    ``credits_granted`` is recorded at the first tier only.
+
     With ``pipeline_shards=S > 1`` each tier's Marshal → CountExchange →
     PayloadExchange chain runs S times over ``level_capacities[l]/S``-row
     micro-shards; non-final tiers reassemble the bulk stage buffer
@@ -172,13 +202,17 @@ def exchange_hierarchical(
     R = num_ranks
     B, C, W = packed.shape
     retain = overflow == "retain"
+    credit = flow == "credit"
     tiers = [l for l in reversed(range(len(level_sizes))) if level_sizes[l] > 1]
     rec = TS.make_stats(len(level_sizes), telemetry_buckets, num_ranks=B, device=packed.device) if telemetry else None
     st = ST.RoundState(
         packed=packed, perm=perm, send_counts=send_counts, marshal=marshal,
         dest_clean=dest_clean, dest_rank=dest_rank, retain=retain,
         age=_fresh_age(packed) if retain and age is None else age,
+        flow=flow, credits=credits,
     )
+    if credit:
+        st = ST.CreditGate(R)(st)
     zero = torch.zeros(B, dtype=torch.int32, device=packed.device)
     st.spill_run, st.drops = zero, zero
     if retain:
@@ -202,7 +236,8 @@ def exchange_hierarchical(
         drops = (st.cnt - allowed).sum(dim=1, dtype=torch.int32)
         if telemetry:  # no stage ran: only the local compaction is observable
             rec = dataclasses.replace(rec, recv_total=st.cnt.sum(dim=1, dtype=torch.int32), recv_drops=drops)
-        return out, allowed, allowed[:, 0], drops, (), rec
+        credits_out = (capacity - allowed).to(torch.int32) if credit else None
+        return out, allowed, allowed[:, 0], drops, (), credits_out, rec
 
     shards = pipeline_shards
     for i, l in enumerate(tiers):
@@ -212,13 +247,16 @@ def exchange_hierarchical(
         st = ST.compose(ST.SpillExtract(R, capacity, S, retain=retain, kind="tier", extent=A), on_stage=mark)(st)
         if telemetry:
             _record_tier(rec, st, l, A, S, telemetry_buckets, retain)
+            if credit and i == 0:
+                rec.credits_granted[:, l] = torch.clamp(st.credit_allow, max=S).sum(dim=1, dtype=torch.int32)
         chain = (
             ST.Marshal(A, S, shards=shards, kind="tier", num_ranks=R),
             # final stage: per-source-group totals suffice — blocks are
             # contiguous prefixes, compacted straight into the receive
             # queue; other stages ship the per-sub-segment survivors
             ST.CountExchange(comm, kind="final" if final else "tier", digits=level_sizes, tier=l,
-                             shards=shards, slot=S),
+                             shards=shards, slot=S, num_ranks=R, capacity=capacity,
+                             reserve=credit_reserve if final else 0),
             ST.PayloadExchange(comm, digits=level_sizes, tier=l, collect=shards > 1 and not final),
         )
         if final:
@@ -237,7 +275,8 @@ def exchange_hierarchical(
             rec, recv_total=st.recv_counts.sum(dim=1, dtype=torch.int32),
             recv_drops=st.recv_drops.to(torch.int32), wasted_wire_rows=(st.recv_drops + late).to(torch.int32),
         )
-    return st.out, st.recv_counts, st.new_count, st.drops + st.recv_drops, tuple(st.pending), rec
+    credits_out = st.credits_out if credit else None
+    return st.out, st.recv_counts, st.new_count, st.drops + st.recv_drops, tuple(st.pending), credits_out, rec
 
 
 def _record_tier(rec, st, l: int, A: int, S: int, buckets: int, retain: bool) -> None:
@@ -312,5 +351,5 @@ def exchange_onehot(
             sent_rows=send_counts.sum(dim=1, dtype=torch.int32), stage_drops=torch.zeros_like(total),
             recv_total=total, recv_drops=total - new_count,
         )
-    return gathered, recv_counts, new_count, total - new_count, (), stats
+    return gathered, recv_counts, new_count, total - new_count, (), None, stats
 

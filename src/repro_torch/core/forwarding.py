@@ -26,6 +26,15 @@ With ``telemetry=True`` the round's ``telemetry.RoundStats`` rides along as
 the last output; with ``pipeline_shards=S`` each exchange runs as S
 micro-shard chains, bit-exact with S=1 (``core.stages.Pipelined``).
 
+Under ``flow="credit"`` (the backpressure law, on top of retain) every
+sender ships a destination at most its share of that receiver's one-round-
+stale free-space advert (``core.stages.CreditGate``); the un-credited tail
+is retained like any clamp cut, and the count collective carries the fresh
+adverts back in one more int32 column.  The credits are an ``(R, R)`` int32
+tensor: row = the rank holding the estimate, column = the destination (the
+reference's per-rank ``(R,)`` vector, stacked).  ``health=`` re-addresses
+destinations on unhealthy ranks before the marshal (``core.health``).
+
 The reference's ``use_pallas`` and ``axis_name`` have no counterpart: the
 rank axis is dim 0, and the tensors' device picks kernel or plain version.
 The sort plan always goes through K3 and the scatter plan through K4, as
@@ -43,12 +52,13 @@ import torch
 from repro_torch.core import exchange as X
 from repro_torch.core import types as T
 from repro_torch.core.collectives import StackedCollectives
+from repro_torch.core.health import remap_dest
 from repro_torch.core.queue import DISCARD, WorkQueue
 from repro_torch.kernels.bucket_scatter import ops as bs_ops
 from repro_torch.kernels.marshal import ops as marshal_ops
 from repro_torch.kernels.sort_keys import ops as sk_ops
 
-__all__ = ["ForwardConfig", "forward_work"]
+__all__ = ["ForwardConfig", "credit_reserve_rows", "forward_work"]
 
 _EXCHANGES = {
     "padded": X.exchange_padded,
@@ -101,8 +111,13 @@ class ForwardConfig:
         buckets per tier).
       pipeline_shards: S micro-shards a round (the overlap law), bit-exact
         with S=1; must divide ``capacity`` and every per-peer slot budget.
-      flow="credit" and exchange="ragged" are validated as in the reference
-        and refused until their slice lands (ROADMAP Queue 1 items 10, 16).
+      flow: "open" (ship every clamped segment) | "credit" (receiver-
+        advertised admission, the backpressure law; needs
+        ``overflow="retain"`` and a padded or hierarchical exchange).
+      emit_reserve: credit only — receive rows every advert withholds for
+        the rank's own emissions (-1: ``capacity // 2``).
+      exchange="ragged" is validated as in the reference and refused until
+        its slice lands (ROADMAP Queue 1 item 16).
     """
 
     num_ranks: int
@@ -197,8 +212,6 @@ class ForwardConfig:
         # valid reference configurations whose feature a later slice brings
         if self.exchange == "ragged":
             raise _later("exchange='ragged'", "16")
-        if self.flow == "credit":
-            raise _later("flow='credit'", "10")
 
     def _init_flat(self):
         for field in ("fast_size", "node_capacity", "level_sizes", "level_capacities"):
@@ -302,11 +315,19 @@ class ForwardConfig:
         object.__setattr__(self, "node_capacity", caps[0])
 
 
+def credit_reserve_rows(cfg: ForwardConfig) -> int:
+    """Resolved ``emit_reserve``: receive rows every credit advert withholds
+    for the rank's own emissions (``-1``: half the queue)."""
+    return cfg.capacity // 2 if cfg.emit_reserve < 0 else cfg.emit_reserve
+
+
 def forward_work(
     q: WorkQueue,
     cfg: ForwardConfig,
     *,
     age: Optional[torch.Tensor] = None,
+    health: Optional[torch.Tensor] = None,
+    credits: Optional[torch.Tensor] = None,
     comm: StackedCollectives | None = None,
     on_stage: Optional[Callable[[str], None]] = None,
 ):
@@ -318,26 +339,50 @@ def forward_work(
     ``(new_queue, total, age_out)``: clamp-cut rows come back at the FRONT
     of ``new_queue`` with their ``dest`` intact, ``total`` counts them, and
     ``age_out (R, C)`` is the per-lane rounds-waiting counter to feed back
-    through ``age=`` (None: every lane fresh).  With ``cfg.telemetry`` the
-    round's ``RoundStats`` is the last output: ``(new_queue, total,
-    stats)``, or ``(new_queue, total, age_out, stats)`` under retain, with
-    ``retained_rows`` and ``age_max`` stamped after the merge.  ``comm``
-    records the round's collectives.  ``on_stage(name)``, if given, is
-    called after each step of the round ("plan", "pack", each exchange stage
-    on ``padded`` and, with its tier, on ``hierarchical`` — ``"Stage#k"``
-    for shard k of a pipelined round — or "exchange" on ``onehot``, "merge"
-    under retain, "unpack", "psum"), e.g. to record a CUDA event there; it
-    must not change the round.
+    through ``age=`` (None: every lane fresh).  Under ``flow="credit"``
+    ``credits_out (R, R)`` follows ``age_out`` — row r is rank r's estimate
+    of every destination's free space, to feed back through ``credits=``
+    (None: every receiver credited with ``capacity``, the uncontended
+    single-shot assumption; the drive cold-starts at zero instead).  With
+    ``cfg.telemetry`` the round's ``RoundStats`` is the last output:
+    ``(new_queue, total, stats)``, ``(new_queue, total, age_out, stats)``
+    under retain or ``(new_queue, total, age_out, credits_out, stats)``
+    under credit, with ``retained_rows`` and ``age_max`` stamped after the
+    merge.
+
+    ``health`` (optional ``(R,) bool``) re-addresses every destination on an
+    unhealthy rank before the marshal (``core.health.remap_dest``): no call
+    and no launch is added, retained rows keep the remapped destination, and
+    ``None`` and an all-True mask give the same round bit for bit.
+
+    ``comm`` records the round's collectives.  ``on_stage(name)``, if given,
+    is called after each step of the round ("plan", "pack", each exchange
+    stage on ``padded`` and, with its tier, on ``hierarchical`` —
+    ``"Stage#k"`` for shard k of a pipelined round — or "exchange" on
+    ``onehot``, "merge" under retain, "unpack", "psum"), e.g. to record a
+    CUDA event there; it must not change the round.
     """
-    mark = on_stage or (lambda name: None)
     if q.num_ranks != cfg.num_ranks or q.capacity != cfg.capacity:
         raise ValueError(
             f"queue is ({q.num_ranks}, {q.capacity}) but the config is "
             f"({cfg.num_ranks}, {cfg.capacity})"
         )
+    return _forward(q, cfg, age=age, health=health, credits=credits, comm=comm, on_stage=on_stage)
+
+
+def _forward(q, cfg, *, age=None, health=None, credits=None, comm=None, on_stage=None, digits=None, tier=None):
+    """:func:`forward_work`'s round.  With ``digits`` (a tier layout of
+    ``q.num_ranks`` ranks) and ``tier`` l, ``cfg`` is a flat padded config
+    over the ``A_l = cfg.num_ranks`` ranks of each tier-l group: every
+    destination is a digit-l lane and every collective is a tier-l call
+    (``core.rebalance``'s intra-scope round)."""
+    mark = on_stage or (lambda name: None)
     comm = StackedCollectives() if comm is None else comm
     R, C = cfg.num_ranks, cfg.capacity
     retain = cfg.overflow == "retain"
+    credit = cfg.flow == "credit"
+    if health is not None:
+        q = dataclasses.replace(q, dest=remap_dest(q.dest, health))
     # K2 compacts R blocks a rank (padded) or the last stage's A_l: refuse
     # a count its block table cannot hold before anything is launched
     if cfg.exchange == "padded":
@@ -354,7 +399,7 @@ def forward_work(
         perm, count_tensor = sk_ops.sort_permutation_hierarchical(
             q.dest, q.count, cfg.level_sizes, method=cfg.sort_method
         )
-        send_counts = count_tensor.reshape(R, R)
+        send_counts = count_tensor.reshape(q.num_ranks, R)
     else:
         perm, _sorted_dest, hist = sk_ops.sort_permutation(q.dest, q.count, R)
         send_counts = hist[:, :R]
@@ -368,11 +413,16 @@ def forward_work(
         telemetry=cfg.telemetry, telemetry_buckets=cfg.telemetry_buckets,
     )
     if cfg.exchange == "padded":
-        kwargs.update(peer_capacity=cfg.peer_capacity, pipeline_shards=cfg.pipeline_shards, on_stage=on_stage)
+        kwargs.update(peer_capacity=cfg.peer_capacity, pipeline_shards=cfg.pipeline_shards, on_stage=on_stage,
+                      digits=digits, tier=tier)
     elif cfg.exchange == "hierarchical":
         kwargs.update(level_sizes=cfg.level_sizes, level_capacities=cfg.level_capacities,
                       pipeline_shards=cfg.pipeline_shards, on_stage=on_stage)
-    recv_packed, _recv_counts, new_count, drops, pending, stats = _EXCHANGES[cfg.exchange](
+    if credit:
+        if credits is None:  # single-shot call: uncontended, fully credited receivers
+            credits = torch.full((q.num_ranks, R), C, dtype=torch.int32, device=q.dest.device)
+        kwargs.update(flow="credit", credits=credits, credit_reserve=credit_reserve_rows(cfg))
+    recv_packed, _recv_counts, new_count, drops, pending, credits_out, stats = _EXCHANGES[cfg.exchange](
         packed, perm, send_counts, **kwargs
     )
     tail = () if stats is None else (stats,)
@@ -387,7 +437,7 @@ def forward_work(
         )
         mark("unpack")
         # §4.2.3: "a final MPI reduce-add on the number of rays received"
-        total = comm.psum(new_q.count)
+        total = comm.psum(new_q.count, digits=digits, tier=tier)
         mark("psum")
         return (new_q, total) + tail
 
@@ -433,10 +483,10 @@ def forward_work(
         drops=(q.drops + drops + spill_over).to(torch.int32),
     )
     mark("unpack")
-    total = comm.psum(new_q.count)
+    total = comm.psum(new_q.count, digits=digits, tier=tier)
     mark("psum")
     age_out = age_out.to(torch.int32)
     if stats is not None:
         tail = (dataclasses.replace(stats, retained_rows=ret_count.to(torch.int32),
                                     age_max=age_out.amax(dim=1)),)
-    return (new_q, total, age_out) + tail
+    return (new_q, total, age_out) + ((credits_out,) if credit else ()) + tail

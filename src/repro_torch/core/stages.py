@@ -1,8 +1,11 @@
-"""The exchange round as composable stages (open flow).
+"""The exchange round as composable stages.
 
 The same five stages as ``repro.core.stages``, over rank-stacked tensors and
 an explicit :class:`RoundState`:
 
+  CreditGate      (``flow="credit"``) each sender's grant toward every
+                  destination: its share of the receiver's one-round-stale
+                  advert, ``free // R + (me < free % R)``.
   SpillExtract    the §3.3 clamp site.  ``kind="flat"``: per-destination
                   counts truncated to the slot budget; ``kind="tier"``: a
                   hierarchical stage's stacked sub-segments truncated to the
@@ -45,12 +48,22 @@ in order on one stream: nothing overlaps until a real wire exists.
 
 Each rank's digit on a tier (``jax.lax.axis_index`` of the reference) is
 read from the stacked axis (``collectives.tier_digit``), so ``seg_dest``
-stays per rank.  Credit flow belongs to a later slice of the port (ROADMAP
-Queue 1 item 10).
+stays per rank.
+
+Credit flow (the backpressure law).  The carried credits are ``(B, R)``:
+row b is rank b's estimate of every destination's free space (the
+reference's per-rank ``(R,)`` vector, stacked).  The grant tightens the
+flat sender clamp, or the hierarchical route's FIRST clamp, and the
+un-credited tail rides the retain spill.  The count collective widens by
+ONE int32 column carrying the adverts: flat, every rank ships its fresh
+receive room; hierarchical, tier l ships the minimum estimate over the
+sender's tier-l subtree (the final tier folds in its fresh room first) and
+the receiver fans it back over that subtree.  No call is added.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
@@ -62,6 +75,7 @@ from repro_torch.kernels.marshal import ops as marshal_ops
 __all__ = [
     "AdvanceTier",
     "CountExchange",
+    "CreditGate",
     "Marshal",
     "PayloadExchange",
     "Pipelined",
@@ -305,6 +319,13 @@ class RoundState:
     retain: bool = False
     age: Any = None  # (B, C) retain: rounds each lane has waited
 
+    # credit flow — None / "open" unless ForwardConfig(flow="credit")
+    flow: str = "open"
+    credits: Any = None  # (B, R) carried-in per-destination free estimates
+    credit_allow: Any = None  # (B, R) this round's per-destination grant
+    credits_out: Any = None  # (B, R) working / updated estimates (returned)
+    my_free: Any = None  # (B,) each rank's fresh advert this round
+
     # clamp site (SpillExtract)
     clamped: Any = None  # flat: (B, R) sender-clamped counts
     allowed: Any = None  # tier: (B, G, A) surviving sub-segment sizes
@@ -341,6 +362,33 @@ class RoundState:
 
 
 @dataclasses.dataclass(frozen=True)
+class CreditGate:
+    """The backpressure law's sender gate: rank ``me`` may ship
+    ``free[d] // R + (me < free[d] % R)`` rows to destination ``d`` — floor
+    share plus rank-ordered residual of the advert, so the grants of all R
+    senders sum to exactly the advertised room.  ``me`` is the rank axis."""
+
+    num_ranks: int
+
+    def __call__(self, st: RoundState) -> RoundState:
+        free = torch.clamp(st.credits, min=0)
+        me = torch.arange(free.shape[0], device=free.device)[:, None]
+        st.credit_allow = (free // self.num_ranks + (me < free % self.num_ranks).to(free.dtype)).to(torch.int32)
+        st.credits_out = st.credits
+        return st
+
+    def shard(self, st: RoundState, k: int) -> RoundState:
+        # grants do not depend on the shard (the slot chunking is downstream)
+        return self(st) if k == 0 else st
+
+
+def _fresh_advert(room: torch.Tensor, reserve: int, num_ranks: int) -> torch.Tensor:
+    """A receiver's advert: its room minus the emission reserve, floored at
+    one credit per sender while room exists (``min(room, R)``)."""
+    return torch.maximum(torch.clamp(room - reserve, min=0), torch.clamp(room, max=num_ranks)).to(torch.int32)
+
+
+@dataclasses.dataclass(frozen=True)
 class SpillExtract:
     """The §3.3 clamp site.  ``kind="flat"``: the flat sender clamp.
     ``kind="tier"``: a hierarchical stage clamp — input LANES spill through
@@ -354,11 +402,15 @@ class SpillExtract:
     retain: bool = False
     kind: str = "flat"
     extent: int = 0  # tier: A_l, the stage's axis size
+    reserve: int = 0  # credit: receive rows withheld for local emissions
 
     def __call__(self, st: RoundState) -> RoundState:
         if self.kind == "tier":
             return self._tier(st)
         st.clamped = torch.clamp(st.send_counts, max=self.slot)
+        if st.flow == "credit":
+            # the grant tightens the slot clamp; the extra cut rides the spill
+            st.clamped = torch.minimum(st.clamped, st.credit_allow)
         send_drops = (st.send_counts - st.clamped).sum(dim=1, dtype=torch.int32)
         if self.retain:
             # the cut rows are the per-destination segment TAILS of the
@@ -372,6 +424,11 @@ class SpillExtract:
             ))
             st.front = torch.clamp(send_drops, max=self.capacity)
             st.stage_held = send_drops
+            if st.flow == "credit":
+                # my advert: the room behind the spill front, less the
+                # emission reserve; with the drive's emission gate next
+                # round's front cannot grow into it, so granted arrivals fit
+                st.my_free = _fresh_advert(self.capacity - st.front, self.reserve, self.num_ranks)
             send_drops = torch.zeros_like(send_drops)
         st.send_drops = send_drops
         return st
@@ -380,7 +437,13 @@ class SpillExtract:
         A, S, R = self.extent, self.slot, self.num_ranks
         B = st.cnt.shape[0]
         cnt3 = st.cnt.reshape(B, R // A, A)  # rows: buffer order, cols: peer digit
-        st.allowed, st.starts = clamp_subsegments(cnt3, S, dim=1)
+        cnt_eff = cnt3
+        if st.flow == "credit" and st.via_perm:
+            # the route's FIRST clamp is gated: buffer order is destination
+            # order here, so the grant reshapes onto the sub-segment grid and
+            # the un-credited tail never enters any tier
+            cnt_eff = torch.minimum(cnt3, st.credit_allow.reshape(B, R // A, A))
+        st.allowed, st.starts = clamp_subsegments(cnt_eff, S, dim=1)
         stage_drops = (cnt3 - st.allowed).sum(dim=(1, 2), dtype=torch.int32)
         if self.retain:
             alf = st.allowed.reshape(B, R)  # current buffer / destination order
@@ -485,7 +548,11 @@ class CountExchange:
     the per-source-group totals — blocks are contiguous prefixes at the
     last tier.  Sharded, the flat and final kinds repeat the FULL vector on
     every shard; the tier kind ships each shard's own chunk counts
-    ``clip(allowed − k·chunk, 0, chunk)`` and sums them on receive."""
+    ``clip(allowed − k·chunk, 0, chunk)`` and sums them on receive.
+
+    Under credit flow every kind's count block widens by one int32 column
+    of adverts (module docstring); a sharded tier's widened calls repeat
+    the same adverts, so only shard 0's read updates the credits."""
 
     comm: StackedCollectives
     kind: str = "flat"
@@ -493,27 +560,73 @@ class CountExchange:
     tier: Optional[int] = None
     shards: int = 1
     slot: int = 0  # tier: full per-peer slot rows (shard chunking)
+    num_ranks: int = 0  # credit: the global rank count R
+    capacity: int = 0  # credit: queue capacity (subtree min fill, fresh room)
+    reserve: int = 0  # credit final: receive rows withheld for local emissions
 
     def _a2a(self, x: torch.Tensor) -> torch.Tensor:
         return self.comm.all_to_all(x, digits=self.digits, tier=self.tier)
 
     def __call__(self, st: RoundState) -> RoundState:
+        credit = st.flow == "credit"
         if self.kind == "tier":
-            st.rcv = self._a2a(st.allowed.transpose(1, 2).contiguous())  # (B, A, G): [src digit, sub-seg]
+            counts = st.allowed.transpose(1, 2).contiguous()  # (B, A, G): [peer digit, sub-seg]
+            st.rcv = self._credit_recv(st, counts) if credit else self._a2a(counts)
         elif self.kind == "final":
             sums = st.allowed.sum(dim=1, dtype=st.allowed.dtype)
-            st.recv_counts = self._a2a(sums[:, :, None]).reshape(sums.shape)
+            recv = self._credit_recv(st, sums[:, :, None]) if credit else self._a2a(sums[:, :, None])
+            st.recv_counts = recv.reshape(sums.shape)
+        elif credit:
+            # (B, R, 1) → (B, R, 2): column 1 carries my advert to every
+            # peer; the received column 1 is every destination's advert
+            wide = torch.stack([st.clamped, st.my_free[:, None].expand_as(st.clamped).to(st.clamped.dtype)], dim=2)
+            recv = self._a2a(wide)
+            st.recv_counts, st.credits_out = recv[:, :, 0], recv[:, :, 1].to(torch.int32)
         else:
             st.recv_counts = self._a2a(st.clamped[:, :, None]).reshape(st.clamped.shape)
         return st
+
+    def _credit_recv(self, st: RoundState, counts: torch.Tensor) -> torch.Tensor:
+        """The tier or final count call widened by the advert column:
+        returns the un-widened received counts and applies the received
+        subtree adverts to ``st.credits_out``."""
+        B, A = counts.shape[:2]
+        R, cap = self.num_ranks, self.capacity
+        stride = math.prod(self.digits[self.tier + 1:])
+        dev = counts.device
+        me = torch.arange(B, device=dev)[:, None]  # (B, 1) global rank
+        r = torch.arange(R, device=dev)[None, :]  # (1, R) destination
+        cur = st.credits_out
+        if self.kind == "final":
+            # fold my fresh post-spill room into my own entry first: the
+            # spill run is complete at the final tier
+            fresh = _fresh_advert(torch.clamp(cap - st.spill_run, min=0), self.reserve, R)
+            st.my_free = fresh
+            cur = torch.where(r == me, fresh[:, None], cur)
+        sub = (r // stride) == (me // stride)  # my tier-l subtree
+        adv = torch.where(sub, cur, cap).amin(dim=1)  # (B,)
+        wide = torch.cat([counts, adv.to(counts.dtype)[:, None, None].expand(B, A, 1)], dim=2)
+        recv = self._a2a(wide)
+        # peer a's aggregate covers the ranks sharing my slower digits with
+        # digit_l = a; my own subtree keeps its fresher per-rank entries
+        dig = ((r // stride) % A).expand(B, R)
+        upd = ((r // (stride * A)) == (me // (stride * A))) & (dig != (me // stride) % A)
+        st.credits_out = torch.where(upd, torch.gather(recv[:, :, -1], 1, dig), cur).to(torch.int32)
+        return recv[:, :, :-1]
 
     def shard(self, st: RoundState, k: int) -> RoundState:
         if self.kind != "tier":
             return self(st)
         # Σ_k clip(allowed − k·chunk, 0, chunk) = allowed
         chunk = self.slot // self.shards
-        allowed_k = torch.clamp(st.allowed - k * chunk, 0, chunk)
-        part = self._a2a(allowed_k.transpose(1, 2).contiguous())
+        allowed_k = torch.clamp(st.allowed - k * chunk, 0, chunk).transpose(1, 2).contiguous()
+        if st.flow == "credit":
+            saved = st.credits_out
+            part = self._credit_recv(st, allowed_k)
+            if k > 0:  # the adverts do not depend on the shard: shard 0's read stands
+                st.credits_out = saved
+        else:
+            part = self._a2a(allowed_k)
         st.rcv = part if k == 0 else st.rcv + part
         return st
 

@@ -1,4 +1,4 @@
-"""Distributed-termination drive loop (paper §4.2.3), open flow.
+"""Distributed-termination drive loop (paper §4.2.3).
 
 The paper's applications loop: launch kernel → ``forwardRays()`` → check the
 reduced global count → repeat.  The reference traces the whole loop into
@@ -19,6 +19,17 @@ merge bit for bit when nothing is retained, so the port always shifts and
 adds no host sync.  The termination ``psum`` counts retained rows, so the
 loop cannot end with work still spilled.
 
+Credit flow (``flow="credit"``): the carried ``credits (R, R)`` cold-start
+at ZERO, so the first forward only advertises and risks no wire, and ride
+the carry from forward to forward.  The emission gate keeps the rank's own
+outstanding advert free: the merge cuts emissions past ``limit = capacity −
+clip(credits[me, me], 0)`` (counted as ``emit_overflow``), and a
+``round_fn`` that asks gets ``headroom = max(limit − n_ret, 0)``.  The cut
+is a clamp, not a branch, so the gate adds no host sync.
+
+``health=`` (a constant ``(R,) bool`` mask) re-addresses every forward's
+destinations away from unhealthy ranks (``core.health``).
+
 With ``telemetry=True`` a ``telemetry.StatsRing`` of the last
 ``telemetry_window`` rounds rides the carry: every forward is pushed,
 including the initial routing round, with ``emit_overflow`` stamped by the
@@ -32,7 +43,7 @@ and ``drive_finalize`` (carry → results).
 from __future__ import annotations
 
 import inspect
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -64,17 +75,20 @@ def _split_retained(q: WorkQueue) -> Tuple[torch.Tensor, WorkQueue]:
 
 
 def _merge_retained(
-    q: WorkQueue, n_ret: torch.Tensor, out_q: WorkQueue, age: torch.Tensor
+    q: WorkQueue, n_ret: torch.Tensor, out_q: WorkQueue, age: torch.Tensor,
+    limit: Optional[torch.Tensor] = None,
 ) -> Tuple[WorkQueue, torch.Tensor]:
     """Recombine the retained front of ``q`` with ``round_fn``'s output
     queue (retained FIRST).  Emissions that do not fit behind the backlog
-    are cut and counted.  Returns ``(merged_queue, age_in)`` for
-    ``forward_work``."""
+    are cut and counted.  Under credit flow ``limit (R,)`` (capacity less
+    the rank's outstanding advert) bounds the merged count too: emissions
+    never eat room promised to in-flight arrivals; retained rows are never
+    cut.  Returns ``(merged_queue, age_in)`` for ``forward_work``."""
     R, C = q.num_ranks, q.capacity
     lane = torch.arange(C, device=q.dest.device)[None, :]
     tail = torch.clamp(lane - n_ret[:, None], 0, C - 1)
     n_tot = n_ret + out_q.count
-    count = torch.clamp(n_tot, max=C)
+    count = torch.clamp(n_tot, max=C) if limit is None else torch.minimum(n_tot, torch.maximum(limit, n_ret))
     front = lane < n_ret[:, None]
     b = torch.arange(R, device=q.dest.device)[:, None]
 
@@ -93,29 +107,36 @@ def _merge_retained(
     return merged, torch.where(front, age, 0).to(torch.int32)
 
 
-def _fwd(q, age, cfg, comm):
+def _fwd(q, age, cfg, comm, health=None, credits=None):
     """``forward_work`` with a uniform return: ``(new_q, total, age_out,
-    stats)``, ``age_out`` None in drop mode and ``stats`` None without
-    telemetry."""
-    if cfg.overflow == "retain":
-        out = forward_work(q, cfg, age=age, comm=comm)
-    else:
-        out = forward_work(q, cfg, comm=comm)
-        out = out[:2] + (None,) + out[2:]
-    return out if cfg.telemetry else out + (None,)
+    credits_out, stats)``, each None where the config does not make it."""
+    out = list(forward_work(q, cfg, age=age, health=health, credits=credits, comm=comm))
+    if cfg.overflow != "retain":
+        out.insert(2, None)
+    if cfg.flow != "credit":
+        out.insert(3, None)
+    return tuple(out) if cfg.telemetry else tuple(out) + (None,)
 
 
 def drive_start(
-    q0: WorkQueue, aux0: Any, cfg: ForwardConfig, *, comm: StackedCollectives | None = None
+    q0: WorkQueue, aux0: Any, cfg: ForwardConfig, *, health: Optional[torch.Tensor] = None,
+    comm: StackedCollectives | None = None,
 ) -> Dict[str, Any]:
     """The drive's initial forward: route the ray-gen output to its owners
     and build the carry (``q``, ``aux``, ``total``, ``rnd``, ``drops``,
-    ``age`` under retain, ``ring`` with telemetry — its first push has the
-    input queue's drops as ``emit_overflow``)."""
-    q1, total0, age1, stats0 = _fwd(q0, None, cfg, comm)
+    ``age`` under retain, ``credits`` under credit — the forward ran at zero
+    credit, so it shipped nothing and only advertised — and ``ring`` with
+    telemetry, whose first push has the input queue's drops as
+    ``emit_overflow``)."""
+    credits0 = None
+    if cfg.flow == "credit":
+        credits0 = torch.zeros(cfg.num_ranks, cfg.num_ranks, dtype=torch.int32, device=q0.dest.device)
+    q1, total0, age1, credits1, stats0 = _fwd(q0, None, cfg, comm, health, credits0)
     carry = {"q": q1, "aux": aux0, "total": total0, "rnd": 0, "drops": q1.drops}
     if cfg.overflow == "retain":
         carry["age"] = age1
+    if cfg.flow == "credit":
+        carry["credits"] = credits1
     if cfg.telemetry:
         ring = TS.make_ring(TS.num_tiers(cfg), window=cfg.telemetry_window, buckets=cfg.telemetry_buckets,
                             num_ranks=cfg.num_ranks, device=q0.dest.device)
@@ -129,17 +150,21 @@ def drive_segment(
     cfg: ForwardConfig,
     *,
     seg_end: int,
+    health: Optional[torch.Tensor] = None,
     comm: StackedCollectives | None = None,
 ) -> Dict[str, Any]:
     """Run body rounds while ``total > 0`` and ``rnd < seg_end``.  A
     ``round_fn`` that declares a ``headroom`` keyword receives the room its
-    emissions have: ``capacity``, or under retain ``(R,)`` ``capacity``
-    minus each rank's retained rows."""
+    emissions have: ``capacity``; under retain ``(R,)`` ``capacity`` minus
+    each rank's retained rows; under credit ``(R,)`` ``capacity`` minus the
+    rank's outstanding advert and its retained rows."""
     try:
         wants_headroom = "headroom" in inspect.signature(round_fn).parameters
     except (TypeError, ValueError):  # builtins / exotic callables: no gate
         wants_headroom = False
     retain = cfg.overflow == "retain"
+    credit = cfg.flow == "credit"
+    diag = torch.arange(cfg.num_ranks, device=carry["q"].dest.device)
     c = dict(carry)
     # the one host sync per round: the loop condition reads the global count
     while c["rnd"] < seg_end and int(c["total"]) > 0:
@@ -149,18 +174,27 @@ def drive_segment(
         q = WorkQueue(items=q.items, dest=q.dest, count=q.count, drops=torch.zeros_like(q.drops))
         if retain:
             n_ret, view = _split_retained(q)
-            kw = {"headroom": torch.clamp(cfg.capacity - n_ret, min=0)} if wants_headroom else {}
+            limit = None
+            if credit:
+                # my outstanding advert: my own entry (the count call hands
+                # every rank its own fresh value back)
+                limit = (cfg.capacity - torch.clamp(c["credits"][diag, diag], min=0)).to(torch.int32)
+                kw = {"headroom": torch.clamp(limit - n_ret, min=0)} if wants_headroom else {}
+            else:
+                kw = {"headroom": torch.clamp(cfg.capacity - n_ret, min=0)} if wants_headroom else {}
             out_q, c["aux"] = round_fn(view, c["aux"], c["rnd"], **kw)
-            fwd_q, age_in = _merge_retained(q, n_ret, out_q, c["age"])
+            fwd_q, age_in = _merge_retained(q, n_ret, out_q, c["age"], limit)
         else:
             kw = {"headroom": cfg.capacity} if wants_headroom else {}
             fwd_q, c["aux"] = round_fn(q, c["aux"], c["rnd"], **kw)
             age_in = None
-        new_q, c["total"], age_out, stats = _fwd(fwd_q, age_in, cfg, comm)
+        new_q, c["total"], age_out, credits_out, stats = _fwd(fwd_q, age_in, cfg, comm, health, c.get("credits"))
         c["drops"] = c["drops"] + new_q.drops
         c["q"] = new_q
         if retain:
             c["age"] = age_out
+        if credit:
+            c["credits"] = credits_out
         if cfg.telemetry:
             # the round's local emission loss: round_fn's enqueue overflow
             # plus the merge's cut, rows lost before the wire
@@ -190,6 +224,7 @@ def run_until_done(
     cfg: ForwardConfig,
     *,
     max_rounds: int = 64,
+    health: Optional[torch.Tensor] = None,
     comm: StackedCollectives | None = None,
 ) -> Tuple:
     """Iterate ``round_fn`` + ``forward_work`` until global termination.
@@ -204,8 +239,11 @@ def run_until_done(
     a fifth output: on a truncated run, the live rounds-waiting counters of
     the rows still queued.  With ``cfg.telemetry`` the ``StatsRing`` of the
     last ``telemetry_window`` forwards is the last output (a drive of
-    ``rounds`` body rounds records ``rounds + 1``).
+    ``rounds`` body rounds records ``rounds + 1``).  ``health``, an
+    optional constant ``(R,) bool`` mask, re-addresses every forward's
+    traffic away from unhealthy ranks.  Under ``flow="credit"`` the credits
+    cold-start at zero and the emission gate holds (module docstring).
     """
-    carry = drive_start(q0, aux0, cfg, comm=comm)
-    carry = drive_segment(round_fn, carry, cfg, seg_end=max_rounds, comm=comm)
+    carry = drive_start(q0, aux0, cfg, health=health, comm=comm)
+    carry = drive_segment(round_fn, carry, cfg, seg_end=max_rounds, health=health, comm=comm)
     return drive_finalize(carry, cfg)

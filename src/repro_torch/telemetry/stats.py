@@ -158,12 +158,13 @@ def single_tier_stats(
     recv_total: torch.Tensor,  # (R,) rows arriving pre receiver clamp
     recv_drops: torch.Tensor,  # (R,) receiver compaction drops
     rows_held: torch.Tensor = None,  # (R,) retain: rows the send clamp held
+    credits_granted: torch.Tensor = None,  # (R,) credit: Σ min(grant, slot)
 ) -> RoundStats:
     """The flat-backend capture: one tier, filled in one call.  Every flat
     backend discards shipped rows only at the receiver, so
     ``wasted_wire_rows`` is ``recv_drops``.  The retain fields start zero;
-    ``forward_work`` stamps them after the merge; ``credits_granted`` stays
-    zero (credit flow is not ported)."""
+    ``forward_work`` stamps them after the merge.  Under credit flow
+    ``rows_held`` also counts the tails that were not credited."""
     i32 = lambda t: t.to(torch.int32)
     zero = torch.zeros(demand.shape[0], dtype=torch.int32, device=demand.device)
     return RoundStats(
@@ -177,7 +178,7 @@ def single_tier_stats(
         wasted_wire_rows=i32(recv_drops),
         retained_rows=zero,
         age_max=zero,
-        credits_granted=zero[:, None],
+        credits_granted=i32(zero if credits_granted is None else credits_granted)[:, None],
         rows_held=i32(zero if rows_held is None else rows_held)[:, None],
         emit_overflow=zero,
     )

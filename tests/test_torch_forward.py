@@ -362,10 +362,14 @@ def test_forward_config_rejects_features_of_later_slices():
     # items 8 and 9 are ported: telemetry and micro-shard pipelining construct
     assert ForwardConfig(R, C, telemetry=True).telemetry
     assert ForwardConfig(R, C, pipeline_shards=2).pipeline_shards == 2
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        ForwardConfig(R, C, overflow="retain", flow="credit")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        ForwardConfig(R, C, overflow="retain", flow="credit", telemetry=True, pipeline_shards=2)
+    # item 10 is ported: credit flow constructs on the padded and hierarchical routes
+    assert ForwardConfig(R, C, overflow="retain", flow="credit").flow == "credit"
+    assert ForwardConfig(R, C, overflow="retain", flow="credit", telemetry=True, pipeline_shards=2,
+                         emit_reserve=3).emit_reserve == 3
+    assert ForwardConfig(R, C, exchange="hierarchical", level_sizes=(2, 2, 2), overflow="retain",
+                         flow="credit", marshal="scatter").flow == "credit"
+    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
+        ForwardConfig(R, C, exchange="ragged", overflow="retain", flow="credit")
     with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
         ForwardConfig(R, C, exchange="ragged", telemetry=True)
     with pytest.raises(ValueError, match="requires overflow='retain'"):

@@ -336,14 +336,41 @@ def _val_of(uid):
 M32 = (1 << 32) - 1
 
 
-def scenario_drive(sc, cfg, *, max_rounds=64):
+def flat_schedule(sc):
+    """``repro.chaos.driver._flat_schedule`` in numpy: the schedule
+    flattened per rank in emission order, ``(dest (R, K), uid (R, K),
+    prefix (R, rounds))``; ``prefix[rank, r]`` counts the entries of rounds
+    ``0..r``, short ranks are zero-padded (the cursor never reaches the pad)."""
+    d = np.asarray(sc.dests)
+    R_, E = sc.num_ranks, sc.emits_per_round
+    valid = d >= 0  # (rounds, R, E)
+    uid = (np.arange(sc.rounds)[:, None, None] * R_ + np.arange(R_)[None, :, None]) * E + np.arange(E)
+    per = valid.transpose(1, 0, 2).reshape(R_, -1)  # rank-major, then round, then lane
+    K = max(1, int(per.sum(axis=1).max()))
+    dest = np.zeros((R_, K), np.int32)
+    uids = np.zeros((R_, K), np.int32)
+    for rank in range(R_):
+        sel = per[rank]
+        n = int(sel.sum())
+        dest[rank, :n] = d.transpose(1, 0, 2).reshape(R_, -1)[rank][sel]
+        uids[rank, :n] = uid.transpose(1, 0, 2).reshape(R_, -1)[rank][sel]
+    prefix = np.cumsum(valid.sum(axis=2), axis=0).T.astype(np.int32)
+    return dest, uids, prefix
+
+
+def scenario_drive(sc, cfg, *, max_rounds=64, gated=False, health=None):
     """Drive ``sc`` through the port: round 0's emissions seed the queue,
     body round ``rnd`` consumes its arrivals into per-rank (count, Σuid,
     Σuid²) mod 2³² checksums and emits schedule row ``rnd + 1`` (the
     ``repro.chaos.run_scenario``'s law).  One segment per round, so the retained
-    rows and their largest age are read after every forward.  Returns the
-    accounting dict (with the ``StatsRing`` under ``"ring"`` when ``cfg``
-    records telemetry)."""
+    rows and their largest age are read after every forward.  With
+    ``gated`` the emitter is ``repro.chaos.driver._make_gated_round_fn``'s:
+    a cursor walks the flattened schedule and each round emits the due
+    entries that fit the drive's ``headroom`` (the credit law's emitter).
+    ``health`` is a constant ``(R,) bool`` mask or ``forward_idx -> mask``
+    (forward 0 is the seed routing), as ``simulate_flat_retain`` takes it.
+    Returns the accounting dict (with the ``StatsRing`` under ``"ring"``
+    when ``cfg`` records telemetry)."""
     R_, C, E = sc.num_ranks, cfg.capacity, sc.emits_per_round
     dests = torch.from_numpy(np.asarray(sc.dests, np.int32))
     me = torch.arange(R_, dtype=torch.int64)[:, None]
@@ -356,18 +383,42 @@ def scenario_drive(sc, cfg, *, max_rounds=64):
         uid = ((rnd * R_ + me) * E + torch.arange(E)).to(torch.int32)
         return enqueue(q, ChaosItem(uid=uid, val=_val_of(uid)), torch.where(mask, row, DISCARD), mask)
 
-    def round_fn(q_in, acc, rnd):
+    def consume(q_in, acc):
         valid = lane < q_in.count[:, None]
         u = q_in.items.uid.to(torch.int64)
         bad.append(int((valid[:, :, None] & (q_in.items.val != _val_of(q_in.items.uid))).sum()))
         acc = acc + torch.stack([valid.sum(1), torch.where(valid, u, 0).sum(1),
                                  torch.where(valid, u * u, 0).sum(1)], dim=1)
+        return acc & M32
+
+    def round_fn(q_in, acc, rnd):
         out = emit(make_queue(_chaos_proto(), C, num_ranks=R_, device="cpu"), rnd + 1)
-        return out, acc & M32
+        return out, consume(q_in, acc)
+
+    f_dest, f_uid, prefix = (torch.from_numpy(a) for a in flat_schedule(sc))
+    K = f_dest.shape[1]
+
+    def gated_fn(q_in, aux, rnd, headroom):
+        acc, cursor = aux
+        due = prefix[:, min(max(rnd + 1, 0), sc.rounds - 1)]
+        n = torch.minimum(torch.clamp(due - cursor, min=0), headroom)
+        idx = (cursor[:, None] + lane).clamp(0, K - 1)
+        mask = lane < n[:, None]
+        uid = torch.gather(f_uid, 1, idx)
+        out = enqueue(make_queue(_chaos_proto(), C, num_ranks=R_, device="cpu"),
+                      ChaosItem(uid=uid, val=_val_of(uid)), torch.where(mask, torch.gather(f_dest, 1, idx), DISCARD), mask)
+        return out, (consume(q_in, acc), (cursor + n).to(torch.int32))
+
+    def mask_at(f):
+        if health is None:
+            return None
+        return torch.from_numpy(np.asarray(health(f) if callable(health) else health, bool))
 
     q0 = emit(make_queue(_chaos_proto(), C, num_ranks=R_, device="cpu"), 0)
     comm = StackedCollectives()
-    carry = TTERM.drive_start(q0, torch.zeros(R_, 3, dtype=torch.int64), cfg, comm=comm)
+    acc0 = torch.zeros(R_, 3, dtype=torch.int64)
+    aux0 = (acc0, prefix[:, 0].clone()) if gated else acc0
+    carry = TTERM.drive_start(q0, aux0, cfg, health=mask_at(0), comm=comm)
     retained, ages = [], []
 
     def observe(c):
@@ -377,13 +428,17 @@ def scenario_drive(sc, cfg, *, max_rounds=64):
 
     observe(carry)
     while carry["rnd"] < max_rounds and int(carry["total"]) > 0:
-        carry = TTERM.drive_segment(round_fn, carry, cfg, seg_end=carry["rnd"] + 1, comm=comm)
+        carry = TTERM.drive_segment(gated_fn if gated else round_fn, carry, cfg, seg_end=carry["rnd"] + 1,
+                                    health=mask_at(carry["rnd"] + 1), comm=comm)
         observe(carry)
-    q, acc, rounds, done, age, *ring = TTERM.drive_finalize(carry, cfg)
+    q, aux, rounds, done, age, *ring = TTERM.drive_finalize(carry, cfg)
+    acc = aux[0] if gated else aux
+    emitted = int(aux[1].sum()) if gated else sc.emitted
     return {"delivered": acc.numpy().astype(np.uint32), "drops": int(q.drops.sum()),
-            "rounds": rounds, "done": done, "resident": int(q.count.sum()),
+            "rounds": rounds, "done": done, "resident": int(q.count.sum()), "emitted": emitted,
             "retained_trace": retained, "age_trace": ages, "bad_ballast": sum(bad),
-            "final_age": age, "final_q": q, "comm": comm, "ring": ring[0] if ring else None}
+            "final_age": age, "final_q": q, "comm": comm, "ring": ring[0] if ring else None,
+            "credits": carry.get("credits")}
 
 
 @pytest.mark.parametrize("marshal", ["sort", "scatter"])
