@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all started together, linked into one library under
-``build/``) and runs eleven phases on ``cuda:0``:
+``build/``) and runs twelve phases on ``cuda:0``:
 
   1. kernels     — all ten kernels (K1 gather_rows, K2 unmarshal, K3
                    pack_and_histogram, K4 rank_and_histogram, K5
@@ -112,12 +112,33 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    padded round's, R payload and R count ``ppermute``
                    calls, K3 and K1 or K5, and K6, every hop; timed beside
                    the padded round;
-  8. streamlines — ``apps.streamlines.run`` through
+  8. recovery    — the checkpointed drive, the recovery law and the chaos
+                   driver, ``chaos.ChaosItem`` rows: (a)
+                   ``rotating_hotspot(8, 8, 32768)`` through
+                   ``chaos.run_scenario_checkpointed`` at C=262,144, 8,192
+                   peer slots, retain, the ring on, a checkpoint every 3
+                   rounds, sort and scatter: uninterrupted, preempted at
+                   round 5 and resumed, and with no checkpoint directory —
+                   SHA-256 digests equal at every common boundary, checksums
+                   ``expected_by_rank``, 0 lost, 0 drops, ``run_scenario``'s
+                   rounds and result, K1–K6 counted on the path
+                   ``recovery``; (b) the same drive preempted at its first
+                   drain-phase boundary (9) and resumed on 4 ranks at
+                   C=524,288: the global checksums the schedule's, nothing
+                   lost, the rows in flight and the relayout's time; (c)
+                   ``incast_collapse(8, 10, 8192)`` through the credit drive
+                   (S=65,536), preempted and resumed: digests equal; (d)
+                   bytes and seconds a boundary (host copy, serialise,
+                   SHA-256, write with fsync), device ms a round of the
+                   segmented drive against ``run_until_done``'s (kernels
+                   and copies apart, in turns), and a body round's syncs
+                   with the accounting counters against without;
+  9. streamlines — ``apps.streamlines.run`` through
                    ``RafiContext.run_until_done``, R=8, 131,072 particles,
                    64 steps, ABC field (tornado and Taylor-Green at 16,384):
                    traces equal the single-rank oracle exactly; K6 launched
                    once per ``enqueue``;
-  9. vopat       — ``apps.vopat.render`` at 1024×1024 (1,048,576 primary
+ 10. vopat       — ``apps.vopat.render`` at 1024×1024 (1,048,576 primary
                    rays), R=8, ``marshal="scatter"``: drops 0, the image
                    bit-equal to the R=1 render and to the R=8 sort render,
                    finite and in [0, 1]; rounds, wall time and the
@@ -126,7 +147,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    pairs bit-equal to the same words on the CPU, and a
                    64×64 render equal to the port's plain CPU render within
                    the port-against-reference tolerance of the tests;
- 10. nbody       — ``apps.nbody.run``, R=8, 262,144 particles, 8 steps (dt
+ 11. nbody       — ``apps.nbody.run``, R=8, 262,144 particles, 8 steps (dt
                    5e-4, θ 0.3, ε² 1e-3, G = 64/N): every particle conserved
                    (totals N every step, drops 0), positions within 1e-2 of
                    the direct-sum oracle, the R=1 run within 1e-5 of it, K9
@@ -134,7 +155,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    forwarding contexts a step); a 512-particle R=8 run on the
                    card against the same run on the CPU; wall time per step,
                    the device-busy share and K9's share of device time;
- 11. report      — one JSON line of the kernels (launches on the paths that
+ 12. report      — one JSON line of the kernels (launches on the paths that
                    run them, errors, bounds; ``ms``, ``plain_ms`` and
                    ``library_ms`` are device times, ``call_ms`` the event
                    pair's; device events a call), the card's name and
@@ -214,7 +235,8 @@ BALANCE_PATHS = tuple(
                                                                     for s in ("global", "intra")) + ("evacuate_flat",)]
     + [f"balance_cycle_{m}_{o}" for m in ("sort", "scatter") for o in ("drop", "retain")]
 )
-ROUND_PATHS = LOSSLESS_PATHS + TELEMETRY_PATHS + PIPELINE_PATHS + CREDIT_PATHS + BALANCE_PATHS
+RECOVERY_PATHS = ("recovery", "recovery_elastic", "recovery_credit")
+ROUND_PATHS = LOSSLESS_PATHS + TELEMETRY_PATHS + PIPELINE_PATHS + CREDIT_PATHS + BALANCE_PATHS + RECOVERY_PATHS
 LAUNCH_PATHS = {
     "pack_and_histogram": ("streamlines", "nbody") + ROUND_PATHS,
     "gather_rows": ("streamlines", "nbody") + ROUND_PATHS,
@@ -1008,28 +1030,6 @@ def _ballast(uid):
     return uid.to(torch.float32)[..., None] * torch.arange(1, 11, device=uid.device) * 0.25
 
 
-def flat_schedule(sc):
-    """The schedule flattened per rank in emission order, as
-    ``repro.chaos.driver._flat_schedule`` lays it out: ``(dest (R, K) i32,
-    uid (R, K) i32, prefix (R, rounds) i32)``, ``prefix[rank, r]`` the
-    entries of rounds ``0..r``; short ranks zero-padded."""
-    import numpy as np
-
-    d = np.asarray(sc.dests).transpose(1, 0, 2).reshape(sc.num_ranks, -1)  # rank, then round, then lane
-    R, E = sc.num_ranks, sc.emits_per_round
-    uid = ((np.arange(sc.rounds)[None, :, None] * R + np.arange(R)[:, None, None]) * E
-           + np.arange(E)[None, None, :]).reshape(R, -1)
-    valid = d >= 0
-    n = valid.sum(axis=1)
-    K = max(1, int(n.max()))
-    order = np.argsort(~valid, axis=1, kind="stable")[:, :K]  # valid entries first, in order
-    keep = np.arange(K)[None, :] < n[:, None]
-    dest = np.where(keep, np.take_along_axis(d, order, 1), 0).astype(np.int32)
-    uids = np.where(keep, np.take_along_axis(uid, order, 1), 0).astype(np.int32)
-    prefix = np.cumsum((np.asarray(sc.dests) >= 0).sum(axis=2), axis=0).T.astype(np.int32)
-    return dest, uids, prefix
-
-
 def expected_fast(sc):
     """``chaos.expected_by_rank`` vectorised (uint64 sums wrap mod 2⁶⁴, so
     mod 2³² they agree): the full-width schedules have ~10⁷ entries."""
@@ -1061,8 +1061,8 @@ class ScenarioDrive:
 
     With ``gated`` the emitter is the credit law's (``repro.chaos.driver.
     _make_gated_round_fn``): a cursor walks the flattened schedule
-    (:func:`flat_schedule`) and each round emits the due entries that fit
-    the drive's ``headroom``.  ``health`` is a constant ``(R,) bool`` mask
+    (``repro_torch.chaos.driver._flat_schedule``) and each round emits the
+    due entries that fit the drive's ``headroom``.  ``health`` is a constant ``(R,) bool`` mask
     or ``forward_idx -> mask`` (forward 0 is the seed routing), re-read at
     every ``step()``; ``run()`` takes a constant mask only."""
 
@@ -1102,7 +1102,9 @@ class ScenarioDrive:
             return emit(rnd + 1), consume(q_in, acc)
 
         if gated:
-            f_dest, f_uid, prefix = (torch.from_numpy(a).to(dev) for a in flat_schedule(sc))
+            from repro_torch.chaos.driver import _flat_schedule
+
+            f_dest, f_uid, prefix = (torch.from_numpy(a).to(dev) for a in _flat_schedule(sc))
             K = f_dest.shape[1]
 
             def round_fn(q_in, aux, rnd, headroom):
@@ -2220,7 +2222,270 @@ def phase_balance(dev, R=8, C=262144, S=65536, N1=65536, P=4096, BROWNOUT=(8, 16
     return out, paths
 
 
-# ----------------------------------------------------------- 8. streamlines
+# --------------------------------------------------------------- 8. recovery
+def _manifest_bytes(ckpt_dir, step):
+    import numpy as np
+
+    from repro_torch import ckpt
+
+    return sum(int(np.prod(e["shape"])) * np.dtype(e["dtype"]).itemsize
+               for e in ckpt.load_manifest(ckpt_dir, step)["leaves"])
+
+
+def _kernel_copy_ms(fn, calls=2, warmup=1):
+    """Device ms of one call of ``fn`` under ``torch.profiler``: its
+    kernels, and its copies and memsets, apart."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = _device_events(prof)
+    copies = sum(e.self_device_time_total for e in events if _short(e.key).startswith("Mem"))
+    kernels = sum(e.self_device_time_total for e in events) - copies
+    return kernels / 1e3 / calls, copies / 1e3 / calls
+
+
+def _boundary_split(ctx, carry, where, reps=3):
+    """One boundary's host work on ``carry``, split: the host copy (one
+    device-to-host copy a leaf), ``np.save`` serialisation and SHA-256 of
+    every leaf, and ``ckpt.save_checkpoint`` whole (serialise, hash, write
+    with fsync, publish); medians of ``reps``, in seconds."""
+    import torch
+
+    from repro_torch import ckpt
+    from repro_torch.ckpt import checkpoint as CK
+    from repro_torch.core import recovery as TREC
+
+    parts = {"copy": [], "serialise": [], "sha256": [], "save": []}
+    for i in range(reps):
+        if carry["total"].is_cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = TREC._host_carry(carry, ctx.cfg)
+        t1 = time.perf_counter()
+        raws = [CK.npy_bytes(a) for a in ckpt.tree_flatten(host)[0]]
+        t2 = time.perf_counter()
+        for raw in raws:
+            CK.digest(raw)
+        t3 = time.perf_counter()
+        ckpt.save_checkpoint(where, i, host, keep=1, meta=TREC._meta_of(ctx, carry["rnd"]))
+        t4 = time.perf_counter()
+        for k, v in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            parts[k].append(v)
+    out = {k: statistics.median(v) for k, v in parts.items()}
+    out["write_fsync"] = out["save"] - out["serialise"] - out["sha256"]
+    out["bytes"] = sum(len(r) for r in raws)
+    return out
+
+
+def phase_recovery(dev, R=8, E=32768, C=262144, S=8192, EVERY=3, PREEMPT=5, DRAIN_AT=9, R4=4, C4=524288,
+                   CREDIT=(10, 8192, 65536), oracle=True, profile=True):
+    """The recovery law at full width on the card, ``chaos.ChaosItem`` rows
+    (3 words): (a) ``rotating_hotspot(R, 8, E)`` through
+    ``chaos.run_scenario_checkpointed`` at C, S peer slots, retain, the
+    ring on, a checkpoint every ``EVERY`` rounds, in both marshals:
+    uninterrupted, preempted at ``PREEMPT`` and resumed, and with no
+    checkpoint directory — equal digests at every common boundary, the
+    checksums ``expected_by_rank``, nothing lost or dropped, the rounds and
+    result of ``run_scenario`` (and the oracle's traces); (b) the same drive
+    preempted at its first drain-phase boundary and resumed on ``R4`` ranks
+    at ``C4``: the global checksums the schedule's, nothing lost or dropped,
+    the relayout timed; (c) ``incast_collapse(R, *CREDIT[:2])`` through the
+    credit drive (S = ``CREDIT[2]``), preempted and resumed: equal digests;
+    (d) the cost: bytes and seconds a boundary (host copy, serialise,
+    SHA-256, write with fsync), the segmented drive's device time a round
+    against ``run_until_done``'s (kernels and copies apart, each drive
+    twice, in turns), and the syncs of a body round with the accounting
+    counters against one without.  Returns ``(record, launches
+    per path)``."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import chaos as TC
+    from repro_torch import ckpt
+    from repro_torch import kernels as KN
+    from repro_torch.chaos import driver as TD
+    from repro_torch.core import recovery as TREC
+    from repro_torch.core import termination as TERM
+
+    out, paths = {}, {}
+    sc = TC.rotating_hotspot(R, 8, E)
+    expected = expected_fast(sc)
+    root = pathlib.Path(tempfile.mkdtemp(prefix="rafi_recovery_"))
+    fs = subprocess.run(["df", "-T", str(root)], capture_output=True, text=True).stdout.strip().splitlines()[-1:]
+    print(f"  checkpoints under {root} ({' '.join(fs[0].split()[:2]) if fs else 'filesystem unknown'})", flush=True)
+    kw = dict(capacity=C, peer_capacity=S, overflow="retain", device=dev)
+    try:
+        refs = {m: TC.run_scenario(R, sc, marshal=m, **kw) for m in ("sort", "scatter")}
+        for m, ref in refs.items():
+            check(ref["done"] and ref["drops"] == 0 and ref["lost"] == 0 and np.array_equal(ref["delivered"], expected),
+                  f"(a) run_scenario {m}: {ref['rounds']} rounds, checksums == expected_by_rank, 0 drops, 0 lost")
+        if oracle:
+            sim = lossless_oracle(sc, S, C)
+            check(all(list(r["retained_trace"]) == sim["retained_trace"] and list(r["age_trace"]) == sim["age_trace"]
+                      and r["rounds"] == sim["rounds"] for r in refs.values()),
+                  f"(a) run_scenario's ring traces == the oracle's, {sim['rounds']} rounds")
+
+        # (a) the main path, launches counted from 0 over every drive of it
+        KN.reset_launch_counts()
+        runs, walls = {}, {}
+        for m in ("sort", "scatter"):
+            for label, extra in (("a", {}), ("b", {"preempt_at": PREEMPT}), ("none", {})):
+                where = None if label == "none" else root / f"{m}_{label}"
+                t0 = time.perf_counter()
+                runs[m, label] = TC.run_scenario_checkpointed(R, sc, marshal=m, ckpt_dir=where, checkpoint_every=EVERY,
+                                                              keep=99, **extra, **kw)
+                walls[m, label] = time.perf_counter() - t0
+        paths["recovery"] = KN.launch_counts()
+        skip = ("ckpt_dir", "steps", "preempted")
+        for m in ("sort", "scatter"):
+            a, b, none = runs[m, "a"], runs[m, "b"], runs[m, "none"]
+            da, db = TC.boundary_digests(root / f"{m}_a"), TC.boundary_digests(root / f"{m}_b")
+            common = sorted(set(da) & set(db))
+            check(b["preempted"] and not a["preempted"] and len(common) >= 3 and all(da[s] == db[s] for s in common)
+                  and a["steps"] == b["steps"],
+                  f"(a) {m}: preempted at {PREEMPT} and resumed, digests == uninterrupted at boundaries {common}")
+            check(all(np.array_equal(r["delivered"], expected) and r["lost"] == 0 and r["drops"] == 0 and r["done"]
+                      and r["rounds"] == refs[m]["rounds"] for r in (a, b, none)),
+                  f"(a) {m}: uninterrupted, resumed, no directory: checksums == expected_by_rank, 0 lost, 0 drops, "
+                  f"{refs[m]['rounds']} rounds (run_scenario's)")
+            check(none["steps"] == [] and sorted(k for k in none if k not in skip) == sorted(refs[m])
+                  and _same_result({k: none[k] for k in refs[m]}, refs[m]),
+                  f"(a) {m}: ckpt_dir=None == run_scenario, every key")
+            nb = _manifest_bytes(root / f"{m}_a", a["steps"][0])
+            print(f"  (a) {m}: {a['rounds']} rounds, boundaries {a['steps']}, {nb:,} B a boundary; wall s "
+                  f"uninterrupted {walls[m, 'a']:.3f}, preempted + resumed {walls[m, 'b']:.3f}, no directory "
+                  f"{walls[m, 'none']:.3f}", flush=True)
+            out[f"a_{m}"] = {"rounds": a["rounds"], "steps": a["steps"], "bytes_a_boundary": nb,
+                             "wall_s": {k[1]: walls[k] for k in walls if k[0] == m}}
+        rounds = refs["sort"]["rounds"]
+        if dev.type == "cuda":
+            # a forward: the sort plan (K3), send and spill gathers (K1), K2;
+            # the scatter plan (K4, K5), the spill gather (K1), K2; K6 in every
+            # body round's enqueue (the seed queue comes from the host)
+            f, n = 3 * (rounds + 1), 3 * rounds
+            want = dict.fromkeys(paths["recovery"], 0)
+            want.update(pack_and_histogram=f, gather_rows=3 * f, unmarshal=2 * f, rank_and_histogram=f,
+                        scatter_rows=f, compact_positions=2 * n)
+            check(paths["recovery"] == want, f"(a) launches over six drives of {rounds + 1} forwards: "
+                                             f"{paths['recovery']}")
+        da, db = TC.boundary_digests(root / "sort_a"), TC.boundary_digests(root / "scatter_a")
+        same = [i for i in range(len(da[0])) if all(da[s][i] == db[s][i] for s in da)]
+        print(f"  (a) sort and scatter checkpoints digest-equal on {len(same)} of {len(da[0])} leaves", flush=True)
+        out["sort_scatter_equal_leaves"] = same
+        for m in ("sort", "scatter"):
+            for label in ("a", "b"):
+                shutil.rmtree(root / f"{m}_{label}")
+
+        # (b) preempted at the first drain-phase boundary, resumed on R4 ranks
+        KN.reset_launch_counts()
+        t0 = time.perf_counter()
+        el = TC.run_scenario_checkpointed(R, sc, ckpt_dir=root / "elastic", checkpoint_every=EVERY, keep=99,
+                                          preempt_at=DRAIN_AT, resume_ranks=R4, resume_capacity=C4, **kw)
+        wall_el = time.perf_counter() - t0
+        paths["recovery_elastic"] = KN.launch_counts()
+        got = el["delivered"].astype(np.uint64)
+        exp = expected.astype(np.uint64)
+        check(el["preempted"] and el["done"] and el["lost"] == 0 and el["drops"] == 0 and got.shape[0] == R4
+              and all(int(got[:, i].sum() % (1 << 32)) == int(exp[:, i].sum() % (1 << 32)) for i in range(3)),
+              f"(b) preempted at {DRAIN_AT}, resumed on {R4} ranks at C={C4}: global checksums == the schedule's, "
+              f"0 lost, 0 drops, {el['rounds']} rounds")
+        man = ckpt.load_manifest(root / "elastic", DRAIN_AT)
+        check(man["meta"]["num_ranks"] == R4, f"(b) boundary {DRAIN_AT} republished on {R4} ranks")
+        # the relayout alone, from the 8-rank boundary the drive halted at
+        ctx8 = TD._make_ctx(R, **kw)
+        ctx4 = TD._make_ctx(R4, capacity=C4, peer_capacity=S, overflow="retain", device=dev)
+        halted = TREC.run_checkpointed(ctx8, TD._make_round_fn(ctx8, sc), TD._seed_queue(sc, C, device=dev),
+                                       TD._aux0(R, dev), ckpt_dir=root / "halt", checkpoint_every=EVERY, keep=99,
+                                       halt_after_round=DRAIN_AT)
+        man8 = ckpt.load_manifest(root / "halt", DRAIN_AT)
+        aux_like = tuple(np.zeros((R4,), np.uint32) for _ in range(3))
+        _, treedef = ckpt.tree_flatten(TREC._carry_like(ctx4, aux_like))
+        like8 = ckpt.tree_unflatten(treedef, [np.zeros(tuple(e["shape"]), np.dtype(e["dtype"])) for e in man8["leaves"]])
+        old = ckpt.restore_checkpoint(root / "halt", DRAIN_AT, like8, device=dev)
+        in_flight = int(old["total"])
+        relayout = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            new = TREC._elastic_restore(old, ctx4, R_old=R, C_old=C, aux_restore=None)
+            int(new["total"])  # waits for the relayout's last kernel
+            relayout.append(time.perf_counter() - t0)
+        check(halted is None and int(new["total"]) == in_flight and int(new["drops"].sum()) == int(old["drops"].sum()),
+              f"(b) relayout of boundary {DRAIN_AT}: {in_flight} rows in flight, all placed on {R4} ranks")
+        print(f"  (b) boundary {DRAIN_AT}: {in_flight:,} rows in flight; relayout 8 -> {R4} ranks "
+              f"{1e3 * statistics.median(relayout):.1f} ms (median of 3); the elastic drive {wall_el:.3f} s, "
+              f"{el['rounds']} rounds", flush=True)
+        out["elastic"] = {"rows_in_flight": in_flight, "relayout_ms": 1e3 * statistics.median(relayout),
+                          "rounds": el["rounds"], "wall_s": wall_el}
+        shutil.rmtree(root / "elastic")
+
+        # (c) the credit drive, preempted and resumed
+        rounds_c, E_c, S_c = CREDIT
+        csc = TC.incast_collapse(R, rounds_c, E_c)
+        ckw = dict(capacity=C, peer_capacity=S_c, overflow="retain", flow="credit", device=dev)
+        KN.reset_launch_counts()
+        ca = TC.run_scenario_checkpointed(R, csc, ckpt_dir=root / "credit_a", checkpoint_every=EVERY, keep=99, **ckw)
+        cb = TC.run_scenario_checkpointed(R, csc, ckpt_dir=root / "credit_b", checkpoint_every=EVERY, keep=99,
+                                          preempt_at=PREEMPT, **ckw)
+        paths["recovery_credit"] = KN.launch_counts()
+        da, db = TC.boundary_digests(root / "credit_a"), TC.boundary_digests(root / "credit_b")
+        common = sorted(set(da) & set(db))
+        cexp = expected_fast(csc)
+        check(cb["preempted"] and len(common) >= 3 and all(da[s] == db[s] for s in common)
+              and all(np.array_equal(r["delivered"], cexp) and r["lost"] == 0 and r["drops"] == 0 and r["done"]
+                      for r in (ca, cb)) and ca["rounds"] == cb["rounds"],
+              f"(c) incast_collapse({R}, {rounds_c}, {E_c}) credit drive: {ca['rounds']} rounds, preempted at "
+              f"{PREEMPT} and resumed, digests == uninterrupted at {common}, checksums == expected_by_rank")
+        out["credit"] = {"rounds": ca["rounds"], "steps": ca["steps"]}
+        shutil.rmtree(root / "credit_a")
+        shutil.rmtree(root / "credit_b")
+
+        # (d) the cost of a boundary and of the segmented drive
+        ctx = TD._make_ctx(R, **kw)
+        rfn = TD._make_round_fn(ctx, sc)
+        carry = TERM.drive_start(TD._seed_queue(sc, C, device=dev), TD._aux0(R, dev), ctx.cfg, comm=ctx.comm,
+                                 accounting=True)
+        carry = TERM.drive_segment(rfn, carry, ctx.cfg, seg_end=EVERY, comm=ctx.comm)
+        split = _boundary_split(ctx, carry, root / "cost")
+        print(f"  (d) a boundary at round {carry['rnd']}: {split['bytes']:,} B; s: host copy {split['copy']:.4f}, "
+              f"serialise {split['serialise']:.4f}, SHA-256 {split['sha256']:.4f}, write with fsync "
+              f"{split['write_fsync']:.4f} (save whole {split['save']:.4f})", flush=True)
+        out["boundary"] = split
+        if dev.type == "cuda":
+            plain = {k: v for k, v in carry.items() if k not in ("emitted", "delivered")}
+            syncs = {name: _sync_warnings(lambda c=c: TERM.drive_segment(rfn, c, ctx.cfg, seg_end=c["rnd"] + 1,
+                                                                       comm=ctx.comm))
+                     for name, c in (("accounting", carry), ("plain", plain))}
+            check(syncs["accounting"] <= syncs["plain"], f"(d) a body round with the accounting counters: syncs "
+                                                         f"{syncs['accounting']} <= {syncs['plain']} without")
+            out["round_syncs"] = syncs
+        if profile:  # in turns: segmented, run_until_done, run_until_done, segmented
+            f1 = refs["sort"]["rounds"] + 1
+            drives = {"segmented": lambda: TC.run_scenario_checkpointed(R, sc, ckpt_dir=None, checkpoint_every=EVERY,
+                                                                        **kw),
+                      "run_until_done": lambda: TC.run_scenario(R, sc, **kw)}
+            split = {k: [] for k in drives}
+            for k in ("segmented", "run_until_done", "run_until_done", "segmented"):
+                split[k].append(tuple(ms / f1 for ms in _kernel_copy_ms(drives[k])))
+            for k, v in split.items():
+                print(f"  (d) {k}: device ms a forwarding round, kernels / copies: "
+                      + ", ".join(f"{a:.4f} / {b:.4f}" for a, b in v) + f" ({f1} forwards a drive)", flush=True)
+            out["device_ms_a_round"] = {k: [{"kernels": a, "copies": b} for a, b in v] for k, v in split.items()}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out, paths
+
+
+# ----------------------------------------------------------- 9. streamlines
 def profile_drive(run, dev, kernel=None):
     """Device-busy share of one drive under ``torch.profiler``: summed
     device time of every kernel and copy over the drive's wall time (the
@@ -2300,7 +2565,7 @@ def phase_streamlines(dev, fields=(("ABC", 0, 131072), ("tornado", 1, 16384), ("
     return out, main_launches
 
 
-# ----------------------------------------------------------------- 9. vopat
+# ---------------------------------------------------------------- 10. vopat
 def phase_vopat(dev, size=1024, R=8, profile=True, N_WORDS=2097152, CPU_SIZE=64):
     """The VoPaT main path: ``render`` through ``run_until_done`` with the
     scatter marshal, held against the R=1 render and the R=8 sort render,
@@ -2381,7 +2646,7 @@ def phase_vopat(dev, size=1024, R=8, profile=True, N_WORDS=2097152, CPU_SIZE=64)
     return out, launches
 
 
-# ---------------------------------------------------------------- 10. nbody
+# ---------------------------------------------------------------- 11. nbody
 def phase_nbody(dev, N=262144, R=8, steps=8, WITNESS_N=512, profile=True):
     """The N-body main path: ``run`` at R=8 against the direct-sum oracle,
     the R=1 run, launches per run, and a small run on the card against the
@@ -2479,7 +2744,7 @@ def main() -> int:
     run = {"kernels": lambda: phase_kernels(dev), "forward": lambda: phase_forward(dev),
            "lossless": lambda: phase_lossless(dev), "telemetry": lambda: phase_telemetry(dev),
            "pipeline": lambda: phase_pipeline(dev), "credit": lambda: phase_credit(dev),
-           "balance": lambda: phase_balance(dev),
+           "balance": lambda: phase_balance(dev), "recovery": lambda: phase_recovery(dev),
            "streamlines": lambda: phase_streamlines(dev), "vopat": lambda: phase_vopat(dev),
            "nbody": lambda: phase_nbody(dev)}
     kernels, paths = {}, {}  # paths: launches per path, counted from 0
@@ -2495,7 +2760,7 @@ def main() -> int:
         if title == "kernels":
             kernels, more = res
             paths.update(more)
-        elif title in ("lossless", "telemetry", "pipeline", "credit", "balance"):
+        elif title in ("lossless", "telemetry", "pipeline", "credit", "balance", "recovery"):
             record[title], more = res
             paths.update(more)
         elif title in ("streamlines", "vopat", "nbody"):

@@ -1,15 +1,18 @@
 """Quickstart on the PyTorch port: the work-forwarding core in ~100 lines.
 
-Sections 1–5 of ``examples/quickstart.py``: define a work-item type, emit
+Sections 1–6 of ``examples/quickstart.py``: define a work-item type, emit
 items to destination ranks from a per-rank round kernel, drive the
 computation to distributed termination with the sort-free
 ``marshal="scatter"`` round and the flight recorder on
-(``telemetry=True``), read the recorder's summary back, and run the same
-drive pipelined (``pipeline_shards=2``), bit-exact with the bulk one.  All R
-ranks are rows of one rank-stacked tensor on one device.  Section 6 drives
-the same computation through the lossless law (``overflow="retain"``, peer
-slots too small for the traffic) and the hierarchical route on a 2×4
-(node, device) layout: the same deposits, nothing dropped.
+(``telemetry=True``), read the recorder's summary back, run the same drive
+pipelined (``pipeline_shards=2``), bit-exact with the bulk one, and drive
+the chaos harness's sustained overload open against credit flow under the
+span tracer.  All R ranks are rows of one rank-stacked tensor on one
+device.  Section 5b drives the computation of sections 1–3 through the
+lossless law (``overflow="retain"``, peer slots too small for the traffic)
+and the hierarchical route on a 2×4 (node, device) layout: the same
+deposits, nothing dropped.  Section 7 of the reference (the flight-data
+report, ``obs.report``) comes with ROADMAP Queue 1 item 14.
 
 Runs on the CUDA card; ``--cpu`` runs the plain PyTorch path.
 Run:  PYTHONPATH=src python examples/quickstart_torch.py [--cpu]
@@ -20,8 +23,10 @@ import dataclasses
 import torch
 
 from repro_torch import telemetry as TM
+from repro_torch.chaos import run_scenario, sustained_overload
 from repro_torch.core import DISCARD, ForwardConfig, enqueue, make_queue, run_until_done, work_item
 from repro_torch.core.collectives import node_layout
+from repro_torch.obs import trace as OT
 
 ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
 ap.add_argument("--cpu", action="store_true", help="run on the CPU (plain PyTorch versions of the kernels)")
@@ -112,12 +117,12 @@ q2, acc2, rounds2, _done2, _ring2 = drive(dataclasses.replace(cfg, pipeline_shar
 assert torch.equal(acc2, acc) and rounds2 == rounds
 print(f"pipelined (S=2) drive bit-exact with bulk: {float(acc2.sum()):.3f}")
 
-# 6. The lossless law and the hierarchical route.  ``overflow="retain"``
+# 5b. The lossless law and the hierarchical route.  ``overflow="retain"``
 #    keeps every row a clamp would cut at the front of its queue and
 #    retries it next round, oldest first; with 1-row peer slots the ring
 #    now takes more rounds, and deposits the same.  The hierarchical route
 #    ships each hop fastest tier first over a (node, device) layout.
-section(6, "lossless and hierarchical drives")
+section("5b", "lossless and hierarchical drives")
 for label, c in (
     ("retain, 1-row peer slots", ForwardConfig(R, CAP, peer_capacity=1, marshal="scatter", overflow="retain")),
     ("hierarchical 2x4", ForwardConfig(R, CAP, exchange="hierarchical", level_sizes=node_layout(2, 4))),
@@ -128,4 +133,33 @@ for label, c in (
     print(f"{label}: total deposited {float(acc2.sum()):.3f} in {rounds2} rounds, "
           f"drops {int(q.drops.sum())}, done {done2}")
     assert torch.equal(acc2, acc) and int(q.drops.sum()) == 0 and done2
+
+# 6. The backpressure law: under sustained overload, open flow ships rows
+#    its receivers must clamp — wire spent on work that is thrown away.
+#    ``flow="credit"`` piggybacks each receiver's free space on the count
+#    collective and gates senders on it, so every shipped row lands: slower
+#    to drain (credits are one round stale), but goodput 1.0 and no loss.
+#    The chaos driver runs the scenario through the drive loop, captured
+#    under the span tracer (host side only: every number is unchanged).
+section(6, "backpressure under sustained overload")
+sc = sustained_overload()  # 2 of 8 ranks hot: concentration that persists
+results = {}
+with OT.capture() as tracer:
+    for flow in ("open", "credit"):
+        r = results[flow] = run_scenario(
+            sc.num_ranks, sc, capacity=16, max_rounds=256, flow=flow, overflow="retain", pipeline_shards=4,
+            device=device,
+        )
+        print(
+            f"overload [{flow:6s}]: delivered {r['delivered_total']}/{r['emitted']}"
+            f" in {r['rounds']} rounds, goodput {r['goodput']:.3f}, drops {r['drops']}"
+        )
+        if flow == "open":
+            assert r["goodput"] < 0.9  # wire wasted on clamped rows
+        else:
+            assert r["goodput"] == 1.0 and r["drops"] == 0 and r["done"]
+print(f"traced {len(tracer.select(name='chaos.run_scenario'))} scenario spans, {len(tracer.events)} events")
+
+# 7. The observation law's flight-data report (``obs.report``) comes with
+#    ROADMAP Queue 1 item 14.
 print("OK")

@@ -7,9 +7,19 @@ and the brownout and overload shapes) and of ``repro.chaos.oracle``
 :func:`simulate_flat_retain`, the round-by-round numpy twin of the flat
 padded retain drive, rank-health remap included; and
 :func:`simulate_flat_credit`, the twin of the flat credit drive with the
-cursor-gated emitter).  The device drive (``run_scenario``) comes with
-ROADMAP Queue 1 item 13.
+cursor-gated emitter); and of ``repro.chaos.driver`` (:func:`run_scenario`,
+the scenario through the port's drive loop, and
+:func:`run_scenario_checkpointed`, through the recovery law's segmented
+drive with preemption, resume and elastic restore, with
+:func:`boundary_digests` as the bit-exactness witness).
 """
+from repro_torch.chaos.driver import (
+    ChaosItem,
+    boundary_digests,
+    chaos_proto,
+    run_scenario,
+    run_scenario_checkpointed,
+)
 from repro_torch.chaos.oracle import expected_by_rank, simulate_flat_credit, simulate_flat_retain
 from repro_torch.chaos.scenarios import (
     Scenario,
@@ -26,10 +36,13 @@ from repro_torch.chaos.scenarios import (
 )
 
 __all__ = [
+    "ChaosItem",
     "Scenario",
     "all_scenarios",
+    "boundary_digests",
     "brownout_mask",
     "burst_storm",
+    "chaos_proto",
     "capacity_drought",
     "convergecast",
     "expected_by_rank",
@@ -37,6 +50,8 @@ __all__ = [
     "overload_scenarios",
     "rank_brownout",
     "rotating_hotspot",
+    "run_scenario",
+    "run_scenario_checkpointed",
     "simulate_flat_credit",
     "simulate_flat_retain",
     "sustained_overload",

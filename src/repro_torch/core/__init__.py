@@ -6,7 +6,9 @@ Device interface: WorkQueue, make_queue, enqueue, get_incoming,
 Host context: RafiContext, ForwardConfig, forward_work, run_until_done,
   rebalance, cycle_step / deliver_by_cycling (the ring alternative),
   StackedCollectives (the collective layer and its call recorder).
-Recovery: health_table / remap_dest (the rank-draining destination remap).
+Recovery: health_table / remap_dest (the rank-draining destination remap),
+  run_checkpointed / resume_run / conservation_check (the segmented,
+  checkpointed drive and its watchdog).
 Item typing: work_item, item_nbytes, pack_payload, unpack_payload.
 """
 from repro_torch.core.collectives import StackedCollectives
@@ -24,6 +26,7 @@ from repro_torch.core.queue import (
     num_incoming,
 )
 from repro_torch.core.rebalance import rebalance
+from repro_torch.core.recovery import conservation_check, resume_run, run_checkpointed
 from repro_torch.core.termination import run_until_done
 from repro_torch.core.types import (
     PackSpec,
@@ -44,6 +47,7 @@ __all__ = [
     "WorkQueue",
     "batched_zeros",
     "clear",
+    "conservation_check",
     "cycle_step",
     "deliver_by_cycling",
     "enqueue",
@@ -59,6 +63,8 @@ __all__ = [
     "queue_to_reference",
     "rebalance",
     "remap_dest",
+    "resume_run",
+    "run_checkpointed",
     "run_until_done",
     "unpack_payload",
     "work_item",

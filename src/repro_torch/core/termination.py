@@ -120,14 +120,18 @@ def _fwd(q, age, cfg, comm, health=None, credits=None):
 
 def drive_start(
     q0: WorkQueue, aux0: Any, cfg: ForwardConfig, *, health: Optional[torch.Tensor] = None,
-    comm: StackedCollectives | None = None,
+    comm: StackedCollectives | None = None, accounting: bool = False,
 ) -> Dict[str, Any]:
     """The drive's initial forward: route the ray-gen output to its owners
     and build the carry (``q``, ``aux``, ``total``, ``rnd``, ``drops``,
     ``age`` under retain, ``credits`` under credit — the forward ran at zero
     credit, so it shipped nothing and only advertised — and ``ring`` with
     telemetry, whose first push has the input queue's drops as
-    ``emit_overflow``)."""
+    ``emit_overflow``).  With ``accounting`` the carry also holds the
+    per-rank ``emitted`` / ``delivered`` int32 counters the recovery
+    watchdog closes at every boundary: ``emitted`` counts attempted
+    emissions (accepted rows plus their enqueue clips), so ``emitted ==
+    delivered + in-flight + drops`` holds exactly."""
     credits0 = None
     if cfg.flow == "credit":
         credits0 = torch.zeros(cfg.num_ranks, cfg.num_ranks, dtype=torch.int32, device=q0.dest.device)
@@ -141,6 +145,9 @@ def drive_start(
         ring = TS.make_ring(TS.num_tiers(cfg), window=cfg.telemetry_window, buckets=cfg.telemetry_buckets,
                             num_ranks=cfg.num_ranks, device=q0.dest.device)
         carry["ring"] = TS.ring_push(ring, TS.attach_emit_overflow(stats0, q0.drops))
+    if accounting:
+        carry["emitted"] = (q0.count + q0.drops).to(torch.int32)
+        carry["delivered"] = torch.zeros_like(carry["emitted"])
     return carry
 
 
@@ -157,13 +164,15 @@ def drive_segment(
     ``round_fn`` that declares a ``headroom`` keyword receives the room its
     emissions have: ``capacity``; under retain ``(R,)`` ``capacity`` minus
     each rank's retained rows; under credit ``(R,)`` ``capacity`` minus the
-    rank's outstanding advert and its retained rows."""
+    rank's outstanding advert and its retained rows.  The accounting
+    counters advance iff they are in ``carry``."""
     try:
         wants_headroom = "headroom" in inspect.signature(round_fn).parameters
     except (TypeError, ValueError):  # builtins / exotic callables: no gate
         wants_headroom = False
     retain = cfg.overflow == "retain"
     credit = cfg.flow == "credit"
+    track = "emitted" in carry
     diag = torch.arange(cfg.num_ranks, device=carry["q"].dest.device)
     c = dict(carry)
     # the one host sync per round: the loop condition reads the global count
@@ -184,10 +193,12 @@ def drive_segment(
                 kw = {"headroom": torch.clamp(cfg.capacity - n_ret, min=0)} if wants_headroom else {}
             out_q, c["aux"] = round_fn(view, c["aux"], c["rnd"], **kw)
             fwd_q, age_in = _merge_retained(q, n_ret, out_q, c["age"], limit)
+            consumed, attempted = view.count, out_q.count + out_q.drops
         else:
             kw = {"headroom": cfg.capacity} if wants_headroom else {}
             fwd_q, c["aux"] = round_fn(q, c["aux"], c["rnd"], **kw)
             age_in = None
+            consumed, attempted = q.count, fwd_q.count + fwd_q.drops
         new_q, c["total"], age_out, credits_out, stats = _fwd(fwd_q, age_in, cfg, comm, health, c.get("credits"))
         c["drops"] = c["drops"] + new_q.drops
         c["q"] = new_q
@@ -199,6 +210,9 @@ def drive_segment(
             # the round's local emission loss: round_fn's enqueue overflow
             # plus the merge's cut, rows lost before the wire
             c["ring"] = TS.ring_push(c["ring"], TS.attach_emit_overflow(stats, fwd_q.drops))
+        if track:
+            c["emitted"] = (c["emitted"] + attempted).to(torch.int32)
+            c["delivered"] = (c["delivered"] + consumed).to(torch.int32)
         c["rnd"] += 1
     return c
 

@@ -2,8 +2,8 @@
 examples print: ``quickstart_torch.py`` the drained totals of sections 1–5
 of ``examples/quickstart.py`` (deposits per rank, 4 rounds, 9.000, the
 telemetry summary of 5 recorded rounds with no drop, the pipelined drive
-bit-exact with bulk), then the same totals through retain and the
-hierarchical route; ``vopat_render_torch.py`` an 8-rank image bit-equal to
+bit-exact with bulk), the same totals through retain and the hierarchical
+route, and section 6's overload drained losslessly by credit flow; ``vopat_render_torch.py`` an 8-rank image bit-equal to
 the 1-rank one and its drop-free telemetry summary.  Neither imports JAX or
 the reference package."""
 import os
@@ -40,6 +40,8 @@ def test_quickstart_torch_prints_the_reference_totals():
     assert "telemetry: 5 rounds recorded, max segment demand 4 (peer slots sized 32), clamp drops 0" in out
     assert "pipelined (S=2) drive bit-exact with bulk: 9.000" in out
     assert out.count("total deposited 9.000") == 3 and out.rstrip().endswith("OK")
+    # section 6: the chaos driver's overload, open against credit (the twin's 73 rounds)
+    assert "overload [credit]: delivered 1152/1152 in 73 rounds, goodput 1.000, drops 0" in out
 
 
 def test_vopat_render_torch_is_bit_equal_across_rank_counts():

@@ -16,6 +16,7 @@
 Tolerance: none — everything here moves or counts data.
 """
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +37,7 @@ from repro.core import make_queue as j_make_queue
 from repro.core import termination as JTERM
 from repro.core import work_item as j_work_item
 from repro_torch import chaos as TC
+from repro_torch.chaos import driver as TD
 from repro_torch.core import (
     DISCARD,
     ForwardConfig,
@@ -317,108 +319,50 @@ def test_oracle_copy_equals_reference(name):
 
 
 # --------------------------------------------------------------- the drive
-@work_item
-@dataclasses.dataclass
-class ChaosItem:
-    uid: torch.Tensor  # () i32: the scenario's (round, rank, lane) identity
-    val: torch.Tensor  # (2,) f32 ballast derived from the uid
-
-
-def _chaos_proto():
-    return ChaosItem(uid=torch.zeros((), dtype=torch.int32), val=torch.zeros(2))
-
-
-def _val_of(uid):
-    f = uid.to(torch.float32)
-    return torch.stack([f * 0.5, f % 7.0], dim=-1)
-
-
-M32 = (1 << 32) - 1
-
-
-def flat_schedule(sc):
-    """``repro.chaos.driver._flat_schedule`` in numpy: the schedule
-    flattened per rank in emission order, ``(dest (R, K), uid (R, K),
-    prefix (R, rounds))``; ``prefix[rank, r]`` counts the entries of rounds
-    ``0..r``, short ranks are zero-padded (the cursor never reaches the pad)."""
-    d = np.asarray(sc.dests)
-    R_, E = sc.num_ranks, sc.emits_per_round
-    valid = d >= 0  # (rounds, R, E)
-    uid = (np.arange(sc.rounds)[:, None, None] * R_ + np.arange(R_)[None, :, None]) * E + np.arange(E)
-    per = valid.transpose(1, 0, 2).reshape(R_, -1)  # rank-major, then round, then lane
-    K = max(1, int(per.sum(axis=1).max()))
-    dest = np.zeros((R_, K), np.int32)
-    uids = np.zeros((R_, K), np.int32)
-    for rank in range(R_):
-        sel = per[rank]
-        n = int(sel.sum())
-        dest[rank, :n] = d.transpose(1, 0, 2).reshape(R_, -1)[rank][sel]
-        uids[rank, :n] = uid.transpose(1, 0, 2).reshape(R_, -1)[rank][sel]
-    prefix = np.cumsum(valid.sum(axis=2), axis=0).T.astype(np.int32)
-    return dest, uids, prefix
+# The schedule flattened per rank in emission order: the port's
+# ``repro_torch.chaos.driver._flat_schedule`` (held against the reference's
+# in ``tests/test_torch_credit.py``).
+flat_schedule = TD._flat_schedule
 
 
 def scenario_drive(sc, cfg, *, max_rounds=64, gated=False, health=None):
-    """Drive ``sc`` through the port: round 0's emissions seed the queue,
-    body round ``rnd`` consumes its arrivals into per-rank (count, Σuid,
-    Σuid²) mod 2³² checksums and emits schedule row ``rnd + 1`` (the
-    ``repro.chaos.run_scenario``'s law).  One segment per round, so the retained
-    rows and their largest age are read after every forward.  With
-    ``gated`` the emitter is ``repro.chaos.driver._make_gated_round_fn``'s:
-    a cursor walks the flattened schedule and each round emits the due
-    entries that fit the drive's ``headroom`` (the credit law's emitter).
-    ``health`` is a constant ``(R,) bool`` mask or ``forward_idx -> mask``
-    (forward 0 is the seed routing), as ``simulate_flat_retain`` takes it.
-    Returns the accounting dict (with the ``StatsRing`` under ``"ring"``
-    when ``cfg`` records telemetry)."""
-    R_, C, E = sc.num_ranks, cfg.capacity, sc.emits_per_round
-    dests = torch.from_numpy(np.asarray(sc.dests, np.int32))
-    me = torch.arange(R_, dtype=torch.int64)[:, None]
+    """Drive ``sc`` through the port, one segment a round, with the round
+    functions of ``repro_torch.chaos.driver`` (``run_scenario``'s law: round
+    0's emissions seed the queue, body round ``rnd`` folds its arrivals into
+    per-rank (count, Σuid, Σuid²) uint32 checksums and emits schedule row
+    ``rnd + 1``; with ``gated`` the credit law's cursor emitter, which fits
+    the drive's ``headroom``).  Beyond ``run_scenario`` it reads the retained
+    rows and their largest age after every forward, counts arrivals whose
+    ballast lost its bits, and hands back the final queue, ages, credits,
+    ring and the collective record.  ``health`` is a constant ``(R,) bool``
+    mask or ``forward_idx -> mask`` (forward 0 is the seed routing), as
+    ``simulate_flat_retain`` takes it."""
+    R_, C = sc.num_ranks, cfg.capacity
+    ctx = types.SimpleNamespace(cfg=cfg, num_ranks=R_, device=torch.device("cpu"))
+    inner = (TD._make_gated_round_fn if gated else TD._make_round_fn)(ctx, sc)
     lane = torch.arange(C)[None, :]
     bad = []
 
-    def emit(q, rnd):
-        row = dests[min(max(rnd, 0), sc.rounds - 1)]
-        mask = (row >= 0) & (rnd < sc.rounds)
-        uid = ((rnd * R_ + me) * E + torch.arange(E)).to(torch.int32)
-        return enqueue(q, ChaosItem(uid=uid, val=_val_of(uid)), torch.where(mask, row, DISCARD), mask)
-
-    def consume(q_in, acc):
+    def check_ballast(q_in):
         valid = lane < q_in.count[:, None]
-        u = q_in.items.uid.to(torch.int64)
-        bad.append(int((valid[:, :, None] & (q_in.items.val != _val_of(q_in.items.uid))).sum()))
-        acc = acc + torch.stack([valid.sum(1), torch.where(valid, u, 0).sum(1),
-                                 torch.where(valid, u * u, 0).sum(1)], dim=1)
-        return acc & M32
+        bad.append(int((valid[:, :, None] & (q_in.items.val != TD._val_of(q_in.items.uid))).sum()))
 
-    def round_fn(q_in, acc, rnd):
-        out = emit(make_queue(_chaos_proto(), C, num_ranks=R_, device="cpu"), rnd + 1)
-        return out, consume(q_in, acc)
-
-    f_dest, f_uid, prefix = (torch.from_numpy(a) for a in flat_schedule(sc))
-    K = f_dest.shape[1]
+    def round_fn(q_in, aux, rnd):
+        check_ballast(q_in)
+        return inner(q_in, aux, rnd)
 
     def gated_fn(q_in, aux, rnd, headroom):
-        acc, cursor = aux
-        due = prefix[:, min(max(rnd + 1, 0), sc.rounds - 1)]
-        n = torch.minimum(torch.clamp(due - cursor, min=0), headroom)
-        idx = (cursor[:, None] + lane).clamp(0, K - 1)
-        mask = lane < n[:, None]
-        uid = torch.gather(f_uid, 1, idx)
-        out = enqueue(make_queue(_chaos_proto(), C, num_ranks=R_, device="cpu"),
-                      ChaosItem(uid=uid, val=_val_of(uid)), torch.where(mask, torch.gather(f_dest, 1, idx), DISCARD), mask)
-        return out, (consume(q_in, acc), (cursor + n).to(torch.int32))
+        check_ballast(q_in)
+        return inner(q_in, aux, rnd, headroom=headroom)
 
     def mask_at(f):
         if health is None:
             return None
         return torch.from_numpy(np.asarray(health(f) if callable(health) else health, bool))
 
-    q0 = emit(make_queue(_chaos_proto(), C, num_ranks=R_, device="cpu"), 0)
     comm = StackedCollectives()
-    acc0 = torch.zeros(R_, 3, dtype=torch.int64)
-    aux0 = (acc0, prefix[:, 0].clone()) if gated else acc0
-    carry = TTERM.drive_start(q0, aux0, cfg, health=mask_at(0), comm=comm)
+    aux0 = TD._aux0(R_, "cpu") + ((torch.from_numpy(TD._cursor0(sc)),) if gated else ())
+    carry = TTERM.drive_start(TD._seed_queue(sc, C, device="cpu"), aux0, cfg, health=mask_at(0), comm=comm)
     retained, ages = [], []
 
     def observe(c):
@@ -432,13 +376,11 @@ def scenario_drive(sc, cfg, *, max_rounds=64, gated=False, health=None):
                                     health=mask_at(carry["rnd"] + 1), comm=comm)
         observe(carry)
     q, aux, rounds, done, age, *ring = TTERM.drive_finalize(carry, cfg)
-    acc = aux[0] if gated else aux
-    emitted = int(aux[1].sum()) if gated else sc.emitted
-    return {"delivered": acc.numpy().astype(np.uint32), "drops": int(q.drops.sum()),
-            "rounds": rounds, "done": done, "resident": int(q.count.sum()), "emitted": emitted,
-            "retained_trace": retained, "age_trace": ages, "bad_ballast": sum(bad),
-            "final_age": age, "final_q": q, "comm": comm, "ring": ring[0] if ring else None,
-            "credits": carry.get("credits")}
+    res = TD._result_dict(sc, q, aux, rounds, done)
+    return {"delivered": res["delivered"], "drops": res["drops"], "rounds": rounds, "done": done,
+            "resident": res["resident"], "emitted": res["emitted"], "retained_trace": retained, "age_trace": ages,
+            "bad_ballast": sum(bad), "final_age": age, "final_q": q, "comm": comm,
+            "ring": ring[0] if ring else None, "credits": carry.get("credits")}
 
 
 @pytest.mark.parametrize("marshal", ["sort", "scatter"])
