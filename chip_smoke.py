@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all started together, linked into one library under
-``build/``) and runs twelve phases on ``cuda:0``:
+``build/``) and runs fourteen phases on ``cuda:0``:
 
   1. kernels     — all ten kernels (K1 gather_rows, K2 unmarshal, K3
                    pack_and_histogram, K4 rank_and_histogram, K5
@@ -155,7 +155,34 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    forwarding contexts a step); a 512-particle R=8 run on the
                    card against the same run on the CPU; wall time per step,
                    the device-busy share and K9's share of device time;
- 12. report      — one JSON line of the kernels (launches on the paths that
+ 12. obs         — the observation law at the Fig-8 shape (R=8, C=262,144,
+                   S=65,536): (a) ``obs.phases.profile_phases`` of the flat
+                   sort and scatter rounds, 2 and 4 shards, 2×4 and 2×2×2:
+                   the reference's phase keys, each stage's device ms
+                   beside the fused round's; (b) one Fig-8 round and one
+                   ``run_until_done`` drive with ``obs.trace.capture()``
+                   and without: the same calls, launches, host syncs and
+                   results; (c) the flight report at card size:
+                   ``incast_collapse(8, 10, 8192)`` open and credit (both
+                   finish, both healthy) and ``incast_collapse(8, 10,
+                   65536)`` (the tests' 2× fan-in) open to its end and
+                   credit for 48 forwards (the law's floor), through
+                   ``chaos.run_scenario`` → ``chaos_capture`` →
+                   ``save_capture`` → ``load_capture`` → ``analyze`` and
+                   ``render``: the full-fan-in open run the only degraded
+                   run, every check of the others ok; (d) the Prometheus
+                   text of a full-width ring parses and its drop counters
+                   equal the ring's and the queue's;
+ 13. apps2       — the §5.2 lander and the §5.3 schlieren app at 1024×1024,
+                   R=8 (32 slabs, 8 samples a slab, 12-word rays): the
+                   lander's image bit-equal to R=1 with no drop; deep
+                   compositing at 4 fragments dropping none and within 1e-5
+                   of it, at 1 fragment dropping and off by more than 1e-3;
+                   schlieren's u and v bit-equal to R=1; 64×64 renders
+                   within 1e-5 of the CPU's; K3, K1, K2 once a forwarding
+                   round and K6 once an ``enqueue``; rounds, wall time, peak
+                   memory and the device-busy share of each;
+ 14. report      — one JSON line of the kernels (launches on the paths that
                    run them, errors, bounds; ``ms``, ``plain_ms`` and
                    ``library_ms`` are device times, ``call_ms`` the event
                    pair's; device events a call), the card's name and
@@ -236,12 +263,18 @@ BALANCE_PATHS = tuple(
     + [f"balance_cycle_{m}_{o}" for m in ("sort", "scatter") for o in ("drop", "retain")]
 )
 RECOVERY_PATHS = ("recovery", "recovery_elastic", "recovery_credit")
-ROUND_PATHS = LOSSLESS_PATHS + TELEMETRY_PATHS + PIPELINE_PATHS + CREDIT_PATHS + BALANCE_PATHS + RECOVERY_PATHS
+OBS_PATHS = tuple(
+    [f"obs_phases_{c}" for c in ("flat_sort", "flat_scatter", "flat_S2", "flat_S4", "2x4", "2x2x2")]
+    + [f"obs_{w}{t}" for w in ("round", "drive") for t in ("", "_traced")]
+)
+ROUND_PATHS = (LOSSLESS_PATHS + TELEMETRY_PATHS + PIPELINE_PATHS + CREDIT_PATHS + BALANCE_PATHS + RECOVERY_PATHS
+               + OBS_PATHS)
+APP_PATHS = ("streamlines", "nbody", "lander", "schlieren")  # the sort-marshal apps: K3, K1, K2, K6
 LAUNCH_PATHS = {
-    "pack_and_histogram": ("streamlines", "nbody") + ROUND_PATHS,
-    "gather_rows": ("streamlines", "nbody") + ROUND_PATHS,
-    "unmarshal": ("streamlines", "vopat", "nbody") + ROUND_PATHS, "rk4_step": ("streamlines",),
-    "compact_positions": ("streamlines", "vopat", "nbody") + ROUND_PATHS,
+    "pack_and_histogram": APP_PATHS + ROUND_PATHS,
+    "gather_rows": APP_PATHS + ROUND_PATHS,
+    "unmarshal": APP_PATHS + ("vopat",) + ROUND_PATHS, "rk4_step": ("streamlines",),
+    "compact_positions": APP_PATHS + ("vopat",) + ROUND_PATHS,
     "rank_and_histogram": ("vopat",) + ROUND_PATHS, "scatter_rows": ("vopat",) + ROUND_PATHS,
     "marshal": ("two_pass_marshal",),
     "pairwise_accel": ("nbody",), "track": ("woodcock_check",),
@@ -2718,6 +2751,328 @@ def phase_nbody(dev, N=262144, R=8, steps=8, WITNESS_N=512, profile=True):
     return out, launches
 
 
+# ------------------------------------------------------------------ 12. obs
+PHASE_CASES = (  # (label, ForwardConfig keywords) of phase obs (a)
+    ("flat_sort", {}), ("flat_scatter", {"marshal": "scatter"}),
+    ("flat_S2", {"pipeline_shards": 2}), ("flat_S4", {"pipeline_shards": 4}),
+    ("2x4", {"exchange": "hierarchical", "level_sizes": (2, 4)}),
+    ("2x2x2", {"exchange": "hierarchical", "level_sizes": (2, 2, 2)}),
+)
+
+
+def phase_vocabulary(cfg):
+    """The phase keys ``obs.phases.profile_phases`` must give ``cfg``, in
+    order (the reference's vocabulary)."""
+    flat = ["marshal", "count_collective", "payload_collective", "unmarshal"]
+    if cfg.exchange == "hierarchical":
+        tiers = [l for l in reversed(range(len(cfg.level_sizes))) if cfg.level_sizes[l] > 1]
+        return [f"tier{l}_{p}" for l in tiers for p in flat[:3]] + ["unmarshal"]
+    return flat + [f"shard{k}_{p}" for k in range(cfg.pipeline_shards if cfg.pipeline_shards > 1 else 0)
+                   for p in ("marshal", "payload_collective", "unmarshal")]
+
+
+def _prom_values(text):
+    """``{name{labels}: value}`` of a Prometheus text exposition; raises on
+    a line that is not a comment or a sample."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("# HELP ") or line.startswith("# TYPE "):
+            continue
+        key, value = line.rsplit(" ", 1)
+        if not key or " " in key:
+            raise ValueError(f"not a sample line: {line!r}")
+        out[key] = float(value)
+    return out
+
+
+def phase_obs(dev, R=8, C=262144, S=65536, FIT=(10, 8192), FULL=(10, 65536), FULL_ROUNDS=48,
+              timeit=None, round_timer=None):
+    """The observation law on the card: (a) ``obs.phases.profile_phases``
+    of the Fig-8 round (R, C, S, the 44-byte ray) in each of ``cases``: the
+    reference's keys, each stage's device ms beside the fused round's; (b)
+    one Fig-8 round and one ``run_until_done`` drive (the FIT incast, open,
+    retain) with ``obs.trace.capture()`` and without: the same calls,
+    launches, host syncs and results; (c) the flight report at card size:
+    ``incast_collapse(R, *FIT)`` open and credit (both finish) and
+    ``incast_collapse(R, *FULL)`` (the tests' 2× fan-in) open to its end and
+    credit for ``FULL_ROUNDS`` forwards (the law's floor, PERF.md §6),
+    through ``chaos.run_scenario`` → ``chaos_capture`` → ``save_capture`` →
+    ``load_capture`` → ``analyze`` and ``render``: the full open run the
+    only degraded run, every check of the others ok; (d) the Prometheus
+    text of the FULL open drive's ring parses and its drop counters equal
+    the ring's and the queue's.  Returns ``(record, launches per path)``."""
+    import contextlib
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import chaos as TC
+    from repro_torch import kernels as KN
+    from repro_torch.chaos import driver as TD
+    from repro_torch.core import ForwardConfig, StackedCollectives, forward_work
+    from repro_torch.obs import metrics as OM
+    from repro_torch.obs import phases as OP
+    from repro_torch.obs import report as OR
+    from repro_torch.obs import trace as OT
+
+    cuda = dev.type == "cuda"
+    if timeit is None:  # device ms of a stage: 20 calls under torch.profiler
+        timeit = lambda fn, x: (1e3 * device_ms(lambda: fn(x))[0], None)
+    if round_timer is None:
+        round_timer = lambda fn: device_ms(fn)[0]
+    out, paths = {"phases": {}}, {}
+    Ray44 = _ray44_types()
+    proto = Ray44(origin=torch.zeros(3), direction=torch.zeros(3), tmin=torch.zeros(()),
+                  pixel=torch.zeros((), dtype=torch.int32), integral=torch.zeros(()), extra=torch.zeros(2))
+    q = _fig8_queue(dev, R, C)
+
+    # (a) the stage split of each round, beside the fused round's device time
+    for label, kw in PHASE_CASES:
+        cfg = ForwardConfig(R, C, peer_capacity=S, **kw) if "level_sizes" not in kw else ForwardConfig(R, C, **kw)
+        KN.reset_launch_counts()
+        phase_us = OP.profile_phases(cfg, n_emit=C, cap=C, proto=proto, timeit=timeit, device=dev)
+        paths[f"obs_phases_{label}"] = KN.launch_counts()
+        check(list(phase_us) == phase_vocabulary(cfg),
+              f"(a) {label}: phase keys == the reference's vocabulary {phase_vocabulary(cfg)}")
+        fused = round_timer(lambda: forward_work(q, cfg))
+        stage_ms = {k: v / 1e3 for k, v in phase_us.items()}
+        out["phases"][label] = {"stage_ms": stage_ms, "fused_round_ms": fused}
+        print(f"  (a) {label}: fused round {fused:.4f} ms of {'device' if cuda else 'host'} time; stages standalone (sum "
+              f"{sum(stage_ms.values()):.4f}): " + ", ".join(f"{k} {v:.4f}" for k, v in stage_ms.items()),
+              flush=True)
+    doc = OP.to_perfetto(phase_us, num_ranks=R, tag=label)
+    check(sum(e["ph"] == "X" for e in doc["traceEvents"]) == R * len(phase_us),
+          f"(a) to_perfetto: one span a stage and rank ({R * len(phase_us)})")
+
+    # (b) observation adds no call, launch or sync
+    cfg = ForwardConfig(R, C, peer_capacity=S)
+    sc = TC.incast_collapse(R, FIT[0], FIT[1])
+    ctx = TD._make_ctx(R, capacity=C, peer_capacity=S, overflow="retain", device=dev)
+    rfn, aux_base = TD._drive_parts(ctx, sc)
+    seed = TD._seed_queue(sc, C, device=dev)
+    calls = {
+        "round": lambda comm: forward_work(q, cfg, comm=comm),
+        "drive": lambda comm: ctx.run_until_done(rfn, max_rounds=64)(seed, tuple(a.clone() for a in aux_base)),
+    }
+    seen = {}
+    for traced in (False, True):
+        for what, fn in calls.items():
+            comm = ctx.comm if what == "drive" else StackedCollectives()
+            comm.reset()
+            KN.reset_launch_counts()
+            with (OT.capture() if traced else contextlib.nullcontext()) as tr:
+                res = fn(comm)
+                launches = KN.launch_counts()
+                syncs = _sync_warnings(lambda: fn(StackedCollectives())) if cuda else 0
+            paths[f"obs_{what}{'_traced' if traced else ''}"] = launches
+            seen[what, traced] = (dict(comm.calls), launches, syncs, res, tr)
+    for what in calls:
+        (c0, l0, s0, r0, _), (c1, l1, s1, r1, _) = seen[what, False], seen[what, True]
+        check(c0 == c1 and l0 == l1 and s0 == s1 and _same_output(r0, r1),
+              f"(b) {what}: traced == untraced: calls ({sum(c0.values())}), launches {l0}, syncs {s0}, results")
+        out[f"{what}_calls"], out[f"{what}_syncs"] = sum(c0.values()), s0
+    spans = seen["drive", True][4].select(name="drive.run_until_done")
+    check(len(spans) == (3 if cuda else 1), f"(b) the traced drive recorded its spans ({len(spans)})")
+
+    # (c) the flight report at card size
+    runs, results = [], {}
+    for tag, (rounds_sc, E), max_rounds in (("fit", FIT, 1024), ("full", FULL, FULL_ROUNDS)):
+        for flow in ("open", "credit"):
+            sc = TC.incast_collapse(R, rounds_sc, E)
+            t0 = time.perf_counter()
+            res = TC.run_scenario(R, sc, capacity=C, peer_capacity=S, overflow="retain", flow=flow,
+                                  max_rounds=max_rounds if flow == "credit" else 1024, device=dev)
+            wall = time.perf_counter() - t0
+            name = f"{sc.name}_{tag}_{flow}"
+            results[name] = {k: res[k] for k in ("rounds", "done", "drops", "delivered_total", "emitted", "resident",
+                                                  "goodput", "wasted_wire_rows", "emit_overflow")}
+            results[name]["wall_s"] = wall
+            runs.append(OR.chaos_capture(name, res, flow=flow, tier_capacities=(S,), capacity=C))
+            print(f"  (c) {name}: {res['rounds']} rounds, done {res['done']}, delivered {res['delivered_total']} of "
+                  f"{res['emitted']}, drops {res['drops']}, goodput {res['goodput']:.4f}, wall {wall:.3f} s", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "capture.json"
+        OR.save_capture(path, runs, meta={"source": "chip_smoke", "shape": [R, C, S]})
+        report = OR.analyze(OR.load_capture(path))
+    print("  " + OR.render(report).rstrip().replace("\n", "\n  "), flush=True)
+    full_open = "incast_collapse_full_open"
+    check(report["degraded_runs"] == [full_open], f"(c) degraded runs == [{full_open}]: {report['degraded_runs']}")
+    for r in report["runs"]:
+        if r["name"] != full_open:
+            check(all(c["ok"] for c in r["checks"]), f"(c) {r['name']}: every check ok")
+    out["report"] = {"runs": results, "degraded_runs": report["degraded_runs"],
+                     "flags": {r["name"]: r["flags"] for r in report["runs"]}}
+
+    # (d) the Prometheus text of a full-width ring: parses, drops == the ring's
+    sc = TC.incast_collapse(R, *FULL)
+    ctx = TD._make_ctx(R, capacity=C, peer_capacity=S, overflow="retain", device=dev)
+    rfn, aux0 = TD._drive_parts(ctx, sc)
+    qd, *_rest, ring = ctx.run_until_done(rfn, max_rounds=1024)(TD._seed_queue(sc, C, device=dev), aux0)
+    text = OM.to_prometheus(OM.burst_metrics(ring, ctx.cfg))
+    vals = _prom_values(text)
+    st = ring.stats
+    ring_drops = int(st.stage_drops.sum()) + int(st.recv_drops.sum())
+    check(vals["rafi_drops_total"] == ring_drops and vals["rafi_recv_drops_total"] == int(st.recv_drops.sum())
+          and vals['rafi_stage_drops_total{tier="0"}'] == int(st.stage_drops.sum())
+          and vals["rafi_wasted_wire_rows_total"] == int(st.wasted_wire_rows.sum())
+          and vals["rafi_emit_overflow_total"] == int(st.emit_overflow.sum())
+          and vals["rafi_drops_total"] + vals["rafi_emit_overflow_total"] == int(qd.drops.sum()) > 0,
+          f"(d) Prometheus text of the ring ({len(vals)} samples) parses; drops {vals['rafi_drops_total']:.0f} == "
+          f"the ring's, + emission cuts == the queue's {int(qd.drops.sum())}")
+    out["prometheus_samples"] = len(vals)
+    return out, paths
+
+
+def _same_output(a, b) -> bool:
+    """Two outputs of ``forward_work`` or of a drive, equal: queues on every
+    lane, tensors and tuples of tensors bit for bit, stats rings leaf for
+    leaf, everything else by ``==``."""
+    import torch
+
+    from repro_torch.core import WorkQueue
+    from repro_torch.telemetry import StatsRing
+
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if isinstance(x, WorkQueue):
+            ok = _same_queue(x, y, all_lanes=True) and torch.equal(x.dest.cpu(), y.dest.cpu())
+        elif isinstance(x, StatsRing):
+            ok = _same_stats(x.stats, y.stats) and torch.equal(x.pos.cpu(), y.pos.cpu())
+        elif torch.is_tensor(x):
+            ok = torch.equal(x.cpu(), y.cpu())
+        elif isinstance(x, tuple):
+            ok = _same_output(x, y)
+        else:
+            ok = x == y
+        if not ok:
+            return False
+    return True
+
+
+# ---------------------------------------------------------------- 13. apps2
+def phase_apps2(dev, size=1024, R=8, CPU_SIZE=64, PROFILE_ROUNDS=4, profile=True):
+    """The §5.2 lander and the §5.3 schlieren app at ``size``² (VoPaT's
+    frame size, the scenes' 32 slabs and 8 samples a slab): the lander's
+    forwarding image at R equal bit for bit to R=1 with no drop; deep
+    compositing at 4 fragments dropping none and within 1e-5 of it, at 1
+    dropping fragments and off by more than 1e-3; schlieren's u and v at R
+    equal to R=1 bit for bit; a ``CPU_SIZE``² render of each on the card
+    within the CPU tests' 1e-5 of the CPU render (the forwarding renders
+    on one CPU rank); rounds, wall time,
+    launches, peak memory, and the device-busy share of each over its
+    first ``PROFILE_ROUNDS`` + 1 forwarding rounds.  Returns
+    ``(record, launches per path)``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as KN
+    from repro_torch.apps import lander, schlieren
+    from repro_torch.core import pack_spec
+
+    cuda = dev.type == "cuda"
+    out, paths = {}, {}
+
+    def timed(label, fn):
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+        KN.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()  # ends in a copy to the host: synchronised
+        wall = time.perf_counter() - t0
+        paths[label] = KN.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else float("nan")
+        return res, wall, paths[label], peak
+
+    def check_launches(label, launches, rounds):
+        if not cuda:
+            return
+        want = dict.fromkeys(launches, 0)
+        want.update(pack_and_histogram=rounds + 1, gather_rows=rounds + 1, unmarshal=rounds + 1,
+                    compact_positions=rounds + 1)
+        check(launches == want, f"{label}: K3, K1, K2 once a forwarding round ({rounds + 1}), K6 once an enqueue: "
+                                f"{launches}")
+
+    hw = size * size
+    words = pack_spec(lander._proto()).total_words
+    print(f"  {size}x{size}, R={R}: queue (R, {hw}, {words}) words {R * hw * words * 4 / 1e9:.2f} GB, padded send "
+          f"and receive buffers (R, R, {hw}, {words}) {R * R * hw * words * 4 / 1e9:.2f} GB each", flush=True)
+
+    # the lander: forwarding at R and at 1, deep compositing at 4 and 1 fragments
+    scene = lander.LanderScene(width=size, height=size)
+    (img, st), wall, launches, peak = timed("lander", lambda: lander.render_forwarding(scene, num_ranks=R, device=dev))
+    check(st["drops"] == 0, f"lander: drops == 0 ({st['drops']})")
+    check_launches("lander", launches, st["rounds"])
+    (img1, st1), wall1, _l1, _p1 = timed("lander_r1", lambda: lander.render_forwarding(scene, num_ranks=1, device=dev))
+    print(f"  lander: R={R} {st['rounds']} rounds, wall {wall:.3f} s ({1e3 * wall / (st['rounds'] + 1):.1f} ms a "
+          f"forwarding round), peak device memory {peak:.2f} GiB; R=1 {st1['rounds']} rounds, wall {wall1:.3f} s",
+          flush=True)
+    check(np.array_equal(img, img1), f"lander: R={R} image == R=1 image, bit for bit")
+    check(bool(np.isfinite(img).all()) and img.std() > 0.01, f"lander: image finite, not constant (std {img.std():.4f})")
+    dc = {}
+    for f in (4, 1):
+        (dimg, dst), dwall, _dl, dpeak = timed(f"lander_dc{f}", lambda: lander.render_deep_compositing(
+            scene, num_ranks=R, max_fragments=f, device=dev))
+        err = float(np.abs(dimg - img).max())
+        dc[f] = {"dropped_fragments": dst["dropped_fragments"], "max_abs_diff": err, "wall_s": dwall, "peak_gib": dpeak}
+        print(f"  deep compositing, {f} fragment(s): dropped {dst['dropped_fragments']}, max |dc - forwarding| "
+              f"{err!r}, wall {dwall:.3f} s, peak {dpeak:.2f} GiB", flush=True)
+    check(dc[4]["dropped_fragments"] == 0 and dc[4]["max_abs_diff"] <= 1e-5,
+          f"lander: deep compositing at 4 fragments drops none and lies within 1e-5 ({dc[4]['max_abs_diff']:.2e})")
+    check(dc[1]["dropped_fragments"] > 0 and dc[1]["max_abs_diff"] > 1e-3,
+          f"lander: at 1 fragment it drops {dc[1]['dropped_fragments']} and errs by {dc[1]['max_abs_diff']:.3f} > 1e-3")
+    out["lander"] = {"size": size, "num_ranks": R, "rounds": st["rounds"], "wall_s": wall,
+                     "ms_per_round": 1e3 * wall / (st["rounds"] + 1), "peak_gib": peak, "r1_wall_s": wall1,
+                     "image_mean": float(img.mean()), "deep_compositing": dc}
+
+    # schlieren: both knife edges at R and at 1
+    sscene = schlieren.SchlierenScene(width=size, height=size)
+    (u, v, sst), swall, slaunches, speak = timed("schlieren", lambda: schlieren.render(sscene, num_ranks=R, device=dev))
+    check(sst["drops"] == 0, f"schlieren: drops == 0 ({sst['drops']})")
+    check_launches("schlieren", slaunches, sst["rounds"])
+    (u1, v1, sst1), swall1, _l, _p = timed("schlieren_r1", lambda: schlieren.render(sscene, num_ranks=1, device=dev))
+    print(f"  schlieren: R={R} {sst['rounds']} rounds, wall {swall:.3f} s ({1e3 * swall / (sst['rounds'] + 1):.1f} ms "
+          f"a forwarding round), peak {speak:.2f} GiB; R=1 {sst1['rounds']} rounds, wall {swall1:.3f} s", flush=True)
+    check(np.array_equal(u, u1) and np.array_equal(v, v1), f"schlieren: R={R} u and v == R=1, bit for bit")
+    check(float(np.abs(u - v).max()) > 0.01, "schlieren: the knife edges differ")
+    out["schlieren"] = {"size": size, "num_ranks": R, "rounds": sst["rounds"], "wall_s": swall,
+                        "ms_per_round": 1e3 * swall / (sst["rounds"] + 1), "peak_gib": speak, "r1_wall_s": swall1}
+
+    # witnesses off the card: CPU_SIZE² renders on the CPU (plain versions);
+    # the forwarding renders are R-invariant bit for bit on either device, so
+    # the CPU renders them on one rank (an eighth of the lanes)
+    t0 = time.perf_counter()
+    small, ssmall = (dataclasses.replace(s, width=CPU_SIZE, height=CPU_SIZE) for s in (scene, sscene))
+    gaps = {
+        "lander": np.abs(lander.render_forwarding(small, num_ranks=R, device=dev)[0]
+                         - lander.render_forwarding(small, num_ranks=1, device="cpu")[0]).max(),
+        "lander_dc4": np.abs(lander.render_deep_compositing(small, num_ranks=R, device=dev)[0]
+                             - lander.render_deep_compositing(small, num_ranks=R, device="cpu")[0]).max(),
+    }
+    ud, vd, _ = schlieren.render(ssmall, num_ranks=R, device=dev)
+    uc, vc, _ = schlieren.render(ssmall, num_ranks=1, device="cpu")
+    gaps["schlieren"] = max(np.abs(ud - uc).max(), np.abs(vd - vc).max())
+    gaps = {k: float(g) for k, g in gaps.items()}
+    check(all(g <= 1e-5 for g in gaps.values()),
+          f"{CPU_SIZE}x{CPU_SIZE} renders on {dev.type} (R={R}) within 1e-5 of the CPU's (R=1; deep compositing "
+          f"R={R}): {gaps}, {time.perf_counter() - t0:.1f} s")
+    out["cpu_witness"] = {"size": CPU_SIZE, "max_abs_diff": gaps}
+    if profile and cuda:  # a steady window: raygen and the first PROFILE_ROUNDS + 1 forwarding rounds
+        for app, fn in (("lander", lambda: lander.render_forwarding(scene, num_ranks=R, max_rounds=PROFILE_ROUNDS,
+                                                                     device=dev)),
+                        ("schlieren", lambda: schlieren.render(sscene, num_ranks=R, max_rounds=PROFILE_ROUNDS,
+                                                               device=dev))):
+            t0 = time.perf_counter()
+            out[app]["profile"] = profile_drive(fn, dev)
+            print(f"  {app}: profiled its first {PROFILE_ROUNDS + 1} forwarding rounds in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out, paths
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -2746,7 +3101,7 @@ def main() -> int:
            "pipeline": lambda: phase_pipeline(dev), "credit": lambda: phase_credit(dev),
            "balance": lambda: phase_balance(dev), "recovery": lambda: phase_recovery(dev),
            "streamlines": lambda: phase_streamlines(dev), "vopat": lambda: phase_vopat(dev),
-           "nbody": lambda: phase_nbody(dev)}
+           "nbody": lambda: phase_nbody(dev), "obs": lambda: phase_obs(dev), "apps2": lambda: phase_apps2(dev)}
     kernels, paths = {}, {}  # paths: launches per path, counted from 0
     for title in run:
         print(f"# phase {title}", flush=True)
@@ -2760,7 +3115,7 @@ def main() -> int:
         if title == "kernels":
             kernels, more = res
             paths.update(more)
-        elif title in ("lossless", "telemetry", "pipeline", "credit", "balance", "recovery"):
+        elif title in ("lossless", "telemetry", "pipeline", "credit", "balance", "recovery", "obs", "apps2"):
             record[title], more = res
             paths.update(more)
         elif title in ("streamlines", "vopat", "nbody"):

@@ -7,18 +7,22 @@ computation to distributed termination with the sort-free
 (``telemetry=True``), read the recorder's summary back, run the same drive
 pipelined (``pipeline_shards=2``), bit-exact with the bulk one, and drive
 the chaos harness's sustained overload open against credit flow under the
-span tracer.  All R ranks are rows of one rank-stacked tensor on one
-device.  Section 5b drives the computation of sections 1–3 through the
-lossless law (``overflow="retain"``, peer slots too small for the traffic)
-and the hierarchical route on a 2×4 (node, device) layout: the same
-deposits, nothing dropped.  Section 7 of the reference (the flight-data
-report, ``obs.report``) comes with ROADMAP Queue 1 item 14.
+span tracer; section 7 then exports that trace as Perfetto JSON and reads
+the two overload runs back through the flight-data analyzer
+(``obs.report``), which flags the open run, and only it, as degraded.  All
+R ranks are rows of one rank-stacked tensor on one device.  Section 5b
+drives the computation of sections 1–3 through the lossless law
+(``overflow="retain"``, peer slots too small for the traffic) and the
+hierarchical route on a 2×4 (node, device) layout: the same deposits,
+nothing dropped.
 
 Runs on the CUDA card; ``--cpu`` runs the plain PyTorch path.
 Run:  PYTHONPATH=src python examples/quickstart_torch.py [--cpu]
 """
 import argparse
 import dataclasses
+import os
+import tempfile
 
 import torch
 
@@ -26,6 +30,7 @@ from repro_torch import telemetry as TM
 from repro_torch.chaos import run_scenario, sustained_overload
 from repro_torch.core import DISCARD, ForwardConfig, enqueue, make_queue, run_until_done, work_item
 from repro_torch.core.collectives import node_layout
+from repro_torch.obs import report as OR
 from repro_torch.obs import trace as OT
 
 ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -160,6 +165,27 @@ with OT.capture() as tracer:
             assert r["goodput"] == 1.0 and r["drops"] == 0 and r["done"]
 print(f"traced {len(tracer.select(name='chaos.run_scenario'))} scenario spans, {len(tracer.events)} events")
 
-# 7. The observation law's flight-data report (``obs.report``) comes with
-#    ROADMAP Queue 1 item 14.
+# 7. The observation law: the burst above became flight data.  Export the
+#    host span timeline as Perfetto JSON (load it at ui.perfetto.dev), write
+#    the chaos runs into a capture file, and let the analyzer re-derive the
+#    ledger and flag the degraded run — open flow, and only open flow.
+section(7, "observation law: trace export + flight-data report")
+outdir = tempfile.mkdtemp(prefix="rafi_quickstart_")
+trace_path = os.path.join(outdir, "trace.perfetto.json")
+tracer.save(trace_path)
+print(f"perfetto timeline: {trace_path} ({len(tracer.events)} events)")
+
+capture_path = os.path.join(outdir, "capture.json")
+OR.save_capture(
+    capture_path,
+    [
+        OR.chaos_capture(f"{sc.name}_{flow}", results[flow], flow=flow, tier_capacities=(4,), capacity=16)
+        for flow in ("open", "credit")
+    ],
+    meta={"source": "quickstart_torch"},
+)
+report = OR.analyze(OR.load_capture(capture_path))
+print(OR.render(report))
+print(f"degraded_runs: {report['degraded_runs']}")
+assert report["degraded_runs"] == [f"{sc.name}_open"]
 print("OK")

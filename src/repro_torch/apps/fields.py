@@ -25,6 +25,7 @@ __all__ = [
     "camera_rays",
     "default_blobs",
     "density",
+    "deposit",
     "density_gradient",
     "majorant",
     "ray_box_exit",
@@ -168,6 +169,25 @@ def camera_rays(width: int, height: int, *, eye=(-1.2, 0.5, 0.5), look=(1.0, 0.0
     d = fwd[None, :] + half * (xs.reshape(-1)[:, None] * right[None, :] + ys.reshape(-1)[:, None] * up[None, :])
     d = _normalize(d)
     return f32(eye).expand(d.shape), d
+
+
+TRASH_PIXELS = 4096  # trash pixels past the image, one per lane modulo this
+
+
+def deposit(fb: torch.Tensor, pixel: torch.Tensor, value: torch.Tensor, mask: torch.Tensor) -> None:
+    """``fb[b, pixel] += value`` on the lanes of ``mask``, in place: the
+    rank-stacked framebuffer deposit of the renderers.  Every other lane is
+    aimed at a trash pixel past the image (``fb`` is ``(R, HW +
+    TRASH_PIXELS)``): an index_add with an out-of-range index would be a
+    device assert on the card, not the reference's ``mode="drop"``.  Lane
+    ``i`` uses trash pixel ``i % TRASH_PIXELS``, so the unmasked lanes'
+    atomic adds do not all meet on one address."""
+    rows, width = fb.shape
+    hw = width - TRASH_PIXELS
+    lane = torch.arange(pixel.shape[-1], device=fb.device)
+    b = torch.arange(rows, device=fb.device)[:, None]
+    idx = b * width + torch.where(mask, pixel, hw + lane % TRASH_PIXELS).to(torch.int64)
+    fb.view(-1).index_add_(0, idx.reshape(-1), value.reshape(-1))
 
 
 def sky(d: torch.Tensor) -> torch.Tensor:

@@ -80,24 +80,6 @@ class VopatScene:
     num_blobs: int = 6
 
 
-_TRASH = 4096  # trash pixels past the image, one per lane modulo this
-
-
-def _deposit(fb: torch.Tensor, pixel: torch.Tensor, value: torch.Tensor, mask: torch.Tensor) -> None:
-    """``fb[b, pixel] += value`` on the lanes of ``mask``, in place.  Every
-    other lane is aimed at a trash pixel past the image (``fb`` is ``(R,
-    HW + _TRASH)``): an index_add with an out-of-range index would be a
-    device assert on the card, not a drop.  Lane ``i`` uses trash pixel
-    ``i % _TRASH``, so the unmasked lanes' atomic adds do not all meet on
-    one address."""
-    rows, width = fb.shape
-    hw = width - _TRASH
-    lane = torch.arange(pixel.shape[-1], device=fb.device)
-    b = torch.arange(rows, device=fb.device)[:, None]
-    idx = b * width + torch.where(mask, pixel, hw + lane % _TRASH).to(torch.int64)
-    fb.view(-1).index_add_(0, idx.reshape(-1), value.reshape(-1))
-
-
 def _round_fn(q_in, fb, rnd, *, part: F.SlabPartition, blobs, mu, key, scene, cap, me):
     del rnd
     r = q_in.items
@@ -141,7 +123,7 @@ def _round_fn(q_in, fb, rnd, *, part: F.SlabPartition, blobs, mu, key, scene, ca
     escapes = crosses & ~((axis == 0) & stays_in)
 
     # --- terminal deposits ----------------------------------------------------
-    _deposit(fb, r.pixel, r.throughput * F.sky(r.dir), escapes)
+    F.deposit(fb, r.pixel, r.throughput * F.sky(r.dir), escapes)
 
     # --- assemble next-round rays ---------------------------------------------
     alive = null | scattered | to_neighbor
@@ -167,7 +149,7 @@ def _round_fn(q_in, fb, rnd, *, part: F.SlabPartition, blobs, mu, key, scene, ca
 
 def _raygen(*, part, scene, cap, num_ranks, me, device):
     """Per-rank primary rays (disjoint pixel ranges) + direct sky for
-    misses.  Returns ``(q0, fb (R, HW + _TRASH))``."""
+    misses.  Returns ``(q0, fb (R, HW + F.TRASH_PIXELS))``."""
     R, hw_px = num_ranks, scene.width * scene.height
     ppr = (hw_px * scene.spp) // R
     pix = me * ppr + torch.arange(ppr, dtype=torch.int32, device=device)  # (R, ppr)
@@ -176,8 +158,8 @@ def _raygen(*, part, scene, cap, num_ranks, me, device):
     o, d = o_all[px.to(torch.int64)], d_all[px.to(torch.int64)]
     t_entry, hits = F.ray_domain_entry(o, d)
 
-    fb = torch.zeros(R, hw_px + _TRASH, dtype=torch.float32, device=device)
-    _deposit(fb, pix // scene.spp, torch.where(hits, 0.0, F.sky(d)), torch.ones_like(hits))
+    fb = torch.zeros(R, hw_px + F.TRASH_PIXELS, dtype=torch.float32, device=device)
+    F.deposit(fb, pix // scene.spp, torch.where(hits, 0.0, F.sky(d)), torch.ones_like(hits))
 
     p_in = o + (t_entry[..., None] + 1e-4) * d
     slab = part.slab_of(torch.clamp(p_in[..., 0], 0.0, 1.0 - 1e-6))
@@ -234,7 +216,7 @@ def render(
 
     q0, fb = _raygen(part=part, scene=scene, cap=cap, num_ranks=R, me=me, device=dev)
     q, fb, rounds, _done, *ring = ctx.run_until_done(round_fn, max_rounds=max_rounds)(q0, fb)
-    img = fb[:, :-_TRASH].sum(dim=0)  # the distributed frame buffer's reduce
+    img = fb[:, :-F.TRASH_PIXELS].sum(dim=0)  # the distributed frame buffer's reduce
     img = img.cpu().numpy().reshape(scene.height, scene.width) / scene.spp
     stats = {"rounds": int(rounds), "drops": int(q.drops.sum()), "majorant": mu, "capacity": cap}
     if telemetry:

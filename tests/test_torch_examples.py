@@ -3,9 +3,11 @@ examples print: ``quickstart_torch.py`` the drained totals of sections 1–5
 of ``examples/quickstart.py`` (deposits per rank, 4 rounds, 9.000, the
 telemetry summary of 5 recorded rounds with no drop, the pipelined drive
 bit-exact with bulk), the same totals through retain and the hierarchical
-route, and section 6's overload drained losslessly by credit flow; ``vopat_render_torch.py`` an 8-rank image bit-equal to
-the 1-rank one and its drop-free telemetry summary.  Neither imports JAX or
-the reference package."""
+route, section 6's overload drained losslessly by credit flow, and section
+7's flight report flagging the open run alone; ``vopat_render_torch.py`` an
+8-rank image bit-equal to the 1-rank one and its drop-free telemetry
+summary; ``streamlines_demo_torch.py`` three fields, each equal to its
+single-rank oracle.  None imports JAX or the reference package."""
 import os
 import pathlib
 import subprocess
@@ -26,7 +28,7 @@ def _run(name):
     return out.stdout
 
 
-@pytest.mark.parametrize("name", ["quickstart_torch.py", "vopat_render_torch.py"])
+@pytest.mark.parametrize("name", ["quickstart_torch.py", "vopat_render_torch.py", "streamlines_demo_torch.py"])
 def test_example_imports_neither_jax_nor_the_reference(name):
     for mod in _imports(ROOT / "examples" / name):
         assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), mod
@@ -42,9 +44,18 @@ def test_quickstart_torch_prints_the_reference_totals():
     assert out.count("total deposited 9.000") == 3 and out.rstrip().endswith("OK")
     # section 6: the chaos driver's overload, open against credit (the twin's 73 rounds)
     assert "overload [credit]: delivered 1152/1152 in 73 rounds, goodput 1.000, drops 0" in out
+    # section 7: the flight report of those two runs
+    assert "degraded_runs: ['sustained_overload_open']" in out
+    assert "verdict: 1 degraded run(s) — sustained_overload_open" in out
 
 
 def test_vopat_render_torch_is_bit_equal_across_rank_counts():
     out = _run("vopat_render_torch.py")
     assert "bitwise identical across rank counts: True" in out and "drops=0" in out
     assert "clamp drops 0" in out and "telemetry:" in out
+
+
+def test_streamlines_demo_torch_matches_its_oracle():
+    out = _run("streamlines_demo_torch.py")
+    lines = [line for line in out.splitlines() if "oracle max err" in line]
+    assert len(lines) == 3 and all(line.endswith("-> OK") for line in lines), out
