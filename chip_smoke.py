@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all started together, linked into one library under
-``build/``) and runs fourteen phases on ``cuda:0``:
+``build/``) and runs fifteen phases on ``cuda:0``:
 
   1. kernels     — all ten kernels (K1 gather_rows, K2 unmarshal, K3
                    pack_and_histogram, K4 rank_and_histogram, K5
@@ -182,7 +182,29 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    within 1e-5 of the CPU's; K3, K1, K2 once a forwarding
                    round and K6 once an ``enqueue``; rounds, wall time, peak
                    memory and the device-busy share of each;
- 14. report      — one JSON line of the kernels (launches on the paths that
+ 14. ragged      — ``exchange="ragged"`` at the Fig-8 shape (R=8,
+                   C=262,144, 44-byte rays): (a) the padded round at
+                   S=65,536 shown to drop nothing, then the ragged round in
+                   both marshals bit-equal on lanes < count to the onehot
+                   and the padded rounds (counts and totals too), sort ==
+                   scatter, sort == the CPU's on every lane, 2 and 4 shards
+                   == 1; one ``ragged_all_to_all`` and one count
+                   ``all_gather`` (n of each at n shards); K3 + K1 twice or
+                   K4 + K5 + K1, no K2; no more synchronizing calls than
+                   the padded round, none added by telemetry, retain and a
+                   health mask; event medians and device ms beside the
+                   padded round's, the stage split, and the stacked copy's
+                   device ms beside the padded ``all_to_all``'s and its
+                   bound; (b) ``rotating_hotspot(8, 8, 32768)`` through the
+                   ragged retain drive, open and credit: lost 0, no drop,
+                   ``expected_by_rank`` and the padded retain drive's
+                   checksums, rounds, peak backlog, ms a round; (c)
+                   streamlines (ABC, 131,072 particles, 64 steps) on ragged
+                   == its single-rank oracle bit for bit, wall beside the
+                   padded run's; (d) ``obs.phases.profile_phases`` of the
+                   ragged round: the reference's three keys, each stage's
+                   device ms;
+ 15. report      — one JSON line of the kernels (launches on the paths that
                    run them, errors, bounds; ``ms``, ``plain_ms`` and
                    ``library_ms`` are device times, ``call_ms`` the event
                    pair's; device events a call), the card's name and
@@ -267,13 +289,17 @@ OBS_PATHS = tuple(
     [f"obs_phases_{c}" for c in ("flat_sort", "flat_scatter", "flat_S2", "flat_S4", "2x4", "2x2x2")]
     + [f"obs_{w}{t}" for w in ("round", "drive") for t in ("", "_traced")]
 )
+RAGGED_PATHS = tuple(
+    [f"ragged_{w}_{m}" for w in ("round", "phases") for m in ("sort", "scatter")]
+    + [f"ragged_drive_{f}" for f in ("open", "credit")] + ["ragged_streamlines"]
+)
 ROUND_PATHS = (LOSSLESS_PATHS + TELEMETRY_PATHS + PIPELINE_PATHS + CREDIT_PATHS + BALANCE_PATHS + RECOVERY_PATHS
-               + OBS_PATHS)
+               + OBS_PATHS + RAGGED_PATHS)
 APP_PATHS = ("streamlines", "nbody", "lander", "schlieren")  # the sort-marshal apps: K3, K1, K2, K6
 LAUNCH_PATHS = {
     "pack_and_histogram": APP_PATHS + ROUND_PATHS,
     "gather_rows": APP_PATHS + ROUND_PATHS,
-    "unmarshal": APP_PATHS + ("vopat",) + ROUND_PATHS, "rk4_step": ("streamlines",),
+    "unmarshal": APP_PATHS + ("vopat",) + ROUND_PATHS, "rk4_step": ("streamlines", "ragged_streamlines"),
     "compact_positions": APP_PATHS + ("vopat",) + ROUND_PATHS,
     "rank_and_histogram": ("vopat",) + ROUND_PATHS, "scatter_rows": ("vopat",) + ROUND_PATHS,
     "marshal": ("two_pass_marshal",),
@@ -3073,6 +3099,211 @@ def phase_apps2(dev, size=1024, R=8, CPU_SIZE=64, PROFILE_ROUNDS=4, profile=True
     return out, paths
 
 
+# --------------------------------------------------------------- 14. ragged
+RAGGED_CASES = (("sort", {}), ("scatter", {"marshal": "scatter"}))
+
+
+def _ragged_copy_inputs(q, R, C):
+    """The sort round's send buffer and control plane (the inputs of its
+    ``ragged_all_to_all``), built as ``exchange_ragged`` builds them."""
+    from repro_torch.core import StackedCollectives
+    from repro_torch.core import stages as ST
+    from repro_torch.core import types as T
+    from repro_torch.kernels.sort_keys import ops as sk_ops
+
+    perm, _sorted, hist = sk_ops.sort_permutation(q.dest, q.count, R)
+    packed, _spec = T.pack_payload(q.items, batch_dims=2)
+    send = ST.ragged_send_buffer(packed, perm, hist[:, :R], num_ranks=R)
+    cnt = StackedCollectives().all_gather(hist[:, :R])[0]
+    ss, oo, rs = ST.ragged_control_plane(cnt, C)
+    return packed, perm, hist[:, :R], send, dict(input_offsets=ST._excl_cumsum(hist[:, :R], 1), send_sizes=ss,
+                                                 output_offsets=oo, recv_sizes=rs, capacity=C)
+
+
+def phase_ragged(dev, R=8, C=262144, S=65536, E=32768, PAD_S=8192, STREAMLINES=(131072, 64), reps=10,
+                 cpu_witness=True, timer=cuda_ms, dtimer=None):
+    """``exchange="ragged"`` on the card: (a) the Fig-8 round (R, C, 44-byte
+    rays, uniform destinations and ~6% DISCARD) in both marshals, the padded
+    round at S peer slots first shown to drop nothing: ragged == onehot ==
+    padded on lanes < count with equal counts and totals, sort == scatter,
+    the sort round == the CPU's on every lane, 2 and 4 shards == 1; one
+    ``ragged_all_to_all`` and one count ``all_gather`` a round (n of each
+    at n shards), K3 + K1 twice (sort) or K4 + K5 + K1 (scatter), no K2;
+    event medians and device ms beside the padded round's, the stage split,
+    and the stacked copy's device ms beside the padded ``all_to_all``'s
+    and its bound (2 × live rows × 44 B over 3.35 TB/s); (b)
+    ``rotating_hotspot(R, 8, E)`` through the ragged retain drive open and
+    under credit (the gated emitter) at C: nothing lost, no drop, the
+    padded retain drive's (PAD_S slots) checksums and ``expected_by_rank``;
+    rounds, peak backlog, ms a round; (c) streamlines (ABC, STREAMLINES =
+    (particles, steps)) on ragged == its single-rank oracle bit for bit,
+    wall beside the padded run's; (d) ``obs.phases.profile_phases`` of the
+    ragged round: the reference's three keys and each stage's device ms
+    beside the fused round's.  Returns ``(record, launches per path)``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import chaos as TC
+    from repro_torch import kernels as KN
+    from repro_torch.apps import streamlines as sl
+    from repro_torch.core import ForwardConfig, StackedCollectives, forward_work
+    from repro_torch.core import stages as ST
+    from repro_torch.obs import phases as OP
+
+    cuda = dev.type == "cuda"
+    if dtimer is None:
+        dtimer = lambda fn: device_ms(fn)[0]
+    out, paths = {}, {}
+    q = _fig8_queue(dev, R, C)
+    words = 11
+
+    # (a) the Fig-8 round against the onehot and padded placements
+    pcfg = ForwardConfig(R, C, peer_capacity=S)
+    pq, ptotal = forward_work(q, pcfg)
+    check(int(pq.drops.sum()) == 0, f"(a) the padded round drops nothing at S={S}: {int(pq.drops.sum())}")
+    oq, ototal = forward_work(q, ForwardConfig(R, C, exchange="onehot"))
+    rounds = {}
+    for label, kw in RAGGED_CASES:
+        cfg = ForwardConfig(R, C, exchange="ragged", **kw)
+        comm = StackedCollectives()
+        KN.reset_launch_counts()
+        gq, gtotal = forward_work(q, cfg, comm=comm)
+        launches = KN.launch_counts()
+        paths[f"ragged_round_{label}"] = launches
+        rounds[label] = (gq, gtotal)
+        if cuda:
+            want = dict.fromkeys(launches, 0)
+            want.update(pack_and_histogram=1, gather_rows=2) if label == "sort" else want.update(
+                rank_and_histogram=1, scatter_rows=1, gather_rows=1)
+            check(launches == want, f"(a) {label}: the plan, the send pass and K1's stacked copy, no K2: {launches}")
+        kinds = sorted((c.kind, c.shape, n) for c, n in comm.calls.items())
+        check(kinds == sorted([("all_gather", (R, R), 1), ("ragged_all_to_all", (R, C, words), 1), ("psum", (R,), 1)]),
+              f"(a) {label}: one ragged_all_to_all, one count all_gather, the psum: {kinds}")
+        for other, total, name in ((oq, ototal, "onehot"), (pq, ptotal, "padded")):
+            check(_same_queue(gq, other, all_lanes=False) and int(gtotal) == int(total),
+                  f"(a) ragged {label} == {name}: count, drops, total {int(gtotal)}, lanes < count")
+        for n in (2, 4):
+            scomm = StackedCollectives()
+            sq, stotal = forward_work(q, dataclasses.replace(cfg, pipeline_shards=n), comm=scomm)
+            check(_same_queue(sq, gq, all_lanes=False) and int(stotal) == int(gtotal)
+                  and scomm.count("ragged_all_to_all") == n and scomm.count("all_gather") == n,
+                  f"(a) {label} at {n} shards == 1 shard, {n} payload and {n} count calls")
+    check(_same_queue(rounds["sort"][0], rounds["scatter"][0], all_lanes=False), "(a) ragged sort == scatter")
+    if cuda:
+        # telemetry, retain and a health mask add no call (the tests) and no host sync
+        healthy = torch.ones(R, dtype=torch.bool, device=dev)
+        syncs = {name: _sync_warnings(lambda: forward_work(q, c, health=h)) for name, c, h in (
+            ("padded", pcfg, None), ("ragged", ForwardConfig(R, C, exchange="ragged"), None),
+            ("ragged_telemetry_retain_health", ForwardConfig(R, C, exchange="ragged", telemetry=True,
+                                                             overflow="retain"), healthy))}
+        out["syncs"] = syncs
+        check(syncs["ragged_telemetry_retain_health"] == syncs["ragged"] <= syncs["padded"],
+              f"(a) synchronizing calls: ragged no more than padded, telemetry + retain + health add none: {syncs}")
+    if cpu_witness:
+        t0 = time.perf_counter()
+        cq, ctotal = forward_work(_to_cpu(q), ForwardConfig(R, C, exchange="ragged"))
+        check(_same_queue(rounds["sort"][0], cq, all_lanes=True) and int(rounds["sort"][1]) == int(ctotal),
+              f"(a) the ragged sort round on the card == the CPU's, every lane ({time.perf_counter() - t0:.1f} s)")
+    live = int(rounds["sort"][0].count.sum())
+    print(f"  (a) {R}x{C} rays of 44 B: live rows {live}, total {int(rounds['sort'][1])}", flush=True)
+    out["live_rows"] = live
+    for label, kw in RAGGED_CASES:
+        for ex, extra in (("ragged", {}), ("padded", {"peer_capacity": S})):
+            cfg = ForwardConfig(R, C, exchange=ex, **kw, **extra)
+            rec = {"round_ms": timer(lambda: forward_work(q, cfg), reps=reps),
+                   "device_ms": dtimer(lambda: forward_work(q, cfg))}
+            if ex == "ragged" and cuda:
+                rec["round_ms_split"], rec["stages_ms"] = _time_round(q, cfg, reps)
+            out[f"{ex}_{label}"] = rec
+            print(f"  (a) {ex} {label}: median {rec['round_ms']:.4f} ms, device {rec['device_ms']:.4f} ms"
+                  + (("; stages " + ", ".join(f"{k} {v:.3f}" for k, v in rec["stages_ms"].items()))
+                     if "stages_ms" in rec else ""), flush=True)
+    packed, perm, send_counts, send, plane = _ragged_copy_inputs(q, R, C)
+    comm = StackedCollectives()
+    copy_ms = dtimer(lambda: comm.ragged_all_to_all(send, None, **plane))
+    pad_buf = ST.padded_send_buffer(packed, perm, send_counts, num_ranks=R, peer_capacity=S)
+    a2a_ms = dtimer(lambda: comm.all_to_all(pad_buf))
+    copy_bound = bound_ms(2 * live * words * 4)[0]
+    out["copy"] = {"ragged_all_to_all_ms": copy_ms, "padded_all_to_all_ms": a2a_ms, "bound_ms": copy_bound,
+                   "share_of_bound": copy_bound / copy_ms}
+    print(f"  (a) the stacked ragged copy: {copy_ms:.4f} ms of device time, bound {copy_bound:.4f} ms "
+          f"(2 x {live} live rows x 44 B / 3.35 TB/s), {100 * copy_bound / copy_ms:.1f}% of it; the padded "
+          f"round's all_to_all {a2a_ms:.4f} ms", flush=True)
+
+    # (b) the lossless drive, open and under credit, against the padded drive
+    sc = TC.rotating_hotspot(R, 8, E)
+    expected = expected_fast(sc)
+    emitted = int(expected[:, 0].astype(np.int64).sum())
+    pad = ScenarioDrive(sc, ForwardConfig(R, C, peer_capacity=PAD_S, overflow="retain"), dev)
+    pad_res, pad_wall = pad.run()
+    out["drive_padded"] = {"rounds": pad_res["rounds"], "wall_s": pad_wall}
+    for label, kw, gated in (("open", {}, False), ("credit", {"flow": "credit"}, True)):
+        cfg = ForwardConfig(R, C, exchange="ragged", overflow="retain", **kw)
+        d = ScenarioDrive(sc, cfg, dev, gated=gated)
+        d.start()
+        trace = [d.observe()]
+        while d.running(max_rounds=256):
+            d.step()
+            trace.append(d.observe())
+        res = d.result()
+        KN.reset_launch_counts()
+        res2, wall = d.run(max_rounds=256)
+        paths[f"ragged_drive_{label}"] = KN.launch_counts()
+        lost = emitted - int(res["delivered"][:, 0].astype(np.int64).sum()) - res["resident"] - res["drops"]
+        peak = max(t[0] for t in trace)
+        check(lost == 0 and res["drops"] == 0 and res["done"] and res["bad_ballast"] == 0
+              and np.array_equal(res["delivered"], expected) and np.array_equal(res["delivered"], pad_res["delivered"])
+              and _same_result(res2, res),
+              f"(b) ragged retain drive, {label}: lost {lost}, drops {res['drops']}, done, checksums == "
+              f"expected_by_rank and the padded drive's ({pad_res['rounds']} rounds at {PAD_S} slots)")
+        out[f"drive_{label}"] = {"rounds": res["rounds"], "peak_backlog": peak, "lost": lost, "wall_s": wall,
+                                 "ms_a_round": 1e3 * wall / (res["rounds"] + 1)}
+        print(f"  (b) {label}: rounds {res['rounds']}, peak backlog {peak}, lost {lost}, wall {wall:.3f} s, "
+              f"{1e3 * wall / (res['rounds'] + 1):.2f} ms a round (padded: {pad_res['rounds']} rounds, "
+              f"{pad_wall:.3f} s)", flush=True)
+
+    # (c) streamlines on ragged against its oracle, beside the padded run
+    n, steps = STREAMLINES
+    scfg = sl.StreamlineConfig(num_particles=n, max_steps=steps, dt=0.1, field_id=0)
+    walls = {}
+    for ex in ("padded", "ragged"):
+        KN.reset_launch_counts()
+        t0 = time.perf_counter()
+        traces, _lengths, stats = sl.run(scfg, num_ranks=R, exchange=ex, device=dev)
+        walls[ex] = time.perf_counter() - t0
+        if ex == "ragged":
+            paths["ragged_streamlines"] = KN.launch_counts()
+            orc = sl.oracle(scfg, device=dev)
+            same = np.array_equal(np.isfinite(traces), np.isfinite(orc)) and np.array_equal(
+                traces.view(np.uint32), orc.view(np.uint32))
+            check(same and stats["drops"] == 0, f"(c) streamlines on ragged == the single-rank oracle, bit for bit "
+                                                f"({stats['rounds']} rounds)")
+    out["streamlines"] = walls
+    print(f"  (c) streamlines {n} particles, {steps} steps: ragged {walls['ragged']:.3f} s, padded "
+          f"{walls['padded']:.3f} s", flush=True)
+
+    # (d) the phase split of the ragged round
+    Ray44 = _ray44_types()
+    proto = Ray44(origin=torch.zeros(3), direction=torch.zeros(3), tmin=torch.zeros(()),
+                  pixel=torch.zeros((), dtype=torch.int32), integral=torch.zeros(()), extra=torch.zeros(2))
+    timeit = lambda fn, x: (1e3 * dtimer(lambda: fn(x)), None)
+    out["phases"] = {}
+    for label, kw in RAGGED_CASES:
+        cfg = ForwardConfig(R, C, exchange="ragged", **kw)
+        KN.reset_launch_counts()
+        phase_us = OP.profile_phases(cfg, n_emit=C, cap=C, proto=proto, timeit=timeit, device=dev)
+        paths[f"ragged_phases_{label}"] = KN.launch_counts()
+        keys = ["marshal", "count_collective", "payload_collective"]
+        check(list(phase_us) == keys, f"(d) {label}: phase keys == the reference's {keys}")
+        stage_ms = {k: v / 1e3 for k, v in phase_us.items()}
+        out["phases"][label] = {"stage_ms": stage_ms, "fused_round_ms": out[f"ragged_{label}"]["device_ms"]}
+        print(f"  (d) {label}: fused round {out[f'ragged_{label}']['device_ms']:.4f} ms; stages standalone: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in stage_ms.items()), flush=True)
+    return out, paths
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -3101,7 +3332,8 @@ def main() -> int:
            "pipeline": lambda: phase_pipeline(dev), "credit": lambda: phase_credit(dev),
            "balance": lambda: phase_balance(dev), "recovery": lambda: phase_recovery(dev),
            "streamlines": lambda: phase_streamlines(dev), "vopat": lambda: phase_vopat(dev),
-           "nbody": lambda: phase_nbody(dev), "obs": lambda: phase_obs(dev), "apps2": lambda: phase_apps2(dev)}
+           "nbody": lambda: phase_nbody(dev), "obs": lambda: phase_obs(dev), "apps2": lambda: phase_apps2(dev),
+           "ragged": lambda: phase_ragged(dev)}
     kernels, paths = {}, {}  # paths: launches per path, counted from 0
     for title in run:
         print(f"# phase {title}", flush=True)
@@ -3115,7 +3347,7 @@ def main() -> int:
         if title == "kernels":
             kernels, more = res
             paths.update(more)
-        elif title in ("lossless", "telemetry", "pipeline", "credit", "balance", "recovery", "obs", "apps2"):
+        elif title in ("lossless", "telemetry", "pipeline", "credit", "balance", "recovery", "obs", "apps2", "ragged"):
             record[title], more = res
             paths.update(more)
         elif title in ("streamlines", "vopat", "nbody"):

@@ -17,6 +17,13 @@ issues inside ``shard_map`` becomes a tensor operation on that axis:
                   the same within ONE tier's group: x (R, ...) → (R, A_l,
                   ...), rank r sees the A_l ranks that share every digit
                   of r but digit l, in digit-l order
+  ragged_all_to_all(x, output, input_offsets=, send_sizes=,
+                  output_offsets=, recv_sizes=)
+                  x (R, C, W) → (R, capacity, W): sender s's rows
+                  [input_offsets[s, d], + send_sizes[s, d]) land on
+                  receiver d at [output_offsets[s, d], …)
+                  (``jax.lax.ragged_all_to_all``, the MPI_Alltoallv of the
+                  ragged exchange), each size table (R, R), row = rank
   ppermute(x)     x (R, ...) → out[(i + 1) % R] = x[i]: the node-major
                   ring hop of ``repro.core.cycling`` (``jax.lax.ppermute``)
   psum(x)         x (R, ...) → the sum over ranks; the replicated result is
@@ -32,7 +39,11 @@ entries.  The port has no lowered HLO to audit, so the recorder is how the
 collective budget is guarded: on ``exchange="padded"`` a round issues
 exactly one payload ``all_to_all`` and one count ``all_to_all``, on
 ``exchange="hierarchical"`` one of each per non-trivial tier (a call's
-``tier`` names it).  A ``torch.distributed`` backend will sit behind the
+``tier`` names it), on ``exchange="ragged"`` one ``ragged_all_to_all`` and
+one count ``all_gather``.  A ``ragged_all_to_all`` call records its static
+result bytes, ``(capacity, W)`` words a rank, as the reference's HLO reader
+counts the op; the live rows it moves are data and are not read here (that
+would cost a host sync a round).  A ``torch.distributed`` backend will sit behind the
 same methods.
 
 Tier layouts.  A multi-tier rank axis is a tuple of digit sizes, slowest
@@ -52,6 +63,8 @@ from typing import Counter, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels.marshal import ops as marshal_ops
+
 __all__ = [
     "Call", "StackedCollectives", "joint_tiers", "node_layout", "pod_layout", "tier_digit",
 ]
@@ -59,7 +72,7 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class Call:
-    kind: str  # "all_to_all" | "all_gather" | "ppermute" | "psum" | "pmin"
+    kind: str  # "all_to_all" | "ragged_all_to_all" | "all_gather" | "ppermute" | "psum" | "pmin"
     nbytes: int  # bytes of the stacked input (every rank's contribution)
     shape: Tuple[int, ...]
     tier: Optional[int] = None  # the tier of a one-tier call
@@ -133,6 +146,59 @@ class StackedCollectives:
         rest = tuple(x.shape[2:])
         view = x.reshape(digits + (digits[tier],) + rest)
         return view.transpose(tier, len(digits)).reshape(x.shape).contiguous()
+
+    def ragged_all_to_all(
+        self,
+        x: torch.Tensor,  # (R, C, W) every sender's rows, segments in destination order
+        output: Optional[torch.Tensor],  # (R, capacity, W), or None
+        *,
+        input_offsets: torch.Tensor,  # (R_src, R_dst)
+        send_sizes: torch.Tensor,  # (R_src, R_dst)
+        output_offsets: torch.Tensor,  # (R_src, R_dst): where s's block lands on d
+        recv_sizes: torch.Tensor,  # (R_dst, R_src)
+        capacity: Optional[int] = None,
+    ) -> torch.Tensor:
+        """The stacked ``ragged_all_to_all``: receiver ``d``'s rows
+        ``[output_offsets[s, d], + recv_sizes[d, s])`` become sender ``s``'s
+        rows from ``input_offsets[s, d]``; every other row is ``output``'s
+        (with ``output=None``, of shape ``(R, capacity, W)``, those rows
+        carry no contract).  ``send_sizes[s, d]`` must equal ``recv_sizes[d,
+        s]`` and each receiver's landing intervals must be disjoint and in
+        source order, as the replicated control plane gives them; nothing
+        is checked on the device.
+
+        One output-driven gather over the flattened ``(R·C, W)`` rows, no
+        host sync and no data-dependent shape: receiver ``d``'s lane ``j``
+        finds its source ``s`` by a search over column ``d``'s landing
+        starts and reads row ``s·C + input_offsets[s, d] + j −
+        output_offsets[s, d]`` (K1 ``gather_rows``).  The index math is
+        int32, so ``R·C + capacity`` must stay below 2^31."""
+        del send_sizes  # the receiver's view (recv_sizes) drives the gather
+        R, C, W = x.shape
+        cap = output.shape[1] if output is not None else capacity
+        if cap is None:
+            raise ValueError("ragged_all_to_all needs output or capacity")
+        if R * C + cap >= 2**31:
+            raise ValueError(f"ragged_all_to_all: {R} x {C} rows and {cap} lanes overflow its int32 row index")
+        for name, t in (("input_offsets", input_offsets), ("output_offsets", output_offsets),
+                        ("recv_sizes", recv_sizes)):
+            if tuple(t.shape) != (R, R):
+                raise ValueError(f"ragged_all_to_all: {name} must be ({R}, {R}), got {tuple(t.shape)}")
+        if output is not None and tuple(output.shape) != (R, cap, W):
+            raise ValueError(f"ragged_all_to_all: output must be ({R}, {cap}, {W}), got {tuple(output.shape)}")
+        self.calls[Call("ragged_all_to_all", R * cap * W * x.element_size(), (R, cap, W))] += 1
+        i32 = lambda t: t.to(torch.int32)
+        starts = i32(output_offsets).transpose(0, 1).contiguous()  # (R_dst, R_src)
+        lane = torch.arange(cap, dtype=torch.int32, device=x.device).expand(R, cap).contiguous()
+        s = (torch.searchsorted(starts, lane, right=True) - 1).clamp_(min=0)  # the lane's source rank
+        # the flat row that lane 0 of each landing interval would read
+        base = torch.arange(R, dtype=torch.int32, device=x.device)[None, :] * C + i32(input_offsets).T - starts
+        src = torch.gather(base, 1, s) + lane
+        out = marshal_ops.gather_rows(x.reshape(1, R * C, W), src.reshape(1, R * cap)).view(R, cap, W)
+        if output is None:
+            return out
+        landed = (lane >= torch.gather(starts, 1, s)) & (lane < torch.gather(starts + i32(recv_sizes), 1, s))
+        return torch.where(landed[:, :, None], out, output)
 
     def all_gather(
         self, x: torch.Tensor, *, digits: Optional[Sequence[int]] = None, tier: Optional[int] = None

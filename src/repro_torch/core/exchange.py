@@ -12,6 +12,15 @@ The caller packs the work items into ONE ``(R, C, W)`` buffer of words
   one SpillExtract → Marshal → CountExchange → PayloadExchange per
   non-trivial tier, ``AdvanceTier`` between tiers and ``Unmarshal`` after
   the last.  Placement is bit-identical to the flat backends.
+* ``ragged`` — the MPI_Alltoallv analogue (the reference's production
+  backend): the payload is placed ONCE in destination order, contiguous
+  per-peer segments, and shipped in ONE ``ragged_all_to_all``; the control
+  plane is one count ``all_gather`` from which every rank derives every
+  rank's clamps and landing offsets: no padded slot, no per-peer clamp, no
+  receive unpack pass.  On one card the stacked copy
+  (``StackedCollectives.ragged_all_to_all``) is an output-driven gather
+  that writes every lane of every receive queue whatever the live count;
+  only a real fabric would move the live rows alone.
 * ``onehot`` — the all-gather reference oracle, a deliberately different
   code path used by the tests and the chip smoke run.
 
@@ -20,8 +29,9 @@ All take either marshal plan: ``marshal="sort"`` with the destination-sort
 ``dest_rank`` (``perm`` is then None).
 
 Budget per round: 1 payload ``all_to_all`` + 1 count ``all_to_all`` on
-``padded``, one of each per non-trivial tier on ``hierarchical`` (recorded
-by ``core.collectives``); ``pipeline_shards=S`` makes it S of each, the
+``padded``, one of each per non-trivial tier on ``hierarchical``, 1
+``ragged_all_to_all`` + 1 count ``all_gather`` on ``ragged`` (recorded by
+``core.collectives``); ``pipeline_shards=S`` makes it S of each, the
 shards' chains run in turn (``stages.Pipelined``), payload bytes conserved
 and placement bit-exact with S=1.  Segment overflow — sender-side,
 tier-side or receiver-side — is dropped and counted exactly once.  Every
@@ -34,11 +44,10 @@ empty.  The onehot oracle has no sender clamp, so its plan is empty by
 construction.  With ``telemetry=True`` ``stats`` is the round's
 ``telemetry.RoundStats``, read from control-plane values the round already
 holds (no collective, no host sync); otherwise it is None.  With
-``flow="credit"`` (padded and hierarchical, under retain) the carried
-``credits (R, R)`` gate the first clamp (``stages.CreditGate``), each count
-call carries one more int32 column of adverts, and ``credits_out`` is the
-updated ``(R, R)`` estimate; otherwise it is None.  ``ragged`` comes later
-(ROADMAP Queue 1 item 16, its credit branch too).
+``flow="credit"`` (under retain) the carried ``credits (R, R)`` gate the
+first clamp (``stages.credit_grant``), each count call carries one more
+int32 column of adverts, and ``credits_out`` is the updated ``(R, R)``
+estimate; otherwise it is None.
 """
 from __future__ import annotations
 
@@ -54,7 +63,7 @@ from repro_torch.kernels.bucket_scatter import ops as bs_ops
 from repro_torch.kernels.marshal import ops as marshal_ops
 from repro_torch.telemetry import stats as TS
 
-__all__ = ["exchange_counts", "exchange_hierarchical", "exchange_onehot", "exchange_padded"]
+__all__ = ["exchange_counts", "exchange_hierarchical", "exchange_onehot", "exchange_padded", "exchange_ragged"]
 
 
 def exchange_counts(send_counts: torch.Tensor, comm: StackedCollectives) -> torch.Tensor:
@@ -132,6 +141,138 @@ def exchange_padded(
         )
     drops = st.send_drops + st.recv_drops
     return st.out, st.recv_counts, st.new_count, drops, tuple(st.pending), st.credits_out if credit else None, stats
+
+
+def exchange_ragged(
+    packed: torch.Tensor,  # (R, C, W) UNSORTED packed payload
+    perm: Optional[torch.Tensor],  # (R, C) destination-sort permutation
+    send_counts: torch.Tensor,  # (R, R) valid-destination counts
+    *,
+    comm: StackedCollectives,
+    num_ranks: int,
+    capacity: int,
+    marshal: str = "sort",
+    dest_clean: Optional[torch.Tensor] = None,
+    dest_rank: Optional[torch.Tensor] = None,
+    overflow: str = "drop",
+    age: Optional[torch.Tensor] = None,
+    telemetry: bool = False,
+    telemetry_buckets: int = 8,
+    pipeline_shards: int = 1,
+    on_stage: Optional[Callable[[str], None]] = None,
+    flow: str = "open",
+    credits: Optional[torch.Tensor] = None,  # (R, R) credit: carried adverts, one round stale
+    credit_reserve: int = 0,
+):
+    """The ``ragged_all_to_all`` exchange (the reference's ``exchange_ragged``).
+
+    The count ``all_gather`` of the ``(R, R)`` send counts is the whole
+    control plane: every rank derives every rank's clamps and landing
+    offsets from the replicated matrix (``stages.ragged_control_plane``,
+    the receiver queue as the only clamp, cut in source order).  The
+    payload is placed once in destination order (``stages.
+    ragged_send_buffer``: K1 through the sort permutation, or K5 to
+    ``off[d] + rank``) and ships in ONE ``ragged_all_to_all`` that lands
+    the rows compacted.  The sender owns the drop accounting: in drop mode
+    ``drops`` is the control plane's cut of the rank's own row.
+
+    Retain: the rows past each segment's allowance come back as one spill
+    block (``stages.lanes_spill``), and the arrivals land straight behind
+    its front (``output_offsets + front``, cut at ``capacity``), the same
+    bits on every lane below the count as the reference's landing at 0 and
+    shifting after, with one pass fewer.  Credit (under retain): the grant
+    ``credit_grant(credits)`` gates the counts BEFORE the gather, which
+    widens by one int32 column carrying each rank's own-entry advert; the
+    rank's fresh advert then replaces its own entry of ``credits_out``.
+    ``pipeline_shards=S``: shard ``k`` ships rows ``[k·capacity/S,
+    (k+1)·capacity/S)`` of every segment, each shard with its own count
+    ``all_gather`` (S payload and S count calls); the marshal stays one
+    pass.  Telemetry: the segment demand is the count matrix's column
+    totals, replicated on every rank (totals ×R, the reference's
+    population), ``recv_drops`` the receiver-admission cut.
+
+    Returns ``(recv_packed (R, capacity, W), recv_sizes (R, R), new_count
+    (R,), drops (R,), pending, credits_out, stats)``.  ``on_stage`` is
+    called after ``CountExchange``, ``SpillExtract`` (retain), ``Marshal``
+    and ``PayloadExchange`` (``"PayloadExchange#k"`` and, for k > 0,
+    ``"CountExchange#k"`` when sharded)."""
+    R = num_ranks
+    B, C, _W = packed.shape
+    if B != R:
+        raise ValueError(f"exchange_ragged runs over the whole rank axis: {B} rows for {R} ranks")
+    mark = on_stage or (lambda name: None)
+    retain, credit = overflow == "retain", flow == "credit"
+    off = ST._excl_cumsum(send_counts, 1)
+    send_gated, credits_out, grant = send_counts, None, None
+    if credit:
+        grant = ST.credit_grant(credits, R)
+        send_gated = torch.minimum(send_counts, grant)
+        # the count call widened by one column: each rank's own-entry advert
+        own = torch.diagonal(credits).to(send_gated.dtype)[:, None]
+        gath = comm.all_gather(torch.cat([send_gated, own], dim=1))  # (R_me, R_src, R + 1)
+        cnt, credits_out = gath[0, :, :R], gath[:, :, R].to(torch.int32)
+    else:
+        cnt = comm.all_gather(send_counts)[0]
+    # every rank holds the same matrix: the replicated layout is derived once
+    send_sizes, output_offsets, recv_sizes = ST.ragged_control_plane(cnt, capacity)
+    mark("CountExchange")
+    send_drops = (send_counts - send_sizes).sum(dim=1, dtype=torch.int32)
+    pending, front = (), None
+    if retain:
+        pending = (ST.lanes_spill(
+            packed, perm, _fresh_age(packed) if age is None else age, send_sizes, send_counts - send_sizes,
+            off + send_sizes, send_drops, num_ranks=R, marshal=marshal, dest_clean=dest_clean,
+            dest_rank=dest_rank,
+        ),)
+        front = torch.clamp(send_drops, max=capacity)
+        held = send_drops
+        if credit:
+            fresh = ST._fresh_advert(capacity - front, credit_reserve, R)
+            mine = torch.eye(R, dtype=torch.bool, device=packed.device)
+            credits_out = torch.where(mine, fresh[:, None], credits_out)
+        send_drops = torch.zeros_like(send_drops)
+        mark("SpillExtract")
+    sorted_packed = ST.ragged_send_buffer(
+        packed, perm, send_counts, num_ranks=R, marshal=marshal, dest_clean=dest_clean, dest_rank=dest_rank,
+    )
+    mark("Marshal")
+    chunk = capacity // pipeline_shards
+    out = None
+    for k in range(pipeline_shards):
+        ss, oo = send_sizes, output_offsets
+        if k > 0:
+            # shard k's own count call, as the reference issues it (the
+            # counts do not change between shards)
+            ss, oo, _rs = ST.ragged_control_plane(comm.all_gather(send_gated)[0], capacity)
+            mark(f"CountExchange#{k}")
+        lo = torch.clamp(ss, max=k * chunk)
+        size = torch.clamp(ss - k * chunk, 0, chunk)
+        land = oo + lo
+        if front is not None:
+            # land behind the receiver's spill front, cut at capacity
+            land = land + front[None, :]
+            size = torch.clamp(torch.minimum(size, capacity - land), min=0)
+        out = comm.ragged_all_to_all(
+            sorted_packed, out, input_offsets=off + lo, send_sizes=size, output_offsets=land,
+            recv_sizes=size.transpose(0, 1), capacity=capacity,
+        )
+        mark("PayloadExchange" if pipeline_shards == 1 else f"PayloadExchange#{k}")
+    new_count = recv_sizes.sum(dim=1, dtype=torch.int32)
+    recv_cut = torch.zeros_like(new_count)
+    if retain:
+        admitted = torch.minimum(new_count, capacity - front)
+        recv_cut, new_count = new_count - admitted, admitted
+    stats = None
+    if telemetry:
+        col_demand = cnt.sum(dim=0, dtype=torch.int32)  # (R,), the same on every rank
+        stats = TS.single_tier_stats(
+            col_demand.expand(R, R), capacity, telemetry_buckets,
+            sent_rows=send_sizes.sum(dim=1, dtype=torch.int32), stage_drops=send_drops,
+            recv_total=col_demand, recv_drops=recv_cut,
+            rows_held=held if retain else None,
+            credits_granted=torch.minimum(grant, send_counts).sum(dim=1, dtype=torch.int32) if credit else None,
+        )
+    return out, recv_sizes, new_count, send_drops + recv_cut, pending, credits_out, stats
 
 
 def _fresh_age(packed: torch.Tensor) -> torch.Tensor:

@@ -11,7 +11,9 @@ Per round, for all R ranks at once:
   3. exchange (§4.2.2): sender clamp, ONE send-side payload pass (the
      composed gather K1, or the bucket scatter K5), one count and one
      payload ``all_to_all`` (per non-trivial tier on the hierarchical
-     route), receive compaction (K2);
+     route), receive compaction (K2); on the ragged route one count
+     ``all_gather`` and one ``ragged_all_to_all`` that lands the rows
+     compacted (no K2);
   4. wrap up (§4.2.3): unpack into the next input queue, destinations reset
      to DISCARD, and a ``psum`` of the received counts gives the global
      in-flight total for termination.
@@ -62,16 +64,10 @@ __all__ = ["ForwardConfig", "credit_reserve_rows", "forward_work"]
 
 _EXCHANGES = {
     "padded": X.exchange_padded,
+    "ragged": X.exchange_ragged,
     "hierarchical": X.exchange_hierarchical,
     "onehot": X.exchange_onehot,
 }
-_KNOWN_EXCHANGES = ("padded", "ragged", "hierarchical", "onehot")
-
-
-def _later(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md Queue 1 item {item}"
-    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,9 +80,10 @@ class ForwardConfig:
       capacity: per-rank queue capacity (paper: ``resizeRayQueues(N)``).
       peer_capacity: padded exchange only — per-peer slot rows of the send
         buffer (default 2·ceil(C/R)).
-      exchange: "padded" | "hierarchical" (N-stage, over the tier layout
-        ``level_sizes``) | "onehot" (test oracle); "ragged" comes in a later
-        slice.
+      exchange: "padded" | "ragged" (contiguous live segments in one
+        ``ragged_all_to_all``: the reference's production backend) |
+        "hierarchical" (N-stage, over the tier layout ``level_sizes``) |
+        "onehot" (test oracle).
       marshal: "sort" (key sort, then one composed gather) | "scatter"
         (the sort-free bucket plan, then one scatter); bit-identical
         placement.
@@ -113,11 +110,9 @@ class ForwardConfig:
         with S=1; must divide ``capacity`` and every per-peer slot budget.
       flow: "open" (ship every clamped segment) | "credit" (receiver-
         advertised admission, the backpressure law; needs
-        ``overflow="retain"`` and a padded or hierarchical exchange).
+        ``overflow="retain"`` and a padded, ragged or hierarchical exchange).
       emit_reserve: credit only — receive rows every advert withholds for
         the rank's own emissions (-1: ``capacity // 2``).
-      exchange="ragged" is validated as in the reference and refused until
-        its slice lands (ROADMAP Queue 1 item 16).
     """
 
     num_ranks: int
@@ -139,7 +134,7 @@ class ForwardConfig:
     emit_reserve: int = -1
 
     def __post_init__(self):
-        if self.exchange not in _KNOWN_EXCHANGES:
+        if self.exchange not in _EXCHANGES:
             raise ValueError(f"unknown exchange {self.exchange!r}")
         if self.overflow not in ("drop", "retain"):
             raise ValueError(
@@ -209,9 +204,6 @@ class ForwardConfig:
             self._init_hierarchical()
         else:
             self._init_flat()
-        # valid reference configurations whose feature a later slice brings
-        if self.exchange == "ragged":
-            raise _later("exchange='ragged'", "16")
 
     def _init_flat(self):
         for field in ("fast_size", "node_capacity", "level_sizes", "level_capacities"):
@@ -357,7 +349,8 @@ def forward_work(
 
     ``comm`` records the round's collectives.  ``on_stage(name)``, if given,
     is called after each step of the round ("plan", "pack", each exchange
-    stage on ``padded`` and, with its tier, on ``hierarchical`` —
+    stage on ``padded`` and ``ragged`` and, with its tier, on
+    ``hierarchical`` —
     ``"Stage#k"`` for shard k of a pipelined round — or "exchange" on
     ``onehot``, "merge" under retain, "unpack", "psum"), e.g. to record a
     CUDA event there; it must not change the round.
@@ -415,6 +408,8 @@ def _forward(q, cfg, *, age=None, health=None, credits=None, comm=None, on_stage
     if cfg.exchange == "padded":
         kwargs.update(peer_capacity=cfg.peer_capacity, pipeline_shards=cfg.pipeline_shards, on_stage=on_stage,
                       digits=digits, tier=tier)
+    elif cfg.exchange == "ragged":
+        kwargs.update(pipeline_shards=cfg.pipeline_shards, on_stage=on_stage)
     elif cfg.exchange == "hierarchical":
         kwargs.update(level_sizes=cfg.level_sizes, level_capacities=cfg.level_capacities,
                       pipeline_shards=cfg.pipeline_shards, on_stage=on_stage)

@@ -46,6 +46,13 @@ and sums them on receive.  Each shard lands its rows at their bulk
 positions, so the round is bit-exact with S=1.  On one card the chains run
 in order on one stream: nothing overlaps until a real wire exists.
 
+The ragged exchange (``exchange.exchange_ragged``) composes no stage
+object, as in the reference: it uses :func:`credit_grant`,
+:func:`lanes_spill`, :func:`ragged_control_plane` (every rank's clamps and
+landing offsets from the replicated count matrix, one ``(R, R)``
+computation) and :func:`ragged_send_buffer` (the one payload pass into
+destination order).
+
 Each rank's digit on a tier (``jax.lax.axis_index`` of the reference) is
 read from the stacked axis (``collectives.tier_digit``), so ``seg_dest``
 stays per rank.
@@ -87,8 +94,11 @@ __all__ = [
     "compact_blocks",
     "compact_shard",
     "compose",
+    "credit_grant",
     "lanes_spill",
     "padded_send_buffer",
+    "ragged_control_plane",
+    "ragged_send_buffer",
     "send_rows",
     "spill_positions",
     "subsegment_gather",
@@ -164,6 +174,19 @@ def clamp_subsegments(cnt: torch.Tensor, slot: int, dim: int = 0) -> Tuple[torch
     raw_pref = _excl_cumsum(cnt, dim)
     allowed = torch.clamp(torch.minimum(cnt, slot - raw_pref), min=0)
     return allowed, _excl_cumsum(allowed, dim)
+
+
+def ragged_control_plane(cnt: torch.Tensor, capacity: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Every rank's ragged layout from the replicated ``(R_src, R_dst)`` count
+    matrix at once: the receiver-capacity clamp (:func:`clamp_subsegments`
+    down each destination column, so a segment or segment tail past
+    ``capacity`` is cut, the §3.3 drop rule, decided without a round trip).
+    Returns ``(send_sizes, output_offsets, recv_sizes)``, each ``(R, R)``
+    with row = rank: row ``r`` is the reference's ``(R,)`` vectors at ``me
+    = r`` — what ``r`` may deliver to each peer, where its block lands
+    there, and what each peer delivers to ``r``."""
+    allowed, roff = clamp_subsegments(cnt, capacity)
+    return allowed, roff, allowed.transpose(0, 1).contiguous()
 
 
 def subsegment_gather(
@@ -267,6 +290,31 @@ def send_rows(
     return torch.gather(perm, 1, slotpos.reshape(rows_b, -1).to(torch.int64))
 
 
+def ragged_send_buffer(
+    packed: torch.Tensor,  # (B, C, W) UNSORTED packed payload
+    perm: Optional[torch.Tensor],  # (B, C) sort mode: destination-sort permutation
+    send_counts: torch.Tensor,  # (B, R) valid-destination counts
+    *,
+    num_ranks: int,
+    marshal: str = "sort",
+    dest_clean: Optional[torch.Tensor] = None,  # (B, C) scatter mode: sanitised dest
+    dest_rank: Optional[torch.Tensor] = None,  # (B, C) scatter mode: in-bucket rank
+) -> torch.Tensor:
+    """The ragged exchange's send-side marshal, the round's ONE payload
+    pass: the payload in destination order, contiguous per-peer segments
+    from ``off = excl_cumsum(send_counts)``, no slot padding.  Sort mode
+    gathers through the permutation (K1); scatter mode stores lane ``i`` at
+    ``off[d_clean] + rank`` (K5), DISCARD lanes at ``C`` (dropped).
+    Returns ``(B, C, W)``; rows past the live total are garbage (sort) or
+    zeros (scatter)."""
+    if marshal == "scatter":
+        C = packed.shape[1]
+        off = _excl_cumsum(send_counts, 1)
+        pos = _take(off, dest_clean.clamp(0, num_ranks - 1)) + dest_rank
+        return bs_ops.scatter_rows(packed, torch.where(dest_clean < num_ranks, pos, C), num_slots=C)
+    return marshal_ops.gather_rows(packed, perm)
+
+
 def padded_send_buffer(
     packed: torch.Tensor,  # (B, C, W) UNSORTED packed payload
     perm: Optional[torch.Tensor],  # (B, C) sort mode: destination-sort permutation
@@ -361,6 +409,15 @@ class RoundState:
     recv_drops: Any = None  # (B,)
 
 
+def credit_grant(credits: torch.Tensor, num_ranks: int) -> torch.Tensor:
+    """Each holder's grant toward every destination, ``(B, R)`` int32: the
+    floor share plus rank-ordered residual of the clipped advert, ``free //
+    R + (me < free % R)`` with ``me`` the row (the holding rank)."""
+    free = torch.clamp(credits, min=0)
+    me = torch.arange(free.shape[0], device=free.device)[:, None]
+    return (free // num_ranks + (me < free % num_ranks).to(free.dtype)).to(torch.int32)
+
+
 @dataclasses.dataclass(frozen=True)
 class CreditGate:
     """The backpressure law's sender gate: rank ``me`` may ship
@@ -371,9 +428,7 @@ class CreditGate:
     num_ranks: int
 
     def __call__(self, st: RoundState) -> RoundState:
-        free = torch.clamp(st.credits, min=0)
-        me = torch.arange(free.shape[0], device=free.device)[:, None]
-        st.credit_allow = (free // self.num_ranks + (me < free % self.num_ranks).to(free.dtype)).to(torch.int32)
+        st.credit_allow = credit_grant(st.credits, self.num_ranks)
         st.credits_out = st.credits
         return st
 

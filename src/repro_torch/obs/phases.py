@@ -25,7 +25,11 @@ The phase keys:
 * hierarchical: per tier ``tier{l}_marshal`` / ``tier{l}_count_collective``
   / ``tier{l}_payload_collective`` for every tier ``l`` of extent above 1
   (fastest first), plus the final ``unmarshal``.
-* ragged: not ported (ROADMAP Queue 1 item 16).
+* ragged: ``marshal`` (pack, plan and the one payload pass into
+  destination order, ``stages.ragged_send_buffer``) / ``count_collective``
+  (the one count ``all_gather`` and the replicated control plane,
+  ``stages.ragged_control_plane``) / ``payload_collective`` (one
+  ``StackedCollectives.ragged_all_to_all`` of equal segments).
 
 :func:`to_perfetto` lays the measured durations out as a merged multi-rank
 Perfetto timeline, one process track per rank and one thread track per
@@ -45,7 +49,6 @@ from repro_torch.core import stages as ST
 from repro_torch.core import types as T
 from repro_torch.core.collectives import StackedCollectives
 from repro_torch.core.exchange import exchange_counts
-from repro_torch.core.forwarding import _later
 from repro_torch.core.queue import enqueue, make_queue
 from repro_torch.kernels.bucket_scatter import ops as bs_ops
 from repro_torch.kernels.sort_keys import ops as sk_ops
@@ -114,7 +117,8 @@ def profile_phases(
     elif cfg.exchange == "hierarchical":
         phases = _hierarchical_phases(cfg, n_emit, cap, proto, dev)
     elif cfg.exchange == "ragged":
-        raise _later("profile_phases of exchange='ragged'", "16")
+        q, words = _setup(cfg, n_emit, cap, proto, dev)
+        phases = _ragged_phases(cfg, q, words, n_emit, cap, dev)
     else:
         raise ValueError(
             f"profile_phases supports padded/hierarchical/ragged rounds, "
@@ -146,6 +150,9 @@ def _send_side(cfg, q, **shard):
         dest_clean, dest_rank, hist = bs_ops.rank_and_histogram(q.dest, q.count, num_ranks=R)
     else:
         perm, _sorted, hist = sk_ops.sort_permutation(q.dest, q.count, R)
+    if cfg.exchange == "ragged":
+        return ST.ragged_send_buffer(packed, perm, hist[:, :R], num_ranks=R, marshal=cfg.marshal,
+                                     dest_clean=dest_clean, dest_rank=dest_rank)
     return ST.padded_send_buffer(
         packed, perm, hist[:, :R], num_ranks=R, peer_capacity=cfg.peer_capacity, marshal=cfg.marshal,
         dest_clean=dest_clean, dest_rank=dest_rank, **shard,
@@ -200,6 +207,38 @@ def _pipelined_phases(cfg, q, words, cap, dev) -> Tuple:
              lambda me, k=k: ST.compact_shard(None, buf, recv_counts, cap, row_offset=k * chunk)),
         ]
     return tuple(out)
+
+
+def _ragged_phases(cfg, q, words, n_emit, cap, dev) -> Tuple:
+    """The ragged round's three stages: the send side into destination
+    order, the count ``all_gather`` with the replicated control plane
+    (``(me + j) % (n_emit / R)`` rows toward peer ``j``), and one
+    ``ragged_all_to_all`` of ``max(n_emit, R)`` rows a rank in R equal
+    segments.  Unlike the reference's phase, which lands every sender's
+    segment at the same receiver offsets, sender ``s``'s segment lands at
+    ``s·seg`` on every receiver, so the timed call is a layout the op
+    defines (disjoint landing intervals in source order)."""
+    R = cfg.num_ranks
+    comm = StackedCollectives()
+    counts = _block_counts(R, R, max(n_emit // R, 1), n_emit, dev)
+    n = max(n_emit, R)
+    buf = _words(R, (n, words), dev)
+    seg = torch.full((R, R), n // R, dtype=torch.int32, device=dev)
+    off = ST._excl_cumsum(seg, 1)  # sender s's segment toward d starts at d·seg
+    land = off.T.contiguous()  # and lands on d at s·seg
+
+    def count_collective(me):
+        return ST.ragged_control_plane(comm.all_gather(counts)[0], cap)
+
+    def payload_collective(me):
+        return comm.ragged_all_to_all(buf, None, input_offsets=off, send_sizes=seg, output_offsets=land,
+                                      recv_sizes=seg, capacity=n)
+
+    return (
+        ("marshal", lambda me: _send_side(cfg, q)),
+        ("count_collective", count_collective),
+        ("payload_collective", payload_collective),
+    )
 
 
 def _hierarchical_phases(cfg, n_emit, cap, proto, dev) -> Tuple:

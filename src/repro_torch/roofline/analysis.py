@@ -345,12 +345,16 @@ def overlap_efficiency_model(
 
 
 def recorded_wire_bytes(calls, level_sizes: Sequence[int], *, min_bytes: int = 0) -> list:
-    """Bytes ONE rank put into the ``all_to_all`` calls of each tier, slowest
-    tier first, read from a call recorder's ``calls`` (``{Call: n}``).
+    """Bytes ONE rank put into the ``all_to_all`` and ``ragged_all_to_all``
+    calls of each tier, slowest tier first, read from a call recorder's
+    ``calls`` (``{Call: n}``).
 
     A call's ``nbytes`` holds every rank's contribution, so one rank's share
     is ``nbytes / shape[0]``; a tier call counts on its ``tier``, a flat call
-    (no tier) on the one tier of a flat layout ``(R,)``.  ``min_bytes``
+    (no tier) on the one tier of a flat layout ``(R,)``.  A ragged call
+    counts its static result bytes, ``(capacity, W)`` words a rank, as the
+    reference's HLO reader counts the op, not the live rows it moves; the
+    ragged round's count ``all_gather`` is not counted.  ``min_bytes``
     skips calls whose one-rank share is smaller — the count calls beside
     the payload, as ``per_tier_collective_bytes``'s filter does in the
     reference.  For the padded payload calls of a round this is
@@ -360,10 +364,10 @@ def recorded_wire_bytes(calls, level_sizes: Sequence[int], *, min_bytes: int = 0
     level_sizes = tuple(int(a) for a in level_sizes)
     out = [0] * len(level_sizes)
     for call, n in calls.items():
-        if call.kind != "all_to_all":
+        if call.kind not in ("all_to_all", "ragged_all_to_all"):
             continue
         if call.tier is None and len(level_sizes) != 1:
-            raise ValueError(f"a flat all_to_all call on the {len(level_sizes)}-tier layout {level_sizes}")
+            raise ValueError(f"a flat {call.kind} call on the {len(level_sizes)}-tier layout {level_sizes}")
         share = call.nbytes // call.shape[0]
         if share >= min_bytes:
             out[0 if call.tier is None else call.tier] += share * n
