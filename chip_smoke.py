@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all started together, linked into one library under
-``build/``) and runs fifteen phases on ``cuda:0``:
+``build/``) and runs sixteen phases on ``cuda:0``:
 
   1. kernels     — all ten kernels (K1 gather_rows, K2 unmarshal, K3
                    pack_and_histogram, K4 rank_and_histogram, K5
@@ -204,7 +204,37 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    padded run's; (d) ``obs.phases.profile_phases`` of the
                    ragged round: the reference's three keys, each stage's
                    device ms;
- 15. report      — one JSON line of the kernels (launches on the paths that
+ 15. lm          — the LM serving path: (a) llama4-scout-17b-16e at full
+                   width (d_model 5,120, 40/8 heads, d_ff 8,192, 16 experts
+                   top-1, vocabulary 202,048, bfloat16) at 4 of its 48
+                   layers, random weights from a seeded generator on the
+                   card: parameters, bytes, peak memory; (b)
+                   ``launch.serve.BatchedEngine`` with 16 slots, 128
+                   positions, layout (data=1, model=8), answering 16
+                   requests (prompts of 8–48 tokens, 8–24 new ones, from a
+                   seed) at the config's capacity_factor 1.25: steps,
+                   tokens, wall time, the decode step's event median,
+                   tokens a second, the MoE drops of each step; K6, K3, K1
+                   and K2 launched 8 times a step each (two ``forward_work``
+                   rounds a MoE layer), no other kernel; one step's device
+                   time by part (attention, the expert GEMMs, the two
+                   rounds) and by kernel (``torch.profiler``); (c) the
+                   token stream of (b) fed again through the rafi_ep plane
+                   at tp=8 and tp=1 and the dense_tp plane at
+                   capacity_factor E/top_k: 0 drops, logits within
+                   ``LM_TOL_PLANES`` and the argmax equal wherever the
+                   top-2 margin exceeds it; (d) ``prefill_fn`` of 2 × 64
+                   tokens against the last of 64 decode steps, and a
+                   2,048-token prefill with ``_sdpa_blocked`` against the
+                   materialising ``_sdpa``, within ``LM_TOL_PREFILL``; (e)
+                   the float32 smoke config's engine on layout (2, 4) on
+                   the card against the CPU (tokens equal, logits within
+                   1e-4); the queue that one MoE layer's first round
+                   delivers, at the decode and the prefill shapes, on the
+                   card against the CPU bit for bit; K6, K3, K1 and K2 at
+                   those two shapes against their plain versions, timed
+                   beside them, the library call and the bound;
+ 16. report      — one JSON line of the kernels (launches on the paths that
                    run them, errors, bounds; ``ms``, ``plain_ms`` and
                    ``library_ms`` are device times, ``call_ms`` the event
                    pair's; device events a call), the card's name and
@@ -296,11 +326,12 @@ RAGGED_PATHS = tuple(
 ROUND_PATHS = (LOSSLESS_PATHS + TELEMETRY_PATHS + PIPELINE_PATHS + CREDIT_PATHS + BALANCE_PATHS + RECOVERY_PATHS
                + OBS_PATHS + RAGGED_PATHS)
 APP_PATHS = ("streamlines", "nbody", "lander", "schlieren")  # the sort-marshal apps: K3, K1, K2, K6
+LM_PATHS = ("lm_serve", "lm_prefill")  # the MoE dispatch rounds of the LM path: K6, K3, K1, K2
 LAUNCH_PATHS = {
-    "pack_and_histogram": APP_PATHS + ROUND_PATHS,
-    "gather_rows": APP_PATHS + ROUND_PATHS,
-    "unmarshal": APP_PATHS + ("vopat",) + ROUND_PATHS, "rk4_step": ("streamlines", "ragged_streamlines"),
-    "compact_positions": APP_PATHS + ("vopat",) + ROUND_PATHS,
+    "pack_and_histogram": APP_PATHS + ROUND_PATHS + LM_PATHS,
+    "gather_rows": APP_PATHS + ROUND_PATHS + LM_PATHS,
+    "unmarshal": APP_PATHS + ("vopat",) + ROUND_PATHS + LM_PATHS, "rk4_step": ("streamlines", "ragged_streamlines"),
+    "compact_positions": APP_PATHS + ("vopat",) + ROUND_PATHS + LM_PATHS,
     "rank_and_histogram": ("vopat",) + ROUND_PATHS, "scatter_rows": ("vopat",) + ROUND_PATHS,
     "marshal": ("two_pass_marshal",),
     "pairwise_accel": ("nbody",), "track": ("woodcock_check",),
@@ -3304,6 +3335,480 @@ def phase_ragged(dev, R=8, C=262144, S=65536, E=32768, PAD_S=8192, STREAMLINES=(
     return out, paths
 
 
+# ------------------------------------------------------------------- 15. lm
+LM_ARCH = "llama4-scout-17b-16e"
+LM_KERNELS = ("compact_positions", "pack_and_histogram", "gather_rows", "unmarshal")  # K6, K3, K1, K2
+# stated tolerances of phase lm (PERF.md §6), in logit units: the
+# bfloat16 logits of the dispatch planes (c), which build the same expert
+# buffers (measured bit-equal), and of decode against prefill and blocked
+# against materialising attention (d), which round through other GEMM
+# shapes; the logits' standard deviation is about 0.02·√5120·0.88 ≈ 1.26
+LM_TOL_PLANES = 0.125
+LM_TOL_PREFILL = 0.25
+LM_TOL_SMOKE = 1e-4  # (e): the float32 smoke engine, card against CPU
+
+
+def _lm_requests(vocab, n, prompt, new, seed=23):
+    import numpy as np
+
+    from repro_torch.launch.serve import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, int(rng.integers(prompt[0], prompt[1] + 1))).astype(np.int32),
+                    max_new_tokens=int(rng.integers(new[0], new[1] + 1))) for i in range(n)]
+
+
+class _StepRecorder:
+    """Stands in for ``engine.step_fn``: keeps every step's token batch,
+    its CUDA event pair and (``keep_logits``) its logits on the host."""
+
+    def __init__(self, engine, keep_logits=False):
+        self.inner, self.keep = engine.step_fn, keep_logits
+        engine.step_fn = self
+        self.tokens, self.events, self.logits = [], [], []
+
+    def __call__(self, params, token, caches):
+        import torch
+
+        self.tokens.append(token.clone())
+        cuda = token.device.type == "cuda"
+        if cuda:
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        logits, caches = self.inner(params, token, caches)
+        if cuda:
+            ev[1].record()
+            self.events.append(ev)
+        if self.keep:
+            self.logits.append(logits.float().cpu())
+        return logits, caches
+
+
+class _FirstRoute:
+    """Keeps the first ``Route`` that ``moe.rafi_ep_dispatch`` is given."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as M
+
+        self.orig, self.route = M.rafi_ep_dispatch, None
+
+        def keep(route, **kw):
+            if self.route is None:
+                self.route = route
+            return self.orig(route, **kw)
+
+        M.rafi_ep_dispatch = keep
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as M
+
+        M.rafi_ep_dispatch = self.orig
+
+
+class _KernelCalls:
+    """Records the arguments of every K6, K3, K1 and K2 wrapper call."""
+
+    def __enter__(self):
+        from repro_torch.kernels.compact import ops as CO
+        from repro_torch.kernels.marshal import ops as MO
+        from repro_torch.kernels.sort_keys import ops as SO
+
+        self.mods = {"compact_positions": CO, "pack_and_histogram": SO, "gather_rows": MO, "unmarshal": MO}
+        self.orig = {k: getattr(m, k) for k, m in self.mods.items()}
+        self.calls = {k: [] for k in self.mods}
+        for k, m in self.mods.items():
+            def wrap(*a, _k=k, **kw):
+                self.calls[_k].append((a, kw))
+                return self.orig[_k](*a, **kw)
+            wrap.launches = 0  # the wrapped function counts its launches here meanwhile
+            setattr(m, k, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        for k, m in self.mods.items():
+            setattr(m, k, self.orig[k])
+
+
+def _bits(t):
+    import torch
+
+    return t.view(torch.int16) if t.element_size() == 2 else t.view(torch.int32) if t.element_size() == 4 else t
+
+
+def _same_delivered(a, b) -> bool:
+    """Two delivered queues: counts and drops equal, every leaf bit-equal on lanes < count."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.models import moe as M
+
+    if not (torch.equal(a.count.cpu(), b.count.cpu()) and torch.equal(a.drops.cpu(), b.drops.cpu())):
+        return False
+    for f in dc.fields(M.TokenItem):
+        x, y = getattr(a.items, f.name).cpu(), getattr(b.items, f.name).cpu()
+        for r in range(a.count.shape[0]):
+            n = int(b.count[r])
+            if not torch.equal(_bits(x[r, :n].contiguous()), _bits(y[r, :n].contiguous())):
+                return False
+    return True
+
+
+def _lm_kernel_rows(route, label, timer, dtimer):
+    """K6, K3, K1 and K2 at the shapes one dispatch round of ``route`` gives
+    them, each timed beside its plain version, its library call where one
+    exists, and its bound."""
+    import torch
+
+    from repro_torch.kernels.compact import ops as CO
+    from repro_torch.kernels.marshal import ops as MO
+    from repro_torch.kernels.sort_keys import ops as SO
+    from repro_torch.models import moe as M
+
+    with _KernelCalls() as kc:
+        M.rafi_ep_dispatch(route)
+    T = lambda *fns: _timed(timer, dtimer, *fns)
+    rows = {}
+    (mask,), _ = kc.calls["compact_positions"][0]
+    rows["compact_positions"] = dict(
+        shape=tuple(mask.shape), nbytes=mask.numel() * (1 + 4) + mask.shape[0] * 4, ops=0.0,
+        library_call="torch.cumsum",
+        **T(lambda: CO.compact_positions(mask), lambda: CO.compact_positions_plain(mask),
+            lambda: torch.cumsum(mask, dim=1, dtype=torch.int32)))
+    (dest, count), kw = kc.calls["pack_and_histogram"][0]
+    keys, hist = SO.pack_and_histogram(dest, count, **kw)
+    rows["pack_and_histogram"] = dict(
+        shape=tuple(dest.shape), nbytes=(dest.numel() + count.numel() + keys.numel() + hist.numel()) * 4, ops=0.0,
+        library_call=None,
+        **T(lambda: SO.pack_and_histogram(dest, count, **kw), lambda: SO.pack_and_histogram_plain(dest, count, **kw)))
+    (src, idx), _ = kc.calls["gather_rows"][0]
+    B, C, W = src.shape
+    uniq = sum(int(torch.unique(idx[r].clamp(0, C - 1)).numel()) for r in range(B))
+    b_idx, idx_long = torch.arange(B, device=src.device)[:, None], idx.long().clamp(0, C - 1)
+    rows["gather_rows"] = dict(
+        shape=(tuple(src.shape), tuple(idx.shape)), words_a_rank=max(idx.shape[1], C) * W,
+        nbytes=idx.numel() * 4 + uniq * W * 4 + idx.numel() * W * 4, ops=0.0,
+        library_call="advanced indexing src[b, idx]",
+        **T(lambda: MO.gather_rows(src, idx), lambda: MO.gather_rows_plain(src, idx),
+            lambda: src[b_idx, idx_long]))
+    (recv, off, counts), kw = kc.calls["unmarshal"][0]
+    R, G, S, W = recv.shape
+    cap = kw["capacity"]
+    s_ar = torch.arange(S, device=recv.device)
+    dst = off[:, :, None].long().clamp(0, cap) + s_ar
+    keep = (s_ar < counts[:, :, None]) & (dst < cap)
+    dst = torch.where(keep, dst, cap).reshape(R, G * S)
+    bb = torch.arange(R, device=recv.device)[:, None].expand(R, G * S)
+    flat = recv.reshape(R, G * S, W)
+
+    def library():
+        return torch.zeros(R, cap + 1, W, dtype=torch.int32, device=recv.device).index_put_((bb, dst), flat)
+
+    ok = torch.equal(library()[:, :cap], MO.unmarshal_plain(recv, off, counts, capacity=cap))
+    check(ok, f"(e) {label}: K2's library call == its plain version")
+    rows["unmarshal"] = dict(
+        shape=(tuple(recv.shape), cap), words_a_rank=max(G * S, cap) * W,
+        nbytes=int(keep.sum()) * W * 4 + 2 * off.numel() * 4 + R * cap * W * 4, ops=0.0,
+        library_call="zeros + index_put_ at precomputed positions",
+        **T(lambda: MO.unmarshal(recv, off, counts, capacity=cap),
+            lambda: MO.unmarshal_plain(recv, off, counts, capacity=cap), library))
+    for k, r in rows.items():
+        args, kw = kc.calls[k][0]
+        a, b = getattr(kc.mods[k], k)(*args, **kw), getattr(kc.mods[k], f"{k}_plain")(*args, **kw)
+        a, b = (a if isinstance(a, tuple) else (a,)), (b if isinstance(b, tuple) else (b,))
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        check(same, f"(e) {label}: {k} {r['shape']} bit-equal to its plain version")
+        r["max_abs_err"] = 0.0 if same else float(max((x.double() - y.double()).abs().max() for x, y in zip(a, b)))
+        _print_row(f"{k} at the {label} shape", r)
+    return rows
+
+
+def _lm_step_split(step, params, token, caches, calls=3):
+    """Device time of one decode step by part, from ``torch.profiler``:
+    the attention layers, the expert GEMMs (``moe._expert_ffn``), the two
+    forwarding rounds, and K1, K2, K3, K6 by kernel; each part's kernels
+    are found through a ``record_function`` range around it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import attention as A
+    from repro_torch.models import moe as M
+
+    parts = {"attention": (A, "self_attention"), "expert_ffn": (M, "_expert_ffn"),
+             "dispatch_round": (M, "rafi_ep_dispatch"), "return_round": (M, "rafi_ep_return")}
+    orig = {k: getattr(m, n) for k, (m, n) in parts.items()}
+
+    def ranged(name, fn):
+        def w(*a, **kw):
+            with record_function(f"lm.{name}"):
+                return fn(*a, **kw)
+        return w
+
+    for k, (m, n) in parts.items():
+        setattr(m, n, ranged(k, orig[k]))
+    try:
+        step(params, token, caches)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                step(params, token, caches)
+            torch.cuda.synchronize()
+    finally:
+        for k, (m, n) in parts.items():
+            setattr(m, n, orig[k])
+    dev_us = lambda e: getattr(e, "device_time_total", 0.0) or getattr(e, "cuda_time_total", 0.0)
+    avgs = prof.key_averages()
+    split = {k: None for k in parts}
+    for e in avgs:
+        if e.key.startswith("lm.") and e.device_type != torch.autograd.DeviceType.CUDA:
+            split[e.key[3:]] = dev_us(e) / calls / 1e3
+    kern, spans = {}, {}
+    total = 0.0
+    for e in _device_events(prof):
+        if e.key.startswith("lm."):  # a range's span on the device timeline, idle gaps included
+            spans[e.key[3:]] = e.self_device_time_total / calls / 1e3
+            continue
+        total += e.self_device_time_total
+        for k, name in (("gather_rows", "gather_rows_kernel"), ("unmarshal", "unmarshal_kernel"),
+                        ("pack_and_histogram", "pack_hist_kernel"), ("compact_positions", "compact_kernel")):
+            if name in e.key:
+                kern[k] = kern.get(k, 0.0) + e.self_device_time_total / calls / 1e3
+    split = {k: (None if v is None or v == 0 else v) for k, v in split.items()}
+    return {"step_device_ms": total / calls / 1e3, "parts_ms": split, "kernels_ms": kern, "spans_ms": spans}
+
+
+def _lockstep(planes, params, tokens, slots, max_len, dev):
+    """Teacher forcing: the same token batches through every plane's decode
+    step from fresh caches, in lockstep.  Yields (step, {plane: (logits,
+    drops)})."""
+    from repro_torch.models.api import build_model
+
+    steppers = {}
+    for name, (cfg, layout) in planes.items():
+        model = build_model(cfg)
+        steppers[name] = [model.decode_fn(layout, drops=True), model.init_caches(slots, max_len, device=dev)]
+    for i, tok in enumerate(tokens):
+        out = {}
+        for name, st in steppers.items():
+            logits, st[1], d = st[0](params, tok, st[1])
+            out[name] = (logits.float(), d)
+        yield i, out
+
+
+def _margin_compare(ref, other, tol):
+    """(max |Δ|, rows whose top-2 margin is at or under ``tol``, argmax
+    disagreements among the other rows, ‖Δ‖ / ‖ref‖, max |ref|)."""
+    import torch
+
+    diff = float((ref - other).abs().max())
+    top2 = torch.topk(ref, 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > tol
+    bad = int(((ref.argmax(-1) != other.argmax(-1)) & clear).sum())
+    rel = float(torch.linalg.vector_norm(ref - other) / torch.linalg.vector_norm(ref))
+    return diff, int((~clear).sum()), bad, rel, float(ref.abs().max())
+
+
+def phase_lm(dev, LAYERS=4, SLOTS=16, MAX_LEN=128, LAYOUT=(1, 8), N_REQ=16, PROMPT=(8, 48), NEW=(8, 24),
+             PREFILL=(2, 64), LONG=2048, SMOKE=(4, 8, 12, 12), widths=None, profile=True,
+             timer=cuda_ms, dtimer=device_ms):
+    """Phase lm: the LM serving path at full width (``widths`` narrows it
+    for a rehearsal on the CPU)."""
+    import copy
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as KN
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch.mesh import Layout
+    from repro_torch.launch.serve import BatchedEngine
+    from repro_torch.models import moe as M
+    from repro_torch.models.api import build_model
+
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    out, paths = {}, {}
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if cuda:
+        torch.cuda.empty_cache()  # the earlier phases' cached blocks: this phase needs ~30 GiB at once
+
+    # (a) the model: every field of CONFIG but the depth
+    cfg = dc.replace(get_config(LM_ARCH), num_layers=LAYERS, **(widths or {}))
+    model = build_model(cfg)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(2323), device=dev)
+    sync()
+    n_params = model.param_count()
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    check(n_params == sum(p.numel() for p in params.parameters()), f"(a) param_count() {n_params} == the allocated parameters")
+    out["model"] = {"params": n_params, "bytes": n_bytes, "init_s": time.perf_counter() - t0,
+                    "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else None,
+                    "config": {k: v for k, v in dc.asdict(cfg).items() if k != "source"}}
+    print(f"  (a) {cfg.name} at {LAYERS} of {get_config(LM_ARCH).num_layers} layers: {n_params} parameters, "
+          f"{n_bytes} B ({cfg.dtype}), init {out['model']['init_s']:.2f} s, peak "
+          f"{out['model']['peak_gib']} GiB", flush=True)
+
+    # (b) serve: SLOTS slots over the (data, model) layout, capacity_factor of CONFIG
+    layout = Layout(*LAYOUT)
+    requests = _lm_requests(cfg.vocab_size, N_REQ, PROMPT, NEW)
+    engine = BatchedEngine(model, params, slots=SLOTS, max_len=MAX_LEN, layout=layout, device=dev)
+    rec = _StepRecorder(engine)
+    first = torch.zeros((SLOTS, 1), dtype=torch.int32, device=dev)
+    engine._step(params, first, model.init_caches(SLOTS, MAX_LEN, device=dev))  # warm-up: first-use costs
+    KN.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    served = engine.run(requests)
+    sync()
+    wall = time.perf_counter() - t0
+    paths["lm_serve"] = KN.launch_counts()
+    steps = engine.steps
+    n_tok = sum(len(v) for v in served.values())
+    drops = [int(d) for d in engine.step_drops]
+    check(all(len(served[r.rid]) == r.max_new_tokens for r in requests),
+          f"(b) all {N_REQ} requests answered with their max_new_tokens ({n_tok} tokens in {steps} steps)")
+    step_ms = [a.elapsed_time(b) for a, b in rec.events] if cuda else []
+    out["serve"] = {"steps": steps, "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+                    "step_ms_median": statistics.median(step_ms) if step_ms else None,
+                    "step_ms_min": min(step_ms) if step_ms else None, "drops_per_step": drops,
+                    "drops_total": sum(drops), "launches": paths["lm_serve"]}
+    print(f"  (b) served {N_REQ} requests, {n_tok} tokens in {steps} steps, {wall:.3f} s wall, "
+          f"{n_tok / wall:.1f} tokens/s; decode step (event median) {out['serve']['step_ms_median']} ms; "
+          f"MoE drops {sum(drops)} (per step {drops})", flush=True)
+    if cuda:
+        per_step = {k: paths["lm_serve"][k] / steps for k in LM_KERNELS}
+        out["serve"]["launches_per_step"] = per_step
+        for k in LM_KERNELS:
+            check(paths["lm_serve"][k] == 2 * LAYERS * steps,
+                  f"(b) {k}: {paths['lm_serve'][k]} launches in {steps} steps = {per_step[k]} a step "
+                  f"(two rounds a MoE layer, {LAYERS} layers: {2 * LAYERS})")
+        others = {k: v for k, v in paths["lm_serve"].items() if k not in LM_KERNELS and v}
+        check(not others, f"(b) no other kernel launched on the LM path: {others}")
+    if profile and cuda:
+        caches = model.init_caches(SLOTS, MAX_LEN, device=dev)
+        split = _lm_step_split(engine._step, params, rec.tokens[-1], caches)
+        out["serve"]["step_split"] = split
+        print(f"  (b) one decode step, device ms: total {split['step_device_ms']:.4f}; parts "
+              + ", ".join(f"{k} {'not measured' if v is None else f'{v:.4f}'}" for k, v in split["parts_ms"].items())
+              + "; kernels " + ", ".join(f"{k} {v:.4f}" for k, v in split["kernels_ms"].items()), flush=True)
+
+    # (c) the dispatch planes held against each other on the stream of (b),
+    # at capacity_factor = E / top_k: no token can drop
+    free = dc.replace(cfg, capacity_factor=cfg.num_experts / cfg.top_k)
+    planes = {f"rafi_ep tp={layout.model}": (free, layout), "rafi_ep tp=1": (free, Layout(1, 1)),
+              "dense_tp": (dc.replace(free, moe_dispatch="dense_tp"), None)}
+    ref_name = next(iter(planes))
+    worst = {n: [0.0, 0, 0, True, 0.0] for n in planes}
+    plane_drops = {n: 0 for n in planes}
+    t0 = time.perf_counter()
+    for i, res in _lockstep(planes, params, rec.tokens, SLOTS, MAX_LEN, dev):
+        ref = res[ref_name][0]
+        for name, (logits, d) in res.items():
+            plane_drops[name] += int(d)
+            diff, under, bad, _, top = _margin_compare(ref, logits, LM_TOL_PLANES)
+            w = worst[name]
+            w[0], w[1], w[2] = max(w[0], diff), w[1] + under, w[2] + bad
+            w[3] = w[3] and torch.equal(ref, logits)
+            w[4] = max(w[4], top)
+    out["planes"] = {n: {"max_abs_diff": w[0], "rows_under_margin": w[1], "argmax_disagreements": w[2],
+                         "bit_equal": w[3], "max_abs_logit": w[4], "drops": plane_drops[n]}
+                     for n, w in worst.items()}
+    out["planes_s"] = time.perf_counter() - t0
+    for n, r in out["planes"].items():
+        check(r["drops"] == 0, f"(c) {n} at capacity_factor {free.capacity_factor}: {r['drops']} drops")
+        check(r["max_abs_diff"] <= LM_TOL_PLANES and r["argmax_disagreements"] == 0,
+              f"(c) {n} against {ref_name}, {len(rec.tokens)} steps of {SLOTS} rows: max |dlogit| "
+              f"{r['max_abs_diff']:.4g} <= {LM_TOL_PLANES} (bit-equal: {r['bit_equal']}; max |logit| "
+              f"{r['max_abs_logit']:.3f}); argmax equal on every row whose top-2 margin exceeds it "
+              f"({r['rows_under_margin']} rows under it)")
+
+    # (d) decode against prefill, and the KV-blocked prefill against the
+    # materialising one at S=LONG
+    rng = np.random.default_rng(64)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, PREFILL).astype(np.int32)).to(dev)
+    with _FirstRoute() as fr:
+        pre = build_model(free).prefill_fn(layout)(params, {"tokens": prompts}).float()
+    step = build_model(free).decode_fn(layout, drops=True)
+    caches = model.init_caches(PREFILL[0], MAX_LEN, device=dev)
+    dec_drops = 0
+    for t in range(PREFILL[1]):
+        last, caches, d = step(params, prompts[:, t:t + 1], caches)
+        dec_drops += int(d)
+    diff, under, bad, rel, top = _margin_compare(pre, last.float(), LM_TOL_PREFILL)
+    out["prefill"] = {"max_abs_diff": diff, "rows_under_margin": under, "argmax_disagreements": bad,
+                      "rel_l2": rel, "max_abs_logit": top, "decode_drops": dec_drops}
+    check(diff <= LM_TOL_PREFILL and bad == 0 and dec_drops == 0,
+          f"(d) prefill_fn of {PREFILL} tokens == the last of {PREFILL[1]} decode steps: max |dlogit| {diff:.4g} "
+          f"<= {LM_TOL_PREFILL} (||d|| / ||logits|| {rel:.3g}, max |logit| {top:.3f}), argmax equal ({under} "
+          f"rows under the margin), decode drops {dec_drops}")
+    long_toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, LONG)).astype(np.int32)).to(dev)
+    res = {}
+    for blocked in (True, False):
+        c = dc.replace(free, blocked_attention=blocked)
+        sync()
+        KN.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _FirstRoute() as fr_long:
+            res[blocked] = build_model(c).prefill_fn(layout)(params, {"tokens": long_toks}).float()
+        sync()
+        res[f"s{blocked}"] = time.perf_counter() - t0
+        if blocked:
+            long_route = fr_long.route
+            paths["lm_prefill"] = KN.launch_counts()
+    if cuda:
+        check(all(paths["lm_prefill"][k] == 2 * LAYERS for k in LM_KERNELS)
+              and not any(v for k, v in paths["lm_prefill"].items() if k not in LM_KERNELS),
+              f"(d) the {LONG}-token prefill: K6, K3, K1, K2 launched {2 * LAYERS} times each, no other kernel "
+              f"({paths['lm_prefill']})")
+    diff, under, bad, rel, top = _margin_compare(res[False], res[True], LM_TOL_PREFILL)
+    out["prefill_long"] = {"S": LONG, "max_abs_diff": diff, "rows_under_margin": under, "argmax_disagreements": bad,
+                           "rel_l2": rel, "max_abs_logit": top, "blocked_s": res["sTrue"],
+                           "materialising_s": res["sFalse"]}
+    check(diff <= LM_TOL_PREFILL and bad == 0,
+          f"(d) prefill at S={LONG}: _sdpa_blocked == the materialising _sdpa, max |dlogit| {diff:.4g} <= "
+          f"{LM_TOL_PREFILL} (||d|| / ||logits|| {rel:.3g}, max |logit| {top:.3f}), argmax equal ({under} rows "
+          f"under the margin); {res['sTrue']:.3f} s against {res['sFalse']:.3f} s")
+
+    # (e) the kernels against their plain versions: the f32 smoke engine on
+    # the card and on the CPU; the delivered queue of one dispatch round;
+    # K6, K3, K1 and K2 at the decode and the prefill shapes
+    scfg = get_smoke_config(LM_ARCH)
+    s_slots, s_req, s_prompt, s_new = SMOKE
+    lm_cpu = build_model(scfg).init(torch.Generator().manual_seed(5), device="cpu")
+    runs = {}
+    for where, p in (("card", copy.deepcopy(lm_cpu).to(dev)), ("cpu", lm_cpu)):
+        d = dev if where == "card" else torch.device("cpu")
+        eng = BatchedEngine(build_model(scfg), p, slots=s_slots, max_len=64, layout=Layout(2, 4), device=d)
+        r = _StepRecorder(eng, keep_logits=True)
+        runs[where] = (eng.run(_lm_requests(scfg.vocab_size, s_req, (2, s_prompt), (4, s_new), seed=5)), r.logits)
+    same_tokens = runs["card"][0] == runs["cpu"][0]
+    sdiff = max(float((a - b).abs().max()) for a, b in zip(runs["card"][1], runs["cpu"][1]))
+    out["smoke"] = {"same_tokens": same_tokens, "max_abs_diff": sdiff, "steps": len(runs["cpu"][1])}
+    check(same_tokens and sdiff <= LM_TOL_SMOKE,
+          f"(e) {scfg.name} (float32) engine on layout (2, 4): the card's tokens == the CPU's, logits within "
+          f"{sdiff:.3g} <= {LM_TOL_SMOKE} over {len(runs['cpu'][1])} steps")
+    with _FirstRoute() as fr_dec:
+        engine._step(params, rec.tokens[0], model.init_caches(SLOTS, MAX_LEN, device=dev))
+    decode_route = fr_dec.route
+    out["kernels"] = {}
+    for label, route in (("decode", decode_route), ("prefill", long_route)):
+        same = _same_delivered(M.rafi_ep_dispatch(route), M.rafi_ep_dispatch(route.to("cpu")))
+        W = route.items.h.shape[-1] * route.items.h.element_size() // 4 + 4
+        check(same, f"(e) the {label} dispatch round (R={route.fcfg.num_ranks}, C={route.fcfg.capacity}, "
+                    f"S={route.fcfg.peer_capacity}, W={W} words): the delivered queue == the CPU's, bit for bit")
+        if cuda:
+            out["kernels"][label] = _lm_kernel_rows(route, label, timer, dtimer)
+    if cuda:
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase lm: {out['phase_s']:.1f} s, peak memory {out.get('peak_gib')} GiB", flush=True)
+    return out, paths
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -3333,7 +3838,7 @@ def main() -> int:
            "balance": lambda: phase_balance(dev), "recovery": lambda: phase_recovery(dev),
            "streamlines": lambda: phase_streamlines(dev), "vopat": lambda: phase_vopat(dev),
            "nbody": lambda: phase_nbody(dev), "obs": lambda: phase_obs(dev), "apps2": lambda: phase_apps2(dev),
-           "ragged": lambda: phase_ragged(dev)}
+           "ragged": lambda: phase_ragged(dev), "lm": lambda: phase_lm(dev)}
     kernels, paths = {}, {}  # paths: launches per path, counted from 0
     for title in run:
         print(f"# phase {title}", flush=True)
@@ -3347,7 +3852,8 @@ def main() -> int:
         if title == "kernels":
             kernels, more = res
             paths.update(more)
-        elif title in ("lossless", "telemetry", "pipeline", "credit", "balance", "recovery", "obs", "apps2", "ragged"):
+        elif title in ("lossless", "telemetry", "pipeline", "credit", "balance", "recovery", "obs", "apps2", "ragged",
+                       "lm"):
             record[title], more = res
             paths.update(more)
         elif title in ("streamlines", "vopat", "nbody"):

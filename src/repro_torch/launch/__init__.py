@@ -1,0 +1,2 @@
+"""Serving on the port: the ``(data, model)`` rank layout and the batched
+decode engine (counterpart of ``repro.launch``'s ``mesh`` and ``serve``)."""

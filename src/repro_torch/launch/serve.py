@@ -1,0 +1,131 @@
+"""Batched serving loop (counterpart of ``repro.launch.serve``).
+
+A fixed pool of decode slots: requests with heterogeneous remaining lengths
+occupy batch slots; each engine step decodes one token for every slot.
+Prompts are replayed token by token (slots step in lockstep, so admission
+happens between steps); the next token is the greedy argmax (the first
+index on ties, as ``jnp.argmax``); a finished slot is refilled from the
+queue.  Empty slots still step, feeding token 0, as in the reference: under
+MoE their tokens are routed and compete for expert capacity.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import compat
+from repro_torch.models.api import Model
+
+__all__ = ["BatchedEngine", "Request", "reset_slot"]
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray         # (L,) int32
+    max_new_tokens: int = 16
+    output: Optional[List[int]] = None
+
+
+def reset_slot(caches, slot: int):
+    """Zero a slot's decode positions so a freed slot can be reused by a
+    new request — stale KV rows past pos are masked out.  Out of place, as
+    the reference's ``.at[].set``."""
+    def visit(tree):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = visit(v)
+            elif k == "pos":
+                out[k] = v.clone()
+                out[k][..., slot] = 0
+            else:
+                out[k] = v
+        return out
+
+    return visit(caches)
+
+
+class BatchedEngine:
+    """Slot-synchronous engine: all slots step together; finished slots are
+    refilled from the queue.  ``layout`` is the MoE dispatch's rank layout
+    (the reference's ``mesh``); ``device`` where the caches and tokens live
+    (``None``: the CUDA card), which must be the parameters' device.  Each
+    step's MoE drops are kept in ``step_drops`` (0-d tensors, read without
+    a sync until the caller reads them)."""
+
+    def __init__(self, model: Model, params, *, slots: int = 4, max_len: int = 128, layout=None, device=None):
+        self.model = model
+        self.params = params
+        self.slots = slots
+        self.max_len = max_len
+        self.device = compat.resolve_device(device)
+        self._step = model.decode_fn(layout=layout, drops=True)
+        self.step_drops: List[torch.Tensor] = []
+        self.steps = 0  # engine steps of the last run
+
+    def step_fn(self, params, token, caches):
+        """One decode step of every slot: (logits (B, V), new caches)."""
+        logits, caches, drops = self._step(params, token, caches)
+        self.step_drops.append(drops)
+        return logits, caches
+
+    def run(self, requests: List[Request]) -> Dict[int, List[int]]:
+        out: Dict[int, List[int]] = {r.rid: [] for r in requests}
+        pending = list(requests)
+        caches = self.model.init_caches(self.slots, self.max_len, device=self.device)
+        slot_req: List[Optional[Request]] = [None] * self.slots
+        left = np.zeros(self.slots, np.int64)
+        cur = np.zeros((self.slots, 1), np.int32)
+        self.step_drops = []
+
+        # simple admission: prompts are replayed token-by-token
+        prompt_pos = np.zeros(self.slots, np.int64)
+
+        def admit():
+            nonlocal caches
+            for s in range(self.slots):
+                if slot_req[s] is None and pending:
+                    slot_req[s] = pending.pop(0)
+                    left[s] = slot_req[s].max_new_tokens
+                    prompt_pos[s] = 0
+                    caches = reset_slot(caches, s)  # reuse slot: fresh prefix
+
+        admit()
+        steps = 0
+        while any(r is not None for r in slot_req) and steps < 10_000:
+            # feed either the next prompt token or the last generated token
+            for s, req in enumerate(slot_req):
+                if req is None:
+                    cur[s, 0] = 0
+                elif prompt_pos[s] < len(req.prompt):
+                    cur[s, 0] = req.prompt[prompt_pos[s]]
+            token = torch.from_numpy(cur.copy()).to(self.device)
+            logits, caches = self.step_fn(self.params, token, caches)
+            nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+            for s, req in enumerate(slot_req):
+                if req is None:
+                    continue
+                if prompt_pos[s] < len(req.prompt):
+                    prompt_pos[s] += 1  # still consuming the prompt
+                    if prompt_pos[s] == len(req.prompt):
+                        cur[s, 0] = nxt[s]
+                        out[req.rid].append(int(nxt[s]))
+                        left[s] -= 1
+                else:
+                    cur[s, 0] = nxt[s]
+                    out[req.rid].append(int(nxt[s]))
+                    left[s] -= 1
+                if left[s] <= 0 and prompt_pos[s] >= len(req.prompt):
+                    slot_req[s] = None
+            admit()
+            steps += 1
+        self.steps = steps
+        return out
+
+    def load_signal(self, slot_req, left) -> int:
+        """Remaining tokens across slots — the rebalance metric."""
+        return int(sum(max(0, l) for l in left))

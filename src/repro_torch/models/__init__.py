@@ -1,0 +1,18 @@
+"""LM substrate on PyTorch: the decoder-only architectures of
+``repro.models`` (counterpart of the JAX package's ``models/``).
+
+  common.py      ModelConfig, ParamDef and the init, norms, MLPs
+  rope.py        RoPE / M-RoPE position embeddings
+  attention.py   GQA attention (global / local window), KV caches
+  moe.py         MoE: RaFI expert-parallel dispatch on the port's
+                 ``forward_work`` (the paper's technique) and the dense
+                 tensor-parallel baseline
+  transformer.py decoder-only assembly (dense / moe)
+  api.py         build_model(config) → init / prefill / decode, and
+                 params_from_jax (the reference's parameter tree → the port's)
+
+Parameters are ``nn.Module``s whose names follow the reference's tree paths
+(``blocks.k0_moe.attn.wq``); the layer functions are free functions over a
+nested dict of tensors, as in the reference.  Sharding specs have no twin:
+R logical ranks run rank-stacked on one device (``launch.mesh.Layout``).
+"""

@@ -1,0 +1,126 @@
+"""Model API: build a config into init / prefill / decode functions
+(counterpart of ``repro.models.api``).
+
+``build_model(cfg)`` returns a :class:`Model` holding the config and its
+parameter declarations; nothing is allocated until :meth:`Model.init`
+(random weights from a ``torch.Generator``) or :func:`params_from_jax` (the
+reference's parameter tree, so that both packages compute the same thing).
+Both give a :class:`~repro_torch.models.transformer.LM` module.  The step
+functions take the parameters (the module, or its ``tree()``) and the decode
+state explicitly, as the reference's pure functions do.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import compat
+from repro_torch.models import transformer as TF
+from repro_torch.models.common import ModelConfig, ParamDef, ParamTree, init_params, tree_leaves
+
+__all__ = ["Model", "build_model", "params_from_jax"]
+
+
+@dataclasses.dataclass
+class Model:
+    cfg: ModelConfig
+    defs: Dict[str, Any]
+
+    # ---------------------------------------------------------- parameters
+    def init(self, generator: Optional[torch.Generator] = None, *, device=None) -> TF.LM:
+        """Random weights on ``device`` (``None``: the CUDA card), drawn
+        leaf by leaf from ``generator`` (default: seed 0 on that device)."""
+        dev = compat.resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        return init_params(TF.LM(self.cfg, device=dev), generator)
+
+    def param_count(self) -> int:
+        """Parameters, from the declared shapes (nothing is allocated)."""
+        return int(sum(math.prod(d.shape) for d in tree_leaves(self.defs)))
+
+    # --------------------------------------------------------------- steps
+    def prefill_fn(self, layout=None) -> Callable:
+        cfg = self.cfg
+
+        def prefill(params, batch):
+            with torch.no_grad():
+                logits, _, _ = TF.forward(
+                    params, batch["tokens"], cfg, layout=layout, frontend_embeds=batch.get("embeds"),
+                )
+            return logits[:, -1]
+
+        return prefill
+
+    def decode_fn(self, layout=None, *, drops: bool = False) -> Callable:
+        """One token step with caches: (params, token (B,1), caches) →
+        (logits (B,V), new_caches), with the step's MoE drops last when
+        ``drops``."""
+        cfg = self.cfg
+
+        def step(params, token, caches):
+            pos0 = _first_cache_pos(caches, token.shape[0], token.device)
+            positions = pos0[:, None].to(torch.int32)  # (B, 1) per-row depth
+            with torch.no_grad():
+                logits, new_caches, moe_drops = TF.forward(
+                    params, token, cfg, layout=layout, caches=caches, positions=positions
+                )
+            return (logits[:, -1], new_caches) + ((moe_drops,) if drops else ())
+
+        return step
+
+    # --------------------------------------------------------------- caches
+    def init_caches(self, batch: int, max_len: int, *, device=None):
+        return TF.init_caches(self.cfg, batch, max_len, device=compat.resolve_device(device))
+
+
+def _first_cache_pos(caches, batch: int, device) -> torch.Tensor:
+    """(B,) current decode positions from any attention cache (all agree)."""
+    for c in caches["blocks"].values():
+        if isinstance(c, dict) and "pos" in c:
+            return c["pos"][0]
+    for c in caches["tail"].values():
+        if isinstance(c, dict) and "pos" in c:
+            return c["pos"]
+    return torch.zeros((batch,), dtype=torch.int32, device=device)
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    if cfg.kind == "encdec":
+        raise NotImplementedError("the encdec family is not ported yet (ROADMAP Queue 1 item 19c)")
+    return Model(cfg, TF.model_defs(cfg))
+
+
+def _tensor(a) -> torch.Tensor:
+    a = np.array(a)  # a writable copy
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carry the bits
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def params_from_jax(cfg: ModelConfig, tree, *, device=None) -> TF.LM:
+    """The reference's parameter tree (nested dicts with numpy leaves, e.g.
+    ``jax.tree.map(np.asarray, params)``; stacked blocks included) as the
+    port's :class:`~repro_torch.models.transformer.LM`, bit for bit."""
+    lm = TF.LM(cfg, device=compat.resolve_device(device))
+
+    def visit(m: ParamTree, t, path):
+        if set(m.defs) != set(t):
+            raise ValueError(f"{path or 'params'}: keys {sorted(t)} != the port's {sorted(m.defs)}")
+        for name, d in m.defs.items():
+            v = getattr(m, name)
+            if isinstance(d, ParamDef):
+                src = _tensor(t[name])
+                if tuple(src.shape) != tuple(v.shape):
+                    raise ValueError(f"{path}{name}: shape {tuple(src.shape)} != {tuple(v.shape)}")
+                v.data.copy_(src.to(v.dtype))
+            else:
+                visit(v, t[name], f"{path}{name}.")
+
+    with torch.no_grad():
+        visit(lm, tree, "")
+    return lm

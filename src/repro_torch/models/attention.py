@@ -1,0 +1,202 @@
+"""GQA attention with global / local-window masks and KV caches
+(counterpart of ``repro.models.attention``).
+
+Plain PyTorch, mirroring the reference's arithmetic: scores and the
+``p @ v`` product in float32 (``_sdpa``), or online softmax over 1,024-row
+KV blocks with float32 accumulation of bfloat16 operands
+(``_sdpa_blocked``, taken for a parallel pass longer than 1,024 rows).
+Decode writes each row's K/V at that row's own position (serving slots sit
+at different depths) and attends over its prefix.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.models import rope as R
+from repro_torch.models.common import ModelConfig, ParamDef, ParamTree
+
+__all__ = [
+    "Attention", "attn_defs", "causal_mask", "make_cache", "self_attention",
+]
+
+
+def attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    defs = {
+        "wq": ParamDef((d, h * hd)),
+        "wk": ParamDef((d, kv * hd)),
+        "wv": ParamDef((d, kv * hd)),
+        "wo": ParamDef((h * hd, d), scale=1.0 / np.sqrt(h * hd)),
+    }
+    if cfg.qkv_bias:
+        defs.update(
+            bq=ParamDef((h * hd,), init="zeros"),
+            bk=ParamDef((kv * hd,), init="zeros"),
+            bv=ParamDef((kv * hd,), init="zeros"),
+        )
+    return defs
+
+
+def _split_heads(x, n, hd):
+    return x.reshape(tuple(x.shape[:-1]) + (n, hd))
+
+
+def _angles(cfg: ModelConfig, positions, theta=None):
+    theta = theta or cfg.rope_theta
+    if cfg.rope_kind == "mrope":
+        if positions.dim() == 2:  # text-only: same position in all 3 streams
+            positions = positions[..., None].expand(tuple(positions.shape) + (3,))
+        return R.mrope_angles(positions, cfg.head_dim, theta)
+    return R.rope_angles(positions, cfg.head_dim, theta)
+
+
+def _sdpa(q, k, v, mask, dtype):
+    """q (B,S,H,D), k/v (B,T,Hkv,D) with GQA broadcast; mask (B,S,T) or (S,T).
+
+    Reference (materializing) attention — used for decode (S == 1) and short
+    sequences; long ones go through :func:`_sdpa_blocked`."""
+    b, s, h, dh = q.shape
+    hkv = k.shape[2]
+    group = h // hkv
+    qg = q.reshape(b, s, hkv, group, dh)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.to(torch.float32), k.to(torch.float32))
+    scores = scores / np.sqrt(dh)
+    if mask.dim() == 2:
+        mask = mask[None]
+    scores = torch.where(mask[:, None, None, :, :], scores, -1e30)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", p, v.to(torch.float32))
+    return out.reshape(b, s, h, dh).to(dtype)
+
+
+BLOCK_KV = 1024
+
+
+def _sdpa_blocked(q, k, v, dtype, *, causal: bool, window: int, block: int = BLOCK_KV):
+    """Online-softmax attention over KV blocks — (S, T) is never
+    materialised.  q (B,S,H,D); k/v (B,T,Hkv,D).  Products of the
+    (bfloat16) operands accumulate in float32, as the reference's
+    ``preferred_element_type=float32``: the operands are widened first,
+    which is exact."""
+    b, s, h, dh = q.shape
+    t = k.shape[1]
+    hkv = k.shape[2]
+    g = h // hkv
+    block = min(block, t)
+    while t % block:
+        block //= 2
+    nb = t // block
+    qg = q.reshape(b, s, hkv, g, dh).to(torch.float32)
+    scale = 1.0 / np.sqrt(dh)
+    q_idx = torch.arange(s, device=q.device)
+
+    m = torch.full((b, hkv, g, s), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, hkv, g, s), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hkv, g, s, dh), dtype=torch.float32, device=q.device)
+    for j in range(nb):
+        j0 = j * block
+        kblk = k[:, j0:j0 + block].to(torch.float32)
+        vblk = v[:, j0:j0 + block].to(torch.float32)
+        srow = torch.einsum("bskgd,btkd->bkgst", qg, kblk) * scale  # (b,hkv,g,s,block)
+        kv_idx = j0 + torch.arange(block, device=q.device)
+        ok = torch.ones((s, block), dtype=torch.bool, device=q.device)
+        if causal:
+            ok &= kv_idx[None, :] <= q_idx[:, None]
+        if window > 0:
+            ok &= kv_idx[None, :] > q_idx[:, None] - window
+        srow = torch.where(ok[None, None, None], srow, -1e30)
+        m_new = torch.maximum(m, srow.amax(dim=-1))
+        p = torch.exp(srow - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgst,btkd->bkgsd", p.to(dtype).to(torch.float32), vblk
+        )
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]  # (b,hkv,g,s,dh)
+    return torch.movedim(out, 3, 1).reshape(b, s, h, dh).to(dtype)
+
+
+def causal_mask(s: int, window: int = 0, device=None) -> torch.Tensor:
+    i = torch.arange(s, device=device)[:, None]
+    j = torch.arange(s, device=device)[None, :]
+    m = j <= i
+    if window > 0:
+        m &= j > i - window
+    return m
+
+
+def self_attention(
+    params: Dict,
+    x: torch.Tensor,                  # (B, S, D)
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,          # (B, S) or (B, S, 3) for mrope
+    window: int = 0,
+    theta: Optional[float] = None,
+    cache: Optional[Dict] = None,     # {"k","v": (B,Smax,Hkv,Dh), "pos": (B,)}
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    b, s, d = x.shape
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = x @ params["wq"]
+    k = x @ params["wk"]
+    v = x @ params["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    q = _split_heads(q, h, hd)
+    k = _split_heads(k, kv, hd)
+    v = _split_heads(v, kv, hd)
+
+    cos, sin = _angles(cfg, positions, theta)
+    q = R.apply_rope(q, cos, sin)
+    k = R.apply_rope(k, cos, sin)
+
+    if cache is None:
+        if cfg.blocked_attention and s > 1024:
+            out = _sdpa_blocked(q, k, v, x.dtype, causal=True, window=window)
+        else:
+            out = _sdpa(q, k, v, causal_mask(s, window, x.device), x.dtype)
+        new_cache = None
+    else:
+        # decode: s == 1; write k/v at each row's own position, attend over
+        # each prefix (out of place: the caller's cache stays as it was)
+        pos = cache["pos"].to(torch.int64)  # (B,)
+        rows = torch.arange(b, device=x.device)
+        ck = cache["k"].index_put((rows, pos), k[:, 0].to(cache["k"].dtype))
+        cv = cache["v"].index_put((rows, pos), v[:, 0].to(cache["v"].dtype))
+        t = ck.shape[1]
+        j = torch.arange(t, device=x.device)[None, :]
+        m = j <= pos[:, None]
+        if window > 0:
+            m &= j > (pos[:, None] - window)
+        out = _sdpa(q, ck, cv, m[:, None, :], x.dtype)
+        new_cache = {"k": ck, "v": cv, "pos": torch.clamp(cache["pos"] + 1, max=t - 1)}
+
+    out = out.reshape(b, s, h * hd)
+    return out @ params["wo"], new_cache
+
+
+def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device=None) -> Dict:
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    return {
+        "k": torch.zeros((batch, max_len, kv, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, max_len, kv, hd), dtype=dtype, device=device),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+class Attention(ParamTree):
+    """The attention parameters (``wq``, ``wk``, ``wv``, ``wo`` and the
+    biases), ``stack`` layers deep when stacked; ``forward`` is
+    :func:`self_attention` on layer ``index``'s weights."""
+
+    def __init__(self, cfg: ModelConfig, *, defs=None, dtype=None, device=None):
+        super().__init__(attn_defs(cfg) if defs is None else defs, dtype=dtype or cfg.torch_dtype, device=device)
+        self.cfg = cfg
+
+    def forward(self, x, *, positions, window=0, theta=None, cache=None, index=None):
+        return self_attention(self.tree(index), x, self.cfg, positions=positions, window=window,
+                              theta=theta, cache=cache)

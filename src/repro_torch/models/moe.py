@@ -1,0 +1,318 @@
+"""Mixture-of-Experts with RaFI forwarding as the dispatch plane
+(counterpart of ``repro.models.moe``).
+
+Under expert parallelism, routed tokens are *work items* that must migrate
+to the rank owning their expert.  Two dispatch planes:
+
+* ``rafi_ep`` (the paper's technique): experts are split over the model
+  ranks of a :class:`~repro_torch.launch.mesh.Layout`.  Each rank takes its
+  token slice, emits (hidden, slot, weight, expert, origin) items towards
+  ``expert // experts_per_rank`` through the queue API, and one
+  ``forward_work`` round moves them; local experts run, and a second round
+  returns the results to the stored origin rank, where they are combined by
+  router weight.  Top-k > 1 emits k items per token.
+* ``dense_tp`` (baseline, no forwarding): every expert everywhere; dispatch
+  is a local capacity-bucketed gather.
+
+Both planes share the router and the capacity-factor drop rule (queue
+overflow == token drop, counted).
+
+The reference runs ``rafi_ep`` inside a ``shard_map`` over (data, model)
+with its forwarding on the model axis.  Here the ``dp × tp`` ranks are
+rank-stacked (rank ``g·tp + m`` is data group g, model rank m) and ONE
+``forward_work`` over all of them carries the dp exchanges at once: every
+destination lies in the sender's own group (``g·tp + expert // e_loc``),
+so no row crosses a group, and the per-pair slot clamp and the receive
+order (sources in rank order) are those of the reference's per-group
+round.  The items carry what the reference's carry: ``src`` is the model
+rank, and the return trip's destination is ``g·tp + src``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import DISCARD, ForwardConfig, StackedCollectives, enqueue, forward_work, make_queue, work_item
+from repro_torch.models.common import ModelConfig, ParamDef, ParamTree, activation
+
+__all__ = [
+    "MoE", "Route", "TokenItem", "moe_block", "moe_defs", "moe_dense_tp", "moe_rafi_ep",
+    "rafi_ep_combine", "rafi_ep_dispatch", "rafi_ep_experts", "rafi_ep_return", "rafi_ep_route",
+]
+
+
+@work_item
+@dataclasses.dataclass
+class TokenItem:
+    """A routed token in flight (the MoE 'ray')."""
+
+    h: torch.Tensor       # (D,) hidden state
+    slot: torch.Tensor    # () i32 original position in the sender's token slice
+    weight: torch.Tensor  # () router weight, in the activations' dtype
+    expert: torch.Tensor  # () i32 global expert id
+    src: torch.Tensor     # () i32 origin model rank (the 'pixelID' for the return trip)
+
+
+def moe_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    return {
+        "router": ParamDef((d, e), scale=0.02),
+        "wi": ParamDef((e, d, f)),
+        "wg": ParamDef((e, d, f)),
+        "wo": ParamDef((e, f, d), scale=1.0 / np.sqrt(f)),
+    }
+
+
+def _router(params, x2d, cfg: ModelConfig):
+    """x2d (N, D) → (topk_idx (N,k) int32, topk_w (N,k)) with softmax over the top k."""
+    logits = x2d.to(torch.float32) @ params["router"].to(torch.float32)
+    w, idx = torch.topk(logits, cfg.top_k, dim=-1)
+    w = torch.softmax(w, dim=-1)
+    return idx.to(torch.int32), w.to(x2d.dtype)
+
+
+def _expert_ffn(wi, wg, wo, x, act: str):
+    """Batched per-expert GLU: x (E, C, D) → (E, C, D)."""
+    gate = torch.matmul(x, wg)
+    up = torch.matmul(x, wi)
+    return torch.matmul(activation(gate, act) * up, wo)
+
+
+def _bucket_rows(e: torch.Tensor, valid: torch.Tensor, n_buckets: int):
+    """Stable counting sort of the lanes of each row by bucket ``e`` (``(…,
+    N)``, invalid lanes in the last bucket): each lane's position within
+    its bucket — the reference's argsort / rank / segment-start steps."""
+    n = e.shape[-1]
+    order = torch.argsort(e, dim=-1, stable=True)
+    ranked = torch.empty_like(order).scatter_(-1, order, torch.arange(n, device=e.device).expand_as(order))
+    counts = torch.zeros(tuple(e.shape[:-1]) + (n_buckets,), dtype=torch.int64, device=e.device)
+    counts.scatter_add_(-1, e, valid.to(torch.int64))
+    seg = torch.cumsum(counts, dim=-1) - counts
+    return ranked - torch.gather(seg, -1, e)
+
+
+# ------------------------------------------------------------ dense_tp plane
+
+def moe_dense_tp(params, x, cfg: ModelConfig):
+    """Baseline: local capacity-bucketed dispatch, every expert local."""
+    b, s, d = x.shape
+    n = b * s
+    x2 = x.reshape(n, d)
+    idx, w = _router(params, x2, cfg)
+    e, k = cfg.num_experts, cfg.top_k
+    cap = int(np.ceil(n * k / e * cfg.capacity_factor))
+
+    flat_e = idx.reshape(-1).to(torch.int64)                    # (N·k,)
+    flat_t = torch.arange(n, device=x.device).repeat_interleave(k)  # token of each assignment
+    flat_w = w.reshape(-1)
+    pos_in_e = _bucket_rows(flat_e, torch.ones_like(flat_e, dtype=torch.bool), e)
+    keep = pos_in_e < cap
+
+    at = torch.where(keep, flat_e * cap + pos_in_e, e * cap)  # row e·cap: the dropped rows' trash
+    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
+    buf[at] = x2[flat_t]
+    out_buf = _expert_ffn(params["wi"], params["wg"], params["wo"], buf[:-1].reshape(e, cap, d), cfg.act)
+    gathered = out_buf.reshape(e * cap, d)[torch.where(keep, at, 0)]
+    contrib = torch.where(keep[:, None], gathered * flat_w[:, None], 0.0)
+    y = torch.zeros((n, d), dtype=x.dtype, device=x.device).index_add_(0, flat_t, contrib)
+    return y.reshape(b, s, d), torch.sum(~keep).to(torch.int32)
+
+
+# ------------------------------------------------------------- rafi_ep plane
+
+@dataclasses.dataclass
+class Route:
+    """The routed tokens of every rank, ready to enqueue (the reference's
+    ``block`` up to its first ``enqueue``), and the plane's static sizes."""
+
+    items: TokenItem          # leaves (R, n_emit, ...)
+    dest: torch.Tensor        # (R, n_emit) int32 global destination rank
+    mask: torch.Tensor        # (R, n_emit) bool: the lane carries a token
+    fcfg: ForwardConfig
+    dp: int
+    tp: int
+    e_loc: int
+    n_all: int                # tokens of one data group
+    n_loc: int                # tokens of one rank's slice
+    cap_e: int                # rows of each expert's bucket
+    shape: Tuple[int, int, int]  # x's (B, S, D)
+
+    def to(self, device) -> "Route":
+        """The same route on ``device`` (the dispatch's inputs only)."""
+        items = TokenItem(**{f.name: getattr(self.items, f.name).to(device)
+                             for f in dataclasses.fields(TokenItem)})
+        return dataclasses.replace(self, items=items, dest=self.dest.to(device), mask=self.mask.to(device))
+
+
+def _proto(d: int, dtype) -> TokenItem:
+    return TokenItem(
+        h=torch.zeros((d,), dtype=dtype),
+        slot=torch.zeros((), dtype=torch.int32),
+        weight=torch.zeros((), dtype=dtype),
+        expert=torch.zeros((), dtype=torch.int32),
+        src=torch.zeros((), dtype=torch.int32),
+    )
+
+
+def rafi_ep_route(params, x, cfg: ModelConfig, *, layout) -> Route:
+    """Each rank's token slice, routed: ``x`` (B, S, D) is split over the
+    data groups (B/dp rows each) and replicated over the model ranks; model
+    rank m takes tokens ``[m·n_loc, (m+1)·n_loc)`` of its group (lanes past
+    the group's ``n_all`` tokens are masked)."""
+    b, s, d = x.shape
+    dp, tp = layout.data, layout.model
+    e, k = cfg.num_experts, cfg.top_k
+    if e % tp:
+        raise ValueError(f"experts ({e}) must divide the model ranks ({tp})")
+    if b % dp:
+        raise ValueError(f"the batch ({b}) must divide over the data groups ({dp})")
+    e_loc = e // tp
+    R = dp * tp
+    dev = x.device
+    n_all = (b // dp) * s
+    n_loc = -(-n_all // tp)
+    x2 = x.reshape(dp, n_all, d)
+    gslot = torch.arange(tp, device=dev)[:, None] * n_loc + torch.arange(n_loc, device=dev)  # (tp, n_loc)
+    tok_ok = (gslot < n_all).expand(dp, tp, n_loc).reshape(R, n_loc)
+    xs = x2[:, gslot.clamp(0, n_all - 1)].reshape(R, n_loc, d)
+    idx, w = _router(params, xs.reshape(R * n_loc, d), cfg)
+
+    n_emit = n_loc * k
+    cap_send = n_emit
+    # every peer can receive at most its expert capacity
+    cap_e = int(np.ceil(n_all * k / e * cfg.capacity_factor))
+    cap_recv = cap_e * e_loc
+    cap = max(cap_send, cap_recv)
+    # per-(src,dst) slots sized for balanced routing (+2× slack), as the
+    # reference sizes them; slot overflow drops are counted
+    fcfg = ForwardConfig(R, cap, peer_capacity=min(cap, max(64, -(-2 * cap // tp))), exchange="padded")
+
+    me = (torch.arange(R, device=dev, dtype=torch.int32) % tp)[:, None]  # model rank
+    group = (torch.arange(R, device=dev, dtype=torch.int32) // tp)[:, None]
+    items = TokenItem(
+        h=xs.repeat_interleave(k, dim=1),
+        slot=torch.arange(n_loc, dtype=torch.int32, device=dev).repeat_interleave(k).expand(R, n_emit),
+        weight=w.reshape(R, n_emit),
+        expert=idx.reshape(R, n_emit),
+        src=me.expand(R, n_emit),
+    )
+    dest = (group * tp + items.expert // e_loc).to(torch.int32)
+    return Route(items=items, dest=dest, mask=tok_ok.repeat_interleave(k, dim=1), fcfg=fcfg, dp=dp, tp=tp,
+                 e_loc=e_loc, n_all=n_all, n_loc=n_loc, cap_e=cap_e, shape=(b, s, d))
+
+
+def rafi_ep_dispatch(route: Route, *, comm: Optional[StackedCollectives] = None):
+    """The first round: tokens travel to their experts' owners.  Returns
+    the delivered queue."""
+    dev = route.dest.device
+    d = route.shape[2]
+    q = make_queue(_proto(d, route.items.h.dtype), route.fcfg.capacity, num_ranks=route.fcfg.num_ranks, device=dev)
+    q = enqueue(q, route.items, route.dest, route.mask)
+    q, _ = forward_work(q, route.fcfg, comm=comm)  # §4.2 — tokens travel to expert owners
+    return q
+
+
+def rafi_ep_experts(params, q, route: Route, cfg: ModelConfig):
+    """Local expert compute with per-expert capacity buckets.  Returns the
+    return trip's ``(items, dest, mask)`` and the bucket drops."""
+    R, C = route.fcfg.num_ranks, route.fcfg.capacity
+    tp, e_loc, cap_e, d = route.tp, route.e_loc, route.cap_e, route.shape[2]
+    dev = q.dest.device
+    lane = torch.arange(C, device=dev)[None, :]
+    valid = lane < q.count[:, None]
+    it = q.items
+    me = (torch.arange(R, device=dev) % tp)[:, None]
+    group = (torch.arange(R, device=dev, dtype=torch.int32) // tp)[:, None]
+    le = torch.where(valid, it.expert.to(torch.int64) - me * e_loc, e_loc)  # local expert id
+    le = torch.clamp(le, 0, e_loc)
+    pos = _bucket_rows(torch.where(valid, le, e_loc), valid, e_loc + 1)
+    keep = valid & (pos < cap_e) & (le < e_loc)
+    drops_cap = torch.sum(valid & ~keep)
+
+    trash = e_loc * cap_e
+    at = torch.where(keep, le * cap_e + pos, trash)  # (R, C) row of the rank's bucket buffer
+    buf = torch.zeros((R, trash + 1, d), dtype=it.h.dtype, device=dev)
+    buf.scatter_(1, at[:, :, None].expand(R, C, d), it.h)
+    out = _expert_ffn_stacked(params, buf[:, :trash].reshape(R, e_loc, cap_e, d), route, cfg.act)
+    hout = torch.gather(out.reshape(R, trash, d), 1, torch.where(keep, at, 0)[:, :, None].expand(R, C, d))
+
+    # return trip: dest = the stored origin rank of the sender's group (the 'pixelID' pattern)
+    back = TokenItem(h=hout, slot=it.slot, weight=it.weight, expert=it.expert, src=it.src)
+    dest = torch.where(keep, group * tp + it.src, DISCARD).to(torch.int32)
+    return back, dest, valid, drops_cap
+
+
+def _expert_ffn_stacked(params, buf, route: Route, act: str):
+    """``buf (R, e_loc, cap_e, D)`` through each rank's local experts.  The
+    ``(E, D, F)`` weights are viewed as ``(tp, e_loc, D, F)`` and shared by
+    the data groups: the groups' rows are stacked along each expert's
+    token axis, so no weight is copied per group."""
+    dp, tp, e_loc = route.dp, route.tp, route.e_loc
+    _, _, cap_e, d = buf.shape
+    x = buf.reshape(dp, tp * e_loc, cap_e, d).transpose(0, 1).reshape(tp * e_loc, dp * cap_e, d)
+    y = _expert_ffn(params["wi"], params["wg"], params["wo"], x, act)
+    return y.reshape(tp * e_loc, dp, cap_e, d).transpose(0, 1).reshape(dp * tp, e_loc, cap_e, d)
+
+
+def rafi_ep_return(route: Route, back: TokenItem, dest, valid, *, comm: Optional[StackedCollectives] = None):
+    """The second round: results travel back to their origin ranks."""
+    d = route.shape[2]
+    q2 = make_queue(_proto(d, back.h.dtype), route.fcfg.capacity, num_ranks=route.fcfg.num_ranks,
+                    device=dest.device)
+    q2 = enqueue(q2, back, dest, valid)
+    q2, _ = forward_work(q2, route.fcfg, comm=comm)
+    return q2
+
+
+def rafi_ep_combine(q2, route: Route):
+    """Each rank's returned results, weighted and added at their slots,
+    then the model ranks' slices joined back into ``(B, S, D)``."""
+    R, C = route.fcfg.num_ranks, route.fcfg.capacity
+    n_loc, d = route.n_loc, route.shape[2]
+    dev = q2.dest.device
+    valid2 = torch.arange(C, device=dev)[None, :] < q2.count[:, None]
+    r = q2.items
+    contrib = torch.where(valid2[:, :, None], r.h * r.weight[:, :, None], 0.0)
+    at = torch.where(valid2, r.slot.to(torch.int64), n_loc)  # slot n_loc: trash
+    ys = torch.zeros((R, n_loc + 1, d), dtype=r.h.dtype, device=dev)
+    ys.scatter_add_(1, at[:, :, None].expand(R, C, d), contrib)
+    # restore the replicated layout: the model ranks' slices in rank order
+    y_all = ys[:, :n_loc].reshape(route.dp, route.tp * n_loc, d)[:, :route.n_all]
+    return y_all.reshape(route.shape)
+
+
+def moe_rafi_ep(params, x, cfg: ModelConfig, *, layout, comm: Optional[StackedCollectives] = None):
+    """Paper-technique dispatch: forwarding over the model ranks.  Returns
+    ``(y (B, S, D), drops)``, drops the tokens lost to the expert buckets
+    and to both rounds' queues (``drops_cap + q.drops + q2.drops``, summed
+    over ranks)."""
+    route = rafi_ep_route(params, x, cfg, layout=layout)
+    q = rafi_ep_dispatch(route, comm=comm)
+    back, dest, valid, drops_cap = rafi_ep_experts(params, q, route, cfg)
+    q2 = rafi_ep_return(route, back, dest, valid, comm=comm)
+    y = rafi_ep_combine(q2, route)
+    drops = drops_cap + q.drops.sum() + q2.drops.sum()
+    return y, drops.to(torch.int32)
+
+
+def moe_block(params, x, cfg: ModelConfig, *, layout=None):
+    if cfg.moe_dispatch == "rafi_ep":
+        if layout is None:
+            raise ValueError("rafi_ep dispatch needs the layout")
+        return moe_rafi_ep(params, x, cfg, layout=layout)
+    return moe_dense_tp(params, x, cfg)
+
+
+class MoE(ParamTree):
+    """The MoE parameters (``router``, ``wi``, ``wg``, ``wo``), stacked or
+    not; ``forward`` is :func:`moe_block` on layer ``index``'s weights."""
+
+    def __init__(self, cfg: ModelConfig, *, defs=None, dtype=None, device=None):
+        super().__init__(moe_defs(cfg) if defs is None else defs, dtype=dtype or cfg.torch_dtype, device=device)
+        self.cfg = cfg
+
+    def forward(self, x, *, layout=None, index=None):
+        return moe_block(self.tree(index), x, self.cfg, layout=layout)

@@ -1,0 +1,275 @@
+"""Decoder-only LM assembly: dense and MoE wiring (counterpart of
+``repro.models.transformer``).
+
+Layers follow the config's repeating ``pattern`` (gemma3's 5×local +
+1×global, dbrx's all-MoE).  Full pattern periods are stacked along a leading
+layer axis, as in the reference; where the reference runs ``lax.scan`` over
+the periods, this runs a loop that indexes the stacked parameters and
+caches.  Leftover layers (depth % period) run one by one.
+
+Decode state is a nested dict mirroring the block structure: KV caches for
+attention layers, stacked like the parameters.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.models import attention as A
+from repro_torch.models import moe as M
+from repro_torch.models.common import (
+    ModelConfig, ParamDef, ParamTree, glu_mlp, mlp_defs, rmsnorm, stack_defs, tree_map,
+)
+
+__all__ = ["LM", "Layer", "apply_layer", "forward", "init_caches", "layer_defs", "model_defs"]
+
+_LATER = {
+    "recurrent": "the griffin family (ROADMAP Queue 1 item 19c)",
+    "rwkv": "the rwkv6 family (ROADMAP Queue 1 item 19c)",
+}
+
+
+# ----------------------------------------------------------------- defs
+
+def _gamma(cfg):
+    return ParamDef((cfg.d_model,), init="zeros")
+
+
+def layer_defs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
+    d: Dict[str, Any] = {"ln1": _gamma(cfg), "ln2": _gamma(cfg)}
+    if kind in ("global", "local"):
+        d["attn"] = A.attn_defs(cfg)
+        d["mlp"] = mlp_defs(cfg)
+    elif kind == "moe":
+        d["attn"] = A.attn_defs(cfg)
+        d["moe"] = M.moe_defs(cfg)
+    elif kind in _LATER:
+        raise NotImplementedError(f"layer kind {kind!r} is not ported yet: {_LATER[kind]}")
+    else:
+        raise ValueError(kind)
+    return d
+
+
+def model_defs(cfg: ModelConfig) -> Dict[str, Any]:
+    period = len(cfg.pattern)
+    n_blocks = cfg.num_layers // period
+    tail = cfg.num_layers % period
+    defs: Dict[str, Any] = {
+        "embed": ParamDef((cfg.vocab_size, cfg.d_model), scale=0.02),
+        "final_ln": _gamma(cfg),
+        "blocks": {
+            f"k{j}_{kind}": stack_defs(layer_defs(cfg, kind), n_blocks)
+            for j, kind in enumerate(cfg.pattern)
+        },
+        "tail": {
+            f"k{j}_{cfg.pattern[j]}": layer_defs(cfg, cfg.pattern[j])
+            for j in range(tail)
+        },
+    }
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_size), scale=0.02)
+    return defs
+
+
+# ----------------------------------------------------------------- apply
+
+def _theta_for(cfg: ModelConfig, kind: str):
+    # gemma3: local layers use the short-context base (1e4), global the long one
+    if kind == "local" and cfg.rope_theta > 1e5:
+        return 1e4
+    return cfg.rope_theta
+
+
+def apply_layer(params, x, cfg: ModelConfig, kind: str, *, positions, layout=None, cache=None):
+    """One transformer layer.  Returns (x, new_cache, moe_drops)."""
+    drops = torch.zeros((), dtype=torch.int32, device=x.device)
+    h = rmsnorm(x, params["ln1"])
+    if kind not in ("global", "local", "moe"):
+        layer_defs(cfg, kind)  # raises, naming the item that ports it
+    window = cfg.window if kind == "local" else 0
+    y, new_cache = A.self_attention(
+        params["attn"], h, cfg, positions=positions, window=window,
+        theta=_theta_for(cfg, kind), cache=cache,
+    )
+    x = x + y
+    h = rmsnorm(x, params["ln2"])
+    if kind == "moe":
+        y, d = M.moe_block(params["moe"], h, cfg, layout=layout)
+        drops = drops + d.to(torch.int32)
+    else:
+        y = glu_mlp(h, params["mlp"]["wi"], params["mlp"]["wg"], params["mlp"]["wo"], cfg.act)
+    x = x + y
+    return x, new_cache, drops
+
+
+def _index(tree, i: int):
+    return tree_map(lambda a: a[i], tree)
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _as_tree(params):
+    return params.tree() if isinstance(params, ParamTree) else params
+
+
+def forward(
+    params, tokens, cfg: ModelConfig, *, layout=None,
+    caches: Optional[Dict] = None, positions=None, frontend_embeds=None,
+):
+    """tokens (B, S) integer (or ``frontend_embeds`` (B,S,D) for stub
+    modalities).  caches=None → parallel pass (prefill without cache); else
+    decode with S==1.  Returns (logits, new_caches, moe_drops)."""
+    params = _as_tree(params)
+    dtype = cfg.torch_dtype
+    if frontend_embeds is not None:
+        x = frontend_embeds.to(dtype)
+    else:
+        x = params["embed"][tokens.to(torch.int64)]
+        if cfg.scale_embed:
+            # the reference multiplies by a float32 numpy scalar, which
+            # promotes a bfloat16 table to float32 before the cast back
+            x = x.to(torch.float32) * float(np.float32(np.sqrt(cfg.d_model)))
+        x = x.to(dtype)
+    b, s = x.shape[:2]
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+
+    period = len(cfg.pattern)
+    n_blocks = cfg.num_layers // period
+    tail = cfg.num_layers % period
+    total_drops = torch.zeros((), dtype=torch.int32, device=x.device)
+
+    new_block_caches = None
+    if n_blocks > 0:
+        per_block = []
+        for i in range(n_blocks):
+            new_caches = {}
+            for j, kind in enumerate(cfg.pattern):
+                key = f"k{j}_{kind}"
+                c = None if caches is None else _index(caches["blocks"][key], i)
+                x, nc, d = apply_layer(
+                    _index(params["blocks"][key], i), x, cfg, kind,
+                    positions=positions, layout=layout, cache=c,
+                )
+                total_drops = total_drops + d
+                if nc is not None:
+                    new_caches[key] = nc
+            per_block.append(new_caches)
+        if caches is not None:
+            new_block_caches = _stack(per_block)
+
+    new_tail_caches = {}
+    for j in range(tail):
+        kind = cfg.pattern[j]
+        key = f"k{j}_{kind}"
+        c = None if caches is None else caches["tail"].get(key)
+        x, nc, d = apply_layer(
+            params["tail"][key], x, cfg, kind,
+            positions=positions, layout=layout, cache=c,
+        )
+        total_drops = total_drops + d
+        if nc is not None:
+            new_tail_caches[key] = nc
+
+    x = rmsnorm(x, params["final_ln"])
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = x @ head.to(x.dtype)
+    new_caches = (
+        None if caches is None else {"blocks": new_block_caches, "tail": new_tail_caches}
+    )
+    return logits, new_caches, total_drops
+
+
+# ----------------------------------------------------------------- caches
+
+def _layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, device=None):
+    if kind in ("global", "local", "moe"):
+        return A.make_cache(cfg, batch, max_len, cfg.torch_dtype, device=device)
+    layer_defs(cfg, kind)  # raises for the kinds not ported yet
+    raise ValueError(kind)
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    period = len(cfg.pattern)
+    n_blocks = cfg.num_layers // period
+    tail = cfg.num_layers % period
+    blocks = {
+        f"k{j}_{kind}": tree_map(
+            lambda a: torch.zeros((n_blocks,) + tuple(a.shape), dtype=a.dtype, device=a.device),
+            _layer_cache(cfg, kind, batch, max_len, device=device),
+        )
+        for j, kind in enumerate(cfg.pattern)
+    }
+    tails = {
+        f"k{j}_{cfg.pattern[j]}": _layer_cache(cfg, cfg.pattern[j], batch, max_len, device=device)
+        for j in range(tail)
+    }
+    return {"blocks": blocks, "tail": tails}
+
+
+# ----------------------------------------------------------------- modules
+
+class Layer(ParamTree):
+    """One layer's parameters (``ln1``, ``ln2``, ``attn`` and ``mlp`` or
+    ``moe``), ``stack`` layers deep when ``stack`` is given; ``forward`` is
+    :func:`apply_layer` on layer ``index``'s weights."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, *, stack: Optional[int] = None, dtype=None, device=None):
+        defs = layer_defs(cfg, kind)
+        self.cfg, self.kind = cfg, kind
+        super().__init__(defs if stack is None else stack_defs(defs, stack), dtype=dtype or cfg.torch_dtype,
+                         device=device)
+
+    def child(self, name, defs, *, dtype, device):
+        if name == "attn":
+            return A.Attention(self.cfg, defs=defs, dtype=dtype, device=device)
+        if name == "moe":
+            return M.MoE(self.cfg, defs=defs, dtype=dtype, device=device)
+        return ParamTree(defs, dtype=dtype, device=device)
+
+    def forward(self, x, *, positions, layout=None, cache=None, index=None):
+        return apply_layer(self.tree(index), x, self.cfg, self.kind, positions=positions, layout=layout,
+                           cache=cache)
+
+
+class LM(ParamTree):
+    """The decoder-only model's parameters: ``embed``, ``final_ln``,
+    ``blocks`` (one stacked :class:`Layer` per pattern entry), ``tail`` and
+    ``lm_head``, named as the reference's tree; ``forward`` is
+    :func:`forward`."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype=None, device=None):
+        self.cfg = cfg
+        period = len(cfg.pattern)
+        self._n_blocks = cfg.num_layers // period
+        super().__init__(model_defs(cfg), dtype=dtype or cfg.torch_dtype, device=device)
+
+    def child(self, name, defs, *, dtype, device):
+        if name == "blocks":
+            return _Group({key: Layer(self.cfg, key.split("_", 1)[1], stack=self._n_blocks, dtype=dtype,
+                                      device=device) for key in defs}, defs)
+        if name == "tail":
+            return _Group({key: Layer(self.cfg, key.split("_", 1)[1], dtype=dtype, device=device)
+                           for key in defs}, defs)
+        return ParamTree(defs, dtype=dtype, device=device)
+
+    def forward(self, tokens, *, layout=None, caches=None, positions=None, frontend_embeds=None):
+        return forward(self.tree(), tokens, self.cfg, layout=layout, caches=caches, positions=positions,
+                       frontend_embeds=frontend_embeds)
+
+
+class _Group(ParamTree):
+    """A dict of layers (``blocks`` or ``tail``) as one submodule."""
+
+    def __init__(self, layers: Dict[str, nn.Module], defs):
+        nn.Module.__init__(self)
+        self.defs = defs
+        for key, layer in layers.items():
+            self.add_module(key, layer)

@@ -7,12 +7,16 @@ route, section 6's overload drained losslessly by credit flow, and section
 7's flight report flagging the open run alone; ``vopat_render_torch.py`` an
 8-rank image bit-equal to the 1-rank one and its drop-free telemetry
 summary; ``streamlines_demo_torch.py`` three fields, each equal to its
-single-rank oracle.  None imports JAX or the reference package."""
+single-rank oracle; ``serve_lm_torch.py`` ten requests through the slot
+engine for a dense and an MoE smoke config, each getting its
+``max_new_tokens``.  None imports JAX or the reference package."""
+import ast
 import os
 import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 from test_torch_types_queue import _imports
@@ -28,7 +32,8 @@ def _run(name):
     return out.stdout
 
 
-@pytest.mark.parametrize("name", ["quickstart_torch.py", "vopat_render_torch.py", "streamlines_demo_torch.py"])
+@pytest.mark.parametrize("name", ["quickstart_torch.py", "vopat_render_torch.py", "streamlines_demo_torch.py",
+                                  "serve_lm_torch.py"])
 def test_example_imports_neither_jax_nor_the_reference(name):
     for mod in _imports(ROOT / "examples" / name):
         assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), mod
@@ -59,3 +64,21 @@ def test_streamlines_demo_torch_matches_its_oracle():
     out = _run("streamlines_demo_torch.py")
     lines = [line for line in out.splitlines() if "oracle max err" in line]
     assert len(lines) == 3 and all(line.endswith("-> OK") for line in lines), out
+
+
+def test_serve_lm_torch_answers_every_request():
+    out = _run("serve_lm_torch.py")
+    assert out.count("served 10 requests through 4 slots") == 2
+    assert "qwen2-7b-smoke: 107072 parameters" in out and "llama4-scout-smoke: 254784 parameters" in out
+    assert "MoE tokens dropped at capacity_factor 1.25" in out
+    # the twin of examples/serve_lm.py's requests: rng(0), prompts of 2-11 tokens, 4-11 new tokens
+    rng = np.random.default_rng(0)
+    want = []
+    for _ in range(10):
+        prompt = rng.integers(0, 256, rng.integers(2, 12))
+        want.append((len(prompt), int(rng.integers(4, 12))))
+    lines = [line for line in out.splitlines() if line.startswith("  request ")]
+    assert len(lines) == 20
+    for i, line in enumerate(lines):
+        plen, n_new = want[i % 10]
+        assert f"prompt_len={plen:2d}" in line and len(ast.literal_eval(line.split("-> ")[1])) == n_new
