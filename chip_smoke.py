@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all started together, linked into one library under
-``build/``) and runs sixteen phases on ``cuda:0``:
+``build/``) and runs seventeen phases on ``cuda:0``:
 
   1. kernels     — all ten kernels (K1 gather_rows, K2 unmarshal, K3
                    pack_and_histogram, K4 rank_and_histogram, K5
@@ -234,7 +234,32 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    card against the CPU bit for bit; K6, K3, K1 and K2 at
                    those two shapes against their plain versions, timed
                    beside them, the library call and the bound;
- 16. report      — one JSON line of the kernels (launches on the paths that
+ 16. train       — the LM training path (``launch.train.train``): (a)
+                   qwen2-7b at full width (d_model 3,584, 28/4 heads, d_ff
+                   18,944, vocabulary 152,064, bfloat16, remat) at 4 of its
+                   28 layers, 10 steps of batch 8 × 512 from ``SyntheticLM``
+                   under ``AdamWConfig(warmup_steps=20)``: losses and gnorm
+                   finite, the step's event median and device time, tokens
+                   a second, peak memory, model FLOPs a step against the
+                   989e12 bfloat16 peak; (b) llama4-scout-17b-16e at full
+                   width at 1 of 48 layers, layout (1, 8), its 4
+                   microbatches, 4 steps: the same numbers, MoE drops a
+                   step (the checkpoint's recompute of a dispatch round
+                   dropping what forward's dropped), K6, K3, K1, K2
+                   launched every step; router,
+                   experts and ``ln2`` out of backward without gradient and
+                   updated by weight decay alone, m and v 0 (the reference's
+                   zeros through the ``rafi_ep`` plane); (c) the qwen2-7b and
+                   llama4 smoke configs from one CPU draw, 3 steps on the
+                   card and on the CPU: loss within 1e-4, gnorm within 1e-4
+                   of itself, the
+                   card's MoE through K6, K3, K1, K2, the CPU's through
+                   their plain versions; (d) both smoke configs trained to
+                   10 steps, and to 5 then resumed from the checkpoint:
+                   losses within 1e-6 (bit-equal or not, printed); (e)
+                   qwen2-7b smoke, 70 steps at lr 1e-2: the last 5 losses'
+                   mean below 0.9 × the first 5's;
+ 17. report      — one JSON line of the kernels (launches on the paths that
                    run them, errors, bounds; ``ms``, ``plain_ms`` and
                    ``library_ms`` are device times, ``call_ms`` the event
                    pair's; device events a call), the card's name and
@@ -326,7 +351,7 @@ RAGGED_PATHS = tuple(
 ROUND_PATHS = (LOSSLESS_PATHS + TELEMETRY_PATHS + PIPELINE_PATHS + CREDIT_PATHS + BALANCE_PATHS + RECOVERY_PATHS
                + OBS_PATHS + RAGGED_PATHS)
 APP_PATHS = ("streamlines", "nbody", "lander", "schlieren")  # the sort-marshal apps: K3, K1, K2, K6
-LM_PATHS = ("lm_serve", "lm_prefill")  # the MoE dispatch rounds of the LM path: K6, K3, K1, K2
+LM_PATHS = ("lm_serve", "lm_prefill", "lm_train")  # the MoE dispatch rounds of the LM paths: K6, K3, K1, K2
 LAUNCH_PATHS = {
     "pack_and_histogram": APP_PATHS + ROUND_PATHS + LM_PATHS,
     "gather_rows": APP_PATHS + ROUND_PATHS + LM_PATHS,
@@ -3809,6 +3834,382 @@ def phase_lm(dev, LAYERS=4, SLOTS=16, MAX_LEN=128, LAYOUT=(1, 8), N_REQ=16, PROM
     return out, paths
 
 
+# ---------------------------------------------------------------- 16. train
+TRAIN_RUNS = (("qwen2-7b", 4, 10), (LM_ARCH, 1, 4))  # (arch, layers of CONFIG kept, steps)
+BF16_PEAK = 989e12  # H100 SXM dense bfloat16 (NVIDIA data sheet)
+MOE_LEAVES = ("blocks.k0_moe.moe.router", "blocks.k0_moe.moe.wi", "blocks.k0_moe.moe.wg", "blocks.k0_moe.moe.wo",
+              "blocks.k0_moe.ln2")
+# (c): the float32 smoke configs, card against CPU: the loss absolute, gnorm
+# relative (the first tolerance, 1e-4 absolute for both, failed on gnorm:
+# PERF.md §6)
+TRAIN_TOL_WITNESS = 1e-4
+TRAIN_TOL_RESUME = 1e-6  # (d): resumed against uninterrupted losses on the card
+
+
+def _tree_paths(tree, pre=""):
+    out = {}
+    for k, v in tree.items():
+        out.update(_tree_paths(v, pre + k + ".") if isinstance(v, dict) else {pre + k: v})
+    return out
+
+
+class _TrainRecorder:
+    """Stands in for ``launch.train.build_train_step``, ``launch.steps.
+    adamw_update`` and ``models.moe.moe_block`` while a ``train`` call
+    runs: each step's CUDA event pair, metrics (kept on the device) and
+    launches; the gradients that came out of backward as ``None``; the
+    watched leaves' first elements before and after each update; and each
+    MoE call's drops, with whether backward ran it (a checkpoint's
+    recompute)."""
+
+    def __init__(self, watch=(), sample=1 << 20):
+        self.watch, self.sample = watch, sample
+        self.events, self.metrics, self.launches, self.none_grads, self.updates = [], [], [], [], []
+        self.moe = []
+        self.step = None
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch import kernels as KN
+        from repro_torch.launch import steps as ST
+        from repro_torch.launch import train as TR
+        from repro_torch.models import moe as M
+
+        self.mods = (TR, ST, M)
+        self.orig = (TR.build_train_step, ST.adamw_update, M.moe_block)
+        build, update, moe_block = self.orig
+
+        def build_train_step(*a, **kw):
+            inner = build(*a, **kw)
+
+            def step(params, opt, batch):
+                cuda = next(iter(params.parameters())).device.type == "cuda"
+                before = KN.launch_counts()
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) if cuda else None
+                if cuda:
+                    ev[0].record()
+                params, opt, met = inner(params, opt, batch)
+                if cuda:
+                    ev[1].record()
+                self.events.append(ev)
+                self.metrics.append(met)
+                after = KN.launch_counts()
+                self.launches.append({k: after[k] - before[k] for k in LM_KERNELS})
+                return params, opt, met
+
+            self.step = step
+            return step
+
+        def adamw_update(params, grads, state, cfg):
+            self.none_grads.append({k for k, g in _tree_paths(grads).items() if g is None})
+            flat = _tree_paths(params.tree() if hasattr(params, "tree") else params)
+            take = lambda: {k: flat[k].detach().reshape(-1)[:self.sample].clone() for k in self.watch if k in flat}
+            was = take()
+            out = update(params, grads, state, cfg)
+            lr = torch.clamp(state["step"].to(torch.float32) / max(cfg.warmup_steps, 1), max=1.0) * cfg.lr
+            self.updates.append((was, take(), lr, cfg.weight_decay))
+            return out
+
+        def moe(params, x, cfg, *, layout=None):
+            in_backward = torch._C._current_graph_task_id() != -1  # a checkpoint's recompute
+            y, d = moe_block(params, x, cfg, layout=layout)
+            self.moe.append((len(self.metrics), in_backward, d))
+            return y, d
+
+        TR.build_train_step, ST.adamw_update, M.moe_block = build_train_step, adamw_update, moe
+        return self
+
+    def __exit__(self, *exc):
+        TR, ST, M = self.mods
+        TR.build_train_step, ST.adamw_update, M.moe_block = self.orig
+
+
+def _model_flops(cfg, tokens, seq):
+    """Model FLOPs of one train step: 6 × the parameters a token's matmuls
+    use (all but the embedding table; the experts at top_k / E) × tokens,
+    plus the attention products, 12 × layers × seq × heads × head_dim ×
+    tokens (forward and backward over the full S × S, as ``_sdpa``
+    computes it).  The checkpoint's recompute is not counted."""
+    import math
+
+    from repro_torch.models.api import build_model
+
+    model = build_model(cfg)
+    n = model.param_count() - math.prod(model.defs["embed"].shape)
+    if cfg.kind == "moe":
+        experts = sum(math.prod(model.defs["blocks"]["k0_moe"]["moe"][k].shape) for k in ("wi", "wg", "wo"))
+        n -= experts * (1 - cfg.top_k / cfg.num_experts)
+    return 6 * n * tokens + 12 * cfg.num_layers * seq * cfg.num_heads * cfg.head_dim * tokens
+
+
+def _step_device_ms(step, params, opt, batch, calls=1):
+    """Device time of one train step from ``torch.profiler``, by part:
+    ``adamw`` (the kernels launched inside ``adamw_update``, through a
+    ``record_function`` range), ``gemm`` (cuBLAS and CUTLASS kernels
+    elsewhere in the step), ``rafi`` (K6, K3, K1, K2) and ``other`` (the
+    rest: elementwise, reductions, copies); ms a step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.launch import steps as ST
+
+    update = ST.adamw_update
+
+    def ranged(*a, **kw):
+        with record_function("train.adamw"):
+            return update(*a, **kw)
+
+    ST.adamw_update = ranged
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                step(params, opt, batch)
+            torch.cuda.synchronize()
+    finally:
+        ST.adamw_update = update
+    ms = lambda us: us / calls / 1e3
+    total, gemm, rafi = 0.0, 0.0, 0.0
+    for e in _device_events(prof):
+        if e.key == "train.adamw":  # the range's span on the device timeline
+            continue
+        total += e.self_device_time_total
+        if any(k in e.key for k in ("gemm", "xmma", "cutlass", "nvjet", "cublas")):
+            gemm += e.self_device_time_total
+        elif any(k in e.key for k in ("gather_rows_kernel", "unmarshal_kernel", "pack_hist_kernel", "compact_kernel")):
+            rafi += e.self_device_time_total
+    adamw = sum(getattr(e, "device_time_total", 0.0) for e in prof.key_averages()
+                if e.key == "train.adamw" and e.device_type != torch.autograd.DeviceType.CUDA)
+    return {"total": ms(total), "adamw": ms(adamw), "gemm_outside_adamw": ms(gemm), "rafi_kernels": ms(rafi),
+            "other": ms(total - adamw - gemm - rafi)}
+
+
+def _train_full(dev, arch, layers, steps, *, batch, seq, layout, widths, profile, timer=cuda_ms, dtimer=device_ms):
+    """(a) or (b): ``train()`` of CONFIG at ``layers`` layers, every other
+    field as published, from a fresh checkpoint directory.  For an MoE
+    config, the first dispatch round of the first step is held against the
+    CPU's and K6, K3, K1 and K2 against their plain versions at its shape."""
+    import dataclasses as dc
+    import gc
+    import math
+    import tempfile
+
+    import torch
+
+    from repro_torch import kernels as KN
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.train import train
+    from repro_torch.models import moe as M
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import AdamWConfig
+
+    cuda = dev.type == "cuda"
+    cfg = dc.replace(get_config(arch), num_layers=layers, **(widths or {}))
+    moe = cfg.kind == "moe"
+    n_params = build_model(cfg).param_count()
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()  # the earlier runs' cached blocks
+        torch.cuda.reset_peak_memory_stats(dev)
+    KN.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _TrainRecorder(watch=MOE_LEAVES if moe else ()) as rec, _FirstRoute() as fr, \
+            tempfile.TemporaryDirectory() as ckpt_dir:
+        params, opt, losses = train(arch=cfg, steps=steps, batch=batch, seq=seq, ckpt_dir=ckpt_dir, ckpt_every=0,
+                                    layout=layout, opt_cfg=AdamWConfig(warmup_steps=20), verbose=False, device=dev)
+        wall = time.perf_counter() - t0
+        launches = KN.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else None
+        gnorms = [float(m["gnorm"]) for m in rec.metrics]
+        label = f"{'(b)' if moe else '(a)'} {cfg.name} at {layers} of {get_config(arch).num_layers} layers"
+        r = {"params": n_params, "layers": layers, "steps": steps, "batch": batch, "seq": seq,
+             "microbatches": cfg.microbatches, "remat": cfg.remat, "losses": [l for _, l in losses], "gnorms": gnorms,
+             "wall_s": wall, "peak_gib": peak, "launches": launches, "launches_per_step": rec.launches}
+        check(len(losses) == steps and all(math.isfinite(l) for _, l in losses) and all(map(math.isfinite, gnorms)),
+              f"{label}: {steps} steps, losses and gnorm finite: losses {[round(l, 4) for _, l in losses]}, gnorm "
+              f"{[round(g, 4) for g in gnorms]}")
+        check(n_params == sum(p.numel() for p in params.parameters()),
+              f"{label}: {n_params} parameters allocated")
+        tokens = batch * seq
+        r["model_flops"] = _model_flops(cfg, tokens, seq)
+        if cuda:
+            ms = [a.elapsed_time(b) for a, b in rec.events]
+            r["step_ms"] = ms
+            r["first_step_ms"], r["step_ms_median"] = ms[0], statistics.median(ms[1:])
+            r["tokens_per_s"] = tokens / (r["step_ms_median"] / 1e3)
+            r["mfu_bf16_peak"] = r["model_flops"] / (r["step_ms_median"] / 1e3) / BF16_PEAK
+            if profile:
+                r["device_split_ms"] = _step_device_ms(rec.step, params, opt, SyntheticLM(cfg.vocab_size, seq, batch)
+                                                       .batch_at(steps))
+                r["device_ms"] = r["device_split_ms"]["total"]
+                r["mfu_device"] = r["model_flops"] / (r["device_ms"] / 1e3) / BF16_PEAK
+        print(f"  {label}: {n_params} parameters, batch {batch} x {seq}, {cfg.microbatches} microbatch(es), remat "
+              f"{cfg.remat}; {steps} steps in {wall:.2f} s (init included); step event median "
+              f"{r.get('step_ms_median')} ms (first {r.get('first_step_ms')}), device {r.get('device_split_ms')} ms, "
+              f"{r.get('tokens_per_s')} tokens/s, model FLOPs {r['model_flops']:.4e} a step = "
+              f"{r.get('mfu_bf16_peak')} of the 989e12 bf16 peak (device time: {r.get('mfu_device')}); peak "
+              f"{peak} GiB", flush=True)
+        dead = set(MOE_LEAVES) if moe and cfg.moe_dispatch == "rafi_ep" else set()
+        check(all(s == dead for s in rec.none_grads),
+              f"{label}: the gradients out of backward without a value: {sorted(set().union(*rec.none_grads))} "
+              f"== {sorted(dead)} in every step")
+    if moe:
+        r.update(_moe_train_checks(rec, opt, label, cfg, cuda))
+        route = fr.route
+        W = route.items.h.shape[-1] * route.items.h.element_size() // 4 + 4
+        shape = f"R={route.fcfg.num_ranks}, C={route.fcfg.capacity}, S={route.fcfg.peer_capacity}, W={W} words"
+        r["route"] = shape
+        check(_same_delivered(M.rafi_ep_dispatch(route), M.rafi_ep_dispatch(route.to("cpu"))),
+              f"{label}: the train step's dispatch round ({shape}): the delivered queue == the CPU's, bit for bit")
+        if cuda:
+            r["kernels"] = _lm_kernel_rows(route, "train", timer, dtimer)
+    return r
+
+
+def _moe_train_checks(rec, opt, label, cfg, cuda):
+    """(b): drops a step, no MoE call in the checkpoint's recompute,
+    launches a step (two rounds, one ``enqueue`` each, a layer call), and
+    the MoE leaves' update = weight decay alone, m and v zero."""
+    import torch
+
+    out = {}
+    steps = range(len(rec.metrics))
+    calls = cfg.microbatches * cfg.num_layers
+    moe = [[int(d) for s, bw, d in rec.moe if s == i and not bw] for i in steps]
+    rcp = [sum(1 for s, bw, _ in rec.moe if s == i and bw) for i in steps]
+    out["drops_per_step"] = [sum(m) for m in moe]
+    out["moe_drops"] = moe
+    check(all(len(m) == calls for m in moe) and not any(rcp),
+          f"{label}: {calls} MoE layer calls a step in forward ({[len(m) for m in moe]}), none in the checkpoint's "
+          f"recompute ({rcp})")
+    print(f"  {label}: MoE drops a step {out['drops_per_step']} (by layer call {moe})", flush=True)
+    if cuda:
+        per = rec.launches
+        check(all(all(p[k] == 2 * calls for k in LM_KERNELS) for p in per),
+              f"{label}: K6, K3, K1, K2 launched {2 * calls} times every step: {per}")
+    ulps, exact = 0, 0
+    for was, now, lr, wd in rec.updates:
+        for k in was:
+            b32 = was[k].to(torch.float32)
+            want = (b32 - (b32 * wd) * lr).to(was[k].dtype)
+            same = now[k].view(torch.int16) == want.view(torch.int16)
+            exact += int(same.sum())
+            ulps = max(ulps, int((now[k].view(torch.int16).to(torch.int32) - want.view(torch.int16).to(torch.int32))
+                                 .abs().max()))
+    n = sum(v.numel() for was, _, _, _ in rec.updates for v in was.values())
+    out["decay_only"] = {"elements": n, "bit_equal": exact, "max_ulp": ulps}
+    check(ulps == 0, f"{label}: {', '.join(k.rsplit('.', 1)[1] for k in MOE_LEAVES)} updated by weight decay alone: "
+                     f"{exact} of {n} sampled elements bit-equal to bf16(p - lr·wd·p), max {ulps} ulp")
+    m, v = _tree_paths(opt["m"]), _tree_paths(opt["v"])
+    check(not any(bool(m[k].any()) or bool(v[k].any()) for k in MOE_LEAVES), f"{label}: m and v of the MoE leaves 0")
+    return out
+
+
+def _train_witness(dev, arch, steps=3, batch=8, seq=64, seed=24):
+    """(c): the smoke config from one CPU draw, trained on the card and on
+    the CPU in turn: (loss, gnorm) per step, and each run's launches."""
+    import copy
+
+    import torch
+
+    from repro_torch import kernels as KN
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import make_test_layout
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg)
+    lm_cpu = model.init(torch.Generator().manual_seed(seed), device="cpu")
+    ds = SyntheticLM(cfg.vocab_size, seq, batch)
+    out = {}
+    for where, lm in (("card", copy.deepcopy(lm_cpu).to(dev)), ("cpu", lm_cpu)):
+        step = build_train_step(model, make_test_layout(2, 4), AdamWConfig(warmup_steps=20))
+        opt = adamw_init(lm, AdamWConfig(warmup_steps=20))
+        KN.reset_launch_counts()
+        mets = [step(lm, opt, ds.batch_at(i))[2] for i in range(steps)]
+        out[where] = [(float(m["loss"]), float(m["gnorm"])) for m in mets]
+        out[f"{where}_launches"] = {k: v for k, v in KN.launch_counts().items() if v}
+    out["loss_max_abs_diff"] = max(abs(x[0] - y[0]) for x, y in zip(out["card"], out["cpu"]))
+    out["gnorm_max_rel_diff"] = max(abs(x[1] - y[1]) / abs(y[1]) for x, y in zip(out["card"], out["cpu"]))
+    return out
+
+
+def _train_resume(dev, arch, steps=10, at=5, **kw):
+    """(d): ``train`` uninterrupted to ``steps``, and to ``at`` then
+    resumed from its checkpoint to ``steps``.  Returns both loss lists."""
+    import tempfile
+
+    from repro_torch.launch.train import train
+
+    with tempfile.TemporaryDirectory() as d:
+        _, _, full = train(arch=arch, steps=steps, ckpt_dir=f"{d}/full", ckpt_every=0, verbose=False, device=dev, **kw)
+        train(arch=arch, steps=at, ckpt_dir=f"{d}/cut", ckpt_every=at, verbose=False, device=dev, **kw)
+        _, _, resumed = train(arch=arch, steps=steps, ckpt_dir=f"{d}/cut", ckpt_every=at, verbose=False, device=dev,
+                              **kw)
+    return full, resumed
+
+
+def phase_train(dev, RUNS=TRAIN_RUNS, BATCH=(8, 512), LAYOUT=(1, 8), SMOKE_BATCH=(4, 64), FALL_STEPS=70,
+                widths=None, profile=True):
+    """Phase train: the LM training path at full width (``widths``
+    narrows it for a rehearsal on the CPU)."""
+    import math
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.launch.mesh import Layout
+    from repro_torch.optim import AdamWConfig
+
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    out, paths = {}, {}
+    for arch, layers, steps in RUNS:
+        moe = arch == LM_ARCH
+        r = _train_full(dev, arch, layers, steps, batch=BATCH[0], seq=BATCH[1], layout=Layout(*LAYOUT) if moe else None,
+                        widths=widths, profile=profile)
+        out[arch] = r
+        if moe:
+            paths["lm_train"] = r["launches"]
+
+    for arch in ("qwen2-7b", LM_ARCH):  # (c)
+        w = _train_witness(dev, arch)
+        out[f"witness_{arch}"] = w
+        ran = all(w["card_launches"].get(k, 0) > 0 for k in LM_KERNELS) and not w["cpu_launches"]
+        check(w["loss_max_abs_diff"] <= TRAIN_TOL_WITNESS and w["gnorm_max_rel_diff"] <= TRAIN_TOL_WITNESS
+              and (arch != LM_ARCH or not cuda or ran),
+              f"(c) {arch} smoke, 3 steps from one CPU draw: (loss, gnorm) card {w['card']} against CPU {w['cpu']}: "
+              f"loss max |d| {w['loss_max_abs_diff']:.3g}, gnorm max |d|/gnorm {w['gnorm_max_rel_diff']:.3g}, both "
+              f"<= {TRAIN_TOL_WITNESS}; launches card {w['card_launches']}, CPU {w['cpu_launches']}")
+
+    for arch in ("qwen2-7b", LM_ARCH):  # (d)
+        full, resumed = _train_resume(dev, arch, batch=SMOKE_BATCH[0], seq=SMOKE_BATCH[1])
+        tail = dict(full)
+        diff = max(abs(tail[s] - l) for s, l in resumed)
+        exact = all(tail[s] == l for s, l in resumed)
+        out[f"resume_{arch}"] = {"full": full, "resumed": resumed, "max_abs_diff": diff, "bit_equal": exact}
+        check([s for s, _ in resumed] == list(range(5, 10)) and diff <= TRAIN_TOL_RESUME,
+              f"(d) {arch} smoke resumed at step 5 to 10: losses {[round(l, 6) for _, l in resumed]}, max |d| "
+              f"{diff:.3g} <= {TRAIN_TOL_RESUME} against the uninterrupted run (bit-equal: {exact})")
+
+    from repro_torch.launch.train import train  # (e)
+    _, _, losses = train(arch="qwen2-7b", steps=FALL_STEPS, batch=8, seq=64, ckpt_every=0, verbose=False, device=dev,
+                         opt_cfg=AdamWConfig(lr=1e-2, warmup_steps=10, weight_decay=0.0))
+    first, last = np.mean([l for _, l in losses[:5]]), np.mean([l for _, l in losses[-5:]])
+    out["loss_falls"] = {"first5": float(first), "last5": float(last), "losses": [l for _, l in losses]}
+    check(all(math.isfinite(l) for _, l in losses) and last < 0.9 * first,
+          f"(e) qwen2-7b smoke, {FALL_STEPS} steps at lr 1e-2: mean of the last 5 losses {last:.4f} < 0.9 x the "
+          f"first 5's {first:.4f}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase train: {out['phase_s']:.1f} s", flush=True)
+    return out, paths
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -3838,7 +4239,7 @@ def main() -> int:
            "balance": lambda: phase_balance(dev), "recovery": lambda: phase_recovery(dev),
            "streamlines": lambda: phase_streamlines(dev), "vopat": lambda: phase_vopat(dev),
            "nbody": lambda: phase_nbody(dev), "obs": lambda: phase_obs(dev), "apps2": lambda: phase_apps2(dev),
-           "ragged": lambda: phase_ragged(dev), "lm": lambda: phase_lm(dev)}
+           "ragged": lambda: phase_ragged(dev), "lm": lambda: phase_lm(dev), "train": lambda: phase_train(dev)}
     kernels, paths = {}, {}  # paths: launches per path, counted from 0
     for title in run:
         print(f"# phase {title}", flush=True)
@@ -3853,7 +4254,7 @@ def main() -> int:
             kernels, more = res
             paths.update(more)
         elif title in ("lossless", "telemetry", "pipeline", "credit", "balance", "recovery", "obs", "apps2", "ragged",
-                       "lm"):
+                       "lm", "train"):
             record[title], more = res
             paths.update(more)
         elif title in ("streamlines", "vopat", "nbody"):

@@ -11,7 +11,9 @@
 * **Layout-stable**: leaves are flattened in ``jax.tree.flatten``'s order
   (:func:`tree_flatten`) and saved as plain ``.npy`` arrays, so a tree the
   JAX package wrote restores here and the reverse: same files, same
-  digests for equal arrays.  A tensor leaf is written from one host copy.
+  digests for equal arrays.  A tensor leaf is written from one host copy;
+  a bfloat16 one as its 2-byte words (``'<V2'``, the file the reference
+  writes for a bfloat16 array).
 * **Retention**: the newest ``keep`` checkpoints stay, older ones go, and
   so does every orphaned ``step_*.tmp`` a crash mid-write left behind.
 
@@ -104,25 +106,45 @@ def _describe(treedef: Any) -> str:
     return f"{cls.__name__}(" + ", ".join(f"{n}={_describe(c)}" for n, c in zip(names, kids)) + ")"
 
 
+# numpy has no bfloat16: a bfloat16 leaf is written as its 2-byte words,
+# the '<V2' file the reference's ml_dtypes arrays give
+_BF16_NP = np.dtype("V2")
+
+
 def to_host(leaf: Any) -> np.ndarray:
     """One host copy of a tensor leaf; numpy and Python values as they are."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).numpy().view(_BF16_NP)
+        return leaf.numpy()
     return np.asarray(leaf)
 
 
 def np_dtype(leaf: Any) -> np.dtype:
-    """The numpy dtype of a tensor, array or Python value."""
+    """The numpy dtype of a tensor (a bfloat16 one's file dtype), array or Python value."""
     if isinstance(leaf, torch.Tensor):
-        return torch.empty(0, dtype=leaf.dtype).numpy().dtype
+        return _BF16_NP if leaf.dtype == torch.bfloat16 else torch.empty(0, dtype=leaf.dtype).numpy().dtype
     return np.asarray(leaf).dtype if not hasattr(leaf, "dtype") else np.dtype(leaf.dtype)
+
+
+def _from_host(arr: np.ndarray, ref: Any) -> torch.Tensor:
+    if isinstance(ref, torch.Tensor) and ref.dtype == torch.bfloat16:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 # ------------------------------------------------------- the leaf file law
 def npy_bytes(arr: np.ndarray) -> bytes:
-    """The exact bytes a leaf file holds (``np.save``'s)."""
+    """The exact bytes a leaf file holds (``np.save``'s; a bfloat16 leaf's
+    header says ``'<V2'``, as ml_dtypes' bfloat16 writes it)."""
     buf = io.BytesIO()
-    np.save(buf, arr)
+    if arr.dtype == _BF16_NP:
+        header = np.lib.format.header_data_from_array_1_0(arr)
+        np.lib.format.write_array_header_1_0(buf, dict(header, descr="<V2"))
+        buf.write(np.ascontiguousarray(arr).tobytes())
+    else:
+        np.save(buf, arr)
     return buf.getvalue()
 
 
@@ -165,8 +187,9 @@ def save_checkpoint(ckpt_dir, step: int, tree: Any, *, keep: int = 3, meta: Opti
         # serialise once and hash the exact bytes written
         raw = npy_bytes(arr)
         write_synced(path, raw)
+        dtype = "bfloat16" if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16 else str(arr.dtype)
         manifest["leaves"].append(
-            {"file": path.name, "shape": list(arr.shape), "dtype": str(arr.dtype), "sha256": digest(raw)}
+            {"file": path.name, "shape": list(arr.shape), "dtype": dtype, "sha256": digest(raw)}
         )
     with open(tmp / "manifest.json", "w") as f:
         json.dump(manifest, f)
@@ -232,5 +255,5 @@ def restore_checkpoint(ckpt_dir, step: int, like: Any, *, device=None) -> Any:
         ref_dtype = np_dtype(ref)
         if np.dtype(arr.dtype) != ref_dtype:
             raise ValueError(f"leaf {i}: checkpoint dtype {arr.dtype} != expected {ref_dtype}")
-        out.append(torch.from_numpy(arr).to(dev))
+        out.append(_from_host(arr, ref).to(dev))
     return tree_unflatten(treedef, out)

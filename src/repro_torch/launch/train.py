@@ -1,0 +1,132 @@
+"""End-to-end training driver: data → train_step → checkpoints
+(counterpart of ``repro.launch.train``).
+
+The fault-tolerance contract of the reference:
+  * auto-resume: on start, the trainer restores the latest checkpoint and
+    continues from its step; the data pipeline is a pure function of step,
+    so a killed-and-restarted run reproduces the uninterrupted run;
+  * periodic atomic checkpoints (``--ckpt-every``) in the reference's file
+    layout, so a run the JAX package checkpointed resumes here.
+
+Runs on the CUDA card; ``device="cpu"`` (``--cpu``) runs the plain PyTorch
+path.  Usage (smoke config):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b --smoke \\
+      --steps 100 --batch 8 --seq 128 --ckpt-dir ckpt [--cpu]
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+import time
+from typing import Optional, Union
+
+import torch
+
+from repro_torch import compat
+from repro_torch.ckpt import latest_step, restore_checkpoint, save_checkpoint
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.data import SyntheticLM
+from repro_torch.launch.mesh import make_test_layout
+from repro_torch.launch.steps import build_train_step
+from repro_torch.models.api import build_model
+from repro_torch.models.common import ModelConfig, tree_map
+from repro_torch.optim import AdamWConfig, adamw_init
+
+__all__ = ["main", "train"]
+
+
+def _default_ckpt_dir() -> str:
+    return os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
+
+
+def train(
+    *,
+    arch: Union[str, ModelConfig] = "qwen2-7b",
+    smoke: bool = True,
+    steps: int = 50,
+    batch: int = 8,
+    seq: int = 128,
+    ckpt_dir: Optional[str] = None,
+    ckpt_every: int = 20,
+    layout=None,
+    log_every: int = 10,
+    opt_cfg: AdamWConfig = AdamWConfig(warmup_steps=20),
+    verbose: bool = True,
+    device=None,
+):
+    """Train ``arch`` (a registry name, its smoke config when ``smoke``,
+    or a :class:`ModelConfig` as given) on :class:`SyntheticLM` batches.
+    Returns ``(params, opt_state, [(step, loss), ...])``; ``layout`` is the
+    MoE dispatch's rank layout (default 2 × 4), ``ckpt_dir`` defaults to
+    :func:`_default_ckpt_dir`, ``ckpt_every=0`` writes none."""
+    cfg = arch if isinstance(arch, ModelConfig) else (get_smoke_config(arch) if smoke else get_config(arch))
+    dev = compat.resolve_device(device)
+    ckpt_dir = ckpt_dir or _default_ckpt_dir()
+    model = build_model(cfg)
+    layout = layout or make_test_layout()
+    ds = SyntheticLM(cfg.vocab_size, seq, batch)
+    step_fn = build_train_step(model, layout, opt_cfg)
+
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    start = latest_step(ckpt_dir)
+    start_step = 0
+    if start is None:
+        opt = adamw_init(params, opt_cfg)
+    else:
+        if verbose:
+            print(f"[train] resuming from checkpoint step {start}")
+        # the state's shapes from meta tensors: restore allocates it once
+        meta = tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"), params.tree())
+        like = {"params": params.tree(), "opt": adamw_init(meta, opt_cfg)}
+        state = restore_checkpoint(ckpt_dir, start, like, device=dev)
+        with torch.no_grad():
+            _copy_tree(params.tree(), state["params"])
+        opt = state["opt"]
+        del state
+        start_step = start
+
+    losses = []
+    t0 = time.time()
+    for step in range(start_step, steps):
+        params, opt, metrics = step_fn(params, opt, ds.batch_at(step))
+        loss = float(metrics["loss"])
+        losses.append((step, loss))
+        if verbose and (step % log_every == 0 or step == steps - 1):
+            print(f"[train] step {step:5d} loss {loss:8.4f} ({time.time() - t0:.1f}s)", flush=True)
+        if ckpt_every and (step + 1) % ckpt_every == 0:
+            save_checkpoint(ckpt_dir, step + 1, {"params": params.tree(), "opt": opt})
+    if ckpt_every:
+        save_checkpoint(ckpt_dir, steps, {"params": params.tree(), "opt": opt})
+    return params, opt, losses
+
+
+def _copy_tree(dst, src):
+    for k, v in dst.items():
+        if isinstance(v, dict):
+            _copy_tree(v, src[k])
+        else:
+            v.copy_(src[k])
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-7b")
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--full", dest="smoke", action="store_false")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--ckpt-dir", default=None, help=f"default: {_default_ckpt_dir()}")
+    ap.add_argument("--ckpt-every", type=int, default=20)
+    ap.add_argument("--cpu", action="store_true", help="run on the CPU (plain PyTorch versions of the kernels)")
+    args = ap.parse_args(argv)
+    train(
+        arch=args.arch, smoke=args.smoke, steps=args.steps, batch=args.batch,
+        seq=args.seq, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+        device="cpu" if args.cpu else None,
+    )
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,4 @@
-"""Model API: build a config into init / prefill / decode functions
+"""Model API: build a config into init / loss / prefill / decode functions
 (counterpart of ``repro.models.api``).
 
 ``build_model(cfg)`` returns a :class:`Model` holding the config and its
@@ -20,9 +20,11 @@ import torch
 
 from repro_torch import compat
 from repro_torch.models import transformer as TF
-from repro_torch.models.common import ModelConfig, ParamDef, ParamTree, init_params, tree_leaves
+from repro_torch.models.common import ModelConfig, ParamDef, ParamTree, cross_entropy_loss, init_params, tree_leaves
 
 __all__ = ["Model", "build_model", "params_from_jax"]
+
+_ENCDEC = "the encdec family is not ported yet (ROADMAP Queue 1 item 19c)"
 
 
 @dataclasses.dataclass
@@ -44,6 +46,25 @@ class Model:
         return int(sum(math.prod(d.shape) for d in tree_leaves(self.defs)))
 
     # --------------------------------------------------------------- steps
+    def loss_fn(self, layout=None) -> Callable:
+        """``loss(params, batch)``: the mean next-token CE of ``batch``
+        (``tokens`` (B, S); ``labels`` if given, else ``tokens[:, 1:]``;
+        ``embeds`` as the frontend), differentiable in the parameters."""
+        cfg = self.cfg
+        if cfg.kind == "encdec":
+            raise NotImplementedError(_ENCDEC)
+
+        def loss(params, batch):
+            logits, _, _ = TF.forward(
+                params, batch["tokens"], cfg, layout=layout, frontend_embeds=batch.get("embeds"),
+            )
+            labels = batch["labels"] if "labels" in batch else batch["tokens"][:, 1:]
+            if logits.shape[1] != labels.shape[1]:
+                logits = logits[:, : labels.shape[1]]
+            return cross_entropy_loss(logits, labels, vocab=cfg.vocab_size)
+
+        return loss
+
     def prefill_fn(self, layout=None) -> Callable:
         cfg = self.cfg
 
@@ -91,7 +112,7 @@ def _first_cache_pos(caches, batch: int, device) -> torch.Tensor:
 
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.kind == "encdec":
-        raise NotImplementedError("the encdec family is not ported yet (ROADMAP Queue 1 item 19c)")
+        raise NotImplementedError(_ENCDEC)
     return Model(cfg, TF.model_defs(cfg))
 
 

@@ -21,8 +21,8 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = [
-    "ModelConfig", "ParamDef", "ParamTree", "activation", "dense", "glu_mlp", "init_params", "mlp_defs",
-    "rmsnorm", "tree_map",
+    "ModelConfig", "ParamDef", "ParamTree", "activation", "cross_entropy_loss", "dense", "glu_mlp", "init_params",
+    "mlp_defs", "rmsnorm", "tree_map",
 ]
 
 
@@ -127,7 +127,8 @@ class ParamTree(nn.Module):
     """A nested dict of :class:`ParamDef` as an ``nn.Module``: a dict is a
     submodule, a def a parameter of its shape (uninitialised; see
     :func:`init_params`).  Serving needs no gradient, so the parameters do
-    not require one."""
+    not require one; the trainer turns it on for its own module
+    (``launch.steps.build_train_step``)."""
 
     def __init__(self, defs: Dict[str, Any], *, dtype: torch.dtype, device=None):
         super().__init__()
@@ -201,3 +202,11 @@ def mlp_defs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict[str, ParamDef
         "wg": ParamDef((d, f)),
         "wo": ParamDef((f, d), scale=1.0 / np.sqrt(f)),
     }
+
+
+def cross_entropy_loss(logits, labels, *, vocab: int):
+    """Mean token CE in float32 (logits may be bfloat16)."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
+    return torch.mean(logz - gold)

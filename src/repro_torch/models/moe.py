@@ -17,6 +17,11 @@ to the rank owning their expert.  Two dispatch planes:
 Both planes share the router and the capacity-factor drop rule (queue
 overflow == token drop, counted).
 
+No gradient crosses ``rafi_ep``: its items travel as 32-bit words, so the
+router, the experts and the norm that feeds them get none, in the
+reference (exact zeros) as here.  The plane runs without grad, so a
+checkpoint's recompute in training stops before it.
+
 The reference runs ``rafi_ep`` inside a ``shard_map`` over (data, model)
 with its forwarding on the model axis.  Here the ``dp × tp`` ranks are
 rank-stacked (rank ``g·tp + m`` is data group g, model rank m) and ONE
@@ -302,7 +307,8 @@ def moe_block(params, x, cfg: ModelConfig, *, layout=None):
     if cfg.moe_dispatch == "rafi_ep":
         if layout is None:
             raise ValueError("rafi_ep dispatch needs the layout")
-        return moe_rafi_ep(params, x, cfg, layout=layout)
+        with torch.no_grad():  # the plane carries no gradient (module docstring)
+            return moe_rafi_ep(params, x, cfg, layout=layout)
     return moe_dense_tp(params, x, cfg)
 
 

@@ -5,18 +5,23 @@ Layers follow the config's repeating ``pattern`` (gemma3's 5×local +
 1×global, dbrx's all-MoE).  Full pattern periods are stacked along a leading
 layer axis, as in the reference; where the reference runs ``lax.scan`` over
 the periods, this runs a loop that indexes the stacked parameters and
-caches.  Leftover layers (depth % period) run one by one.
+caches.  Leftover layers (depth % period) run one by one.  With
+``cfg.remat`` and grad enabled (training), each period runs under
+``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` of its
+scan body; serving runs without grad and is untouched.
 
 Decode state is a nested dict mirroring the block structure: KV caches for
 attention layers, stacked like the parameters.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
@@ -109,6 +114,29 @@ def _index(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
+def _unstack(tree, n: int):
+    """``n`` trees, tree i holding every leaf's view ``i`` of its leading axis."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in parts} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def _period_apply(block_params, x, cfg: ModelConfig, *, positions, layout=None, caches=None):
+    """One period of the pattern (one layer of each kind).  Returns (x,
+    new_caches, drops)."""
+    drops = torch.zeros((), dtype=torch.int32, device=x.device)
+    new_caches = {}
+    for j, kind in enumerate(cfg.pattern):
+        key = f"k{j}_{kind}"
+        c = None if caches is None else caches.get(key)
+        x, nc, d = apply_layer(block_params[key], x, cfg, kind, positions=positions, layout=layout, cache=c)
+        drops = drops + d
+        if nc is not None:
+            new_caches[key] = nc
+    return x, new_caches, drops
+
+
 def _stack(trees):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
@@ -148,19 +176,20 @@ def forward(
 
     new_block_caches = None
     if n_blocks > 0:
+        # each stacked leaf split once into its layers' views: a layer's
+        # gradient lands in its own slice, not in a zero-filled copy a layer
+        blocks = {key: _unstack(params["blocks"][key], n_blocks) for key in params["blocks"]}
+        run = _period_apply
+        if cfg.remat and caches is None and torch.is_grad_enabled():
+            # the reference's jax.checkpoint(scan_body): a period keeps its
+            # input and recomputes the rest in the backward pass
+            run = functools.partial(checkpoint, _period_apply, use_reentrant=False)
         per_block = []
         for i in range(n_blocks):
-            new_caches = {}
-            for j, kind in enumerate(cfg.pattern):
-                key = f"k{j}_{kind}"
-                c = None if caches is None else _index(caches["blocks"][key], i)
-                x, nc, d = apply_layer(
-                    _index(params["blocks"][key], i), x, cfg, kind,
-                    positions=positions, layout=layout, cache=c,
-                )
-                total_drops = total_drops + d
-                if nc is not None:
-                    new_caches[key] = nc
+            block_caches = None if caches is None else {k: _index(c, i) for k, c in caches["blocks"].items()}
+            x, new_caches, d = run({key: blocks[key][i] for key in blocks}, x, cfg, positions=positions,
+                                   layout=layout, caches=block_caches)
+            total_drops = total_drops + d
             per_block.append(new_caches)
         if caches is not None:
             new_block_caches = _stack(per_block)

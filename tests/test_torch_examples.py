@@ -9,7 +9,9 @@ route, section 6's overload drained losslessly by credit flow, and section
 summary; ``streamlines_demo_torch.py`` three fields, each equal to its
 single-rank oracle; ``serve_lm_torch.py`` ten requests through the slot
 engine for a dense and an MoE smoke config, each getting its
-``max_new_tokens``.  None imports JAX or the reference package."""
+``max_new_tokens``; ``train_lm_torch.py`` the reference example's ~100M
+model training a few steps with finite losses.  None imports JAX or the
+reference package."""
 import ast
 import os
 import pathlib
@@ -24,16 +26,16 @@ from test_torch_types_queue import _imports
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
-def _run(name):
+def _run(name, *args):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run([sys.executable, str(ROOT / "examples" / name), "--cpu"], cwd=ROOT, env=env,
+    out = subprocess.run([sys.executable, str(ROOT / "examples" / name), "--cpu", *args], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=180)
     assert out.returncode == 0, out.stderr[-2000:]
     return out.stdout
 
 
 @pytest.mark.parametrize("name", ["quickstart_torch.py", "vopat_render_torch.py", "streamlines_demo_torch.py",
-                                  "serve_lm_torch.py"])
+                                  "serve_lm_torch.py", "train_lm_torch.py"])
 def test_example_imports_neither_jax_nor_the_reference(name):
     for mod in _imports(ROOT / "examples" / name):
         assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), mod
@@ -82,3 +84,15 @@ def test_serve_lm_torch_answers_every_request():
     for i, line in enumerate(lines):
         plen, n_new = want[i % 10]
         assert f"prompt_len={plen:2d}" in line and len(ast.literal_eval(line.split("-> ")[1])) == n_new
+
+
+def test_train_lm_torch_trains_the_100m_model(tmp_path):
+    """Three steps of the ~100M model at batch 2 × 32 tokens, from an empty
+    checkpoint directory and without checkpoints: the parameter count of
+    the reference's example and a finite loss at each logged step."""
+    out = _run("train_lm_torch.py", "--steps", "3", "--batch", "2", "--seq", "32", "--ckpt-every", "0",
+               "--ckpt-dir", str(tmp_path / "ckpt"))
+    assert "training repro-100m: 114.7M params" in out
+    losses = [float(line.split("loss")[1].split()[0]) for line in out.splitlines() if line.startswith("[train] step")]
+    assert len(losses) == 2 and all(np.isfinite(losses)), out
+    assert "steps 0-2: loss" in out
