@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all started together, linked into one library under
-``build/``) and runs seventeen phases on ``cuda:0``:
+``build/``) and runs eighteen phases on ``cuda:0``:
 
   1. kernels     — all ten kernels (K1 gather_rows, K2 unmarshal, K3
                    pack_and_histogram, K4 rank_and_histogram, K5
@@ -259,7 +259,39 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    losses within 1e-6 (bit-equal or not, printed); (e)
                    qwen2-7b smoke, 70 steps at lr 1e-2: the last 5 losses'
                    mean below 0.9 × the first 5's;
- 17. report      — one JSON line of the kernels (launches on the paths that
+ 17. families    — the rwkv6, griffin and encdec families at full width
+                   (no kernel of the ten on their path; plain PyTorch, the
+                   scans in float32 without TF32): (a) rwkv6-3b (32 layers)
+                   and recurrentgemma-2b (26) at full depth from a seeded
+                   generator, 16 requests through ``BatchedEngine`` at 16
+                   slots (prompts of 8–48 tokens, 8–24 new ones), a
+                   2,048-token prefill, and ``prefill_fn`` of 2 × 64 tokens
+                   against the last of its 64 decode steps, in float32 (a
+                   copy of the weights) within 1/``FAM_F32_GAIN`` of the
+                   bfloat16 prefill's distance from the float32 one, in
+                   bfloat16 measured; (b) seamless-m4t-medium
+                   (12 + 12) at full depth: the encoder over frames (4, 512,
+                   1024), prefill of 64 tokens against its 64 ``decode_fn``
+                   steps as in (a), then 32 greedy steps against the
+                   memory; (c) one layer of
+                   each at full width in float32: the chunk scan against
+                   ``naive_scan_oracle`` (and at ``W_MIN``), ``rwkv_block``
+                   and ``griffin_block`` decoded token by token against
+                   their parallel forms, 1 + 1 encdec layers decoded step by
+                   step against the parallel decode, each within
+                   ``FAM_TOL_F32`` of its scale; (d) one pattern period of
+                   each, card against CPU from one draw: in float32 every
+                   logit within 1/``FAM_F32_GAIN`` of the CPU's bfloat16
+                   logits' distance from its float32 ones, in
+                   bfloat16 the card's logits no farther from the CPU's
+                   float32 ones than ``FAM_BF16_NOISE`` x the CPU's
+                   bfloat16 ones are; (e) ``build_train_step``
+                   at batch (8, 512) (seamless: frames and tokens of 64) at
+                   every layer, 3 AdamW steps, losses finite; (f) the event
+                   median, device ms split into the scans, AdamW, the GEMMs
+                   and the rest, and launches, of a decode and a train step,
+                   and peak memory;
+ 18. report      — one JSON line of the kernels (launches on the paths that
                    run them, errors, bounds; ``ms``, ``plain_ms`` and
                    ``library_ms`` are device times, ``call_ms`` the event
                    pair's; device events a call), the card's name and
@@ -4210,6 +4242,501 @@ def phase_train(dev, RUNS=TRAIN_RUNS, BATCH=(8, 512), LAYOUT=(1, 8), SMOKE_BATCH
     return out, paths
 
 
+# ---------------------------------------------------------- 17. families
+FAMILY_ARCHS = ("rwkv6-3b", "recurrentgemma-2b", "seamless-m4t-medium")
+# stated tolerances of phase families (PERF.md §6):
+# (c) float32, one layer at full width, the two forms of one computation:
+# max |d| <= FAM_TOL_F32 x the reference form's largest |value| (the layers'
+# outputs reach ~1e2-1e4, where an absolute bound means nothing)
+FAM_TOL_F32 = 1e-4
+# (a, b, d) float32 logits, full depth (prefill against decode) or one
+# period (card against CPU): max |d| <= 1 / FAM_F32_GAIN x how far the
+# model's bfloat16 logits lie from its float32 ones on the same inputs
+# (float32 carries 16 more bits).  The attention of these random models is
+# saturated (scores ~1e3), so float32 rounding alone moves their logits by
+# up to ~6e-3 of the largest on the H100, and a fixed bound of 1e-3 of it
+# fails (PERF.md §6)
+FAM_F32_GAIN = 16.0
+# (d) bfloat16 logits, card against the CPU's float32 logits: no farther
+# than FAM_BF16_NOISE x the CPU's own bfloat16 logits are.  The reference's
+# init draws a stacked leaf at 1/sqrt(its layer count), so one layer's
+# attention scores reach ~1e3 and its softmax picks near-ties by bfloat16
+# rounding: a fixed bound on bfloat16 logits fails (PERF.md §6)
+FAM_BF16_NOISE = 2.0
+GEMM_NAMES = ("gemm", "xmma", "cutlass", "nvjet", "cublas")
+
+
+def _family_split(fn, calls=1):
+    """Device time of ``fn()`` by part, ms a call, from ``torch.profiler``:
+    ``scan`` (every kernel launched inside the recurrences, ``rwkv6.
+    _chunk_scan`` and ``_state_step``, ``griffin._lru_scan`` and
+    ``_lru_step``, found through ``record_function`` ranges around them; the
+    checkpoint's recompute included, their backward not), ``adamw`` (inside
+    ``adamw_update``), ``gemm`` (cuBLAS and CUTLASS kernels elsewhere) and
+    ``rest``; and the device launches a call (kernels, copies, memsets), in
+    all and by part."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import griffin as G
+    from repro_torch.models import rwkv6 as W
+
+    targets = {"scan": ((W, "_chunk_scan"), (W, "_state_step"), (G, "_lru_scan"), (G, "_lru_step")),
+               "adamw": ((ST, "adamw_update"),)}
+    orig = {}
+    for part, items in targets.items():
+        for m, n in items:
+            f = orig[(m, n)] = getattr(m, n)
+
+            def ranged(*a, _f=f, _p=part, **kw):
+                with record_function(f"fam.{_p}"):
+                    return _f(*a, **kw)
+
+            setattr(m, n, ranged)
+    t0 = time.perf_counter()
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        for (m, n), f in orig.items():
+            setattr(m, n, f)
+    us = {"scan": 0.0, "adamw": 0.0, "gemm": 0.0, "rest": 0.0}
+    n = {k: 0 for k in us}
+    stack = [(e, None) for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU and e.cpu_parent is None]
+    while stack:
+        e, part = stack.pop()
+        if e.name.startswith("fam."):
+            part = e.name[4:]
+        for k in e.kernels:
+            p = part or ("gemm" if any(t in k.name.lower() for t in GEMM_NAMES) else "rest")
+            us[p] += k.duration
+            n[p] += 1
+        stack.extend((c, part) for c in e.cpu_children)
+    return {"device_ms": sum(us.values()) / calls / 1e3, "parts_ms": {k: v / calls / 1e3 for k, v in us.items()},
+            "launches": sum(n.values()) / calls, "launches_by_part": {k: v / calls for k, v in n.items()},
+            "profile_s": time.perf_counter() - t0}
+
+
+def _as_float32(model, params):
+    """The model and a float32 copy of its parameters (same draw)."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.models.api import build_model
+
+    model32 = build_model(dc.replace(model.cfg, dtype="float32"))
+    p32 = type(params)(model32.cfg, device=next(params.parameters()).device)
+    with torch.no_grad():
+        for a, b in zip(p32.parameters(), params.parameters()):
+            a.copy_(b)
+    return model32, p32
+
+
+def _prefill_against_decode(model, params, batch, max_len, dev, memory=None):
+    """``prefill_fn`` of ``batch`` against the last of its tokens' decode
+    steps from fresh caches (teacher forcing): (max |d|, ||d|| / ||logits||,
+    max |logit|), and the last step's logits and caches."""
+    import torch
+
+    pre = model.prefill_fn()(params, batch).float()
+    toks = batch["tokens"]
+    step = model.decode_fn()
+    caches = model.init_caches(toks.shape[0], max_len, device=dev)
+    for t in range(toks.shape[1]):
+        args = (params, toks[:, t:t + 1], caches) + ((memory,) if memory is not None else ())
+        last, caches = step(*args)
+    d = pre - last.float()
+    return (float(d.abs().max()), float(torch.linalg.vector_norm(d) / torch.linalg.vector_norm(pre)),
+            float(pre.abs().max())), pre, last, caches
+
+
+def _prefill_checks(dev, model, params, batch, max_len, label, memory=None):
+    """Prefill against decode at full depth: in float32 (a copy of the
+    weights), held within 1/``FAM_F32_GAIN`` of the bfloat16 prefill's
+    distance from the float32 one; in the model's bfloat16, measured.  Returns the record and the bfloat16 run's last
+    logits and caches."""
+    import gc
+
+    import torch
+
+    from repro_torch.models import encdec as ED
+
+    model32, p32 = _as_float32(model, params)
+    mem32 = None
+    if memory is not None:
+        with torch.no_grad():
+            mem32 = ED.encode(p32, batch["frames"], model32.cfg)
+    (d32, rel32, top32), pre32, _, _ = _prefill_against_decode(model32, p32, batch, max_len, dev, mem32)
+    del p32, mem32
+    gc.collect()
+    (d16, rel16, top16), pre16, last, caches = _prefill_against_decode(model, params, batch, max_len, dev, memory)
+    gap = float((pre16 - pre32).abs().max())
+    r = {"shape": tuple(batch["tokens"].shape), "float32": {"max_abs_diff": d32, "rel_l2": rel32, "max_abs_logit": top32},
+         "bfloat16": {"max_abs_diff": d16, "rel_l2": rel16, "max_abs_logit": top16, "to_float32": gap}}
+    check(d32 <= gap / FAM_F32_GAIN,
+          f"{label}: prefill_fn of {r['shape']} tokens == the last of its {r['shape'][1]} decode steps at full depth in "
+          f"float32: max |dlogit| {d32:.4g} <= 1/{FAM_F32_GAIN:g} x {gap:.4g}, the bfloat16 prefill's distance from "
+          f"the float32 one (||d|| / ||logits|| {rel32:.3g}, max |logit| {top32:.4g}); in bfloat16, measured: max "
+          f"|dlogit| {d16:.4g}, ||d|| / ||logits|| {rel16:.3g}")
+    return r, last, caches
+
+
+def _family_serve(dev, model, params, label, out, *, slots, n_req, prompt, new, max_len, long, prefill, profile):
+    """(a): ``BatchedEngine`` over ``n_req`` requests, the decode step's
+    split, a ``long``-token prefill, and prefill against decode."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import BatchedEngine
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg = model.cfg
+    requests = _lm_requests(cfg.vocab_size, n_req, prompt, new, seed=25)
+    engine = BatchedEngine(model, params, slots=slots, max_len=max_len, device=dev)
+    rec = _StepRecorder(engine)
+    engine._step(params, torch.zeros((slots, 1), dtype=torch.int32, device=dev),
+                 model.init_caches(slots, max_len, device=dev))  # warm-up: first-use costs
+    sync()
+    t0 = time.perf_counter()
+    served = engine.run(requests)
+    sync()
+    wall = time.perf_counter() - t0
+    n_tok = sum(len(v) for v in served.values())
+    step_ms = [a.elapsed_time(b) for a, b in rec.events] if cuda else []
+    r = {"requests": n_req, "slots": slots, "steps": engine.steps, "tokens": n_tok, "wall_s": wall,
+         "tokens_per_s": n_tok / wall, "step_ms_median": statistics.median(step_ms) if step_ms else None,
+         "step_ms_min": min(step_ms) if step_ms else None}
+    check(all(len(served[q.rid]) == q.max_new_tokens for q in requests),
+          f"(a) {label}: {n_req} requests through {slots} slots answered with their max_new_tokens ({n_tok} tokens in "
+          f"{engine.steps} steps, {wall:.3f} s, {n_tok / wall:.1f} tokens/s; decode step event median "
+          f"{r['step_ms_median']} ms)")
+    if profile and cuda:
+        caches = model.init_caches(slots, max_len, device=dev)
+        r["decode_split"] = _family_split(lambda: engine._step(params, rec.tokens[-1], caches))
+    rng = np.random.default_rng(26)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, long)).astype(np.int32)).to(dev)
+    sync()
+    t0 = time.perf_counter()
+    logits = model.prefill_fn()(params, {"tokens": toks})
+    sync()
+    r["prefill_long"] = {"S": long, "s": time.perf_counter() - t0}
+    check(tuple(logits.shape) == (1, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+          f"(a) {label}: a {long}-token prefill gives finite logits (1, {cfg.vocab_size}) in {r['prefill_long']['s']:.3f} s")
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, prefill).astype(np.int32)).to(dev)
+    t0 = time.perf_counter()
+    r["prefill_vs_decode"], _, _ = _prefill_checks(dev, model, params, {"tokens": toks}, max_len, f"(a) {label}")
+    r["prefill_vs_decode"]["s"] = time.perf_counter() - t0
+    out["serve"] = r
+
+
+def _family_seamless(dev, model, params, label, out, *, frames, new, max_len, profile):
+    """(b): ``prefill_fn`` of ``frames`` (B, T, D) and tokens, prefill
+    against its decode steps, then ``new`` greedy steps against the memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import encdec as ED
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg = model.cfg
+    b, t, s = frames
+    gen = torch.Generator(device=dev).manual_seed(27)
+    batch = {"frames": torch.randn((b, t, cfg.d_model), generator=gen, device=dev),
+             "tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev, dtype=torch.int32)}
+    sync()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        memory = ED.encode(params, batch["frames"], cfg)
+    sync()
+    r = {"frames": (b, t, cfg.d_model), "tokens": (b, s), "encode_s": time.perf_counter() - t0}
+    r["prefill_vs_decode"], logits, caches = _prefill_checks(
+        dev, model, params, batch, max_len, f"(b) {label}, frames {r['frames']}, decode_fn against the memory", memory)
+    step = model.decode_fn()
+    greedy, events = [], []
+    for _ in range(new):
+        tok = torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
+        greedy.append(tok)
+        if cuda:
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        logits, caches = step(params, tok, caches, memory)
+        if cuda:
+            ev[1].record()
+            events.append(ev)
+    sync()
+    ms = [a.elapsed_time(b_) for a, b_ in events]
+    r["greedy"] = {"steps": new, "step_ms_median": statistics.median(ms) if ms else None,
+                   "pos": int(caches["pos"][0, 0])}
+    check(bool(torch.isfinite(logits).all()) and r["greedy"]["pos"] == s + new,
+          f"(b) {label}: {new} greedy decode_fn steps against the memory: finite logits, position {r['greedy']['pos']} "
+          f"== {s} + {new}; decode step event median {r['greedy']['step_ms_median']} ms")
+    if profile and cuda:
+        fixed = model.init_caches(b, max_len, device=dev)
+        r["decode_split"] = _family_split(lambda: step(params, tok, fixed, memory))
+    out["serve"] = r
+
+
+def _family_train(dev, model, params, label, out, *, batch, steps, profile):
+    """(e): ``build_train_step`` at (B, S) (the encoder-decoder: frames and
+    tokens of S // 8, as the reference's ``input_specs``), ``steps`` steps
+    under AdamW; the step's event median, split and peak memory."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cuda = dev.type == "cuda"
+    cfg = model.cfg
+    b, s = batch
+    if cfg.kind == "encdec":
+        rng = np.random.default_rng(28)
+        batches = [{"frames": rng.standard_normal((b, s // 8, cfg.d_model)).astype(np.float32),
+                    "tokens": rng.integers(0, cfg.vocab_size, (b, s // 8)).astype(np.int32)} for _ in range(steps + 1)]
+    else:
+        ds = SyntheticLM(cfg.vocab_size, s, b)
+        batches = [ds.batch_at(i) for i in range(steps + 1)]
+    opt_cfg = AdamWConfig(warmup_steps=20)
+    opt = adamw_init(params, opt_cfg)
+    step = build_train_step(model, None, opt_cfg)
+    mets, ms = [], []
+    for i in range(steps):
+        if cuda:
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        _, opt, met = step(params, opt, batches[i])
+        if cuda:
+            ev[1].record()
+            ev[1].synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+        mets.append((float(met["loss"]), float(met["gnorm"])))
+    depth = f"{cfg.num_layers}" + (f" + {cfg.encoder_layers}" if cfg.kind == "encdec" else "")
+    r = {"batch": (b, s), "steps": steps, "depth": depth, "losses": [l for l, _ in mets],
+         "gnorms": [g for _, g in mets], "step_ms": ms, "step_ms_median": statistics.median(ms[1:]) if ms else None,
+         "tokens_per_s": b * (s // 8 if cfg.kind == "encdec" else s) / (statistics.median(ms[1:]) / 1e3) if ms else None}
+    if profile and cuda:
+        r["split"] = _family_split(lambda: step(params, opt, batches[steps]))
+    if cuda:
+        r["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    check(all(math.isfinite(l) and math.isfinite(g) for l, g in mets),
+          f"(e) {label} at depth {depth} (every layer), batch {r['batch']}"
+          f"{' (frames and tokens of S // 8)' if cfg.kind == 'encdec' else ''}: {steps} AdamW steps, losses "
+          f"{[round(l, 4) for l in r['losses']]}, gnorm {[round(g, 3) for g in r['gnorms']]} finite; step event median "
+          f"{r['step_ms_median']} ms, {r['tokens_per_s']} tokens/s, peak {r.get('peak_gib')} GiB")
+    del opt
+    out["train"] = r
+
+
+def _family_layer_checks(dev, seed=29, S=256, DEC=64):
+    """(c): each family's layer at full width in float32 on ``dev``: the
+    chunk scan against ``naive_scan_oracle`` (the decays as drawn, and all
+    at ``W_MIN``); ``rwkv_block`` and ``griffin_block`` decoded token by
+    token against their parallel forms; one encoder and one decoder layer
+    of the encoder-decoder, decoded step by step against the parallel
+    decode."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import griffin as G
+    from repro_torch.models import rwkv6 as W
+    from repro_torch.models.api import build_model
+    from repro_torch.models.common import ParamTree, init_params
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def scaled(name, got, want):
+        want = want.float()
+        diff, top = float((got.float() - want).abs().max()), float(want.abs().max())
+        out[name] = {"max_abs_diff": diff, "max_abs": top, "rel": diff / top}
+        check(diff <= FAM_TOL_F32 * top and bool(torch.isfinite(got).all()),
+              f"(c) {name}: max |d| {diff:.4g} <= {FAM_TOL_F32} x {top:.4g}")
+
+    def layer(defs):
+        return init_params(ParamTree(defs, dtype=torch.float32, device=dev), gen).tree()
+
+    rw = dc.replace(get_config("rwkv6-3b"), dtype="float32")
+    p = layer(W.rwkv_defs(rw))
+    x = torch.randn((2, S, rw.d_model), generator=gen, device=dev)
+    r, k, v, logw, _, _, _ = W._project(p, x, rw)
+    scaled(f"rwkv6-3b chunk scan (2, {S}) against naive_scan_oracle", W._chunk_scan(r, k, v, logw, p["u"]),
+           W.naive_scan_oracle(r, k, v, logw, p["u"]))
+    floor = torch.full_like(logw, W.W_MIN)
+    scaled(f"rwkv6-3b chunk scan (2, {S}) at W_MIN against naive_scan_oracle", W._chunk_scan(r, k, v, floor, p["u"]),
+           W.naive_scan_oracle(r, k, v, floor, p["u"]))
+    for name, cfg, block, state, defs in (
+            ("rwkv6-3b rwkv_block", rw, W.rwkv_block, W.rwkv_state, None),
+            ("recurrentgemma-2b griffin_block", dc.replace(get_config("recurrentgemma-2b"), dtype="float32"),
+             G.griffin_block, G.griffin_state, G.griffin_defs)):
+        lp = p if defs is None else layer(defs(cfg))
+        xs = torch.randn((2, DEC, cfg.d_model), generator=gen, device=dev)
+        par, _ = block(lp, xs, cfg)
+        st, steps = state(cfg, 2, device=dev), []
+        for t in range(DEC):
+            y, st = block(lp, xs[:, t:t + 1], cfg, state=st)
+            steps.append(y)
+        scaled(f"{name} decoded token by token ({DEC} steps) against the parallel form", torch.cat(steps, 1), par)
+    ed = dc.replace(get_config("seamless-m4t-medium"), dtype="float32", encoder_layers=1, num_layers=1)
+    model = build_model(ed)
+    m = model.init(gen, device=dev)
+    frames = torch.randn((2, DEC, ed.d_model), generator=gen, device=dev)
+    toks = torch.randint(0, ed.vocab_size, (2, 16), generator=gen, device=dev, dtype=torch.int32)
+    with torch.no_grad():
+        mem = ED.encode(m, frames, ed)
+        par, _ = ED.decode(m, toks, mem, ed)
+    step, caches, rows = model.decode_fn(), model.init_caches(2, 32, device=dev), []
+    for t in range(toks.shape[1]):
+        y, caches = step(m, toks[:, t:t + 1], caches, mem)
+        rows.append(y[:, None])
+    scaled("seamless-m4t-medium (1 + 1 layers) decode_fn step by step against the parallel decode", torch.cat(rows, 1),
+           par)
+    return out
+
+
+def _family_card_cpu(dev, arch, seed=30, B=2, S=32):
+    """(d): the port at full width, one pattern period deep, on the card and
+    on the CPU from the same draw and inputs, in bfloat16 and in float32
+    (a copy of the weights): every logit."""
+    import copy
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.api import build_model
+
+    cfg = get_config(arch)
+    cfg = dc.replace(cfg, num_layers=len(cfg.pattern), **({"encoder_layers": 1} if cfg.kind == "encdec" else {}))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = build_model(cfg)
+    card = model.init(gen, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev, dtype=torch.int32)
+    frames = torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
+    t0 = time.perf_counter()
+    logits = {}
+
+    def run(m, q):
+        d = next(q.parameters()).device
+        with torch.no_grad():
+            if cfg.kind == "encdec":
+                y, _ = ED.decode(q, toks[:, :S // 2].to(d), ED.encode(q, frames.to(d), m.cfg), m.cfg)
+            else:
+                y, _, _ = TF.forward(q, toks.to(d), m.cfg)
+        return y.float().cpu().reshape(-1, cfg.vocab_size)
+
+    for prec in ("bfloat16", "float32"):
+        m, p = (model, card) if prec == "bfloat16" else _as_float32(model, card)
+        logits[prec, "card"], logits[prec, "cpu"] = run(m, p), run(m, copy.deepcopy(p).to("cpu"))
+    top = float(logits["float32", "cpu"].abs().max())
+    dev_of = lambda a, b: float((logits[a] - logits[b]).abs().max())
+    r = {"layers": cfg.num_layers, "rows": logits["float32", "cpu"].shape[0], "max_abs_logit": top,
+         "f32_card_cpu": dev_of(("float32", "card"), ("float32", "cpu")),
+         "bf16_card_cpu": dev_of(("bfloat16", "card"), ("bfloat16", "cpu")),
+         "bf16_card_to_f32_cpu": dev_of(("bfloat16", "card"), ("float32", "cpu")),
+         "bf16_cpu_to_f32_cpu": dev_of(("bfloat16", "cpu"), ("float32", "cpu")), "s": time.perf_counter() - t0}
+    label = (f"(d) {arch} at full width, {cfg.num_layers} layer(s){' + 1 encoder layer' if cfg.kind == 'encdec' else ''}"
+             f", {r['rows']} logit rows")
+    check(r["f32_card_cpu"] <= r["bf16_cpu_to_f32_cpu"] / FAM_F32_GAIN,
+          f"{label}: float32, the card's == the CPU's within max |d| {r['f32_card_cpu']:.4g} <= 1/{FAM_F32_GAIN:g} x "
+          f"{r['bf16_cpu_to_f32_cpu']:.4g}, the CPU's bfloat16 logits' distance from its float32 ones (max |logit| "
+          f"{top:.4g})")
+    check(r["bf16_card_to_f32_cpu"] <= FAM_BF16_NOISE * r["bf16_cpu_to_f32_cpu"],
+          f"{label}: bfloat16, the card's logits are within max |d| {r['bf16_card_to_f32_cpu']:.4g} of the CPU's "
+          f"float32 ones, <= {FAM_BF16_NOISE} x the CPU's bfloat16 logits' {r['bf16_cpu_to_f32_cpu']:.4g} (card "
+          f"against CPU in bfloat16: {r['bf16_card_cpu']:.4g})")
+    return r
+
+
+def phase_families(dev, ARCHS=FAMILY_ARCHS, SLOTS=16, N_REQ=16, PROMPT=(8, 48), NEW=(8, 24), MAX_LEN=128, LONG=2048,
+                   PREFILL=(2, 64), FRAMES=(4, 512, 64), GREEDY=32, TRAIN=(8, 512), TRAIN_STEPS=3, configs=None,
+                   layer_checks=None, card_cpu=None, profile=True):
+    """Phase families: rwkv6-3b, recurrentgemma-2b and seamless-m4t-medium
+    at full width and full depth (``configs`` replaces them, and
+    ``layer_checks`` / ``card_cpu`` the (c) / (d) functions, for a
+    rehearsal on the CPU)."""
+    import gc
+
+    import torch
+
+    from repro_torch import kernels as KN
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    out, paths = {"tf32": torch.backends.cuda.matmul.allow_tf32}, {}
+    check(not torch.backends.cuda.matmul.allow_tf32 and torch.get_float32_matmul_precision() == "highest",
+          f"float32 products without TF32 (allow_tf32 {torch.backends.cuda.matmul.allow_tf32}, matmul precision "
+          f"{torch.get_float32_matmul_precision()!r}): the chunk scan's factors reach e^40")
+    for arch in ARCHS:
+        cfg = (configs or {}).get(arch) or get_config(arch)
+        label = f"{cfg.name} ({cfg.kind})"
+        r = out[arch] = {}
+        if cuda:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        model = build_model(cfg)
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device=dev).manual_seed(2525), device=dev)
+        n = model.param_count()
+        r["model"] = {"params": n, "bytes": sum(p.numel() * p.element_size() for p in params.parameters()),
+                      "layers": cfg.num_layers, "encoder_layers": cfg.encoder_layers, "init_s": time.perf_counter() - t0}
+        check(n == sum(p.numel() for p in params.parameters()),
+              f"{label} at full depth: param_count() {n} == the allocated parameters ({r['model']['bytes']} B)")
+        KN.reset_launch_counts()
+        if cfg.kind == "encdec":
+            _family_seamless(dev, model, params, label, r, frames=FRAMES, new=GREEDY, max_len=MAX_LEN,
+                             profile=profile)
+        else:
+            _family_serve(dev, model, params, label, r, slots=SLOTS, n_req=N_REQ, prompt=PROMPT, new=NEW,
+                          max_len=MAX_LEN, long=LONG, prefill=PREFILL, profile=profile)
+        if cuda:
+            r["serve"]["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        r["serve"]["s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _family_train(dev, model, params, label, r, batch=TRAIN, steps=TRAIN_STEPS, profile=profile)
+        r["train"]["s"] = time.perf_counter() - t0
+        paths[f"families_{arch}"] = KN.launch_counts()
+        check(not any(paths[f"families_{arch}"].values()),
+              f"{label}: none of the ten kernels on this path ({paths[f'families_{arch}']})")
+        for part in ("serve", "train"):
+            sp = r[part].get("decode_split" if part == "serve" else "split")
+            if sp:
+                print(f"  (f) {label} {'decode' if part == 'serve' else 'train'} step: device {sp['device_ms']:.3f} ms "
+                      f"(" + ", ".join(f"{k} {v:.3f}" for k, v in sp["parts_ms"].items()) + f"), {sp['launches']:.0f} "
+                      f"launches a step (scan {sp['launches_by_part']['scan']:.0f}); event median "
+                      f"{r[part].get('step_ms_median') or r[part].get('greedy', {}).get('step_ms_median')} ms; peak "
+                      f"{r[part].get('peak_gib')} GiB", flush=True)
+        del params
+    t0 = time.perf_counter()
+    out["layer_checks"] = (layer_checks or _family_layer_checks)(dev)
+    out["layer_checks_s"] = time.perf_counter() - t0
+    out["card_cpu"] = {arch: (card_cpu or _family_card_cpu)(dev, arch) for arch in ARCHS}
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase families: {out['phase_s']:.1f} s", flush=True)
+    return out, paths
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -4239,7 +4766,8 @@ def main() -> int:
            "balance": lambda: phase_balance(dev), "recovery": lambda: phase_recovery(dev),
            "streamlines": lambda: phase_streamlines(dev), "vopat": lambda: phase_vopat(dev),
            "nbody": lambda: phase_nbody(dev), "obs": lambda: phase_obs(dev), "apps2": lambda: phase_apps2(dev),
-           "ragged": lambda: phase_ragged(dev), "lm": lambda: phase_lm(dev), "train": lambda: phase_train(dev)}
+           "ragged": lambda: phase_ragged(dev), "lm": lambda: phase_lm(dev), "train": lambda: phase_train(dev),
+           "families": lambda: phase_families(dev)}
     kernels, paths = {}, {}  # paths: launches per path, counted from 0
     for title in run:
         print(f"# phase {title}", flush=True)
@@ -4254,7 +4782,7 @@ def main() -> int:
             kernels, more = res
             paths.update(more)
         elif title in ("lossless", "telemetry", "pipeline", "credit", "balance", "recovery", "obs", "apps2", "ragged",
-                       "lm", "train"):
+                       "lm", "train", "families"):
             record[title], more = res
             paths.update(more)
         elif title in ("streamlines", "vopat", "nbody"):

@@ -1,6 +1,6 @@
-"""Architecture registry over the decoder-only configs whose layer kinds the
-port runs (counterpart of ``repro.configs.registry``'s ``ARCHS``,
-``get_config`` and ``get_smoke_config``).  Each config module is a copy of
+"""Architecture registry over the reference's ten configs (counterpart of
+``repro.configs.registry``'s ``ARCHS``, ``get_config`` and
+``get_smoke_config``, in its order).  Each config module is a copy of
 the reference's, ``CONFIG`` (the published widths) and ``SMOKE`` (the
 reduced one).
 """
@@ -20,15 +20,15 @@ _MODULES = {
     "llama4-scout-17b-16e": "llama4_scout_17b_16e",
     "dbrx-132b": "dbrx_132b",
     "qwen2-vl-72b": "qwen2_vl_72b",
+    "rwkv6-3b": "rwkv6_3b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
 }
 
 ARCHS = tuple(_MODULES)
 
 
 def _module(arch: str):
-    if arch not in _MODULES:
-        raise KeyError(f"{arch!r} is not ported (the ported archs: {', '.join(ARCHS)}; rwkv6-3b, "
-                       "recurrentgemma-2b and seamless-m4t-medium wait for ROADMAP Queue 1 item 19c)")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
 
 

@@ -33,7 +33,9 @@ class Request:
 def reset_slot(caches, slot: int):
     """Zero a slot's decode positions so a freed slot can be reused by a
     new request — stale KV rows past pos are masked out.  Out of place, as
-    the reference's ``.at[].set``."""
+    the reference's ``.at[].set``.  As there, a recurrent layer's state (an
+    RWKV ``S``, an RG-LRU ``h`` and conv tail) is left as the last request
+    left it: the next request in the slot starts from it."""
     def visit(tree):
         out = {}
         for k, v in tree.items():
@@ -58,6 +60,11 @@ class BatchedEngine:
     a sync until the caller reads them)."""
 
     def __init__(self, model: Model, params, *, slots: int = 4, max_len: int = 128, layout=None, device=None):
+        if model.cfg.kind == "encdec":
+            # the reference's engine steps (params, token, caches); an
+            # encoder-decoder's step also needs the encoder memory
+            raise ValueError("BatchedEngine serves decoder-only models; an encdec step needs the encoder memory "
+                             "(Model.decode_fn)")
         self.model = model
         self.params = params
         self.slots = slots

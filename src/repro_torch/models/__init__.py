@@ -1,5 +1,5 @@
-"""LM substrate on PyTorch: the decoder-only architectures of
-``repro.models`` (counterpart of the JAX package's ``models/``).
+"""LM substrate on PyTorch: the architectures of ``repro.models``
+(counterpart of the JAX package's ``models/``).
 
   common.py      ModelConfig, ParamDef and the init, norms, MLPs
   rope.py        RoPE / M-RoPE position embeddings
@@ -7,8 +7,11 @@
   moe.py         MoE: RaFI expert-parallel dispatch on the port's
                  ``forward_work`` (the paper's technique) and the dense
                  tensor-parallel baseline
-  transformer.py decoder-only assembly (dense / moe)
-  api.py         build_model(config) → init / prefill / decode, and
+  rwkv6.py       RWKV-6 block: chunkwise-parallel scan, O(1)-state decode
+  griffin.py     RG-LRU recurrent block (recurrentgemma)
+  transformer.py decoder-only assembly (dense / moe / ssm / hybrid)
+  encdec.py      encoder-decoder assembly (seamless-m4t backbone)
+  api.py         build_model(config) → init / loss / prefill / decode, and
                  params_from_jax (the reference's parameter tree → the port's)
 
 Parameters are ``nn.Module``s whose names follow the reference's tree paths

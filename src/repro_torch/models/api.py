@@ -5,7 +5,9 @@
 parameter declarations; nothing is allocated until :meth:`Model.init`
 (random weights from a ``torch.Generator``) or :func:`params_from_jax` (the
 reference's parameter tree, so that both packages compute the same thing).
-Both give a :class:`~repro_torch.models.transformer.LM` module.  The step
+Both give a :class:`~repro_torch.models.transformer.LM` module, or an
+:class:`~repro_torch.models.encdec.EncDec` for the ``encdec`` kind, whose
+loss, prefill and decode run the encoder and take its memory.  The step
 functions take the parameters (the module, or its ``tree()``) and the decode
 state explicitly, as the reference's pure functions do.
 """
@@ -19,12 +21,15 @@ import numpy as np
 import torch
 
 from repro_torch import compat
+from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as TF
 from repro_torch.models.common import ModelConfig, ParamDef, ParamTree, cross_entropy_loss, init_params, tree_leaves
 
 __all__ = ["Model", "build_model", "params_from_jax"]
 
-_ENCDEC = "the encdec family is not ported yet (ROADMAP Queue 1 item 19c)"
+
+def _module(cfg: ModelConfig, device):
+    return ED.EncDec(cfg, device=device) if cfg.kind == "encdec" else TF.LM(cfg, device=device)
 
 
 @dataclasses.dataclass
@@ -33,13 +38,13 @@ class Model:
     defs: Dict[str, Any]
 
     # ---------------------------------------------------------- parameters
-    def init(self, generator: Optional[torch.Generator] = None, *, device=None) -> TF.LM:
+    def init(self, generator: Optional[torch.Generator] = None, *, device=None) -> ParamTree:
         """Random weights on ``device`` (``None``: the CUDA card), drawn
         leaf by leaf from ``generator`` (default: seed 0 on that device)."""
         dev = compat.resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
-        return init_params(TF.LM(self.cfg, device=dev), generator)
+        return init_params(_module(self.cfg, dev), generator)
 
     def param_count(self) -> int:
         """Parameters, from the declared shapes (nothing is allocated)."""
@@ -49,10 +54,16 @@ class Model:
     def loss_fn(self, layout=None) -> Callable:
         """``loss(params, batch)``: the mean next-token CE of ``batch``
         (``tokens`` (B, S); ``labels`` if given, else ``tokens[:, 1:]``;
-        ``embeds`` as the frontend), differentiable in the parameters."""
+        ``embeds`` as the frontend; for ``encdec``, ``frames`` (B, T, D)
+        and ``tokens``), differentiable in the parameters."""
         cfg = self.cfg
         if cfg.kind == "encdec":
-            raise NotImplementedError(_ENCDEC)
+            def loss(params, batch):
+                memory = ED.encode(params, batch["frames"], cfg)
+                logits, _ = ED.decode(params, batch["tokens"], memory, cfg)
+                return cross_entropy_loss(logits[:, :-1], batch["tokens"][:, 1:], vocab=cfg.vocab_size)
+
+            return loss
 
         def loss(params, batch):
             logits, _, _ = TF.forward(
@@ -66,7 +77,16 @@ class Model:
         return loss
 
     def prefill_fn(self, layout=None) -> Callable:
+        """``prefill(params, batch)``: the last position's logits (B, V)."""
         cfg = self.cfg
+        if cfg.kind == "encdec":
+            def prefill(params, batch):
+                with torch.no_grad():
+                    memory = ED.encode(params, batch["frames"], cfg)
+                    logits, _ = ED.decode(params, batch["tokens"], memory, cfg)
+                return logits[:, -1]
+
+            return prefill
 
         def prefill(params, batch):
             with torch.no_grad():
@@ -80,8 +100,19 @@ class Model:
     def decode_fn(self, layout=None, *, drops: bool = False) -> Callable:
         """One token step with caches: (params, token (B,1), caches) →
         (logits (B,V), new_caches), with the step's MoE drops last when
-        ``drops``."""
+        ``drops``.  For ``encdec`` the step also takes the encoder memory:
+        (params, token, caches, memory), its positions read from the first
+        layer's cache."""
         cfg = self.cfg
+        if cfg.kind == "encdec":
+            def encdec_step(params, token, caches, memory):
+                positions = caches["pos"][0][:, None].to(torch.int32)  # (B, 1)
+                with torch.no_grad():
+                    logits, new_caches = ED.decode(params, token, memory, cfg, caches=caches, positions=positions)
+                zero = torch.zeros((), dtype=torch.int32, device=token.device)
+                return (logits[:, -1], new_caches) + ((zero,) if drops else ())
+
+            return encdec_step
 
         def step(params, token, caches):
             pos0 = _first_cache_pos(caches, token.shape[0], token.device)
@@ -96,7 +127,10 @@ class Model:
 
     # --------------------------------------------------------------- caches
     def init_caches(self, batch: int, max_len: int, *, device=None):
-        return TF.init_caches(self.cfg, batch, max_len, device=compat.resolve_device(device))
+        dev = compat.resolve_device(device)
+        if self.cfg.kind == "encdec":
+            return ED.init_dec_caches(self.cfg, batch, max_len, device=dev)
+        return TF.init_caches(self.cfg, batch, max_len, device=dev)
 
 
 def _first_cache_pos(caches, batch: int, device) -> torch.Tensor:
@@ -112,7 +146,7 @@ def _first_cache_pos(caches, batch: int, device) -> torch.Tensor:
 
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.kind == "encdec":
-        raise NotImplementedError(_ENCDEC)
+        return Model(cfg, ED.encdec_defs(cfg))
     return Model(cfg, TF.model_defs(cfg))
 
 
@@ -123,11 +157,12 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def params_from_jax(cfg: ModelConfig, tree, *, device=None) -> TF.LM:
+def params_from_jax(cfg: ModelConfig, tree, *, device=None) -> ParamTree:
     """The reference's parameter tree (nested dicts with numpy leaves, e.g.
     ``jax.tree.map(np.asarray, params)``; stacked blocks included) as the
-    port's :class:`~repro_torch.models.transformer.LM`, bit for bit."""
-    lm = TF.LM(cfg, device=compat.resolve_device(device))
+    port's :class:`~repro_torch.models.transformer.LM` (or
+    :class:`~repro_torch.models.encdec.EncDec`), bit for bit."""
+    lm = _module(cfg, compat.resolve_device(device))
 
     def visit(m: ParamTree, t, path):
         if set(m.defs) != set(t):

@@ -6,7 +6,9 @@ Plain PyTorch, mirroring the reference's arithmetic: scores and the
 KV blocks with float32 accumulation of bfloat16 operands
 (``_sdpa_blocked``, taken for a parallel pass longer than 1,024 rows).
 Decode writes each row's K/V at that row's own position (serving slots sit
-at different depths) and attends over its prefix.
+at different depths) and attends over its prefix.  ``cross_attention`` (the
+encoder-decoder's) attends from the decoder rows to the whole encoder
+memory.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from repro_torch.models import rope as R
 from repro_torch.models.common import ModelConfig, ParamDef, ParamTree
 
 __all__ = [
-    "Attention", "attn_defs", "causal_mask", "make_cache", "self_attention",
+    "Attention", "attn_defs", "causal_mask", "cross_attention", "make_cache", "self_attention",
 ]
 
 
@@ -177,6 +179,24 @@ def self_attention(
 
     out = out.reshape(b, s, h * hd)
     return out @ params["wo"], new_cache
+
+
+def cross_attention(
+    params: Dict,
+    x: torch.Tensor,                  # (B, S, D) decoder states
+    memory: torch.Tensor,             # (B, T, D) encoder output
+    cfg: ModelConfig,
+) -> torch.Tensor:
+    """Every decoder row attends to every encoder row; no RoPE, no bias."""
+    b, s, d = x.shape
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = _split_heads(x @ params["wq"], h, hd)
+    k = _split_heads(memory @ params["wk"], kv, hd)
+    v = _split_heads(memory @ params["wv"], kv, hd)
+    t = memory.shape[1]
+    mask = torch.ones((s, t), dtype=torch.bool, device=x.device)
+    out = _sdpa(q, k, v, mask, x.dtype).reshape(b, s, h * hd)
+    return out @ params["wo"]
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device=None) -> Dict:

@@ -1,8 +1,9 @@
-"""Decoder-only LM assembly: dense and MoE wiring (counterpart of
-``repro.models.transformer``).
+"""Decoder-only LM assembly: dense / MoE / SSM / hybrid wiring
+(counterpart of ``repro.models.transformer``).
 
 Layers follow the config's repeating ``pattern`` (gemma3's 5×local +
-1×global, dbrx's all-MoE).  Full pattern periods are stacked along a leading
+1×global, recurrentgemma's 2×recurrent + 1×local, rwkv6's all-rwkv,
+dbrx's all-MoE).  Full pattern periods are stacked along a leading
 layer axis, as in the reference; where the reference runs ``lax.scan`` over
 the periods, this runs a loop that indexes the stacked parameters and
 caches.  Leftover layers (depth % period) run one by one.  With
@@ -10,8 +11,9 @@ caches.  Leftover layers (depth % period) run one by one.  With
 ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` of its
 scan body; serving runs without grad and is untouched.
 
-Decode state is a nested dict mirroring the block structure: KV caches for
-attention layers, stacked like the parameters.
+Decode state is a nested dict mirroring the block structure, stacked like
+the parameters: KV caches for attention layers, (h, conv) for RG-LRU, the
+(dk×dv) state for RWKV.
 """
 from __future__ import annotations
 
@@ -24,18 +26,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
+from repro_torch.models import griffin as G
 from repro_torch.models import moe as M
+from repro_torch.models import rwkv6 as W
 from repro_torch.models.common import (
     ModelConfig, ParamDef, ParamTree, glu_mlp, mlp_defs, rmsnorm, stack_defs, tree_map,
 )
 
 __all__ = ["LM", "Layer", "apply_layer", "forward", "init_caches", "layer_defs", "model_defs"]
-
-_LATER = {
-    "recurrent": "the griffin family (ROADMAP Queue 1 item 19c)",
-    "rwkv": "the rwkv6 family (ROADMAP Queue 1 item 19c)",
-}
-
 
 # ----------------------------------------------------------------- defs
 
@@ -51,8 +49,12 @@ def layer_defs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
     elif kind == "moe":
         d["attn"] = A.attn_defs(cfg)
         d["moe"] = M.moe_defs(cfg)
-    elif kind in _LATER:
-        raise NotImplementedError(f"layer kind {kind!r} is not ported yet: {_LATER[kind]}")
+    elif kind == "recurrent":
+        d["rglru"] = G.griffin_defs(cfg)
+        d["mlp"] = mlp_defs(cfg)
+    elif kind == "rwkv":
+        d["rwkv"] = W.rwkv_defs(cfg)
+        d["mlp"] = mlp_defs(cfg)
     else:
         raise ValueError(kind)
     return d
@@ -92,13 +94,18 @@ def apply_layer(params, x, cfg: ModelConfig, kind: str, *, positions, layout=Non
     """One transformer layer.  Returns (x, new_cache, moe_drops)."""
     drops = torch.zeros((), dtype=torch.int32, device=x.device)
     h = rmsnorm(x, params["ln1"])
-    if kind not in ("global", "local", "moe"):
-        layer_defs(cfg, kind)  # raises, naming the item that ports it
-    window = cfg.window if kind == "local" else 0
-    y, new_cache = A.self_attention(
-        params["attn"], h, cfg, positions=positions, window=window,
-        theta=_theta_for(cfg, kind), cache=cache,
-    )
+    if kind in ("global", "local", "moe"):
+        window = cfg.window if kind == "local" else 0
+        y, new_cache = A.self_attention(
+            params["attn"], h, cfg, positions=positions, window=window,
+            theta=_theta_for(cfg, kind), cache=cache,
+        )
+    elif kind == "recurrent":
+        y, new_cache = G.griffin_block(params["rglru"], h, cfg, state=cache)
+    elif kind == "rwkv":
+        y, new_cache = W.rwkv_block(params["rwkv"], h, cfg, state=cache)
+    else:
+        raise ValueError(kind)
     x = x + y
     h = rmsnorm(x, params["ln2"])
     if kind == "moe":
@@ -221,7 +228,10 @@ def forward(
 def _layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, device=None):
     if kind in ("global", "local", "moe"):
         return A.make_cache(cfg, batch, max_len, cfg.torch_dtype, device=device)
-    layer_defs(cfg, kind)  # raises for the kinds not ported yet
+    if kind == "recurrent":
+        return G.griffin_state(cfg, batch, device=device)
+    if kind == "rwkv":
+        return W.rwkv_state(cfg, batch, device=device)
     raise ValueError(kind)
 
 
@@ -246,8 +256,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None):
 # ----------------------------------------------------------------- modules
 
 class Layer(ParamTree):
-    """One layer's parameters (``ln1``, ``ln2``, ``attn`` and ``mlp`` or
-    ``moe``), ``stack`` layers deep when ``stack`` is given; ``forward`` is
+    """One layer's parameters (``ln1``, ``ln2``, ``attn``, ``rglru`` or
+    ``rwkv``, and ``mlp`` or ``moe``), ``stack`` layers deep when ``stack`` is given; ``forward`` is
     :func:`apply_layer` on layer ``index``'s weights."""
 
     def __init__(self, cfg: ModelConfig, kind: str, *, stack: Optional[int] = None, dtype=None, device=None):

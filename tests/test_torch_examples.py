@@ -27,7 +27,12 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 def _run(name, *args):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # one OpenMP thread: torch's default of a thread per core, in a child
+    # started beside a parallel test run's other workers, oversubscribes
+    # the host, and spinning threads then slow it by one or two orders of
+    # magnitude (six concurrent VoPaT renders: 19 s at one thread each, not
+    # done in 40 min at eight)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, str(ROOT / "examples" / name), "--cpu", *args], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=180)
     assert out.returncode == 0, out.stderr[-2000:]

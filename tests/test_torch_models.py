@@ -10,7 +10,8 @@ layout.  Tolerances (float32 smoke configs):
 * ``rmsnorm``, ``glu_mlp``, the RoPE angles and ``apply_rope``: 1e-6;
 * ``self_attention`` (parallel, KV-blocked, decode): 1e-5;
 * ``moe_dense_tp``, ``moe_rafi_ep``: 1e-5, and their drop counts exactly;
-* ``forward`` logits and decode steps of every ported smoke config: 1e-4.
+* ``forward`` logits and decode steps of every smoke config (the
+  encoder-decoder's prefill and decode against its memory): 1e-4.
 
 Everything that only moves or counts (router indices, drops, parameter
 counts) is held exactly.
@@ -27,6 +28,7 @@ from repro.configs import get_config as jget_config
 from repro.configs import get_smoke_config as jget_smoke
 from repro.models import attention as JA
 from repro.models import common as JC
+from repro.models import encdec as JED
 from repro.models import moe as JM
 from repro.models import rope as JR
 from repro.models import transformer as JTF
@@ -35,6 +37,7 @@ from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.launch.mesh import Layout, make_test_layout
 from repro_torch.models import attention as A
 from repro_torch.models import common as C
+from repro_torch.models import encdec as ED
 from repro_torch.models import moe as M
 from repro_torch.models import rope as R
 from repro_torch.models import transformer as TF
@@ -251,11 +254,33 @@ def test_moe_rafi_ep_split_steps_compose():
 
 
 # ----------------------------------------------------------------- forward
+def _encdec_forward_and_decode(jcfg, cfg, jp, m):
+    """The encoder-decoder: ``prefill_fn`` of 2×16 frames and tokens, then
+    two decode steps against the encoder memory from fresh caches."""
+    rng = np.random.default_rng(10)
+    batch = {"frames": _normal(rng, 2, 16, cfg.d_model),
+             "tokens": rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)}
+    model, jmodel = build_model(cfg), jbuild(jcfg)
+    close(model.prefill_fn()(m, {k: T(v) for k, v in batch.items()}),
+          jax.jit(jmodel.prefill_fn())(jp, {k: jnp.asarray(v) for k, v in batch.items()}), 1e-4)
+    mem = ED.encode(m, T(batch["frames"]), cfg)
+    jmem = JED.encode(jp, jnp.asarray(batch["frames"]), jcfg)
+    caches, jcaches = model.init_caches(2, 32, device="cpu"), jmodel.init_caches(2, 32)
+    step, jstep = model.decode_fn(), jax.jit(jmodel.decode_fn())
+    for t in range(2):
+        got, caches = step(m, T(batch["tokens"][:, t:t + 1]), caches, mem)
+        want, jcaches = jstep(jp, jnp.asarray(batch["tokens"][:, t:t + 1]), jcaches, jmem)
+        close(got, want, 1e-4)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_and_decode_equal_the_reference(arch, mesh24):
     """``forward`` logits (and MoE drops) of a 2×16 batch, then two decode
-    steps from fresh caches: within 1e-4."""
+    steps from fresh caches: within 1e-4 (the encoder-decoder: its prefill
+    and two steps against the encoder memory)."""
     jcfg, cfg, jp, lm = _pair(arch)
+    if cfg.kind == "encdec":
+        return _encdec_forward_and_decode(jcfg, cfg, jp, lm)
     moe = cfg.kind == "moe"
     jmesh, lay = (mesh24, make_test_layout(2, 4)) if moe else (None, None)
     rng = np.random.default_rng(10)
@@ -334,12 +359,22 @@ def test_init_draws_truncated_normals_at_the_reference_scales():
     assert not tree["final_ln"].any() and not tree["blocks"]["k0_moe"]["ln1"].any()
 
 
-def test_later_families_raise_naming_their_item():
-    for kind in ("recurrent", "rwkv"):
-        with pytest.raises(NotImplementedError, match="19c"):
-            TF.layer_defs(get_smoke_config("qwen2-7b"), kind)
-    with pytest.raises(KeyError, match="19c"):
-        get_config("rwkv6-3b")
+def test_every_reference_arch_builds_in_the_reference_order():
+    """The registry names the reference's ten archs in its order; every
+    layer kind of their patterns has defs, and each config builds into
+    the module of its kind."""
+    from repro.configs import ARCHS as JARCHS
+    from repro_torch.models.encdec import EncDec
+
+    assert ARCHS == JARCHS
+    for arch in ARCHS:
+        cfg = get_smoke_config(arch)
+        for kind in set(cfg.pattern):
+            assert set(TF.layer_defs(cfg, kind)) == set(JTF.layer_defs(jget_smoke(arch), kind)), (arch, kind)
+        m = build_model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+        assert isinstance(m, EncDec if cfg.kind == "encdec" else TF.LM), arch
+    with pytest.raises(KeyError):
+        get_config("no-such-arch")
 
 
 def test_entry_points_run_on_the_card_unless_told_otherwise():
