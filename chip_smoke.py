@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all started together, linked into one library under
-``build/``) and runs eighteen phases on ``cuda:0``:
+``build/``) and runs nineteen phases on ``cuda:0``:
 
   1. kernels     — all ten kernels (K1 gather_rows, K2 unmarshal, K3
                    pack_and_histogram, K4 rank_and_histogram, K5
@@ -291,7 +291,23 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    median, device ms split into the scans, AdamW, the GEMMs
                    and the rest, and launches, of a decode and a train step,
                    and peak memory;
- 18. report      — one JSON line of the kernels (launches on the paths that
+ 18. dryrun      — the shape suite and the meta-device dry run
+                   (``launch.dryrun``): (a) the sweep of all 40 (arch ×
+                   shape) cells at full width on meta, its FLOP probes
+                   counted in ``launch.dryrun.WORKERS`` processes while (b)
+                   holds the card: 32 ok, 8 skip, 0 errors, one line a cell
+                   (bytes of parameters, AdamW state and caches; counted
+                   FLOPs, ``model_flops`` and their ratio) and the seconds;
+                   (b) qwen2-7b at full width, 4 of 28 layers, batch 8 × 512
+                   (phase train's config): the bytes of the parameters and
+                   AdamW state that ``Model.init`` and ``adamw_init`` make on
+                   the card, and of ``init_caches(8, 512)``, equal to the dry
+                   run's; ``FlopCounterMode`` over one real train step on
+                   the card equal to the meta count (differenced and full
+                   depth); that count and ``model_flops`` over the step's
+                   device time as shares of the 989e12 bf16 peak; no kernel
+                   of K1–K10 launched;
+ 19. report      — one JSON line of the kernels (launches on the paths that
                    run them, errors, bounds; ``ms``, ``plain_ms`` and
                    ``library_ms`` are device times, ``call_ms`` the event
                    pair's; device events a call), the card's name and
@@ -3957,12 +3973,14 @@ class _TrainRecorder:
         TR.build_train_step, ST.adamw_update, M.moe_block = self.orig
 
 
-def _model_flops(cfg, tokens, seq):
+def _attn_model_flops(cfg, tokens, seq):
     """Model FLOPs of one train step: 6 × the parameters a token's matmuls
     use (all but the embedding table; the experts at top_k / E) × tokens,
     plus the attention products, 12 × layers × seq × heads × head_dim ×
     tokens (forward and backward over the full S × S, as ``_sdpa``
-    computes it).  The checkpoint's recompute is not counted."""
+    computes it).  The checkpoint's recompute is not counted.  This is not
+    ``roofline.analysis.model_flops`` (the reference's 6·N·D, N with the
+    embedding and without attention), which phase dryrun reports."""
     import math
 
     from repro_torch.models.api import build_model
@@ -4065,7 +4083,7 @@ def _train_full(dev, arch, layers, steps, *, batch, seq, layout, widths, profile
         check(n_params == sum(p.numel() for p in params.parameters()),
               f"{label}: {n_params} parameters allocated")
         tokens = batch * seq
-        r["model_flops"] = _model_flops(cfg, tokens, seq)
+        r["model_flops"] = _attn_model_flops(cfg, tokens, seq)
         if cuda:
             ms = [a.elapsed_time(b) for a, b in rec.events]
             r["step_ms"] = ms
@@ -4737,6 +4755,130 @@ def phase_families(dev, ARCHS=FAMILY_ARCHS, SLOTS=16, N_REQ=16, PROMPT=(8, 48), 
     return out, paths
 
 
+# ------------------------------------------------------------ 18. dryrun
+DRYRUN_CELLS = (32, 8, 0)  # ok, skip, error
+
+
+def _dryrun_sweep(out_dir, res):
+    """(a), run on a thread while (b) holds the card: ``launch.dryrun``'s
+    sweep of all 40 cells on meta, its probes counted in its worker
+    processes; records, lines and seconds into ``res``."""
+    from repro_torch.launch import dryrun as DR
+
+    t0 = time.perf_counter()
+    res["lines"] = []
+    try:
+        res["records"] = DR.sweep(force=True, out_dir=out_dir, log=res["lines"].append)
+    except Exception:  # reported by the phase
+        res["error"] = traceback.format_exc()
+    res["seconds"] = time.perf_counter() - t0
+
+
+def phase_dryrun(dev, ARCH="qwen2-7b", LAYERS=4, BATCH=(8, 512), sweep=True, widths=None):
+    """Phase dryrun: (a) the meta sweep; (b) phase train's qwen2-7b (4 of
+    28 layers, batch 8 × 512) on the card against its dry run: the bytes of
+    its parameters, AdamW state and caches, and the FLOPs of a train step
+    that ``FlopCounterMode`` counts on the card, each equal to the meta
+    count; the count over the step's device time as a share of the bf16
+    peak beside ``model_flops``' share; no kernel launched."""
+    import dataclasses as dc
+    import threading
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import kernels as KN
+    from repro_torch.configs import Cell, ShapeSpec, get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.roofline.analysis import model_flops
+
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    out, res = {}, {}
+    KN.reset_launch_counts()
+    worker = None
+    if sweep:
+        worker = threading.Thread(target=_dryrun_sweep, args=(ROOT / "chiprun_out" / "dryrun_torch", res))
+        worker.start()
+
+    # (b): the dry run of the config, then the same config on the device
+    cfg = dc.replace(get_config(ARCH), num_layers=LAYERS, **(widths or {}))
+    label = f"(b) {ARCH} at {LAYERS} of {get_config(ARCH).num_layers} layers, batch {BATCH[0]} x {BATCH[1]}"
+    model = build_model(cfg)
+    b, s = BATCH
+    spec = {k: ShapeSpec(f"{k}_{s}", s, b, k) for k in ("train", "decode")}
+    cells = {"train": Cell(ARCH, spec["train"], "train", {"tokens": torch.empty((b, s), dtype=torch.int32,
+                                                                                   device="meta")}),
+             "decode": Cell(ARCH, spec["decode"], "decode", {"token": torch.empty((b, 1), dtype=torch.int32,
+                                                                                     device="meta")})}
+    t0 = time.perf_counter()
+    meta = {"train": DR.footprint(model, cells["train"]), "decode": DR.footprint(model, cells["decode"]),
+            "flops": DR.cell_flops(cfg, cells["train"]), "flops_full_depth": DR.count_flops(model, cells["train"])}
+    meta["seconds"] = time.perf_counter() - t0
+    opt_cfg = AdamWConfig(warmup_steps=20)
+    lm = model.init(torch.Generator(device=dev).manual_seed(31), device=dev)
+    opt = adamw_init(lm, opt_cfg)
+    caches = model.init_caches(b, s, device=dev)
+    card = {"params": DR.nbytes(lm), "opt_state": DR.nbytes(opt), "caches": DR.nbytes(caches)}
+    del caches
+    check(card["params"] == meta["train"]["params"] and card["opt_state"] == meta["train"]["opt_state"],
+          f"{label}: bytes of the parameters {card['params']} and the AdamW state {card['opt_state']} that "
+          f"Model.init and adamw_init make on {dev.type} == the dry run's {meta['train']['params']} and "
+          f"{meta['train']['opt_state']}")
+    check(card["caches"] == meta["decode"]["caches"],
+          f"{label}: bytes of init_caches({b}, {s}) on {dev.type} {card['caches']} == the dry run's "
+          f"{meta['decode']['caches']}")
+    data = SyntheticLM(cfg.vocab_size, s, b)
+    step = build_train_step(model, None, opt_cfg)
+    step(lm, opt, data.batch_at(0))  # warm-up
+    with FlopCounterMode(display=False) as fc:
+        step(lm, opt, data.batch_at(1))
+    counted = int(fc.get_total_flops())
+    check(counted == meta["flops"] == meta["flops_full_depth"],
+          f"{label}: FLOPs of one train step counted on {dev.type} {counted} == the dry run's differenced count "
+          f"{meta['flops']} == its full-depth count {meta['flops_full_depth']}")
+    mf = model_flops(cfg, spec["train"])
+    r = {"arch": ARCH, "layers": LAYERS, "batch": list(BATCH), "card_bytes": card, "meta": meta, "counted_flops": counted,
+         "model_flops": mf, "useful_flops_ratio": mf / counted}
+    if cuda:
+        split = _step_device_ms(step, lm, opt, data.batch_at(2))
+        r["device_split_ms"] = split
+        r["step_ms_median"] = cuda_ms(lambda: step(lm, opt, data.batch_at(3)), reps=3, warmup=1)
+        sec = split["total"] / 1e3
+        r["counted_share_bf16_peak"] = counted / sec / BF16_PEAK
+        r["model_share_bf16_peak"] = mf / sec / BF16_PEAK
+        r["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"  {label}: bytes {card}; FLOPs a step counted {counted:.6e} (meta, {meta['seconds']:.1f} s), "
+          f"model_flops {mf:.6e} (ratio {mf / counted:.4f}); device {r.get('device_split_ms')} ms, event median "
+          f"{r.get('step_ms_median')} ms; share of the 989e12 bf16 peak: counted {r.get('counted_share_bf16_peak')}, "
+          f"model_flops {r.get('model_share_bf16_peak')} [{nvidia_smi() if cuda else 'cpu'}]", flush=True)
+    out["card"] = r
+    del lm, opt
+
+    if worker is not None:  # (a)
+        worker.join()
+        for line in res["lines"]:
+            print(f"  (a) {line}", flush=True)
+        if "error" in res:
+            print(res["error"], flush=True)
+        recs = res.get("records", [])
+        n = tuple(sum(1 for x in recs if x["status"] == k) for k in ("ok", "skip", "error"))
+        out["sweep"] = {"seconds": res["seconds"], "counts": n, "records": recs}
+        check("error" not in res and n == DRYRUN_CELLS and all(x["counted_flops"] for x in recs if x["status"] == "ok"),
+              f"(a) the meta sweep of the 40 (arch x shape) cells at full width ({DR.WORKERS} worker processes): "
+              f"{n[0]} ok, {n[1]} skip, {n[2]} error == {DRYRUN_CELLS}, every ok cell counted, in "
+              f"{res['seconds']:.1f} s")
+    launches = KN.launch_counts()
+    check(not any(launches.values()), f"dryrun: no kernel of K1-K10 launched: {launches}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase dryrun: {out['phase_s']:.1f} s", flush=True)
+    return out, {"dryrun": launches}
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -4767,7 +4909,7 @@ def main() -> int:
            "streamlines": lambda: phase_streamlines(dev), "vopat": lambda: phase_vopat(dev),
            "nbody": lambda: phase_nbody(dev), "obs": lambda: phase_obs(dev), "apps2": lambda: phase_apps2(dev),
            "ragged": lambda: phase_ragged(dev), "lm": lambda: phase_lm(dev), "train": lambda: phase_train(dev),
-           "families": lambda: phase_families(dev)}
+           "families": lambda: phase_families(dev), "dryrun": lambda: phase_dryrun(dev)}
     kernels, paths = {}, {}  # paths: launches per path, counted from 0
     for title in run:
         print(f"# phase {title}", flush=True)
@@ -4782,7 +4924,7 @@ def main() -> int:
             kernels, more = res
             paths.update(more)
         elif title in ("lossless", "telemetry", "pipeline", "credit", "balance", "recovery", "obs", "apps2", "ragged",
-                       "lm", "train", "families"):
+                       "lm", "train", "families", "dryrun"):
             record[title], more = res
             paths.update(more)
         elif title in ("streamlines", "vopat", "nbody"):

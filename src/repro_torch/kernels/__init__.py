@@ -19,7 +19,8 @@ CUDA C++ sources live in ``csrc/`` and are built by ``build.py``.
                    no app calls it)
 
 Dispatch is by the tensors' device and never falls back: CPU tensors run
-the plain version, CUDA tensors launch the kernel or raise.
+the plain version, CUDA tensors launch the kernel or raise; meta tensors
+(a shape-only run) trace the plain version.
 """
 from __future__ import annotations
 
@@ -40,10 +41,15 @@ _LOOKBACK: Dict[int, list] = {}
 
 def use_plain(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU (run the plain version), False
-    when every tensor lies on a CUDA device (launch the kernel).  Anything
-    else raises: there is no third path and no fallback."""
+    when every tensor lies on a CUDA device (launch the kernel).
+
+    Every tensor on ``meta`` is also plain: a meta tensor has a shape and a
+    dtype but no data, so there is nothing a kernel could be launched on,
+    and a shape-only run (``launch.dryrun``) can only trace the plain
+    version.  Anything else (mixed devices included) raises: there is no
+    other path and no fallback."""
     kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
+    if kinds == {"cpu"} or kinds == {"meta"}:
         return True
     if kinds == {"cuda"}:
         if len({t.device for t in tensors}) != 1:

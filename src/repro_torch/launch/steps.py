@@ -7,9 +7,13 @@
 divided by their count, as the reference's ``lax.scan``), then one AdamW
 step.  ``params`` is the model's :class:`~repro_torch.models.transformer.LM`
 (or its ``tree()``); it and the state are updated in place and returned.
-The reference's sharding helpers (``resolve_spec``, ``_named``,
-``_batch_shardings``) and the abstract-shape builders have no twin here;
-``lower_cell`` is ROADMAP Queue 1 item 19d.
+``abstract_opt_state`` and ``abstract_caches`` give the AdamW state and
+the decode caches on ``torch.device("meta")`` (shapes and dtypes, nothing
+allocated), where the reference gives ``jax.eval_shape`` results.  The
+reference's sharding helpers (``resolve_spec``, ``_named``,
+``_batch_shardings``) and ``lower_cell`` have no twin here: the port does
+not shard and lowers no XLA program (``launch.dryrun`` runs the steps on
+meta tensors instead).
 """
 from __future__ import annotations
 
@@ -20,9 +24,9 @@ import torch
 
 from repro_torch.models.api import Model
 from repro_torch.models.common import ParamTree, tree_leaves, tree_map
-from repro_torch.optim import AdamWConfig, adamw_update
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 
-__all__ = ["build_decode_step", "build_prefill_step", "build_train_step"]
+__all__ = ["abstract_caches", "abstract_opt_state", "build_decode_step", "build_prefill_step", "build_train_step"]
 
 
 def _to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
@@ -88,3 +92,15 @@ def build_prefill_step(model: Model, layout=None):
 
 def build_decode_step(model: Model, layout=None):
     return model.decode_fn(layout)
+
+
+def abstract_opt_state(model: Model, opt_cfg: AdamWConfig = AdamWConfig()):
+    """The AdamW state of :meth:`Model.abstract` on the meta device (no
+    allocation): ``adamw_init`` itself, so the masters and residuals the
+    config asks for are there too."""
+    return adamw_init(model.abstract(), opt_cfg)
+
+
+def abstract_caches(model: Model, batch: int, max_len: int):
+    """The decode caches on the meta device (no allocation)."""
+    return model.init_caches(batch, max_len, device="meta")

@@ -5,6 +5,8 @@
 parameter declarations; nothing is allocated until :meth:`Model.init`
 (random weights from a ``torch.Generator``) or :func:`params_from_jax` (the
 reference's parameter tree, so that both packages compute the same thing).
+:meth:`Model.abstract` gives the same module on the meta device, shapes
+and dtypes only.
 Both give a :class:`~repro_torch.models.transformer.LM` module, or an
 :class:`~repro_torch.models.encdec.EncDec` for the ``encdec`` kind, whose
 loss, prefill and decode run the encoder and take its memory.  The step
@@ -45,6 +47,13 @@ class Model:
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         return init_params(_module(self.cfg, dev), generator)
+
+    def abstract(self) -> ParamTree:
+        """The module on ``torch.device("meta")``: every parameter's shape
+        and dtype, nothing allocated and nothing drawn (the counterpart of
+        the reference's ``abstract_params``; ``launch.dryrun`` runs the
+        steps on it)."""
+        return _module(self.cfg, torch.device("meta"))
 
     def param_count(self) -> int:
         """Parameters, from the declared shapes (nothing is allocated)."""

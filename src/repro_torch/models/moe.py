@@ -153,12 +153,15 @@ class Route:
 
 
 def _proto(d: int, dtype) -> TokenItem:
+    """One item's shapes and dtypes for ``make_queue``: on the meta device,
+    so that a prototype allocates nothing on the host or the card."""
+    meta = torch.device("meta")
     return TokenItem(
-        h=torch.zeros((d,), dtype=dtype),
-        slot=torch.zeros((), dtype=torch.int32),
-        weight=torch.zeros((), dtype=dtype),
-        expert=torch.zeros((), dtype=torch.int32),
-        src=torch.zeros((), dtype=torch.int32),
+        h=torch.empty((d,), dtype=dtype, device=meta),
+        slot=torch.empty((), dtype=torch.int32, device=meta),
+        weight=torch.empty((), dtype=dtype, device=meta),
+        expert=torch.empty((), dtype=torch.int32, device=meta),
+        src=torch.empty((), dtype=torch.int32, device=meta),
     )
 
 

@@ -1,24 +1,26 @@
 """The roofline's plain models (the port's copy of the numpy models of
-``repro.roofline.analysis``, unchanged), and the call recorder's reading of
-the wire.
+``repro.roofline.analysis``, unchanged), the model FLOPs of a shape, and
+the call recorder's reading of the wire.
 
 Copied as they are: :func:`tier_bytes_model`, :func:`slow_axis_bytes_model`,
 :func:`padded_wire_rows`, :func:`occupancy_waste_model`,
-:func:`spill_drain_model`, :func:`goodput_model`, :func:`marshal_cost_model`
-and :func:`overlap_efficiency_model`.
+:func:`spill_drain_model`, :func:`goodput_model`, :func:`marshal_cost_model`,
+:func:`overlap_efficiency_model` and :func:`model_flops` (6·N·D for a
+train step, 2·N a token otherwise, N_active for MoE: arithmetic on the
+parameter count, which ``launch.dryrun`` records beside the FLOPs it
+counts).
 
 The reference's HLO readers have no twin here: ``collective_ops``,
 ``per_axis_collective_bytes``, ``per_tier_collective_bytes``,
-``collective_bytes``, ``analyze_lowered`` / ``RooflineTerms`` and
-``model_flops``, and the modules ``roofline/inspect.py`` and
-``roofline/report.py``.  They read a lowered XLA program (its
-``cost_analysis`` and the replica groups of its collectives) and the LM
-stack's parameter count; the port lowers nothing, and the LM stack is not
-ported (ROADMAP Queue 1 item 19).  Their role as budget guards is taken by
-the collective layer's call recorder (``core.collectives.StackedCollectives``,
-whose ``calls`` hold each call's kind, bytes and tier), read here by
-:func:`recorded_wire_bytes`: the bytes one rank puts on each tier, held in
-the tests against :func:`padded_wire_rows` and :func:`tier_bytes_model`.
+``collective_bytes``, ``analyze_lowered`` / ``RooflineTerms``, and the
+modules ``roofline/inspect.py`` and ``roofline/report.py``.  They read a
+lowered XLA program (its ``cost_analysis`` and the replica groups of its
+collectives); the port lowers none.  Their role as budget guards is taken
+by the collective layer's call recorder
+(``core.collectives.StackedCollectives``, whose ``calls`` hold each call's
+kind, bytes and tier), read here by :func:`recorded_wire_bytes`: the bytes
+one rank puts on each tier, held in the tests against
+:func:`padded_wire_rows` and :func:`tier_bytes_model`.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import numpy as np
 __all__ = [
     "goodput_model",
     "marshal_cost_model",
+    "model_flops",
     "occupancy_waste_model",
     "overlap_efficiency_model",
     "padded_wire_rows",
@@ -372,3 +375,27 @@ def recorded_wire_bytes(calls, level_sizes: Sequence[int], *, min_bytes: int = 0
         if share >= min_bytes:
             out[0 if call.tier is None else call.tier] += share * n
     return out
+
+
+def model_flops(cfg, shape) -> float:
+    """MODEL_FLOPS = 6·N·D (dense) / 6·N_active·D (MoE), D = processed tokens.
+
+    For prefill/decode the factor is 2·N per token (forward only).  N is
+    every parameter, the embedding table included, and no attention
+    product is counted: ``chip_smoke._attn_model_flops`` (no embedding,
+    plus attention) is another measure."""
+    from repro_torch.models.api import build_model
+
+    model = build_model(cfg)
+    n_params = model.param_count()
+    if cfg.kind == "moe":
+        # active params: replace expert count by top_k in the FFN share
+        e, k = cfg.num_experts, cfg.top_k
+        ffn = 3 * cfg.d_model * cfg.d_ff * e * cfg.num_layers
+        active_ffn = ffn * k / e
+        n_active = n_params - ffn + active_ffn
+    else:
+        n_active = n_params
+    tokens = shape.global_batch * (shape.seq_len if shape.step != "decode" else 1)
+    factor = 6.0 if shape.step == "train" else 2.0
+    return factor * n_active * tokens

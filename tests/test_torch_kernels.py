@@ -531,27 +531,55 @@ def test_k10_plain_invariant_under_a_permutation_of_the_rays(scene):
 
 
 # ------------------------------------------------------- dispatch, no fallback
-def test_wrappers_take_plain_path_only_for_cpu_tensors():
-    """A tensor on neither the CPU nor a CUDA device raises; nothing falls
-    back to the plain version, and no launch is counted."""
+def _same_shapes(a, b):
+    a, b = (a if isinstance(a, tuple) else (a,)), (b if isinstance(b, tuple) else (b,))
+    return [(tuple(t.shape), t.dtype) for t in a] == [(tuple(t.shape), t.dtype) for t in b]
+
+
+def plain_dispatch_cases(cases):
+    """Each wrapper given all-meta inputs traces its plain version (meta
+    outputs shaped as the CPU call's, no launch); given CPU and meta tensors
+    together it raises; nothing falls back."""
     KN.reset_launch_counts()
-    meta = lambda *s: torch.empty(*s, dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="CPU tensors run the plain"):
-        MO.gather_rows(meta(1, 4, 3), meta(1, 2))
-    with pytest.raises(ValueError, match="CPU tensors run the plain"):
-        MO.unmarshal(meta(1, 2, 2, 3), meta(1, 2), meta(1, 2), capacity=4)
-    with pytest.raises(ValueError, match="CPU tensors run the plain"):
-        SO.pack_and_histogram(meta(1, 4), meta(1), num_ranks=2, idx_bits=2)
-    with pytest.raises(ValueError, match="CPU tensors run the plain"):
-        RO.rk4_step(torch.empty(4, 3, device="meta"), dt=0.1)
-    with pytest.raises(ValueError, match="CPU tensors run the plain"):
-        MO.gather_rows(torch.zeros(1, 4, 3, dtype=torch.int32), meta(1, 2))  # mixed
-    fmeta = lambda *s: torch.empty(*s, device="meta")
-    with pytest.raises(ValueError, match="CPU tensors run the plain"):
-        NO.pairwise_accel(fmeta(2, 4, 3), fmeta(2, 5, 3), fmeta(2, 5))
-    with pytest.raises(ValueError, match="CPU tensors run the plain"):
-        DO.track(fmeta(4, 3), fmeta(4, 3), fmeta(4), fmeta(4), fmeta(4, 2, 2), fmeta(1, 5), majorant=1.0, steps=2)
+    for name, call in cases:
+        made = []
+
+        def meta_input(*s, dt=torch.int32):
+            made.append(s)
+            return torch.empty(*s, dtype=dt, device="meta")
+
+        meta = call(meta_input)
+        cpu = call(lambda *s, dt=torch.int32: torch.zeros(*s, dtype=dt))
+        outs = meta if isinstance(meta, tuple) else (meta,)
+        assert all(t.device.type == "meta" for t in outs) and _same_shapes(meta, cpu), name
+        if len(made) < 2:  # one input tensor: no mix to refuse
+            continue
+        first = [True]
+
+        def mixed(*s, dt=torch.int32):  # the first input on the CPU, the rest on meta
+            on_cpu, first[0] = first[0], False
+            return torch.zeros(*s, dtype=dt) if on_cpu else torch.empty(*s, dtype=dt, device="meta")
+
+        with pytest.raises(ValueError, match="CPU tensors run the plain"):
+            call(mixed)
     assert KN.launch_counts() == dict.fromkeys(KN.launch_counts(), 0)
+
+
+def test_wrappers_take_plain_path_only_for_cpu_tensors():
+    """The plain version runs for CPU tensors and for meta tensors (a
+    shape-only trace: a meta tensor has no data to launch a kernel on);
+    a mix of devices raises; nothing falls back to the plain version, and
+    no launch is counted."""
+    f32 = torch.float32
+    plain_dispatch_cases([
+        ("gather_rows", lambda t: MO.gather_rows(t(1, 4, 3), t(1, 2))),
+        ("unmarshal", lambda t: MO.unmarshal(t(1, 2, 2, 3), t(1, 2), t(1, 2), capacity=4)),
+        ("pack_and_histogram", lambda t: SO.pack_and_histogram(t(1, 4), t(1), num_ranks=2, idx_bits=2)),
+        ("rk4_step", lambda t: RO.rk4_step(t(4, 3, dt=f32), dt=0.1)),
+        ("pairwise_accel", lambda t: NO.pairwise_accel(t(2, 4, 3, dt=f32), t(2, 5, 3, dt=f32), t(2, 5, dt=f32))),
+        ("track", lambda t: DO.track(t(4, 3, dt=f32), t(4, 3, dt=f32), t(4, dt=f32), t(4, dt=f32),
+                                     t(4, 2, 2, dt=f32), t(1, 5, dt=f32), majorant=1.0, steps=2)),
+    ])
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch):

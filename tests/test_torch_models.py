@@ -377,7 +377,7 @@ def test_every_reference_arch_builds_in_the_reference_order():
         get_config("no-such-arch")
 
 
-def test_entry_points_run_on_the_card_unless_told_otherwise():
+def test_entry_points_run_on_the_card_unless_told_otherwise(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("checks the rule where no card is present")
     model = build_model(get_smoke_config("qwen2-7b"))
@@ -385,6 +385,13 @@ def test_entry_points_run_on_the_card_unless_told_otherwise():
         model.init()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         model.init_caches(2, 8)
+    # shapes only, by nature: ``abstract`` and the dry run run on meta,
+    # neither on the card nor on the CPU, with or without a card
+    from repro_torch.launch import dryrun
+
+    assert {p.device.type for p in model.abstract().parameters()} == {"meta"}
+    rec = dryrun.run_cell("qwen2-7b", "decode_32k", force=True, out_dir=tmp_path)
+    assert rec["status"] == "ok" and rec["bytes"]["params"] == 2 * rec["n_params"]
 
 
 @pytest.fixture

@@ -871,18 +871,17 @@ def test_context_scatter_drive_equals_reference(mesh8):
 
 # ----------------------------------------------------- dispatch, no fallback
 def test_new_wrappers_take_plain_path_only_for_cpu_tensors():
-    KN.reset_launch_counts()
-    meta = lambda *s, dt=torch.int32: torch.empty(*s, dtype=dt, device="meta")
-    with pytest.raises(ValueError, match="CPU tensors run the plain"):
-        BS.rank_and_histogram(meta(1, 4), meta(1), num_ranks=2)
-    with pytest.raises(ValueError, match="CPU tensors run the plain"):
-        BS.scatter_rows(meta(1, 4, 3), meta(1, 4), num_slots=4)
-    with pytest.raises(ValueError, match="CPU tensors run the plain"):
-        CO.compact_positions(meta(1, 4, dt=torch.bool))
-    with pytest.raises(ValueError, match="CPU tensors run the plain"):
-        MO.marshal(meta(1, 4, 3), meta(1, 2), num_ranks=2, slot=2)
-    with pytest.raises(ValueError, match="CPU tensors run the plain"):
-        BS.scatter_rows(torch.zeros(1, 4, 3, dtype=torch.int32), meta(1, 4), num_slots=4)  # mixed
+    """The four wrappers added after the first six, as those
+    (``test_torch_kernels``): plain for CPU or all-meta tensors, a mix of
+    devices raises, no launch counted."""
+    from test_torch_kernels import plain_dispatch_cases
+
+    plain_dispatch_cases([
+        ("rank_and_histogram", lambda t: BS.rank_and_histogram(t(1, 4), t(1), num_ranks=2)),
+        ("scatter_rows", lambda t: BS.scatter_rows(t(1, 4, 3), t(1, 4), num_slots=4)),
+        ("compact_positions", lambda t: CO.compact_positions(t(1, 4, dt=torch.bool))),
+        ("marshal", lambda t: MO.marshal(t(1, 4, 3), t(1, 2), num_ranks=2, slot=2)),
+    ])
     assert set(KN.kernel_wrappers()) == {
         "gather_rows", "unmarshal", "pack_and_histogram", "rank_and_histogram",
         "scatter_rows", "compact_positions", "marshal", "rk4_step", "pairwise_accel", "track",
