@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all started together, linked into one library under
-``build/``) and runs nineteen phases on ``cuda:0``:
+``build/``) and runs twenty phases on ``cuda:0``:
 
   1. kernels     — all ten kernels (K1 gather_rows, K2 unmarshal, K3
                    pack_and_histogram, K4 rank_and_histogram, K5
@@ -307,7 +307,23 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    depth); that count and ``model_flops`` over the step's
                    device time as shares of the 989e12 bf16 peak; no kernel
                    of K1–K10 launched;
- 19. report      — one JSON line of the kernels (launches on the paths that
+ 19. dist        — the ``torch.distributed`` backend (``core.collectives.
+                   DistributedCollectives``) at a world of one: NCCL set up
+                   through ``launch.dist.init_world`` on ``cuda:0`` with a
+                   ``file://`` store in a temporary directory, the group
+                   destroyed after; the Fig-8 round (R=8, C=262,144,
+                   S=65,536) on padded sort, padded scatter, 2×2×2 and
+                   ragged bit-equal on lanes < count to the stacked round
+                   on the same queue, with the same call record and
+                   launches (ragged: one more K1, the landing), no host
+                   read but the ragged round's one; each route's event
+                   median and device ms beside the stacked round's and its
+                   device time split into NCCL's kernels, the hand kernels,
+                   copies and the rest; streamlines (ABC, 131,072
+                   particles, 64 steps) and N-body (4,096 bodies, 2 steps)
+                   on the backend bit-equal to their stacked runs; K1–K6,
+                   K8 and K9 counted on the path ``dist``;
+ 20. report      — one JSON line of the kernels (launches on the paths that
                    run them, errors, bounds; ``ms``, ``plain_ms`` and
                    ``library_ms`` are device times, ``call_ms`` the event
                    pair's; device events a call), the card's name and
@@ -400,14 +416,16 @@ ROUND_PATHS = (LOSSLESS_PATHS + TELEMETRY_PATHS + PIPELINE_PATHS + CREDIT_PATHS 
                + OBS_PATHS + RAGGED_PATHS)
 APP_PATHS = ("streamlines", "nbody", "lander", "schlieren")  # the sort-marshal apps: K3, K1, K2, K6
 LM_PATHS = ("lm_serve", "lm_prefill", "lm_train")  # the MoE dispatch rounds of the LM paths: K6, K3, K1, K2
+DIST_PATHS = ("dist",)  # every run of phase dist on the torch.distributed backend (NCCL, a world of one)
 LAUNCH_PATHS = {
-    "pack_and_histogram": APP_PATHS + ROUND_PATHS + LM_PATHS,
-    "gather_rows": APP_PATHS + ROUND_PATHS + LM_PATHS,
-    "unmarshal": APP_PATHS + ("vopat",) + ROUND_PATHS + LM_PATHS, "rk4_step": ("streamlines", "ragged_streamlines"),
-    "compact_positions": APP_PATHS + ("vopat",) + ROUND_PATHS + LM_PATHS,
-    "rank_and_histogram": ("vopat",) + ROUND_PATHS, "scatter_rows": ("vopat",) + ROUND_PATHS,
+    "pack_and_histogram": APP_PATHS + ROUND_PATHS + LM_PATHS + DIST_PATHS,
+    "gather_rows": APP_PATHS + ROUND_PATHS + LM_PATHS + DIST_PATHS,
+    "unmarshal": APP_PATHS + ("vopat",) + ROUND_PATHS + LM_PATHS + DIST_PATHS,
+    "rk4_step": ("streamlines", "ragged_streamlines") + DIST_PATHS,
+    "compact_positions": APP_PATHS + ("vopat",) + ROUND_PATHS + LM_PATHS + DIST_PATHS,
+    "rank_and_histogram": ("vopat",) + ROUND_PATHS + DIST_PATHS, "scatter_rows": ("vopat",) + ROUND_PATHS + DIST_PATHS,
     "marshal": ("two_pass_marshal",),
-    "pairwise_accel": ("nbody",), "track": ("woodcock_check",),
+    "pairwise_accel": ("nbody",) + DIST_PATHS, "track": ("woodcock_check",),
 }
 
 FAILURES: list = []
@@ -4880,6 +4898,167 @@ def phase_dryrun(dev, ARCH="qwen2-7b", LAYERS=4, BATCH=(8, 512), sweep=True, wid
 
 
 # ------------------------------------------------------------------- main
+# ----------------------------------------------------------------- 19. dist
+DIST_ROUTES = (  # (label, ForwardConfig keywords) of the Fig-8 round on the distributed backend
+    ("padded_sort", {"peer_capacity": 65536}),
+    ("padded_scatter", {"peer_capacity": 65536, "marshal": "scatter"}),
+    ("hier_2x2x2", {"exchange": "hierarchical", "level_sizes": (2, 2, 2)}),
+    ("ragged", {"exchange": "ragged"}),
+)
+HAND_KERNELS = ("compact_kernel", "gather_rows_kernel", "marshal_kernel", "pack_hist_kernel",
+                "pairwise_accel_kernel", "quotients_kernel", "rank_hist_kernel", "rk4_kernel",
+                "scatter_rows_kernel", "track_kernel", "unmarshal_kernel")  # the __global__s of csrc/
+
+
+def _device_split(fn, calls=5, warmup=2):
+    """Device ms a call of ``fn`` by part, from ``torch.profiler``: NCCL's
+    kernels, the hand kernels (``HAND_KERNELS``), copies and memsets, and
+    every other kernel (PyTorch's); None where the profiler saw no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    parts = {"nccl": 0.0, "hand": 0.0, "copy": 0.0, "other": 0.0}
+    for e in _device_events(prof):
+        key = e.key.lower()
+        part = ("nccl" if "nccl" in key else "copy" if e.key.startswith("Mem")
+                else "hand" if any(k in e.key for k in HAND_KERNELS) else "other")
+        parts[part] += e.self_device_time_total / 1e3 / calls
+    return parts if sum(parts.values()) > 0 else None
+
+
+def phase_dist(dev, R=8, C=262144, reps=10, SL=("ABC", 0, 131072), SL_STEPS=64, NB=(4096, 2)):
+    """The ``torch.distributed`` backend at a world of one on the card:
+    NCCL set up through ``launch.dist.init_world`` (a ``file://`` store in a
+    temporary directory; the group destroyed after), the Fig-8 round on
+    four routes against the stacked backend bit for bit on the same queue
+    with equal call records, timed beside the stacked round with NCCL's
+    device time apart, and the streamlines and N-body runs against their
+    stacked runs bit for bit.  Launches of every run on the backend summed
+    on the path ``dist``."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch import kernels as KN
+    from repro_torch.apps import nbody
+    from repro_torch.apps import streamlines as sl
+    from repro_torch.core import ForwardConfig, StackedCollectives, forward_work
+    from repro_torch.launch import dist as LD
+
+    out, launches = {"routes": {}}, {}
+
+    def count(fn):
+        KN.reset_launch_counts()
+        res = fn()
+        for k, v in KN.launch_counts().items():
+            launches[k] = launches.get(k, 0) + v
+        return res
+
+    tmp = tempfile.mkdtemp(prefix="rafi_dist_")
+    t0 = time.perf_counter()
+    try:
+        comm = LD.init_world(dev, world=1, rank=0, store=f"file://{tmp}/store")
+        out["init_s"] = time.perf_counter() - t0
+        check(tdist.get_backend() == "nccl" and comm.world == 1,
+              f"dist: NCCL set up at a world of one in {out['init_s']:.2f} s ({tdist.get_backend()})")
+        q = _fig8_queue(dev, R, C)
+        for label, kw in DIST_ROUTES:
+            cfg = ForwardConfig(R, C, **kw)
+            scomm = StackedCollectives()
+            KN.reset_launch_counts()
+            sq, stotal = forward_work(q, cfg, comm=scomm)
+            s_launch = KN.launch_counts()
+            comm.reset()
+            KN.reset_launch_counts()
+            dq, dtotal = count(lambda: forward_work(q, cfg, comm=comm))
+            d_launch = KN.launch_counts()
+            reads = comm.host_reads
+            check(_same_queue(dq, sq, all_lanes=False) and int(dtotal) == int(stotal),
+                  f"dist {label}: the round on NCCL == the stacked round: count, drops, total {int(dtotal)}, "
+                  "lanes < count")
+            check(dict(comm.calls) == dict(scomm.calls),
+                  f"dist {label}: the same call record as the stacked round: "
+                  f"{sorted((c.kind, c.tier, c.shape) for c in comm.calls)}")
+            ragged = kw.get("exchange") == "ragged"
+            want = dict(s_launch)
+            if ragged:  # the pack and the landing of the rows over the wire: two K1 gathers for the stacked one
+                want["gather_rows"] = want.get("gather_rows", 0) + 1
+            if dev.type == "cuda":
+                check(d_launch == want, f"dist {label}: kernel launches {d_launch} (stacked {s_launch})")
+            check(reads == (1 if ragged else 0), f"dist {label}: {reads} host read(s) a round")
+            rec = {
+                "stacked_ms": cuda_ms(lambda: forward_work(q, cfg, comm=scomm), reps=reps),
+                "dist_ms": cuda_ms(lambda: forward_work(q, cfg, comm=comm), reps=reps),
+                "stacked_device_ms": device_ms(lambda: forward_work(q, cfg, comm=scomm), calls=reps)[0],
+                "dist_device_ms": device_ms(lambda: forward_work(q, cfg, comm=comm), calls=reps)[0],
+                "stacked_split": _device_split(lambda: forward_work(q, cfg, comm=scomm)),
+                "dist_split": _device_split(lambda: forward_work(q, cfg, comm=comm)),
+                "host_reads_a_round": reads,
+            }
+            out["routes"][label] = rec
+            fmt = lambda d: "not measured" if d is None else ", ".join(f"{k} {v:.4f}" for k, v in d.items())
+            print(f"  {label}: event median {rec['dist_ms']:.4f} ms (stacked {rec['stacked_ms']:.4f}); device "
+                  f"{rec['dist_device_ms']:.4f} ms (stacked {rec['stacked_device_ms']:.4f}); by part: "
+                  f"{fmt(rec['dist_split'])} (stacked: {fmt(rec['stacked_split'])}); host reads {reads}",
+                  flush=True)
+
+        # a lone collective's event median: the host's issue cost of an NCCL call
+        small = torch.ones(R, R, 1, dtype=torch.int32, device=dev)
+        out["call_ms"] = {
+            f"{kind}_{backend}": cuda_ms(fn, reps=reps)
+            for backend, c in (("stacked", StackedCollectives()), ("nccl", comm))
+            for kind, fn in (("count_all_to_all", lambda c=c: c.all_to_all(small)),
+                             ("psum", lambda c=c: c.psum(small[:, 0, 0])))}
+        print("  a lone call's event median (ms): " + ", ".join(f"{k} {v:.4f}" for k, v in out["call_ms"].items()),
+              flush=True)
+
+        def walls(fn):
+            """``fn``'s result and wall time, after one untimed run (first-use costs)."""
+            fn()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = fn()
+            return res, time.perf_counter() - t1
+
+        name, fid, n = SL
+        cfg = sl.StreamlineConfig(num_particles=n, max_steps=SL_STEPS, dt=0.1, field_id=fid)
+        (st, st_len, st_stats), s_wall = walls(lambda: sl.run(cfg, num_ranks=R, device=dev))
+        (dt, dt_len, dt_stats), d_wall = walls(lambda: sl.run(cfg, num_ranks=R, device=dev, comm=comm))
+        count(lambda: sl.run(cfg, num_ranks=R, device=dev, comm=comm))
+        check(np.array_equal(dt, st, equal_nan=True) and dt_stats == st_stats and dt_stats["drops"] == 0,
+              f"dist streamlines {name} N={n}: traces == the stacked run's bit for bit, {dt_stats}")
+        out["streamlines"] = {"n": n, "rounds": dt_stats["rounds"], "wall_s": d_wall, "stacked_wall_s": s_wall}
+        print(f"  streamlines {name} N={n}: {dt_stats['rounds']} rounds, wall {d_wall:.3f} s "
+              f"(stacked {s_wall:.3f} s)", flush=True)
+
+        n_b, steps = NB
+        ncfg = nbody.NBodyConfig(num_particles=n_b, steps=steps, dt=5e-4, theta=0.3, eps2=1e-3, g=64.0 / n_b)
+        (sp, sv, sst), s_wall = walls(lambda: nbody.run(ncfg, num_ranks=R, device=dev))
+        (dp, dv, dst), d_wall = walls(lambda: nbody.run(ncfg, num_ranks=R, device=dev, comm=comm))
+        count(lambda: nbody.run(ncfg, num_ranks=R, device=dev, comm=comm))
+        check(np.array_equal(dp, sp) and np.array_equal(dv, sv) and dst == sst and dst["drops"] == 0,
+              f"dist nbody N={n_b} {steps} steps: positions and velocities == the stacked run's bit for bit, "
+              f"totals {dst['totals']}")
+        out["nbody"] = {"n": n_b, "steps": steps, "wall_s": d_wall, "stacked_wall_s": s_wall}
+        print(f"  nbody N={n_b}: wall {d_wall:.3f} s (stacked {s_wall:.3f} s)", flush=True)
+    finally:
+        LD.destroy_world()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t0
+    return out, {"dist": launches}
+
+
 def main() -> int:
     import torch
 
@@ -4909,7 +5088,8 @@ def main() -> int:
            "streamlines": lambda: phase_streamlines(dev), "vopat": lambda: phase_vopat(dev),
            "nbody": lambda: phase_nbody(dev), "obs": lambda: phase_obs(dev), "apps2": lambda: phase_apps2(dev),
            "ragged": lambda: phase_ragged(dev), "lm": lambda: phase_lm(dev), "train": lambda: phase_train(dev),
-           "families": lambda: phase_families(dev), "dryrun": lambda: phase_dryrun(dev)}
+           "families": lambda: phase_families(dev), "dryrun": lambda: phase_dryrun(dev),
+           "dist": lambda: phase_dist(dev)}
     kernels, paths = {}, {}  # paths: launches per path, counted from 0
     for title in run:
         print(f"# phase {title}", flush=True)
@@ -4924,7 +5104,7 @@ def main() -> int:
             kernels, more = res
             paths.update(more)
         elif title in ("lossless", "telemetry", "pipeline", "credit", "balance", "recovery", "obs", "apps2", "ragged",
-                       "lm", "train", "families", "dryrun"):
+                       "lm", "train", "families", "dryrun", "dist"):
             record[title], more = res
             paths.update(more)
         elif title in ("streamlines", "vopat", "nbody"):

@@ -16,12 +16,20 @@ drives the computation of sections 1–3 through the lossless law
 hierarchical route on a 2×4 (node, device) layout: the same deposits,
 nothing dropped.
 
-Runs on the CUDA card; ``--cpu`` runs the plain PyTorch path.
+Runs on the CUDA card; ``--cpu`` runs the plain PyTorch path.  Under
+``torchrun`` sections 1–5b spread the 8 ranks over the world's processes
+(``launch.dist``: gloo with ``--cpu``, NCCL with a card per process), each
+holding its block of ranks, and process 0 prints the same lines; sections
+6–7 (the chaos driver and the flight report) run on process 0 alone, on
+the stacked backend.
 Run:  PYTHONPATH=src python examples/quickstart_torch.py [--cpu]
+      PYTHONPATH=src python -m torch.distributed.run --standalone --nproc_per_node 2 \
+          examples/quickstart_torch.py --cpu
 """
 import argparse
 import dataclasses
 import os
+import sys
 import tempfile
 
 import torch
@@ -29,7 +37,8 @@ import torch
 from repro_torch import telemetry as TM
 from repro_torch.chaos import run_scenario, sustained_overload
 from repro_torch.core import DISCARD, ForwardConfig, enqueue, make_queue, run_until_done, work_item
-from repro_torch.core.collectives import node_layout
+from repro_torch.core.collectives import StackedCollectives, node_layout
+from repro_torch.launch import dist
 from repro_torch.obs import report as OR
 from repro_torch.obs import trace as OT
 
@@ -39,6 +48,13 @@ args = ap.parse_args()
 device = "cpu" if args.cpu else "cuda"
 if device == "cuda" and not torch.cuda.is_available():
     raise SystemExit("no CUDA device is available; pass --cpu to run the plain PyTorch path")
+# under torchrun: this process's block of the ranks, and only process 0 prints
+comm = dist.init_world(device) if "WORLD_SIZE" in os.environ else StackedCollectives()
+if device == "cuda":
+    device = f"cuda:{os.environ.get('LOCAL_RANK', 0)}"
+LEAD = comm.index == 0
+if not LEAD:
+    sys.stdout = open(os.devnull, "w")
 
 
 def section(n, title):
@@ -63,7 +79,8 @@ cfg = ForwardConfig(num_ranks=R, capacity=CAP, exchange="padded", marshal="scatt
 # 2. A per-rank "kernel", here for all ranks at once: read incoming work,
 #    emit outgoing work (§3.3).
 section(2, "per-rank round kernel")
-me = torch.arange(R, device=device)[:, None]
+me = comm.ranks(R, device)[:, None]  # the global ids of this process's ranks
+L = me.shape[0]
 lane = torch.arange(CAP, device=device)[None, :]
 
 
@@ -73,7 +90,7 @@ def round_fn(q_in, acc, rnd):
     moved = Ray(value=items.value * 0.5, hops=items.hops + 1)
     keep = valid & (moved.hops < 4)  # retire after 4 hops
     dest = torch.where(keep, (me + 1) % R, DISCARD).to(torch.int32)  # ring forwarding
-    out = enqueue(make_queue(PROTO, CAP, num_ranks=R, device=device), moved, dest, valid)
+    out = enqueue(make_queue(PROTO, CAP, num_ranks=L, device=device), moved, dest, valid)
     acc = acc + torch.where(valid & ~keep, moved.value, 0.0).sum(dim=1)
     return out, acc
 
@@ -84,14 +101,17 @@ section(3, "drive to distributed termination")
 
 
 def seed_queue():
-    q0 = make_queue(PROTO, CAP, num_ranks=R, device=device)
-    four = torch.ones(R, 4, device=device)
-    return enqueue(q0, Ray(value=four * (me + 1), hops=torch.zeros(R, 4, dtype=torch.int32, device=device)),
-                   me.expand(R, 4).to(torch.int32), four > 0)
+    q0 = make_queue(PROTO, CAP, num_ranks=L, device=device)
+    four = torch.ones(L, 4, device=device)
+    return enqueue(q0, Ray(value=four * (me + 1), hops=torch.zeros(L, 4, dtype=torch.int32, device=device)),
+                   me.expand(L, 4).to(torch.int32), four > 0)
 
 
 def drive(c, max_rounds=16):
-    return run_until_done(round_fn, seed_queue(), torch.zeros(R, device=device), c, max_rounds=max_rounds)
+    q, acc, *rest = run_until_done(round_fn, seed_queue(), torch.zeros(L, device=device), c,
+                                   max_rounds=max_rounds, comm=comm)
+    # every rank's deposits, drops and ring rows, in every process (host summaries)
+    return (dist.gather_tree(q, comm), comm.gather_all(acc), *dist.gather_tree(tuple(rest), comm))
 
 
 q, acc, rounds, _done, ring = drive(cfg)
@@ -146,6 +166,9 @@ for label, c in (
 #    to drain (credits are one round stale), but goodput 1.0 and no loss.
 #    The chaos driver runs the scenario through the drive loop, captured
 #    under the span tracer (host side only: every number is unchanged).
+dist.destroy_world()
+if not LEAD:  # sections 6-7 run on process 0 alone, on the stacked backend
+    sys.exit(0)
 section(6, "backpressure under sustained overload")
 sc = sustained_overload()  # 2 of 8 ranks hot: concentration that persists
 results = {}

@@ -193,12 +193,16 @@ def run(
     num_ranks: int = 8,
     init=None,
     device=None,
+    comm=None,
 ) -> Tuple[np.ndarray, np.ndarray, dict]:
     """Simulate on ``num_ranks`` stacked ranks.  Returns ``(pos (N, 3), vel
     (N, 3), stats)`` as numpy arrays in uid order; ``stats`` holds the
     per-step global particle ``totals``, the queue ``drops`` and the rank
     grid ``dims``.  ``init = (pos0, vel0, mass0)`` numpy arrays replace the
-    seeded draw."""
+    seeded draw.  With ``comm`` a ``DistributedCollectives`` this process
+    holds its block of the ranks; the final state merges over the world
+    (``comm.pmin``) and the stats are the world's, the same in every
+    process."""
     dev = compat.resolve_device(device)
     R, n = num_ranks, cfg.num_particles
     dims = _grid_dims(R)
@@ -208,16 +212,17 @@ def run(
     pcfg = ForwardConfig(R, cap_p, peer_capacity=cap_p, exchange="padded")
     vcfg = ForwardConfig(R, cap_vp, peer_capacity=cap_vp, exchange="padded")
     rcfg = ForwardConfig(R, cap_rq, peer_capacity=cap_rq, exchange="padded")
-    comm = StackedCollectives()
+    comm = StackedCollectives() if comm is None else comm
+    L = comm.local_ranks(R)
 
-    me = torch.arange(R, dtype=torch.int32, device=dev)
-    peers = me[None, :].expand(R, R)
-    center, ext = _region_center(me, dims)  # (R, 3), (3,)
+    me = comm.ranks(R, dev).to(torch.int32)  # (L,) my ranks' global ids
+    peers = torch.arange(R, dtype=torch.int32, device=dev)[None, :].expand(L, R)
+    center, ext = _region_center(me, dims)  # (L, 3), (3,)
     node_size = torch.linalg.norm(ext)
     lane_p = torch.arange(cap_p, device=dev)
     lane_v = torch.arange(cap_vp, device=dev)
     lane_r = torch.arange(cap_rq, device=dev)
-    col = lambda v, k: v[:, None].expand(R, k)
+    col = lambda v, k: v[:, None].expand(L, k)
 
     def timestep(pq):
         pvalid = lane_p[None, :] < pq.count[:, None]
@@ -231,12 +236,12 @@ def run(
 
         # ---- 2. broadcast roots (VirtualParticle context) --------------------
         roots = VirtualParticle(
-            pos=com[:, None, :].expand(R, R, 3),
+            pos=com[:, None, :].expand(L, R, 3),
             mass=col(m_tot, R),
-            size=node_size.expand(R, R),
+            size=node_size.expand(L, R),
             source_rank=col(me, R),
         )
-        vq = make_queue(_vp_proto(), cap_vp, num_ranks=R, device=dev)
+        vq = make_queue(_vp_proto(), cap_vp, num_ranks=L, device=dev)
         vq = enqueue(vq, roots, peers, peers != me[:, None])
         vq, _ = forward_work(vq, vcfg, comm=comm)
 
@@ -245,13 +250,13 @@ def run(
         vp = vq.items
         dist = torch.linalg.norm(vp.pos - center[:, None, :], dim=-1)
         too_close = vvalid & (vp.size > cfg.theta * dist) & (vp.mass > 0)
-        rq = make_queue(_rq_proto(), cap_rq, num_ranks=R, device=dev)
+        rq = make_queue(_rq_proto(), cap_rq, num_ranks=L, device=dev)
         rq = enqueue(rq, RefinementReq(sender_rank=col(me, cap_vp)),
                      torch.where(too_close, vp.source_rank, DISCARD), vvalid)
         rq, _ = forward_work(rq, rcfg, comm=comm)
 
         # roots we asked to refine are replaced by their octants when they come
-        refined = torch.zeros(R, R + 1, dtype=torch.bool, device=dev)
+        refined = torch.zeros(L, R + 1, dtype=torch.bool, device=dev)
         refined.scatter_(1, torch.where(too_close, vp.source_rank, R).to(torch.int64), True)
         src = torch.clamp(vp.source_rank, 0, R - 1).to(torch.int64)
         keep_root = vvalid & ~torch.gather(refined[:, :R], 1, src)
@@ -261,10 +266,10 @@ def run(
         octs = VirtualParticle(
             pos=oct_com.repeat(1, cap_rq, 1),
             mass=oct_m.repeat(1, cap_rq),
-            size=(node_size * 0.5).expand(R, cap_rq * 8),
+            size=(node_size * 0.5).expand(L, cap_rq * 8),
             source_rank=col(me, cap_rq * 8),
         )
-        vq2 = make_queue(_vp_proto(), cap_vp, num_ranks=R, device=dev)
+        vq2 = make_queue(_vp_proto(), cap_vp, num_ranks=L, device=dev)
         vq2 = enqueue(vq2, octs, rq.items.sender_rank.repeat_interleave(8, dim=1),
                       rvalid.repeat_interleave(8, dim=1))
         vq2, _ = forward_work(vq2, vcfg, comm=comm)
@@ -280,18 +285,18 @@ def run(
         pos, vel = _leapfrog(p.pos, p.vel, a, cfg.dt)
         moved = Particle(pos=pos, vel=vel, force=a, mass=p.mass, uid=p.uid)
         dest = torch.where(pvalid, _owner(pos, dims), DISCARD)
-        out = enqueue(make_queue(_p_proto(), cap_p, num_ranks=R, device=dev), moved, dest, pvalid)
+        out = enqueue(make_queue(_p_proto(), cap_p, num_ranks=L, device=dev), moved, dest, pvalid)
         return forward_work(out, pcfg, comm=comm)
 
     pos0, vel0, mass0 = _initial_state(cfg, init, dev)
     uid = torch.arange(n, dtype=torch.int32, device=dev)
     mine = _owner(pos0, dims)[None, :] == me[:, None]  # every rank draws all, keeps its own
     pq = enqueue(
-        make_queue(_p_proto(), cap_p, num_ranks=R, device=dev),
-        Particle(pos=pos0.expand(R, n, 3), vel=vel0.expand(R, n, 3),
-                 force=torch.zeros(R, n, 3, device=dev), mass=mass0.expand(R, n), uid=uid.expand(R, n)),
+        make_queue(_p_proto(), cap_p, num_ranks=L, device=dev),
+        Particle(pos=pos0.expand(L, n, 3), vel=vel0.expand(L, n, 3),
+                 force=torch.zeros(L, n, 3, device=dev), mass=mass0.expand(L, n), uid=uid.expand(L, n)),
         torch.where(mine, me[:, None], DISCARD),
-        torch.ones(R, n, dtype=torch.bool, device=dev),
+        torch.ones(L, n, dtype=torch.bool, device=dev),
     )
     totals = []
     for _ in range(cfg.steps):
@@ -300,17 +305,17 @@ def run(
 
     # merge the final state by uid (disjoint ownership: pmin over +inf pad)
     pvalid = lane_p[None, :] < pq.count[:, None]
-    idx = torch.where(pvalid, pq.items.uid, n).to(torch.int64)[..., None].expand(R, cap_p, 3)
+    idx = torch.where(pvalid, pq.items.uid, n).to(torch.int64)[..., None].expand(L, cap_p, 3)
 
     def merged(x):
-        buf = torch.full((R, n + 1, 3), torch.inf, device=dev)
+        buf = torch.full((L, n + 1, 3), torch.inf, device=dev)
         buf.scatter_reduce_(1, idx, torch.where(pvalid[..., None], x, torch.inf), reduce="amin")
         return comm.pmin(buf[:, :n])
 
     pos, vel = merged(pq.items.pos), merged(pq.items.vel)
     stats = {
         "totals": torch.stack(totals).cpu().tolist() if totals else [],
-        "drops": int(pq.drops.sum()),
+        "drops": int(comm.gather_all(pq.drops).sum()),
         "dims": dims,
     }
     return pos.cpu().numpy(), vel.cpu().numpy(), stats

@@ -90,26 +90,31 @@ def run(
     exchange: str = "padded",
     seeds=None,
     device=None,
+    comm=None,
 ) -> Tuple[np.ndarray, np.ndarray, dict]:
     """Advect on ``num_ranks`` stacked ranks.  Returns ``(traces (N,
-    max_steps+1, 3) with NaN padding, lengths (N,), stats)``."""
+    max_steps+1, 3) with NaN padding, lengths (N,), stats)``.  With
+    ``comm`` a ``DistributedCollectives`` this process holds its block of
+    the ranks; the traces merge over the world (``comm.pmin``) and the
+    stats are the world's, the same in every process."""
     dev = compat.resolve_device(device)
     R, n = num_ranks, cfg.num_particles
     cap = max(64, n)
     ctx = RafiContext(
         R, _proto(), capacity=cap, exchange=exchange, device=dev,
-        peer_capacity=cap if exchange == "padded" else 0,
+        peer_capacity=cap if exchange == "padded" else 0, comm=comm,
     )
-    r_idx = torch.arange(R, device=dev)[:, None].expand(R, cap)
+    comm, L = ctx.comm, ctx.local_ranks
+    r_idx = torch.arange(L, device=dev)[:, None].expand(L, cap)
     lane = torch.arange(cap, device=dev)
 
     def round_fn(q_in, traces, rnd):
         p = q_in.items
         valid = lane[None, :] < q_in.count[:, None]
         new_pos, _ = rk4.rk4_step(
-            p.pos.reshape(R * cap, 3), dt=cfg.dt, field_id=cfg.field_id, params=cfg.params
+            p.pos.reshape(L * cap, 3), dt=cfg.dt, field_id=cfg.field_id, params=cfg.params
         )
-        new_pos = new_pos.reshape(R, cap, 3)
+        new_pos = new_pos.reshape(L, cap, 3)
         steps = p.steps + 1
         # record traces[r, uid, steps] = new_pos, in place: uids are globally
         # unique, and invalid lanes write to the trash row n, cut after the run
@@ -118,31 +123,31 @@ def run(
         traces.index_put_((r_idx, uid_idx, step_idx), new_pos)
         alive = valid & _inside(new_pos) & (steps < cfg.max_steps)
         dest = torch.where(alive, _owner(new_pos[..., 0], R), DISCARD).to(torch.int32)
-        out = make_queue(_proto(), cap, num_ranks=R, device=dev)
+        out = make_queue(_proto(), cap, num_ranks=L, device=dev)
         out = enqueue(out, Particle(uid=p.uid, pos=new_pos, steps=steps), dest, valid)
         return out, traces
 
     start = _seeds(cfg, seeds, dev)
-    uid = torch.arange(n, dtype=torch.int32, device=dev).expand(R, n)
-    me = torch.arange(R, dtype=torch.int32, device=dev)[:, None]
+    uid = torch.arange(n, dtype=torch.int32, device=dev).expand(L, n)
+    me = comm.ranks(R, dev).to(torch.int32)[:, None]
     # every rank computes all seeds but emits only those it owns (§5.1 ray-gen)
     mine = _owner(start[:, 0], R)[None, :] == me
-    traces = torch.full((R, n + 1, cfg.max_steps + 1, 3), math.nan, device=dev)
+    traces = torch.full((L, n + 1, cfg.max_steps + 1, 3), math.nan, device=dev)
     traces[:, :n, 0] = torch.where(mine[:, :, None], start[None], math.nan)
     q0 = enqueue(
-        make_queue(_proto(), cap, num_ranks=R, device=dev),
-        Particle(uid=uid, pos=start.expand(R, n, 3),
-                 steps=torch.zeros(R, n, dtype=torch.int32, device=dev)),
+        make_queue(_proto(), cap, num_ranks=L, device=dev),
+        Particle(uid=uid, pos=start.expand(L, n, 3),
+                 steps=torch.zeros(L, n, dtype=torch.int32, device=dev)),
         torch.where(mine, me, DISCARD).to(torch.int32),
-        torch.ones(R, n, dtype=torch.bool, device=dev),
+        torch.ones(L, n, dtype=torch.bool, device=dev),
     )
     q, traces, rounds, _done = ctx.run_until_done(round_fn, max_rounds=cfg.max_steps + 2)(q0, traces)
     # traces are disjoint across ranks (NaN elsewhere) — merge via min
-    merged = torch.where(torch.isnan(traces[:, :n]), math.inf, traces[:, :n]).amin(dim=0)
+    merged = comm.pmin(torch.where(torch.isnan(traces[:, :n]), math.inf, traces[:, :n]))
     out = merged.cpu().numpy()
     out[~np.isfinite(out)] = np.nan
     lengths = np.sum(np.isfinite(out[:, :, 0]), axis=1)
-    return out, lengths, {"rounds": int(rounds), "drops": int(q.drops.sum())}
+    return out, lengths, {"rounds": int(rounds), "drops": int(comm.gather_all(q.drops).sum())}
 
 
 def oracle(cfg: StreamlineConfig = StreamlineConfig(), *, seeds=None, device=None) -> np.ndarray:

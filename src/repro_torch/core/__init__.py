@@ -5,13 +5,14 @@ Device interface: WorkQueue, make_queue, enqueue, get_incoming,
   num_incoming, clear, DISCARD.
 Host context: RafiContext, ForwardConfig, forward_work, run_until_done,
   rebalance, cycle_step / deliver_by_cycling (the ring alternative),
-  StackedCollectives (the collective layer and its call recorder).
+  StackedCollectives and DistributedCollectives (the collective layer,
+  rank-stacked or over a torch.distributed world, and its call recorder).
 Recovery: health_table / remap_dest (the rank-draining destination remap),
   run_checkpointed / resume_run / conservation_check (the segmented,
   checkpointed drive and its watchdog).
 Item typing: work_item, item_nbytes, pack_payload, unpack_payload.
 """
-from repro_torch.core.collectives import StackedCollectives
+from repro_torch.core.collectives import DistributedCollectives, StackedCollectives
 from repro_torch.core.context import RafiContext, queue_from_reference, queue_to_reference
 from repro_torch.core.cycling import cycle_step, deliver_by_cycling
 from repro_torch.core.forwarding import ForwardConfig, forward_work
@@ -40,6 +41,7 @@ from repro_torch.core.types import (
 
 __all__ = [
     "DISCARD",
+    "DistributedCollectives",
     "ForwardConfig",
     "PackSpec",
     "RafiContext",

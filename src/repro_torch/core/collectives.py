@@ -1,8 +1,21 @@
-"""Collectives over the rank axis of rank-stacked tensors.
+"""Collectives over the rank axis, in two backends behind the same methods.
 
-One H100 is one device, so the port runs R logical ranks in one process on
-tensors whose leading axis is the rank.  Every collective the reference
-issues inside ``shard_map`` becomes a tensor operation on that axis:
+The port's R logical ranks are rows of the leading axis of every
+rank-stacked tensor.  :class:`StackedCollectives` holds all R rows in one
+process and turns each collective the reference issues inside
+``shard_map`` into a tensor operation on that axis.
+:class:`DistributedCollectives` spreads them over a ``torch.distributed``
+world of W processes (gloo on the CPU, NCCL on the card; ``launch.dist``
+sets it up): W divides R, and process ``p`` holds the contiguous block of
+ranks ``[p·L, (p+1)·L)``, ``L = R / W``, so the digits of every tier
+layout keep their meaning.  Every rank-stacked tensor's leading axis is
+then the process's L local ranks; what the stacked backend holds once,
+without the rank axis (a ``psum`` or ``pmin`` result, the count matrix a
+control plane builds from an ``all_gather``), is held replicated in every
+process.  Process p's output of every method equals rows ``[p·L,
+(p+1)·L)`` of the stacked output on the same global input, bit for bit;
+the stacked backend is the world of one process.  Shapes below are the
+stacked ones; read L for the leading R:
 
   all_to_all(x)   x (R_src, R_dst, ...) → out[dst, src] = x[src, dst]
                   (``jax.lax.all_to_all``, ``stages.a2a``)
@@ -23,7 +36,10 @@ issues inside ``shard_map`` becomes a tensor operation on that axis:
                   [input_offsets[s, d], + send_sizes[s, d]) land on
                   receiver d at [output_offsets[s, d], …)
                   (``jax.lax.ragged_all_to_all``, the MPI_Alltoallv of the
-                  ragged exchange), each size table (R, R), row = rank
+                  ragged exchange); each table's axis of the ranks a
+                  process holds is local: input_offsets and send_sizes
+                  (L_src, R_dst), output_offsets (R_src, L_dst), recv_sizes
+                  (L_dst, R_src)
   ppermute(x)     x (R, ...) → out[(i + 1) % R] = x[i]: the node-major
                   ring hop of ``repro.core.cycling`` (``jax.lax.ppermute``)
   psum(x)         x (R, ...) → the sum over ranks; the replicated result is
@@ -33,18 +49,28 @@ issues inside ``shard_map`` becomes a tensor operation on that axis:
   pmin(x)         x (R, ...) → the minimum over ranks, held once
                   (``jax.lax.pmin``)
 
-:class:`StackedCollectives` counts its calls in ``calls``, a Counter keyed
-by :class:`Call` (kind, bytes, shape): a long drive adds counts, not
+Rank identity.  A site that asks "which rank am I" reads
+``comm.ranks(R, device)`` (the global ids of the local ranks),
+``comm.rank_offset(R)`` or ``comm.local(t, dim)`` (the local slice of a
+replicated table's rank axis), never ``torch.arange(R)``; ``tier_digit``
+and the group tables take those ids.  ``comm.local_ranks(R)`` is L.
+
+Both backends count their calls in ``calls``, a Counter keyed by
+:class:`Call` (kind, bytes, shape, tier): a long drive adds counts, not
 entries.  The port has no lowered HLO to audit, so the recorder is how the
 collective budget is guarded: on ``exchange="padded"`` a round issues
 exactly one payload ``all_to_all`` and one count ``all_to_all``, on
 ``exchange="hierarchical"`` one of each per non-trivial tier (a call's
 ``tier`` names it), on ``exchange="ragged"`` one ``ragged_all_to_all`` and
-one count ``all_gather``.  A ``ragged_all_to_all`` call records its static
-result bytes, ``(capacity, W)`` words a rank, as the reference's HLO reader
-counts the op; the live rows it moves are data and are not read here (that
-would cost a host sync a round).  A ``torch.distributed`` backend will sit behind the
-same methods.
+one count ``all_gather``.  A call counts once per process, however many
+``torch.distributed`` operations carry it; its shape is the local
+block's, and its bytes are the local block's, so the bytes summed over
+the world equal the stacked call's.  A ``ragged_all_to_all`` call records
+its static result bytes, ``(capacity, W)`` words a rank, as the
+reference's HLO reader counts the op.  ``host_reads`` counts the
+device-to-host reads a backend makes: none on the stacked backend, and on
+the distributed one exactly one per ``ragged_all_to_all`` (its split
+sizes, which gloo and NCCL take as Python lists) and none elsewhere.
 
 Tier layouts.  A multi-tier rank axis is a tuple of digit sizes, slowest
 first; rank ``r``'s digits are lexicographic, slowest-major (``r = (d_0·A_1
@@ -62,11 +88,12 @@ import math
 from typing import Counter, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels.marshal import ops as marshal_ops
 
 __all__ = [
-    "Call", "StackedCollectives", "joint_tiers", "node_layout", "pod_layout", "tier_digit",
+    "Call", "DistributedCollectives", "StackedCollectives", "joint_tiers", "node_layout", "pod_layout", "tier_digit",
 ]
 
 
@@ -99,31 +126,81 @@ def joint_tiers(layout: Sequence[int], groups: Sequence[Sequence[int]]) -> Tuple
     return tuple(math.prod(layout[a] for a in g) for g in groups)
 
 
-def tier_digit(level_sizes: Sequence[int], tier: int, device=None) -> torch.Tensor:
+def tier_digit(level_sizes: Sequence[int], tier: int, device=None, ranks: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Every rank's digit on ``tier`` (``(R,)`` int64): the stacked form of
-    ``jax.lax.axis_index(axis_name[tier])``."""
+    ``jax.lax.axis_index(axis_name[tier])``; with ``ranks`` (global ids,
+    e.g. ``comm.ranks(R)``) only those ranks' digits."""
     stride = math.prod(level_sizes[tier + 1:])
-    r = torch.arange(math.prod(level_sizes), device=device)
+    r = torch.arange(math.prod(level_sizes), device=device) if ranks is None else ranks.to(torch.int64)
     return (r // stride) % level_sizes[tier]
 
 
-def _group_members(level_sizes: Sequence[int], tier: int, device=None) -> torch.Tensor:
+def _group_members(level_sizes: Sequence[int], tier: int, device=None,
+                   ranks: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``(R, A_l)`` int64: the ranks of every rank's tier-``tier`` group,
-    in digit order (rank r's digit l replaced by 0 … A_l − 1)."""
+    in digit order (rank r's digit l replaced by 0 … A_l − 1); with
+    ``ranks``, only those ranks' rows."""
     stride = math.prod(level_sizes[tier + 1:])
-    r = torch.arange(math.prod(level_sizes), device=device)
-    base = r - tier_digit(level_sizes, tier, device=device) * stride
-    return base[:, None] + torch.arange(level_sizes[tier], device=device)[None, :] * stride
+    r = torch.arange(math.prod(level_sizes), device=device) if ranks is None else ranks.to(torch.int64)
+    base = r - tier_digit(level_sizes, tier, ranks=r) * stride
+    return base[:, None] + torch.arange(level_sizes[tier], device=r.device)[None, :] * stride
 
 
-@dataclasses.dataclass
-class StackedCollectives:
-    """Rank-stacked collectives with a call recorder."""
+class _RankBlock:
+    """The rank identity of a process holding ``world``'s ``index``-th
+    contiguous block of ranks (the stacked backend: the one block)."""
 
-    calls: Counter[Call] = dataclasses.field(default_factory=collections.Counter)
+    world: int = 1
+    index: int = 0
+
+    def local_ranks(self, num_ranks: int) -> int:
+        """L: the ranks this process holds."""
+        if num_ranks % self.world:
+            raise ValueError(f"{num_ranks} ranks do not split over a world of {self.world} processes")
+        return num_ranks // self.world
+
+    def rank_offset(self, num_ranks: int) -> int:
+        """The global id of the process's first rank."""
+        return self.index * self.local_ranks(num_ranks)
+
+    def ranks(self, num_ranks: int, device=None) -> torch.Tensor:
+        """``(L,)`` int64: the global ids of the local ranks."""
+        lo = self.rank_offset(num_ranks)
+        return torch.arange(lo, lo + self.local_ranks(num_ranks), device=device)
+
+    def local(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The local ranks' slice of a replicated tensor's global rank axis
+        ``dim`` (the whole tensor on the stacked backend)."""
+        if self.world == 1:
+            return x
+        n = x.shape[dim]
+        return x.narrow(dim, self.rank_offset(n), self.local_ranks(n))
+
+    def gather_all(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows ``(R, ...)``, off the recorder (host summaries
+        and tests): on the stacked backend, ``x`` itself."""
+        return x
 
     def _record(self, kind: str, x: torch.Tensor, tier: Optional[int] = None) -> None:
         self.calls[Call(kind, x.numel() * x.element_size(), tuple(x.shape), tier)] += 1
+
+    def count(self, kind: str, *, tier: Optional[int] = None) -> int:
+        """Calls of ``kind``; with ``tier``, only that tier's."""
+        return sum(n for c, n in self.calls.items()
+                   if c.kind == kind and (tier is None or c.tier == tier))
+
+    def reset(self) -> None:
+        self.calls.clear()
+        self.host_reads = 0
+
+
+@dataclasses.dataclass
+class StackedCollectives(_RankBlock):
+    """Rank-stacked collectives with a call recorder: every rank in this
+    process."""
+
+    calls: Counter[Call] = dataclasses.field(default_factory=collections.Counter)
+    host_reads: int = 0  # always 0: the stacked backend never reads the device
 
     def all_to_all(
         self, x: torch.Tensor, *, digits: Optional[Sequence[int]] = None, tier: Optional[int] = None
@@ -158,7 +235,7 @@ class StackedCollectives:
         recv_sizes: torch.Tensor,  # (R_dst, R_src)
         capacity: Optional[int] = None,
     ) -> torch.Tensor:
-        """The stacked ``ragged_all_to_all``: receiver ``d``'s rows
+        """The stacked ``ragged_all_to_all`` (every table ``(R, R)``): receiver ``d``'s rows
         ``[output_offsets[s, d], + recv_sizes[d, s])`` become sender ``s``'s
         rows from ``input_offsets[s, d]``; every other row is ``output``'s
         (with ``output=None``, of shape ``(R, capacity, W)``, those rows
@@ -231,10 +308,226 @@ class StackedCollectives:
         self._record("pmin", x)
         return x.amin(dim=0)
 
-    def count(self, kind: str, *, tier: Optional[int] = None) -> int:
-        """Calls of ``kind``; with ``tier``, only that tier's."""
-        return sum(n for c, n in self.calls.items()
-                   if c.kind == kind and (tier is None or c.tier == tier))
 
-    def reset(self) -> None:
-        self.calls.clear()
+def _block_plan(digits: Tuple[int, ...], tier: int, world: int, index: int):
+    """The static plan of a tier ``all_to_all`` on process ``index``:
+    ``(send_order, send_splits, recv_splits, recv_index)``.  The local
+    blocks ``(i, j)`` (rank i's block for digit j, flattened ``i·A + j``)
+    are sent grouped by destination process, in ``send_order`` (None: the
+    identity), ``send_splits[q]`` of them to process q; the blocks that
+    arrive come in source order, ``recv_splits[p]`` from process p, and
+    ``recv[recv_index]`` puts them in the output's ``(i, a)`` order."""
+    R, A = math.prod(digits), digits[tier]
+    L = R // world
+    stride = math.prod(digits[tier + 1:])
+    digit = lambda r: (r // stride) % A
+    dest = lambda r, j: r + (j - digit(r)) * stride
+
+    def sends(p):  # (local block, destination) in send order
+        blocks = [(i * A + j, dest(p * L + i, j)) for i in range(L) for j in range(A)]
+        return sorted(blocks, key=lambda b: b[1] // L)  # stable: (i, j) order within a process
+
+    mine = sends(index)
+    order = [b for b, _ in mine]
+    send_splits = [sum(1 for _, g in mine if g // L == q) for q in range(world)]
+    recv_splits, recv_index, k = [], [None] * (L * A), 0
+    for p in range(world):
+        n = 0
+        for b, g in sends(p):
+            if g // L != index:
+                continue
+            r = p * L + b // A
+            recv_index[(g - index * L) * A + digit(r)] = k
+            k, n = k + 1, n + 1
+        recv_splits.append(n)
+    assert None not in recv_index
+    return (None if order == sorted(order) else order), send_splits, recv_splits, recv_index
+
+
+@dataclasses.dataclass
+class DistributedCollectives(_RankBlock):
+    """The collectives over a ``torch.distributed`` world: this process is
+    process ``index`` of ``world`` and holds ranks ``[index·L, (index+1)·L)``
+    (module docstring).  Made by ``launch.dist.init_world``, which sets up
+    the default process group first; every process must issue the same
+    calls in the same order."""
+
+    world: int = 1
+    index: int = 0
+    calls: Counter[Call] = dataclasses.field(default_factory=collections.Counter)
+    host_reads: int = 0
+    _plans: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def _a2a_blocks(self, x: torch.Tensor, digits: Tuple[int, ...], tier: int) -> torch.Tensor:
+        L, A = x.shape[0], x.shape[1]
+        key = (digits, tier, str(x.device))
+        if key not in self._plans:
+            order, ss, rs, ri = _block_plan(digits, tier, self.world, self.index)
+            as_idx = lambda v: None if v is None else torch.tensor(v, dtype=torch.int64, device=x.device)
+            self._plans[key] = (as_idx(order), ss, rs, None if ri == sorted(ri) else as_idx(ri))
+        order, ss, rs, ri = self._plans[key]
+        blocks = x.contiguous().reshape(L * A, -1)
+        send = blocks if order is None else blocks.index_select(0, order)
+        recv = torch.empty((sum(rs), blocks.shape[1]), dtype=blocks.dtype, device=x.device)
+        dist.all_to_all_single(recv, send, output_split_sizes=rs, input_split_sizes=ss)
+        out = recv if ri is None else recv.index_select(0, ri)
+        return out.reshape(x.shape)
+
+    def all_to_all(
+        self, x: torch.Tensor, *, digits: Optional[Sequence[int]] = None, tier: Optional[int] = None
+    ) -> torch.Tensor:
+        """Flat: ``x (L, R_dst, ...)``; tier: ``x (L, A_l, ...)``.  ONE
+        ``all_to_all_single`` whose split sizes follow from the static
+        layout (no host read), between a local regroup by destination
+        process and a local reorder of what arrives."""
+        if digits is None:
+            R = x.shape[1] if x.dim() >= 2 else 0
+            if x.dim() < 2 or x.shape[0] != self.local_ranks(R):
+                raise ValueError(f"all_to_all takes (L_src, R_dst, ...), got {tuple(x.shape)}")
+            self._record("all_to_all", x)
+            return self._a2a_blocks(x, (R,), 0)
+        digits = tuple(digits)
+        if x.dim() < 2 or x.shape[0] != self.local_ranks(math.prod(digits)) or x.shape[1] != digits[tier]:
+            raise ValueError(
+                f"a tier-{tier} all_to_all over {digits} takes (L, A_l, ...), got {tuple(x.shape)}"
+            )
+        self._record("all_to_all", x, tier)
+        return self._a2a_blocks(x, digits, tier)
+
+    def ragged_all_to_all(
+        self,
+        x: torch.Tensor,  # (L, C, W) the local senders' rows
+        output: Optional[torch.Tensor],  # (L, capacity, W), or None
+        *,
+        input_offsets: torch.Tensor,  # (L_src, R_dst)
+        send_sizes: torch.Tensor,  # (L_src, R_dst)
+        output_offsets: torch.Tensor,  # (R_src, L_dst): where s's block lands on my d
+        recv_sizes: torch.Tensor,  # (L_dst, R_src)
+        capacity: Optional[int] = None,
+    ) -> torch.Tensor:
+        """The ragged exchange over processes: ONE ``all_to_all_single``
+        with split sizes per process pair.  The split sizes must be Python
+        lists, so ``send_sizes`` and ``recv_sizes`` are read to the host in
+        one read (``host_reads``); ``send_sizes[s, d] == recv_sizes[d, s]``
+        must hold across the world, as the replicated control plane gives
+        them.  The rows are packed in (destination process, sender,
+        destination) order with one K1 ``gather_rows`` and landed with
+        another, output-driven as the stacked version lands them: receiver
+        ``d``'s lane ``j`` finds its source by a search over its landing
+        starts.  Rows a block carries past ``capacity`` are cut on
+        landing."""
+        L, C, W = x.shape
+        R = L * self.world
+        cap = output.shape[1] if output is not None else capacity
+        if cap is None:
+            raise ValueError("ragged_all_to_all needs output or capacity")
+        for name, t, shape in (("input_offsets", input_offsets, (L, R)), ("send_sizes", send_sizes, (L, R)),
+                               ("output_offsets", output_offsets, (R, L)), ("recv_sizes", recv_sizes, (L, R))):
+            if tuple(t.shape) != shape:
+                raise ValueError(f"ragged_all_to_all: {name} must be {shape}, got {tuple(t.shape)}")
+        if output is not None and tuple(output.shape) != (L, cap, W):
+            raise ValueError(f"ragged_all_to_all: output must be ({L}, {cap}, {W}), got {tuple(output.shape)}")
+        if L * C + cap >= 2**31:
+            raise ValueError(f"ragged_all_to_all: {L} x {C} rows and {cap} lanes overflow its int32 row index")
+        self.calls[Call("ragged_all_to_all", L * cap * W * x.element_size(), (L, cap, W))] += 1
+        dev, i32 = x.device, (lambda t: t.to(torch.int32))
+        P = self.world
+        # the one device-to-host read: both size tables at once
+        sizes = torch.stack([i32(send_sizes), i32(recv_sizes)]).cpu()
+        self.host_reads += 1
+        send_splits = sizes[0].reshape(L, P, L).sum(dim=(0, 2)).tolist()  # rows to each process
+        recv_splits = sizes[1].reshape(L, P, L).sum(dim=(0, 2)).tolist()  # rows from each process
+        n_send, n_recv = sum(send_splits), sum(recv_splits)
+
+        # pack: block (q, i, d) is sender i's rows toward d, d on process q
+        order = lambda t: t.reshape(L, P, L).permute(1, 0, 2).reshape(-1)
+        blk_size = order(i32(send_sizes))
+        flat_base = torch.arange(L, dtype=torch.int32, device=dev)[:, None] * C + i32(input_offsets)
+        blk_src = order(flat_base)
+        if n_send:
+            incl = torch.cumsum(blk_size, 0, dtype=torch.int32)
+            t = torch.arange(n_send, dtype=torch.int32, device=dev)
+            b = torch.searchsorted(incl, t, right=True)
+            src = blk_src[b] + t - (incl - blk_size)[b]
+            send = marshal_ops.gather_rows(x.reshape(1, L * C, W), src[None])[0]
+        else:
+            send = x.new_empty((0, W))
+        recv = torch.empty((n_recv, W), dtype=x.dtype, device=dev)
+        dist.all_to_all_single(recv, send, output_split_sizes=recv_splits, input_split_sizes=send_splits)
+        if n_recv == 0:  # a row for the landing gather to read; no lane lands
+            recv = x.new_zeros((1, W))
+
+        # land: the arrivals come in (source rank, my receiver) order
+        rsz = i32(recv_sizes).transpose(0, 1).contiguous()  # (R_src, L_dst)
+        rstart = (torch.cumsum(rsz.reshape(-1), 0, dtype=torch.int32) - rsz.reshape(-1)).reshape(R, L).T  # (L, R)
+        starts = i32(output_offsets).transpose(0, 1).contiguous()  # (L_dst, R_src)
+        lane = torch.arange(cap, dtype=torch.int32, device=dev).expand(L, cap).contiguous()
+        s = (torch.searchsorted(starts, lane, right=True) - 1).clamp_(min=0)
+        at = lambda t: torch.gather(t, 1, s)
+        src = at(rstart) + lane - at(starts)
+        out = marshal_ops.gather_rows(recv[None], src.reshape(1, L * cap))[0].view(L, cap, W)
+        if output is None:
+            return out
+        landed = (lane >= at(starts)) & (lane < at(starts + i32(recv_sizes)))
+        return torch.where(landed[:, :, None], out, output)
+
+    def gather_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``(L, ...) → (R, ...)``: every rank's rows, in every process, off
+        the recorder: for host summaries after a run and for tests, never
+        inside a round."""
+        out = torch.empty((x.shape[0] * self.world,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+        gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+        gather(out, x.contiguous())
+        return out
+
+    def all_gather(
+        self, x: torch.Tensor, *, digits: Optional[Sequence[int]] = None, tier: Optional[int] = None
+    ) -> torch.Tensor:
+        """Flat: ``(L, ...) → (L, R, ...)`` (a broadcast view of the gathered
+        rows); tier: ``(L, ...) → (L, A_l, ...)``, the local ranks' groups
+        picked from the gathered rows."""
+        full = self.gather_all(x)
+        if digits is None:
+            self._record("all_gather", x)
+            return full.unsqueeze(0).expand((x.shape[0],) + tuple(full.shape))
+        self._record("all_gather", x, tier)
+        R = math.prod(digits)
+        return full[_group_members(digits, tier, ranks=self.ranks(R, x.device))]
+
+    def ppermute(self, x: torch.Tensor) -> torch.Tensor:
+        """The ring hop: a local roll, and one ``batch_isend_irecv`` pair that
+        moves the last local rank's block to the next process's first
+        rank (none at a world of one)."""
+        self._record("ppermute", x)
+        if self.world == 1:
+            return torch.roll(x, 1, dims=0)
+        last = x[-1:].contiguous()
+        first = torch.empty_like(last)
+        ops = [dist.P2POp(dist.isend, last, (self.index + 1) % self.world),
+               dist.P2POp(dist.irecv, first, (self.index - 1) % self.world)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return torch.cat([first, x[:-1]], dim=0)
+
+    def psum(
+        self, x: torch.Tensor, *, digits: Optional[Sequence[int]] = None, tier: Optional[int] = None
+    ) -> torch.Tensor:
+        """Flat: the local sum, then an ``all_reduce(SUM)``: held once,
+        replicated.  Tier: the group gathered and summed in the stacked
+        order, held per local rank."""
+        if digits is None:
+            self._record("psum", x)
+            total = x.sum(dim=0, dtype=x.dtype)
+            dist.all_reduce(total, op=dist.ReduceOp.SUM)
+            return total
+        self._record("psum", x, tier)
+        R = math.prod(digits)
+        full = self.gather_all(x)
+        return full[_group_members(digits, tier, ranks=self.ranks(R, x.device))].sum(dim=1, dtype=x.dtype)
+
+    def pmin(self, x: torch.Tensor) -> torch.Tensor:
+        """The local minimum, then an ``all_reduce(MIN)``: held once."""
+        self._record("pmin", x)
+        low = x.amin(dim=0)
+        dist.all_reduce(low, op=dist.ReduceOp.MIN)
+        return low

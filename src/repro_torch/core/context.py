@@ -9,7 +9,10 @@ the collective entry points.  The paper's host operations:
   forwardRays()        → :meth:`forward_rays` (one round) and
                          :meth:`run_until_done` (the whole drive loop)
 
-There is no mesh: R ranks share one device, each a row of the leading axis;
+There is no mesh: R ranks share one device, each a row of the leading axis
+(or, with ``comm=`` a ``core.collectives.DistributedCollectives``, each
+process of a ``torch.distributed`` world holds its block of them and every
+queue is that block: ``launch.dist``);
 a multi-tier layout for ``exchange="hierarchical"`` is given as
 ``level_sizes`` (``core.collectives.node_layout`` / ``pod_layout`` /
 ``joint_tiers`` give the reference's meshes).  The context's ``comm``
@@ -70,6 +73,7 @@ class RafiContext:
         flow: str = "open",
         emit_reserve: int = -1,
         device=None,
+        comm=None,
     ):
         self.proto = proto
         self.item_nbytes = T.item_nbytes(proto)
@@ -82,16 +86,23 @@ class RafiContext:
             telemetry=telemetry, telemetry_window=telemetry_window, telemetry_buckets=telemetry_buckets,
             overflow=overflow, pipeline_shards=pipeline_shards, flow=flow, emit_reserve=emit_reserve,
         )
-        self.comm = StackedCollectives()
+        self.comm = StackedCollectives() if comm is None else comm
+        self.comm.local_ranks(num_ranks)  # refuse a rank count the world cannot split
 
     @property
     def num_ranks(self) -> int:
         return self.cfg.num_ranks
 
+    @property
+    def local_ranks(self) -> int:
+        """The ranks this process holds: ``num_ranks`` on the stacked
+        backend, ``num_ranks / world`` over a distributed one."""
+        return self.comm.local_ranks(self.cfg.num_ranks)
+
     def make_queue(self) -> Q.WorkQueue:
-        """Empty rank-stacked queues on the context's device."""
+        """Empty queues of the process's ranks on the context's device."""
         return Q.make_queue(
-            self.proto, self.cfg.capacity, num_ranks=self.num_ranks, device=self.device
+            self.proto, self.cfg.capacity, num_ranks=self.local_ranks, device=self.device
         )
 
     def forward_rays(self) -> Callable[[Q.WorkQueue], Tuple]:

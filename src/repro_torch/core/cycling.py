@@ -9,13 +9,15 @@ collective there is, at the price of R hops for full delivery.
 
 The ring is node-major (rank i sends to i + 1 on the stacked axis), so on a
 multi-tier layout only the hops that wrap a group boundary cross a slower
-tier.  A hop packs the item payload AND the in-flight destination into one
-``(R, C, W+1)`` word buffer (``dest`` in the first word) and compacts the
-passing rows in ONE payload pass, as ``cfg.marshal`` says: ``"sort"`` runs
-a one-bucket key sort (kernel K3 and ``torch.sort``) and gathers through
+tier; over a ``DistributedCollectives`` world only the hop from a process's
+last rank to the next process's first crosses a process boundary.  A hop
+packs the item payload AND the in-flight destination into one ``(R, C,
+W+1)`` word buffer (``dest`` in the first word) and compacts the passing
+rows in ONE payload pass, as ``cfg.marshal`` says: ``"sort"`` runs a
+one-bucket key sort (kernel K3 and ``torch.sort``) and gathers through
 the permutation (K1); ``"scatter"`` takes the passing mask's exclusive
-prefix (K6) as the compacted position and scatters there (K5).  The absorb
-is an ``enqueue`` (K6).
+prefix (K6) as the compacted position and scatters there (K5).  The
+absorb is an ``enqueue`` (K6).
 """
 from __future__ import annotations
 
@@ -59,9 +61,9 @@ def cycle_step(q: WorkQueue, absorbed: WorkQueue, cfg: ForwardConfig, *, comm: O
             "— use pipeline_shards=1 with the cycling pattern"
         )
     comm = StackedCollectives() if comm is None else comm
-    R, C = q.num_ranks, q.capacity
+    C = q.capacity
     dev = q.dest.device
-    me = torch.arange(R, dtype=torch.int32, device=dev)[:, None]
+    me = comm.ranks(cfg.num_ranks, dev).to(torch.int32)[:, None]
     lane = torch.arange(C, device=dev)[None, :]
     valid = lane < q.count[:, None]
     mine = valid & (q.dest == me)
@@ -131,19 +133,19 @@ def deliver_by_cycling(q: WorkQueue, cfg: ForwardConfig, *, comm: Optional[Stack
             num_ranks=cfg.num_ranks, hops=cfg.num_ranks,
             overflow=cfg.overflow, telemetry=cfg.telemetry,
         )
-    if q.num_ranks != cfg.num_ranks or q.capacity != cfg.capacity:
+    comm = StackedCollectives() if comm is None else comm
+    if q.num_ranks != comm.local_ranks(cfg.num_ranks) or q.capacity != cfg.capacity:
         raise ValueError(
             f"queue is ({q.num_ranks}, {q.capacity}) but the config is "
-            f"({cfg.num_ranks}, {cfg.capacity})"
+            f"({cfg.num_ranks}, {cfg.capacity}) over a world of {comm.world} process(es)"
         )
-    comm = StackedCollectives() if comm is None else comm
     dev = q.dest.device
     proto = T.tree_map(lambda a: a[0, 0], q.items)
-    absorbed = make_queue(proto, cfg.capacity, num_ranks=cfg.num_ranks, device=dev)
+    absorbed = make_queue(proto, cfg.capacity, num_ranks=q.num_ranks, device=dev)
     ring = None
     if cfg.telemetry:
         ring = TS.make_ring(1, window=cfg.num_ranks, buckets=cfg.telemetry_buckets,
-                            num_ranks=cfg.num_ranks, device=dev)
+                            num_ranks=q.num_ranks, device=dev)
     for _hop in range(cfg.num_ranks):
         out = cycle_step(q, absorbed, cfg, comm=comm)
         q, absorbed = out[:2]

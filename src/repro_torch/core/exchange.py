@@ -20,7 +20,10 @@ The caller packs the work items into ONE ``(R, C, W)`` buffer of words
   receive unpack pass.  On one card the stacked copy
   (``StackedCollectives.ragged_all_to_all``) is an output-driven gather
   that writes every lane of every receive queue whatever the live count;
-  only a real fabric would move the live rows alone.
+  over a ``torch.distributed`` world (``DistributedCollectives``) the
+  wire carries the live rows alone, with one host read a round for the
+  split sizes.  Every rank reads its own rows of the replicated control
+  plane (``comm.local``).
 * ``onehot`` — the all-gather reference oracle, a deliberately different
   code path used by the tests and the chip smoke run.
 
@@ -118,6 +121,8 @@ def exchange_padded(
         dest_clean=dest_clean, dest_rank=dest_rank, retain=retain,
         age=_fresh_age(packed) if retain and age is None else age,
         flow=flow, credits=credits,
+        # a tier-scoped round's peers are digit lanes: only a flat one has ranks
+        ranks=comm.ranks(R, packed.device) if digits is None else None,
     )
     inner = (
         ST.Marshal(R, S, shards=pipeline_shards),
@@ -198,23 +203,26 @@ def exchange_ragged(
     ``"CountExchange#k"`` when sharded)."""
     R = num_ranks
     B, C, _W = packed.shape
-    if B != R:
+    if B != comm.local_ranks(R):
         raise ValueError(f"exchange_ragged runs over the whole rank axis: {B} rows for {R} ranks")
     mark = on_stage or (lambda name: None)
     retain, credit = overflow == "retain", flow == "credit"
+    me = comm.ranks(R, packed.device)
     off = ST._excl_cumsum(send_counts, 1)
     send_gated, credits_out, grant = send_counts, None, None
     if credit:
-        grant = ST.credit_grant(credits, R)
+        grant = ST.credit_grant(credits, R, me)
         send_gated = torch.minimum(send_counts, grant)
         # the count call widened by one column: each rank's own-entry advert
-        own = torch.diagonal(credits).to(send_gated.dtype)[:, None]
-        gath = comm.all_gather(torch.cat([send_gated, own], dim=1))  # (R_me, R_src, R + 1)
+        own = torch.gather(credits, 1, me[:, None]).to(send_gated.dtype)
+        gath = comm.all_gather(torch.cat([send_gated, own], dim=1))  # (B_me, R_src, R + 1)
         cnt, credits_out = gath[0, :, :R], gath[:, :, R].to(torch.int32)
     else:
         cnt = comm.all_gather(send_counts)[0]
-    # every rank holds the same matrix: the replicated layout is derived once
-    send_sizes, output_offsets, recv_sizes = ST.ragged_control_plane(cnt, capacity)
+    # every rank holds the same matrix: the replicated layout is derived
+    # once, and each rank reads its own rows of it
+    ss_all, oo_all, rs_all = ST.ragged_control_plane(cnt, capacity)
+    send_sizes, recv_sizes = comm.local(ss_all), comm.local(rs_all)
     mark("CountExchange")
     send_drops = (send_counts - send_sizes).sum(dim=1, dtype=torch.int32)
     pending, front = (), None
@@ -228,7 +236,7 @@ def exchange_ragged(
         held = send_drops
         if credit:
             fresh = ST._fresh_advert(capacity - front, credit_reserve, R)
-            mine = torch.eye(R, dtype=torch.bool, device=packed.device)
+            mine = me[:, None] == torch.arange(R, device=packed.device)[None, :]
             credits_out = torch.where(mine, fresh[:, None], credits_out)
         send_drops = torch.zeros_like(send_drops)
         mark("SpillExtract")
@@ -239,7 +247,7 @@ def exchange_ragged(
     chunk = capacity // pipeline_shards
     out = None
     for k in range(pipeline_shards):
-        ss, oo = send_sizes, output_offsets
+        ss, oo = ss_all, oo_all
         if k > 0:
             # shard k's own count call, as the reference issues it (the
             # counts do not change between shards)
@@ -247,14 +255,14 @@ def exchange_ragged(
             mark(f"CountExchange#{k}")
         lo = torch.clamp(ss, max=k * chunk)
         size = torch.clamp(ss - k * chunk, 0, chunk)
-        land = oo + lo
+        land = comm.local(oo + lo, 1)  # (R_src, B_dst): where each block lands on my ranks
         if front is not None:
-            # land behind the receiver's spill front, cut at capacity
+            # land behind the receiver's spill front; the lanes stop at
+            # capacity, which cuts a block that would run past it
             land = land + front[None, :]
-            size = torch.clamp(torch.minimum(size, capacity - land), min=0)
         out = comm.ragged_all_to_all(
-            sorted_packed, out, input_offsets=off + lo, send_sizes=size, output_offsets=land,
-            recv_sizes=size.transpose(0, 1), capacity=capacity,
+            sorted_packed, out, input_offsets=off + comm.local(lo), send_sizes=comm.local(size),
+            output_offsets=land, recv_sizes=comm.local(size.transpose(0, 1)), capacity=capacity,
         )
         mark("PayloadExchange" if pipeline_shards == 1 else f"PayloadExchange#{k}")
     new_count = recv_sizes.sum(dim=1, dtype=torch.int32)
@@ -266,9 +274,9 @@ def exchange_ragged(
     if telemetry:
         col_demand = cnt.sum(dim=0, dtype=torch.int32)  # (R,), the same on every rank
         stats = TS.single_tier_stats(
-            col_demand.expand(R, R), capacity, telemetry_buckets,
+            col_demand.expand(B, R), capacity, telemetry_buckets,
             sent_rows=send_sizes.sum(dim=1, dtype=torch.int32), stage_drops=send_drops,
-            recv_total=col_demand, recv_drops=recv_cut,
+            recv_total=comm.local(col_demand), recv_drops=recv_cut,
             rows_held=held if retain else None,
             credits_granted=torch.minimum(grant, send_counts).sum(dim=1, dtype=torch.int32) if credit else None,
         )
@@ -350,7 +358,7 @@ def exchange_hierarchical(
         packed=packed, perm=perm, send_counts=send_counts, marshal=marshal,
         dest_clean=dest_clean, dest_rank=dest_rank, retain=retain,
         age=_fresh_age(packed) if retain and age is None else age,
-        flow=flow, credits=credits,
+        flow=flow, credits=credits, ranks=comm.ranks(R, packed.device),
     )
     if credit:
         st = ST.CreditGate(R)(st)
@@ -476,7 +484,7 @@ def exchange_onehot(
 
     all_packed = comm.all_gather(sorted_packed)  # (R_me, R_src, C, W)
     all_dest = comm.all_gather(dest)  # (R_me, R_src, C)
-    me = torch.arange(rows, dtype=torch.int32, device=dev)[:, None, None]
+    me = comm.ranks(R, dev).to(torch.int32)[:, None, None]
     mine = (all_dest == me).reshape(rows, R * cap)
     # mine first, stable (source, lane) order
     order = torch.sort((~mine).to(torch.int8), dim=1, stable=True).indices[:, :capacity]

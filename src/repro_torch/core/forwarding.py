@@ -347,7 +347,12 @@ def forward_work(
     and no launch is added, retained rows keep the remapped destination, and
     ``None`` and an all-True mask give the same round bit for bit.
 
-    ``comm`` records the round's collectives.  ``on_stage(name)``, if given,
+    ``comm`` is the collective backend and records the round's calls
+    (None: a fresh ``StackedCollectives``).  Over a
+    ``DistributedCollectives`` world ``q`` is the process's block of
+    ``comm.local_ranks(num_ranks)`` ranks, every per-rank input and output
+    (``age``, ``credits``, the stats rows) is that block's, and ``total``
+    is the world's.  ``on_stage(name)``, if given,
     is called after each step of the round ("plan", "pack", each exchange
     stage on ``padded`` and ``ragged`` and, with its tier, on
     ``hierarchical`` —
@@ -355,10 +360,11 @@ def forward_work(
     ``onehot``, "merge" under retain, "unpack", "psum"), e.g. to record a
     CUDA event there; it must not change the round.
     """
-    if q.num_ranks != cfg.num_ranks or q.capacity != cfg.capacity:
+    comm = StackedCollectives() if comm is None else comm
+    if q.num_ranks != comm.local_ranks(cfg.num_ranks) or q.capacity != cfg.capacity:
         raise ValueError(
             f"queue is ({q.num_ranks}, {q.capacity}) but the config is "
-            f"({cfg.num_ranks}, {cfg.capacity})"
+            f"({cfg.num_ranks}, {cfg.capacity}) over a world of {comm.world} process(es)"
         )
     return _forward(q, cfg, age=age, health=health, credits=credits, comm=comm, on_stage=on_stage)
 

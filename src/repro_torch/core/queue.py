@@ -2,7 +2,10 @@
 
 One queue holds every rank's queue: item leaves ``(R, C, ...)``, ``dest
 (R, C)``, ``count (R,)``, ``drops (R,)`` — the layout of the reference's
-``RafiContext`` global queue with the rank axis split out.  Entries
+``RafiContext`` global queue with the rank axis split out.  Over a
+``torch.distributed`` world (``core.collectives.DistributedCollectives``)
+a process's queue is its local block: R reads L, its ranks, while every
+``dest`` stays a global rank id.  Entries
 ``[0, count[r])`` of rank r are valid and contiguous.  Kernels emit
 ``(item, dest, mask)`` lanes; :func:`enqueue` appends the masked lanes in
 lane order by an exclusive prefix sum (kernel K6, ``kernels/compact``) —
@@ -102,7 +105,12 @@ def enqueue(q: WorkQueue, items, dest, mask, *, num_ranks: int | None = None) ->
     emits): it is normalised with ``!= 0`` BEFORE it meets the dest check.
     A float ``dest`` raises — it would truncate-cast and misroute.  With
     ``num_ranks`` a masked lane with ``dest >= num_ranks`` raises here
-    instead of being sanitised to a silent drop in the marshal.
+    instead of being sanitised to a silent drop in the marshal.  Over a
+    ``DistributedCollectives`` world ``q`` is the process's block of ranks
+    and the check reads that block alone, so it may raise in one process
+    only: that process's error ends the world (``launch.dist.spawn_world``
+    and ``torchrun`` stop the others), never a wait on a collective the
+    raising process will not issue.
     """
     cap = q.capacity
     dest = torch.as_tensor(dest, device=q.dest.device)

@@ -32,11 +32,14 @@ remapped ranks.
 Only resident work (``dest == DISCARD``) is re-addressed; pending items
 (``dest >= 0``) keep their destination and ride the same round.  The plan
 is computed per rank from the gathered counts (every row of the gather is
-the same vector, so every rank derives the same plan) with no host sync.
+the same vector, so every rank derives the same plan) with no host sync;
+a rank finds itself on the line by its global id (``comm.ranks``), so the
+plan is the same over a ``DistributedCollectives`` world.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -71,11 +74,11 @@ def plan_rebalance(
     ``digits`` and ``tier`` the line is each rank's tier group of
     ``num_ranks`` lanes (a tier ``all_gather``)."""
     comm = StackedCollectives() if comm is None else comm
-    counts = comm.all_gather(count, digits=digits, tier=tier)  # (R, N): my line
+    counts = comm.all_gather(count, digits=digits, tier=tier)  # (B, N): my line
     if digits is None:
-        me = torch.arange(counts.shape[0], device=count.device)
+        me = comm.ranks(counts.shape[1], count.device)
     else:
-        me = tier_digit(digits, tier, device=count.device)
+        me = tier_digit(digits, tier, ranks=comm.ranks(math.prod(digits), count.device))
     start = torch.gather(_excl(counts), 1, me[:, None])[:, 0]
     target = torch.clamp(_ceil_div(counts.sum(dim=1, dtype=counts.dtype), num_ranks), min=1)
     return start.to(torch.int32), target.to(torch.int32)
@@ -94,10 +97,10 @@ def plan_rebalance_hierarchical(
     line and the inclusive prefix of the deficit slots."""
     comm = StackedCollectives() if comm is None else comm
     F = int(level_sizes[-1])
-    counts = comm.all_gather(count)  # (R, R), lexicographic
+    counts = comm.all_gather(count)  # (B, R), lexicographic
     B, R = counts.shape
     G = R // F
-    me = torch.arange(B, device=count.device)
+    me = comm.ranks(R, count.device)  # row i is global rank me[i]
     grp = me // F
     gtot = counts.reshape(B, G, F).sum(dim=2, dtype=counts.dtype)  # (B, G)
     total = gtot.sum(dim=1, keepdim=True, dtype=counts.dtype)
@@ -113,7 +116,7 @@ def plan_rebalance_hierarchical(
     recv = torch.clamp(torch.minimum(cum_def, s_total) - torch.minimum(cum_def - deficit, s_total), min=0)
     lane_target = torch.clamp(_ceil_div(kept + recv, F), min=1)
     off = _excl(counts)  # (B, R) resident offsets
-    start = off[me, me] - off[me, grp * F]
+    start = (torch.gather(off, 1, me[:, None]) - torch.gather(off, 1, (grp * F)[:, None]))[:, 0]
     i32 = lambda t: t.to(torch.int32)
     return {"start": i32(start), "group": i32(grp), "kept": i32(kept), "lane_target": i32(lane_target),
             "sur_start": i32(cum_sur - surplus), "cum_def": i32(cum_def)}
@@ -218,7 +221,7 @@ def rebalance(
         sub = _intra_config(cfg)
         F, fast = sub.num_ranks, len(cfg.level_sizes) - 1
         dev = q.dest.device
-        me = torch.arange(q.num_ranks, dtype=torch.int32, device=dev)[:, None]
+        me = comm.ranks(cfg.num_ranks, dev).to(torch.int32)[:, None]
         lane = torch.arange(q.capacity, device=dev)[None, :]
         # pending items carry GLOBAL destinations but the round's rank space
         # is the F lanes of my group: in-group ones translate to their lane,

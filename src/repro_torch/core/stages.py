@@ -54,8 +54,10 @@ computation) and :func:`ragged_send_buffer` (the one payload pass into
 destination order).
 
 Each rank's digit on a tier (``jax.lax.axis_index`` of the reference) is
-read from the stacked axis (``collectives.tier_digit``), so ``seg_dest``
-stays per rank.
+read from the global ids of the ranks the state holds (``RoundState.ranks``,
+the collective backend's ``ranks(R)``, through ``collectives.tier_digit``),
+so ``seg_dest`` stays per rank on either backend.  Destinations are global
+rank ids throughout; a state's leading axis B is the ranks it holds.
 
 Credit flow (the backpressure law).  The carried credits are ``(B, R)``:
 row b is rank b's estimate of every destination's free space (the
@@ -367,6 +369,8 @@ class RoundState:
     retain: bool = False
     age: Any = None  # (B, C) retain: rounds each lane has waited
 
+    ranks: Any = None  # (B,) global ids of the ranks held (None: 0 … B-1)
+
     # credit flow — None / "open" unless ForwardConfig(flow="credit")
     flow: str = "open"
     credits: Any = None  # (B, R) carried-in per-destination free estimates
@@ -409,12 +413,13 @@ class RoundState:
     recv_drops: Any = None  # (B,)
 
 
-def credit_grant(credits: torch.Tensor, num_ranks: int) -> torch.Tensor:
+def credit_grant(credits: torch.Tensor, num_ranks: int, ranks: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Each holder's grant toward every destination, ``(B, R)`` int32: the
     floor share plus rank-ordered residual of the clipped advert, ``free //
-    R + (me < free % R)`` with ``me`` the row (the holding rank)."""
+    R + (me < free % R)`` with ``me`` the holding rank's global id
+    (``ranks``; None: the row)."""
     free = torch.clamp(credits, min=0)
-    me = torch.arange(free.shape[0], device=free.device)[:, None]
+    me = (torch.arange(free.shape[0], device=free.device) if ranks is None else ranks)[:, None]
     return (free // num_ranks + (me < free % num_ranks).to(free.dtype)).to(torch.int32)
 
 
@@ -423,12 +428,13 @@ class CreditGate:
     """The backpressure law's sender gate: rank ``me`` may ship
     ``free[d] // R + (me < free[d] % R)`` rows to destination ``d`` — floor
     share plus rank-ordered residual of the advert, so the grants of all R
-    senders sum to exactly the advertised room.  ``me`` is the rank axis."""
+    senders sum to exactly the advertised room.  ``me`` is the holding rank
+    (``RoundState.ranks``)."""
 
     num_ranks: int
 
     def __call__(self, st: RoundState) -> RoundState:
-        st.credit_allow = credit_grant(st.credits, self.num_ranks)
+        st.credit_allow = credit_grant(st.credits, self.num_ranks, st.ranks)
         st.credits_out = st.credits
         return st
 
@@ -649,7 +655,7 @@ class CountExchange:
         R, cap = self.num_ranks, self.capacity
         stride = math.prod(self.digits[self.tier + 1:])
         dev = counts.device
-        me = torch.arange(B, device=dev)[:, None]  # (B, 1) global rank
+        me = self.comm.ranks(R, dev)[:, None]  # (B, 1) global rank
         r = torch.arange(R, device=dev)[None, :]  # (1, R) destination
         cur = st.credits_out
         if self.kind == "final":
@@ -786,7 +792,7 @@ class AdvanceTier:
             # sub-segment k of the NEW order (s_l, rest) holds the
             # destination whose digit l equals MINE, shared with every peer
             # of the remaining (slower) stages
-            me_l = tier_digit(self.digits, self.tier, device=st.rcv.device)
+            me_l = tier_digit(self.digits, self.tier, ranks=st.ranks)
             mine = torch.gather(st.seg_dest.reshape(B, G, A), 2, me_l[:, None, None].expand(B, G, 1))
             st.seg_dest = mine.reshape(B, G).repeat(1, A)
         return st

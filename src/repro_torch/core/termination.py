@@ -30,6 +30,12 @@ is a clamp, not a branch, so the gate adds no host sync.
 ``health=`` (a constant ``(R,) bool`` mask) re-addresses every forward's
 destinations away from unhealthy ranks (``core.health``).
 
+Over a ``DistributedCollectives`` world (``comm=``) the queue, the ages,
+the credits (``(L, R)``: row = a local rank) and the ring are the
+process's block of L ranks.  The loop condition reads the all-reduced
+``total``, so every process leaves the loop in the same round and issues
+the same collectives; the drive makes no host branch on a local value.
+
 With ``telemetry=True`` a ``telemetry.StatsRing`` of the last
 ``telemetry_window`` rounds rides the carry: every forward is pushed,
 including the initial routing round, with ``emit_overflow`` stamped by the
@@ -134,7 +140,7 @@ def drive_start(
     delivered + in-flight + drops`` holds exactly."""
     credits0 = None
     if cfg.flow == "credit":
-        credits0 = torch.zeros(cfg.num_ranks, cfg.num_ranks, dtype=torch.int32, device=q0.dest.device)
+        credits0 = torch.zeros(q0.num_ranks, cfg.num_ranks, dtype=torch.int32, device=q0.dest.device)
     q1, total0, age1, credits1, stats0 = _fwd(q0, None, cfg, comm, health, credits0)
     carry = {"q": q1, "aux": aux0, "total": total0, "rnd": 0, "drops": q1.drops}
     if cfg.overflow == "retain":
@@ -143,7 +149,7 @@ def drive_start(
         carry["credits"] = credits1
     if cfg.telemetry:
         ring = TS.make_ring(TS.num_tiers(cfg), window=cfg.telemetry_window, buckets=cfg.telemetry_buckets,
-                            num_ranks=cfg.num_ranks, device=q0.dest.device)
+                            num_ranks=q0.num_ranks, device=q0.dest.device)
         carry["ring"] = TS.ring_push(ring, TS.attach_emit_overflow(stats0, q0.drops))
     if accounting:
         carry["emitted"] = (q0.count + q0.drops).to(torch.int32)
@@ -173,7 +179,8 @@ def drive_segment(
     retain = cfg.overflow == "retain"
     credit = cfg.flow == "credit"
     track = "emitted" in carry
-    diag = torch.arange(cfg.num_ranks, device=carry["q"].dest.device)
+    # my own entry of the credits: column = my global rank
+    me = (StackedCollectives() if comm is None else comm).ranks(cfg.num_ranks, carry["q"].dest.device)
     c = dict(carry)
     # the one host sync per round: the loop condition reads the global count
     while c["rnd"] < seg_end and int(c["total"]) > 0:
@@ -187,7 +194,8 @@ def drive_segment(
             if credit:
                 # my outstanding advert: my own entry (the count call hands
                 # every rank its own fresh value back)
-                limit = (cfg.capacity - torch.clamp(c["credits"][diag, diag], min=0)).to(torch.int32)
+                own = torch.gather(c["credits"], 1, me[:, None])[:, 0]
+                limit = (cfg.capacity - torch.clamp(own, min=0)).to(torch.int32)
                 kw = {"headroom": torch.clamp(limit - n_ret, min=0)} if wants_headroom else {}
             else:
                 kw = {"headroom": torch.clamp(cfg.capacity - n_ret, min=0)} if wants_headroom else {}

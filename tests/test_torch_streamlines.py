@@ -57,7 +57,8 @@ def test_streamlines_default_seeds_are_deterministic():
 
 def test_streamlines_rounds_keep_the_collective_budget(monkeypatch):
     """Every forwarding round of the app's drive issues exactly one payload
-    and one count all_to_all (read from the context's call recorder)."""
+    and one count all_to_all (read from the context's call recorder), and
+    the trace merge after the drive is one pmin."""
     seen = []
     real_init = RafiContext.__init__
 
@@ -72,5 +73,6 @@ def test_streamlines_rounds_keep_the_collective_budget(monkeypatch):
     assert ctx.comm.count("all_to_all") == 2 * (stats["rounds"] + 1)
     assert ctx.comm.count("psum") == stats["rounds"] + 1
     assert ctx.comm.count("all_gather") == 0
+    assert ctx.comm.count("pmin") == 1
     # the recorder counts calls: one entry per distinct call, not per round
-    assert len(ctx.comm.calls) <= 3
+    assert len(ctx.comm.calls) <= 4
