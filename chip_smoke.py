@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all started together, linked into one library under
-``build/``) and runs twenty phases on ``cuda:0``:
+``build/``) and runs twenty-one phases on ``cuda:0``:
 
   1. kernels     — all ten kernels (K1 gather_rows, K2 unmarshal, K3
                    pack_and_histogram, K4 rank_and_histogram, K5
@@ -323,7 +323,24 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    particles, 64 steps) and N-body (4,096 bodies, 2 steps)
                    on the backend bit-equal to their stacked runs; K1–K6,
                    K8 and K9 counted on the path ``dist``;
- 20. report      — one JSON line of the kernels (launches on the paths that
+ 20. dist_paths  — the paths beside the round on the same backend, NCCL at
+                   a world of one, each beside its stacked run:
+                   ``rotating_hotspot(8, 8, 32768)`` through the
+                   checkpointed retain drive (C=262,144, 8,192 slots, a
+                   checkpoint every 3 rounds) preempted at 5 and resumed,
+                   its result and every boundary's digests equal; the
+                   tuner on the drift burst, burst for burst;
+                   ``profile_phases`` of the Fig-8 round, keys and calls
+                   equal; VoPaT (scatter), lander, deep compositing and
+                   schlieren at 1024×1024, R=8, images and stats bit-equal,
+                   the frame-buffer ``psum`` timed alone; a llama4-scout
+                   decode step at 4 of 48 layers, layout (1, 8), 16 slots,
+                   logits within phase lm's plane tolerance, tokens and
+                   drops equal; a qwen2-7b train step at 4 of 28 layers,
+                   8 × 512, with its ``grad_all_reduce``, parameters
+                   bit-equal; each path's NCCL calls, event times and
+                   device ms by part; K1–K6 counted on ``dist_paths``;
+ 21. report      — one JSON line of the kernels (launches on the paths that
                    run them, errors, bounds; ``ms``, ``plain_ms`` and
                    ``library_ms`` are device times, ``call_ms`` the event
                    pair's; device events a call), the card's name and
@@ -416,7 +433,10 @@ ROUND_PATHS = (LOSSLESS_PATHS + TELEMETRY_PATHS + PIPELINE_PATHS + CREDIT_PATHS 
                + OBS_PATHS + RAGGED_PATHS)
 APP_PATHS = ("streamlines", "nbody", "lander", "schlieren")  # the sort-marshal apps: K3, K1, K2, K6
 LM_PATHS = ("lm_serve", "lm_prefill", "lm_train")  # the MoE dispatch rounds of the LM paths: K6, K3, K1, K2
-DIST_PATHS = ("dist",)  # every run of phase dist on the torch.distributed backend (NCCL, a world of one)
+# every run on the torch.distributed backend (NCCL, a world of one): phase
+# dist's round, streamlines and N-body; phase dist_paths' drives, tuner,
+# phases, apps and LM steps
+DIST_PATHS = ("dist", "dist_paths")
 LAUNCH_PATHS = {
     "pack_and_histogram": APP_PATHS + ROUND_PATHS + LM_PATHS + DIST_PATHS,
     "gather_rows": APP_PATHS + ROUND_PATHS + LM_PATHS + DIST_PATHS,
@@ -1636,13 +1656,15 @@ def _sync_warnings(fn, calls: int = 2) -> int:
     return min(counts)
 
 
-def drift_run_burst(dev, *, capacity, n_emit, rounds, R=8, words=1):
+def drift_run_burst(dev, *, capacity, n_emit, rounds, R=8, words=1, comm=None):
     """``tests/test_tune.py``'s drifting hot-spot burst through the port's
     drive: half of each rank's ``n_emit`` emissions chase a hot destination
     that moves every second round, the rest spread; body round ``rnd`` emits
     round ``rnd + 1``'s, DISCARD from ``rounds`` on.  Rows are ``words``
     words (1: the test's unit item; 11: the Fig-8 ray, a uid and ten words
-    of ballast).  Returns ``run_burst(cfg) -> (cumulative drops, ring)``."""
+    of ballast).  Returns ``run_burst(cfg) -> (cumulative drops, ring)``;
+    with ``comm`` (a ``DistributedCollectives``) the burst of the process's
+    ranks on that backend."""
     import dataclasses
 
     import torch
@@ -1656,9 +1678,10 @@ def drift_run_burst(dev, *, capacity, n_emit, rounds, R=8, words=1):
         ballast: torch.Tensor  # (words - 1,) f32
 
     proto = DriftRow(uid=torch.zeros((), dtype=torch.int32), ballast=torch.zeros(words - 1))
-    me = torch.arange(R, device=dev)[:, None]
+    me = torch.arange(R, device=dev)[:, None] if comm is None else comm.ranks(R, dev)[:, None]
+    L = me.shape[0]
     lane = torch.arange(n_emit, device=dev)[None, :]
-    ones = torch.ones(R, n_emit, dtype=torch.bool, device=dev)
+    ones = torch.ones(L, n_emit, dtype=torch.bool, device=dev)
 
     def emits(rnd):
         hot = (rnd // 2) % R
@@ -1669,22 +1692,23 @@ def drift_run_burst(dev, *, capacity, n_emit, rounds, R=8, words=1):
 
     def round_fn(q_in, acc, rnd):
         items, dest = emits(rnd + 1)
-        return enqueue(make_queue(proto, capacity, num_ranks=R, device=dev), items, dest, ones), acc
+        return enqueue(make_queue(proto, capacity, num_ranks=L, device=dev), items, dest, ones), acc
 
     def run_burst(cfg):
         items, dest = emits(0)
-        q0 = enqueue(make_queue(proto, capacity, num_ranks=R, device=dev), items, dest, ones)
-        q, _acc, _rounds, _done, ring = run_until_done(round_fn, q0, torch.zeros(R, device=dev), cfg,
-                                                       max_rounds=rounds + 2)
+        q0 = enqueue(make_queue(proto, capacity, num_ranks=L, device=dev), items, dest, ones)
+        q, _acc, _rounds, _done, ring = run_until_done(round_fn, q0, torch.zeros(L, device=dev), cfg,
+                                                       max_rounds=rounds + 2, comm=comm)
         return int(q.drops.sum()), ring
 
     return run_burst
 
 
-def _autotune(dev, exchange, *, capacity, n_emit, rounds, caps, words=1, max_bursts=8):
+def _autotune(dev, exchange, *, capacity, n_emit, rounds, caps, words=1, max_bursts=8, comm=None):
     """``autotune_forward`` on the drift burst from ``caps``: ``(final cfg,
     report, bounds, wall seconds a burst)``; the bounds are the §6.3 worst
-    case, ``(n_emit,)`` flat and ``(4, 2, 1)·n_emit`` on 2×2×2."""
+    case, ``(n_emit,)`` flat and ``(4, 2, 1)·n_emit`` on 2×2×2; ``comm`` the
+    backend (None: stacked)."""
     import torch
 
     from repro_torch.core import ForwardConfig
@@ -1697,12 +1721,12 @@ def _autotune(dev, exchange, *, capacity, n_emit, rounds, caps, words=1, max_bur
     else:
         cfg = ForwardConfig(R, capacity, exchange="hierarchical", level_sizes=(2, 2, 2), level_capacities=caps, **kw)
         bounds = (4 * n_emit, 2 * n_emit, n_emit)
-    run_burst = drift_run_burst(dev, capacity=capacity, n_emit=n_emit, rounds=rounds, words=words)
+    run_burst = drift_run_burst(dev, capacity=capacity, n_emit=n_emit, rounds=rounds, words=words, comm=comm)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
     final, report = autotune_forward(run_burst, cfg, policy=TunePolicy(headroom=1.25, granularity=8), bounds=bounds,
-                                     max_bursts=max_bursts)
+                                     max_bursts=max_bursts, comm=comm)
     return final, report, bounds, (time.perf_counter() - t0) / max(report.bursts, 1)
 
 
@@ -5059,6 +5083,303 @@ def phase_dist(dev, R=8, C=262144, reps=10, SL=("ABC", 0, 131072), SL_STEPS=64, 
     return out, {"dist": launches}
 
 
+# ------------------------------------------------------------ 20. dist_paths
+def _call_counts(comm):
+    """A backend's call record as ``{kind[tier]: calls}``."""
+    out = {}
+    for c, n in comm.calls.items():
+        key = c.kind if c.tier is None else f"{c.kind}{c.tier}"
+        out[key] = out.get(key, 0) + n
+    return out
+
+
+def _once(fn):
+    """``(fn(), ms)``: one call timed by a CUDA event pair (host time on the CPU)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        t0 = time.perf_counter()
+        return fn(), (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = fn()
+    end.record()
+    end.synchronize()
+    return res, start.elapsed_time(end)
+
+
+def _paired(label, stacked_fn, dist_fn, same, comm, *, reps=1, profile=True):
+    """One path on the stacked backend and on the distributed one: each run
+    once, event-timed (the dist run's calls recorded), its result checked
+    with ``same(stacked, dist)``; with ``reps > 1`` the event median of
+    ``reps`` further runs of each instead of the first; with ``profile`` one
+    profiled run of each (``_device_split``).  Returns ``(record, same,
+    dist result)`` and prints one line."""
+    import torch
+
+    s_res, s_ms = _once(stacked_fn)
+    comm.reset()
+    d_res, d_ms = _once(dist_fn)
+    rec = {"nccl_calls": _call_counts(comm)}
+    ok = same(s_res, d_res)
+    if reps > 1:
+        s_ms, d_ms = cuda_ms(stacked_fn, reps=reps, warmup=0), cuda_ms(dist_fn, reps=reps, warmup=0)
+    rec.update(stacked_ms=s_ms, dist_ms=d_ms)
+    if profile and torch.cuda.is_available():
+        rec["stacked_split"] = _device_split(stacked_fn, calls=1, warmup=0)
+        rec["dist_split"] = _device_split(dist_fn, calls=1, warmup=0)
+        total = lambda d: None if d is None else sum(d.values())
+        rec["stacked_device_ms"], rec["dist_device_ms"] = total(rec["stacked_split"]), total(rec["dist_split"])
+    fmt = lambda d: "not measured" if d is None else ", ".join(f"{k} {v:.4f}" for k, v in d.items())
+    print(f"  {label}: event {'median ' if reps > 1 else ''}{d_ms:.4f} ms (stacked {s_ms:.4f}); device "
+          f"{fmt(rec.get('dist_split'))} (stacked: {fmt(rec.get('stacked_split'))}); NCCL calls {rec['nccl_calls']}",
+          flush=True)
+    return rec, ok, d_res
+
+
+def phase_dist_paths(dev, R=8, E=32768, C=262144, S=8192, EVERY=3, PREEMPT=5, TUNE=(262144, 24576, 8, 2048),
+                     FIG8_S=65536, APP_SIZE=1024, LM_LAYERS=4, SLOTS=16, MAX_LEN=128, LAYOUT=(1, 8),
+                     TRAIN_LAYERS=4, BATCH=(8, 512), widths=None, profile=True, reps=3):
+    """The paths beside the round on the ``torch.distributed`` backend, NCCL
+    at a world of one (``launch.dist.init_world``), each beside the stacked
+    run: (a) ``rotating_hotspot(R, 8, E)`` through the checkpointed retain
+    drive at C, S peer slots, a checkpoint every ``EVERY`` rounds, preempted
+    at ``PREEMPT`` and resumed: result dict and every boundary's digests
+    equal; (b) ``autotune_forward`` on the drift burst (``TUNE``: capacity,
+    emits, rounds, first slots): every burst's record and the final config
+    equal; (c) ``profile_phases`` of the Fig-8 round (flat sort, ``FIG8_S``
+    slots): the phase keys and the call record equal, each stage's time
+    beside the other's; (d) VoPaT (scatter), lander (forwarding and deep
+    compositing at 4 fragments) and schlieren at ``APP_SIZE``², R: images
+    and stats bit-equal, the frame-buffer merge's ``psum`` timed alone;
+    (e) a llama4-scout decode step at ``LM_LAYERS`` of 48 layers, layout
+    ``LAYOUT``, ``SLOTS`` slots: logits within phase lm's plane tolerance,
+    greedy tokens and drops equal; (f) one qwen2-7b train step at
+    ``TRAIN_LAYERS`` of 28 layers, batch ``BATCH``, with the gradient
+    ``grad_all_reduce`` (one term at a world of one): the parameters equal
+    the stacked step's bit for bit.  The NCCL calls each path makes (the
+    stacked run makes the same calls as tensor operations), the event
+    times (the median of ``reps`` runs after the first for (a), (b), (e)
+    and (f); the one checked run for the renders) and device ms by part
+    (``_device_split``) beside the stacked ones, and the launches of
+    every backend run on the path ``dist_paths``.  ``widths`` narrows the
+    LM configs for a rehearsal."""
+    import dataclasses as dc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch import chaos as TC
+    from repro_torch import kernels as KN
+    from repro_torch.apps import lander, schlieren, vopat
+    from repro_torch.chaos import driver as TD
+    from repro_torch.configs import get_config
+    from repro_torch.core import ForwardConfig, StackedCollectives
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import dist as LD
+    from repro_torch.launch.mesh import Layout
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.obs import phases as OP
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    out, launches = {}, {}
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="rafi_dist_paths_"))
+    t_phase = time.perf_counter()
+
+    def counted(fn):
+        """``fn`` on the backend with its launches summed on the path."""
+        def run():
+            KN.reset_launch_counts()
+            res = fn()
+            sync()
+            for k, v in KN.launch_counts().items():
+                launches[k] = launches.get(k, 0) + v
+            return res
+        return run
+
+    try:
+        comm = LD.init_world(dev, world=1, rank=0, store=f"file://{tmp}/store")
+        check(tdist.get_backend() == ("nccl" if cuda else "gloo") and comm.world == 1,
+              f"dist_paths: {tdist.get_backend()} set up at a world of one")
+
+        # (a) the checkpointed drive, preempted and resumed
+        sc = TC.rotating_hotspot(R, 8, E)
+        kw = dict(capacity=C, peer_capacity=S, overflow="retain", device=dev, checkpoint_every=EVERY, keep=99,
+                  preempt_at=PREEMPT)
+        n_run = {"stacked": 0, "dist": 0}
+
+        def drive(backend):
+            def run():
+                n_run[backend] += 1
+                d = tmp / f"{backend}_{n_run[backend]}"
+                res = TC.run_scenario_checkpointed(R, sc, ckpt_dir=d, comm=comm if backend == "dist" else None, **kw)
+                return res, TD.boundary_digests(d)
+            return run
+
+        def same_drive(a, b):
+            skip = ("ckpt_dir",)
+            return (_same_result({k: v for k, v in a[0].items() if k not in skip},
+                                 {k: v for k, v in b[0].items() if k not in skip}) and a[1] == b[1])
+
+        rec, ok, (res, digests) = _paired("(a) checkpointed drive", drive("stacked"), counted(drive("dist")),
+                                          same_drive, comm, reps=reps, profile=profile)
+        check(ok and res["preempted"] and res["done"] and res["lost"] == 0 and res["drops"] == 0,
+              f"(a) rotating_hotspot({R}, 8, {E}) checkpointed, preempted at {PREEMPT} and resumed on NCCL == "
+              f"stacked: result dict and the digests of {len(digests)} boundaries, {res['rounds']} rounds")
+        out["drive"] = rec
+
+        # (b) the tuner
+        cap, n_emit, rounds, start = TUNE
+
+        def tune(c):
+            final, report, _b, _w = _autotune(dev, "padded", capacity=cap, n_emit=n_emit, rounds=rounds, caps=(start,),
+                                              words=11, comm=c)
+            return final, [dc.asdict(s) for s in report.steps], report.converged
+
+        rec, ok, (final, steps, conv) = _paired("(b) autotune_forward", lambda: tune(None), counted(lambda: tune(comm)),
+                                                lambda a, b: (a[0].peer_capacity, a[1], a[2]) == (
+                                                    b[0].peer_capacity, b[1], b[2]), comm, reps=reps, profile=False)
+        check(ok and conv, f"(b) the tuner on NCCL reaches the stacked run's capacities burst for burst: "
+                           f"{[s['capacities'] for s in steps]} -> {final.peer_capacity}, converged {conv}")
+        out["tune"] = dict(rec, bursts=len(steps), final=final.peer_capacity)
+
+        # (c) the phase profiler at the Fig-8 shape
+        Ray44 = _ray44_types()
+        proto = Ray44(origin=torch.zeros(3), direction=torch.zeros(3), tmin=torch.zeros(()),
+                      pixel=torch.zeros((), dtype=torch.int32), integral=torch.zeros(()), extra=torch.zeros(2))
+        cfg = ForwardConfig(R, C, peer_capacity=FIG8_S)
+        scomm = StackedCollectives()
+        phases = {}
+        for label, c in (("stacked", scomm), ("dist", comm)):
+            c.reset()
+            run = (lambda c=c: OP.profile_phases(cfg, n_emit=C, cap=C, proto=proto, device=dev, comm=c))
+            phases[label] = (counted(run) if label == "dist" else run)()
+            phases[label + "_calls"] = dict(c.calls)
+        out["phases_nccl_calls"] = _call_counts(comm)
+        check(list(phases["dist"]) == list(phases["stacked"]) == phase_vocabulary(cfg)
+              and phases["dist_calls"] == phases["stacked_calls"],
+              f"(c) profile_phases on NCCL: the stacked keys {list(phases['stacked'])} and call record")
+        out["phases"] = {k: phases[k] for k in ("stacked", "dist")}
+        print("  (c) stage us (NCCL / stacked): " + ", ".join(f"{k} {phases['dist'][k]:.1f} / {v:.1f}"
+                                                            for k, v in phases["stacked"].items()), flush=True)
+
+        # (d) the apps at APP_SIZE², R ranks
+        def same_image(a, b):  # every image and every statistic, bit for bit
+            return (all(np.array_equal(x, y) for x, y in zip(a[:-1], b[:-1])) and a[-1].keys() == b[-1].keys()
+                    and all(np.array_equal(a[-1][k], b[-1][k]) for k in a[-1]))
+
+        apps = {
+            "vopat": lambda c: vopat.render(vopat.VopatScene(width=APP_SIZE, height=APP_SIZE), num_ranks=R,
+                                            marshal="scatter", device=dev, comm=c),
+            "lander": lambda c: lander.render_forwarding(lander.LanderScene(width=APP_SIZE, height=APP_SIZE),
+                                                         num_ranks=R, device=dev, comm=c),
+            "deep_compositing": lambda c: lander.render_deep_compositing(
+                lander.LanderScene(width=APP_SIZE, height=APP_SIZE), num_ranks=R, max_fragments=4, device=dev,
+                comm=c),
+            "schlieren": lambda c: schlieren.render(schlieren.SchlierenScene(width=APP_SIZE, height=APP_SIZE),
+                                                    num_ranks=R, device=dev, comm=c),
+        }
+        out["apps"] = {}
+        for name, fn in apps.items():
+            rec, ok, res = _paired(f"(d) {name} {APP_SIZE}x{APP_SIZE}", lambda fn=fn: fn(None),
+                                   counted(lambda fn=fn: fn(comm)), same_image, comm, profile=False)
+            stats = {k: v for k, v in res[-1].items() if k != "raw"}
+            check(ok, f"(d) {name} at {APP_SIZE}x{APP_SIZE}, R={R}, on NCCL == stacked, images and stats bit for bit: "
+                      f"{stats}")
+            out["apps"][name] = rec
+        fb = torch.rand((R, APP_SIZE * APP_SIZE + 1), generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+        merge = {"stacked_ms": cuda_ms(lambda: scomm.psum(fb), reps=10) if cuda else None,
+                 "dist_ms": cuda_ms(lambda: comm.psum(fb), reps=10) if cuda else None}
+        if profile and cuda:
+            merge["stacked_device_ms"] = device_ms(lambda: scomm.psum(fb), calls=10)[0]
+            merge["dist_device_ms"] = device_ms(lambda: comm.psum(fb), calls=10)[0]
+        check(torch.equal(comm.psum(fb), scomm.psum(fb)), "(d) a frame buffer's psum on NCCL == stacked bit for bit")
+        out["apps"]["merge"] = merge
+        print(f"  (d) the frame-buffer merge alone ({R} x {APP_SIZE}² float32): {merge}", flush=True)
+
+        # (e) the llama4-scout decode step on layout (1, tp)
+        if cuda:
+            torch.cuda.empty_cache()
+        cfg = dc.replace(get_config(LM_ARCH), num_layers=LM_LAYERS, **(widths or {}))
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(2828), device=dev)
+        token = torch.randint(0, cfg.vocab_size, (SLOTS, 1), generator=torch.Generator(device=dev).manual_seed(5),
+                              device=dev, dtype=torch.int32)
+        caches = model.init_caches(SLOTS, MAX_LEN, device=dev)
+        steps = {b: model.decode_fn(layout=Layout(*LAYOUT, comm=c), drops=True)
+                 for b, c in (("stacked", None), ("dist", comm))}
+
+        def same_step(a, b):
+            d = (a[0].float() - b[0].float()).abs().max().item()
+            out["decode_max_abs_logit_diff"] = d
+            return d <= LM_TOL_PLANES and torch.equal(a[0].argmax(-1), b[0].argmax(-1)) and int(a[2]) == int(b[2])
+
+        with torch.no_grad():
+            rec, ok, res = _paired(f"(e) {cfg.name} decode step, {LM_LAYERS} layers, layout {LAYOUT}, {SLOTS} slots",
+                                   lambda: steps["stacked"](params, token, caches),
+                                   counted(lambda: steps["dist"](params, token, caches)), same_step, comm,
+                                   reps=10 if cuda else 1, profile=profile)
+        check(ok, f"(e) the decode step on NCCL: logits within {LM_TOL_PLANES} of the stacked step's "
+                  f"(max {out['decode_max_abs_logit_diff']}), greedy tokens and drops ({int(res[2])}) equal")
+        out["decode"] = rec
+        del params, caches, res, steps
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # (f) one qwen2-7b train step with the gradient all-reduce
+        cfg = dc.replace(get_config("qwen2-7b"), num_layers=TRAIN_LAYERS, **(widths or {}))
+        model = build_model(cfg)
+        opt_cfg = AdamWConfig(warmup_steps=20)
+        b, s = BATCH
+        batch = SyntheticLM(cfg.vocab_size, s, b).batch_at(0)
+
+        def fresh():
+            lm = model.init(torch.Generator(device=dev).manual_seed(4141), device=dev)
+            return lm, adamw_init(lm, opt_cfg)
+
+        lm, opt = fresh()
+        step = build_train_step(model, None, opt_cfg)
+        step(lm, opt, batch)
+        want = [p.detach().cpu() for p in lm.parameters()]
+        stacked_ms = cuda_ms(lambda: step(lm, opt, batch), reps=reps, warmup=0) if cuda else None
+        stacked_split = _device_split(lambda: step(lm, opt, batch), calls=1, warmup=0) if profile and cuda else None
+        del lm, opt
+        if cuda:
+            torch.cuda.empty_cache()
+        lm, opt = fresh()
+        dstep = build_train_step(model, None, opt_cfg, comm=comm)
+        comm.reset()
+        counted(lambda: dstep(lm, opt, batch))()
+        rec = {"nccl_calls": _call_counts(comm), "grad_all_reduce_bytes": sum(c.nbytes * n for c, n in comm.calls.items())}
+        ok = all(torch.equal(p.detach().cpu(), w) for p, w in zip(lm.parameters(), want))
+        check(ok, f"(f) {cfg.name} at {TRAIN_LAYERS} layers, batch {b} x {s}: one step with the gradient all-reduce "
+                  f"on NCCL == the stacked step, every parameter bit for bit ({len(want)} leaves, "
+                  f"{rec['grad_all_reduce_bytes']} B reduced in {sum(comm.calls.values())} calls)")
+        rec["dist_ms"] = cuda_ms(lambda: dstep(lm, opt, batch), reps=reps, warmup=0) if cuda else None
+        rec["dist_split"] = _device_split(lambda: dstep(lm, opt, batch), calls=1, warmup=0) if profile and cuda else None
+        rec.update(stacked_ms=stacked_ms, stacked_split=stacked_split)
+        fmt = lambda d: "not measured" if d is None else ", ".join(f"{k} {v:.4f}" for k, v in d.items())
+        print(f"  (f) train step: event median {rec['dist_ms']} ms (stacked {stacked_ms}); device "
+              f"{fmt(rec['dist_split'])} (stacked: {fmt(stacked_split)}); calls {rec['nccl_calls']}", flush=True)
+        out["train"] = rec
+        del lm, opt, want
+        if cuda:
+            torch.cuda.empty_cache()
+    finally:
+        LD.destroy_world()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out, {"dist_paths": launches}
+
+
 def main() -> int:
     import torch
 
@@ -5089,7 +5410,7 @@ def main() -> int:
            "nbody": lambda: phase_nbody(dev), "obs": lambda: phase_obs(dev), "apps2": lambda: phase_apps2(dev),
            "ragged": lambda: phase_ragged(dev), "lm": lambda: phase_lm(dev), "train": lambda: phase_train(dev),
            "families": lambda: phase_families(dev), "dryrun": lambda: phase_dryrun(dev),
-           "dist": lambda: phase_dist(dev)}
+           "dist": lambda: phase_dist(dev), "dist_paths": lambda: phase_dist_paths(dev)}
     kernels, paths = {}, {}  # paths: launches per path, counted from 0
     for title in run:
         print(f"# phase {title}", flush=True)
@@ -5104,7 +5425,7 @@ def main() -> int:
             kernels, more = res
             paths.update(more)
         elif title in ("lossless", "telemetry", "pipeline", "credit", "balance", "recovery", "obs", "apps2", "ragged",
-                       "lm", "train", "families", "dryrun", "dist"):
+                       "lm", "train", "families", "dryrun", "dist", "dist_paths"):
             record[title], more = res
             paths.update(more)
         elif title in ("streamlines", "vopat", "nbody"):

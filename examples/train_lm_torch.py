@@ -2,13 +2,19 @@
 ``examples/train_lm.py``): the same ~100M-parameter model on synthetic
 batches, with periodic atomic checkpoints and auto-resume.
 
-Runs on the CUDA card; ``--cpu`` runs the plain PyTorch path.
+Runs on the CUDA card; ``--cpu`` runs the plain PyTorch path.  Under
+``torchrun`` the world trains data-parallel: every process draws the same
+batch, keeps its rows and averages the gradient with the others, process 0
+writes the checkpoints and prints the same lines.
 Run:  PYTHONPATH=src python examples/train_lm_torch.py [--steps 200] [--cpu]
+      PYTHONPATH=src python -m torch.distributed.run --standalone --nproc_per_node 2 \
+          examples/train_lm_torch.py --cpu
 """
 import argparse
 import os
 import tempfile
 
+from repro_torch.launch import dist
 from repro_torch.launch.mesh import make_test_layout
 from repro_torch.launch.train import train
 from repro_torch.models.api import build_model
@@ -33,19 +39,26 @@ def main():
     ap.add_argument("--ckpt-every", type=int, default=50, help="0: no checkpoint")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU (plain PyTorch versions of the kernels)")
     args = ap.parse_args()
+    device = "cpu" if args.cpu else None
+    comm = dist.init_world(device) if "WORLD_SIZE" in os.environ else None
+    if comm is not None and device is None:
+        device = f"cuda:{os.environ.get('LOCAL_RANK', 0)}"
+    lead = comm is None or comm.index == 0
 
     n = build_model(CONFIG_100M).param_count()
-    print(f"training {CONFIG_100M.name}: {n/1e6:.1f}M params")
+    if lead:
+        print(f"training {CONFIG_100M.name}: {n/1e6:.1f}M params")
     _, _, losses = train(
         arch=CONFIG_100M,
         steps=args.steps, batch=args.batch, seq=args.seq,
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
         layout=make_test_layout(),
         opt_cfg=AdamWConfig(lr=3e-3, warmup_steps=30),
-        device="cpu" if args.cpu else None,
+        device=device, comm=comm,
     )
-    if losses:
+    if losses and lead:
         print(f"steps {losses[0][0]}-{losses[-1][0]}: loss {losses[0][1]:.4f} -> {losses[-1][1]:.4f}")
+    dist.destroy_world()
 
 
 if __name__ == "__main__":

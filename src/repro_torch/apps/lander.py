@@ -28,6 +28,12 @@ with fewer fragments the compositor mis-renders exactly as §5.2 describes
 while the forwarding renderer stays correct.  The per-pixel sums are
 sequential (``apps.fields``), so an R-rank forwarding image equals the
 1-rank image bit for bit.
+
+With ``comm=`` a ``DistributedCollectives`` each process renders its block
+of ranks: the forwarding renderer's frame buffers merge in one ``psum``
+(summed in the stacked order), the compositor's fragment lists in one
+``all_gather`` and its dropped-fragment count in one integer ``psum``, so
+a world's images equal the stacked images bit for bit.
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ import torch
 from repro_torch import compat
 from repro_torch.apps import fields as F
 from repro_torch.core import DISCARD, RafiContext, enqueue, make_queue, work_item
+from repro_torch.core.collectives import backend
 
 __all__ = ["EARay", "LanderScene", "render_deep_compositing", "render_forwarding"]
 
@@ -143,10 +150,11 @@ def render_forwarding(
     max_rounds: int = 4096,
     exchange: str = "padded",
     device=None,
+    comm=None,
 ) -> Tuple[np.ndarray, dict]:
     """RaFI-style renderer on ``num_ranks`` stacked ranks.  Returns ``(image
     (H, W) float32, stats)``; stats hold rounds and drops.  ``device=None``
-    is the CUDA card."""
+    is the CUDA card; ``comm`` a world's backend (module docstring)."""
     dev = compat.resolve_device(device)
     R = num_ranks
     blobs = _blobs(scene, blobs, dev)
@@ -156,31 +164,32 @@ def render_forwarding(
     cap = max(256, hw)
     # peer slots only exist for the padded exchange (onehot rejects them)
     ctx = RafiContext(R, _proto(), capacity=cap, exchange=exchange, device=dev,
-                      peer_capacity=cap if exchange == "padded" else 0)
-    me = torch.arange(R, dtype=torch.int32, device=dev)[:, None]
+                      peer_capacity=cap if exchange == "padded" else 0, comm=comm)
+    comm, L = ctx.comm, ctx.local_ranks
+    me = comm.ranks(R, dev).to(torch.int32)[:, None]
     round_fn = partial(_round_fn, part=part, blobs=blobs, ds=ds, cap=cap, me=me)
 
     ppr = hw // R
-    pix = me * ppr + torch.arange(ppr, dtype=torch.int32, device=dev)  # (R, ppr)
+    pix = me * ppr + torch.arange(ppr, dtype=torch.int32, device=dev)  # (L, ppr)
     o_all, d_all = F.camera_rays(scene.width, scene.height, device=dev)
     o, d = o_all[pix.to(torch.int64)], d_all[pix.to(torch.int64)]
     t_entry, hits = F.ray_domain_entry(o, d)
-    fb = torch.zeros(R, hw + F.TRASH_PIXELS, dtype=torch.float32, device=dev)
+    fb = torch.zeros(L, hw + F.TRASH_PIXELS, dtype=torch.float32, device=dev)
     F.deposit(fb, pix, F.sky(d), ~hits)
     p_in = o + (t_entry[..., None] + 1e-4) * d
     slab = part.slab_of(torch.clamp(p_in[..., 0], 0.0, 1.0 - 1e-6))
-    z = torch.zeros(R, ppr, device=dev)
+    z = torch.zeros(L, ppr, device=dev)
     rays = EARay(
-        origin=o, dir=d, t_entry=t_entry, k=torch.zeros(R, ppr, dtype=torch.int32, device=dev),
+        origin=o, dir=d, t_entry=t_entry, k=torch.zeros(L, ppr, dtype=torch.int32, device=dev),
         pixel=pix, slab=slab, radiance=z, trans=torch.ones_like(z),
     )
     dest = torch.where(hits, part.owner_of_slab(slab), DISCARD).to(torch.int32)
-    q0 = enqueue(make_queue(_proto(), cap, num_ranks=R, device=dev), rays, dest, torch.ones_like(hits))
+    q0 = enqueue(make_queue(_proto(), cap, num_ranks=L, device=dev), rays, dest, torch.ones_like(hits))
     q, fb, rounds, _done = ctx.run_until_done(round_fn, max_rounds=max_rounds)(q0, fb)
-    img = fb[:, :-F.TRASH_PIXELS].sum(dim=0)  # the distributed frame buffer's reduce
+    img = comm.psum(fb)[:-F.TRASH_PIXELS]  # the distributed frame buffer's reduce
     return (
         img.cpu().numpy().reshape(scene.height, scene.width),
-        {"rounds": int(rounds), "drops": int(q.drops.sum())},
+        {"rounds": int(rounds), "drops": int(comm.gather_all(q.drops).sum())},
     )
 
 
@@ -191,15 +200,18 @@ def render_deep_compositing(
     blobs=None,
     max_fragments: int = 4,
     device=None,
+    comm=None,
 ) -> Tuple[np.ndarray, dict]:
     """The §5.2 baseline: per-rank fragment lists + depth-sorted compositing.
 
     Every rank integrates each of its owned segments of every ray locally
     (no forwarding), keeping at most ``max_fragments`` (L, T, depth) triples
     per pixel — excess fragments are dropped, which is the artifact
-    mechanism the paper describes.  The ranks' lists then go through one
-    stable depth sort and a front-to-back composite on the device.
-    Returns ``(image (H, W) float64, {"dropped_fragments": n})``."""
+    mechanism the paper describes.  The ranks' lists are gathered (one
+    ``all_gather``) and go through one stable depth sort and a
+    front-to-back composite on the device.  Returns ``(image (H, W)
+    float64, {"dropped_fragments": n})``, the same in every process of a
+    world ``comm``."""
     dev = compat.resolve_device(device)
     R = num_ranks
     blobs = _blobs(scene, blobs, dev)
@@ -207,7 +219,9 @@ def render_deep_compositing(
     ds = _delta_s(part, scene)
     hw = scene.width * scene.height
     FMAX = max_fragments
-    me = torch.arange(R, dtype=torch.int32, device=dev)[:, None]
+    comm = backend(comm)
+    me = comm.ranks(R, dev).to(torch.int32)[:, None]
+    L = me.shape[0]
 
     o, d = F.camera_rays(scene.width, scene.height, device=dev)
     t_entry, hits = F.ray_domain_entry(o, d)
@@ -216,13 +230,13 @@ def render_deep_compositing(
     dx = torch.where(d[:, 0].abs() < eps, eps, d[:, 0])
     inv = 1.0 / torch.where(d.abs() < eps, torch.where(d >= 0, eps, -eps), d)
     tfar = torch.where(d >= 0, (1.0 - o) * inv, (0.0 - o) * inv).amin(dim=-1)  # domain y/z exit
-    fragL = torch.zeros(R, hw, FMAX, device=dev)
-    fragT = torch.ones(R, hw, FMAX, device=dev)
-    fragD = torch.full((R, hw, FMAX), float("inf"), device=dev)
-    nfrag = torch.zeros(R, hw, dtype=torch.int64, device=dev)
-    dropped = torch.zeros(R, dtype=torch.int64, device=dev)
+    fragL = torch.zeros(L, hw, FMAX, device=dev)
+    fragT = torch.ones(L, hw, FMAX, device=dev)
+    fragD = torch.full((L, hw, FMAX), float("inf"), device=dev)
+    nfrag = torch.zeros(L, hw, dtype=torch.int64, device=dev)
+    dropped = torch.zeros(L, dtype=torch.int64, device=dev)
     for j in range(-(-scene.num_slabs // R)):  # owned slabs: me, me+R, ...
-        lo, hi = part.bounds((me + j * R).expand(R, hw))
+        lo, hi = part.bounds((me + j * R).expand(L, hw))
         ta = (lo - o[:, 0]) / dx
         tb = (hi - o[:, 0]) / dx
         t0s = torch.maximum(torch.minimum(ta, tb), t_entry)
@@ -230,19 +244,21 @@ def render_deep_compositing(
         seg_ok = hits & (t1s > t0s)
         # globally aligned samples: k in [ceil((t0 - te)/ds - .5), …)
         k0 = torch.clamp(torch.ceil((t0s - t_entry) / ds - 0.5).to(torch.int32), min=0)
-        z = torch.zeros(R, hw, device=dev)
-        k, L, T = _march(o, d, t_entry, k0, z, torch.ones_like(z), t1s, seg_ok, blobs, ds,
-                         scene.samples_per_slab + 2)
+        z = torch.zeros(L, hw, device=dev)
+        k, rad, T = _march(o, d, t_entry, k0, z, torch.ones_like(z), t1s, seg_ok, blobs, ds,
+                           scene.samples_per_slab + 2)
         has = seg_ok & (k > k0)
         slot = torch.clamp(nfrag, max=FMAX - 1)[..., None]
         fits = has & (nfrag < FMAX)
         dropped += (has & ~fits).sum(dim=1)
-        for frag, v in ((fragL, L), (fragT, T), (fragD, t0s)):
+        for frag, v in ((fragL, rad), (fragT, T), (fragD, t0s)):
             frag.scatter_(2, slot, torch.where(fits, v, frag.gather(2, slot)[..., 0])[..., None])
         nfrag += fits.to(torch.int64)
 
-    # the "sort-last" stage: every rank's fragments of a pixel, depth-sorted
-    # (stable), composited front to back in float64
+    # the "sort-last" stage: every rank's fragments of a pixel (one gather
+    # over the ranks), depth-sorted (stable), composited front to back in
+    # float64
+    fragL, fragT, fragD = comm.all_gather(torch.stack([fragL, fragT, fragD], dim=1))[0].unbind(1)
     flat = lambda a: a.transpose(0, 1).reshape(hw, R * FMAX)
     order = torch.sort(flat(fragD), dim=1, stable=True).indices
     L = flat(fragL).gather(1, order).to(torch.float64)
@@ -256,5 +272,5 @@ def render_deep_compositing(
     img = torch.where(hits, img + t_acc * sky, sky)
     return (
         img.cpu().numpy().reshape(scene.height, scene.width),
-        {"dropped_fragments": int(dropped.sum())},
+        {"dropped_fragments": int(comm.psum(dropped))},
     )

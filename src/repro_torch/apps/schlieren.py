@@ -16,8 +16,12 @@ globally aligned sample grid through the slab partition and forward
 themselves at partition boundaries carrying their partial integrals,
 through ``RafiContext.run_until_done`` (K3, K1, K2 every round, K6 under
 every ``enqueue``).  The two integrals land in two rank-stacked frame
-buffers, summed over the rank axis at the end; the sums are sequential
-(``apps.fields``), so an R-rank render equals the 1-rank render bit for bit.
+buffers, summed over the rank axis at the end (one ``psum`` of the
+collective layer); the sums are sequential (``apps.fields``), so an R-rank
+render equals the 1-rank render bit for bit.  With ``comm=`` a
+``DistributedCollectives`` each process traces the rays of its block of
+ranks and the ``psum`` sums the gathered frame buffers in the stacked
+order: a world's images equal the stacked images bit for bit.
 """
 from __future__ import annotations
 
@@ -131,10 +135,12 @@ def render(
     max_rounds: int = 4096,
     exchange: str = "padded",
     device=None,
+    comm=None,
 ) -> Tuple[np.ndarray, np.ndarray, dict]:
     """Returns ``(knife_u image, knife_v image, stats)`` — paper Fig. 5's
     pair; stats hold rounds, drops and ``raw``, the ``(H·W, 2)`` float32
-    integrals.  ``device=None`` is the CUDA card."""
+    integrals.  ``device=None`` is the CUDA card; with ``comm`` (a world)
+    every process returns the world's images and stats."""
     dev = compat.resolve_device(device)
     R = num_ranks
     if blobs is None:
@@ -146,30 +152,31 @@ def render(
     cap = max(256, hw)
     # peer slots only exist for the padded exchange (onehot rejects them)
     ctx = RafiContext(R, _proto(), capacity=cap, exchange=exchange, device=dev,
-                      peer_capacity=cap if exchange == "padded" else 0)
+                      peer_capacity=cap if exchange == "padded" else 0, comm=comm)
+    comm, L = ctx.comm, ctx.local_ranks
     right, up = _camera_axes(dev)
-    me = torch.arange(R, dtype=torch.int32, device=dev)[:, None]
+    me = comm.ranks(R, dev).to(torch.int32)[:, None]
     round_fn = partial(_round_fn, part=part, blobs=blobs, ds=ds, cap=cap, right=right, up=up, me=me)
 
     ppr = hw // R
-    pix = me * ppr + torch.arange(ppr, dtype=torch.int32, device=dev)  # (R, ppr)
+    pix = me * ppr + torch.arange(ppr, dtype=torch.int32, device=dev)  # (L, ppr)
     o_all, d_all = F.camera_rays(scene.width, scene.height, device=dev)
     o, d = o_all[pix.to(torch.int64)], d_all[pix.to(torch.int64)]
     t_entry, hits = F.ray_domain_entry(o, d)
-    fb2 = tuple(torch.zeros(R, hw + F.TRASH_PIXELS, dtype=torch.float32, device=dev) for _ in range(2))
+    fb2 = tuple(torch.zeros(L, hw + F.TRASH_PIXELS, dtype=torch.float32, device=dev) for _ in range(2))
     p_in = o + (t_entry[..., None] + 1e-4) * d
     slab = part.slab_of(torch.clamp(p_in[..., 0], 0.0, 1.0 - 1e-6))
-    z = torch.zeros(R, ppr, device=dev)
+    z = torch.zeros(L, ppr, device=dev)
     rays = SchlierenRay(
-        origin=o, dir=d, t_entry=t_entry, k=torch.zeros(R, ppr, dtype=torch.int32, device=dev),
+        origin=o, dir=d, t_entry=t_entry, k=torch.zeros(L, ppr, dtype=torch.int32, device=dev),
         pixel=pix, slab=slab, iu=z, iv=z,
     )
     dest = torch.where(hits, part.owner_of_slab(slab), DISCARD).to(torch.int32)
-    q0 = enqueue(make_queue(_proto(), cap, num_ranks=R, device=dev), rays, dest, torch.ones_like(hits))
+    q0 = enqueue(make_queue(_proto(), cap, num_ranks=L, device=dev), rays, dest, torch.ones_like(hits))
     q, fb2, rounds, _done = ctx.run_until_done(round_fn, max_rounds=max_rounds)(q0, fb2)
-    # the distributed frame buffers' reduce, then the knife-edge filter:
-    # mid-gray plus the (signed) projected gradient integral
-    raw = torch.stack([fb[:, :-F.TRASH_PIXELS].sum(dim=0) for fb in fb2], dim=-1).cpu().numpy()
+    # the distributed frame buffers' reduce (one psum of both), then the
+    # knife-edge filter: mid-gray plus the (signed) projected gradient integral
+    raw = comm.psum(torch.stack(fb2, dim=1))[:, :-F.TRASH_PIXELS].T.contiguous().cpu().numpy()
     img_u = np.clip(0.5 + scene.gain * raw[:, 0], 0, 1).reshape(scene.height, scene.width)
     img_v = np.clip(0.5 + scene.gain * raw[:, 1], 0, 1).reshape(scene.height, scene.width)
-    return img_u, img_v, {"rounds": int(rounds), "drops": int(q.drops.sum()), "raw": raw}
+    return img_u, img_v, {"rounds": int(rounds), "drops": int(comm.gather_all(q.drops).sum()), "raw": raw}

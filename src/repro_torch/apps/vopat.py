@@ -18,12 +18,16 @@ The wavefront of the paper's Fig. 1:
        and terminate;
   3. ``forward_work`` moves the rays; ``run_until_done`` repeats until the
      global in-flight count is zero (§4.2.3);
-  4. the per-rank framebuffers are summed (the distributed frame buffer).
+  4. the per-rank framebuffers are summed (the distributed frame buffer):
+     one ``psum`` of the collective layer.
 
 The uniforms come from ``apps.rng``, bit-equal to the reference's
 ``jax.random`` draws.  With spp=1 every pixel receives one deposit, so an
 R-rank render equals the 1-rank render bit for bit, and the scatter marshal
-equals the sort marshal.
+equals the sort marshal.  With ``comm=`` a ``DistributedCollectives`` each
+process generates and traces the rays of its block of ranks, and the
+merge's ``psum`` sums the gathered frame buffers in the stacked order, so a
+world's image equals the stacked image bit for bit.
 """
 from __future__ import annotations
 
@@ -149,8 +153,9 @@ def _round_fn(q_in, fb, rnd, *, part: F.SlabPartition, blobs, mu, key, scene, ca
 
 def _raygen(*, part, scene, cap, num_ranks, me, device):
     """Per-rank primary rays (disjoint pixel ranges) + direct sky for
-    misses.  Returns ``(q0, fb (R, HW + F.TRASH_PIXELS))``."""
-    R, hw_px = num_ranks, scene.width * scene.height
+    misses, for the ranks of ``me`` (``(L, 1)`` global ids).  Returns
+    ``(q0, fb (L, HW + F.TRASH_PIXELS))``."""
+    R, L, hw_px = num_ranks, me.shape[0], scene.width * scene.height
     ppr = (hw_px * scene.spp) // R
     pix = me * ppr + torch.arange(ppr, dtype=torch.int32, device=device)  # (R, ppr)
     o_all, d_all = F.camera_rays(scene.width, scene.height, device=device)
@@ -158,13 +163,13 @@ def _raygen(*, part, scene, cap, num_ranks, me, device):
     o, d = o_all[px.to(torch.int64)], d_all[px.to(torch.int64)]
     t_entry, hits = F.ray_domain_entry(o, d)
 
-    fb = torch.zeros(R, hw_px + F.TRASH_PIXELS, dtype=torch.float32, device=device)
+    fb = torch.zeros(L, hw_px + F.TRASH_PIXELS, dtype=torch.float32, device=device)
     F.deposit(fb, pix // scene.spp, torch.where(hits, 0.0, F.sky(d)), torch.ones_like(hits))
 
     p_in = o + (t_entry[..., None] + 1e-4) * d
     slab = part.slab_of(torch.clamp(p_in[..., 0], 0.0, 1.0 - 1e-6))
-    z = torch.zeros(R, ppr, device=device)
-    zi = torch.zeros(R, ppr, dtype=torch.int32, device=device)
+    z = torch.zeros(L, ppr, device=device)
+    zi = torch.zeros(L, ppr, dtype=torch.int32, device=device)
     rays = PathRay(
         origin=o, dir=d, t=t_entry, t_tgt=z, u2=z, throughput=torch.ones_like(z),
         pixel=(pix // scene.spp).to(torch.int32),
@@ -172,7 +177,7 @@ def _raygen(*, part, scene, cap, num_ranks, me, device):
         bounces=zi, slab=slab, in_flight=zi,
     )
     dest = torch.where(hits, part.owner_of_slab(slab), DISCARD).to(torch.int32)
-    q0 = make_queue(_proto(), cap, num_ranks=R, device=device)
+    q0 = make_queue(_proto(), cap, num_ranks=L, device=device)
     return enqueue(q0, rays, dest, torch.ones_like(hits)), fb
 
 
@@ -187,6 +192,7 @@ def render(
     telemetry: bool = False,
     telemetry_window: int = 32,
     device=None,
+    comm=None,
 ) -> Tuple[np.ndarray, dict]:
     """Distributed render on ``num_ranks`` stacked ranks.  Returns ``(image
     (H, W) float32, stats)``; stats hold rounds, drops, the majorant and the
@@ -194,7 +200,9 @@ def render(
     recorder's ring and stats gain ``"telemetry"``, its
     ``telemetry.summarize`` (per-tier demand histogram and max, clamp
     drops): the measured basis for sizing the queues below their §6.3
-    worst case.  ``device=None`` is the CUDA card."""
+    worst case.  ``device=None`` is the CUDA card.  With ``comm`` a
+    ``DistributedCollectives`` this process holds its block of the ranks;
+    the image and the stats are the world's, the same in every process."""
     dev = compat.resolve_device(device)
     R = num_ranks
     if blobs is None:
@@ -208,17 +216,18 @@ def render(
     ctx = RafiContext(
         R, _proto(), capacity=cap, exchange=exchange, marshal=marshal, device=dev,
         peer_capacity=cap if exchange == "padded" else 0,
-        telemetry=telemetry, telemetry_window=telemetry_window,
+        telemetry=telemetry, telemetry_window=telemetry_window, comm=comm,
     )
+    comm = ctx.comm
     key = rng.key_from_seed(scene.seed, device=dev)
-    me = torch.arange(R, dtype=torch.int32, device=dev)[:, None]
+    me = comm.ranks(R, dev).to(torch.int32)[:, None]
     round_fn = partial(_round_fn, part=part, blobs=blobs, mu=mu, key=key, scene=scene, cap=cap, me=me)
 
     q0, fb = _raygen(part=part, scene=scene, cap=cap, num_ranks=R, me=me, device=dev)
     q, fb, rounds, _done, *ring = ctx.run_until_done(round_fn, max_rounds=max_rounds)(q0, fb)
-    img = fb[:, :-F.TRASH_PIXELS].sum(dim=0)  # the distributed frame buffer's reduce
+    img = comm.psum(fb)[:-F.TRASH_PIXELS]  # the distributed frame buffer's reduce
     img = img.cpu().numpy().reshape(scene.height, scene.width) / scene.spp
-    stats = {"rounds": int(rounds), "drops": int(q.drops.sum()), "majorant": mu, "capacity": cap}
+    stats = {"rounds": int(rounds), "drops": int(comm.gather_all(q.drops).sum()), "majorant": mu, "capacity": cap}
     if telemetry:
-        stats["telemetry"] = TS.summarize(ring[0], tier_capacities=TS.tier_capacities(ctx.cfg))
+        stats["telemetry"] = TS.summarize(comm.gather_tree(ring[0]), tier_capacities=TS.tier_capacities(ctx.cfg))
     return img, stats

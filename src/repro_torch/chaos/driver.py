@@ -25,6 +25,11 @@ alone (:func:`boundary_digests`).
 
 The port's signatures take the scenario's rank count (and ``level_sizes``
 for a tiered route) and ``device=`` where the reference takes a mesh.
+With ``comm=`` a ``DistributedCollectives`` every process drives its block
+of the ranks (the seed queue cut with ``comm.shard_tree``, the rank
+identity from ``comm.ranks``) and the result dict is summed from the whole
+gathered state (``comm.gather_tree``), the same in every process;
+the checkpointed drive writes from process 0 (``core.recovery``).
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from repro_torch.chaos.scenarios import Scenario
 from repro_torch.ckpt.checkpoint import to_host
 from repro_torch.core import queue as Q
 from repro_torch.core import recovery
+from repro_torch.core.collectives import backend
 from repro_torch.core.context import RafiContext
 from repro_torch.core.types import work_item
 from repro_torch.obs import trace as OT
@@ -124,6 +130,7 @@ def _make_ctx(
     flow: str = "open",
     emit_reserve: int = -1,
     device=None,
+    comm=None,
 ) -> RafiContext:
     """The scenario context: ``telemetry_window`` pinned to ``max_rounds+1``
     so the ring records every forward of the burst."""
@@ -132,7 +139,7 @@ def _make_ctx(
         marshal=marshal, sort_method=sort_method, fast_size=fast_size, level_sizes=level_sizes,
         level_capacities=level_capacities, telemetry=telemetry, telemetry_window=max_rounds + 1,
         overflow=overflow, pipeline_shards=pipeline_shards, flow=flow, emit_reserve=emit_reserve,
-        device=device,
+        device=device, comm=comm,
     )
 
 
@@ -148,8 +155,13 @@ def _fold_arrivals(q_in: Q.WorkQueue, cnt, s, s2, lane):
     return cnt, s, s2
 
 
+def _comm(ctx: RafiContext):
+    """The context's backend (a stand-in context without one: stacked)."""
+    return backend(getattr(ctx, "comm", None))
+
+
 def _emit(ctx: RafiContext, uid, row, mask) -> Q.WorkQueue:
-    out = Q.make_queue(chaos_proto(), ctx.cfg.capacity, num_ranks=ctx.num_ranks, device=ctx.device)
+    out = Q.make_queue(chaos_proto(), ctx.cfg.capacity, num_ranks=row.shape[0], device=ctx.device)
     return Q.enqueue(out, ChaosItem(uid=uid, val=_val_of(uid)), torch.where(mask, row, Q.DISCARD), mask)
 
 
@@ -162,7 +174,7 @@ def _make_round_fn(ctx: RafiContext, sc: Scenario):
     R, E = sc.num_ranks, sc.emits_per_round
     dev = ctx.device
     dests = torch.from_numpy(np.asarray(sc.dests, np.int32)).to(dev)  # (rounds, R, E)
-    me = torch.arange(ctx.num_ranks, device=dev)[:, None]
+    me = _comm(ctx).ranks(ctx.num_ranks, dev)[:, None]
     src = torch.clamp(me, max=R - 1)
     lane = torch.arange(ctx.cfg.capacity, device=dev)[None, :]
     e_idx = torch.arange(E, device=dev)[None, :]
@@ -213,7 +225,7 @@ def _make_gated_round_fn(ctx: RafiContext, sc: Scenario):
     dest_np, uid_np, prefix_np = _flat_schedule(sc)
     K = dest_np.shape[1]
     dest_dev, uid_dev, prefix_dev = (torch.from_numpy(a).to(dev) for a in (dest_np, uid_np, prefix_np))
-    me = torch.arange(ctx.num_ranks, device=dev)
+    me = _comm(ctx).ranks(ctx.num_ranks, dev)
     src = torch.clamp(me, max=R - 1)
     lane = torch.arange(ctx.cfg.capacity, device=dev)[None, :]
 
@@ -246,7 +258,13 @@ def _cursor0(sc: Scenario) -> np.ndarray:
     return (np.asarray(sc.dests[0]) >= 0).sum(axis=1).astype(np.int32)
 
 
-def _result_dict(sc: Scenario, q, aux, rounds, done, *, cfg=None, ring=None) -> Dict:
+def _result_dict(sc: Scenario, q, aux, rounds, done, *, cfg=None, ring=None, comm=None) -> Dict:
+    """The accounting dict, from the whole state: over a world the queue's
+    counters, the aux and the ring are gathered first (off the recorder),
+    so every process returns the same dict."""
+    count, drops = q.count, q.drops
+    if comm is not None:
+        count, drops, aux, ring = comm.gather_tree((count, drops, aux, ring))
     cnt, s, s2 = aux[:3]
     delivered = np.stack([to_host(cnt), to_host(s), to_host(s2)], axis=-1).astype(np.uint32)
     # a cursor-gated run (credit flow) truncated by max_rounds may leave
@@ -257,8 +275,8 @@ def _result_dict(sc: Scenario, q, aux, rounds, done, *, cfg=None, ring=None) -> 
         "delivered": delivered,
         "delivered_total": int(delivered[:, 0].sum()),
         "emitted": emitted,
-        "resident": int(to_host(q.count).sum()),
-        "drops": int(to_host(q.drops).sum()),
+        "resident": int(to_host(count).sum()),
+        "drops": int(to_host(drops).sum()),
         "rounds": int(rounds),
         "done": bool(done),
     }
@@ -288,11 +306,19 @@ def _check_ranks(ctx: RafiContext, sc: Scenario) -> None:
 
 
 def _drive_parts(ctx: RafiContext, sc: Scenario):
-    """``(round_fn, aux0)`` of the scenario's drive on ``ctx``."""
+    """``(round_fn, aux0)`` of the scenario's drive on ``ctx`` (the aux of
+    the process's ranks)."""
+    comm = _comm(ctx)
+    L = comm.local_ranks(ctx.num_ranks)
     if ctx.cfg.flow == "credit":
-        cursor = torch.from_numpy(_cursor0(sc)).to(ctx.device)
-        return _make_gated_round_fn(ctx, sc), _aux0(ctx.num_ranks, ctx.device) + (cursor,)
-    return _make_round_fn(ctx, sc), _aux0(ctx.num_ranks, ctx.device)
+        cursor = comm.local(torch.from_numpy(_cursor0(sc)).to(ctx.device))
+        return _make_gated_round_fn(ctx, sc), _aux0(L, ctx.device) + (cursor,)
+    return _make_round_fn(ctx, sc), _aux0(L, ctx.device)
+
+
+def _seed(ctx: RafiContext, sc: Scenario, capacity: int) -> Q.WorkQueue:
+    """The seed queue of the process's ranks."""
+    return _comm(ctx).shard_tree(_seed_queue(sc, capacity, device=ctx.device), sc.num_ranks)
 
 
 def run_scenario(
@@ -303,10 +329,12 @@ def run_scenario(
     health=None,
     max_rounds: int = 64,
     device=None,
+    comm=None,
     **cfg_kwargs,
 ) -> Dict:
     """Drive ``sc`` through the configured forwarding stack on ``num_ranks``
-    ranks (the scenario's) and return the accounting dict.
+    ranks (the scenario's) and return the accounting dict (over a world
+    ``comm``, the whole world's, in every process).
 
     Keys: ``delivered`` (R, 3) uint32 checksums, ``delivered_total``,
     ``emitted``, ``resident``, ``drops``, ``lost``, ``rounds``, ``done`` —
@@ -314,7 +342,7 @@ def run_scenario(
     traces of the full-window ring.  ``health`` (optional ``(R,)`` bool
     mask, constant for the burst) re-addresses traffic away from unhealthy
     ranks."""
-    ctx = _make_ctx(num_ranks, capacity=capacity, max_rounds=max_rounds, device=device, **cfg_kwargs)
+    ctx = _make_ctx(num_ranks, capacity=capacity, max_rounds=max_rounds, device=device, comm=comm, **cfg_kwargs)
     _check_ranks(ctx, sc)
     cfg = ctx.cfg
     with OT.span(
@@ -329,11 +357,10 @@ def run_scenario(
                      unhealthy=[i for i, v in enumerate(h) if not v])
             mask = torch.from_numpy(h).to(ctx.device)
         rfn, aux0 = _drive_parts(ctx, sc)
-        out = ctx.run_until_done(rfn, max_rounds=max_rounds)(_seed_queue(sc, capacity, device=ctx.device), aux0,
-                                                               mask)
+        out = ctx.run_until_done(rfn, max_rounds=max_rounds)(_seed(ctx, sc, capacity), aux0, mask)
         q, aux, rounds, done = out[:4]
         ring = out[-1] if cfg.telemetry else None
-        res = _result_dict(sc, q, aux, rounds, done, cfg=cfg, ring=ring)
+        res = _result_dict(sc, q, aux, rounds, done, cfg=cfg, ring=ring, comm=ctx.comm)
         sp.set(rounds=res["rounds"], done=res["done"], drops=res["drops"],
                delivered_total=res["delivered_total"], goodput=res.get("goodput"))
     return res
@@ -360,9 +387,11 @@ def run_scenario_checkpointed(
     keep: int = 64,
     max_rounds: int = 64,
     device=None,
+    comm=None,
     **cfg_kwargs,
 ) -> Dict:
-    """Drive ``sc`` through the checkpointed recovery drive.
+    """Drive ``sc`` through the checkpointed recovery drive (over a world
+    ``comm``: every process its block, process 0 writing ``ckpt_dir``).
 
     * ``preempt_at=None`` — uninterrupted checkpointed run (boundaries land
       on disk every ``checkpoint_every`` rounds).
@@ -378,7 +407,7 @@ def run_scenario_checkpointed(
     Returns the :func:`run_scenario` accounting dict plus ``steps`` (the
     published boundary rounds), ``preempted`` and ``ckpt_dir``.
     """
-    ctx = _make_ctx(num_ranks, capacity=capacity, max_rounds=max_rounds, device=device, **cfg_kwargs)
+    ctx = _make_ctx(num_ranks, capacity=capacity, max_rounds=max_rounds, device=device, comm=comm, **cfg_kwargs)
     _check_ranks(ctx, sc)
     credit = ctx.cfg.flow == "credit"
     with OT.span(
@@ -390,20 +419,21 @@ def run_scenario_checkpointed(
             OT.event("chaos.preempt_scheduled", OT.CAT_CHAOS, scenario=sc.name, preempt_at=preempt_at)
         rfn, aux0 = _drive_parts(ctx, sc)
         kw = dict(checkpoint_every=checkpoint_every, max_rounds=max_rounds, health=health, keep=keep)
-        res = recovery.run_checkpointed(ctx, rfn, _seed_queue(sc, capacity, device=ctx.device), aux0,
+        res = recovery.run_checkpointed(ctx, rfn, _seed(ctx, sc, capacity), aux0,
                                         ckpt_dir=ckpt_dir, halt_after_round=preempt_at, **kw)
         preempted = res is None
         if preempted:
             rranks = resume_ranks if resume_ranks is not None else num_ranks
             rcap = resume_capacity if resume_capacity is not None else capacity
-            ctx = _make_ctx(rranks, capacity=rcap, max_rounds=max_rounds, device=device, **cfg_kwargs)
+            ctx = _make_ctx(rranks, capacity=rcap, max_rounds=max_rounds, device=device, comm=comm, **cfg_kwargs)
             OT.event("chaos.elastic_resume", OT.CAT_CHAOS, scenario=sc.name, resume_ranks=rranks,
                      resume_capacity=rcap, elastic=(rranks != sc.num_ranks or rcap != capacity))
             aux_like = tuple(np.zeros((rranks,), np.uint32) for _ in range(3))
             if credit:
                 aux_like = aux_like + (np.zeros((rranks,), np.int32),)
             res = recovery.resume_run(ctx, _drive_parts(ctx, sc)[0], ckpt_dir, aux_like=aux_like, **kw)
-        out = _result_dict(sc, res["q"], res["aux"], res["rounds"], res["done"], cfg=ctx.cfg, ring=res.get("ring"))
+        out = _result_dict(sc, res["q"], res["aux"], res["rounds"], res["done"], cfg=ctx.cfg, ring=res.get("ring"),
+                           comm=ctx.comm)
         out["steps"] = _steps(ckpt_dir)
         out["preempted"] = preempted
         out["ckpt_dir"] = ckpt_dir

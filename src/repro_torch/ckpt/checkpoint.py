@@ -16,6 +16,10 @@
   writes for a bfloat16 array).
 * **Retention**: the newest ``keep`` checkpoints stay, older ones go, and
   so does every orphaned ``step_*.tmp`` a crash mid-write left behind.
+* **Worlds**: a ``torch.distributed`` world gathers what it saves and lets
+  ONE process write (and prune) a directory; the others wait at a barrier
+  after the publish and only then read (``core.recovery``,
+  ``launch.train``).  Restore only reads, so every process may restore.
 
 The manifest's ``treedef`` is this module's own description of the tree;
 restore never reads it.

@@ -30,6 +30,11 @@ stacked ones; read L for the leading R:
                   the same within ONE tier's group: x (R, ...) → (R, A_l,
                   ...), rank r sees the A_l ranks that share every digit
                   of r but digit l, in digit-l order
+  all_gather(x, digits=, tier=l, per_group=True)
+                  the same, held once a group: x (R, ...) → (G, A_l, ...),
+                  the tier-l groups of the local ranks in group order
+                  (what every rank of a group would see; a view where the
+                  tier is the fastest and whole groups are local)
   ragged_all_to_all(x, output, input_offsets=, send_sizes=,
                   output_offsets=, recv_sizes=)
                   x (R, C, W) → (R, capacity, W): sender s's rows
@@ -48,12 +53,21 @@ stacked ones; read L for the leading R:
                   the sum within each tier-l group, held per rank: (R, ...)
   pmin(x)         x (R, ...) → the minimum over ranks, held once
                   (``jax.lax.pmin``)
+  grad_all_reduce(tensors)
+                  the data-parallel gradient sum over the world's processes,
+                  in place (the compiler's reduction over the data axis in
+                  the reference's train step); a no-op on the stacked
+                  backend, whose one process already holds every group
 
 Rank identity.  A site that asks "which rank am I" reads
 ``comm.ranks(R, device)`` (the global ids of the local ranks),
 ``comm.rank_offset(R)`` or ``comm.local(t, dim)`` (the local slice of a
 replicated table's rank axis), never ``torch.arange(R)``; ``tier_digit``
 and the group tables take those ids.  ``comm.local_ranks(R)`` is L.
+``comm.shard_tree(tree, R)`` and ``comm.gather_tree(tree)`` cut a
+rank-stacked pytree to the local block and gather it back whole (off the
+recorder).  An entry point's ``comm=None`` is resolved by :func:`backend`
+alone: None is a fresh ``StackedCollectives``.
 
 Both backends count their calls in ``calls``, a Counter keyed by
 :class:`Call` (kind, bytes, shape, tier): a long drive adds counts, not
@@ -85,7 +99,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import math
-from typing import Counter, Optional, Sequence, Tuple
+from typing import Any, Callable, Counter, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -93,13 +107,14 @@ import torch.distributed as dist
 from repro_torch.kernels.marshal import ops as marshal_ops
 
 __all__ = [
-    "Call", "DistributedCollectives", "StackedCollectives", "joint_tiers", "node_layout", "pod_layout", "tier_digit",
+    "Call", "DistributedCollectives", "StackedCollectives", "backend", "joint_tiers", "node_layout", "pod_layout",
+    "tier_digit",
 ]
 
 
 @dataclasses.dataclass(frozen=True)
 class Call:
-    kind: str  # "all_to_all" | "ragged_all_to_all" | "all_gather" | "ppermute" | "psum" | "pmin"
+    kind: str  # "all_to_all" | "ragged_all_to_all" | "all_gather" | "ppermute" | "psum" | "pmin" | "grad_all_reduce"
     nbytes: int  # bytes of the stacked input (every rank's contribution)
     shape: Tuple[int, ...]
     tier: Optional[int] = None  # the tier of a one-tier call
@@ -181,8 +196,26 @@ class _RankBlock:
         and tests): on the stacked backend, ``x`` itself."""
         return x
 
+    def shard_tree(self, tree: Any, num_ranks: int) -> Any:
+        """The process's block of a rank-stacked tree: every tensor leaf with
+        a leading axis of ``num_ranks`` cut to the local ranks; 0-d leaves
+        and the rest pass through."""
+        return _map_tensors(lambda t: self.local(t) if t.dim() > 0 and t.shape[0] == num_ranks else t, tree)
+
+    def gather_tree(self, tree: Any) -> Any:
+        """The whole rank-stacked tree (a ``WorkQueue``, a carry, a
+        ``StatsRing``) in every process: every tensor leaf's leading axis of
+        local ranks gathered over the world (0-d leaves pass through).  Off
+        the recorder."""
+        return _map_tensors(lambda t: self.gather_all(t) if t.dim() > 0 else t, tree)
+
     def _record(self, kind: str, x: torch.Tensor, tier: Optional[int] = None) -> None:
         self.calls[Call(kind, x.numel() * x.element_size(), tuple(x.shape), tier)] += 1
+
+    def barrier(self) -> None:
+        """Wait for every process of the world (none to wait for on the
+        stacked backend): a file one process writes is read by the others
+        only after it."""
 
     def count(self, kind: str, *, tier: Optional[int] = None) -> int:
         """Calls of ``kind``; with ``tier``, only that tier's."""
@@ -278,14 +311,18 @@ class StackedCollectives(_RankBlock):
         return torch.where(landed[:, :, None], out, output)
 
     def all_gather(
-        self, x: torch.Tensor, *, digits: Optional[Sequence[int]] = None, tier: Optional[int] = None
+        self, x: torch.Tensor, *, digits: Optional[Sequence[int]] = None, tier: Optional[int] = None,
+        per_group: bool = False,
     ) -> torch.Tensor:
         """Flat: ``(R, ...) → (R, R, ...)``.  With ``digits`` and ``tier``
-        l: ``(R, ...) → (R, A_l, ...)``, each rank's tier-l group."""
+        l: ``(R, ...) → (R, A_l, ...)``, each rank's tier-l group; with
+        ``per_group``, ``(R / A_l, A_l, ...)``, each group once."""
         if digits is None:
             self._record("all_gather", x)
             return x.unsqueeze(0).expand((x.shape[0],) + tuple(x.shape))
         self._record("all_gather", x, tier)
+        if per_group:
+            return _by_group(x, tuple(digits), tier)
         return x[_group_members(digits, tier, x.device)]
 
     def ppermute(self, x: torch.Tensor) -> torch.Tensor:
@@ -307,6 +344,46 @@ class StackedCollectives(_RankBlock):
     def pmin(self, x: torch.Tensor) -> torch.Tensor:
         self._record("pmin", x)
         return x.amin(dim=0)
+
+    def grad_all_reduce(self, tensors: Sequence[torch.Tensor]) -> None:
+        """One process holds every data group: nothing to reduce, no call."""
+
+
+def backend(comm=None):
+    """The backend an entry point runs on: ``comm``, or a fresh
+    ``StackedCollectives`` for None."""
+    return StackedCollectives() if comm is None else comm
+
+
+def _map_tensors(fn: Callable, tree: Any) -> Any:
+    """Apply ``fn`` to every tensor leaf of a tree of dataclasses, dicts,
+    tuples and lists; other leaves pass through."""
+    if torch.is_tensor(tree):
+        return fn(tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{f.name: _map_tensors(fn, getattr(tree, f.name))
+                                            for f in dataclasses.fields(tree) if f.init})
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_tensors(fn, v) for v in tree)
+    return tree
+
+
+def _by_group(x: torch.Tensor, digits: Tuple[int, ...], tier: int) -> torch.Tensor:
+    """``(R, ...) → (R / A_l, A_l, ...)``: the tier-l groups of a whole rank
+    axis in group order (the order of each group's first rank), each
+    group's ranks in digit-l order; a view when l is the fastest tier."""
+    rest = tuple(x.shape[1:])
+    view = x.reshape(digits + rest).movedim(tier, len(digits) - 1)
+    return view.reshape((-1, digits[tier]) + rest)
+
+
+# what a tensor of each dtype travels as in an off-recorder gather: gloo
+# moves no unsigned words wider than a byte, and NCCL no booleans
+_WIRE = {torch.uint16: torch.int16, torch.uint32: torch.int32, torch.uint64: torch.int64, torch.bool: torch.uint8}
+# a gradient bucket: bounds the flat copy a bucket makes beside the gradients
+_GRAD_BUCKET_BYTES = 1 << 28
 
 
 def _block_plan(digits: Tuple[int, ...], tier: int, world: int, index: int):
@@ -474,25 +551,44 @@ class DistributedCollectives(_RankBlock):
     def gather_all(self, x: torch.Tensor) -> torch.Tensor:
         """``(L, ...) → (R, ...)``: every rank's rows, in every process, off
         the recorder: for host summaries after a run and for tests, never
-        inside a round."""
+        inside a round.  Unsigned words and booleans travel as the signed
+        words of their width (gloo moves no ``uint32``)."""
+        dtype = x.dtype
+        x = x.contiguous().view(_WIRE.get(dtype, dtype))
         out = torch.empty((x.shape[0] * self.world,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
         gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-        gather(out, x.contiguous())
-        return out
+        gather(out, x)
+        return out.view(dtype)
+
+    def barrier(self) -> None:
+        dist.barrier()
 
     def all_gather(
-        self, x: torch.Tensor, *, digits: Optional[Sequence[int]] = None, tier: Optional[int] = None
+        self, x: torch.Tensor, *, digits: Optional[Sequence[int]] = None, tier: Optional[int] = None,
+        per_group: bool = False,
     ) -> torch.Tensor:
         """Flat: ``(L, ...) → (L, R, ...)`` (a broadcast view of the gathered
         rows); tier: ``(L, ...) → (L, A_l, ...)``, the local ranks' groups
-        picked from the gathered rows."""
-        full = self.gather_all(x)
+        picked from the gathered rows; with ``per_group``, ``(G, A_l, ...)``,
+        the groups of the local ranks once each, in group order (when the
+        tier is the fastest and the process holds whole groups, its own
+        rows: nothing crosses a process)."""
         if digits is None:
+            full = self.gather_all(x)
             self._record("all_gather", x)
             return full.unsqueeze(0).expand((x.shape[0],) + tuple(full.shape))
         self._record("all_gather", x, tier)
-        R = math.prod(digits)
-        return full[_group_members(digits, tier, ranks=self.ranks(R, x.device))]
+        digits = tuple(digits)
+        R, L, A = math.prod(digits), x.shape[0], digits[tier]
+        if per_group and tier == len(digits) - 1 and L % A == 0:
+            return _by_group(x, (L // A, A), 1)
+        full = self.gather_all(x)
+        ranks = self.ranks(R, x.device)
+        if not per_group:
+            return full[_group_members(digits, tier, ranks=ranks)]
+        stride = math.prod(digits[tier + 1:])
+        group = ranks // (A * stride) * stride + ranks % stride  # a rank's group, in group order
+        return _by_group(full, digits, tier)[torch.unique(group)]
 
     def ppermute(self, x: torch.Tensor) -> torch.Tensor:
         """The ring hop: a local roll, and one ``batch_isend_irecv`` pair that
@@ -512,11 +608,16 @@ class DistributedCollectives(_RankBlock):
     def psum(
         self, x: torch.Tensor, *, digits: Optional[Sequence[int]] = None, tier: Optional[int] = None
     ) -> torch.Tensor:
-        """Flat: the local sum, then an ``all_reduce(SUM)``: held once,
-        replicated.  Tier: the group gathered and summed in the stacked
-        order, held per local rank."""
+        """Flat: held once, replicated.  An integer sum is the local sum,
+        then an ``all_reduce(SUM)`` (exact in any order); a floating one
+        gathers every rank's rows and sums them in the stacked order, so it
+        equals the stacked sum bit for bit (a frame buffer's merge).  Tier:
+        the group gathered and summed in the stacked order, held per local
+        rank."""
         if digits is None:
             self._record("psum", x)
+            if x.is_floating_point() or x.is_complex():
+                return self.gather_all(x).sum(dim=0, dtype=x.dtype)
             total = x.sum(dim=0, dtype=x.dtype)
             dist.all_reduce(total, op=dist.ReduceOp.SUM)
             return total
@@ -531,3 +632,34 @@ class DistributedCollectives(_RankBlock):
         low = x.amin(dim=0)
         dist.all_reduce(low, op=dist.ReduceOp.MIN)
         return low
+
+    def grad_all_reduce(self, tensors: Sequence[torch.Tensor]) -> None:
+        """Sum ``tensors`` over the world's processes, in place: flattened
+        into buckets of one dtype and at most ``_GRAD_BUCKET_BYTES`` (a
+        tensor larger than that is a bucket of its own), one ``all_reduce(SUM)``
+        a bucket, each recorded as a ``grad_all_reduce`` call, so the
+        round's call budget is untouched.  A bucket of one contiguous
+        tensor is reduced where it lies; the others through one flat copy.
+        Every process ends with the same bits."""
+        buckets, cur, size, dtype = [], [], 0, None
+        for t in tensors:
+            nb = t.numel() * t.element_size()
+            if cur and (t.dtype != dtype or size + nb > _GRAD_BUCKET_BYTES):
+                buckets.append(cur)
+                cur, size = [], 0
+            cur.append(t)
+            size, dtype = size + nb, t.dtype
+        if cur:
+            buckets.append(cur)
+        for b in buckets:
+            if len(b) == 1 and b[0].is_contiguous():  # reduced where it lies: no copy
+                self._record("grad_all_reduce", b[0].view(-1))
+                dist.all_reduce(b[0], op=dist.ReduceOp.SUM)
+                continue
+            flat = torch.cat([t.reshape(-1) for t in b])
+            self._record("grad_all_reduce", flat)
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+            at = 0
+            for t in b:
+                t.copy_(flat[at:at + t.numel()].view(t.shape))
+                at += t.numel()

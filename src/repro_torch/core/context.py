@@ -41,7 +41,7 @@ from repro_torch import compat
 from repro_torch.core import queue as Q
 from repro_torch.core import termination as term
 from repro_torch.core import types as T
-from repro_torch.core.collectives import StackedCollectives
+from repro_torch.core.collectives import backend
 from repro_torch.core.forwarding import ForwardConfig, forward_work
 from repro_torch.obs import trace as OT
 
@@ -86,7 +86,7 @@ class RafiContext:
             telemetry=telemetry, telemetry_window=telemetry_window, telemetry_buckets=telemetry_buckets,
             overflow=overflow, pipeline_shards=pipeline_shards, flow=flow, emit_reserve=emit_reserve,
         )
-        self.comm = StackedCollectives() if comm is None else comm
+        self.comm = backend(comm)
         self.comm.local_ranks(num_ranks)  # refuse a rank count the world cannot split
 
     @property

@@ -26,7 +26,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import types as T
-from repro_torch.core.collectives import StackedCollectives
+from repro_torch.core.collectives import StackedCollectives, backend
 from repro_torch.core.forwarding import ForwardConfig
 from repro_torch.core.queue import DISCARD, WorkQueue, enqueue, make_queue
 from repro_torch.kernels.bucket_scatter import ops as bs_ops
@@ -60,7 +60,7 @@ def cycle_step(q: WorkQueue, absorbed: WorkQueue, cfg: ForwardConfig, *, comm: O
             f"so pipeline_shards={cfg.pipeline_shards} has nothing to overlap "
             "— use pipeline_shards=1 with the cycling pattern"
         )
-    comm = StackedCollectives() if comm is None else comm
+    comm = backend(comm)
     C = q.capacity
     dev = q.dest.device
     me = comm.ranks(cfg.num_ranks, dev).to(torch.int32)[:, None]
@@ -133,7 +133,7 @@ def deliver_by_cycling(q: WorkQueue, cfg: ForwardConfig, *, comm: Optional[Stack
             num_ranks=cfg.num_ranks, hops=cfg.num_ranks,
             overflow=cfg.overflow, telemetry=cfg.telemetry,
         )
-    comm = StackedCollectives() if comm is None else comm
+    comm = backend(comm)
     if q.num_ranks != comm.local_ranks(cfg.num_ranks) or q.capacity != cfg.capacity:
         raise ValueError(
             f"queue is ({q.num_ranks}, {q.capacity}) but the config is "

@@ -53,7 +53,7 @@ import torch
 
 from repro_torch.core import exchange as X
 from repro_torch.core import types as T
-from repro_torch.core.collectives import StackedCollectives
+from repro_torch.core.collectives import StackedCollectives, backend
 from repro_torch.core.health import remap_dest
 from repro_torch.core.queue import DISCARD, WorkQueue
 from repro_torch.kernels.bucket_scatter import ops as bs_ops
@@ -360,7 +360,7 @@ def forward_work(
     ``onehot``, "merge" under retain, "unpack", "psum"), e.g. to record a
     CUDA event there; it must not change the round.
     """
-    comm = StackedCollectives() if comm is None else comm
+    comm = backend(comm)
     if q.num_ranks != comm.local_ranks(cfg.num_ranks) or q.capacity != cfg.capacity:
         raise ValueError(
             f"queue is ({q.num_ranks}, {q.capacity}) but the config is "
@@ -376,7 +376,7 @@ def _forward(q, cfg, *, age=None, health=None, credits=None, comm=None, on_stage
     destination is a digit-l lane and every collective is a tier-l call
     (``core.rebalance``'s intra-scope round)."""
     mark = on_stage or (lambda name: None)
-    comm = StackedCollectives() if comm is None else comm
+    comm = backend(comm)
     R, C = cfg.num_ranks, cfg.capacity
     retain = cfg.overflow == "retain"
     credit = cfg.flow == "credit"

@@ -44,7 +44,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.collectives import StackedCollectives, tier_digit
+from repro_torch.core.collectives import StackedCollectives, backend, tier_digit
 from repro_torch.core.forwarding import ForwardConfig, _forward, forward_work
 from repro_torch.core.queue import DISCARD, WorkQueue, enqueue
 from repro_torch.obs import trace as OT
@@ -73,7 +73,7 @@ def plan_rebalance(
     line, and position j belongs on rank (or lane) ``j // target[b]``.  With
     ``digits`` and ``tier`` the line is each rank's tier group of
     ``num_ranks`` lanes (a tier ``all_gather``)."""
-    comm = StackedCollectives() if comm is None else comm
+    comm = backend(comm)
     counts = comm.all_gather(count, digits=digits, tier=tier)  # (B, N): my line
     if digits is None:
         me = comm.ranks(counts.shape[1], count.device)
@@ -95,7 +95,7 @@ def plan_rebalance_hierarchical(
     ``lane_target``, ``sur_start``, ``cum_def`` ``(R, G)`` — the residents
     each group keeps, its lane stride, the exclusive prefix of the surplus
     line and the inclusive prefix of the deficit slots."""
-    comm = StackedCollectives() if comm is None else comm
+    comm = backend(comm)
     F = int(level_sizes[-1])
     counts = comm.all_gather(count)  # (B, R), lexicographic
     B, R = counts.shape
@@ -203,7 +203,7 @@ def rebalance(
             scope=scope, exchange=cfg.exchange,
             num_ranks=cfg.num_ranks, health_aware=health is not None,
         )
-    comm = StackedCollectives() if comm is None else comm
+    comm = backend(comm)
     resident, idx, n_res = _resident_positions(q)
     if health is not None and scope != "global":
         raise ValueError(

@@ -28,6 +28,17 @@ The port has no compiled program and no ``shard_map``: a segment is the
 host-looped ``drive_segment`` up to ``min(rnd + checkpoint_every,
 max_rounds)``, and there are no ``aux_specs``.  Results stay on the
 context's device.
+
+Over a ``DistributedCollectives`` world (``ctx.comm``) the carry is the
+process's block of ranks.  At a boundary the carry is gathered whole
+(``comm.gather_tree``, off the call recorder) in every process: the
+watchdog, a law over all ranks, reads the whole counters, and process 0
+alone writes the whole carry in the stacked layout (and prunes), then
+every process waits at a barrier, so a world's files equal the stacked
+run's byte for byte.  A resume reads the whole tree in every process,
+relayouts it if elastic, and cuts it to the process's block
+(``comm.shard_tree``): a checkpoint any world wrote resumes in any
+world whose size divides the rank count.
 """
 from __future__ import annotations
 
@@ -187,9 +198,10 @@ def _health_tensor(health, R: int, rnd: int, device) -> Optional[torch.Tensor]:
     return None if health is None else torch.from_numpy(_health_at(health, R, rnd)).to(device)
 
 
-def _finalize(ctx, carry: Dict[str, Any], *, step) -> Dict[str, Any]:
+def _finalize(ctx, carry: Dict[str, Any], host: Dict[str, Any], *, step) -> Dict[str, Any]:
     """Carry → result dict (the segmented ``termination.drive_finalize``);
-    tensors stay on the carry's device."""
+    tensors stay on the carry's device, the totals are the whole world's
+    (``host``: the boundary's gathered counters)."""
     cfg = ctx.cfg
     q = carry["q"]
     res: Dict[str, Any] = {
@@ -197,8 +209,8 @@ def _finalize(ctx, carry: Dict[str, Any], *, step) -> Dict[str, Any]:
         "aux": carry["aux"],
         "rounds": int(carry["rnd"]),
         "done": int(carry["total"]) == 0,
-        "emitted": int(CK.to_host(carry["emitted"]).astype(np.uint64).sum()),
-        "delivered": int(CK.to_host(carry["delivered"]).astype(np.uint64).sum()),
+        "emitted": int(CK.to_host(host["emitted"]).astype(np.uint64).sum()),
+        "delivered": int(CK.to_host(host["delivered"]).astype(np.uint64).sum()),
         "step": step,
         "preempted": False,
     }
@@ -216,22 +228,24 @@ def _drive_loop(ctx, round_fn: Callable, carry, *, ckpt_dir, checkpoint_every: i
     (maybe simulated preemption) → next segment.  Returns the result dict,
     or ``None`` if the drive halted at a boundary (state is on disk; call
     :func:`resume_run` to continue)."""
-    cfg, R = ctx.cfg, ctx.num_ranks
+    cfg, R, comm = ctx.cfg, ctx.num_ranks, ctx.comm
     dev = carry["q"].dest.device
     last_step = None
     prev_health = None
     while True:
         rnd = carry["rnd"]
-        total = int(carry["total"])
+        total = int(carry["total"])  # replicated: every process takes the same branches below
         OT.event("recovery.boundary", OT.CAT_RECOVERY, round=rnd, total=total)
         if ckpt_dir is None:
             # nothing is saved: the watchdog's counters are all that leave the card
-            host = {k: CK.to_host(carry[k]) for k in ("emitted", "delivered", "total", "drops")}
+            host = _map(CK.to_host, comm.gather_tree({k: carry[k] for k in ("emitted", "delivered", "total", "drops")}))
         else:
-            host = _host_carry(carry, cfg)
+            host = _host_carry(comm.gather_tree(carry), cfg)
         conservation_check(host, where=f"round {rnd}")
         if ckpt_dir is not None:
-            ckpt.save_checkpoint(ckpt_dir, rnd, host, keep=keep, meta=_meta_of(ctx, rnd))
+            if comm.index == 0:  # one writer; the others read after the barrier
+                ckpt.save_checkpoint(ckpt_dir, rnd, host, keep=keep, meta=_meta_of(ctx, rnd))
+            comm.barrier()
             last_step = rnd
             if OT.enabled():
                 leaves = ckpt.load_manifest(ckpt_dir, rnd).get("leaves", [])
@@ -241,7 +255,7 @@ def _drive_loop(ctx, round_fn: Callable, carry, *, ckpt_dir, checkpoint_every: i
                     digest=leaves[0]["sha256"][:16] if leaves else "",
                 )
         if total == 0 or rnd >= max_rounds:
-            return _finalize(ctx, carry, step=last_step)
+            return _finalize(ctx, carry, host, step=last_step)
         seg_end = min(rnd + checkpoint_every, max_rounds)
         if halt_after_round is not None and seg_end > halt_after_round:
             OT.event("recovery.preempt", OT.CAT_RECOVERY, round=rnd, step=last_step)
@@ -270,7 +284,8 @@ def run_checkpointed(
 ) -> Optional[Dict[str, Any]]:
     """Drive ``round_fn`` to termination with a checkpoint every
     ``checkpoint_every`` rounds (each boundary also runs the conservation
-    watchdog).  Same contract as ``RafiContext.run_until_done``, plus:
+    watchdog).  Same contract as ``RafiContext.run_until_done`` (over a
+    world, ``q0_stacked`` and ``aux0`` are the process's block), plus:
 
       * ``ckpt_dir``: checkpoints land here (``None`` → the segmented drive
         with no saves, the baseline for overhead measurement);
@@ -314,10 +329,11 @@ def resume_run(
 
     ``ctx`` is the resume-side context; it may span another rank count or
     capacity than the one that saved (elastic restore, :func:`_elastic_restore`).
-    ``aux_like`` is a host zeros-tree of the aux in the new rank count's
-    shape; on an elastic resume the aux leaves are refitted with
+    ``aux_like`` is a host zeros-tree of the whole aux in the new rank
+    count's shape; on an elastic resume the aux leaves are refitted with
     ``aux_restore(old_aux, R_new)`` if given, else by the modular fold
-    (new rank ``r`` sums old ranks ``o ≡ r (mod R′)``).
+    (new rank ``r`` sums old ranks ``o ≡ r (mod R′)``).  Over a world every
+    process restores the whole carry and keeps its block.
     """
     if step is None:
         step = ckpt.latest_step(ckpt_dir)
@@ -354,7 +370,7 @@ def resume_run(
         )
         old = ckpt.restore_checkpoint(ckpt_dir, step, like_old, device=ctx.device)
         disk = _elastic_restore(old, ctx, R_old=R_old, C_old=C_old, aux_restore=aux_restore)
-    carry = _from_disk(disk, cfg)
+    carry = ctx.comm.shard_tree(_from_disk(disk, cfg), ctx.num_ranks)
     with OT.span(
         "recovery.resume_run", OT.CAT_RECOVERY, step=step, elastic=elastic, num_ranks=ctx.num_ranks,
     ) as sp:

@@ -54,7 +54,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import types as T
-from repro_torch.core.collectives import StackedCollectives
+from repro_torch.core.collectives import StackedCollectives, backend
 from repro_torch.core.forwarding import ForwardConfig, forward_work
 from repro_torch.core.queue import DISCARD, WorkQueue
 from repro_torch.telemetry import stats as TS
@@ -180,7 +180,7 @@ def drive_segment(
     credit = cfg.flow == "credit"
     track = "emitted" in carry
     # my own entry of the credits: column = my global rank
-    me = (StackedCollectives() if comm is None else comm).ranks(cfg.num_ranks, carry["q"].dest.device)
+    me = backend(comm).ranks(cfg.num_ranks, carry["q"].dest.device)
     c = dict(carry)
     # the one host sync per round: the loop condition reads the global count
     while c["rnd"] < seg_end and int(c["total"]) > 0:

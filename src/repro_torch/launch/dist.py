@@ -19,9 +19,10 @@ every rank-stacked tensor it handles is that block.
       temporary directory (no TCP port to compete for), a time limit after
       which every child is killed, and a child that raises fails the call.
   shard_tree(tree, comm, R), gather_tree(tree, comm)
-      a rank-stacked pytree (a ``WorkQueue``, a carry, a ``StatsRing``)
-      cut to the process's block, and the blocks gathered back into the
-      whole tree in every process (off the call recorder).
+      the backend's ``comm.shard_tree`` and ``comm.gather_tree``: a
+      rank-stacked pytree (a ``WorkQueue``, a carry, a ``StatsRing``) cut to
+      the process's block, and the blocks gathered back into the whole tree
+      in every process (off the call recorder).
 
 Run the examples as a world:
 ``python -m torch.distributed.run --standalone --nproc_per_node 2
@@ -29,7 +30,6 @@ examples/streamlines_demo_torch.py --cpu``.
 """
 from __future__ import annotations
 
-import dataclasses
 import datetime
 import inspect
 import os
@@ -160,30 +160,13 @@ def spawn_world(fn: Callable, world: int, *, args: Sequence[Any] = (), device="c
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _map(fn: Callable, tree: Any) -> Any:
-    """Apply ``fn`` to every tensor leaf of a tree of dataclasses, dicts,
-    tuples and lists; other leaves pass through."""
-    if torch.is_tensor(tree):
-        return fn(tree)
-    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        return dataclasses.replace(tree, **{f.name: _map(fn, getattr(tree, f.name))
-                                            for f in dataclasses.fields(tree) if f.init})
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_map(fn, v) for v in tree)
-    return tree
-
-
 def shard_tree(tree: Any, comm, num_ranks: int) -> Any:
-    """The process's block of a rank-stacked tree: every tensor leaf with a
-    leading axis of ``num_ranks`` is cut to the local ranks; 0-d leaves and
-    the rest pass through."""
-    return _map(lambda t: comm.local(t) if t.dim() > 0 and t.shape[0] == num_ranks else t, tree)
+    """``comm.shard_tree(tree, num_ranks)``: the process's block of a
+    rank-stacked tree."""
+    return comm.shard_tree(tree, num_ranks)
 
 
 def gather_tree(tree: Any, comm) -> Any:
-    """The whole rank-stacked tree in every process: every tensor leaf's
-    leading axis of local ranks gathered over the world (0-d leaves pass
-    through).  Off the call recorder."""
-    return _map(lambda t: comm.gather_all(t) if t.dim() > 0 else t, tree)
+    """``comm.gather_tree(tree)``: the whole rank-stacked tree in every
+    process, off the call recorder."""
+    return comm.gather_tree(tree)

@@ -7,6 +7,14 @@ happens between steps); the next token is the greedy argmax (the first
 index on ties, as ``jnp.argmax``); a finished slot is refilled from the
 queue.  Empty slots still step, feeding token 0, as in the reference: under
 MoE their tokens are routed and compete for expert capacity.
+
+Over a ``torch.distributed`` world (the layout's ``comm``) the engine runs
+the layout ``(1, tp)``: one data group whose tp model ranks spread over
+the processes.  Every process holds every slot and runs the dense layers on
+all of them; the MoE plane routes its ranks' token slices and joins the
+group's outputs with its ``all_gather``, so every process computes the same
+logits, bit for bit, and admits and retires requests on them alike: the
+slot tables stay equal and every process issues the same collectives.
 """
 from __future__ import annotations
 
@@ -65,6 +73,10 @@ class BatchedEngine:
             # encoder-decoder's step also needs the encoder memory
             raise ValueError("BatchedEngine serves decoder-only models; an encdec step needs the encoder memory "
                              "(Model.decode_fn)")
+        comm = getattr(layout, "comm", None)
+        if comm is not None and comm.world > 1 and layout.data != 1:
+            raise ValueError(f"over a world of {comm.world} processes the engine runs the layout (1, tp), "
+                             f"not {layout}: every process holds every slot")
         self.model = model
         self.params = params
         self.slots = slots

@@ -7,6 +7,13 @@
 divided by their count, as the reference's ``lax.scan``), then one AdamW
 step.  ``params`` is the model's :class:`~repro_torch.models.transformer.LM`
 (or its ``tree()``); it and the state are updated in place and returned.
+Over a ``torch.distributed`` world (``comm=``, or the layout's ``comm``)
+the step takes the GLOBAL batch in every process, keeps the rows of the
+process's data groups (:func:`data_rows`), and averages the gradient and
+the loss over the data groups with ``comm.grad_all_reduce``: processes that
+hold the same rows (model peers of one group) contribute once, so every
+process ends the step with the same parameters and AdamW state, bit for
+bit.
 ``abstract_opt_state`` and ``abstract_caches`` give the AdamW state and
 the decode caches on ``torch.device("meta")`` (shapes and dtypes, nothing
 allocated), where the reference gives ``jax.eval_shape`` results.  The
@@ -17,7 +24,8 @@ meta tensors instead).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import dataclasses
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -26,7 +34,8 @@ from repro_torch.models.api import Model
 from repro_torch.models.common import ParamTree, tree_leaves, tree_map
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 
-__all__ = ["abstract_caches", "abstract_opt_state", "build_decode_step", "build_prefill_step", "build_train_step"]
+__all__ = ["abstract_caches", "abstract_opt_state", "build_decode_step", "build_prefill_step", "build_train_step",
+           "data_rows"]
 
 
 def _to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
@@ -42,13 +51,45 @@ def _to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     return out
 
 
-def build_train_step(model: Model, layout=None, opt_cfg: AdamWConfig = AdamWConfig()):
+def _uses_layout(cfg) -> bool:
+    """Whether the model's layers run on the layout's ranks (the
+    ``rafi_ep`` MoE plane); a dense model's data groups are the processes."""
+    return cfg.kind == "moe" and cfg.moe_dispatch == "rafi_ep"
+
+
+def data_rows(model: Model, layout, comm, batch: int) -> Tuple[int, int, int, bool]:
+    """``(lo, hi, holders, lead)``: the rows ``[lo, hi)`` of a global batch
+    of ``batch`` rows this process trains on, how many processes hold
+    distinct rows, and whether this process is the first of those holding
+    its rows.  A model on the layout's ranks takes its data groups' rows
+    (``Layout.data_block``: replicated over a group's processes when a
+    process holds part of a group); any other model splits the batch over
+    the processes.  Without a world: the whole batch, one holder."""
+    if comm is None:
+        return 0, batch, 1, True
+    if layout is not None and _uses_layout(model.cfg):
+        layout = dataclasses.replace(layout, comm=comm)
+        lo, hi = layout.data_block(batch)
+        replicas = layout.replicas()
+        return lo, hi, comm.world // replicas, comm.index % replicas == 0
+    if batch % comm.world:
+        raise ValueError(f"the batch ({batch}) does not split over {comm.world} processes")
+    per = batch // comm.world
+    return comm.index * per, (comm.index + 1) * per, comm.world, True
+
+
+def build_train_step(model: Model, layout=None, opt_cfg: AdamWConfig = AdamWConfig(), *, comm=None):
     """train_step(params, opt_state, batch) -> (params, opt_state, metrics).
 
     ``cfg.microbatches > 1`` enables gradient accumulation: the batch runs
     in slices, which divides activation memory by the slice count.  A
     parameter the loss does not reach keeps ``grad`` ``None``, which the
-    update takes as a zero gradient (the reference's zeros)."""
+    update takes as a zero gradient (the reference's zeros).  ``comm`` (or
+    ``layout.comm``) makes it a data-parallel step over a world (module
+    docstring)."""
+    comm = comm if comm is not None else getattr(layout, "comm", None)
+    if comm is not None and layout is not None:
+        layout = dataclasses.replace(layout, comm=comm)
     loss_fn = model.loss_fn(layout)
     m = max(1, model.cfg.microbatches)
 
@@ -58,7 +99,8 @@ def build_train_step(model: Model, layout=None, opt_cfg: AdamWConfig = AdamWConf
         for p in leaves:
             p.requires_grad_(True)
             p.grad = None
-        batch = _to_device(batch, leaves[0].device)
+        lo, hi, holders, lead = data_rows(model, layout, comm, next(iter(batch.values())).shape[0])
+        batch = _to_device({k: v[lo:hi] for k, v in batch.items()}, leaves[0].device)
         if m == 1:
             loss = loss_fn(tree, batch)
             loss.backward()
@@ -77,6 +119,8 @@ def build_train_step(model: Model, layout=None, opt_cfg: AdamWConfig = AdamWConf
                 for p in leaves:
                     if p.grad is not None:
                         p.grad.div_(m)
+        if comm is not None:
+            loss = _average_over_groups(comm, leaves, loss, holders, lead)
         grads = tree_map(lambda p: p.grad, tree)
         _, opt_state, gnorm = adamw_update(tree, grads, opt_state, opt_cfg)
         for p in leaves:
@@ -84,6 +128,24 @@ def build_train_step(model: Model, layout=None, opt_cfg: AdamWConfig = AdamWConf
         return params, opt_state, {"loss": loss, "gnorm": gnorm}
 
     return train_step
+
+
+def _average_over_groups(comm, leaves, loss, holders: int, lead: bool):
+    """The gradients (in place) and the loss averaged over the distinct
+    holders of rows: one sum over the world, to which a process that holds
+    another's rows adds zeros, then a division by the holder count (the
+    microbatch average's order: the sum, then the division)."""
+    with torch.no_grad():
+        grads = [p.grad for p in leaves if p.grad is not None]
+        total = loss.detach().to(torch.float32).reshape(1).clone()
+        if not lead:
+            for g in grads:
+                g.zero_()
+            total.zero_()
+        comm.grad_all_reduce(grads + [total])
+        for g in grads:
+            g.div_(holders)
+        return total[0] / holders
 
 
 def build_prefill_step(model: Model, layout=None):

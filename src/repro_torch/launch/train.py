@@ -54,19 +54,31 @@ def train(
     opt_cfg: AdamWConfig = AdamWConfig(warmup_steps=20),
     verbose: bool = True,
     device=None,
+    comm=None,
 ):
     """Train ``arch`` (a registry name, its smoke config when ``smoke``,
     or a :class:`ModelConfig` as given) on :class:`SyntheticLM` batches.
     Returns ``(params, opt_state, [(step, loss), ...])``; ``layout`` is the
     MoE dispatch's rank layout (default 2 × 4), ``ckpt_dir`` defaults to
-    :func:`_default_ckpt_dir`, ``ckpt_every=0`` writes none."""
+    :func:`_default_ckpt_dir`, ``ckpt_every=0`` writes none.  ``comm`` (a
+    ``DistributedCollectives``, or the layout's) trains data-parallel over
+    its world: every process draws the same global batch and keeps its
+    rows (``launch.steps``), the replicas stay equal, process 0 alone
+    writes the checkpoints and the others wait for it at a barrier."""
     cfg = arch if isinstance(arch, ModelConfig) else (get_smoke_config(arch) if smoke else get_config(arch))
     dev = compat.resolve_device(device)
     ckpt_dir = ckpt_dir or _default_ckpt_dir()
     model = build_model(cfg)
     layout = layout or make_test_layout()
+    comm = comm if comm is not None else layout.comm
     ds = SyntheticLM(cfg.vocab_size, seq, batch)
-    step_fn = build_train_step(model, layout, opt_cfg)
+    step_fn = build_train_step(model, layout, opt_cfg, comm=comm)
+
+    def save(step):
+        if comm is None or comm.index == 0:
+            save_checkpoint(ckpt_dir, step, {"params": params.tree(), "opt": opt})
+        if comm is not None:
+            comm.barrier()
 
     params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
     start = latest_step(ckpt_dir)
@@ -74,7 +86,7 @@ def train(
     if start is None:
         opt = adamw_init(params, opt_cfg)
     else:
-        if verbose:
+        if verbose and (comm is None or comm.index == 0):
             print(f"[train] resuming from checkpoint step {start}")
         # the state's shapes from meta tensors: restore allocates it once
         meta = tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"), params.tree())
@@ -92,12 +104,12 @@ def train(
         params, opt, metrics = step_fn(params, opt, ds.batch_at(step))
         loss = float(metrics["loss"])
         losses.append((step, loss))
-        if verbose and (step % log_every == 0 or step == steps - 1):
+        if verbose and (comm is None or comm.index == 0) and (step % log_every == 0 or step == steps - 1):
             print(f"[train] step {step:5d} loss {loss:8.4f} ({time.time() - t0:.1f}s)", flush=True)
         if ckpt_every and (step + 1) % ckpt_every == 0:
-            save_checkpoint(ckpt_dir, step + 1, {"params": params.tree(), "opt": opt})
+            save(step + 1)
     if ckpt_every:
-        save_checkpoint(ckpt_dir, steps, {"params": params.tree(), "opt": opt})
+        save(steps)
     return params, opt, losses
 
 

@@ -31,16 +31,25 @@ so no row crosses a group, and the per-pair slot clamp and the receive
 order (sources in rank order) are those of the reference's per-group
 round.  The items carry what the reference's carry: ``src`` is the model
 rank, and the return trip's destination is ``g·tp + src``.
+
+Over a ``DistributedCollectives`` world (the layout's ``comm``) a process
+holds its block of the ranks and the batch rows of their data groups
+(``launch.mesh.Layout.data_block``): the router runs on its ranks' token
+slices, its ranks' experts run on their buckets, the combine joins a
+group's model-rank slices with one ``all_gather`` over the model tier (the
+reference's), and the drops are one ``psum``.  The stacked backend runs
+the same calls on every rank at once.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import DISCARD, ForwardConfig, StackedCollectives, enqueue, forward_work, make_queue, work_item
+from repro_torch.core.collectives import backend
 from repro_torch.models.common import ModelConfig, ParamDef, ParamTree, activation
 
 __all__ = [
@@ -143,13 +152,23 @@ class Route:
     n_all: int                # tokens of one data group
     n_loc: int                # tokens of one rank's slice
     cap_e: int                # rows of each expert's bucket
-    shape: Tuple[int, int, int]  # x's (B, S, D)
+    shape: Tuple[int, int, int]  # x's (B, S, D): the process's rows
+    comm: Any = None          # the backend the ranks run on (the layout's, resolved)
+    first: int = 0            # the process's first rank: it holds ranks [first, first + L)
 
     def to(self, device) -> "Route":
         """The same route on ``device`` (the dispatch's inputs only)."""
         items = TokenItem(**{f.name: getattr(self.items, f.name).to(device)
                              for f in dataclasses.fields(TokenItem)})
         return dataclasses.replace(self, items=items, dest=self.dest.to(device), mask=self.mask.to(device))
+
+    @property
+    def local_ranks(self) -> int:
+        return self.dest.shape[0]
+
+    def ranks(self, device) -> torch.Tensor:
+        """``(L,)`` the global ids of the process's ranks."""
+        return torch.arange(self.first, self.first + self.local_ranks, device=device)
 
 
 def _proto(d: int, dtype) -> TokenItem:
@@ -169,24 +188,30 @@ def rafi_ep_route(params, x, cfg: ModelConfig, *, layout) -> Route:
     """Each rank's token slice, routed: ``x`` (B, S, D) is split over the
     data groups (B/dp rows each) and replicated over the model ranks; model
     rank m takes tokens ``[m·n_loc, (m+1)·n_loc)`` of its group (lanes past
-    the group's ``n_all`` tokens are masked)."""
+    the group's ``n_all`` tokens are masked).  Over a world ``x`` holds the
+    process's groups' rows and only its ranks' slices are routed."""
     b, s, d = x.shape
     dp, tp = layout.data, layout.model
     e, k = cfg.num_experts, cfg.top_k
     if e % tp:
         raise ValueError(f"experts ({e}) must divide the model ranks ({tp})")
-    if b % dp:
-        raise ValueError(f"the batch ({b}) must divide over the data groups ({dp})")
-    e_loc = e // tp
+    comm = backend(layout.comm)
     R = dp * tp
+    _, held, _ = layout.groups()  # the data groups of the process's ranks (all dp on the stacked backend)
+    if b % held:
+        raise ValueError(f"the batch ({b}) must divide over the data groups ({held} of {dp})")
+    e_loc = e // tp
     dev = x.device
-    n_all = (b // dp) * s
+    ranks = comm.ranks(R, dev)  # (L,) global ids: group r // tp, model rank r % tp
+    L = ranks.shape[0]
+    n_all = (b // held) * s
     n_loc = -(-n_all // tp)
-    x2 = x.reshape(dp, n_all, d)
-    gslot = torch.arange(tp, device=dev)[:, None] * n_loc + torch.arange(n_loc, device=dev)  # (tp, n_loc)
-    tok_ok = (gslot < n_all).expand(dp, tp, n_loc).reshape(R, n_loc)
-    xs = x2[:, gslot.clamp(0, n_all - 1)].reshape(R, n_loc, d)
-    idx, w = _router(params, xs.reshape(R * n_loc, d), cfg)
+    x2 = x.reshape(held, n_all, d)
+    gslot = (ranks % tp)[:, None] * n_loc + torch.arange(n_loc, device=dev)  # (L, n_loc)
+    tok_ok = gslot < n_all
+    g_loc = (ranks // tp - ranks[0] // tp)[:, None]  # the rank's group among the held ones
+    xs = x2[g_loc, gslot.clamp(0, n_all - 1)]  # (L, n_loc, D)
+    idx, w = _router(params, xs.reshape(L * n_loc, d), cfg)
 
     n_emit = n_loc * k
     cap_send = n_emit
@@ -198,42 +223,45 @@ def rafi_ep_route(params, x, cfg: ModelConfig, *, layout) -> Route:
     # reference sizes them; slot overflow drops are counted
     fcfg = ForwardConfig(R, cap, peer_capacity=min(cap, max(64, -(-2 * cap // tp))), exchange="padded")
 
-    me = (torch.arange(R, device=dev, dtype=torch.int32) % tp)[:, None]  # model rank
-    group = (torch.arange(R, device=dev, dtype=torch.int32) // tp)[:, None]
+    me = (ranks % tp).to(torch.int32)[:, None]  # model rank
+    group = (ranks // tp).to(torch.int32)[:, None]
     items = TokenItem(
         h=xs.repeat_interleave(k, dim=1),
-        slot=torch.arange(n_loc, dtype=torch.int32, device=dev).repeat_interleave(k).expand(R, n_emit),
-        weight=w.reshape(R, n_emit),
-        expert=idx.reshape(R, n_emit),
-        src=me.expand(R, n_emit),
+        slot=torch.arange(n_loc, dtype=torch.int32, device=dev).repeat_interleave(k).expand(L, n_emit),
+        weight=w.reshape(L, n_emit),
+        expert=idx.reshape(L, n_emit),
+        src=me.expand(L, n_emit),
     )
     dest = (group * tp + items.expert // e_loc).to(torch.int32)
     return Route(items=items, dest=dest, mask=tok_ok.repeat_interleave(k, dim=1), fcfg=fcfg, dp=dp, tp=tp,
-                 e_loc=e_loc, n_all=n_all, n_loc=n_loc, cap_e=cap_e, shape=(b, s, d))
+                 e_loc=e_loc, n_all=n_all, n_loc=n_loc, cap_e=cap_e, shape=(b, s, d), comm=comm,
+                 first=comm.rank_offset(R))
 
 
-def rafi_ep_dispatch(route: Route, *, comm: Optional[StackedCollectives] = None):
-    """The first round: tokens travel to their experts' owners.  Returns
-    the delivered queue."""
+def rafi_ep_dispatch(route: Route):
+    """The first round, on the route's backend: tokens travel to their
+    experts' owners.  Returns the delivered queue."""
     dev = route.dest.device
     d = route.shape[2]
-    q = make_queue(_proto(d, route.items.h.dtype), route.fcfg.capacity, num_ranks=route.fcfg.num_ranks, device=dev)
+    q = make_queue(_proto(d, route.items.h.dtype), route.fcfg.capacity, num_ranks=route.local_ranks, device=dev)
     q = enqueue(q, route.items, route.dest, route.mask)
-    q, _ = forward_work(q, route.fcfg, comm=comm)  # §4.2 — tokens travel to expert owners
+    q, _ = forward_work(q, route.fcfg, comm=route.comm)  # §4.2 — tokens travel to expert owners
     return q
 
 
 def rafi_ep_experts(params, q, route: Route, cfg: ModelConfig):
     """Local expert compute with per-expert capacity buckets.  Returns the
-    return trip's ``(items, dest, mask)`` and the bucket drops."""
-    R, C = route.fcfg.num_ranks, route.fcfg.capacity
+    return trip's ``(items, dest, mask)`` and the bucket drops (of the
+    process's ranks)."""
+    L, C = route.local_ranks, route.fcfg.capacity
     tp, e_loc, cap_e, d = route.tp, route.e_loc, route.cap_e, route.shape[2]
     dev = q.dest.device
     lane = torch.arange(C, device=dev)[None, :]
     valid = lane < q.count[:, None]
     it = q.items
-    me = (torch.arange(R, device=dev) % tp)[:, None]
-    group = (torch.arange(R, device=dev, dtype=torch.int32) // tp)[:, None]
+    ranks = route.ranks(dev)
+    me = (ranks % tp)[:, None]
+    group = (ranks // tp).to(torch.int32)[:, None]
     le = torch.where(valid, it.expert.to(torch.int64) - me * e_loc, e_loc)  # local expert id
     le = torch.clamp(le, 0, e_loc)
     pos = _bucket_rows(torch.where(valid, le, e_loc), valid, e_loc + 1)
@@ -242,10 +270,10 @@ def rafi_ep_experts(params, q, route: Route, cfg: ModelConfig):
 
     trash = e_loc * cap_e
     at = torch.where(keep, le * cap_e + pos, trash)  # (R, C) row of the rank's bucket buffer
-    buf = torch.zeros((R, trash + 1, d), dtype=it.h.dtype, device=dev)
-    buf.scatter_(1, at[:, :, None].expand(R, C, d), it.h)
-    out = _expert_ffn_stacked(params, buf[:, :trash].reshape(R, e_loc, cap_e, d), route, cfg.act)
-    hout = torch.gather(out.reshape(R, trash, d), 1, torch.where(keep, at, 0)[:, :, None].expand(R, C, d))
+    buf = torch.zeros((L, trash + 1, d), dtype=it.h.dtype, device=dev)
+    buf.scatter_(1, at[:, :, None].expand(L, C, d), it.h)
+    out = _expert_ffn_stacked(params, buf[:, :trash].reshape(L, e_loc, cap_e, d), route, cfg.act)
+    hout = torch.gather(out.reshape(L, trash, d), 1, torch.where(keep, at, 0)[:, :, None].expand(L, C, d))
 
     # return trip: dest = the stored origin rank of the sender's group (the 'pixelID' pattern)
     back = TokenItem(h=hout, slot=it.slot, weight=it.weight, expert=it.expert, src=it.src)
@@ -254,41 +282,49 @@ def rafi_ep_experts(params, q, route: Route, cfg: ModelConfig):
 
 
 def _expert_ffn_stacked(params, buf, route: Route, act: str):
-    """``buf (R, e_loc, cap_e, D)`` through each rank's local experts.  The
-    ``(E, D, F)`` weights are viewed as ``(tp, e_loc, D, F)`` and shared by
-    the data groups: the groups' rows are stacked along each expert's
+    """``buf (L, e_loc, cap_e, D)`` through each rank's local experts: the
+    process's ranks are T model ranks of each of G data groups (all of
+    them, T = tp and G = dp, on the stacked backend).  Those ranks' slice
+    of the ``(E, D, F)`` weights is viewed as ``(T·e_loc, D, F)`` and
+    shared by the groups: the groups' rows are stacked along each expert's
     token axis, so no weight is copied per group."""
-    dp, tp, e_loc = route.dp, route.tp, route.e_loc
-    _, _, cap_e, d = buf.shape
-    x = buf.reshape(dp, tp * e_loc, cap_e, d).transpose(0, 1).reshape(tp * e_loc, dp * cap_e, d)
-    y = _expert_ffn(params["wi"], params["wg"], params["wo"], x, act)
-    return y.reshape(tp * e_loc, dp, cap_e, d).transpose(0, 1).reshape(dp * tp, e_loc, cap_e, d)
+    tp, e_loc = route.tp, route.e_loc
+    L, _, cap_e, d = buf.shape
+    T = min(L, tp)
+    G, m0 = L // T, route.first % tp
+    w = {k: params[k][m0 * e_loc:(m0 + T) * e_loc] for k in ("wi", "wg", "wo")}
+    x = buf.reshape(G, T * e_loc, cap_e, d).transpose(0, 1).reshape(T * e_loc, G * cap_e, d)
+    y = _expert_ffn(w["wi"], w["wg"], w["wo"], x, act)
+    return y.reshape(T * e_loc, G, cap_e, d).transpose(0, 1).reshape(L, e_loc, cap_e, d)
 
 
-def rafi_ep_return(route: Route, back: TokenItem, dest, valid, *, comm: Optional[StackedCollectives] = None):
-    """The second round: results travel back to their origin ranks."""
+def rafi_ep_return(route: Route, back: TokenItem, dest, valid):
+    """The second round, on the route's backend: results travel back to
+    their origin ranks."""
     d = route.shape[2]
-    q2 = make_queue(_proto(d, back.h.dtype), route.fcfg.capacity, num_ranks=route.fcfg.num_ranks,
-                    device=dest.device)
+    q2 = make_queue(_proto(d, back.h.dtype), route.fcfg.capacity, num_ranks=route.local_ranks, device=dest.device)
     q2 = enqueue(q2, back, dest, valid)
-    q2, _ = forward_work(q2, route.fcfg, comm=comm)
+    q2, _ = forward_work(q2, route.fcfg, comm=route.comm)
     return q2
 
 
 def rafi_ep_combine(q2, route: Route):
     """Each rank's returned results, weighted and added at their slots,
-    then the model ranks' slices joined back into ``(B, S, D)``."""
-    R, C = route.fcfg.num_ranks, route.fcfg.capacity
-    n_loc, d = route.n_loc, route.shape[2]
+    then the model ranks' slices joined back into ``(B, S, D)`` by one
+    ``all_gather`` over the model tier, the reference's over its model
+    axis, held once a data group (``per_group``)."""
+    L, C = route.local_ranks, route.fcfg.capacity
+    n_loc, d, tp = route.n_loc, route.shape[2], route.tp
     dev = q2.dest.device
     valid2 = torch.arange(C, device=dev)[None, :] < q2.count[:, None]
     r = q2.items
     contrib = torch.where(valid2[:, :, None], r.h * r.weight[:, :, None], 0.0)
     at = torch.where(valid2, r.slot.to(torch.int64), n_loc)  # slot n_loc: trash
-    ys = torch.zeros((R, n_loc + 1, d), dtype=r.h.dtype, device=dev)
-    ys.scatter_add_(1, at[:, :, None].expand(R, C, d), contrib)
-    # restore the replicated layout: the model ranks' slices in rank order
-    y_all = ys[:, :n_loc].reshape(route.dp, route.tp * n_loc, d)[:, :route.n_all]
+    ys = torch.zeros((L, n_loc + 1, d), dtype=r.h.dtype, device=dev)
+    ys.scatter_add_(1, at[:, :, None].expand(L, C, d), contrib)
+    # each held group's slices once, in rank order: (groups, tp, n_loc, D)
+    y_all = route.comm.all_gather(ys[:, :n_loc], digits=(route.dp, tp), tier=1, per_group=True)
+    y_all = y_all.reshape(-1, tp * n_loc, d)[:, :route.n_all]
     return y_all.reshape(route.shape)
 
 
@@ -296,14 +332,18 @@ def moe_rafi_ep(params, x, cfg: ModelConfig, *, layout, comm: Optional[StackedCo
     """Paper-technique dispatch: forwarding over the model ranks.  Returns
     ``(y (B, S, D), drops)``, drops the tokens lost to the expert buckets
     and to both rounds' queues (``drops_cap + q.drops + q2.drops``, summed
-    over ranks)."""
+    over ranks by one ``psum``).  ``comm``, where given, replaces the
+    layout's backend."""
+    if comm is not None:
+        layout = dataclasses.replace(layout, comm=comm)
     route = rafi_ep_route(params, x, cfg, layout=layout)
-    q = rafi_ep_dispatch(route, comm=comm)
+    q = rafi_ep_dispatch(route)
     back, dest, valid, drops_cap = rafi_ep_experts(params, q, route, cfg)
-    q2 = rafi_ep_return(route, back, dest, valid, comm=comm)
+    q2 = rafi_ep_return(route, back, dest, valid)
     y = rafi_ep_combine(q2, route)
-    drops = drops_cap + q.drops.sum() + q2.drops.sum()
-    return y, drops.to(torch.int32)
+    per_rank = (q.drops + q2.drops).to(torch.int64)
+    per_rank[0] += drops_cap  # the process's bucket drops ride its first rank's entry
+    return y, route.comm.psum(per_rank).to(torch.int32)
 
 
 def moe_block(params, x, cfg: ModelConfig, *, layout=None):

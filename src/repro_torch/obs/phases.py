@@ -34,6 +34,13 @@ The phase keys:
 :func:`to_perfetto` lays the measured durations out as a merged multi-rank
 Perfetto timeline, one process track per rank and one thread track per
 tier, the layout of ``obs.trace``.
+
+With ``comm=`` a ``DistributedCollectives`` every phase runs on the
+process's block of ranks (inputs built from the global ids of
+``comm.ranks``) through that backend: each process times its own block,
+and the phase list, the calls a phase makes and its launches are the
+stacked run's, per process.  Every process must time the same phases
+with the same number of calls.
 """
 from __future__ import annotations
 
@@ -47,7 +54,7 @@ import torch
 from repro_torch import compat
 from repro_torch.core import stages as ST
 from repro_torch.core import types as T
-from repro_torch.core.collectives import StackedCollectives
+from repro_torch.core.collectives import backend
 from repro_torch.core.exchange import exchange_counts
 from repro_torch.core.queue import enqueue, make_queue
 from repro_torch.kernels.bucket_scatter import ops as bs_ops
@@ -101,42 +108,48 @@ def profile_phases(
     proto: Any,
     timeit: Optional[Callable] = None,
     device=None,
+    comm=None,
 ) -> Dict[str, float]:
     """Time each stage of one ``cfg`` forwarding round standalone; returns
     ``{phase_key: us}`` (module docstring for the keys).  ``timeit(fn, x)
-    -> (us, out)`` times one phase; ``x`` is the ``(R, 1)`` rank tensor
-    each phase's call takes.  ``device=None`` is the CUDA card."""
+    -> (us, out)`` times one phase; ``x`` is the ``(L, 1)`` tensor of the
+    process's rank ids each phase's call takes.  ``device=None`` is the
+    CUDA card; ``comm`` the backend (None: a ``StackedCollectives``)."""
     dev = compat.resolve_device(device)
     if timeit is None:
         timeit = _default_timeit
+    comm = backend(comm)
+    me = comm.ranks(cfg.num_ranks, dev)[:, None]  # (L, 1) global rank ids
     if cfg.exchange == "padded":
-        q, words = _setup(cfg, n_emit, cap, proto, dev)
-        phases = _padded_phases(cfg, q, words, cap, dev)
+        q, words = _setup(cfg, n_emit, cap, proto, dev, me)
+        phases = _padded_phases(cfg, comm, me, q, words, cap, dev)
         if cfg.pipeline_shards > 1:
-            phases += _pipelined_phases(cfg, q, words, cap, dev)
+            phases += _pipelined_phases(cfg, comm, me, q, words, cap, dev)
     elif cfg.exchange == "hierarchical":
-        phases = _hierarchical_phases(cfg, n_emit, cap, proto, dev)
+        phases = _hierarchical_phases(cfg, comm, me, n_emit, cap, proto, dev)
     elif cfg.exchange == "ragged":
-        q, words = _setup(cfg, n_emit, cap, proto, dev)
-        phases = _ragged_phases(cfg, q, words, n_emit, cap, dev)
+        q, words = _setup(cfg, n_emit, cap, proto, dev, me)
+        phases = _ragged_phases(cfg, comm, me, q, words, n_emit, cap, dev)
     else:
         raise ValueError(
             f"profile_phases supports padded/hierarchical/ragged rounds, "
             f"got exchange={cfg.exchange!r}"
         )
-    me = torch.arange(cfg.num_ranks, dtype=torch.int32, device=dev)[:, None]
-    return {key: timeit(fn, me)[0] for key, fn in phases}
+    x = me.to(torch.int32)
+    return {key: timeit(fn, x)[0] for key, fn in phases}
 
 
-def _setup(cfg, n_emit, cap, proto, dev):
+def _setup(cfg, n_emit, cap, proto, dev, me=None):
     """The shared emission: a filled queue with the reference's scattered
-    destination law, and its packed payload's word count."""
+    destination law, and its packed payload's word count (the ranks of
+    ``me``, the ``(L, 1)`` global ids; None: every rank)."""
     R = cfg.num_ranks
-    me = torch.arange(R, device=dev)[:, None]
+    me = torch.arange(R, device=dev)[:, None] if me is None else me
+    L = me.shape[0]
     lane = torch.arange(n_emit, device=dev)[None, :]
     dest = ((me * 7 + lane * 131) % R).to(torch.int32)
-    q = make_queue(proto, cap, num_ranks=R, device=dev)
-    q = enqueue(q, _fill_items(proto, R, n_emit, dev), dest, torch.ones(R, n_emit, dtype=torch.bool, device=dev))
+    q = make_queue(proto, cap, num_ranks=L, device=dev)
+    q = enqueue(q, _fill_items(proto, L, n_emit, dev), dest, torch.ones(L, n_emit, dtype=torch.bool, device=dev))
     return q, T.pack_spec(proto).total_words
 
 
@@ -159,26 +172,25 @@ def _send_side(cfg, q, **shard):
     )
 
 
-def _words(me_rows: int, shape, dev) -> torch.Tensor:
-    """``(R, *shape)`` int32 words, rank-varying: ``me + arange``."""
+def _words(me: torch.Tensor, shape, dev) -> torch.Tensor:
+    """``(L, *shape)`` int32 words, rank-varying: ``me + arange`` (``me``
+    the ``(L, 1)`` global rank ids)."""
     n = math.prod(shape)
-    me = torch.arange(me_rows, dtype=torch.int32, device=dev)[:, None]
-    return (me + torch.arange(n, dtype=torch.int32, device=dev)[None, :]).reshape((me_rows,) + tuple(shape))
+    me = me.to(torch.int32)
+    return (me + torch.arange(n, dtype=torch.int32, device=dev)[None, :]).reshape((me.shape[0],) + tuple(shape))
 
 
-def _block_counts(num_ranks: int, extent: int, slot: int, limit: int, dev) -> torch.Tensor:
-    """``min((me + j) % slot, limit)`` for peer ``j``: ``(R, extent)`` int32."""
-    me = torch.arange(num_ranks, device=dev)[:, None]
+def _block_counts(me: torch.Tensor, extent: int, slot: int, limit: int, dev) -> torch.Tensor:
+    """``min((me + j) % slot, limit)`` for peer ``j``: ``(L, extent)`` int32."""
     j = torch.arange(extent, device=dev)[None, :]
     return torch.clamp((me + j) % slot, max=limit).to(torch.int32)
 
 
-def _padded_phases(cfg, q, words, cap, dev) -> Tuple:
+def _padded_phases(cfg, comm, me, q, words, cap, dev) -> Tuple:
     R, slot = cfg.num_ranks, cfg.peer_capacity
-    comm = StackedCollectives()
-    counts = _block_counts(R, R, slot, slot, dev)
-    buf = _words(R, (R, slot, words), dev)
-    recv_counts = _block_counts(R, R, slot, cap // R, dev)
+    counts = _block_counts(me, R, slot, slot, dev)
+    buf = _words(me, (R, slot, words), dev)
+    recv_counts = _block_counts(me, R, slot, cap // R, dev)
     return (
         ("marshal", lambda me: _send_side(cfg, q)),
         ("count_collective", lambda me: exchange_counts(counts, comm)),
@@ -187,17 +199,16 @@ def _padded_phases(cfg, q, words, cap, dev) -> Tuple:
     )
 
 
-def _pipelined_phases(cfg, q, words, cap, dev) -> Tuple:
+def _pipelined_phases(cfg, comm, me, q, words, cap, dev) -> Tuple:
     """Per-shard slices of the padded round (the overlap law's schedule):
     shard k marshals, ships and compacts slot rows ``[k·chunk,
     (k+1)·chunk)``, through ``padded_send_buffer(shards=, k=)`` and
     ``compact_shard`` (with its trash rows), the pipelined round's own
     primitives."""
     R, slot, S = cfg.num_ranks, cfg.peer_capacity, cfg.pipeline_shards
-    comm = StackedCollectives()
     chunk = slot // S  # config law: pipeline_shards divides peer_capacity
-    buf = _words(R, (R, chunk, words), dev)
-    recv_counts = _block_counts(R, R, slot, cap // R, dev)
+    buf = _words(me, (R, chunk, words), dev)
+    recv_counts = _block_counts(me, R, slot, cap // R, dev)
     out = []
     for k in range(S):
         out += [
@@ -209,7 +220,7 @@ def _pipelined_phases(cfg, q, words, cap, dev) -> Tuple:
     return tuple(out)
 
 
-def _ragged_phases(cfg, q, words, n_emit, cap, dev) -> Tuple:
+def _ragged_phases(cfg, comm, me, q, words, n_emit, cap, dev) -> Tuple:
     """The ragged round's three stages: the send side into destination
     order, the count ``all_gather`` with the replicated control plane
     (``(me + j) % (n_emit / R)`` rows toward peer ``j``), and one
@@ -219,13 +230,15 @@ def _ragged_phases(cfg, q, words, n_emit, cap, dev) -> Tuple:
     ``s·seg`` on every receiver, so the timed call is a layout the op
     defines (disjoint landing intervals in source order)."""
     R = cfg.num_ranks
-    comm = StackedCollectives()
-    counts = _block_counts(R, R, max(n_emit // R, 1), n_emit, dev)
+    counts = _block_counts(me, R, max(n_emit // R, 1), n_emit, dev)
     n = max(n_emit, R)
-    buf = _words(R, (n, words), dev)
-    seg = torch.full((R, R), n // R, dtype=torch.int32, device=dev)
-    off = ST._excl_cumsum(seg, 1)  # sender s's segment toward d starts at d·seg
-    land = off.T.contiguous()  # and lands on d at s·seg
+    buf = _words(me, (n, words), dev)
+    whole = torch.full((R, R), n // R, dtype=torch.int32, device=dev)
+    starts = ST._excl_cumsum(whole, 1)  # sender s's segment toward d starts at d·seg
+    # the local ranks' rows of the sender tables, and their columns of the
+    # landing table (sender s lands on d at s·seg)
+    seg, off = comm.local(whole), comm.local(starts)
+    land = off.T.contiguous()
 
     def count_collective(me):
         return ST.ragged_control_plane(comm.all_gather(counts)[0], cap)
@@ -241,24 +254,23 @@ def _ragged_phases(cfg, q, words, n_emit, cap, dev) -> Tuple:
     )
 
 
-def _hierarchical_phases(cfg, n_emit, cap, proto, dev) -> Tuple:
+def _hierarchical_phases(cfg, comm, me, n_emit, cap, proto, dev) -> Tuple:
     """Per-tier marshal, count and payload phases of the N-level route, each
     over its tier's groups at that tier's (extent, segment capacity), plus
     the final receive compaction, which keys on the last stage's tier."""
-    R = cfg.num_ranks
+    L = me.shape[0]
     level_sizes = tuple(int(a) for a in cfg.level_sizes)
     level_caps = tuple(int(c) for c in cfg.level_capacities)
     words = T.pack_spec(proto).total_words
-    comm = StackedCollectives()
     out = []
     tiers = [l for l in reversed(range(len(level_sizes))) if level_sizes[l] > 1]
     for l in tiers:
         A, S = level_sizes[l], level_caps[l]
         n = max(n_emit, A * S)
-        rows = _words(R, (n, words), dev)
-        perm = torch.arange(n, dtype=torch.int32, device=dev).expand(R, n)
-        cnt = _block_counts(R, A, S, S, dev)
-        buf = _words(R, (A, S, words), dev)
+        rows = _words(me, (n, words), dev)
+        perm = torch.arange(n, dtype=torch.int32, device=dev).expand(L, n)
+        cnt = _block_counts(me, A, S, S, dev)
+        buf = _words(me, (A, S, words), dev)
 
         def marshal_tier(me, rows=rows, perm=perm, cnt=cnt, A=A, S=S):
             # the tier's send-side pass: A sub-segments into (A, S) slots,
@@ -273,8 +285,8 @@ def _hierarchical_phases(cfg, n_emit, cap, proto, dev) -> Tuple:
              lambda me, buf=buf, l=l: comm.all_to_all(buf, digits=level_sizes, tier=l)),
         ]
     A, S = level_sizes[tiers[-1]], level_caps[tiers[-1]]
-    buf = _words(R, (A, S, words), dev)
-    recv_counts = _block_counts(R, A, S, cap // A, dev)
+    buf = _words(me, (A, S, words), dev)
+    recv_counts = _block_counts(me, A, S, cap // A, dev)
     out.append(("unmarshal", lambda me: ST.compact_blocks(buf, recv_counts, cap)))
     return tuple(out)
 

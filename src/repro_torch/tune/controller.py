@@ -13,12 +13,18 @@ burst → summarize → re-plan until a burst is drop-free and the plan is a
 fixed point.  Tier ``l`` records demand after the faster tiers' clamps, so
 a multi-tier route converges over a few bursts, not one.  A new
 ``ForwardConfig`` is just a new set of shapes here; nothing is recompiled.
+Over a ``DistributedCollectives`` world (``comm=``) a burst's ring is the
+process's block: the controller summarizes the gathered ring and sums the
+burst's drops over the world (both off the call recorder), so every
+process re-plans on the same numbers and reaches the same configs.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 from typing import Any, Callable, Dict, List, Tuple
+
+import torch
 
 from repro_torch.core.forwarding import ForwardConfig
 from repro_torch.obs import trace as OT
@@ -185,6 +191,7 @@ def autotune_forward(
     policy: TunePolicy = TunePolicy(),
     bounds: Tuple[int, ...] = None,
     max_bursts: int = 8,
+    comm=None,
 ) -> Tuple[ForwardConfig, TuneReport]:
     """Converge the per-tier capacities over repeated bursts.
 
@@ -211,7 +218,8 @@ def autotune_forward(
     drops do in drop mode.
     Returns ``(final_cfg, report)``; ``report.converged`` is False when
     ``max_bursts`` ran out first (e.g. a workload whose drift outruns the
-    headroom).
+    headroom).  With ``comm`` (a world) ``run_burst`` returns the process's
+    drops and ring block; the verdict reads the world's.
     """
     if not cfg.telemetry:
         raise ValueError(
@@ -226,6 +234,11 @@ def autotune_forward(
     ) as sp:
         for burst in range(max_bursts):
             burst_drops, ring = run_burst(cfg)
+            if comm is not None:
+                ring = comm.gather_tree(ring)
+                if burst_drops is not None:
+                    local = torch.tensor([int(burst_drops)], dtype=torch.int64, device=ring.pos.device)
+                    burst_drops = int(comm.gather_all(local).sum())
             summary = TS.summarize(ring, tier_capacities=TS.tier_capacities(cfg))
             drops = int(summary["drops"] if burst_drops is None else burst_drops)
             retained = int(summary.get("retained_rows", 0))

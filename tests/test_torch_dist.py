@@ -32,6 +32,7 @@ than set up gloo.  The streamlines and quickstart examples under
 import json
 import os
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -258,7 +259,8 @@ def test_init_world_on_cuda_raises_without_a_card(tmp_path):
 
 
 @pytest.mark.parametrize("path", ["tests/_torch_dist_cases.py", "src/repro_torch/launch/dist.py",
-                                  "src/repro_torch/core/collectives.py"])
+                                  "src/repro_torch/core/collectives.py", "tests/_torch_dist_paths_cases.py",
+                                  "src/repro_torch/launch/mesh.py", "src/repro_torch/launch/steps.py"])
 def test_world_code_imports_neither_jax_nor_the_reference(path):
     """What the world's processes import: the port, torch and numpy."""
     for mod in _imports(ROOT / path):
@@ -276,25 +278,41 @@ def test_backend_refusals():
     assert stacked.ranks(8).tolist() == list(range(8))
 
 
-def _example(name, *, world=None):
+EXAMPLE_ARGS = {"train_lm_torch.py": ["--steps", "3", "--batch", "2", "--seq", "32", "--ckpt-every", "0"]}
+
+
+def _example(name, *, world=None, ckpt_dir=None):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
         env.pop(k, None)
-    cmd = [sys.executable, str(ROOT / "examples" / name), "--cpu"]
+    cmd = [sys.executable, str(ROOT / "examples" / name), "--cpu"] + EXAMPLE_ARGS.get(name, [])
+    if ckpt_dir is not None:
+        cmd += ["--ckpt-dir", str(ckpt_dir)]
     if world:
         cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", f"--nproc_per_node={world}"] + cmd[1:]
     return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
-@pytest.mark.parametrize("name", ["streamlines_demo_torch.py", "quickstart_torch.py"])
-def test_example_under_torchrun_prints_the_single_process_lines(name):
-    one, two = _example(name), _example(name, world=2)
+@pytest.mark.parametrize("name", ["streamlines_demo_torch.py", "quickstart_torch.py", "vopat_render_torch.py",
+                                  "serve_lm_torch.py", "train_lm_torch.py"])
+def test_example_under_torchrun_prints_the_single_process_lines(name, tmp_path):
+    """Process 0 of a world of two prints the single process's lines; a
+    wall time (``1.6s``) is the one thing that may differ."""
+    ckpt = (lambda k: tmp_path / k) if name == "train_lm_torch.py" else (lambda k: None)
+    one, two = _example(name, ckpt_dir=ckpt("one")), _example(name, world=2, ckpt_dir=ckpt("two"))
     (out1, err1), (out2, err2) = one.communicate(timeout=180), two.communicate(timeout=180)
     assert one.returncode == 0, err1[-2000:]
     assert two.returncode == 0, err2[-2000:]
-    lines = lambda out: [ln for ln in out.splitlines() if not ln.startswith(("perfetto timeline", "traced "))]
+    lines = lambda out: [re.sub(r"\b\d+\.\d+s\b", "<wall>", ln) for ln in out.splitlines()
+                         if not ln.startswith(("perfetto timeline", "traced "))]
     assert lines(out2) == lines(out1)
     if name == "streamlines_demo_torch.py":
         assert sum(ln.endswith("-> OK") for ln in lines(out2)) == 3
-    else:
+    elif name == "quickstart_torch.py":
         assert out2.rstrip().endswith("OK")
+    elif name == "vopat_render_torch.py":
+        assert "bitwise identical across rank counts: True" in out2
+    elif name == "serve_lm_torch.py":
+        assert out2.count("served 10 requests through 4 slots") == 2
+    else:
+        assert "steps 0-2: loss" in out2
