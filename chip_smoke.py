@@ -4816,16 +4816,31 @@ def _dryrun_sweep(out_dir, res):
     res["seconds"] = time.perf_counter() - t0
 
 
+# the band meta's peak of a step's own bytes (its peak above the inputs it
+# holds) must fall in, as a share of the card's (max_memory_allocated above
+# what was allocated before the step), as PERF.md states it: the caching
+# allocator rounds each block up (512 B, and a large block's unsplit tail of
+# up to 1 MB) and a kernel may take a temporary meta never sees, so the card
+# may hold more; never much less
+DRYRUN_PEAK_BANDS = {"train": (0.90, 1.02), "decode": (0.80, 1.02)}
+
+
 def phase_dryrun(dev, ARCH="qwen2-7b", LAYERS=4, BATCH=(8, 512), sweep=True, widths=None):
-    """Phase dryrun: (a) the meta sweep; (b) phase train's qwen2-7b (4 of
-    28 layers, batch 8 × 512) on the card against its dry run: the bytes of
+    """Phase dryrun: (a) the meta sweep, its records' roofline terms and
+    memory, and the report table; (b) phase train's qwen2-7b (4 of 28
+    layers, batch 8 × 512) on the card against its dry run: the bytes of
     its parameters, AdamW state and caches, and the FLOPs of a train step
     that ``FlopCounterMode`` counts on the card, each equal to the meta
     count; the count over the step's device time as a share of the bf16
-    peak beside ``model_flops``' share; no kernel launched."""
+    peak beside ``model_flops``' share; a train and a decode step's peak
+    bytes on meta against ``max_memory_allocated`` (within
+    ``DRYRUN_PEAK_BANDS``), and each step's device time no shorter than
+    its roofline bound on one card, ``max(t_compute, t_memory)``; no
+    kernel launched."""
     import dataclasses as dc
     import threading
 
+    import numpy as np
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -4836,15 +4851,17 @@ def phase_dryrun(dev, ARCH="qwen2-7b", LAYERS=4, BATCH=(8, 512), sweep=True, wid
     from repro_torch.launch.steps import build_train_step
     from repro_torch.models.api import build_model
     from repro_torch.optim import AdamWConfig, adamw_init
-    from repro_torch.roofline.analysis import model_flops
+    from repro_torch.roofline import report as RP
+    from repro_torch.roofline.analysis import RooflineTerms, model_flops
 
     cuda = dev.type == "cuda"
     t_phase = time.perf_counter()
     out, res = {}, {}
     KN.reset_launch_counts()
     worker = None
+    sweep_dir = ROOT / "chiprun_out" / "dryrun_torch"
     if sweep:
-        worker = threading.Thread(target=_dryrun_sweep, args=(ROOT / "chiprun_out" / "dryrun_torch", res))
+        worker = threading.Thread(target=_dryrun_sweep, args=(sweep_dir, res))
         worker.start()
 
     # (b): the dry run of the config, then the same config on the device
@@ -4860,13 +4877,15 @@ def phase_dryrun(dev, ARCH="qwen2-7b", LAYERS=4, BATCH=(8, 512), sweep=True, wid
     t0 = time.perf_counter()
     meta = {"train": DR.footprint(model, cells["train"]), "decode": DR.footprint(model, cells["decode"]),
             "flops": DR.cell_flops(cfg, cells["train"]), "flops_full_depth": DR.count_flops(model, cells["train"])}
+    # the steps the card runs below (no layout: one card), counted in one pass each
+    counts = {k: DR.count_cell(model, cells[k]) for k in ("train", "decode")}
     meta["seconds"] = time.perf_counter() - t0
+    terms = {k: RooflineTerms(c["flops"], c["bytes_accessed"], 0.0, 1, {}) for k, c in counts.items()}
     opt_cfg = AdamWConfig(warmup_steps=20)
     lm = model.init(torch.Generator(device=dev).manual_seed(31), device=dev)
     opt = adamw_init(lm, opt_cfg)
     caches = model.init_caches(b, s, device=dev)
     card = {"params": DR.nbytes(lm), "opt_state": DR.nbytes(opt), "caches": DR.nbytes(caches)}
-    del caches
     check(card["params"] == meta["train"]["params"] and card["opt_state"] == meta["train"]["opt_state"],
           f"{label}: bytes of the parameters {card['params']} and the AdamW state {card['opt_state']} that "
           f"Model.init and adamw_init make on {dev.type} == the dry run's {meta['train']['params']} and "
@@ -4880,12 +4899,19 @@ def phase_dryrun(dev, ARCH="qwen2-7b", LAYERS=4, BATCH=(8, 512), sweep=True, wid
     with FlopCounterMode(display=False) as fc:
         step(lm, opt, data.batch_at(1))
     counted = int(fc.get_total_flops())
-    check(counted == meta["flops"] == meta["flops_full_depth"],
+    check(counted == meta["flops"] == meta["flops_full_depth"] == counts["train"]["flops"],
           f"{label}: FLOPs of one train step counted on {dev.type} {counted} == the dry run's differenced count "
-          f"{meta['flops']} == its full-depth count {meta['flops_full_depth']}")
+          f"{meta['flops']} == its full-depth count {meta['flops_full_depth']} == its one-pass count "
+          f"{counts['train']['flops']}")
     mf = model_flops(cfg, spec["train"])
     r = {"arch": ARCH, "layers": LAYERS, "batch": list(BATCH), "card_bytes": card, "meta": meta, "counted_flops": counted,
-         "model_flops": mf, "useful_flops_ratio": mf / counted}
+         "model_flops": mf, "useful_flops_ratio": mf / counted,
+         "roofline_one_card": {k: {"t_compute_ms": t.t_compute * 1e3, "t_memory_ms": t.t_memory * 1e3,
+                                   "bound_ms": max(t.t_compute, t.t_memory) * 1e3,
+                                   "bytes_accessed": counts[k]["bytes_accessed"],
+                                   "meta_peak_bytes": counts[k]["peak_bytes_one_device"],
+                                   "meta_step_bytes": counts[k]["peak_bytes_one_device"] - counts[k]["held_bytes"]}
+                               for k, t in terms.items()}}
     if cuda:
         split = _step_device_ms(step, lm, opt, data.batch_at(2))
         r["device_split_ms"] = split
@@ -4894,10 +4920,41 @@ def phase_dryrun(dev, ARCH="qwen2-7b", LAYERS=4, BATCH=(8, 512), sweep=True, wid
         r["counted_share_bf16_peak"] = counted / sec / BF16_PEAK
         r["model_share_bf16_peak"] = mf / sec / BF16_PEAK
         r["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        decode = model.decode_fn(None)
+        token = torch.from_numpy(np.random.default_rng(32).integers(0, cfg.vocab_size, (b, 1)).astype(np.int32)).to(dev)
+
+        def decode_step():
+            with torch.no_grad():  # as the dry run's parameters, which ask for no gradient
+                return decode(lm, token, caches)
+
+        decode_step()  # warm-up
+        device_ms = {"train": split["total"], "decode": sum(_device_split(decode_step, calls=5, warmup=2).values())}
+        for k, run in (("train", lambda: step(lm, opt, data.batch_at(4))), ("decode", decode_step)):
+            torch.cuda.synchronize(dev)
+            before = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            run()
+            torch.cuda.synchronize(dev)
+            got = r["roofline_one_card"][k]
+            got.update(card_step_bytes=torch.cuda.max_memory_allocated(dev) - before, held_before_bytes=before,
+                       device_ms=device_ms[k])
+            got["meta_over_card"] = got["meta_step_bytes"] / got["card_step_bytes"]
+            lo, hi = DRYRUN_PEAK_BANDS[k]
+            check(lo <= got["meta_over_card"] <= hi,
+                  f"{label}: a {k} step's own peak bytes on meta {got['meta_step_bytes']} against the card's "
+                  f"max_memory_allocated above the {before} bytes held before it, {got['card_step_bytes']}: "
+                  f"{got['meta_over_card']:.4f} in [{lo}, {hi}] (PERF.md); whole step on meta "
+                  f"{got['meta_peak_bytes'] / 2**30:.3f} GiB")
+            check(got["device_ms"] >= got["bound_ms"],
+                  f"{label}: a {k} step's device time {got['device_ms']:.3f} ms >= its roofline bound on one H100, "
+                  f"max(t_compute {got['t_compute_ms']:.3f}, t_memory {got['t_memory_ms']:.3f}) ms "
+                  f"({got['bytes_accessed']:.4e} bytes accessed)")
+    del caches
     print(f"  {label}: bytes {card}; FLOPs a step counted {counted:.6e} (meta, {meta['seconds']:.1f} s), "
           f"model_flops {mf:.6e} (ratio {mf / counted:.4f}); device {r.get('device_split_ms')} ms, event median "
           f"{r.get('step_ms_median')} ms; share of the 989e12 bf16 peak: counted {r.get('counted_share_bf16_peak')}, "
-          f"model_flops {r.get('model_share_bf16_peak')} [{nvidia_smi() if cuda else 'cpu'}]", flush=True)
+          f"model_flops {r.get('model_share_bf16_peak')}; roofline and peak on one card {r['roofline_one_card']} "
+          f"[{nvidia_smi() if cuda else 'cpu'}]", flush=True)
     out["card"] = r
     del lm, opt
 
@@ -4914,6 +4971,14 @@ def phase_dryrun(dev, ARCH="qwen2-7b", LAYERS=4, BATCH=(8, 512), sweep=True, wid
               f"(a) the meta sweep of the 40 (arch x shape) cells at full width ({DR.WORKERS} worker processes): "
               f"{n[0]} ok, {n[1]} skip, {n[2]} error == {DRYRUN_CELLS}, every ok cell counted, in "
               f"{res['seconds']:.1f} s")
+        keys = set(RooflineTerms(1.0, 1.0, 1.0, 1, {}).as_dict())
+        check(all(set(x["roofline"]) == keys and x["roofline"]["chips"] == 256
+                  and {"argument_bytes", "output_bytes", "temp_bytes", "peak_bytes_per_device"} <= set(x["memory"])
+                  for x in recs if x["status"] == "ok"),
+              "(a) every ok record carries the reference's roofline keys over 256 chips and its four memory keys")
+        if recs:
+            for line in RP.roofline_table("pod1", root=sweep_dir).splitlines():
+                print(f"  (a) {line}", flush=True)
     launches = KN.launch_counts()
     check(not any(launches.values()), f"dryrun: no kernel of K1-K10 launched: {launches}")
     out["phase_s"] = time.perf_counter() - t_phase

@@ -78,23 +78,24 @@ def tree_flatten(tree: Any) -> Tuple[List[Any], Any]:
 
 
 def tree_unflatten(treedef: Any, leaves) -> Any:
-    it = iter(leaves)
+    return _build(treedef, iter(leaves))
 
-    def build(d):
-        kind = d[0]
-        if kind == "none":
-            return None
-        if kind == "leaf":
-            return next(it)
-        if kind == "dict":
-            return {k: build(c) for k, c in zip(d[1], d[2])}
-        if kind in ("tuple", "list"):
-            kids = [build(c) for c in d[1]]
-            return tuple(kids) if kind == "tuple" else kids
-        _, cls, names, kids = d
-        return cls(**{n: build(c) for n, c in zip(names, kids)})
 
-    return build(treedef)
+def _build(d, it):
+    """A module function: a recursive closure would be a reference cycle
+    holding the leaves until the cycle collector ran."""
+    kind = d[0]
+    if kind == "none":
+        return None
+    if kind == "leaf":
+        return next(it)
+    if kind == "dict":
+        return {k: _build(c, it) for k, c in zip(d[1], d[2])}
+    if kind in ("tuple", "list"):
+        kids = [_build(c, it) for c in d[1]]
+        return tuple(kids) if kind == "tuple" else kids
+    _, cls, names, kids = d
+    return cls(**{n: _build(c, it) for n, c in zip(names, kids)})
 
 
 def _describe(treedef: Any) -> str:

@@ -107,8 +107,8 @@ import torch.distributed as dist
 from repro_torch.kernels.marshal import ops as marshal_ops
 
 __all__ = [
-    "Call", "DistributedCollectives", "StackedCollectives", "backend", "joint_tiers", "node_layout", "pod_layout",
-    "tier_digit",
+    "Call", "DistributedCollectives", "StackedCollectives", "backend", "grad_buckets", "joint_tiers", "node_layout",
+    "pod_layout", "tier_digit",
 ]
 
 
@@ -386,6 +386,23 @@ _WIRE = {torch.uint16: torch.int16, torch.uint32: torch.int32, torch.uint64: tor
 _GRAD_BUCKET_BYTES = 1 << 28
 
 
+def grad_buckets(tensors: Sequence[torch.Tensor]) -> list:
+    """``tensors`` in runs of one dtype and at most ``_GRAD_BUCKET_BYTES``
+    (a larger tensor a run of its own): the buckets of
+    ``DistributedCollectives.grad_all_reduce``, one call each."""
+    buckets, cur, size, dtype = [], [], 0, None
+    for t in tensors:
+        nb = t.numel() * t.element_size()
+        if cur and (t.dtype != dtype or size + nb > _GRAD_BUCKET_BYTES):
+            buckets.append(cur)
+            cur, size = [], 0
+        cur.append(t)
+        size, dtype = size + nb, t.dtype
+    if cur:
+        buckets.append(cur)
+    return buckets
+
+
 def _block_plan(digits: Tuple[int, ...], tier: int, world: int, index: int):
     """The static plan of a tier ``all_to_all`` on process ``index``:
     ``(send_order, send_splits, recv_splits, recv_index)``.  The local
@@ -641,17 +658,7 @@ class DistributedCollectives(_RankBlock):
         round's call budget is untouched.  A bucket of one contiguous
         tensor is reduced where it lies; the others through one flat copy.
         Every process ends with the same bits."""
-        buckets, cur, size, dtype = [], [], 0, None
-        for t in tensors:
-            nb = t.numel() * t.element_size()
-            if cur and (t.dtype != dtype or size + nb > _GRAD_BUCKET_BYTES):
-                buckets.append(cur)
-                cur, size = [], 0
-            cur.append(t)
-            size, dtype = size + nb, t.dtype
-        if cur:
-            buckets.append(cur)
-        for b in buckets:
+        for b in grad_buckets(tensors):
             if len(b) == 1 and b[0].is_contiguous():  # reduced where it lies: no copy
                 self._record("grad_all_reduce", b[0].view(-1))
                 dist.all_reduce(b[0], op=dist.ReduceOp.SUM)

@@ -68,15 +68,17 @@ def tree_leaves(tree) -> List[Any]:
 
 
 def tree_unflatten(treedef, leaves: Sequence[Any]):
-    it = iter(leaves)
+    return _build(treedef, iter(leaves))
 
-    def build(d):
-        if d is None:
-            return next(it)
-        cls, names, kids = d
-        return cls(**{n: build(k) for n, k in zip(names, kids)})
 
-    return build(treedef)
+def _build(d, it):
+    """A module function, not a closure over itself: a recursive closure
+    is a reference cycle, and its iterator would hold the leaves until the
+    cycle collector ran."""
+    if d is None:
+        return next(it)
+    cls, names, kids = d
+    return cls(**{n: _build(k, it) for n, k in zip(names, kids)})
 
 
 def tree_map(fn: Callable, tree, *rest):

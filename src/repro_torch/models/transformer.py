@@ -198,6 +198,7 @@ def forward(
                                    layout=layout, caches=block_caches)
             total_drops = total_drops + d
             per_block.append(new_caches)
+            del d  # not alive through the next period: each period holds what the one before held
         if caches is not None:
             new_block_caches = _stack(per_block)
 

@@ -1,6 +1,7 @@
 """The roofline's plain models (the port's copy of the numpy models of
-``repro.roofline.analysis``, unchanged), the model FLOPs of a shape, and
-the call recorder's reading of the wire.
+``repro.roofline.analysis``, unchanged), the model FLOPs of a shape, the
+call recorder's reading of the wire, and the three roofline terms of a
+step counted in one pass on the meta device.
 
 Copied as they are: :func:`tier_bytes_model`, :func:`slow_axis_bytes_model`,
 :func:`padded_wire_rows`, :func:`occupancy_waste_model`,
@@ -8,27 +9,53 @@ Copied as they are: :func:`tier_bytes_model`, :func:`slow_axis_bytes_model`,
 :func:`overlap_efficiency_model` and :func:`model_flops` (6·N·D for a
 train step, 2·N a token otherwise, N_active for MoE: arithmetic on the
 parameter count, which ``launch.dryrun`` records beside the FLOPs it
-counts).
+counts).  :class:`RooflineTerms` has the reference's fields, properties
+and ``as_dict`` keys, over the card's figures (:data:`HW`, an NVIDIA H100
+80GB HBM3 SXM at 700 W; no TPU figure carries over).
 
-The reference's HLO readers have no twin here: ``collective_ops``,
-``per_axis_collective_bytes``, ``per_tier_collective_bytes``,
-``collective_bytes``, ``analyze_lowered`` / ``RooflineTerms``, and the
-modules ``roofline/inspect.py`` and ``roofline/report.py``.  They read a
-lowered XLA program (its ``cost_analysis`` and the replica groups of its
-collectives); the port lowers none.  Their role as budget guards is taken
-by the collective layer's call recorder
-(``core.collectives.StackedCollectives``, whose ``calls`` hold each call's
-kind, bytes and tier), read here by :func:`recorded_wire_bytes`: the bytes
-one rank puts on each tier, held in the tests against
-:func:`padded_wire_rows` and :func:`tier_bytes_model`.
+The reference reads its terms from a compiled XLA program
+(``analyze_lowered``: ``cost_analysis``'s FLOPs and bytes accessed, and
+the collectives of the HLO text).  The port runs its steps eagerly, so
+:func:`count_step` counts the same things over one run of the step
+(on meta: nothing allocated): the FLOPs as
+``torch.utils.flop_counter.FlopCounterMode`` counts them, and, in a
+dispatch mode of its own nested inside it (:class:`StepCounter`), the
+bytes each aten op reads and writes, the peak of the bytes alive, and the
+ops' signatures.  The collectives come from the collective layer's call
+recorder (``core.collectives.StackedCollectives``, whose ``calls`` hold
+each call's kind, bytes and tier): :func:`collective_bytes` and
+:func:`collective_inventory` name them as the reference's HLO names them
+and count a device's result bytes, as the reference's reader counts a
+per-partition result shape.  :func:`recorded_wire_bytes` reads the same
+recorder for the bytes one rank puts on each tier, held in the tests
+against :func:`padded_wire_rows` and :func:`tier_bytes_model`.
+
+No twin: the reference's HLO readers (``collective_ops``,
+``per_axis_collective_bytes``, ``per_tier_collective_bytes``, the HLO
+``collective_bytes``) and ``analyze_lowered`` itself: they read a lowered
+XLA program, and the port lowers none.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+import collections
+import dataclasses
+import functools
+import gc
+import weakref
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 __all__ = [
+    "HW",
+    "RooflineTerms",
+    "StepCount",
+    "StepCounter",
+    "collective_bytes",
+    "collective_inventory",
+    "count_step",
     "goodput_model",
     "marshal_cost_model",
     "model_flops",
@@ -40,6 +67,15 @@ __all__ = [
     "spill_drain_model",
     "tier_bytes_model",
 ]
+
+# The card's figures: NVIDIA H100 80GB HBM3 (SXM) at its 700 W limit, as
+# ``nvidia-smi --query-gpu=name,power.limit`` reads it on the card.
+HW = {
+    "peak_flops": 989e12,  # bf16 dense FLOP/s (NVIDIA H100 SXM data sheet: 989.4 TFLOPS without sparsity)
+    "hbm_bw": 3.35e12,  # B/s, HBM3 (data sheet: 3.35 TB/s)
+    "link_bw": 450e9,  # B/s one way, NVLink 4 (data sheet: 900 GB/s both ways together)
+    "dcn_bw": 50e9,  # B/s per GPU across nodes: one 400 Gb/s InfiniBand NDR port
+}
 
 
 def tier_bytes_model(level_sizes, level_capacities, item_bytes: int) -> list:
@@ -399,3 +435,324 @@ def model_flops(cfg, shape) -> float:
     tokens = shape.global_batch * (shape.seq_len if shape.step != "decode" else 1)
     factor = 6.0 if shape.step == "train" else 2.0
     return factor * n_active * tokens
+
+
+# ------------------------------------------------------------ roofline terms
+@dataclasses.dataclass
+class RooflineTerms:
+    """The reference's three terms, over :data:`HW`: whole-job FLOPs,
+    bytes accessed and collective bytes over ``chips`` cards."""
+
+    flops: float
+    bytes_accessed: float
+    coll_bytes: float
+    chips: int
+    coll_breakdown: Dict[str, int]
+    bytes_per_chip: Optional[float] = None
+
+    @property
+    def t_compute(self) -> float:
+        return self.flops / (self.chips * HW["peak_flops"])
+
+    @property
+    def t_memory(self) -> float:
+        return self.bytes_accessed / (self.chips * HW["hbm_bw"])
+
+    @property
+    def t_collective(self) -> float:
+        return self.coll_bytes / (self.chips * HW["link_bw"])
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.t_compute, "memory": self.t_memory, "collective": self.t_collective}
+        return max(terms, key=terms.get)
+
+    @property
+    def bound_time(self) -> float:
+        return max(self.t_compute, self.t_memory, self.t_collective)
+
+    def as_dict(self):
+        return {
+            "flops": self.flops,
+            "bytes_accessed": self.bytes_accessed,
+            "coll_bytes": self.coll_bytes,
+            "chips": self.chips,
+            "t_compute": self.t_compute,
+            "t_memory": self.t_memory,
+            "t_collective": self.t_collective,
+            "dominant": self.dominant,
+            "coll_breakdown": self.coll_breakdown,
+            "bytes_per_chip": self.bytes_per_chip,
+        }
+
+
+# ------------------------------------------------------------- collectives
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute", "ragged-all-to-all")
+# the recorder's kinds as the reference's HLO names them
+HLO_NAMES = {"all_to_all": "all-to-all", "ragged_all_to_all": "ragged-all-to-all", "all_gather": "all-gather",
+             "psum": "all-reduce", "pmin": "all-reduce", "grad_all_reduce": "all-reduce",
+             "ppermute": "collective-permute"}
+
+
+def _device_result(call, level_sizes: Optional[Sequence[int]]) -> Tuple[int, Tuple[int, ...]]:
+    """``(bytes, shape)`` of one device's result of a recorded call.  A
+    stacked call's input holds every rank's contribution on its leading
+    axis: a device's result is its row (``all_to_all``, ``psum``,
+    ``pmin``, ``ppermute``, ``ragged_all_to_all``), every row of a flat
+    ``all_gather``, or its tier group's rows of a tier ``all_gather``
+    (``level_sizes`` needed).  A ``grad_all_reduce`` call is one process's
+    bucket, whole."""
+    if call.kind == "grad_all_reduce":
+        return call.nbytes, tuple(call.shape)
+    r, row = call.shape[0], tuple(call.shape[1:])
+    if call.kind == "all_gather":
+        if call.tier is None:
+            return call.nbytes, tuple(call.shape)
+        if level_sizes is None:
+            raise ValueError("a tier all_gather needs the layout's level_sizes")
+        a = int(level_sizes[call.tier])
+        return call.nbytes // r * a, (a,) + row
+    return call.nbytes // r, row
+
+
+def collective_inventory(calls, level_sizes: Optional[Sequence[int]] = None) -> list:
+    """``[(kind, shape, bytes, count)]``: the recorder's calls (``{Call:
+    n}``) by HLO kind and one device's result shape, ``bytes`` one
+    device's result bytes over the ``count`` calls, largest first."""
+    agg: Dict[Tuple[str, Tuple[int, ...]], list] = {}
+    for call, n in calls.items():
+        nbytes, shape = _device_result(call, level_sizes)
+        cell = agg.setdefault((HLO_NAMES[call.kind], shape), [0, 0])
+        cell[0] += nbytes * n
+        cell[1] += n
+    return sorted(((k, s, b, n) for (k, s), (b, n) in agg.items()), key=lambda t: (-t[2], t[0], t[1]))
+
+
+def collective_bytes(calls, level_sizes: Optional[Sequence[int]] = None) -> Dict[str, int]:
+    """One device's result bytes per HLO kind (every kind present, as the
+    reference's ``collective_bytes`` gives them)."""
+    out = {k: 0 for k in COLLECTIVES}
+    for kind, _shape, nbytes, _n in collective_inventory(calls, level_sizes):
+        out[kind] += nbytes
+    return out
+
+
+# ---------------------------------------------------------- the step count
+_aten = torch.ops.aten
+# ops that alias their input (a view the schema does not declare) or move
+# no data (an allocation without a write)
+_NO_TRAFFIC = {_aten._unsafe_view.default, _aten.empty.memory_format, _aten.empty_strided.default,
+               _aten.empty_like.default, _aten.new_empty.default}
+# in-place ops that write the argument they mutate without reading it
+_WRITE_ONLY = {_aten.copy_.default, _aten.fill_.Scalar, _aten.zero_.default}
+# in-place ops that write only the indexed part of the argument they
+# mutate: as many bytes as their source operand holds
+_PARTIAL_WRITE = {_aten.index_put_.default, _aten.index_copy_.default, _aten.index_add_.default,
+                  _aten.scatter_.src, _aten.scatter_add_.default}
+# gathers: their first operand is read only where indexed, as many bytes as
+# the result holds
+_GATHER = {_aten.index.Tensor, _aten.embedding.default, _aten.gather.default, _aten.index_select.default}
+
+
+def tensor_bytes(t: torch.Tensor) -> int:
+    """Bytes an op touches to read or write all of ``t``: its distinct
+    elements (an expanded dimension, stride 0, holds one) times their size."""
+    if t.numel() == 0:
+        return 0
+    span = 1 + sum((n - 1) * abs(s) for n, s in zip(t.shape, t.stride()))
+    return min(t.numel(), span) * t.element_size()
+
+
+def storage_key(t: torch.Tensor) -> int:
+    """The identity of ``t``'s storage while it is alive."""
+    return t.untyped_storage()._cdata
+
+
+def _tensors(x, out=None) -> list:
+    """The tensors in ``x`` (nested tuples, lists and dicts), in order."""
+    out = [] if out is None else out
+    if isinstance(x, torch.Tensor):
+        out.append(x)
+    elif isinstance(x, (tuple, list)):
+        for y in x:
+            _tensors(y, out)
+    elif isinstance(x, dict):
+        for y in x.values():
+            _tensors(y, out)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _mutated(func) -> tuple:
+    """``(position, name)`` of each argument ``func`` writes."""
+    return tuple((i, a.name) for i, a in enumerate(func._schema.arguments)
+                 if a.alias_info is not None and a.alias_info.is_write)
+
+
+def op_bytes(func, args, kwargs, out, operands=None) -> int:
+    """Bytes one aten op reads and writes: each distinct tensor operand
+    read once, each result written once; a view or an alias 0.  An
+    argument the op mutates is written (and read, unless the op only
+    writes it, as ``copy_``); an indexed write (``index_put_``,
+    ``scatter_``, …) writes as many bytes as its largest other operand, and
+    a gather (``index``, ``embedding``, ``gather``, ``index_select``)
+    reads as many of its source's bytes as it returns.  ``operands``: the
+    tensors of ``(args, kwargs)``, if found already."""
+    if func.is_view or func in _NO_TRAFFIC:
+        return 0
+    mutated = set()
+    for i, name in _mutated(func):
+        mutated.update(id(t) for t in _tensors(args[i] if i < len(args) else kwargs.get(name)))
+    seen, total = set(), 0
+    operands = _tensors((args, kwargs)) if operands is None else operands
+    other = [tensor_bytes(t) for t in operands if id(t) not in mutated]
+    results = _tensors(out)
+    gathered = operands[0] if func in _GATHER else None
+    for t in operands:
+        if id(t) in seen:
+            continue
+        seen.add(id(t))
+        if t is gathered:
+            total += min(tensor_bytes(t), sum(map(tensor_bytes, results)))
+        elif id(t) not in mutated:
+            total += tensor_bytes(t)
+        elif func in _PARTIAL_WRITE:
+            total += max(other, default=0)
+        else:
+            total += tensor_bytes(t) * (1 if func in _WRITE_ONLY else 2)
+    for t in results:
+        if id(t) not in seen and id(t) not in mutated:
+            seen.add(id(t))
+            total += tensor_bytes(t)
+    return total
+
+
+class StepCounter(TorchDispatchMode):
+    """Counts, over the aten ops run inside it: the bytes they read and
+    write (:func:`op_bytes`), the storages they read (``read``, by
+    :func:`storage_key`), the peak of the bytes alive, and, with
+    ``signatures``, how often each (op, operand shapes and dtypes) ran.
+
+    Bytes alive are storages: those handed to :meth:`hold` before the run
+    (the step's inputs), plus each op's new storages, less those freed.
+    A storage's end is seen through a weak reference to it (meta tensors
+    are freed by reference count like any others).  Two peaks are kept:
+    ``peak_bytes``, every storage whole, and ``peak_weighted``, each
+    storage times a weight (:meth:`hold` and :meth:`weigh` set one;
+    ``default_weight`` otherwise), as ``launch.dryrun`` splits a step over
+    a layout's devices."""
+
+    def __init__(self, *, default_weight: float = 1.0, signatures: bool = False):
+        super().__init__()
+        self.bytes_accessed = 0
+        self.ops = 0
+        self.live = self.peak_bytes = 0
+        self.live_weighted = self.peak_weighted = 0.0
+        self.default_weight = float(default_weight)
+        self.signatures = collections.Counter() if signatures else None
+        self.read = set()  # the storages an op with traffic took as an operand
+        self._alive: Dict[int, list] = {}  # storage key -> [bytes, weight]
+
+    def _track(self, t: torch.Tensor, weight: Optional[float] = None) -> None:
+        st = t.untyped_storage()
+        key = st._cdata
+        if key in self._alive:
+            if weight is not None:
+                self._reweigh(key, weight)
+            return
+        n = st.nbytes()
+        w = self.default_weight if weight is None else float(weight)
+        self._alive[key] = [n, w]
+        self.live += n
+        self.live_weighted += n * w
+        weakref.finalize(st, self._free, key)
+
+    def _reweigh(self, key, weight: float) -> None:
+        n, w = self._alive[key]
+        self.live_weighted += n * (weight - w)
+        self._alive[key][1] = weight
+
+    def _free(self, key) -> None:
+        n, w = self._alive.pop(key)
+        self.live -= n
+        self.live_weighted -= n * w
+
+    def _mark(self) -> None:
+        self.peak_bytes = max(self.peak_bytes, self.live)
+        self.peak_weighted = max(self.peak_weighted, self.live_weighted)
+
+    def hold(self, tensors: Iterable[torch.Tensor], weight: Optional[float] = None) -> None:
+        """Count ``tensors``' storages alive from now, at ``weight``."""
+        for t in tensors:
+            self._track(t, weight)
+        self._mark()
+
+    def weigh(self, t: torch.Tensor, weight: float) -> None:
+        """Give ``t``'s storage a weight (a gradient: its parameter's)."""
+        self._track(t, weight)
+        self._mark()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        self.ops += 1
+        operands = _tensors((args, kwargs))
+        moved = op_bytes(func, args, kwargs, out, operands)
+        if moved:
+            self.bytes_accessed += moved
+            self.read.update(storage_key(t) for t in operands)
+        for t in _tensors(out):
+            self._track(t)
+        self._mark()
+        if self.signatures is not None:
+            sig = tuple((tuple(t.shape), str(t.dtype).replace("torch.", "")) for t in operands)
+            self.signatures[(str(func), sig)] += 1
+        return out
+
+
+@dataclasses.dataclass
+class StepCount:
+    """One step counted: :func:`count_step`'s result."""
+
+    flops: int
+    bytes_accessed: int
+    peak_bytes: int
+    peak_weighted: float
+    ops: int
+    read: set
+    signatures: Optional[collections.Counter] = None
+    out: object = None
+
+
+def count_step(fn: Callable[[], object], *, held: Sequence[Tuple[Iterable[torch.Tensor], Optional[float]]] = (),
+               grads: Sequence[Tuple[torch.Tensor, float]] = (), default_weight: float = 1.0,
+               signatures: bool = False) -> StepCount:
+    """Run ``fn()`` once under ``FlopCounterMode`` with a
+    :class:`StepCounter` nested inside it: the FLOPs (as
+    ``FlopCounterMode`` counts them), the bytes accessed, the peaks of
+    the bytes alive and the op signatures, in one pass.  ``held`` are the
+    step's inputs as ``(tensors, weight)``, alive from the start;
+    ``grads`` ``(parameter, weight)``: the gradient accumulated into each
+    parameter takes that weight (a hook after accumulation)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    counter = StepCounter(default_weight=default_weight, signatures=signatures)
+    for tensors, weight in held:
+        counter.hold(tensors, weight)
+    hooks = []
+    for p, weight in grads:
+        p.requires_grad_(True)
+        hooks.append(p.register_post_accumulate_grad_hook(lambda p, w=weight: counter.weigh(p.grad, w)))
+    collecting = gc.isenabled()
+    gc.disable()  # a storage's end may not wait for the cycle collector's timing
+    try:
+        with FlopCounterMode(display=False) as fc, counter:
+            out = fn()
+    finally:
+        if collecting:
+            gc.enable()
+        for h in hooks:
+            h.remove()
+    return StepCount(flops=int(fc.get_total_flops()), bytes_accessed=counter.bytes_accessed,
+                     peak_bytes=counter.peak_bytes, peak_weighted=counter.peak_weighted, ops=counter.ops,
+                     read=counter.read, signatures=counter.signatures, out=out)

@@ -37,6 +37,7 @@ from repro_torch.core import DISCARD, ForwardConfig, enqueue, make_queue, run_un
 from repro_torch.core import recovery as REC
 from repro_torch.launch.mesh import Layout
 from repro_torch.launch.serve import BatchedEngine, Request
+from repro_torch.launch import steps as ST
 from repro_torch.launch import train as TR
 from repro_torch.launch.steps import build_train_step
 from repro_torch.launch.train import train
@@ -401,6 +402,19 @@ def _train_case(arch):
     return fn
 
 
+def _wrong_holders_case(comm, inputs):
+    """The dense train run with a planted fault: the world's gradient sum
+    divided by one holder fewer than hold rows (the stacked run has no
+    world and is left as it is)."""
+    average = ST._average_over_groups
+    ST._average_over_groups = lambda comm, leaves, loss, holders, lead: average(comm, leaves, loss, holders - 1, lead)
+    try:
+        d = _private_dir(comm, inputs, "train_wrong_holders")
+        return {f"proc.{k}": v for k, v in train_run(comm, DENSE_ARCH, d).items()}
+    finally:
+        ST._average_over_groups = average
+
+
 # the reference comparison's optimizer and global batches: those of
 # tests/test_torch_train.py's step against the reference
 REF_OPT = dict(lr=1e-3, warmup_steps=2, eps=1e-6)
@@ -442,7 +456,8 @@ CASES.update({f"phases_{k}": _phases_case(k) for k in PHASES})
 CASES.update({"vopat": _vopat_case, "lander": _lander_case, "deep_1": _deep_case(1), "deep_4": _deep_case(4),
               "schlieren": _schlieren_case, "lander_reference": _lander_reference_case})
 CASES.update({"moe": _moe_case, "serve": _serve_case, "train_dense": _train_case(DENSE_ARCH),
-              "train_moe": _train_case(MOE_ARCH), "train_reference": _train_reference_case})
+              "train_moe": _train_case(MOE_ARCH), "train_reference": _train_reference_case,
+              "train_dense_wrong_holders": _wrong_holders_case})
 
 # what each world runs (the stacked backend runs every case): the drives
 # and apps in every world, the rest where the issue's comparison lies
@@ -451,7 +466,7 @@ EVERY_WORLD = ["chaos_drop", "chaos_retain", "chaos_tiers_2x2x2", "chaos_credit"
 WORLD_CASES = {
     4: EVERY_WORLD + ["halt", "resume_from_stacked", "tune_flat", "tune_hier_2x4", "phases_padded_sort",
                       "phases_padded_scatter_shards2", "phases_hier_2x2x2", "phases_ragged", "moe", "serve",
-                      "train_dense"],
+                      "train_dense", "train_dense_wrong_holders"],
     2: EVERY_WORLD + ["resume_from_world4", "elastic", "tune_flat", "tune_hier_2x4", "phases_padded_sort",
                       "phases_padded_scatter_shards2", "phases_hier_2x2x2", "phases_ragged", "moe", "serve",
                       "train_dense", "train_moe", "train_reference"],

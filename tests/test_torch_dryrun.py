@@ -15,8 +15,10 @@ recurrent cells takes minutes of host time on meta); one full-width count
 is held against its full-depth count.  The dry run must allocate nothing: no tensor off
 the meta device larger than a scalar, and no CUDA call.
 """
+import concurrent.futures
 import dataclasses
 import json
+from concurrent.futures import ThreadPoolExecutor
 
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +34,7 @@ from repro.launch.steps import abstract_caches as jabstract_caches
 from repro.launch.steps import abstract_opt_state as jabstract_opt_state
 from repro.models.api import build_model as jbuild
 from repro.optim import AdamWConfig as JAdamWConfig
+from repro.roofline import analysis as JA
 from repro.roofline.analysis import model_flops as jmodel_flops
 from repro_torch import kernels as KN
 from repro_torch.configs import (
@@ -136,6 +139,10 @@ SMALL = {"train_4k": ShapeSpec("train_4k", 64, 2, "train"), "prefill_32k": Shape
          "decode_32k": ShapeSpec("decode_32k", 64, 2, "decode")}
 
 
+_EXTENDED = ("flops", "bytes_accessed", "argument_bytes", "output_bytes")
+_PEAKS = ("peak_bytes_one_device", "peak_bytes_per_device")
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("shape", list(SMALL))
 def test_differenced_count_equals_the_full_depth_count(arch, shape, monkeypatch):
@@ -143,17 +150,36 @@ def test_differenced_count_equals_the_full_depth_count(arch, shape, monkeypatch)
     (the encoder-decoder at 3 + 3 layers; at the smoke configs' own depth
     of one or two periods the probes are the model), at 2 × 64 tokens:
     ``c1 + 2·(c2 - c1)`` from the probes at one and two periods equals the
-    count of the whole model, FLOP for FLOP."""
+    count of the whole model, FLOP for FLOP (as ``FlopCounterMode`` alone
+    counts them), byte for byte accessed, in the arguments' and results'
+    bytes a device and in each collective kind's bytes; and in both peaks
+    of the bytes alive, except where the family's step is in
+    ``FULL_DEPTH_PEAK`` (there the dry run counts at full depth).  The dry
+    run's full-depth numbers (``cell_counts``) equal the whole model's."""
     monkeypatch.setitem(R.SHAPES, shape, SMALL[shape])
     base = get_smoke_config(arch)
     period = len(base.pattern)
     cfg = (dataclasses.replace(base, num_layers=3, encoder_layers=3) if base.kind == "encdec" else
            dataclasses.replace(base, num_layers=3 * period + (1 if period > 1 else 0)))
-    layout = make_test_layout(2, 4) if base.kind == "moe" else None
+    layout = make_test_layout(2, 4)
     cell = input_specs(arch, shape, cfg)
-    full = DR.count_flops(build_model(cfg), cell, layout)
-    assert full > 0
-    assert DR.cell_flops(cfg, cell, layout) == full, (arch, shape, cfg.num_layers)
+    full = DR.count_cell(build_model(cfg), cell, layout)
+    assert full["flops"] == DR.count_flops(build_model(cfg), cell, layout) > 0
+    c = {m: DR.count_cell(build_model(DR._probe(cfg, m)), cell, layout) for m in (1, 2)}
+    n = DR._n_blocks(cfg)
+    ext = lambda k, d=lambda x: x: d(c[1])[k] + (n - 1) * (d(c[2])[k] - d(c[1])[k])
+    for k in _EXTENDED:
+        assert ext(k) == full[k], (k, cfg.num_layers)
+    for k in full["coll"]:
+        assert ext(k, lambda x: x["coll"]) == full["coll"][k], k
+    linear = (DR.family(cfg), cell.step) not in DR.FULL_DEPTH_PEAK
+    if linear:
+        for k in _PEAKS:
+            assert ext(k) == full[k], (k, cfg.num_layers)
+    counted = DR.cell_counts(cfg, cell, layout, c if linear else None)
+    assert counted["peak_from"] == ("difference" if linear else "full_depth")
+    assert {k: counted[k] for k in _EXTENDED + _PEAKS} == {k: full[k] for k in _EXTENDED + _PEAKS}
+    assert counted["coll"] == full["coll"]
 
 
 def test_one_full_width_count_equals_its_full_depth_count():
@@ -178,7 +204,8 @@ def test_pooled_probe_counts_equal_the_serial_ones(tmp_path, monkeypatch):
                 (tmp_path / f"{arch}__{shape}__pod1.json").write_text(json.dumps(
                     {"arch": arch, "shape": shape, "mesh": "pod1", "status": "ok", "marker": True,
                      "bytes": {"total": 0}, "counted_flops": 1, "model_flops": 1, "useful_flops_ratio": 1.0,
-                     "seconds": 0.0}))
+                     "seconds": 0.0, "roofline": {"dominant": "compute"},
+                     "memory": {"peak_bytes_per_device": 0, "peak_bytes_one_device": 0}}))
     # the sweep hands each worker its config: gemma3-1b's cannot be built
     real = DR.get_config
     monkeypatch.setattr(DR, "get_config", lambda a: dataclasses.replace(real(a), pattern=("nope",))
@@ -192,6 +219,8 @@ def test_pooled_probe_counts_equal_the_serial_ones(tmp_path, monkeypatch):
     assert [(r["arch"], r["shape"]) for r in counted] == [("qwen2-7b", "decode_32k")]
     assert counted[0]["counted_flops"] == DR.cell_flops(real("qwen2-7b"), input_specs("qwen2-7b", "decode_32k"),
                                                         DR.production_layout())
+    serial = DR.run_cell("qwen2-7b", "decode_32k", out_dir=tmp_path / "serial")
+    assert (counted[0]["memory"], counted[0]["roofline"]) == (serial["memory"], serial["roofline"])
     bad = [r for r in res if r["status"] == "error"]
     assert [(r["arch"], r["shape"], r["layout"]) for r in bad] == [("gemma3-1b", "decode_32k", [16, 16])]
     assert json.loads((tmp_path / "gemma3-1b__decode_32k__pod1.json").read_text())["status"] == "error"
@@ -219,12 +248,56 @@ def test_full_width_sweep_gives_32_ok_and_8_skip():
         assert b["total"] == b["params"] + b["opt_state"] + b["caches"] + b["batch"]
 
 
+def _stub_probe(arch, shape_name, cfg, mult, multi_pod):
+    """A probe's count without the step: a cell's numbers grow with the
+    probe's depth, so the sweep's records can be read back exactly."""
+    m = 1 if mult is None else mult
+    count = {"flops": 1000 * m, "bytes_accessed": 10**9 * m, "peak_bytes_one_device": 3 * 10**9 * m,
+             "peak_bytes_per_device": 2 * 10**9 * m + 0.25, "argument_bytes": 10**9 * m, "output_bytes": 5 * m,
+             "coll": {k: 0 for k in JA._COLLECTIVES} | {"all-to-all": 11 * m}}
+    return count, 0.0
+
+
+def test_the_sweep_records_the_reference_keys(tmp_path, monkeypatch):
+    """``sweep`` over the 40 cells with each probe's count stubbed (the
+    counts themselves are held above and on the card): 32 ok, 8 skip, 0
+    error; every ok record's ``roofline`` has the reference's
+    ``RooflineTerms.as_dict`` keys over the layout's 256 chips, with the
+    collective bytes a device's times the chips; its ``memory`` the
+    reference's four keys, the peak the arguments plus the temporaries,
+    and the whole card's peak; each number extended to full depth."""
+    monkeypatch.setattr(DR, "_probe_count", _stub_probe)
+    # the stub cannot reach spawned workers: the sweep's pool runs threads here
+    monkeypatch.setattr(concurrent.futures, "ProcessPoolExecutor", lambda n, mp_context=None: ThreadPoolExecutor(n))
+    res = DR.sweep(out_dir=tmp_path, log=None)
+    status = [r["status"] for r in res]
+    assert (status.count("ok"), status.count("skip"), status.count("error")) == (32, 8, 0)
+    keys = set(JA.RooflineTerms(1.0, 1.0, 1.0, 1, {}).as_dict())
+    for r in res:
+        if r["status"] != "ok":
+            continue
+        cfg = get_config(r["arch"])
+        probes = DR._probes(cfg, r["step"])
+        n = 1 if probes == (None,) else DR._n_blocks(cfg)
+        t, mem = r["roofline"], r["memory"]
+        assert set(t) == keys and t["chips"] == 256, r["arch"]
+        assert {"argument_bytes", "output_bytes", "temp_bytes", "peak_bytes_per_device"} <= set(mem)
+        assert mem["argument_bytes"] == 10**9 * n and mem["peak_bytes_per_device"] == 2 * 10**9 * n
+        assert mem["argument_bytes"] + mem["temp_bytes"] == mem["peak_bytes_per_device"]
+        assert mem["peak_bytes_one_device"] == 3 * 10**9 * n
+        assert mem["peak_from"] == ("full_depth" if probes == (None,) else "difference")
+        assert t["coll_breakdown"]["all-to-all"] == 11 * n and t["coll_bytes"] == 11 * n * 256
+        assert r["counted_flops"] == 1000 * n and t["flops"] == 1000 * n
+        assert t["bytes_per_chip"] == mem["argument_bytes"] + mem["output_bytes"] + mem["temp_bytes"]
+        assert json.loads((tmp_path / f"{r['arch']}__{r['shape']}__pod1.json").read_text()) == r
+
+
 def test_records_are_cached_and_errors_retried(tmp_path, monkeypatch):
     """The reference's rule: an ``ok`` or ``skip`` record is read back, an
     ``error`` is rerun; ``--force`` reruns; the CLI exits 1 on an error."""
     monkeypatch.setattr(DR, "ARTIFACTS", tmp_path)
     path = tmp_path / "qwen2-7b__decode_32k__pod2.json"
-    path.write_text(json.dumps({"status": "ok", "counted_flops": 1, "marker": True}))
+    path.write_text(json.dumps({"status": "ok", "counted_flops": 1, "marker": True, "memory": {}, "roofline": {}}))
     assert DR.run_cell("qwen2-7b", "decode_32k", multi_pod=True)["marker"]
     r = DR.run_cell("qwen2-7b", "decode_32k", multi_pod=True, force=True)
     assert r["status"] == "ok" and r["layout"] == [32, 16] and "marker" not in r
@@ -272,7 +345,8 @@ def test_the_dry_run_allocates_nothing(arch, shape, tmp_path, monkeypatch):
     with _OffMeta() as mode:
         r = DR.run_cell(arch, shape, out_dir=tmp_path)
     assert r["status"] == "ok", r.get("trace")
-    assert r["counted_flops"] > 0
+    assert r["counted_flops"] > 0 and r["roofline"]["flops"] == r["counted_flops"]
+    assert r["memory"]["peak_bytes_one_device"] >= r["memory"]["peak_bytes_per_device"] > 0
     assert mode.seen == []
     assert not any(KN.launch_counts().values())
 

@@ -29,6 +29,7 @@ from repro_torch.core import (
     pack_spec,
     work_item,
 )
+from repro_torch.core.collectives import Call
 from repro_torch.roofline import analysis as A
 
 LAYOUTS = [((8,), (16,)), ((8,), (1,)), ((2, 4), (8, 4)), ((4, 2), (3, 5)), ((2, 2, 2), (4, 6, 8)),
@@ -182,3 +183,109 @@ def test_recorded_wire_bytes_refuses_a_flat_call_on_tiers():
     with pytest.raises(ValueError, match="flat all_to_all call"):
         A.recorded_wire_bytes(calls, (2, 4))
     assert A.recorded_wire_bytes(calls, (8,)) == [R * 16 * 44 + R * 4]  # payload and count: psum not counted
+
+
+# ------------------------------------------------------------ the step count
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _bytes(fn):
+    return A.count_step(fn).bytes_accessed
+
+
+def test_bytes_accessed_of_hand_reckoned_ops():
+    """Each operand read once, each result written once, a view or alias
+    nothing; an in-place op reads and writes its argument, ``copy_`` only
+    writes it, an indexed write writes its source's bytes, a gather reads
+    the rows it returns; a broadcast operand (stride 0) reads its distinct
+    elements."""
+    a, b = _meta(64, 32), _meta(32, 16)
+    assert _bytes(lambda: a @ b) == (64 * 32 + 32 * 16 + 64 * 16) * 4
+    x, y = _meta(1000), _meta(1000, dtype=torch.bfloat16)
+    assert _bytes(lambda: x * 2.0) == 2 * 4000
+    assert _bytes(lambda: x + y) == 4000 + 2000 + 4000
+    assert _bytes(lambda: (x.view(10, 100), x.t(), x.detach(), x.reshape(50, 20), x[3:7], x.unsqueeze(0))) == 0
+    assert _bytes(lambda: x.add_(1.0)) == 2 * 4000
+    assert _bytes(lambda: x.copy_(y)) == 2000 + 4000
+    bias = _meta(16)
+    assert _bytes(lambda: _meta(8, 16) + bias.expand(8, 16)) == (128 + 16 + 128) * 4
+    idx, vals = torch.empty(10, dtype=torch.int64, device="meta"), _meta(10, 32)
+    assert _bytes(lambda: a.index_put_((idx,), vals)) == 80 + 1280 + 1280
+    assert _bytes(lambda: torch.empty(1 << 20, device="meta")) == 0
+    table, rows = _meta(1000, 64, dtype=torch.bfloat16), torch.empty(8, dtype=torch.int64, device="meta")
+    assert _bytes(lambda: table[rows]) == 8 * 128 + 64 + 8 * 128  # the rows gathered, not the table
+
+
+def test_peak_of_a_hand_sequence_of_allocations_and_frees():
+    """Bytes alive: the held inputs from the start, each new storage from
+    the op that makes it, freed when its last tensor goes (a view keeps
+    it); the weighted peak takes each storage at its weight."""
+    held = _meta(2000)
+
+    def run():
+        a = torch.empty(1000, device="meta")  # 4000
+        b = torch.empty(500, device="meta")  # 6000
+        del a  # 2000
+        c = torch.empty(3000, device="meta")  # 14000
+        d = c[:10]
+        del c  # the view keeps the storage: 14000
+        e = torch.empty(100, device="meta")  # 14400
+        del d  # 2400
+        f = torch.empty(2500, device="meta")  # 12400
+        return b, e, f
+
+    r = A.count_step(run, held=[([held], 0.5)], default_weight=0.25)
+    assert r.peak_bytes == 8000 + 14400
+    assert r.peak_weighted == 8000 * 0.5 + 14400 * 0.25
+    assert r.ops == 6 and r.bytes_accessed == 0  # five allocations and a slice
+
+
+def test_a_train_step_counts_alike_on_the_cpu_and_on_meta():
+    """The smoke config's train step, from real CPU tensors and from meta
+    ones: the same FLOPs, bytes accessed and peaks (the counter reads
+    shapes, dtypes and lifetimes, which the device does not change)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    model = build_model(get_smoke_config("qwen2-7b"))
+    step = build_train_step(model)
+    out = []
+    for lm in (model.init(torch.Generator().manual_seed(0), device="cpu"), model.abstract()):
+        opt = adamw_init(lm, AdamWConfig())
+        tokens = torch.zeros((2, 16), dtype=torch.int32, device=lm.tree()["embed"].device)
+        held = list(lm.parameters()) + _leaves(opt) + [tokens]
+        r = A.count_step(lambda: step(lm, opt, {"tokens": tokens}), held=[(held, 1.0)],
+                         grads=[(p, 0.5) for p in lm.parameters()])
+        out.append((r.flops, r.bytes_accessed, r.peak_bytes, r.peak_weighted))
+    assert out[0] == out[1] and out[0][0] > 0 and out[0][2] > out[0][3] > 0
+
+
+def _leaves(tree):
+    return [t for v in tree.values() for t in (_leaves(v) if isinstance(v, dict) else [v])]
+
+
+def test_collective_inventory_reads_a_device_result():
+    """A device's result of each recorded call: its row of a stacked
+    ``all_to_all``, ``psum`` or ``ppermute``, every row of a flat
+    ``all_gather``, its tier group's rows of a tier ``all_gather``, one
+    process's ``grad_all_reduce`` bucket whole; named as the HLO names
+    them."""
+    comm = StackedCollectives()
+    comm.all_to_all(torch.zeros(8, 8, 3, dtype=torch.int32))
+    comm.all_gather(torch.zeros(8, 5))
+    comm.all_gather(torch.zeros(8, 5), digits=(2, 4), tier=1)
+    comm.psum(torch.zeros(8, 2))
+    comm.ppermute(torch.zeros(8, 6))
+    comm.calls[Call("grad_all_reduce", 4000, (1000,))] += 2
+    inv = A.collective_inventory(comm.calls, (2, 4))
+    assert sorted(inv) == sorted([
+        ("all-to-all", (8, 3), 96, 1), ("all-gather", (8, 5), 160, 1), ("all-gather", (4, 5), 80, 1),
+        ("all-reduce", (2,), 8, 1), ("collective-permute", (6,), 24, 1), ("all-reduce", (1000,), 8000, 2)])
+    assert A.collective_bytes(comm.calls, (2, 4)) == {
+        "all-gather": 240, "all-reduce": 8008, "reduce-scatter": 0, "all-to-all": 96, "collective-permute": 24,
+        "ragged-all-to-all": 0}
+    with pytest.raises(ValueError, match="level_sizes"):
+        A.collective_inventory(comm.calls)
