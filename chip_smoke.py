@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all started together, linked into one library under
-``build/``) and runs twenty-one phases on ``cuda:0``:
+``build/``) and runs twenty-two phases on ``cuda:0``:
 
   1. kernels     — all ten kernels (K1 gather_rows, K2 unmarshal, K3
                    pack_and_histogram, K4 rank_and_histogram, K5
@@ -340,7 +340,21 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    8 × 512, with its ``grad_all_reduce``, parameters
                    bit-equal; each path's NCCL calls, event times and
                    device ms by part; K1–K6 counted on ``dist_paths``;
- 21. report      — one JSON line of the kernels (launches on the paths that
+ 21. shard       — the dense family's placed train state
+                   (``launch.placement``): qwen2-7b at full width, 4 of 28
+                   layers, ``fsdp=True``, layout (2, 4) stacked on the
+                   card, batch 8 × 512: every rank's block of every
+                   parameter and AdamW moment equal to the chunk of the
+                   whole leaf the rule names, bit for bit, its bytes
+                   ``specs.device_bytes``; the placed step's calls by kind
+                   and tier, event median, device ms by part and peak GiB
+                   beside the unsharded step's; the placed state
+                   checkpointed (written whole) restored onto (4, 2) and
+                   whole, bit for bit; the same step over NCCL at a world
+                   of one bit-equal to the stacked one; at 2 layers in
+                   float32, the placed step against the unsharded one
+                   (loss, gnorm, every parameter); no hand kernel;
+ 22. report      — one JSON line of the kernels (launches on the paths that
                    run them, errors, bounds; ``ms``, ``plain_ms`` and
                    ``library_ms`` are device times, ``call_ms`` the event
                    pair's; device events a call), the card's name and
@@ -5445,6 +5459,421 @@ def phase_dist_paths(dev, R=8, E=32768, C=262144, S=8192, EVERY=3, PREEMPT=5, TU
     return out, {"dist_paths": launches}
 
 
+# ----------------------------------------------------------------- 21. shard
+SHARD_TOL = {"loss": 1e-5, "gnorm": 1e-4}  # (b): float32 placed against whole, relative
+SHARD_K = 4  # (b): the gradient's distance to float64 against K times the whole float32 step's
+
+
+def _chunked(whole, spec, axes, rank):
+    """Rank ``rank``'s block of ``whole`` under the resolved ``spec``, cut by
+    ``torch.chunk`` (a second cut, beside ``launch.specs.cut``'s slices)."""
+    from repro_torch.launch import specs as S
+
+    coords = S.rank_coords(rank, axes)
+    out = whole
+    for dim, part in enumerate(spec):
+        pieces, index = 1, 0
+        for ax in S.spec_axes(part):
+            pieces, index = pieces * axes[ax], index * axes[ax] + coords[ax]
+        if pieces > 1:
+            out = out.chunk(pieces, dim=dim)[index]
+    return out
+
+
+def _same_tensor(a, b):
+    import torch
+
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _blocks_match(placed, whole, placement):
+    """Leaves of ``placed`` whose rank blocks are not, bit for bit, the
+    chunks of ``whole`` that the rule names (every rank)."""
+    bad = []
+    for path, spec in placement.specs.items():
+        p, w = placed, whole
+        for k in path:
+            p, w = p[k], w[k]
+        if not all(_same_tensor(p[r], _chunked(w, spec, placement.axes, r)) for r in range(p.shape[0])):
+            bad.append(".".join(path))
+    return bad
+
+
+def _leaf_items(tree):
+    from repro_torch.launch import specs as S
+
+    return dict(S.named_leaves(tree))
+
+
+def _close(got, want, lr):
+    """Leaves of ``got`` (gathered placed parameters) farther from ``want``
+    (the whole step's) than two first-step learning rates plus 2^-20 of
+    the value, element by element, and the largest |difference|."""
+    bad, worst = [], 0.0
+    for path, g in got.items():
+        d = (g - want[path]).abs()
+        worst = max(worst, float(d.max()))
+        if bool((d > 2 * lr + want[path].abs() * 2.0 ** -20).any()):
+            bad.append(".".join(path))
+    return bad, worst
+
+
+def _top_events(fn, n=12):
+    """The ``n`` device events of one call of ``fn`` with the most device
+    time: ``[(name, ms, launches)]``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(_short(e.key), e.self_device_time_total / 1e3, e.count) for e in _device_events(prof) if e.count]
+    return sorted(rows, key=lambda r: -r[1])[:n]
+
+
+def _float64_config(cfg):
+    """``cfg`` with float64 parameters and activations (the attention
+    scores and the loss stay float32, as the port computes them)."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.models.common import ModelConfig
+
+    @dc.dataclass(frozen=True)
+    class Float64Config(ModelConfig):
+        @property
+        def torch_dtype(self):
+            return torch.float64
+
+    return Float64Config(**{f.name: getattr(cfg, f.name) for f in dc.fields(cfg)})
+
+
+class _GradCapture:
+    """The gradients AdamW receives, each leaf whole (placed gradients
+    gathered first), handed to ``keep(path, grad)`` before the update."""
+
+    def __init__(self, keep):
+        self.keep = keep
+
+    def __enter__(self):
+        from repro_torch.launch import placement as PL
+        from repro_torch.launch import steps as ST
+
+        self._ST, update = ST, ST.adamw_update
+
+        def capture(params, grads, *a, **kw):
+            whole = params.placement.gather(PL.Placed(grads, params.placement)) if PL.is_placed(params) else grads
+            for k, g in _leaf_items(whole).items():
+                self.keep(k, g)
+            del whole
+            return update(params, grads, *a, **kw)
+
+        self._update, ST.adamw_update = update, capture
+        return self
+
+    def __exit__(self, *exc):
+        self._ST.adamw_update = self._update
+
+
+def _conditioned(lm, n_blocks):
+    """The column-parallel weights of every block (``wq``, ``wk``, ``wv``,
+    ``wi``, ``wg``, drawn at 1/sqrt(n_blocks)) scaled to 0.02, so that the
+    attention is not saturated (module docstring of phase ``shard``)."""
+    import math
+
+    import torch
+
+    with torch.no_grad():
+        for name, p in lm.named_parameters():
+            if name.startswith("blocks.") and name.rsplit(".", 1)[1] in ("wq", "wk", "wv", "wi", "wg"):
+                p.mul_(0.02 * math.sqrt(n_blocks))
+    return lm
+
+
+def phase_shard(dev, ARCH="qwen2-7b", LAYERS=4, CHECK_LAYERS=2, LAYOUT=(2, 4), ELASTIC=(4, 2), BATCH=(8, 512),
+                widths=None, profile=True, reps=3):
+    """The dense family's placed train state (``launch.placement``) at full
+    width: ARCH with ``fsdp=True`` placed on the ``LAYOUT`` layout stacked in
+    one process.  At ``LAYERS`` layers in bfloat16 (the config as
+    published): (a) every rank's block of every parameter, and after a step
+    of every AdamW moment, equals bit for bit the chunk of the whole leaf
+    that the rule names (a ``torch.chunk`` cut beside ``specs.cut``'s), and
+    a rank's bytes ``specs.device_bytes`` on the mesh; the placed step at
+    ``BATCH``: loss and gnorm finite, the recorder's calls by kind and tier
+    for one step, event median, device ms by part (``_step_device_ms``), its
+    top device events and its peak GiB above what it holds, beside the
+    unsharded step's; (c) the placed parameters checkpointed (written
+    whole) restore onto the ``ELASTIC`` placement and whole, bit for bit,
+    each part's seconds (the moments' checkpoint is the tests' on the
+    CPU: the whole state's 20.2 GB took 75.7 s to write and 45–49 s to
+    restore on the card, over the phase's share); (d) the same step over NCCL at a world of
+    one (``launch.dist.init_world``): loss, gnorm and the gathered
+    parameters bit-equal to the stacked placed step's, timed.  (b) At
+    ``CHECK_LAYERS`` layers in float32, on conditioned weights (the
+    blocks' column weights at 0.02, ``_conditioned``), one placed step
+    against the unsharded step from the same weights: loss and gnorm
+    within ``SHARD_TOL`` relative; the gradient's distance to a float64
+    step's within ``SHARD_K`` times the unsharded float32 step's; every
+    gathered parameter within two first-step learning rates (Adam's first
+    move is lr·sign(g), so a component whose gradient is near 0 may move
+    either way) plus 2^-20 of its value.  Conditioned, because at the
+    config's own draw (block weights at 1/sqrt(layers)) the attention is
+    saturated and the gradient ill-conditioned: there the unsharded
+    float32 step's gradient lies 19–22% (relative L2, layer 0's attention
+    leaves) from float64's and every placed layout's 23–27%, FSDP alone
+    as far as FSDP with tensor parallelism (``tools/shard_grad_errors.py``).
+    No hand kernel is on this path.  ``widths``
+    narrows the config for a rehearsal on the CPU."""
+    import dataclasses as dc
+    import gc
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.ckpt import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import dist as LD
+    from repro_torch.launch import placement as PL
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import Layout
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    opt_cfg = AdamWConfig(warmup_steps=20)
+    b, s = BATCH
+    out = {"layers": LAYERS, "check_layers": CHECK_LAYERS, "layout": LAYOUT, "batch": BATCH}
+
+    def free(where=None):
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            if where:
+                out.setdefault("allocated_gib", {})[where] = torch.cuda.memory_allocated(dev) / 2**30
+
+    def setup(layers, **changes):
+        cfg = dc.replace(get_config(ARCH), num_layers=layers, fsdp=True, **(widths or {}), **changes)
+        model = build_model(cfg)
+        return cfg, model, build_train_step(model, None, opt_cfg), SyntheticLM(cfg.vocab_size, s, b).batch_at(0)
+
+    def init(model):
+        return model.init(torch.Generator(device=dev).manual_seed(3131), device=dev)
+
+    def gathered_cpu(placement, tree):
+        return {k: v.cpu() for k, v in _leaf_items(placement.gather(tree)).items()}
+
+    cfg, model, step, batch = setup(LAYERS)
+    label = f"{cfg.name} at {LAYERS} of {get_config(ARCH).num_layers} layers, fsdp, layout {LAYOUT}"
+    out["remat"] = cfg.remat
+
+    # (a) the placement, then one placed step and its timing
+    placement = PL.train_placement(model, Layout(*LAYOUT))
+    lm = init(model)
+    params = placement.place(lm)
+    bad = _blocks_match(params, lm.tree(), placement)
+    rule = sum(S.device_bytes(torch.empty(placement.shapes[k], dtype=cfg.torch_dtype, device="meta"), spec,
+                              placement.axes) for k, spec in placement.specs.items())
+    sizes = [sum(p[r].numel() * p.element_size() for p in _leaf_items(params).values())
+             for r in range(LAYOUT[0] * LAYOUT[1])]
+    out["param_bytes_per_rank"] = sizes
+    out["param_bytes_whole"] = sum(p.numel() * p.element_size() for p in lm.parameters())
+    check(not bad and set(sizes) == {rule},
+          f"(a) {label}: every rank's block of the {len(placement.specs)} parameter leaves == the chunk the rule "
+          f"names, bit for bit (mismatched: {bad}); {sizes[0]} B a rank == specs.device_bytes {rule} (whole "
+          f"{out['param_bytes_whole']} B)")
+    del lm
+    free()
+    opt = adamw_init(params, opt_cfg)
+    if cuda:
+        out["held_gib"] = torch.cuda.memory_allocated(dev) / 2**30
+        torch.cuda.reset_peak_memory_stats(dev)
+    placement.comm.reset()
+    met = step(params, opt, batch)[2]  # no name keeps the state alive
+    out["calls"] = _call_counts(placement.comm)
+    out["call_bytes"] = {}
+    for c, n in placement.comm.calls.items():
+        key = c.kind if c.tier is None else f"{c.kind}{c.tier}"
+        out["call_bytes"][key] = out["call_bytes"].get(key, 0) + c.nbytes * n
+    if cuda:
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    placed_met = (float(met["loss"]), float(met["gnorm"]))
+    placed_after = gathered_cpu(placement, params)
+    bad = [f"{k}.{p}" for k in ("m", "v") for p in _blocks_match(opt[k], placement.gather(opt[k]), placement)]
+    opt_rank = sum(v[0].numel() * v.element_size() for k in ("m", "v") for v in _leaf_items(opt[k]).values())
+    out["opt_bytes_per_rank"] = opt_rank
+    check(all(map(math.isfinite, placed_met)) and not bad and opt_rank == 2 * rule * 4 // cfg.torch_dtype.itemsize,
+          f"(a) {label}, batch {b} x {s}: the placed step's loss and gnorm {placed_met} finite; every rank's block of "
+          f"AdamW's m and v == the chunk of the gathered leaf, bit for bit (mismatched: {bad}); {opt_rank} B a rank")
+    if cuda:
+        out["step_ms_median"] = cuda_ms(lambda: step(params, opt, batch), reps=reps, warmup=0)
+        if profile:
+            out["device_split_ms"] = _step_device_ms(step, params, opt, batch)
+            out["top_events"] = _top_events(lambda: step(params, opt, batch))
+
+    # (c) the placed parameters written whole, restored onto another
+    # factorization and whole
+    state_dir = pathlib.Path(tempfile.mkdtemp(prefix="rafi_shard_"))
+    try:
+        free("after the placed timing")
+        del opt
+        free("without the placed moments")
+        whole_state = {"params": placement.gather(params)}
+        t0 = time.perf_counter()
+        save_checkpoint(state_dir, 1, {"params": params})
+        out["ckpt_save_s"] = time.perf_counter() - t0
+        out["ckpt_bytes"] = sum(f.stat().st_size for f in state_dir.rglob("*.npy"))
+        del params
+        free("without the placed parameters")
+        like = {"params": _nest({k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                                 for k, v in _leaf_items(whole_state["params"]).items()})}
+        other = PL.train_placement(model, Layout(*ELASTIC))
+        t0 = time.perf_counter()
+        moved = restore_checkpoint(state_dir, 1, like, device=dev, shardings={"params": other})
+        out["ckpt_restore_placed_s"] = time.perf_counter() - t0
+        bad = _blocks_match(moved["params"], whole_state["params"], other)
+        check(PL.is_placed(moved["params"]) and not bad,
+              f"(c) the placed parameters checkpointed ({out['ckpt_bytes']} B in {out['ckpt_save_s']:.1f} s) restore "
+              f"onto {ELASTIC} ({out['ckpt_restore_placed_s']:.1f} s): every rank's block == the chunk of the whole "
+              f"leaf, bit for bit (mismatched: {bad})")
+        del moved
+        free()
+        t0 = time.perf_counter()
+        back = _leaf_items(restore_checkpoint(state_dir, 1, like, device=dev))
+        out["ckpt_restore_whole_s"] = time.perf_counter() - t0
+        want = _leaf_items(whole_state)
+        check(set(back) == set(want) and all(_same_tensor(back[k], v) for k, v in want.items()),
+              f"(c) and restores whole ({out['ckpt_restore_whole_s']:.1f} s), all {len(want)} leaves bit for bit")
+        del back, want, whole_state
+    finally:
+        shutil.rmtree(state_dir, ignore_errors=True)
+    free("after the checkpoint")
+
+    # the unsharded step beside it
+    lm = init(model)
+    wopt = adamw_init(lm, opt_cfg)
+    if cuda:
+        out["whole_held_gib"] = torch.cuda.memory_allocated(dev) / 2**30
+        torch.cuda.reset_peak_memory_stats(dev)
+    wmet = step(lm, wopt, batch)[2]
+    out["whole"] = (float(wmet["loss"]), float(wmet["gnorm"]))
+    if cuda:
+        out["whole_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        out["whole_step_ms_median"] = cuda_ms(lambda: step(lm, wopt, batch), reps=reps, warmup=0)
+        if profile:
+            out["whole_device_split_ms"] = _step_device_ms(step, lm, wopt, batch)
+            out["whole_top_events"] = _top_events(lambda: step(lm, wopt, batch))
+    del lm, wopt
+    free()
+    out["placed"] = placed_met
+    print(f"  (a) placed step: calls {out['calls']} (bytes {out['call_bytes']}); event median "
+          f"{out.get('step_ms_median')} ms, device {out.get('device_split_ms')} ms, peak {out.get('peak_gib')} GiB "
+          f"({out.get('held_gib')} held before); whole step: event median {out.get('whole_step_ms_median')} ms, device "
+          f"{out.get('whole_device_split_ms')} ms, peak {out.get('whole_peak_gib')} GiB ({out.get('whole_held_gib')} "
+          f"held); (loss, gnorm) placed {placed_met}, whole {out['whole']}; top device events placed "
+          f"{out.get('top_events')}, whole {out.get('whole_top_events')}", flush=True)
+
+    # (d) the same placed step over NCCL (gloo on the CPU) at a world of one
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="rafi_shard_dist_"))
+    try:
+        dcomm = LD.init_world(dev, world=1, rank=0, store=f"file://{tmp}/store")
+        dplacement = PL.train_placement(model, Layout(*LAYOUT, comm=dcomm))
+        lm = init(model)
+        dparams = dplacement.place(lm)
+        del lm
+        free()
+        dopt = adamw_init(dparams, opt_cfg)
+        dcomm.reset()
+        dmet = step(dparams, dopt, batch)[2]
+        out["nccl_calls"] = _call_counts(dcomm)
+        dist_met = (float(dmet["loss"]), float(dmet["gnorm"]))
+        after = gathered_cpu(dplacement, dparams)
+        same = dist_met == placed_met and all(_same_tensor(after[k], v) for k, v in placed_after.items())
+        check(same and out["nccl_calls"] == out["calls"],
+              f"(d) the placed step on {'NCCL' if cuda else 'gloo'} at a world of one == the stacked placed step: "
+              f"(loss, gnorm) {dist_met}, every gathered parameter bit for bit, calls {out['nccl_calls']}")
+        if cuda:
+            out["nccl_step_ms_median"] = cuda_ms(lambda: step(dparams, dopt, batch), reps=reps, warmup=0)
+            if profile:
+                out["nccl_split_ms"] = _device_split(lambda: step(dparams, dopt, batch), calls=1, warmup=0)
+        print(f"  (d) NCCL placed step: event median {out.get('nccl_step_ms_median')} ms, device "
+              f"{out.get('nccl_split_ms')} ms", flush=True)
+        del dparams, dopt, after
+    finally:
+        LD.destroy_world()
+        shutil.rmtree(tmp, ignore_errors=True)
+    del placed_after
+    free()
+
+    # (b) float32 at CHECK_LAYERS layers, conditioned weights: the placed
+    # step against the whole step, each against a float64 witness
+    lr1 = opt_cfg.lr / opt_cfg.warmup_steps
+    runs, truth = {}, {}
+    for name, placed in (("whole64", False), ("whole32", False), ("placed32", True)):
+        cfg_b, model_b, step_b, batch_b = setup(CHECK_LAYERS, dtype="float32")
+        if name == "whole64":
+            model_b = build_model(_float64_config(cfg_b))
+            step_b = build_train_step(model_b, None, opt_cfg)
+        lm = _conditioned(init(model_b), CHECK_LAYERS)
+        params = PL.train_placement(model_b, Layout(*LAYOUT)).place(lm) if placed else lm
+        del lm
+        free()
+        err = {}
+
+        def keep(path, g):
+            if name == "whole64":
+                truth[path] = g.detach().cpu()
+            else:
+                t = truth[path].to(g.device)
+                err[path] = (float((g.double() - t).norm()), float(t.norm()))
+
+        with _GradCapture(keep):
+            met = step_b(params, adamw_init(params, opt_cfg), batch_b)[2]
+        whole = params.placement.gather(params) if placed else params.tree()
+        runs[name] = {"loss": float(met["loss"]), "gnorm": float(met["gnorm"]), "err": err,
+                      "params": None if name == "whole64" else {k: v.detach().cpu() for k, v in _leaf_items(whole).items()}}
+        del params, whole
+        free()
+    total = math.sqrt(sum(n * n for _d, n in runs["whole32"]["err"].values()))
+    rel_err = lambda r: math.sqrt(sum(d * d for d, _n in runs[r]["err"].values())) / total
+    worst_leaf = lambda r: max(((".".join(k), d / total) for k, (d, _n) in runs[r]["err"].items()), key=lambda t: t[1])
+    bad, worst = _close(runs["placed32"]["params"], runs["whole32"]["params"], lr1)
+    rel = lambda x, y: abs(x - y) / abs(y)
+    fc = {k: {"loss": v["loss"], "gnorm": v["gnorm"]} for k, v in runs.items()}
+    fc.update(param_max_abs_diff=worst, grad_rel_err={r: rel_err(r) for r in ("whole32", "placed32")},
+              worst_leaf={r: worst_leaf(r) for r in ("whole32", "placed32")})
+    out["float32_check"] = fc
+    own = max(fc["grad_rel_err"]["whole32"], 1e-7)
+    check(rel(runs["placed32"]["loss"], runs["whole32"]["loss"]) <= SHARD_TOL["loss"]
+          and rel(runs["placed32"]["gnorm"], runs["whole32"]["gnorm"]) <= SHARD_TOL["gnorm"]
+          and fc["grad_rel_err"]["placed32"] <= SHARD_K * own and not bad,
+          f"(b) {ARCH} at {CHECK_LAYERS} layers in float32, conditioned weights, batch {b} x {s}: the placed step's "
+          f"(loss, gnorm) ({runs['placed32']['loss']}, {runs['placed32']['gnorm']}) against the whole step's "
+          f"({runs['whole32']['loss']}, {runs['whole32']['gnorm']}), relative <= {SHARD_TOL}; its gradient's "
+          f"distance to the float64 step's {fc['grad_rel_err']['placed32']:.3g} of the gradient's norm <= "
+          f"{SHARD_K} x the whole float32 step's {own:.3g} (worst leaves {fc['worst_leaf']}); every gathered "
+          f"parameter within 2 lr1 + 2^-20 |p| (max |d| {worst:.3g}; beyond: {bad})")
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out, {}
+
+
+def _nest(flat):
+    """``{path: leaf}`` → the nested dict."""
+    out = {}
+    for path, leaf in flat.items():
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5475,7 +5904,8 @@ def main() -> int:
            "nbody": lambda: phase_nbody(dev), "obs": lambda: phase_obs(dev), "apps2": lambda: phase_apps2(dev),
            "ragged": lambda: phase_ragged(dev), "lm": lambda: phase_lm(dev), "train": lambda: phase_train(dev),
            "families": lambda: phase_families(dev), "dryrun": lambda: phase_dryrun(dev),
-           "dist": lambda: phase_dist(dev), "dist_paths": lambda: phase_dist_paths(dev)}
+           "dist": lambda: phase_dist(dev), "dist_paths": lambda: phase_dist_paths(dev),
+           "shard": lambda: phase_shard(dev)}
     kernels, paths = {}, {}  # paths: launches per path, counted from 0
     for title in run:
         print(f"# phase {title}", flush=True)
@@ -5490,7 +5920,7 @@ def main() -> int:
             kernels, more = res
             paths.update(more)
         elif title in ("lossless", "telemetry", "pipeline", "credit", "balance", "recovery", "obs", "apps2", "ragged",
-                       "lm", "train", "families", "dryrun", "dist", "dist_paths"):
+                       "lm", "train", "families", "dryrun", "dist", "dist_paths", "shard"):
             record[title], more = res
             paths.update(more)
         elif title in ("streamlines", "vopat", "nbody"):

@@ -20,6 +20,12 @@
   ONE process write (and prune) a directory; the others wait at a barrier
   after the publish and only then read (``core.recovery``,
   ``launch.train``).  Restore only reads, so every process may restore.
+* **Placed state** (``launch.placement``): a placed node of the saved tree
+  is written whole, gathered through its placement (in a world every
+  process gathers, then one writes: ``launch.train``), so the files are
+  the reference's whatever the layout.  ``restore_checkpoint(…,
+  shardings=)`` places what it reads on any placement, of any
+  factorization, as the reference's ``device_put`` onto its shardings.
 
 The manifest's ``treedef`` is this module's own description of the tree;
 restore never reads it.
@@ -182,7 +188,7 @@ def save_checkpoint(ckpt_dir, step: int, tree: Any, *, keep: int = 3, meta: Opti
         shutil.rmtree(tmp)
     tmp.mkdir()
 
-    leaves, treedef = tree_flatten(tree)
+    leaves, treedef = tree_flatten(_whole(tree))
     manifest = {"step": step, "treedef": _describe(treedef), "leaves": []}
     if meta is not None:
         manifest["meta"] = meta
@@ -214,6 +220,28 @@ def save_checkpoint(ckpt_dir, step: int, tree: Any, *, keep: int = 3, meta: Opti
     return final
 
 
+def _whole(tree: Any) -> Any:
+    """``tree`` with every placed node gathered whole through its placement."""
+    if getattr(tree, "placement", None) is not None:
+        return tree.placement.gather(tree)
+    if isinstance(tree, dict):
+        return {k: _whole(v) for k, v in tree.items()}
+    return tree
+
+
+def _place(tree: Any, shardings: Any, device) -> Any:
+    """``tree`` (host tensors) on ``device``: a subtree under a placement
+    (anything with ``place``) placed by it, a dict of shardings applied key
+    by key, the rest moved whole."""
+    if hasattr(shardings, "place"):
+        return shardings.place(tree, device=device)
+    if isinstance(shardings, dict):
+        return {k: _place(v, shardings.get(k), device) for k, v in tree.items()}
+    if isinstance(tree, dict):
+        return {k: _place(v, None, device) for k, v in tree.items()}
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
 def latest_step(ckpt_dir) -> Optional[int]:
     ckpt_dir = Path(ckpt_dir)
     if not ckpt_dir.exists():
@@ -233,9 +261,12 @@ def load_manifest(ckpt_dir, step: int) -> Dict:
     return json.loads(mpath.read_text())
 
 
-def restore_checkpoint(ckpt_dir, step: int, like: Any, *, device=None) -> Any:
+def restore_checkpoint(ckpt_dir, step: int, like: Any, *, device=None, shardings: Any = None) -> Any:
     """Restore into the structure of ``like`` (leaves may be numpy arrays or
-    tensors) as tensors on ``device`` (``None``: the CUDA card).
+    tensors, whole) as tensors on ``device`` (``None``: the CUDA card).
+    ``shardings`` places what it reads (the elastic-rescale path): a
+    ``launch.placement.Placement``, or a dict of them by ``like``'s keys
+    (``{"params": p, "opt": p}``; a key without one is restored whole).
 
     Raises ``ValueError`` on a leaf-count, shape or dtype mismatch and
     ``IOError`` on a SHA-256 mismatch, before the leaf is deserialised."""
@@ -260,5 +291,6 @@ def restore_checkpoint(ckpt_dir, step: int, like: Any, *, device=None) -> Any:
         ref_dtype = np_dtype(ref)
         if np.dtype(arr.dtype) != ref_dtype:
             raise ValueError(f"leaf {i}: checkpoint dtype {arr.dtype} != expected {ref_dtype}")
-        out.append(_from_host(arr, ref).to(dev))
-    return tree_unflatten(treedef, out)
+        out.append(_from_host(arr, ref) if shardings is not None else _from_host(arr, ref).to(dev))
+    tree = tree_unflatten(treedef, out)
+    return tree if shardings is None else _place(tree, shardings, dev)

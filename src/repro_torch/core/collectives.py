@@ -53,6 +53,11 @@ stacked ones; read L for the leading R:
                   the sum within each tier-l group, held per rank: (R, ...)
   pmin(x)         x (R, ...) → the minimum over ranks, held once
                   (``jax.lax.pmin``)
+  reduce_scatter(x, digits=, tier=l)
+                  x (R, A_l, ...) → (R, ...): rank r receives the sum over
+                  its tier-l group of block ``digit_l(r)`` of every member,
+                  summed in digit order (``jax.lax.psum_scatter``; the
+                  gradient of a tier ``all_gather``, the FSDP gradient)
   grad_all_reduce(tensors)
                   the data-parallel gradient sum over the world's processes,
                   in place (the compiler's reduction over the data axis in
@@ -76,7 +81,10 @@ collective budget is guarded: on ``exchange="padded"`` a round issues
 exactly one payload ``all_to_all`` and one count ``all_to_all``, on
 ``exchange="hierarchical"`` one of each per non-trivial tier (a call's
 ``tier`` names it), on ``exchange="ragged"`` one ``ragged_all_to_all`` and
-one count ``all_gather``.  A call counts once per process, however many
+one count ``all_gather``.  The kinds are ``all_to_all``,
+``ragged_all_to_all``, ``all_gather``, ``ppermute``, ``psum``, ``pmin``,
+``reduce_scatter`` (the placed train step's only user) and
+``grad_all_reduce``.  A call counts once per process, however many
 ``torch.distributed`` operations carry it; its shape is the local
 block's, and its bytes are the local block's, so the bytes summed over
 the world equal the stacked call's.  A ``ragged_all_to_all`` call records
@@ -345,6 +353,17 @@ class StackedCollectives(_RankBlock):
         self._record("pmin", x)
         return x.amin(dim=0)
 
+    def reduce_scatter(self, x: torch.Tensor, *, digits: Sequence[int], tier: int) -> torch.Tensor:
+        """``(R, A_l, ...) → (R, ...)``: rank r's block ``digit_l(r)``
+        summed over its tier-l group, in digit order."""
+        digits = tuple(digits)
+        _check_scatter(x, digits, tier, self.local_ranks(math.prod(digits)))
+        self._record("reduce_scatter", x, tier)
+        R = x.shape[0]
+        rows = _group_members(digits, tier, x.device)  # (R, A_l)
+        cols = tier_digit(digits, tier, x.device)[:, None].expand(R, digits[tier])
+        return x[rows, cols].sum(dim=1, dtype=x.dtype)
+
     def grad_all_reduce(self, tensors: Sequence[torch.Tensor]) -> None:
         """One process holds every data group: nothing to reduce, no call."""
 
@@ -368,6 +387,11 @@ def _map_tensors(fn: Callable, tree: Any) -> Any:
     if isinstance(tree, (tuple, list)):
         return type(tree)(_map_tensors(fn, v) for v in tree)
     return tree
+
+
+def _check_scatter(x: torch.Tensor, digits: Tuple[int, ...], tier: int, local: int) -> None:
+    if x.dim() < 2 or x.shape[0] != local or x.shape[1] != digits[tier]:
+        raise ValueError(f"a tier-{tier} reduce_scatter over {digits} takes (L, A_l, ...), got {tuple(x.shape)}")
 
 
 def _by_group(x: torch.Tensor, digits: Tuple[int, ...], tier: int) -> torch.Tensor:
@@ -649,6 +673,16 @@ class DistributedCollectives(_RankBlock):
         low = x.amin(dim=0)
         dist.all_reduce(low, op=dist.ReduceOp.MIN)
         return low
+
+    def reduce_scatter(self, x: torch.Tensor, *, digits: Sequence[int], tier: int) -> torch.Tensor:
+        """``(L, A_l, ...) → (L, ...)``: the tier ``all_to_all``'s one
+        ``all_to_all_single`` (block j of rank r to the member whose digit
+        is j), then each rank's A_l arrivals summed in digit order, the
+        stacked order: equal to the stacked result bit for bit."""
+        digits = tuple(digits)
+        _check_scatter(x, digits, tier, self.local_ranks(math.prod(digits)))
+        self._record("reduce_scatter", x, tier)
+        return self._a2a_blocks(x, digits, tier).sum(dim=1, dtype=x.dtype)
 
     def grad_all_reduce(self, tensors: Sequence[torch.Tensor]) -> None:
         """Sum ``tensors`` over the world's processes, in place: flattened

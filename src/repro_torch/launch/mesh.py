@@ -2,9 +2,17 @@
 ``repro.launch.mesh.make_test_mesh``).
 
 The reference builds a device mesh; the port runs its ranks rank-stacked on
-one device, so a layout only says how many there are on each axis.  Rank
-``g·model + m`` is data group g, model rank m: the row-major order of the
-reference's ``(data, model)`` mesh.
+one device, so a layout says how many there are on each axis and where a
+rank sits.  Rank ``g·model + m`` is data group g, model rank m
+(:meth:`Layout.coords`): the row-major order of the reference's ``(data,
+model)`` mesh, so the rank at position ``[g, m]`` of its ``mesh.devices``
+is rank ``g·model + m`` here.  As a tier layout of the collectives
+(``core.collectives``) it is :attr:`Layout.digits`, ``(data, model)``:
+tier :data:`DATA_TIER` groups the ranks of one model rank across the data
+groups, tier :data:`MODEL_TIER` the model ranks of one data group.  Two
+planes run on it: the ``rafi_ep`` MoE dispatch, and the placed train state
+of the dense family (``launch.placement``: tensor parallelism over
+``model``, FSDP over ``data``).
 
 A layout may carry the collective backend its ranks run on (``comm``, a
 ``core.collectives.DistributedCollectives``; None: the stacked backend), so
@@ -21,9 +29,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Tuple
 
+import torch
+
 from repro_torch.core.collectives import backend
 
-__all__ = ["Layout", "make_test_layout"]
+__all__ = ["DATA_TIER", "Layout", "MODEL_TIER", "make_test_layout"]
+
+DATA_TIER, MODEL_TIER = 0, 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +51,19 @@ class Layout:
     @property
     def num_ranks(self) -> int:
         return self.data * self.model
+
+    @property
+    def digits(self) -> Tuple[int, int]:
+        """The layout as the collectives' tier digits, slowest first."""
+        return self.data, self.model
+
+    def coords(self, ranks: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(data group, model rank)`` of each global rank id in ``ranks``."""
+        return ranks // self.model, ranks % self.model
+
+    def local_ranks(self, device=None) -> torch.Tensor:
+        """``(L,)`` int64: the global ids of the ranks this process holds."""
+        return backend(self.comm).ranks(self.num_ranks, device)
 
     def groups(self) -> Tuple[int, int, int]:
         """``(first group, groups held, model ranks held per group)`` of

@@ -1,0 +1,236 @@
+"""The dense family's train state placed on a layout's ranks (the port's
+counterpart of ``repro.launch.steps.build_train_step``'s shardings and of
+``jax.device_put`` onto them).
+
+A :class:`Placement` is the reference's partition rule (``launch.specs``:
+``param_spec``, then ``resolve_spec`` on the layout's axes) applied to a
+model's parameters, leaf by leaf; it reads the rule and has no copy of
+it.  :meth:`Placement.place` cuts a whole tree into every local rank's
+blocks, :meth:`Placement.gather` joins them back:
+
+  params  → :class:`Placed`, a nested dict like the parameter tree whose
+            leaves are ``(L, *block)``: the blocks of the process's L ranks
+            (all ``data·model`` ranks on the stacked backend; over a world
+            of W processes process p holds ranks ``[p·L, (p+1)·L)``)
+  AdamW   → ``m``, ``v`` (and ``master``, ``residual``) placed as their
+            parameters, each a :class:`Placed`; ``step`` whole
+
+The placement lives in the data, as a ``jax.Array``'s sharding does: a
+train step given a :class:`Placed` runs the placed step
+(``launch.steps``), given whole parameters the unsharded one.  Rank ``(g,
+m)``'s block of a leaf is the slice of the whole leaf that the device at
+``mesh.devices[g, m]`` of the reference's ``(data, model)`` mesh holds,
+bit for bit.
+
+The placed step's gradients and norm (``reduce``, ``sumsq``): a leaf
+split over ``data`` (FSDP) gets its gradient ``reduce_scatter``'d in the
+backward pass of its gather; one replicated over ``data`` is ``psum``'d
+over it here; both are then divided by the data groups and microbatches.
+The global norm counts every element once: a rank adds a leaf's squares
+only when it is the first replica on every axis the leaf is not split
+over (:func:`counted`), and one flat ``psum`` sums the ranks.
+
+Only the text-only dense family is placed here (``kind="dense"``, no
+vision frontend); the other families, serving and the sequence-parallel
+layouts come later.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch import compat
+from repro_torch.core.collectives import backend
+from repro_torch.launch import specs as S
+from repro_torch.launch.mesh import DATA_TIER, Layout
+from repro_torch.models.api import Model
+from repro_torch.models.common import ParamTree
+from repro_torch.models.parallel import Ranks, gather
+
+__all__ = ["Placed", "Placement", "counted", "is_placed", "train_placement"]
+
+_OPT_PLACED = ("m", "v", "master", "residual")  # AdamW leaves placed as their parameters
+
+
+class Placed(dict):
+    """A nested dict of rank blocks ``(L, *block)``, like the parameter
+    tree, with the :class:`Placement` that cut it (``placement``)."""
+
+    def __init__(self, tree: Dict[str, Any], placement: "Placement"):
+        super().__init__(tree)
+        self.placement = placement
+
+    def like(self, tree: Dict[str, Any]) -> "Placed":
+        """``tree`` (of the same structure) placed as this one."""
+        return Placed(tree, self.placement)
+
+
+def is_placed(tree: Any) -> bool:
+    return isinstance(tree, Placed)
+
+
+def _split_over(spec: tuple) -> set:
+    """The mesh axes a resolved spec splits a leaf over."""
+    return {ax for part in spec for ax in S.spec_axes(part)}
+
+
+def counted(spec: tuple, coords: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """``(L,)`` bool: the ranks whose block of a leaf under ``spec`` the
+    global norm counts: the first replica on every axis the spec does not
+    split (``coords``: each local rank's index on each axis)."""
+    split = _split_over(spec)
+    out = torch.ones_like(next(iter(coords.values())), dtype=torch.bool)
+    for ax, c in coords.items():
+        if ax not in split:
+            out &= c == 0
+    return out
+
+
+def _by_path(tree, paths, fn):
+    """The nested dict of ``fn(path, leaf)`` over ``paths``."""
+    out: Dict[str, Any] = {}
+    for path in paths:
+        node, leaf = out, tree
+        for k in path:
+            leaf = leaf[k]
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = fn(path, leaf)
+    return out
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Placement:
+    """The reference's placement of a model's parameters on ``layout``:
+    ``specs`` maps each parameter's path to its resolved spec, ``shapes``
+    to its whole shape."""
+
+    layout: Layout
+    specs: Dict[Tuple[str, ...], tuple]
+    shapes: Dict[Tuple[str, ...], Tuple[int, ...]]
+
+    @property
+    def axes(self) -> Dict[str, int]:
+        return S.mesh_axes(self.layout.data, self.layout.model)
+
+    @property
+    def comm(self):
+        """The backend the ranks run on (the layout's, resolved once)."""
+        return self.layout.comm
+
+    def ranks(self, device) -> Ranks:
+        """The process's ranks on ``device``, for the placed step's
+        collectives."""
+        return Ranks(self.layout, self.layout.local_ranks(device))
+
+    @property
+    def paths(self) -> List[Tuple[str, ...]]:
+        return list(self.specs)
+
+    # ------------------------------------------------------------- place
+    def _place_params(self, tree, device) -> Placed:
+        ids = self.layout.local_ranks().tolist()
+
+        def cut(path, t):
+            if tuple(t.shape) != self.shapes[path]:
+                raise ValueError(f"{'.'.join(path)}: shape {tuple(t.shape)} != {self.shapes[path]}")
+            return S.cut(t.detach(), self.specs[path], self.axes, ids).to(device)
+
+        return Placed(_by_path(tree, self.paths, cut), self)
+
+    def place(self, tree, *, device=None):
+        """Whole parameters (a ``ParamTree`` or its ``tree()``) → a
+        :class:`Placed`; an AdamW state → the state with ``m``, ``v`` (and
+        ``master``, ``residual``) placed and ``step`` whole.  On ``device``
+        (None: each leaf's own)."""
+        dev = None if device is None else compat.resolve_device(device)
+        if isinstance(tree, ParamTree):
+            tree = tree.tree()
+        if isinstance(tree, dict) and "step" in tree and "m" in tree:
+            return {k: (self._place_params(v, dev) if k in _OPT_PLACED else
+                        (v if dev is None else v.to(dev))) for k, v in tree.items()}
+        return self._place_params(tree, dev)
+
+    def _gather_params(self, placed) -> Dict[str, Any]:
+        comm = self.comm
+
+        def join(path, blocks):
+            return S.join(comm.gather_all(blocks.detach()), self.specs[path], self.axes, self.shapes[path])
+
+        return _by_path(placed, self.paths, join)
+
+    def gather(self, tree):
+        """The whole tree in every process (off the call recorder): a
+        :class:`Placed` → its whole leaves; an AdamW state with placed
+        moments → the whole state."""
+        if is_placed(tree):
+            return self._gather_params(tree)
+        return {k: (self._gather_params(v) if is_placed(v) else v) for k, v in tree.items()}
+
+    # ------------------------------------------------------------ the step
+    def unshard(self, placed: Placed, ranks: Ranks) -> Dict[str, Any]:
+        """Every leaf whole over ``data``: an FSDP leaf gathered over it
+        along the dimension its spec names (the whole layer stack at once;
+        its gradient is ``reduce_scatter``'d back), the rest as they are.
+        ``(L, *block)`` with only ``model`` still split."""
+        def one(path, t):
+            dims = [i for i, part in enumerate(self.specs[path]) if S.DATA in S.spec_axes(part)]
+            return t if not dims else gather(t, ranks, DATA_TIER, dims[0])
+
+        return _by_path(placed, self.paths, one)
+
+    def reduce(self, placed: Placed, ranks: Ranks, scale: float) -> Dict[str, Any]:
+        """The gradients of the placed step, as a tree: each leaf's
+        ``.grad`` (None stays None), ``psum``'d over ``data`` where the leaf
+        is replicated over it (an FSDP leaf's was ``reduce_scatter``'d in
+        the backward pass), then divided by ``scale``."""
+        def one(path, p):
+            g = p.grad
+            if g is None:
+                return None
+            if ranks.data > 1 and S.DATA not in _split_over(self.specs[path]):
+                g = ranks.comm.psum(g, digits=ranks.digits, tier=DATA_TIER)
+            return g.div_(scale)
+
+        return _by_path(placed, self.paths, one)
+
+    def sumsq(self, grads: List[Optional[torch.Tensor]], ranks: Ranks) -> torch.Tensor:
+        """The squares of every gradient element summed once over the world
+        (``grads`` in AdamW's leaf order: keys sorted, so the paths sorted):
+        each rank's counted squares, then one flat ``psum``."""
+        coords = {S.DATA: ranks.group, S.MODEL: ranks.mrank}
+        local = torch.zeros(ranks.ids.shape[0], dtype=torch.float32, device=ranks.ids.device)
+        for path, g in zip(sorted(self.paths), grads):
+            if g is None:
+                continue
+            g32 = g.to(torch.float32)
+            sq = (g32 * g32).reshape(g32.shape[0], -1).sum(dim=1)
+            local = local + torch.where(counted(self.specs[path], coords), sq, torch.zeros_like(sq))
+        return ranks.comm.psum(local)
+
+
+def train_placement(model: Model, layout: Layout) -> Placement:
+    """The placement of ``model``'s train state on ``layout`` (its
+    ``comm`` the backend: None stacked), as ``build_train_step``'s
+    shardings place the reference's on the ``(data, model)`` mesh.
+    Raises for a model outside the text-only dense family, and where the
+    rule would move ``model`` off the dimension it names (no dense config
+    does on a layout of 8 ranks)."""
+    cfg = model.cfg
+    if cfg.kind != "dense" or cfg.frontend != "none":
+        raise NotImplementedError(f"{cfg.name}: only the text-only dense family is placed (kind={cfg.kind!r}, "
+                                  f"frontend={cfg.frontend!r})")
+    layout = dataclasses.replace(layout, comm=backend(layout.comm))
+    axes = S.mesh_axes(layout.data, layout.model)
+    specs, shapes = {}, {}
+    for path, d in S.named_leaves(model.defs):
+        raw = S.param_spec(path, cfg)
+        spec = S.resolve_spec(d.shape, raw, axes)
+        named = [i for i, part in enumerate(raw) if S.MODEL in S.spec_axes(part)]
+        kept = [i for i, part in enumerate(spec) if S.MODEL in S.spec_axes(part)]
+        if layout.model > 1 and named != kept:
+            raise ValueError(f"{'.'.join(path)} {d.shape}: the model axis moves from {named} to {kept} on {axes}")
+        specs[path], shapes[path] = spec, d.shape
+    return Placement(layout, specs, shapes)

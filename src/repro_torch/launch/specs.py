@@ -1,7 +1,9 @@
-"""How the reference's production mesh would split a step's state over
-its devices: the port's copy of the reference's partition rule, with no
-``PartitionSpec`` (the port shards nothing; ``launch.dryrun`` reads this
-to give a cell's bytes per device).
+"""How the reference's production mesh splits a step's state over its
+devices: the port's copy of the reference's partition rule, with no
+``PartitionSpec``.  ``launch.dryrun`` reads it to give a cell's bytes per
+device, and ``launch.placement`` to place the dense family's train state
+on a layout's ranks: :func:`cut` gives the rank blocks of a whole leaf
+under its resolved spec, :func:`join` the whole leaf back.
 
 A spec is a tuple with one entry per dimension: None (not split), an
 axis name, or a tuple of axis names.  The axes are those of the
@@ -33,14 +35,20 @@ definitions, cache specs and step builders state it:
   pieces its batch rows are cut into and over the model axis too
   (:func:`activation_pieces`), as tensor parallelism cuts the heads, the
   hidden units and the vocabulary; the residual stream it keeps whole on
-  every model rank is counted as cut too.  The port runs no tensor
-  parallelism, so this is the reference's layout, not the port's.
+  every model rank is counted as cut too.  This is the reference's layout;
+  the port's placed train step (``launch.placement``) keeps the residual
+  stream whole on every model rank and does not count it as cut.
 
 :func:`resolve_spec` then makes a spec legal for a shape as the
 reference's does: an axis that does not divide its dimension is dropped
 there and, for parameters and caches, moved to the first unsplit
 dimension it divides.  A leaf's bytes on one device are its bytes over
 the product of the axes its spec keeps.
+
+A rank's coordinates on the mesh are mixed-radix in the axes' order
+(:func:`rank_coords`: rank ``g·model + m`` is data g, model m), and a
+dimension split over several axes is cut major-first, as a
+``NamedSharding`` cuts it.
 """
 from __future__ import annotations
 
@@ -49,8 +57,8 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 
-__all__ = ["activation_pieces", "batch_spec", "cache_spec", "device_bytes", "mesh_axes", "named_leaves", "param_spec",
-           "resolve_spec", "share"]
+__all__ = ["activation_pieces", "batch_spec", "cache_spec", "cut", "device_bytes", "join", "mesh_axes", "named_leaves",
+           "param_spec", "rank_coords", "resolve_spec", "share", "spec_axes"]
 
 DATA, MODEL = "data", "model"
 _STACKED = ("blocks", "enc_blocks", "dec_blocks")
@@ -185,3 +193,55 @@ def activation_pieces(cfg, batch: Dict[str, torch.Tensor], axes: Dict[str, int])
     spec = batch_spec(first.dim(), cfg, axes)
     model = 1 if MODEL in spec[0] else axes.get(MODEL, 1)
     return share(first.shape, spec, axes, allow_move=False) * model
+
+
+def spec_axes(part) -> Tuple[str, ...]:
+    """The axis names of one entry of a spec (None: none)."""
+    return () if part is None else (part if isinstance(part, tuple) else (part,))
+
+
+def rank_coords(rank: int, axes: Dict[str, int]) -> Dict[str, int]:
+    """A rank's index on each mesh axis: mixed radix in the axes' order."""
+    out = {}
+    for ax in reversed(list(axes)):
+        out[ax] = rank % axes[ax]
+        rank //= axes[ax]
+    return {ax: out[ax] for ax in axes}
+
+
+def _slices(shape, spec: tuple, axes: Dict[str, int], coords: Dict[str, int]) -> Tuple[slice, ...]:
+    """The slice of a whole leaf of ``shape`` that the rank at ``coords``
+    holds under the resolved ``spec``."""
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    out = []
+    for dim, part in zip(shape, parts):
+        pieces, index = 1, 0
+        for ax in spec_axes(part):
+            pieces, index = pieces * axes[ax], index * axes[ax] + coords[ax]
+        if dim % pieces:
+            raise ValueError(f"{part} cuts {dim} into {pieces}: resolve the spec first")
+        size = dim // pieces
+        out.append(slice(index * size, (index + 1) * size))
+    return tuple(out)
+
+
+def cut(t: torch.Tensor, spec: tuple, axes: Dict[str, int], ranks) -> torch.Tensor:
+    """``(len(ranks), *block)``: the block of the whole leaf ``t`` that each
+    rank in ``ranks`` holds under the resolved ``spec``, in that order (a
+    copy; the dimensions the spec names are cut, whichever they are)."""
+    return torch.stack([t[_slices(t.shape, spec, axes, rank_coords(int(r), axes))] for r in ranks])
+
+
+def join(blocks: torch.Tensor, spec: tuple, axes: Dict[str, int], shape) -> torch.Tensor:
+    """The whole leaf of ``shape`` from every rank's block ``(R, *block)``
+    (rank order; a replica's block is read once, from the first rank that
+    holds it)."""
+    whole = blocks.new_empty(tuple(shape))
+    seen = set()
+    for r in range(blocks.shape[0]):
+        sl = _slices(tuple(shape), spec, axes, rank_coords(r, axes))
+        key = tuple((s.start, s.stop) for s in sl)
+        if key not in seen:
+            seen.add(key)
+            whole[sl] = blocks[r]
+    return whole

@@ -14,13 +14,25 @@ the loss over the data groups with ``comm.grad_all_reduce``: processes that
 hold the same rows (model peers of one group) contribute once, so every
 process ends the step with the same parameters and AdamW state, bit for
 bit.
+
+Given placed parameters (``launch.placement``: each leaf the blocks of
+the layout's ranks the process holds, the reference's sharded state) the
+same ``train_step`` runs the placed step instead: tensor parallelism over
+``model`` and FSDP over ``data``, on the placement's backend.  Every
+process takes the GLOBAL batch and each rank its data group's rows; each
+microbatch is a slice of the global batch, split over the groups, as the
+reference's scan slices it.  The gradients of a microbatch accumulate in
+the blocks (an FSDP leaf's ``reduce_scatter``'d over ``data`` in its
+gather's backward pass), a leaf replicated over ``data`` is ``psum``'d
+over it once, and AdamW updates each rank's blocks with the norm counted
+once over the world.  Whole parameters keep the unsharded step above.
 ``abstract_opt_state`` and ``abstract_caches`` give the AdamW state and
 the decode caches on ``torch.device("meta")`` (shapes and dtypes, nothing
 allocated), where the reference gives ``jax.eval_shape`` results.  The
-reference's sharding helpers (``resolve_spec``, ``_named``,
-``_batch_shardings``) and ``lower_cell`` have no twin here: the port does
-not shard and lowers no XLA program (``launch.dryrun`` runs the steps on
-meta tensors instead).
+reference's sharding helpers (``resolve_spec``, ``_named``) are
+``launch.specs`` and ``launch.placement``; ``_batch_shardings`` is the
+placed step's row split, and ``lower_cell`` has no twin (the port lowers
+no XLA program: ``launch.dryrun`` runs the steps on meta tensors).
 """
 from __future__ import annotations
 
@@ -30,6 +42,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.launch.mesh import DATA_TIER
 from repro_torch.models.api import Model
 from repro_torch.models.common import ParamTree, tree_leaves, tree_map
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
@@ -94,6 +107,8 @@ def build_train_step(model: Model, layout=None, opt_cfg: AdamWConfig = AdamWConf
     m = max(1, model.cfg.microbatches)
 
     def train_step(params, opt_state, batch):
+        if getattr(params, "placement", None) is not None:
+            return _placed_step(loss_fn, m, opt_cfg, params, opt_state, batch)
         tree = params.tree() if isinstance(params, ParamTree) else params
         leaves = tree_leaves(tree)
         for p in leaves:
@@ -146,6 +161,38 @@ def _average_over_groups(comm, leaves, loss, holders: int, lead: bool):
         for g in grads:
             g.div_(holders)
         return total[0] / holders
+
+
+def _placed_step(loss_fn, m: int, opt_cfg: AdamWConfig, params, opt_state, batch):
+    """One step on placed parameters (module docstring); ``params`` and
+    ``opt_state`` updated in place."""
+    placement = params.placement
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+        p.grad = None
+    dev = leaves[0].device
+    batch = _to_device(batch, dev)
+    ranks = placement.ranks(dev)
+    b = next(iter(batch.values())).shape[0]
+    if b % (m * ranks.data):
+        raise ValueError(f"the batch ({b}) does not split into {m} microbatches over {ranks.data} data groups")
+    loss = torch.zeros((), dtype=torch.float32, device=dev)
+    for i in range(m):
+        per_rank = loss_fn(params, {k: v[i * (b // m):(i + 1) * (b // m)] for k, v in batch.items()})
+        per_rank.sum().backward()  # each rank's group's gradient, in its own blocks
+        per_rank = per_rank.detach()
+        if ranks.data > 1:
+            per_rank = ranks.comm.psum(per_rank, digits=ranks.digits, tier=DATA_TIER)
+        loss = loss + per_rank[0] / ranks.data
+    loss = loss / m
+    with torch.no_grad():
+        grads = placement.reduce(params, ranks, float(ranks.data * m))
+    sumsq = lambda gs: placement.sumsq(gs, ranks)
+    _, opt_state, gnorm = adamw_update(params, grads, opt_state, opt_cfg, sumsq=sumsq)
+    for p in leaves:
+        p.grad = None
+    return params, opt_state, {"loss": loss, "gnorm": gnorm}
 
 
 def build_prefill_step(model: Model, layout=None):

@@ -6,7 +6,12 @@ The fault-tolerance contract of the reference:
     continues from its step; the data pipeline is a pure function of step,
     so a killed-and-restarted run reproduces the uninterrupted run;
   * periodic atomic checkpoints (``--ckpt-every``) in the reference's file
-    layout, so a run the JAX package checkpointed resumes here.
+    layout, so a run the JAX package checkpointed resumes here;
+  * with ``place=True`` (``--place``) the state lives placed on the layout,
+    as the reference's ``train()`` places it on its mesh: each rank holds
+    its blocks of the parameters and AdamW state, the step runs tensor
+    parallel over ``model`` and FSDP over ``data`` (``launch.placement``),
+    checkpoints are written whole and a resume places them again.
 
 Runs on the CUDA card; ``device="cpu"`` (``--cpu``) runs the plain PyTorch
 path.  Usage (smoke config):
@@ -16,6 +21,7 @@ path.  Usage (smoke config):
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import tempfile
 import time
@@ -28,6 +34,7 @@ from repro_torch.ckpt import latest_step, restore_checkpoint, save_checkpoint
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data import SyntheticLM
 from repro_torch.launch.mesh import make_test_layout
+from repro_torch.launch.placement import train_placement
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models.api import build_model
 from repro_torch.models.common import ModelConfig, tree_map
@@ -55,6 +62,7 @@ def train(
     verbose: bool = True,
     device=None,
     comm=None,
+    place: bool = False,
 ):
     """Train ``arch`` (a registry name, its smoke config when ``smoke``,
     or a :class:`ModelConfig` as given) on :class:`SyntheticLM` batches.
@@ -64,7 +72,14 @@ def train(
     ``DistributedCollectives``, or the layout's) trains data-parallel over
     its world: every process draws the same global batch and keeps its
     rows (``launch.steps``), the replicas stay equal, process 0 alone
-    writes the checkpoints and the others wait for it at a barrier."""
+    writes the checkpoints and the others wait for it at a barrier.
+
+    ``place=True`` places the state on ``layout`` (the dense family only;
+    module docstring) and returns it placed (``launch.placement.Placed``
+    parameters, an AdamW state with placed moments).  It is not the
+    default: the data-parallel step's laws (a world of W processes equals
+    W microbatches, one ``grad_all_reduce`` a step) hold for whole
+    parameters only."""
     cfg = arch if isinstance(arch, ModelConfig) else (get_smoke_config(arch) if smoke else get_config(arch))
     dev = compat.resolve_device(device)
     ckpt_dir = ckpt_dir or _default_ckpt_dir()
@@ -73,10 +88,15 @@ def train(
     comm = comm if comm is not None else layout.comm
     ds = SyntheticLM(cfg.vocab_size, seq, batch)
     step_fn = build_train_step(model, layout, opt_cfg, comm=comm)
+    placement = train_placement(model, dataclasses.replace(layout, comm=comm)) if place else None
 
     def save(step):
+        if placement is not None:  # every process gathers, one writes
+            state = {"params": placement.gather(params), "opt": placement.gather(opt)}
+        else:
+            state = {"params": params.tree(), "opt": opt}
         if comm is None or comm.index == 0:
-            save_checkpoint(ckpt_dir, step, {"params": params.tree(), "opt": opt})
+            save_checkpoint(ckpt_dir, step, state)
         if comm is not None:
             comm.barrier()
 
@@ -84,6 +104,8 @@ def train(
     start = latest_step(ckpt_dir)
     start_step = 0
     if start is None:
+        if placement is not None:
+            params = placement.place(params)
         opt = adamw_init(params, opt_cfg)
     else:
         if verbose and (comm is None or comm.index == 0):
@@ -91,9 +113,13 @@ def train(
         # the state's shapes from meta tensors: restore allocates it once
         meta = tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"), params.tree())
         like = {"params": params.tree(), "opt": adamw_init(meta, opt_cfg)}
-        state = restore_checkpoint(ckpt_dir, start, like, device=dev)
-        with torch.no_grad():
-            _copy_tree(params.tree(), state["params"])
+        shardings = None if placement is None else {"params": placement, "opt": placement}
+        state = restore_checkpoint(ckpt_dir, start, like, device=dev, shardings=shardings)
+        if placement is not None:
+            params = state["params"]
+        else:
+            with torch.no_grad():
+                _copy_tree(params.tree(), state["params"])
         opt = state["opt"]
         del state
         start_step = start
@@ -132,11 +158,12 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None, help=f"default: {_default_ckpt_dir()}")
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--cpu", action="store_true", help="run on the CPU (plain PyTorch versions of the kernels)")
+    ap.add_argument("--place", action="store_true", help="place the state on the (2, 4) layout (dense family)")
     args = ap.parse_args(argv)
     train(
         arch=args.arch, smoke=args.smoke, steps=args.steps, batch=args.batch,
         seq=args.seq, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-        device="cpu" if args.cpu else None,
+        device="cpu" if args.cpu else None, place=args.place,
     )
 
 

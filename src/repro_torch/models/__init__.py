@@ -13,9 +13,14 @@
   encdec.py      encoder-decoder assembly (seamless-m4t backbone)
   api.py         build_model(config) → init / loss / prefill / decode, and
                  params_from_jax (the reference's parameter tree → the port's)
+  parallel.py    the placed train step's rank context and differentiable
+                 collectives (tensor parallelism over ``model``, FSDP
+                 gathers over ``data``)
 
 Parameters are ``nn.Module``s whose names follow the reference's tree paths
 (``blocks.k0_moe.attn.wq``); the layer functions are free functions over a
-nested dict of tensors, as in the reference.  Sharding specs have no twin:
-R logical ranks run rank-stacked on one device (``launch.mesh.Layout``).
+nested dict of tensors, as in the reference.  R logical ranks run
+rank-stacked on one device (``launch.mesh.Layout``); the dense family's
+train state can be placed on them (``launch.placement``), and its
+``*_placed`` layer functions run on each rank's blocks.
 """

@@ -25,9 +25,11 @@ import torch
 from repro_torch import compat
 from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as TF
-from repro_torch.models.common import ModelConfig, ParamDef, ParamTree, cross_entropy_loss, init_params, tree_leaves
+from repro_torch.models.common import (
+    ModelConfig, ParamDef, ParamTree, cross_entropy_loss, cross_entropy_loss_placed, init_params, tree_leaves,
+)
 
-__all__ = ["Model", "build_model", "params_from_jax"]
+__all__ = ["Model", "build_model", "params_from_jax", "placed_loss"]
 
 
 def _module(cfg: ModelConfig, device):
@@ -75,6 +77,8 @@ class Model:
             return loss
 
         def loss(params, batch):
+            if getattr(params, "placement", None) is not None:
+                return placed_loss(params, batch, cfg)
             logits, _, _ = TF.forward(
                 params, batch["tokens"], cfg, layout=layout, frontend_embeds=batch.get("embeds"),
             )
@@ -140,6 +144,24 @@ class Model:
         if self.cfg.kind == "encdec":
             return ED.init_dec_caches(self.cfg, batch, max_len, device=dev)
         return TF.init_caches(self.cfg, batch, max_len, device=dev)
+
+
+def placed_loss(params, batch, cfg: ModelConfig) -> torch.Tensor:
+    """``(L,)``: each local rank's mean next-token CE on placed parameters.
+    The global batch's rows split over the data groups in order; every
+    leaf is gathered whole over ``data`` first (the FSDP gather), then the
+    tensor-parallel pass (``TF.forward_placed``) and the loss over the
+    split vocabulary."""
+    placement = params.placement
+    tokens = batch["tokens"]
+    ranks = placement.ranks(tokens.device)
+    rows = lambda t: t.reshape((ranks.data, t.shape[0] // ranks.data) + tuple(t.shape[1:]))[ranks.group]
+    tokens = rows(tokens)
+    logits = TF.forward_placed(placement.unshard(params, ranks), tokens, cfg, ranks)
+    labels = rows(batch["labels"]) if "labels" in batch else tokens[:, :, 1:]
+    if logits.shape[2] != labels.shape[2]:
+        logits = logits[:, :, : labels.shape[2]]
+    return cross_entropy_loss_placed(logits, labels, ranks)
 
 
 def _first_cache_pos(caches, batch: int, device) -> torch.Tensor:

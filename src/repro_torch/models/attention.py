@@ -17,11 +17,12 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.models import parallel as P
 from repro_torch.models import rope as R
 from repro_torch.models.common import ModelConfig, ParamDef, ParamTree
 
 __all__ = [
-    "Attention", "attn_defs", "causal_mask", "cross_attention", "make_cache", "self_attention",
+    "Attention", "attn_defs", "causal_mask", "cross_attention", "make_cache", "self_attention", "self_attention_placed",
 ]
 
 
@@ -179,6 +180,58 @@ def self_attention(
 
     out = out.reshape(b, s, h * hd)
     return out @ params["wo"], new_cache
+
+
+def self_attention_placed(
+    params: Dict,
+    x: torch.Tensor,                  # (L, b, S, D): each local rank's rows, whole on every model rank
+    cfg: ModelConfig,
+    ranks,                            # models.parallel.Ranks
+    *,
+    window: int = 0,
+    theta: Optional[float] = None,
+) -> torch.Tensor:
+    """:func:`self_attention`'s parallel pass on every local rank, heads
+    split over ``model``: ``wq``/``wk``/``wv`` (and their biases)
+    column-parallel on the flat head×dim axis, attention per head, ``wo``
+    row-parallel with a ``psum`` over ``model``.  Where ``model`` does not
+    divide the kv heads (or the q heads), its flat split cuts through a
+    head: k and v (or q, k and v) are gathered over ``model`` first, as
+    the reference's reshard does; a rank then attends with the kv heads of
+    its own q heads (or with all heads, keeping its own block of the
+    output).  Returns ``(L, b, S, D)``."""
+    L, b, s, _ = x.shape
+    h, kv, hd, M = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, ranks.model
+    x = P.copy_model(x, ranks)
+    q, k, v = P.mm(x, params["wq"]), P.mm(x, params["wk"]), P.mm(x, params["wv"])
+    if cfg.qkv_bias:
+        q, k, v = (t + params[n][:, None, None, :] for t, n in ((q, "bq"), (k, "bk"), (v, "bv")))
+    q_whole = h % M != 0
+    kv_whole = q_whole or kv % M != 0
+    if q_whole:
+        q = P.gather(q, ranks, P.MODEL_TIER, 2)
+    if kv_whole:
+        k, v = P.gather(k, ranks, P.MODEL_TIER, 2), P.gather(v, ranks, P.MODEL_TIER, 2)
+    nq = q.shape[-1] // hd
+    q = _split_heads(q.reshape(L * b, s, -1), nq, hd)
+    k = _split_heads(k.reshape(L * b, s, -1), k.shape[-1] // hd, hd)
+    v = _split_heads(v.reshape(L * b, s, -1), v.shape[-1] // hd, hd)
+    positions = torch.arange(s, device=x.device).expand(L * b, s)
+    cos, sin = _angles(cfg, positions, theta)
+    q = R.apply_rope(q, cos, sin)
+    k = R.apply_rope(k, cos, sin)
+    if kv_whole and not q_whole:  # the kv head of each of the rank's q heads
+        heads = (ranks.mrank[:, None] * nq + torch.arange(nq, device=x.device)) // (h // kv)  # (L, nq)
+        idx = heads.repeat_interleave(b, dim=0)[:, None, :, None].expand(L * b, s, nq, hd)
+        k, v = torch.gather(k, 2, idx), torch.gather(v, 2, idx)
+    if cfg.blocked_attention and s > 1024:
+        out = _sdpa_blocked(q, k, v, x.dtype, causal=True, window=window)
+    else:
+        out = _sdpa(q, k, v, causal_mask(s, window, x.device), x.dtype)
+    out = out.reshape(L, b, s, nq * hd)
+    if q_whole:
+        out = P.pick_model(out, ranks)
+    return P.psum_model(P.mm(out, params["wo"]), ranks)
 
 
 def cross_attention(

@@ -20,9 +20,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import parallel as P
+
 __all__ = [
-    "ModelConfig", "ParamDef", "ParamTree", "activation", "cross_entropy_loss", "dense", "glu_mlp", "init_params",
-    "mlp_defs", "rmsnorm", "tree_map",
+    "ModelConfig", "ParamDef", "ParamTree", "activation", "cross_entropy_loss", "cross_entropy_loss_placed", "dense",
+    "glu_mlp", "glu_mlp_placed", "init_params", "mlp_defs", "rmsnorm", "tree_map",
 ]
 
 
@@ -194,6 +196,15 @@ def glu_mlp(x, wi, wg, wo, act: str):
     return (activation(x @ wg, act) * (x @ wi)) @ wo
 
 
+def glu_mlp_placed(x, wi, wg, wo, act: str, ranks):
+    """:func:`glu_mlp` on every local rank (``models.parallel``): x ``(L, b,
+    s, d)`` whole on each model rank, ``wi``/``wg`` ``(L, d, f/model)``
+    column-parallel, ``wo`` ``(L, f/model, d)`` row-parallel, its partial
+    products summed over ``model``."""
+    x = P.copy_model(x, ranks)
+    return P.psum_model(P.mm(activation(P.mm(x, wg), act) * P.mm(x, wi), wo), ranks)
+
+
 def mlp_defs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict[str, ParamDef]:
     f = d_ff or cfg.d_ff
     d = cfg.d_model
@@ -210,3 +221,24 @@ def cross_entropy_loss(logits, labels, *, vocab: int):
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
     return torch.mean(logz - gold)
+
+
+def cross_entropy_loss_placed(logits, labels, ranks):
+    """Each local rank's mean token CE in float32 over a vocabulary split
+    over ``model``: logits ``(L, b, s, V/model)`` (rank (g, m) holds
+    columns ``[m·V/model, …)``), labels ``(L, b, s)`` → ``(L,)``.  The
+    log-sum-exp from the group's largest logit (a gather of each rank's,
+    no gradient) and one ``psum`` over ``model`` of the shifted sum of
+    exponentials with the gold logit (picked by the rank that holds it,
+    zero elsewhere)."""
+    logits = logits.to(torch.float32)
+    vm = logits.shape[-1]
+    top = logits.detach().amax(dim=-1)
+    if ranks.model > 1:
+        with torch.no_grad():
+            top = ranks.comm.all_gather(top, digits=ranks.digits, tier=P.MODEL_TIER).amax(dim=1)
+    ids = labels.to(torch.int64) - (ranks.mrank * vm).view(-1, 1, 1)
+    own = (ids >= 0) & (ids < vm)
+    gold = torch.gather(logits, -1, ids.clamp(0, vm - 1)[..., None])[..., 0].masked_fill(~own, 0.0)
+    sums = P.psum_model(torch.stack([torch.exp(logits - top[..., None]).sum(dim=-1), gold], dim=1), ranks)
+    return torch.mean(top + torch.log(sums[:, 0]) - sums[:, 1], dim=(1, 2))

@@ -28,12 +28,14 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import attention as A
 from repro_torch.models import griffin as G
 from repro_torch.models import moe as M
+from repro_torch.models import parallel as P
 from repro_torch.models import rwkv6 as W
 from repro_torch.models.common import (
-    ModelConfig, ParamDef, ParamTree, glu_mlp, mlp_defs, rmsnorm, stack_defs, tree_map,
+    ModelConfig, ParamDef, ParamTree, glu_mlp, glu_mlp_placed, mlp_defs, rmsnorm, stack_defs, tree_map,
 )
 
-__all__ = ["LM", "Layer", "apply_layer", "forward", "init_caches", "layer_defs", "model_defs"]
+__all__ = ["LM", "Layer", "apply_layer", "apply_layer_placed", "forward", "forward_placed", "init_caches", "layer_defs",
+           "model_defs"]
 
 # ----------------------------------------------------------------- defs
 
@@ -222,6 +224,61 @@ def forward(
         None if caches is None else {"blocks": new_block_caches, "tail": new_tail_caches}
     )
     return logits, new_caches, total_drops
+
+
+# ----------------------------------------------------------------- placed
+
+def apply_layer_placed(params, x, cfg: ModelConfig, kind: str, ranks):
+    """:func:`apply_layer`'s parallel pass for a dense layer on every local
+    rank (``models.parallel``): x ``(L, b, S, D)``, the norms' gains ``(L,
+    D)`` whole, attention and MLP tensor-parallel over ``model``."""
+    gain = lambda g: g[:, None, None, :]
+    h = rmsnorm(x, gain(params["ln1"]))
+    window = cfg.window if kind == "local" else 0
+    x = x + A.self_attention_placed(params["attn"], h, cfg, ranks, window=window, theta=_theta_for(cfg, kind))
+    h = rmsnorm(x, gain(params["ln2"]))
+    mlp = params["mlp"]
+    return x + glu_mlp_placed(h, mlp["wi"], mlp["wg"], mlp["wo"], cfg.act, ranks)
+
+
+def _period_placed(block_params, x, cfg: ModelConfig, ranks):
+    for j, kind in enumerate(cfg.pattern):
+        x = apply_layer_placed(block_params[f"k{j}_{kind}"], x, cfg, kind, ranks)
+    return x
+
+
+def forward_placed(params, tokens, cfg: ModelConfig, ranks):
+    """:func:`forward`'s parallel pass (no caches) on every local rank of a
+    placement, the dense family only.  ``params``: every leaf whole over
+    ``data`` (``launch.placement.Placement.unshard``), ``(L, *block)``;
+    ``tokens`` ``(L, b, S)``, each rank's data group's rows.  The
+    embedding over a vocabulary split over ``model`` is a masked lookup
+    and a ``psum``; the logits stay split: ``(L, b, S, V/model)``, rank
+    m's columns ``[m·V/model, …)``."""
+    L = tokens.shape[0]
+    embed = params["embed"]  # (L, V/model, D)
+    vm = embed.shape[1]
+    ids = tokens.to(torch.int64) - (ranks.mrank * vm).view(-1, 1, 1)
+    own = (ids >= 0) & (ids < vm)
+    rows = torch.arange(L, device=tokens.device).view(-1, 1, 1)
+    x = P.psum_model(embed[rows, ids.clamp(0, vm - 1)].masked_fill(~own[..., None], 0), ranks)
+    if cfg.scale_embed:
+        x = x.to(torch.float32) * float(np.float32(np.sqrt(cfg.d_model)))
+    x = x.to(cfg.torch_dtype)
+
+    n_blocks = cfg.num_layers // len(cfg.pattern)
+    run = _period_placed
+    if cfg.remat and torch.is_grad_enabled():
+        run = functools.partial(checkpoint, _period_placed, use_reentrant=False)
+    for i in range(n_blocks):
+        x = run({key: tree_map(lambda a: a[:, i], blk) for key, blk in params["blocks"].items()}, x, cfg, ranks)
+    for j in range(cfg.num_layers % len(cfg.pattern)):
+        kind = cfg.pattern[j]
+        x = apply_layer_placed(params["tail"][f"k{j}_{kind}"], x, cfg, kind, ranks)
+
+    x = P.copy_model(rmsnorm(x, params["final_ln"][:, None, None, :]), ranks)
+    head = embed.transpose(1, 2) if cfg.tie_embeddings else params["lm_head"]
+    return P.mm(x, head.to(x.dtype))
 
 
 # ----------------------------------------------------------------- caches

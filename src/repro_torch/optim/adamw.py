@@ -13,13 +13,17 @@ travel as 32-bit words): its update is weight decay alone.
 Unlike the reference's pure function, :func:`adamw_update` writes the new
 parameters and state into the tensors it is given, one leaf at a time under
 ``torch.no_grad()``, so that at most a few float32 temporaries of one leaf
-are alive at once.  The reference's ``opt_state_specs`` has no twin (the
-port does not shard).
+are alive at once.  Placed parameters (``launch.placement.Placed``: each
+leaf the local ranks' blocks) get a placed state, ``m`` and ``v`` (and
+the masters and residuals) placed as their parameters and ``step`` whole,
+the placement of the reference's ``opt_state_specs``: every rank updates
+its own blocks, and the global norm comes from ``sumsq`` (the placement's
+count of every element once over the world).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
@@ -57,14 +61,15 @@ def adamw_init(params, cfg: AdamWConfig):
     """Zeros for m and v (float32), step 0, and the optional masters and
     residuals, on the parameters' device."""
     tree = _tree(params)
+    like = getattr(tree, "like", lambda t: t)  # a placed tree's state is placed as it is
     zeros32 = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     dev = _flat(tree)[0].device
-    state = {"m": tree_map(zeros32, tree), "v": tree_map(zeros32, tree),
+    state = {"m": like(tree_map(zeros32, tree)), "v": like(tree_map(zeros32, tree)),
              "step": torch.zeros((), dtype=torch.int32, device=dev)}
     if cfg.f32_master:
-        state["master"] = tree_map(lambda p: p.detach().to(torch.float32, copy=True), tree)
+        state["master"] = like(tree_map(lambda p: p.detach().to(torch.float32, copy=True), tree))
     if cfg.compress_grads:
-        state["residual"] = init_residuals(tree)
+        state["residual"] = like(init_residuals(tree))
     return state
 
 
@@ -74,10 +79,14 @@ def _schedule(step, cfg: AdamWConfig):
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: AdamWConfig) -> Tuple[Any, Any, torch.Tensor]:
+def adamw_update(params, grads, state, cfg: AdamWConfig, *,
+                 sumsq: Optional[Callable[[List[Optional[torch.Tensor]]], torch.Tensor]] = None
+                 ) -> Tuple[Any, Any, torch.Tensor]:
     """Returns ``(params, state, grad_global_norm)``, ``params`` and
     ``state`` updated in place; ``grads`` is a tree like the parameters'
-    whose leaves may be ``None``."""
+    whose leaves may be ``None``.  ``sumsq`` (given the gradients in the
+    leaf order, keys sorted) gives the sum of their squares over the
+    world, for placed parameters; by default the local leaves' sum."""
     ps, gs = _flat(_tree(params)), _flat(grads)
     ms, vs = _flat(state["m"]), _flat(state["v"])
     if not len(ps) == len(gs) == len(ms) == len(vs):
@@ -88,11 +97,14 @@ def adamw_update(params, grads, state, cfg: AdamWConfig) -> Tuple[Any, Any, torc
         for i, (g, r) in enumerate(zip(gs, _flat(state["residual"]))):
             gs[i], new_r = compress_one(g, r)
             r.copy_(new_r)
-    total = torch.zeros((), dtype=torch.float32, device=ps[0].device)
-    for g in gs:
-        if g is not None:
-            g32 = g.to(torch.float32)
-            total = total + torch.sum(g32 * g32)
+    if sumsq is not None:
+        total = sumsq(gs)
+    else:
+        total = torch.zeros((), dtype=torch.float32, device=ps[0].device)
+        for g in gs:
+            if g is not None:
+                g32 = g.to(torch.float32)
+                total = total + torch.sum(g32 * g32)
     gnorm = torch.sqrt(total + 1e-20)
     scale = torch.clamp(cfg.grad_clip / gnorm, max=1.0)
 
