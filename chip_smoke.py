@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all started together, linked into one library under
-``build/``) and runs twenty-two phases on ``cuda:0``:
+``build/``) and runs twenty-three phases on ``cuda:0``:
 
   1. kernels     — all ten kernels (K1 gather_rows, K2 unmarshal, K3
                    pack_and_histogram, K4 rank_and_histogram, K5
@@ -292,10 +292,11 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    and the rest, and launches, of a decode and a train step,
                    and peak memory;
  18. dryrun      — the shape suite and the meta-device dry run
-                   (``launch.dryrun``): (a) the sweep of all 40 (arch ×
-                   shape) cells at full width on meta, its FLOP probes
-                   counted in ``launch.dryrun.WORKERS`` processes while (b)
-                   holds the card: 32 ok, 8 skip, 0 errors, one line a cell
+                   (``launch.dryrun``): (a) the sweep of qwen2-7b's four
+                   (arch × shape) cells at full width on meta (the other
+                   36 are the CPU tests'), its FLOP probes counted in
+                   ``launch.dryrun.WORKERS`` processes while (b) holds the
+                   card: 3 ok, 1 skip, 0 errors, one line a cell
                    (bytes of parameters, AdamW state and caches; counted
                    FLOPs, ``model_flops`` and their ratio) and the seconds;
                    (b) qwen2-7b at full width, 4 of 28 layers, batch 8 × 512
@@ -354,7 +355,25 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    of one bit-equal to the stacked one; at 2 layers in
                    float32, the placed step against the unsharded one
                    (loss, gnorm, every parameter); no hand kernel;
- 22. report      — one JSON line of the kernels (launches on the paths that
+ 22. serve_shard — serving the dense family on placed parameters
+                   (``launch.placement.serve_placement`` and
+                   ``cache_placement``): qwen2-7b at full width, 4 of 28
+                   layers, bf16, layout (2, 4) stacked: every rank's block
+                   of every parameter and of seeded caches (16 slots,
+                   ``max_len`` 128) equal to the chunk the rule names, bit
+                   for bit, its bytes ``specs.device_bytes``;
+                   ``BatchedEngine`` on the placed parameters answering
+                   phase lm's 16 requests beside the unsharded engine:
+                   calls a step by kind and tier and their bytes, event
+                   medians, device ms by part, top device events, peak
+                   GiB; a decode step on caches 4,096 long at position
+                   4,000 and a 2 × 2,048 prefill, placed and unsharded,
+                   timed, their logits within ``FAM_BF16_NOISE`` x the
+                   bfloat16 noise; the placed engine on NCCL at a world
+                   of one bit-equal; at 2 layers in float32 the placed
+                   decode within 1/16 of the bfloat16 distance over
+                   steps that cross every model rank's block; no kernel;
+ 23. report      — one JSON line of the kernels (launches on the paths that
                    run them, errors, bounds; ``ms``, ``plain_ms`` and
                    ``library_ms`` are device times, ``call_ms`` the event
                    pair's; device events a call), the card's name and
@@ -3494,7 +3513,7 @@ class _StepRecorder:
     def __init__(self, engine, keep_logits=False):
         self.inner, self.keep = engine.step_fn, keep_logits
         engine.step_fn = self
-        self.tokens, self.events, self.logits = [], [], []
+        self.tokens, self.events, self.logits, self.last = [], [], [], None
 
     def __call__(self, params, token, caches):
         import torch
@@ -3505,6 +3524,7 @@ class _StepRecorder:
             ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
             ev[0].record()
         logits, caches = self.inner(params, token, caches)
+        self.last = logits
         if cuda:
             ev[1].record()
             self.events.append(ev)
@@ -4812,19 +4832,23 @@ def phase_families(dev, ARCHS=FAMILY_ARCHS, SLOTS=16, N_REQ=16, PROMPT=(8, 48), 
 
 
 # ------------------------------------------------------------ 18. dryrun
-DRYRUN_CELLS = (32, 8, 0)  # ok, skip, error
+# (a) sweeps one arch's cells: the 40 cells' meta sweep (host work of about
+# two minutes, its records independent of the card) is
+# tests/test_torch_dryrun.py's on the CPU
+DRYRUN_ARCHS = ("qwen2-7b",)
+DRYRUN_CELLS = (3, 1, 0)  # ok, skip, error
 
 
 def _dryrun_sweep(out_dir, res):
     """(a), run on a thread while (b) holds the card: ``launch.dryrun``'s
-    sweep of all 40 cells on meta, its probes counted in its worker
-    processes; records, lines and seconds into ``res``."""
+    sweep of ``DRYRUN_ARCHS``' cells on meta, its probes counted in its
+    worker processes; records, lines and seconds into ``res``."""
     from repro_torch.launch import dryrun as DR
 
     t0 = time.perf_counter()
     res["lines"] = []
     try:
-        res["records"] = DR.sweep(force=True, out_dir=out_dir, log=res["lines"].append)
+        res["records"] = DR.sweep(force=True, out_dir=out_dir, log=res["lines"].append, archs=DRYRUN_ARCHS)
     except Exception:  # reported by the phase
         res["error"] = traceback.format_exc()
     res["seconds"] = time.perf_counter() - t0
@@ -4982,7 +5006,8 @@ def phase_dryrun(dev, ARCH="qwen2-7b", LAYERS=4, BATCH=(8, 512), sweep=True, wid
         n = tuple(sum(1 for x in recs if x["status"] == k) for k in ("ok", "skip", "error"))
         out["sweep"] = {"seconds": res["seconds"], "counts": n, "records": recs}
         check("error" not in res and n == DRYRUN_CELLS and all(x["counted_flops"] for x in recs if x["status"] == "ok"),
-              f"(a) the meta sweep of the 40 (arch x shape) cells at full width ({DR.WORKERS} worker processes): "
+              f"(a) the meta sweep of {'/'.join(DRYRUN_ARCHS)}'s (arch x shape) cells at full width ({DR.WORKERS} "
+              f"worker processes): "
               f"{n[0]} ok, {n[1]} skip, {n[2]} error == {DRYRUN_CELLS}, every ok cell counted, in "
               f"{res['seconds']:.1f} s")
         keys = set(RooflineTerms(1.0, 1.0, 1.0, 1, {}).as_dict())
@@ -5863,6 +5888,357 @@ def phase_shard(dev, ARCH="qwen2-7b", LAYERS=4, CHECK_LAYERS=2, LAYOUT=(2, 4), E
     return out, {}
 
 
+# -------------------------------------------------------------- 22. serve_shard
+def _seeded_caches(model, slots, max_len, depths, seed, dev):
+    """Decode caches with k and v drawn from ``seed`` (normal) and each
+    slot's ``pos`` at ``depths``."""
+    import torch
+
+    caches = model.init_caches(slots, max_len, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for path, leaf in _leaf_items(caches).items():
+        if path[-1] == "pos":
+            leaf.copy_(torch.as_tensor(depths, dtype=leaf.dtype, device=dev).expand_as(leaf))
+        else:
+            leaf.copy_(torch.randn(leaf.shape, generator=gen, device=dev, dtype=torch.float32))
+    return caches
+
+
+def _cast_tree(tree, dtype):
+    """A nested dict of tensors with every floating leaf cast to ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+def _serve_split(step, params, token, caches, comm=None, calls=3):
+    """Device ms of one decode step by part, from ``torch.profiler``: each
+    part's kernels found through a ``record_function`` range around it
+    (the attention layers, the MLPs, the sequence split's combine, the
+    collectives of ``comm``, the gather of the whole logits; a range's
+    time holds the ranges inside it), and the step's total."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import api as API
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as TF
+
+    parts = {"attention": [(A, "self_attention"), (A, "self_attention_placed")],
+             "mlp": [(TF, "glu_mlp"), (TF, "glu_mlp_placed")], "combine": [(A, "_combine")],
+             "whole_logits": [(API, "_whole_logits")]}
+    if comm is not None:
+        parts["collectives"] = [(comm, "psum"), (comm, "all_gather")]
+    orig = [(m, n, getattr(m, n)) for targets in parts.values() for m, n in targets]
+
+    def ranged(name, fn):
+        def w(*a, **kw):
+            with record_function(f"ss.{name}"):
+                return fn(*a, **kw)
+        return w
+
+    for name, targets in parts.items():
+        for m, n in targets:
+            setattr(m, n, ranged(name, getattr(m, n)))
+    try:
+        step(params, token, caches)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                step(params, token, caches)
+            torch.cuda.synchronize()
+    finally:
+        for m, n, f in orig:
+            if m is comm:
+                delattr(m, n)
+            else:
+                setattr(m, n, f)
+    dev_us = lambda e: getattr(e, "device_time_total", 0.0) or getattr(e, "cuda_time_total", 0.0)
+    split = {k: None for k in parts}
+    for e in prof.key_averages():
+        if e.key.startswith("ss.") and e.device_type != torch.autograd.DeviceType.CUDA:
+            split[e.key[3:]] = dev_us(e) / calls / 1e3 or None
+    total = sum(e.self_device_time_total for e in _device_events(prof) if not e.key.startswith("ss."))
+    return {"step_device_ms": total / calls / 1e3, "parts_ms": split}
+
+
+def _peak_above_held(fn, dev):
+    """GiB ``fn`` takes on the card above what was allocated before it."""
+    import torch
+
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fn()
+    torch.cuda.synchronize(dev)
+    return (torch.cuda.max_memory_allocated(dev) - before) / 2**30
+
+
+def phase_serve_shard(dev, ARCH="qwen2-7b", LAYERS=4, CHECK_LAYERS=2, LAYOUT=(2, 4), SLOTS=16, MAX_LEN=128,
+                      N_REQ=16, PROMPT=(8, 48), NEW=(8, 24), LONG=4096, LONG_POS=4000, PREFILL=(2, 2048),
+                      CHECK_STEPS=16, widths=None, profile=True, reps=5):
+    """Serving the dense family on placed parameters (``launch.placement.
+    serve_placement``: FSDP dropped, every weight split over ``model`` and
+    replicated over ``data``; ``cache_placement``: the slots over ``data``,
+    the sequence over ``model``): ARCH at full width, ``LAYERS`` layers in
+    bfloat16, on the ``LAYOUT`` layout stacked in one process.  (a) Every
+    rank's block of every parameter and of seeded caches (``SLOTS`` slots,
+    ``MAX_LEN``) equals bit for bit the chunk of the whole leaf the rule
+    names (``torch.chunk``), a rank's bytes ``specs.device_bytes``.  (b)
+    ``BatchedEngine`` on the placed parameters answers phase lm's
+    ``N_REQ`` requests, each with its ``max_new_tokens``, beside the
+    unsharded engine on the same weights: each engine's event median a
+    step, one step's device ms by part (``_serve_split``), top device
+    events and peak GiB above what is held; the recorder's calls a step
+    by kind and tier (a layer: three ``all_gather``s and three ``psum``s
+    over ``model``; the embedding's ``psum``, the logits' two gathers) and
+    their bytes; a decode step on caches ``LONG`` long, seeded, every slot
+    at ``LONG_POS`` (live positions on every model rank), placed and
+    unsharded, timed; a ``PREFILL`` placed prefill beside the unsharded
+    one, timed.  The long decode's and the prefill's bfloat16 logits lie
+    no farther from the unsharded bfloat16 ones than ``FAM_BF16_NOISE``
+    times those lie from the float32 model's on the same inputs.  (c) At
+    ``CHECK_LAYERS`` layers in float32, teacher-forced over
+    ``CHECK_STEPS`` steps from seeded caches whose rows start at depths
+    spread over the sequence, so that they cross every model rank's
+    block: the placed step's logits within 1 / ``FAM_F32_GAIN`` of the
+    bfloat16 model's distance from the unsharded float32 step's, ``pos``
+    equal.  (d) The placed engine on NCCL at a world of one (gloo on the
+    CPU): tokens, last logits and calls equal to the stacked run's,
+    timed.  (e) No kernel of K1–K10 is launched.  ``widths`` narrows the
+    config for a rehearsal on the CPU."""
+    import dataclasses as dc
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as KN
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dist as LD
+    from repro_torch.launch import placement as PL
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import Layout
+    from repro_torch.launch.serve import BatchedEngine
+    from repro_torch.models.api import build_model
+
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    KN.reset_launch_counts()
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    d, m = LAYOUT
+    out = {"layers": LAYERS, "check_layers": CHECK_LAYERS, "layout": LAYOUT, "slots": SLOTS, "max_len": MAX_LEN}
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    def timed(fn):
+        return cuda_ms(fn, reps=reps, warmup=1) if cuda else None
+
+    free()
+    cfg = dc.replace(get_config(ARCH), num_layers=LAYERS, **(widths or {}))
+    model = build_model(cfg)
+    label = f"{cfg.name} at {LAYERS} of {get_config(ARCH).num_layers} layers, layout {LAYOUT}"
+    lm = model.init(torch.Generator(device=dev).manual_seed(3232), device=dev)
+    whole = lm.tree()
+
+    # (a) the placements, bit for bit
+    sp = PL.serve_placement(model, Layout(*LAYOUT))
+    params = sp.place(lm)
+    meta_bytes = lambda pl, k, dt: S.device_bytes(torch.empty(pl.shapes[k], dtype=dt, device="meta"), pl.specs[k],
+                                                  pl.axes)
+    rank_bytes = lambda tree: [sum(t[r].numel() * t.element_size() for t in _leaf_items(tree).values())
+                               for r in range(d * m)]
+    bad = _blocks_match(params, whole, sp)
+    rule = sum(meta_bytes(sp, k, cfg.torch_dtype) for k in sp.specs)
+    sizes = rank_bytes(params)
+    out["param_bytes_per_rank"], out["param_bytes_whole"] = sizes, sum(t.numel() * t.element_size()
+                                                                       for t in lm.parameters())
+    check(not bad and set(sizes) == {rule} and not any(S.DATA in S.spec_axes(p) for s in sp.specs.values() for p in s),
+          f"(a) {label}: every rank's block of the {len(sp.specs)} parameter leaves == the chunk the serve rule names, "
+          f"bit for bit (mismatched: {bad}), nothing split over data; {sizes[0]} B a rank == specs.device_bytes "
+          f"{rule} (whole {out['param_bytes_whole']} B)")
+    depths = [(s * (MAX_LEN - CHECK_STEPS)) // SLOTS for s in range(SLOTS)]
+    cp = PL.cache_placement(model, Layout(*LAYOUT), SLOTS, MAX_LEN)
+    wcaches = _seeded_caches(model, SLOTS, MAX_LEN, depths, 3233, dev)
+    pcaches = cp.place(wcaches)
+    bad = _blocks_match(pcaches, wcaches, cp)
+    rule = sum(meta_bytes(cp, k, cp.dtypes[k]) for k in cp.specs)
+    sizes = rank_bytes(pcaches)
+    out["cache_bytes_per_rank"] = sizes
+    check(not bad and set(sizes) == {rule},
+          f"(a) the caches ({SLOTS} slots, max_len {MAX_LEN}): every rank's block of the {len(cp.specs)} leaves == "
+          f"the chunk the rule names, bit for bit (mismatched: {bad}); {sizes[0]} B a rank == specs.device_bytes "
+          f"{rule}")
+
+    # (b) the placed engine beside the unsharded one, on the same weights
+    requests = _lm_requests(cfg.vocab_size, N_REQ, PROMPT, NEW)
+    token = torch.from_numpy(np.random.default_rng(3234).integers(0, cfg.vocab_size, (SLOTS, 1))
+                             .astype(np.int32)).to(dev)
+    engines = {}
+    for name, p, c in (("placed", params, pcaches), ("whole", lm, wcaches)):
+        engine = BatchedEngine(model, p, slots=SLOTS, max_len=MAX_LEN, device=dev)
+        rec = _StepRecorder(engine)
+        engine._step(p, token, c)  # warm-up: first-use costs
+        sp.comm.reset()
+        sync()
+        t0 = time.perf_counter()
+        served = engine.run(requests)
+        sync()
+        wall = time.perf_counter() - t0
+        step_ms = [a.elapsed_time(b) for a, b in rec.events] if cuda else []
+        r = {"steps": engine.steps, "tokens": sum(map(len, served.values())), "wall_s": wall,
+             "step_ms_median": statistics.median(step_ms) if step_ms else None}
+        check(all(len(served[q.rid]) == q.max_new_tokens for q in requests),
+              f"(b) the {name} engine answers all {N_REQ} requests with their max_new_tokens ({r['tokens']} tokens "
+              f"in {r['steps']} steps)")
+        if name == "placed":
+            calls = _call_counts(sp.comm)
+            r["calls_per_step"] = {k: v / engine.steps for k, v in calls.items()}
+            r["call_bytes_per_step"] = {}
+            for c_, n in sp.comm.calls.items():
+                key = c_.kind if c_.tier is None else f"{c_.kind}{c_.tier}"
+                r["call_bytes_per_step"][key] = r["call_bytes_per_step"].get(key, 0) + c_.nbytes * n / engine.steps
+            want = {"all_gather1": 3 * LAYERS + 1, "psum1": 3 * LAYERS + 1, "all_gather0": 1}
+            check(r["calls_per_step"] == want,
+                  f"(b) the placed step's calls by kind and tier {r['calls_per_step']} == {want}")
+        if cuda:
+            r["peak_gib_above_held"] = _peak_above_held(lambda: engine._step(p, token, c), dev)
+            if profile:
+                r["split"] = _serve_split(engine._step, p, token, c, comm=sp.comm if name == "placed" else None)
+                r["top_events"] = _top_events(lambda: engine._step(p, token, c))
+        engines[name] = (r, served, rec)
+        out[f"{name}_engine"] = r
+    agree = sum(a == b for q in requests for a, b in zip(engines["placed"][1][q.rid], engines["whole"][1][q.rid]))
+    out["engine_tokens_agree"] = (agree, sum(q.max_new_tokens for q in requests))
+    print(f"  (b) engines: placed {out['placed_engine']}, whole {out['whole_engine']}; tokens equal "
+          f"{agree} of {out['engine_tokens_agree'][1]} (bfloat16)", flush=True)
+    del pcaches, wcaches
+    free()
+
+    # float32 twins of the weights (the bfloat16 ones widened) for the noise
+    # the long decode and the prefill are held against
+    cfg32 = dc.replace(cfg, dtype="float32")
+    model32 = build_model(cfg32)
+    whole32 = _cast_tree(whole, torch.float32)
+
+    def noise_check(what, placed_l, whole_l, f32_l):
+        dp = float((placed_l.float() - whole_l.float()).abs().max())
+        db = float((whole_l.float() - f32_l.float()).abs().max())
+        fin = bool(torch.isfinite(placed_l).all()) and bool(torch.isfinite(whole_l).all())
+        check(fin and dp <= FAM_BF16_NOISE * db,
+              f"(b) {what}: placed bfloat16 logits {tuple(placed_l.shape)} finite, max |placed - unsharded| {dp:.4g} "
+              f"<= {FAM_BF16_NOISE} x the unsharded bfloat16 logits' distance from float32's {db:.4g}")
+        return {"placed_vs_whole": dp, "bf16_vs_f32": db}
+
+    # a decode step on caches LONG long, every slot at LONG_POS
+    step = model.decode_fn()
+    cpl = PL.cache_placement(model, Layout(*LAYOUT), SLOTS, LONG)
+    wlong = _seeded_caches(model, SLOTS, LONG, [LONG_POS] * SLOTS, 3235, dev)
+    plong = cpl.place(wlong)
+    lp, new = step(params, token, plong)
+    lw, _ = step(lm, token, wlong)
+    l32, _ = model32.decode_fn()(whole32, token, _cast_tree(wlong, torch.float32))
+    pos = cpl.gather(new)["blocks"]
+    long = noise_check(f"a decode step on caches {LONG} long at position {LONG_POS}", lp, lw, l32)
+    check(all(bool((c["pos"] == LONG_POS + 1).all()) for c in pos.values()),
+          f"(b) the long decode's pos all {LONG_POS + 1}")
+    del lp, lw, l32, new
+    if cuda:
+        long.update(placed_ms=timed(lambda: step(params, token, plong)),
+                    whole_ms=timed(lambda: step(lm, token, wlong)))
+        if profile:
+            long.update(placed_device_ms=device_ms(lambda: step(params, token, plong), calls=5, warmup=1)[0],
+                        whole_device_ms=device_ms(lambda: step(lm, token, wlong), calls=5, warmup=1)[0])
+    out["long_decode"] = long
+    del plong, wlong
+    free()
+
+    # a placed prefill of PREFILL tokens
+    b, s = PREFILL
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(3236).integers(0, cfg.vocab_size, (b, s))
+                                        .astype(np.int32)).to(dev)}
+    prefill = model.prefill_fn()
+    pre = noise_check(f"a prefill of {b} x {s} tokens", prefill(params, batch), prefill(lm, batch),
+                      model32.prefill_fn()(whole32, batch))
+    if cuda:
+        pre.update(placed_ms=timed(lambda: prefill(params, batch)), whole_ms=timed(lambda: prefill(lm, batch)))
+        pre["placed_peak_gib_above_held"] = _peak_above_held(lambda: prefill(params, batch), dev)
+    out["prefill"] = pre
+    del whole32
+    free()
+    print(f"  (b) long decode {out['long_decode']}; prefill {out['prefill']}", flush=True)
+
+    # (d) the placed engine over NCCL (gloo on the CPU) at a world of one
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="rafi_serve_shard_"))
+    try:
+        dcomm = LD.init_world(dev, world=1, rank=0, store=f"file://{tmp}/store")
+        dparams = PL.serve_placement(model, Layout(*LAYOUT, comm=dcomm)).place(lm)
+        engine = BatchedEngine(model, dparams, slots=SLOTS, max_len=MAX_LEN, device=dev)
+        rec = _StepRecorder(engine)
+        dcomm.reset()
+        served = engine.run(requests)
+        sync()
+        r, want, wrec = engines["placed"][0], engines["placed"][1], engines["placed"][2]
+        step_ms = [a.elapsed_time(b) for a, b in rec.events] if cuda else []
+        nccl = {"steps": engine.steps, "step_ms_median": statistics.median(step_ms) if step_ms else None,
+                "calls_per_step": {k: v / engine.steps for k, v in _call_counts(dcomm).items()}}
+        out["nccl_engine"] = nccl
+        check(served == want and _same_tensor(rec.last, wrec.last) and nccl["calls_per_step"] == r["calls_per_step"],
+              f"(d) the placed engine on {'NCCL' if cuda else 'gloo'} at a world of one == the stacked run: tokens, "
+              f"last logits bit for bit, calls {nccl['calls_per_step']}; event median a step "
+              f"{nccl['step_ms_median']} ms (stacked {r['step_ms_median']})")
+        del dparams, engine, rec
+    finally:
+        LD.destroy_world()
+        shutil.rmtree(tmp, ignore_errors=True)
+    del params, lm, whole, engines
+    free()
+
+    # (c) float32 at CHECK_LAYERS layers, teacher-forced
+    cfg_c = dc.replace(get_config(ARCH), num_layers=CHECK_LAYERS, dtype="float32", **(widths or {}))
+    model_c, model_b = build_model(cfg_c), build_model(dc.replace(cfg_c, dtype="bfloat16"))
+    lm32 = model_c.init(torch.Generator(device=dev).manual_seed(3237), device=dev)
+    p32 = PL.serve_placement(model_c, Layout(*LAYOUT)).place(lm32)
+    w16 = _cast_tree(lm32.tree(), torch.bfloat16)
+    cpc = PL.cache_placement(model_c, Layout(*LAYOUT), SLOTS, MAX_LEN)
+    c16 = _seeded_caches(model_b, SLOTS, MAX_LEN, depths, 3238, dev)
+    runs = {"placed": [p32, cpc.place(_cast_tree(c16, torch.float32)), model_c.decode_fn()],
+            "whole": [lm32, _cast_tree(c16, torch.float32), model_c.decode_fn()],
+            "bf16": [w16, c16, model_b.decode_fn()]}
+    gen = np.random.default_rng(3239)
+    d_placed = d_bf16 = 0.0
+    for _ in range(CHECK_STEPS):
+        tok = torch.from_numpy(gen.integers(0, cfg_c.vocab_size, (SLOTS, 1)).astype(np.int32)).to(dev)
+        lg = {}
+        for name, run in runs.items():
+            lg[name], run[1] = run[2](run[0], tok, run[1])
+        d_placed = max(d_placed, float((lg["placed"] - lg["whole"]).abs().max()))
+        d_bf16 = max(d_bf16, float((lg["bf16"].float() - lg["whole"]).abs().max()))
+    pos_p = cpc.gather(runs["placed"][1])["blocks"]
+    pos_ok = all(torch.equal(pos_p[k]["pos"], c["pos"]) for k, c in runs["whole"][1]["blocks"].items())
+    tm = MAX_LEN // m
+    crossed = sorted({p // tm for p in depths} | {min(p + CHECK_STEPS - 1, MAX_LEN - 1) // tm for p in depths})
+    out["float32_check"] = {"placed_vs_whole": d_placed, "bf16_vs_f32": d_bf16, "blocks_crossed": crossed}
+    check(d_placed <= d_bf16 / FAM_F32_GAIN and pos_ok and crossed == list(range(m)),
+          f"(c) {ARCH} at {CHECK_LAYERS} layers in float32, {CHECK_STEPS} teacher-forced steps from depths "
+          f"{depths[0]}-{depths[-1]} (model blocks {crossed} of {m}): max |placed - unsharded| {d_placed:.4g} <= "
+          f"1/{FAM_F32_GAIN:g} of the bfloat16 model's distance {d_bf16:.4g}; pos equal")
+    del runs, lm32, p32, w16, c16
+    free()
+
+    # (e)
+    launches = KN.launch_counts()
+    check(not any(launches.values()), f"(e) serve_shard: no kernel of K1-K10 launched: {launches}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  phase serve_shard: {out['wall_s']:.1f} s", flush=True)
+    return out, {"serve_shard": launches}
+
+
 def _nest(flat):
     """``{path: leaf}`` → the nested dict."""
     out = {}
@@ -5905,7 +6281,7 @@ def main() -> int:
            "ragged": lambda: phase_ragged(dev), "lm": lambda: phase_lm(dev), "train": lambda: phase_train(dev),
            "families": lambda: phase_families(dev), "dryrun": lambda: phase_dryrun(dev),
            "dist": lambda: phase_dist(dev), "dist_paths": lambda: phase_dist_paths(dev),
-           "shard": lambda: phase_shard(dev)}
+           "shard": lambda: phase_shard(dev), "serve_shard": lambda: phase_serve_shard(dev)}
     kernels, paths = {}, {}  # paths: launches per path, counted from 0
     for title in run:
         print(f"# phase {title}", flush=True)
@@ -5920,7 +6296,7 @@ def main() -> int:
             kernels, more = res
             paths.update(more)
         elif title in ("lossless", "telemetry", "pipeline", "credit", "balance", "recovery", "obs", "apps2", "ragged",
-                       "lm", "train", "families", "dryrun", "dist", "dist_paths", "shard"):
+                       "lm", "train", "families", "dryrun", "dist", "dist_paths", "shard", "serve_shard"):
             record[title], more = res
             paths.update(more)
         elif title in ("streamlines", "vopat", "nbody"):

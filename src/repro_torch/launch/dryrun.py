@@ -441,8 +441,10 @@ def _line(r: dict) -> str:
     return f"{r['arch']:>22} × {r['shape']:<12} [{r['mesh']}] → {r['status']}{extra}"
 
 
-def sweep(*, multi_pod: bool = False, force: bool = False, out_dir: Path | None = None, log=print) -> list:
-    """Every cell of every arch, in the registry's order; one line each.
+def sweep(*, multi_pod: bool = False, force: bool = False, out_dir: Path | None = None, log=print,
+          archs=None) -> list:
+    """Every cell of every arch (of ``archs``, None: all), in the
+    registry's order; one line each.
     The probes of the cells not read back are counted first, in
     ``WORKERS`` processes, the longest first: the scans' (a recurrent or
     rwkv step is a Python loop a token, and on meta each elementwise op
@@ -454,7 +456,8 @@ def sweep(*, multi_pod: bool = False, force: bool = False, out_dir: Path | None 
     from repro_torch.configs.registry import ARCHS, shape_suite
 
     out_dir = Path(out_dir or ARTIFACTS)
-    cells = [(arch, shape_name) for arch in ARCHS for shape_name in shape_suite(arch)]
+    cells = [(arch, shape_name) for arch in ARCHS if archs is None or arch in archs
+             for shape_name in shape_suite(arch)]
     todo = [(arch, shape_name, get_config(arch)) for arch, shape_name in cells
             if not isinstance(shape_suite(arch)[shape_name], str)
             and _cached(out_dir / f"{_name(arch, shape_name, multi_pod)}.json", force=force) is None]

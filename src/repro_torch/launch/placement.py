@@ -1,6 +1,7 @@
-"""The dense family's train state placed on a layout's ranks (the port's
-counterpart of ``repro.launch.steps.build_train_step``'s shardings and of
-``jax.device_put`` onto them).
+"""The dense family's train and serve state placed on a layout's ranks
+(the port's counterpart of the shardings of ``repro.launch.steps``'
+``build_train_step``, ``build_prefill_step`` and ``build_decode_step``,
+and of ``jax.device_put`` onto them).
 
 A :class:`Placement` is the reference's partition rule (``launch.specs``:
 ``param_spec``, then ``resolve_spec`` on the layout's axes) applied to a
@@ -30,9 +31,17 @@ The global norm counts every element once: a rank adds a leaf's squares
 only when it is the first replica on every axis the leaf is not split
 over (:func:`counted`), and one flat ``psum`` sums the ranks.
 
+Serving (:func:`serve_placement`) places the parameters by the same rule
+with FSDP dropped (``specs.param_spec(serve=True)``): split over
+``model``, replicated over ``data``, so :meth:`Placement.unshard` gathers
+nothing.  The decode caches (:func:`cache_placement`) are placed by
+``specs.cache_spec``: ``k`` and ``v`` ``(data, model, None, None)``, the
+slots over ``data`` and the sequence over ``model``, ``pos`` over
+``data``; :meth:`Placement.zeros` makes them on the device already placed.
+
 Only the text-only dense family is placed here (``kind="dense"``, no
-vision frontend); the other families, serving and the sequence-parallel
-layouts come later.
+vision frontend); the other families and the sequence-parallel layouts
+come later.
 """
 from __future__ import annotations
 
@@ -49,7 +58,7 @@ from repro_torch.models.api import Model
 from repro_torch.models.common import ParamTree
 from repro_torch.models.parallel import Ranks, gather
 
-__all__ = ["Placed", "Placement", "counted", "is_placed", "train_placement"]
+__all__ = ["Placed", "Placement", "cache_placement", "counted", "is_placed", "serve_placement", "train_placement"]
 
 _OPT_PLACED = ("m", "v", "master", "residual")  # AdamW leaves placed as their parameters
 
@@ -88,6 +97,15 @@ def counted(spec: tuple, coords: Dict[str, torch.Tensor]) -> torch.Tensor:
     return out
 
 
+def _with_groups(tree, paths):
+    """A cache tree with both ``blocks`` and ``tail``, as the forward reads
+    them: a model of whole periods has no leaf under ``tail`` to name it."""
+    if paths and paths[0][0] in ("blocks", "tail"):
+        tree.setdefault("blocks", {})
+        tree.setdefault("tail", {})
+    return tree
+
+
 def _by_path(tree, paths, fn):
     """The nested dict of ``fn(path, leaf)`` over ``paths``."""
     out: Dict[str, Any] = {}
@@ -103,13 +121,14 @@ def _by_path(tree, paths, fn):
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Placement:
-    """The reference's placement of a model's parameters on ``layout``:
-    ``specs`` maps each parameter's path to its resolved spec, ``shapes``
-    to its whole shape."""
+    """The reference's placement of a model's parameters (or decode caches)
+    on ``layout``: ``specs`` maps each leaf's path to its resolved spec,
+    ``shapes`` to its whole shape, ``dtypes`` (caches) to its dtype."""
 
     layout: Layout
     specs: Dict[Tuple[str, ...], tuple]
     shapes: Dict[Tuple[str, ...], Tuple[int, ...]]
+    dtypes: Dict[Tuple[str, ...], torch.dtype] = dataclasses.field(default_factory=dict)
 
     @property
     def axes(self) -> Dict[str, int]:
@@ -129,6 +148,21 @@ class Placement:
     def paths(self) -> List[Tuple[str, ...]]:
         return list(self.specs)
 
+    def zeros(self, device=None) -> "Placed":
+        """Zero blocks of every leaf, made on ``device`` (None: the card)
+        already placed: ``(L, *block)`` in the leaf's dtype."""
+        dev = compat.resolve_device(device)
+        L = self.layout.local_ranks().numel()
+        tree: Dict[str, Any] = {}
+        for path in self.paths:
+            node = tree
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            block = S._slices(self.shapes[path], self.specs[path], self.axes, S.rank_coords(0, self.axes))
+            node[path[-1]] = torch.zeros((L,) + tuple(s.stop - s.start for s in block), dtype=self.dtypes[path],
+                                         device=dev)
+        return Placed(_with_groups(tree, self.paths), self)
+
     # ------------------------------------------------------------- place
     def _place_params(self, tree, device) -> Placed:
         ids = self.layout.local_ranks().tolist()
@@ -138,7 +172,7 @@ class Placement:
                 raise ValueError(f"{'.'.join(path)}: shape {tuple(t.shape)} != {self.shapes[path]}")
             return S.cut(t.detach(), self.specs[path], self.axes, ids).to(device)
 
-        return Placed(_by_path(tree, self.paths, cut), self)
+        return Placed(_with_groups(_by_path(tree, self.paths, cut), self.paths), self)
 
     def place(self, tree, *, device=None):
         """Whole parameters (a ``ParamTree`` or its ``tree()``) → a
@@ -159,7 +193,7 @@ class Placement:
         def join(path, blocks):
             return S.join(comm.gather_all(blocks.detach()), self.specs[path], self.axes, self.shapes[path])
 
-        return _by_path(placed, self.paths, join)
+        return _with_groups(_by_path(placed, self.paths, join), self.paths)
 
     def gather(self, tree):
         """The whole tree in every process (off the call recorder): a
@@ -211,6 +245,33 @@ class Placement:
         return ranks.comm.psum(local)
 
 
+def _dense_layout(model: Model, layout: Layout) -> Layout:
+    cfg = model.cfg
+    if cfg.kind != "dense" or cfg.frontend != "none":
+        raise NotImplementedError(f"{cfg.name}: only the text-only dense family is placed (kind={cfg.kind!r}, "
+                                  f"frontend={cfg.frontend!r})")
+    return dataclasses.replace(layout, comm=backend(layout.comm))
+
+
+def _axis_dims(spec: tuple, ax: str) -> List[int]:
+    return [i for i, part in enumerate(spec) if ax in S.spec_axes(part)]
+
+
+def _param_placement(model: Model, layout: Layout, *, serve: bool) -> Placement:
+    cfg = model.cfg
+    layout = _dense_layout(model, layout)
+    axes = S.mesh_axes(layout.data, layout.model)
+    specs, shapes = {}, {}
+    for path, d in S.named_leaves(model.defs):
+        raw = S.param_spec(path, cfg, serve=serve)
+        spec = S.resolve_spec(d.shape, raw, axes)
+        named, kept = _axis_dims(raw, S.MODEL), _axis_dims(spec, S.MODEL)
+        if layout.model > 1 and named != kept:
+            raise ValueError(f"{'.'.join(path)} {d.shape}: the model axis moves from {named} to {kept} on {axes}")
+        specs[path], shapes[path] = spec, d.shape
+    return Placement(layout, specs, shapes)
+
+
 def train_placement(model: Model, layout: Layout) -> Placement:
     """The placement of ``model``'s train state on ``layout`` (its
     ``comm`` the backend: None stacked), as ``build_train_step``'s
@@ -218,19 +279,41 @@ def train_placement(model: Model, layout: Layout) -> Placement:
     Raises for a model outside the text-only dense family, and where the
     rule would move ``model`` off the dimension it names (no dense config
     does on a layout of 8 ranks)."""
+    return _param_placement(model, layout, serve=False)
+
+
+def serve_placement(model: Model, layout: Layout) -> Placement:
+    """The placement of ``model``'s parameters for serving on ``layout``,
+    as ``build_prefill_step`` and ``build_decode_step``'s shardings place
+    the reference's (``Model.specs(serve=True)``): FSDP dropped, every
+    weight split over ``model`` and replicated over ``data``.  The same
+    refusals as :func:`train_placement`."""
+    return _param_placement(model, layout, serve=True)
+
+
+def cache_placement(model: Model, layout: Layout, batch: int, max_len: int) -> Placement:
+    """The placement of ``model``'s decode caches of ``batch`` slots and
+    ``max_len`` positions on ``layout``, as ``build_decode_step``'s
+    shardings place the reference's (``specs.cache_spec`` resolved against
+    ``steps.abstract_caches``' shapes, moves allowed): ``k``/``v`` the
+    slots over ``data`` and the sequence over ``model``, ``pos`` over
+    ``data``.  Raises where the resolved spec moves ``model`` off the
+    sequence (``max_len % model``: the placed decode attends over a
+    sequence split) or ``data`` off the slots (``batch % data``)."""
+    from repro_torch.launch.steps import abstract_caches
+
     cfg = model.cfg
-    if cfg.kind != "dense" or cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: only the text-only dense family is placed (kind={cfg.kind!r}, "
-                                  f"frontend={cfg.frontend!r})")
-    layout = dataclasses.replace(layout, comm=backend(layout.comm))
+    layout = _dense_layout(model, layout)
     axes = S.mesh_axes(layout.data, layout.model)
-    specs, shapes = {}, {}
-    for path, d in S.named_leaves(model.defs):
-        raw = S.param_spec(path, cfg)
-        spec = S.resolve_spec(d.shape, raw, axes)
-        named = [i for i, part in enumerate(raw) if S.MODEL in S.spec_axes(part)]
-        kept = [i for i, part in enumerate(spec) if S.MODEL in S.spec_axes(part)]
-        if layout.model > 1 and named != kept:
-            raise ValueError(f"{'.'.join(path)} {d.shape}: the model axis moves from {named} to {kept} on {axes}")
-        specs[path], shapes[path] = spec, d.shape
-    return Placement(layout, specs, shapes)
+    specs, shapes, dtypes = {}, {}, {}
+    for path, a in S.named_leaves(abstract_caches(model, batch, max_len)):
+        raw = S.cache_spec(path, cfg)
+        spec = S.resolve_spec(tuple(a.shape), raw, axes, allow_move=True)
+        for ax, size in ((S.MODEL, layout.model), (S.DATA, layout.data)):
+            named, kept = _axis_dims(raw, ax), _axis_dims(spec, ax)
+            if size > 1 and named != kept:
+                what = "the sequence" if ax == S.MODEL else "the slots"
+                raise ValueError(f"{'.'.join(path)} {tuple(a.shape)}: the {ax} axis moves off {what} (dimension "
+                                 f"{named} to {kept}) on {axes}: batch {batch}, max_len {max_len}")
+        specs[path], shapes[path], dtypes[path] = spec, tuple(a.shape), a.dtype
+    return Placement(layout, specs, shapes, dtypes)

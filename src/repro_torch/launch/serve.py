@@ -15,6 +15,14 @@ all of them; the MoE plane routes its ranks' token slices and joins the
 group's outputs with its ``all_gather``, so every process computes the same
 logits, bit for bit, and admits and retires requests on them alike: the
 slot tables stay equal and every process issues the same collectives.
+
+Given placed parameters (``launch.placement.serve_placement``) the engine
+serves on their layout ``(data, model)``, on its backend: its caches are
+made already placed (``cache_placement``: the slots over ``data``, the
+sequence over ``model``), each step is ``api.placed_decode``, and every
+process holds every slot's host state and the same whole logits, so the
+slot tables stay equal here too.  Over a world of W processes process p
+holds ranks ``[p·L, (p+1)·L)``.
 """
 from __future__ import annotations
 
@@ -43,7 +51,12 @@ def reset_slot(caches, slot: int):
     new request — stale KV rows past pos are masked out.  Out of place, as
     the reference's ``.at[].set``.  As there, a recurrent layer's state (an
     RWKV ``S``, an RG-LRU ``h`` and conv tail) is left as the last request
-    left it: the next request in the slot starts from it."""
+    left it: the next request in the slot starts from it.  On placed
+    caches slot s is row ``s % (slots/data)`` of data group ``s //
+    (slots/data)``, reset on every model rank of that group."""
+    placement = getattr(caches, "placement", None)
+    groups = None if placement is None else placement.layout.local_ranks() // placement.layout.model
+
     def visit(tree):
         out = {}
         for k, v in tree.items():
@@ -51,21 +64,27 @@ def reset_slot(caches, slot: int):
                 out[k] = visit(v)
             elif k == "pos":
                 out[k] = v.clone()
-                out[k][..., slot] = 0
+                if groups is None:
+                    out[k][..., slot] = 0
+                else:  # (L, …, b): the rows of the rank's group
+                    b = v.shape[-1]
+                    out[k][(groups == slot // b).to(v.device), ..., slot % b] = 0
             else:
                 out[k] = v
         return out
 
-    return visit(caches)
+    out = visit(caches)
+    return out if placement is None else caches.like(out)
 
 
 class BatchedEngine:
     """Slot-synchronous engine: all slots step together; finished slots are
     refilled from the queue.  ``layout`` is the MoE dispatch's rank layout
-    (the reference's ``mesh``); ``device`` where the caches and tokens live
-    (``None``: the CUDA card), which must be the parameters' device.  Each
-    step's MoE drops are kept in ``step_drops`` (0-d tensors, read without
-    a sync until the caller reads them)."""
+    (the reference's ``mesh``); placed parameters carry their own, and a
+    ``layout`` beside them must be it.  ``device`` where the caches and
+    tokens live (``None``: the CUDA card), which must be the parameters'
+    device.  Each step's MoE drops are kept in ``step_drops`` (0-d
+    tensors, read without a sync until the caller reads them)."""
 
     def __init__(self, model: Model, params, *, slots: int = 4, max_len: int = 128, layout=None, device=None):
         if model.cfg.kind == "encdec":
@@ -73,6 +92,17 @@ class BatchedEngine:
             # encoder-decoder's step also needs the encoder memory
             raise ValueError("BatchedEngine serves decoder-only models; an encdec step needs the encoder memory "
                              "(Model.decode_fn)")
+        placement = getattr(params, "placement", None)
+        self.cache_placement = None
+        if placement is not None:
+            from repro_torch.launch.placement import cache_placement
+
+            if layout is not None and layout != placement.layout:
+                raise ValueError(f"the layout {layout} differs from the placed parameters' {placement.layout}")
+            if slots % placement.layout.data:
+                raise ValueError(f"{slots} slots do not split over {placement.layout.data} data groups")
+            self.cache_placement = cache_placement(model, placement.layout, slots, max_len)
+            layout = None
         comm = getattr(layout, "comm", None)
         if comm is not None and comm.world > 1 and layout.data != 1:
             raise ValueError(f"over a world of {comm.world} processes the engine runs the layout (1, tp), "
@@ -95,7 +125,10 @@ class BatchedEngine:
     def run(self, requests: List[Request]) -> Dict[int, List[int]]:
         out: Dict[int, List[int]] = {r.rid: [] for r in requests}
         pending = list(requests)
-        caches = self.model.init_caches(self.slots, self.max_len, device=self.device)
+        if self.cache_placement is not None:
+            caches = self.cache_placement.zeros(self.device)
+        else:
+            caches = self.model.init_caches(self.slots, self.max_len, device=self.device)
         slot_req: List[Optional[Request]] = [None] * self.slots
         left = np.zeros(self.slots, np.int64)
         cur = np.zeros((self.slots, 1), np.int32)

@@ -26,6 +26,15 @@ the blocks (an FSDP leaf's ``reduce_scatter``'d over ``data`` in its
 gather's backward pass), a leaf replicated over ``data`` is ``psum``'d
 over it once, and AdamW updates each rank's blocks with the norm counted
 once over the world.  Whole parameters keep the unsharded step above.
+``build_prefill_step`` and ``build_decode_step`` return the model's
+``prefill`` and ``decode`` functions as they are: the placement lives in
+the data here too.  Given serve-placed parameters
+(``placement.serve_placement``: FSDP dropped, split over ``model`` and
+replicated over ``data``) and, for decode, placed caches
+(``placement.cache_placement``: the slots over ``data``, the sequence
+over ``model``), they run ``api.placed_prefill`` / ``api.placed_decode``
+on the placement's backend; every process takes the global batch or
+token and returns the whole ``(B, V)`` logits.
 ``abstract_opt_state`` and ``abstract_caches`` give the AdamW state and
 the decode caches on ``torch.device("meta")`` (shapes and dtypes, nothing
 allocated), where the reference gives ``jax.eval_shape`` results.  The
@@ -196,10 +205,13 @@ def _placed_step(loss_fn, m: int, opt_cfg: AdamWConfig, params, opt_state, batch
 
 
 def build_prefill_step(model: Model, layout=None):
+    """``prefill(params, batch)``: whole or serve-placed parameters."""
     return model.prefill_fn(layout)
 
 
 def build_decode_step(model: Model, layout=None):
+    """``decode(params, token, caches)``: whole parameters and caches, or
+    serve-placed parameters and placed caches."""
     return model.decode_fn(layout)
 
 

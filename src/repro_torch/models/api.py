@@ -24,12 +24,13 @@ import torch
 
 from repro_torch import compat
 from repro_torch.models import encdec as ED
+from repro_torch.models import parallel as P
 from repro_torch.models import transformer as TF
 from repro_torch.models.common import (
     ModelConfig, ParamDef, ParamTree, cross_entropy_loss, cross_entropy_loss_placed, init_params, tree_leaves,
 )
 
-__all__ = ["Model", "build_model", "params_from_jax", "placed_loss"]
+__all__ = ["Model", "build_model", "params_from_jax", "placed_decode", "placed_loss", "placed_prefill"]
 
 
 def _module(cfg: ModelConfig, device):
@@ -90,7 +91,8 @@ class Model:
         return loss
 
     def prefill_fn(self, layout=None) -> Callable:
-        """``prefill(params, batch)``: the last position's logits (B, V)."""
+        """``prefill(params, batch)``: the last position's logits (B, V);
+        on placed parameters :func:`placed_prefill`."""
         cfg = self.cfg
         if cfg.kind == "encdec":
             def prefill(params, batch):
@@ -102,6 +104,8 @@ class Model:
             return prefill
 
         def prefill(params, batch):
+            if getattr(params, "placement", None) is not None:
+                return placed_prefill(params, batch, cfg)
             with torch.no_grad():
                 logits, _, _ = TF.forward(
                     params, batch["tokens"], cfg, layout=layout, frontend_embeds=batch.get("embeds"),
@@ -115,7 +119,8 @@ class Model:
         (logits (B,V), new_caches), with the step's MoE drops last when
         ``drops``.  For ``encdec`` the step also takes the encoder memory:
         (params, token, caches, memory), its positions read from the first
-        layer's cache."""
+        layer's cache.  On placed parameters the step is
+        :func:`placed_decode`, its caches placed too."""
         cfg = self.cfg
         if cfg.kind == "encdec":
             def encdec_step(params, token, caches, memory):
@@ -128,6 +133,9 @@ class Model:
             return encdec_step
 
         def step(params, token, caches):
+            if getattr(params, "placement", None) is not None:
+                logits, new_caches, zero = placed_decode(params, token, caches, cfg)
+                return (logits, new_caches) + ((zero,) if drops else ())
             pos0 = _first_cache_pos(caches, token.shape[0], token.device)
             positions = pos0[:, None].to(torch.int32)  # (B, 1) per-row depth
             with torch.no_grad():
@@ -155,20 +163,66 @@ def placed_loss(params, batch, cfg: ModelConfig) -> torch.Tensor:
     placement = params.placement
     tokens = batch["tokens"]
     ranks = placement.ranks(tokens.device)
-    rows = lambda t: t.reshape((ranks.data, t.shape[0] // ranks.data) + tuple(t.shape[1:]))[ranks.group]
-    tokens = rows(tokens)
+    tokens = _group_rows(tokens, ranks)
     logits = TF.forward_placed(placement.unshard(params, ranks), tokens, cfg, ranks)
-    labels = rows(batch["labels"]) if "labels" in batch else tokens[:, :, 1:]
+    labels = _group_rows(batch["labels"], ranks) if "labels" in batch else tokens[:, :, 1:]
     if logits.shape[2] != labels.shape[2]:
         logits = logits[:, :, : labels.shape[2]]
     return cross_entropy_loss_placed(logits, labels, ranks)
 
 
-def _first_cache_pos(caches, batch: int, device) -> torch.Tensor:
-    """(B,) current decode positions from any attention cache (all agree)."""
+def _group_rows(t: torch.Tensor, ranks) -> torch.Tensor:
+    """``(B, …)`` global rows → ``(L, B/data, …)``: each local rank's data
+    group's rows (the rows split over the groups in order)."""
+    return t.reshape((ranks.data, t.shape[0] // ranks.data) + tuple(t.shape[1:]))[ranks.group]
+
+
+def _whole_logits(logits: torch.Tensor, ranks) -> torch.Tensor:
+    """Each rank's ``(L, b, V/model)`` → the whole ``(B, V)``: the
+    vocabulary gathered over ``model``, then the rows over ``data``; the
+    same in every process."""
+    whole = P.gather(P.gather(logits, ranks, P.MODEL_TIER, 1), ranks, P.DATA_TIER, 0)
+    return whole[0]
+
+
+def placed_prefill(params, batch, cfg: ModelConfig) -> torch.Tensor:
+    """The last position's logits ``(B, V)`` on serve-placed parameters
+    (``launch.placement.serve_placement``), whole in every process: every
+    process takes the global batch, each rank its data group's rows, and
+    the tensor-parallel pass (``TF.forward_placed``) attends per head."""
+    placement = params.placement
+    tokens = batch["tokens"]
+    ranks = placement.ranks(tokens.device)
+    with torch.no_grad():
+        logits = TF.forward_placed(placement.unshard(params, ranks), _group_rows(tokens, ranks), cfg, ranks)
+        return _whole_logits(logits[:, :, -1], ranks)
+
+
+def placed_decode(params, token, caches, cfg: ModelConfig):
+    """One decode step on serve-placed parameters and placed caches
+    (``launch.placement.cache_placement``): the global token ``(B, 1)`` in
+    every process, each rank its group's rows at their own depths (read
+    from ``pos``).  Returns ``(logits (B, V)`` whole in every process, the
+    new caches placed, zero MoE drops)."""
+    if getattr(caches, "placement", None) is None:
+        raise ValueError("placed parameters decode on placed caches (launch.placement.cache_placement)")
+    placement = params.placement
+    ranks = placement.ranks(token.device)
+    pos = _first_cache_pos(caches, 0, token.device, stacked=True)  # (L, b)
+    with torch.no_grad():
+        logits, new = TF.forward_placed(placement.unshard(params, ranks), _group_rows(token, ranks), cfg, ranks,
+                                        caches=caches, positions=pos[..., None].to(torch.int32))
+        zero = torch.zeros((), dtype=torch.int32, device=token.device)
+        return _whole_logits(logits[:, :, -1], ranks), caches.like(new), zero
+
+
+def _first_cache_pos(caches, batch: int, device, *, stacked: bool = False) -> torch.Tensor:
+    """(B,) current decode positions from any attention cache (all agree);
+    ``stacked``: of placed caches, ``(L, b)``."""
+    lead = 1 if stacked else 0
     for c in caches["blocks"].values():
         if isinstance(c, dict) and "pos" in c:
-            return c["pos"][0]
+            return c["pos"].select(lead, 0)
     for c in caches["tail"].values():
         if isinstance(c, dict) and "pos" in c:
             return c["pos"]

@@ -176,7 +176,7 @@ def self_attention(
         if window > 0:
             m &= j > (pos[:, None] - window)
         out = _sdpa(q, ck, cv, m[:, None, :], x.dtype)
-        new_cache = {"k": ck, "v": cv, "pos": torch.clamp(cache["pos"] + 1, max=t - 1)}
+        new_cache = {"k": ck, "v": cv, "pos": _advance(cache["pos"], t)}
 
     out = out.reshape(b, s, h * hd)
     return out @ params["wo"], new_cache
@@ -190,22 +190,29 @@ def self_attention_placed(
     *,
     window: int = 0,
     theta: Optional[float] = None,
-) -> torch.Tensor:
-    """:func:`self_attention`'s parallel pass on every local rank, heads
-    split over ``model``: ``wq``/``wk``/``wv`` (and their biases)
-    column-parallel on the flat head×dim axis, attention per head, ``wo``
-    row-parallel with a ``psum`` over ``model``.  Where ``model`` does not
-    divide the kv heads (or the q heads), its flat split cuts through a
-    head: k and v (or q, k and v) are gathered over ``model`` first, as
-    the reference's reshard does; a rank then attends with the kv heads of
-    its own q heads (or with all heads, keeping its own block of the
-    output).  Returns ``(L, b, S, D)``."""
+    cache: Optional[Dict] = None,     # {"k","v": (L, b, T/model, Hkv, Dh), "pos": (L, b)}
+    positions: Optional[torch.Tensor] = None,  # (L, b, 1): each row's position (decode)
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """:func:`self_attention` on every local rank, heads split over
+    ``model``: ``wq``/``wk``/``wv`` (and their biases) column-parallel on
+    the flat head×dim axis, ``wo`` row-parallel with a ``psum`` over
+    ``model``.  Returns ``(out (L, b, S, D), new_cache)``.
+
+    The parallel pass (``cache`` None) attends per head.  Where ``model``
+    does not divide the kv heads (or the q heads), its flat split cuts
+    through a head: k and v (or q, k and v) are gathered over ``model``
+    first, as the reference's reshard does; a rank then attends with the
+    kv heads of its own q heads (or with all heads, keeping its own block
+    of the output).
+
+    Decode (``cache`` given, S == 1) attends over a cache split over the
+    sequence (:func:`_decode_placed`)."""
+    if cache is not None:
+        return _decode_placed(params, x, cfg, ranks, cache, positions, window=window, theta=theta)
     L, b, s, _ = x.shape
     h, kv, hd, M = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, ranks.model
     x = P.copy_model(x, ranks)
-    q, k, v = P.mm(x, params["wq"]), P.mm(x, params["wk"]), P.mm(x, params["wv"])
-    if cfg.qkv_bias:
-        q, k, v = (t + params[n][:, None, None, :] for t, n in ((q, "bq"), (k, "bk"), (v, "bv")))
+    q, k, v = _qkv_placed(params, x, cfg)
     q_whole = h % M != 0
     kv_whole = q_whole or kv % M != 0
     if q_whole:
@@ -231,7 +238,86 @@ def self_attention_placed(
     out = out.reshape(L, b, s, nq * hd)
     if q_whole:
         out = P.pick_model(out, ranks)
-    return P.psum_model(P.mm(out, params["wo"]), ranks)
+    return P.psum_model(P.mm(out, params["wo"]), ranks), None
+
+
+def _qkv_placed(params, x, cfg):
+    """Each rank's columns of q, k and v (the column-parallel products)."""
+    q, k, v = P.mm(x, params["wq"]), P.mm(x, params["wk"]), P.mm(x, params["wv"])
+    if cfg.qkv_bias:
+        q, k, v = (t + params[n][:, None, None, :] for t, n in ((q, "bq"), (k, "bk"), (v, "bv")))
+    return q, k, v
+
+
+def _advance(pos: torch.Tensor, length: int) -> torch.Tensor:
+    """A decode step's next positions: one on, held at the cache's last
+    position ``length - 1``."""
+    return torch.clamp(pos + 1, max=length - 1)
+
+
+def _combine(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor, ranks) -> torch.Tensor:
+    """The softmax-weighted sum over a sequence split over ``model``, from
+    each rank's float32 partials over its positions: the local max ``m``
+    and sum of exponentials ``l`` ``(..., 1)``, the weighted sum of v
+    ``acc`` ``(..., Dh)``.  The group max is found by a gather of the
+    maxima; each rank's partials are rescaled by ``exp(m - max)`` (a block
+    with no live position, every score at -1e30, adds exactly 0), one
+    ``psum`` sums them, and the output is their quotient."""
+    if ranks.model > 1:
+        top = ranks.comm.all_gather(m, digits=ranks.digits, tier=P.MODEL_TIER).amax(dim=1)
+        scale = torch.exp(m - top)
+        parts = P.psum_model(torch.cat([acc * scale, l * scale], dim=-1), ranks)
+        acc, l = parts[..., :-1], parts[..., -1:]
+    return acc / l
+
+
+def _decode_placed(params, x, cfg: ModelConfig, ranks, cache, positions, *, window: int, theta):
+    """One decode step's attention on every local rank, the cache split
+    over the sequence: rank ``(g, m)`` holds positions ``[m·T/M,
+    (m+1)·T/M)`` of its group's ``b`` slots.  The new token's k and v are
+    gathered whole over ``model`` (one call), RoPE'd at each row's own
+    position and written by the rank whose block holds it (out of place);
+    q is gathered whole.  Each rank scores every head over its positions
+    (GQA grouped as in :func:`_sdpa`), masked on the global index
+    (``j ≤ pos``, the window), keeps float32 partials, and
+    :func:`_combine` joins the ranks.  Each rank then keeps its own
+    columns of the flat head×dim axis for the row-parallel ``wo``."""
+    L, b, s, _ = x.shape
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dev = x.device
+    q, k, v = _qkv_placed(params, P.copy_model(x, ranks), cfg)
+    q = P.gather(q, ranks, P.MODEL_TIER, 2)                                   # (L, b, 1, h·hd)
+    kvn = P.gather(torch.stack([k, v], dim=3), ranks, P.MODEL_TIER, 3)        # (L, b, 1, 2, kv·hd)
+    cos, sin = _angles(cfg, positions.reshape(L * b, s), theta)
+    q = R.apply_rope(_split_heads(q.reshape(L * b, s, -1), h, hd), cos, sin)
+    k = R.apply_rope(_split_heads(kvn[:, :, :, 0].reshape(L * b, s, -1), kv, hd), cos, sin)
+    v = _split_heads(kvn[:, :, :, 1].reshape(L * b, s, -1), kv, hd)
+
+    ck, cv = cache["k"], cache["v"]
+    tm = ck.shape[2]
+    length = tm * ranks.model
+    pos = cache["pos"].to(torch.int64)                                        # (L, b)
+    first = (ranks.mrank * tm)[:, None]                                       # (L, 1)
+    local = pos - first
+    inside = ((local >= 0) & (local < tm))[..., None, None]
+    at = (torch.arange(L, device=dev)[:, None].expand(L, b), torch.arange(b, device=dev)[None, :].expand(L, b),
+          local.clamp(0, tm - 1))
+    ck = ck.index_put(at, torch.where(inside, k.reshape(L, b, kv, hd).to(ck.dtype), ck[at]))
+    cv = cv.index_put(at, torch.where(inside, v.reshape(L, b, kv, hd).to(cv.dtype), cv[at]))
+
+    qg = q.reshape(L, b, kv, h // kv, hd).to(torch.float32)
+    scores = torch.einsum("lbkgd,lbtkd->lbkgt", qg, ck.to(torch.float32)) / np.sqrt(hd)
+    j = first + torch.arange(tm, device=dev)[None, :]                         # (L, T/M) global index
+    live = j[:, None, :] <= pos[:, :, None]                                   # (L, b, T/M)
+    if window > 0:
+        live &= j[:, None, :] > pos[:, :, None] - window
+    scores = torch.where(live[:, :, None, None, :], scores, -1e30)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    acc = torch.einsum("lbkgt,lbtkd->lbkgd", p, cv.to(torch.float32))
+    out = _combine(m, p.sum(dim=-1, keepdim=True), acc, ranks).reshape(L, b, s, h * hd).to(x.dtype)
+    y = P.psum_model(P.mm(P.pick_model(out, ranks), params["wo"]), ranks)
+    return y, {"k": ck, "v": cv, "pos": _advance(cache["pos"], length)}
 
 
 def cross_attention(

@@ -146,10 +146,10 @@ def _period_apply(block_params, x, cfg: ModelConfig, *, positions, layout=None, 
     return x, new_caches, drops
 
 
-def _stack(trees):
+def _stack(trees, dim: int = 0):
     if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+        return {k: _stack([t[k] for t in trees], dim) for k in trees[0]}
+    return torch.stack(trees, dim=dim)
 
 
 def _as_tree(params):
@@ -228,33 +228,47 @@ def forward(
 
 # ----------------------------------------------------------------- placed
 
-def apply_layer_placed(params, x, cfg: ModelConfig, kind: str, ranks):
-    """:func:`apply_layer`'s parallel pass for a dense layer on every local
-    rank (``models.parallel``): x ``(L, b, S, D)``, the norms' gains ``(L,
-    D)`` whole, attention and MLP tensor-parallel over ``model``."""
+def apply_layer_placed(params, x, cfg: ModelConfig, kind: str, ranks, *, positions=None, cache=None):
+    """:func:`apply_layer` for a dense layer on every local rank
+    (``models.parallel``): x ``(L, b, S, D)``, the norms' gains ``(L, D)``
+    whole, attention and MLP tensor-parallel over ``model``; with
+    ``cache`` (a rank's blocks, the sequence split over ``model``) one
+    decode step at ``positions`` ``(L, b, 1)``.  Returns ``(x,
+    new_cache)``."""
     gain = lambda g: g[:, None, None, :]
     h = rmsnorm(x, gain(params["ln1"]))
     window = cfg.window if kind == "local" else 0
-    x = x + A.self_attention_placed(params["attn"], h, cfg, ranks, window=window, theta=_theta_for(cfg, kind))
+    y, new_cache = A.self_attention_placed(params["attn"], h, cfg, ranks, window=window,
+                                           theta=_theta_for(cfg, kind), cache=cache, positions=positions)
+    x = x + y
     h = rmsnorm(x, gain(params["ln2"]))
     mlp = params["mlp"]
-    return x + glu_mlp_placed(h, mlp["wi"], mlp["wg"], mlp["wo"], cfg.act, ranks)
+    return x + glu_mlp_placed(h, mlp["wi"], mlp["wg"], mlp["wo"], cfg.act, ranks), new_cache
 
 
-def _period_placed(block_params, x, cfg: ModelConfig, ranks):
+def _period_placed(block_params, x, cfg: ModelConfig, ranks, caches=None, positions=None):
+    new_caches = {}
     for j, kind in enumerate(cfg.pattern):
-        x = apply_layer_placed(block_params[f"k{j}_{kind}"], x, cfg, kind, ranks)
-    return x
+        key = f"k{j}_{kind}"
+        x, nc = apply_layer_placed(block_params[key], x, cfg, kind, ranks, positions=positions,
+                                   cache=None if caches is None else caches[key])
+        if nc is not None:
+            new_caches[key] = nc
+    return x, new_caches
 
 
-def forward_placed(params, tokens, cfg: ModelConfig, ranks):
-    """:func:`forward`'s parallel pass (no caches) on every local rank of a
-    placement, the dense family only.  ``params``: every leaf whole over
-    ``data`` (``launch.placement.Placement.unshard``), ``(L, *block)``;
-    ``tokens`` ``(L, b, S)``, each rank's data group's rows.  The
-    embedding over a vocabulary split over ``model`` is a masked lookup
+def forward_placed(params, tokens, cfg: ModelConfig, ranks, *, caches=None, positions=None):
+    """:func:`forward` on every local rank of a placement, the dense family
+    only.  ``params``: every leaf whole over ``data`` (``launch.placement.
+    Placement.unshard``; a serve placement's already are), ``(L,
+    *block)``; ``tokens`` ``(L, b, S)``, each rank's data group's rows.
+    The embedding over a vocabulary split over ``model`` is a masked lookup
     and a ``psum``; the logits stay split: ``(L, b, S, V/model)``, rank
-    m's columns ``[m·V/model, …)``."""
+    m's columns ``[m·V/model, …)``.  ``caches=None``: the parallel pass,
+    returns the logits.  Else one decode step (S == 1) at ``positions``
+    ``(L, b, 1)`` on the rank blocks of the caches (``launch.placement.
+    cache_placement``: a stacked leaf ``(L, n_blocks, …)``, layer i its
+    ``[:, i]``): returns ``(logits, new_caches)``."""
     L = tokens.shape[0]
     embed = params["embed"]  # (L, V/model, D)
     vm = embed.shape[1]
@@ -268,17 +282,31 @@ def forward_placed(params, tokens, cfg: ModelConfig, ranks):
 
     n_blocks = cfg.num_layers // len(cfg.pattern)
     run = _period_placed
-    if cfg.remat and torch.is_grad_enabled():
+    if cfg.remat and caches is None and torch.is_grad_enabled():
         run = functools.partial(checkpoint, _period_placed, use_reentrant=False)
+    per_block = []
     for i in range(n_blocks):
-        x = run({key: tree_map(lambda a: a[:, i], blk) for key, blk in params["blocks"].items()}, x, cfg, ranks)
+        block_caches = None if caches is None else {k: tree_map(lambda a: a[:, i], c)
+                                                    for k, c in caches["blocks"].items()}
+        x, nc = run({key: tree_map(lambda a: a[:, i], blk) for key, blk in params["blocks"].items()}, x, cfg, ranks,
+                    block_caches, positions)
+        per_block.append(nc)
+    new_tail = {}
     for j in range(cfg.num_layers % len(cfg.pattern)):
         kind = cfg.pattern[j]
-        x = apply_layer_placed(params["tail"][f"k{j}_{kind}"], x, cfg, kind, ranks)
+        key = f"k{j}_{kind}"
+        x, nc = apply_layer_placed(params["tail"][key], x, cfg, kind, ranks, positions=positions,
+                                   cache=None if caches is None else caches["tail"][key])
+        if nc is not None:
+            new_tail[key] = nc
 
     x = P.copy_model(rmsnorm(x, params["final_ln"][:, None, None, :]), ranks)
     head = embed.transpose(1, 2) if cfg.tie_embeddings else params["lm_head"]
-    return P.mm(x, head.to(x.dtype))
+    logits = P.mm(x, head.to(x.dtype))
+    if caches is None:
+        return logits
+    blocks = _stack(per_block, 1) if per_block else caches["blocks"]
+    return logits, {"blocks": blocks, "tail": new_tail}
 
 
 # ----------------------------------------------------------------- caches
