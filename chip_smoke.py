@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all started together, linked into one library under
-``build/``) and runs twenty-three phases on ``cuda:0``:
+``build/``) and runs twenty-four phases on ``cuda:0``:
 
   1. kernels     — all ten kernels (K1 gather_rows, K2 unmarshal, K3
                    pack_and_histogram, K4 rank_and_histogram, K5
@@ -373,7 +373,31 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    of one bit-equal; at 2 layers in float32 the placed
                    decode within 1/16 of the bfloat16 distance over
                    steps that cross every model rank's block; no kernel;
- 23. report      — one JSON line of the kernels (launches on the paths that
+ 23. moe_shard   — the MoE family on placed parameters
+                   (``launch.placement`` for ``kind="moe"``):
+                   llama4-scout-17b-16e at full width, bf16, ``rafi_ep``
+                   (each model rank its own E/model experts); 4 of 48
+                   layers serve-placed on (1, 8) stacked, phase lm's
+                   model and layout: the blocks equal to the chunks the
+                   rule names, bit for bit, their bytes
+                   ``specs.device_bytes``; ``BatchedEngine`` on the
+                   placed parameters answering phase lm's 16 requests
+                   beside the unsharded engine: event medians, device ms
+                   by part (attention, expert GEMMs, the two rounds, the
+                   collectives), calls a step by kind and tier with their
+                   bytes, K6/K3/K1/K2 two rounds a layer a step on the
+                   path ``moe_shard``, drops a step, peak GiB; the placed
+                   decode's first dispatch round against the CPU's, bit
+                   for bit; 1 of 48 layers, ``fsdp``, train-placed on
+                   (2, 4), batch 8 × 512 in 4 microbatches, 3 steps: the
+                   blocks and AdamW moments, losses finite, the router,
+                   experts and ``ln2`` decayed alone with ``m`` and ``v``
+                   zero, event median, device ms and peak beside the
+                   unsharded step's; float32 at 1 layer, the placed
+                   decode within 1/16 of the bfloat16 distance, drops
+                   equal; both smoke configs under both planes placed,
+                   card against CPU;
+ 24. report      — one JSON line of the kernels (launches on the paths that
                    run them, errors, bounds; ``ms``, ``plain_ms`` and
                    ``library_ms`` are device times, ``call_ms`` the event
                    pair's; device events a call), the card's name and
@@ -465,7 +489,8 @@ RAGGED_PATHS = tuple(
 ROUND_PATHS = (LOSSLESS_PATHS + TELEMETRY_PATHS + PIPELINE_PATHS + CREDIT_PATHS + BALANCE_PATHS + RECOVERY_PATHS
                + OBS_PATHS + RAGGED_PATHS)
 APP_PATHS = ("streamlines", "nbody", "lander", "schlieren")  # the sort-marshal apps: K3, K1, K2, K6
-LM_PATHS = ("lm_serve", "lm_prefill", "lm_train")  # the MoE dispatch rounds of the LM paths: K6, K3, K1, K2
+# the MoE dispatch rounds of the LM paths (phase moe_shard's on placed parameters): K6, K3, K1, K2
+LM_PATHS = ("lm_serve", "lm_prefill", "lm_train", "moe_shard")
 # every run on the torch.distributed backend (NCCL, a world of one): phase
 # dist's round, streamlines and N-body; phase dist_paths' drives, tuner,
 # phases, apps and LM steps
@@ -3673,20 +3698,25 @@ def _lm_kernel_rows(route, label, timer, dtimer):
     return rows
 
 
-def _lm_step_split(step, params, token, caches, calls=3):
+def _lm_step_split(step, params, token, caches, calls=3, comm=None):
     """Device time of one decode step by part, from ``torch.profiler``:
-    the attention layers, the expert GEMMs (``moe._expert_ffn``), the two
-    forwarding rounds, and K1, K2, K3, K6 by kernel; each part's kernels
-    are found through a ``record_function`` range around it."""
+    the attention layers (whole or placed), the expert GEMMs
+    (``moe._expert_ffn``), the two forwarding rounds, with ``comm`` the
+    ``psum`` and ``all_gather`` calls of that backend (the tensor-parallel
+    collectives, the combine's gather, and the rounds' count ``psum``s),
+    and K1, K2, K3, K6 by kernel; each part's kernels are found through a
+    ``record_function`` range around it."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.models import attention as A
     from repro_torch.models import moe as M
 
-    parts = {"attention": (A, "self_attention"), "expert_ffn": (M, "_expert_ffn"),
-             "dispatch_round": (M, "rafi_ep_dispatch"), "return_round": (M, "rafi_ep_return")}
-    orig = {k: getattr(m, n) for k, (m, n) in parts.items()}
+    parts = {"attention": [(A, "self_attention"), (A, "self_attention_placed")], "expert_ffn": [(M, "_expert_ffn")],
+             "dispatch_round": [(M, "rafi_ep_dispatch")], "return_round": [(M, "rafi_ep_return")]}
+    if comm is not None:
+        parts["collectives"] = [(comm, "psum"), (comm, "all_gather")]
+    orig = [(m, n, getattr(m, n)) for targets in parts.values() for m, n in targets]
 
     def ranged(name, fn):
         def w(*a, **kw):
@@ -3694,8 +3724,9 @@ def _lm_step_split(step, params, token, caches, calls=3):
                 return fn(*a, **kw)
         return w
 
-    for k, (m, n) in parts.items():
-        setattr(m, n, ranged(k, orig[k]))
+    for k, targets in parts.items():
+        for m, n in targets:
+            setattr(m, n, ranged(k, getattr(m, n)))
     try:
         step(params, token, caches)
         torch.cuda.synchronize()
@@ -3704,8 +3735,11 @@ def _lm_step_split(step, params, token, caches, calls=3):
                 step(params, token, caches)
             torch.cuda.synchronize()
     finally:
-        for k, (m, n) in parts.items():
-            setattr(m, n, orig[k])
+        for m, n, f in orig:
+            if m is comm:
+                delattr(m, n)
+            else:
+                setattr(m, n, f)
     dev_us = lambda e: getattr(e, "device_time_total", 0.0) or getattr(e, "cuda_time_total", 0.0)
     avgs = prof.key_averages()
     split = {k: None for k in parts}
@@ -6239,6 +6273,380 @@ def phase_serve_shard(dev, ARCH="qwen2-7b", LAYERS=4, CHECK_LAYERS=2, LAYOUT=(2,
     return out, {"serve_shard": launches}
 
 
+MOE_SHARD_TOL_SMOKE = 1e-4  # (d): the float32 smoke configs' placed train step, card against CPU
+
+
+def _decayed(b16, steps, opt_cfg):
+    """A bfloat16 leaf after ``steps`` AdamW updates of zero gradient, in
+    the update's own float32 operations: weight decay alone at each
+    step's learning rate, rounded to bfloat16 after each."""
+    import torch
+
+    p = b16
+    for t in range(1, steps + 1):
+        warm = torch.clamp(torch.tensor(float(t), device=p.device) / max(opt_cfg.warmup_steps, 1), max=1.0)
+        lr = warm * opt_cfg.lr
+        b32 = p.to(torch.float32)
+        p = (b32 - (b32 * opt_cfg.weight_decay) * lr).to(p.dtype)
+    return p
+
+
+def _moe_smoke_card_cpu(dev, arch, batch, seed=33):
+    """(d): ``arch``'s float32 smoke config with ``fsdp``, placed on (2, 4)
+    under each plane on the card and on the CPU from one CPU draw: one
+    placed train step's loss, and the drops of the placed forward on its
+    batch, ``{where: {plane: (loss, drops)}}``."""
+    import copy
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import placement as PL
+    from repro_torch.launch.mesh import Layout
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import api as API
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = dc.replace(get_smoke_config(arch), fsdp=True)
+    out = {}
+    lm_cpu = build_model(cfg).init(torch.Generator().manual_seed(seed), device="cpu")
+    tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size, batch).astype(np.int32)
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        res = {}
+        for name in ("rafi_ep", "dense_tp"):
+            c = dc.replace(cfg, moe_dispatch=name)
+            model = build_model(c)
+            pl = PL.train_placement(model, Layout(2, 4))
+            params = pl.place(copy.deepcopy(lm_cpu).to(d))
+            ranks = pl.ranks(d)
+            tok = torch.from_numpy(tokens).to(d)
+            with torch.no_grad():
+                drops = int(TF.forward_placed(pl.unshard(params, ranks), API._group_rows(tok, ranks), c, ranks)[2])
+            opt_cfg = AdamWConfig(warmup_steps=2)
+            met = build_train_step(model, None, opt_cfg)(params, adamw_init(params, opt_cfg), {"tokens": tokens})[2]
+            res[name] = (float(met["loss"]), drops)
+        out[where] = res
+    return out
+
+
+def phase_moe_shard(dev, LAYERS=4, TRAIN_LAYERS=1, CHECK_LAYERS=1, SERVE_LAYOUT=(1, 8), TRAIN_LAYOUT=(2, 4),
+                    SLOTS=16, MAX_LEN=128, N_REQ=16, PROMPT=(8, 48), NEW=(8, 24), BATCH=(8, 512), TRAIN_STEPS=3,
+                    CHECK_STEPS=16, SMOKE_BATCH=(8, 16), widths=None, profile=True, reps=3):
+    """The MoE family on placed parameters (``launch.placement``:
+    ``rafi_ep``'s experts split over ``model``, E/model a rank; the router
+    and the norms whole): llama4-scout-17b-16e at full width in bfloat16
+    with its config's ``rafi_ep``, stacked in one process.  (a) Every
+    rank's block of every parameter (and of AdamW's moments under the
+    train placement) equals bit for bit the chunk of the whole leaf the
+    rule names, a rank's bytes ``specs.device_bytes``.  (b) Serving at
+    ``LAYERS`` layers (phase lm's model and seed) serve-placed on
+    ``SERVE_LAYOUT``, phase lm's layout, where each rank's 2 experts are
+    the bytes the unsharded engine reads for it: ``BatchedEngine`` on the
+    placed parameters answers phase lm's ``N_REQ`` requests beside the
+    unsharded engine on the same weights: event median a step, one step's
+    device ms by part (attention, the expert GEMMs, the two rounds, the
+    backend's ``psum``/``all_gather`` calls; ``_lm_step_split``), calls a
+    step by kind and tier with their bytes (two rounds a layer: four
+    ``all_to_all``), K6, K3, K1 and K2 launched two rounds a layer a step
+    on the path ``moe_shard``, drops a step, peak GiB.  (c) Training at
+    ``TRAIN_LAYERS`` layer(s), ``fsdp``, train-placed on ``TRAIN_LAYOUT``,
+    ``BATCH`` in the config's 4 microbatches, ``TRAIN_STEPS`` AdamW steps:
+    losses finite, the router, the experts and ``ln2`` (no gradient under
+    ``rafi_ep``) updated by weight decay alone, bit for bit, their ``m``
+    and ``v`` zero; event median, device ms by part and peak GiB beside
+    the unsharded step's on the same weights (freed in turn: the two
+    AdamW states do not fit together).  (d) float32: at ``CHECK_LAYERS``
+    layer(s), teacher-forced over ``CHECK_STEPS`` steps from seeded
+    caches, the placed decode against the unsharded one on
+    ``SERVE_LAYOUT``: logits within 1/``FAM_F32_GAIN`` of the bfloat16
+    model's distance from the unsharded float32 step's, drops equal each
+    step; both smoke configs under both planes placed on (2, 4), the card
+    against the CPU from one draw: a placed train step's loss within
+    ``MOE_SHARD_TOL_SMOKE`` and the placed forward's drops equal.  (e) The
+    queue one placed MoE layer's first round delivers at the decode shape
+    equals the same round on the CPU through the plain versions, bit for
+    bit.  ``widths`` narrows the configs for a rehearsal on the CPU."""
+    import dataclasses as dc
+    import gc
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as KN
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import placement as PL
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import Layout
+    from repro_torch.launch.serve import BatchedEngine
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import moe as M
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    full = get_config(LM_ARCH)
+    out, paths = {}, {}
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    def peak_reset():
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def peak():
+        return torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else None
+
+    def rank_bytes(tree, R):
+        return [sum(t[r].numel() * t.element_size() for t in _leaf_items(tree).values()) for r in range(R)]
+
+    def rule_bytes(pl, dtype):
+        return sum(S.device_bytes(torch.empty(pl.shapes[k], dtype=dtype, device="meta"), spec, pl.axes)
+                   for k, spec in pl.specs.items())
+
+    def calls_and_bytes(comm, steps):
+        calls = {k: v / steps for k, v in _call_counts(comm).items()}
+        nbytes = {}
+        for c, n in comm.calls.items():
+            key = c.kind if c.tier is None else f"{c.kind}{c.tier}"
+            nbytes[key] = nbytes.get(key, 0) + c.nbytes * n / steps
+        return calls, nbytes
+
+    free()
+    # (a), (b) serving: phase lm's model, serve-placed on SERVE_LAYOUT
+    cfg = dc.replace(full, num_layers=LAYERS, **(widths or {}))
+    model = build_model(cfg)
+    label = f"{cfg.name} at {LAYERS} of {full.num_layers} layers, {cfg.moe_dispatch}"
+    lm = model.init(torch.Generator(device=dev).manual_seed(2323), device=dev)
+    sp = PL.serve_placement(model, Layout(*SERVE_LAYOUT))
+    params = sp.place(lm)
+    bad = _blocks_match(params, lm.tree(), sp)
+    rule, R = rule_bytes(sp, cfg.torch_dtype), SERVE_LAYOUT[0] * SERVE_LAYOUT[1]
+    sizes = rank_bytes(params, R)
+    wi = sp.specs[("blocks", "k0_moe", "moe", "wi")]
+    serve = {"layout": SERVE_LAYOUT, "param_bytes_per_rank": sizes,
+             "param_bytes_whole": sum(t.numel() * t.element_size() for t in lm.parameters()),
+             "experts_per_rank": cfg.num_experts // SERVE_LAYOUT[1], "wi_spec": wi}
+    check(not bad and set(sizes) == {rule} and wi[1] == S.MODEL,
+          f"(a) {label}, serve placement on {SERVE_LAYOUT}: every rank's block of the {len(sp.specs)} parameter "
+          f"leaves == the chunk the rule names, bit for bit (mismatched: {bad}), the experts over model {wi}; "
+          f"{sizes[0]} B a rank == specs.device_bytes {rule} (whole {serve['param_bytes_whole']} B)")
+
+    requests = _lm_requests(cfg.vocab_size, N_REQ, PROMPT, NEW)
+    first = torch.zeros((SLOTS, 1), dtype=torch.int32, device=dev)
+    engines = {}
+    for name, p, lay in (("placed", params, None), ("whole", lm, Layout(*SERVE_LAYOUT))):
+        engine = BatchedEngine(model, p, slots=SLOTS, max_len=MAX_LEN, layout=lay, device=dev)
+        rec = _StepRecorder(engine)
+        caches0 = (engine.cache_placement.zeros(dev) if name == "placed"
+                   else model.init_caches(SLOTS, MAX_LEN, device=dev))
+        engine._step(p, first, caches0)  # warm-up: first-use costs
+        sp.comm.reset()
+        KN.reset_launch_counts()
+        peak_reset()
+        sync()
+        t0 = time.perf_counter()
+        served = engine.run(requests)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = KN.launch_counts()
+        step_ms = [a.elapsed_time(b) for a, b in rec.events] if cuda else []
+        drops = [int(d) for d in engine.step_drops]
+        r = {"steps": engine.steps, "tokens": sum(map(len, served.values())), "wall_s": wall,
+             "step_ms_median": statistics.median(step_ms) if step_ms else None, "drops_per_step": drops,
+             "drops_total": sum(drops), "peak_gib": peak()}
+        check(all(len(served[q.rid]) == q.max_new_tokens for q in requests),
+              f"(b) the {name} engine answers all {N_REQ} requests with their max_new_tokens ({r['tokens']} tokens "
+              f"in {r['steps']} steps)")
+        if name == "placed":
+            paths["moe_shard"] = launches
+            r["calls_per_step"], r["call_bytes_per_step"] = calls_and_bytes(sp.comm, engine.steps)
+            check(r["calls_per_step"].get("all_to_all") == 4 * LAYERS,
+                  f"(b) the placed step's rounds: {r['calls_per_step'].get('all_to_all')} all_to_all a step == two "
+                  f"rounds of a payload and a count call a layer ({4 * LAYERS}); calls {r['calls_per_step']}")
+            if cuda:
+                r["launches_per_step"] = {k: launches[k] / engine.steps for k in LM_KERNELS}
+                check(all(launches[k] == 2 * LAYERS * engine.steps for k in LM_KERNELS)
+                      and not any(v for k, v in launches.items() if k not in LM_KERNELS),
+                      f"(b) path moe_shard: K6, K3, K1, K2 launched two rounds a layer a step "
+                      f"({2 * LAYERS} a step, {engine.steps} steps), no other kernel: {launches}")
+        if cuda:
+            c = engine.cache_placement.zeros(dev) if name == "placed" else model.init_caches(SLOTS, MAX_LEN,
+                                                                                               device=dev)
+            r["peak_gib_above_held"] = _peak_above_held(lambda: engine._step(p, rec.tokens[-1], c), dev)
+            if profile:
+                r["split"] = _lm_step_split(engine._step, p, rec.tokens[-1], c,
+                                            comm=sp.comm if name == "placed" else None)
+            del c
+        engines[name] = (r, served, rec)
+        serve[f"{name}_engine"] = r
+    del engine, p, rec, caches0  # the loop's last engine holds the whole tree
+    agree = sum(a == b for q in requests for a, b in zip(engines["placed"][1][q.rid], engines["whole"][1][q.rid]))
+    serve["engine_tokens_agree"] = (agree, sum(q.max_new_tokens for q in requests))
+    print(f"  (b) engines: placed {serve['placed_engine']}, whole {serve['whole_engine']}; tokens equal "
+          f"{agree} of {serve['engine_tokens_agree'][1]} (bfloat16)", flush=True)
+
+    # (e) the first round of one placed MoE layer at the decode shape, card against CPU
+    with _FirstRoute() as fr:
+        model.decode_fn()(params, engines["placed"][2].tokens[0],
+                          PL.cache_placement(model, Layout(*SERVE_LAYOUT), SLOTS, MAX_LEN).zeros(dev))
+    route = fr.route
+    W = route.items.h.shape[-1] * route.items.h.element_size() // 4 + 4
+    check(route.ranked and _same_delivered(M.rafi_ep_dispatch(route), M.rafi_ep_dispatch(route.to("cpu"))),
+          f"(e) the placed decode's first dispatch round (R={route.fcfg.num_ranks}, C={route.fcfg.capacity}, "
+          f"S={route.fcfg.peer_capacity}, W={W} words, rank-stacked rows): the delivered queue == the CPU's, bit "
+          f"for bit")
+    out["serve"] = serve
+    del params, lm, engines, route, fr
+    free()
+
+    # (a), (c) training: TRAIN_LAYERS layer(s), fsdp, train-placed on TRAIN_LAYOUT
+    opt_cfg = AdamWConfig(warmup_steps=20)
+    cfg_t = dc.replace(full, num_layers=TRAIN_LAYERS, **(widths or {}))
+    model_t = build_model(cfg_t)
+    b, s = BATCH
+    batch = SyntheticLM(cfg_t.vocab_size, s, b).batch_at(0)
+    step = build_train_step(model_t, None, opt_cfg)
+    pl = PL.train_placement(model_t, Layout(*TRAIN_LAYOUT))
+    lm = model_t.init(torch.Generator(device=dev).manual_seed(2424), device=dev)
+    params = pl.place(lm)
+    bad = _blocks_match(params, lm.tree(), pl)
+    rule, R = rule_bytes(pl, cfg_t.torch_dtype), TRAIN_LAYOUT[0] * TRAIN_LAYOUT[1]
+    sizes = rank_bytes(params, R)
+    wi = pl.specs[("blocks", "k0_moe", "moe", "wi")]
+    label_t = f"{cfg_t.name} at {TRAIN_LAYERS} of {full.num_layers} layers, fsdp, {TRAIN_LAYOUT}"
+    train = {"layout": TRAIN_LAYOUT, "batch": BATCH, "microbatches": cfg_t.microbatches, "wi_spec": wi,
+             "param_bytes_per_rank": sizes}
+    check(not bad and set(sizes) == {rule},
+          f"(a) {label_t}: every rank's block of the {len(pl.specs)} parameter leaves == the chunk the train rule "
+          f"names, bit for bit (mismatched: {bad}); the experts {wi}; {sizes[0]} B a rank == specs.device_bytes "
+          f"{rule}")
+    del lm
+    free()
+    dead = [p for p in pl.paths if p[-2:-1] == ("moe",) or p[-1] == "ln2"]
+    sample = lambda t: t.reshape(t.shape[0], -1)[:, :4096].clone()
+    before = {p: sample(_tree_paths(params)[".".join(p)]) for p in dead}
+    opt = adamw_init(params, opt_cfg)
+    pl.comm.reset()
+    peak_reset()
+    ev, losses, gnorms = [], [], []
+    for _ in range(TRAIN_STEPS):
+        if cuda:
+            e = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            e[0].record()
+        met = step(params, opt, batch)[2]
+        if cuda:
+            e[1].record()
+            ev.append(e)
+        losses.append(float(met["loss"]))
+        gnorms.append(float(met["gnorm"]))
+    train["calls_per_step"], train["call_bytes_per_step"] = calls_and_bytes(pl.comm, TRAIN_STEPS)
+    ms = [a.elapsed_time(z) for a, z in ev] if cuda else []
+    placed_t = {"losses": losses, "gnorms": gnorms, "peak_gib": peak(),
+                "step_ms": ms, "step_ms_median": statistics.median(ms[1:]) if len(ms) > 1 else None}
+    check(all(map(math.isfinite, losses + gnorms)),
+          f"(c) {label_t}, batch {b} x {s}, {cfg_t.microbatches} microbatches: {TRAIN_STEPS} placed steps, losses "
+          f"{[round(l, 4) for l in losses]} and gnorms {[round(g, 4) for g in gnorms]} finite")
+    now = _tree_paths(params)
+    m_, v_ = _tree_paths(opt["m"]), _tree_paths(opt["v"])
+    ulps = max(int((sample(now[".".join(p)]).view(torch.int16).to(torch.int32)
+                    - _decayed(before[p], TRAIN_STEPS, opt_cfg).view(torch.int16).to(torch.int32)).abs().max())
+               for p in dead)
+    zero = not any(bool(m_[".".join(p)].any()) or bool(v_[".".join(p)].any()) for p in dead)
+    placed_t["decay_only_max_ulp"] = ulps
+    check(len(dead) == 5 and ulps == 0 and zero,
+          f"(c) {label_t}: {', '.join(p[-1] for p in dead)} (no gradient under rafi_ep) updated by weight decay "
+          f"alone, bit for bit on {4096} sampled elements a rank (max {ulps} ulp), m and v zero: {zero}")
+    bad = [f"{k}.{p}" for k in ("m", "v") for p in _blocks_match(opt[k], pl.gather(opt[k]), pl)]
+    check(not bad, f"(a) {label_t}: every rank's block of AdamW's m and v == the chunk of the gathered leaf, bit for "
+                   f"bit (mismatched: {bad})")
+    if cuda and profile:
+        placed_t["device_split_ms"] = _step_device_ms(step, params, opt, batch)
+        placed_t["top_events"] = _top_events(lambda: step(params, opt, batch), n=16)
+    train["placed"] = placed_t
+    del params, opt, before, now, m_, v_
+    free()
+    # the unsharded step on the same weights (the rafi_ep plane on the same layout)
+    lm = model_t.init(torch.Generator(device=dev).manual_seed(2424), device=dev)
+    wstep = build_train_step(model_t, Layout(*TRAIN_LAYOUT), opt_cfg)
+    opt = adamw_init(lm, opt_cfg)
+    peak_reset()
+    ev, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        if cuda:
+            e = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            e[0].record()
+        met = wstep(lm, opt, batch)[2]
+        if cuda:
+            e[1].record()
+            ev.append(e)
+        losses.append(float(met["loss"]))
+    ms = [a.elapsed_time(z) for a, z in ev] if cuda else []
+    whole_t = {"losses": losses, "peak_gib": peak(), "step_ms": ms,
+               "step_ms_median": statistics.median(ms[1:]) if len(ms) > 1 else None}
+    if cuda and profile:
+        whole_t["device_split_ms"] = _step_device_ms(wstep, lm, opt, batch)
+        whole_t["top_events"] = _top_events(lambda: wstep(lm, opt, batch), n=16)
+    train["whole"] = whole_t
+    out["train"] = train
+    print(f"  (c) train: placed {placed_t}; whole {whole_t}", flush=True)
+    del lm, opt
+    free()
+
+    # (d) float32 at CHECK_LAYERS layer(s): the placed decode against the unsharded one, teacher-forced
+    cfg_c = dc.replace(full, num_layers=CHECK_LAYERS, dtype="float32", **(widths or {}))
+    model_c, model_b = build_model(cfg_c), build_model(dc.replace(cfg_c, dtype="bfloat16"))
+    lm32 = model_c.init(torch.Generator(device=dev).manual_seed(2525), device=dev)
+    lay = Layout(*SERVE_LAYOUT)
+    p32 = PL.serve_placement(model_c, lay).place(lm32)
+    w16 = _cast_tree(lm32.tree(), torch.bfloat16)
+    cpc = PL.cache_placement(model_c, lay, SLOTS, MAX_LEN)
+    depths = [(q * (MAX_LEN - CHECK_STEPS)) // SLOTS for q in range(SLOTS)]
+    c16 = _seeded_caches(model_b, SLOTS, MAX_LEN, depths, 2526, dev)
+    runs = {"placed": [p32, cpc.place(_cast_tree(c16, torch.float32)), model_c.decode_fn(drops=True)],
+            "whole": [lm32, _cast_tree(c16, torch.float32), model_c.decode_fn(lay, drops=True)],
+            "bf16": [w16, c16, model_b.decode_fn(lay, drops=True)]}
+    gen = np.random.default_rng(2527)
+    d_placed = d_bf16 = 0.0
+    drops = {k: [] for k in runs}
+    for _ in range(CHECK_STEPS):
+        tok = torch.from_numpy(gen.integers(0, cfg_c.vocab_size, (SLOTS, 1)).astype(np.int32)).to(dev)
+        lg = {}
+        for name, run in runs.items():
+            lg[name], run[1], dd = run[2](run[0], tok, run[1])
+            drops[name].append(int(dd))
+        d_placed = max(d_placed, float((lg["placed"] - lg["whole"]).abs().max()))
+        d_bf16 = max(d_bf16, float((lg["bf16"].float() - lg["whole"]).abs().max()))
+    out["float32_check"] = {"placed_vs_whole": d_placed, "bf16_vs_f32": d_bf16, "drops": drops}
+    check(d_placed <= d_bf16 / FAM_F32_GAIN and drops["placed"] == drops["whole"],
+          f"(d) {cfg_c.name} at {CHECK_LAYERS} layer(s) in float32 on {SERVE_LAYOUT}, {CHECK_STEPS} teacher-forced "
+          f"steps: max |placed - unsharded| {d_placed:.4g} <= 1/{FAM_F32_GAIN:g} of the bfloat16 model's distance "
+          f"{d_bf16:.4g}; drops a step equal {drops['placed']} == {drops['whole']}")
+    del runs, lm32, p32, w16, c16
+    free()
+    smoke = {a: _moe_smoke_card_cpu(dev, a, SMOKE_BATCH) for a in (LM_ARCH, "dbrx-132b")}
+    out["smoke"] = smoke
+    for a, r in smoke.items():
+        for plane in ("rafi_ep", "dense_tp"):
+            (lc, dc_), (lp, dp) = r["card"][plane], r["cpu"][plane]
+            check(abs(lc - lp) <= MOE_SHARD_TOL_SMOKE and dc_ == dp,
+                  f"(d) the {a} smoke config under {plane}, placed on (2, 4), one train step: the card's loss "
+                  f"{lc:.6f} within {MOE_SHARD_TOL_SMOKE} of the CPU's {lp:.6f}, drops {dc_} == {dp}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase moe_shard: {out['phase_s']:.1f} s", flush=True)
+    return out, paths
+
+
 def _nest(flat):
     """``{path: leaf}`` → the nested dict."""
     out = {}
@@ -6281,7 +6689,8 @@ def main() -> int:
            "ragged": lambda: phase_ragged(dev), "lm": lambda: phase_lm(dev), "train": lambda: phase_train(dev),
            "families": lambda: phase_families(dev), "dryrun": lambda: phase_dryrun(dev),
            "dist": lambda: phase_dist(dev), "dist_paths": lambda: phase_dist_paths(dev),
-           "shard": lambda: phase_shard(dev), "serve_shard": lambda: phase_serve_shard(dev)}
+           "shard": lambda: phase_shard(dev), "serve_shard": lambda: phase_serve_shard(dev),
+           "moe_shard": lambda: phase_moe_shard(dev)}
     kernels, paths = {}, {}  # paths: launches per path, counted from 0
     for title in run:
         print(f"# phase {title}", flush=True)
@@ -6296,7 +6705,8 @@ def main() -> int:
             kernels, more = res
             paths.update(more)
         elif title in ("lossless", "telemetry", "pipeline", "credit", "balance", "recovery", "obs", "apps2", "ragged",
-                       "lm", "train", "families", "dryrun", "dist", "dist_paths", "shard", "serve_shard"):
+                       "lm", "train", "families", "dryrun", "dist", "dist_paths", "shard", "serve_shard",
+                       "moe_shard"):
             record[title], more = res
             paths.update(more)
         elif title in ("streamlines", "vopat", "nbody"):

@@ -1,8 +1,8 @@
 """Serving and training on the port: the ``(data, model)`` rank layout, the
 batched decode engine, the step builders, the trainer and the dry run
 (counterpart of ``repro.launch``); ``specs``: the reference's partition
-rule; ``placement``: the dense family's train and serve state placed by
-it (``train_placement``, ``serve_placement``, ``cache_placement``, loaded
+rule; ``placement``: the dense and MoE families' train and serve state
+placed by it (``train_placement``, ``serve_placement``, ``cache_placement``, loaded
 on first use: ``placement`` imports the models, which import
 ``launch.mesh``); ``dist``: the ``torch.distributed`` world the
 distributed collective backend runs in."""

@@ -1,4 +1,4 @@
-"""The dense family's train and serve state placed on a layout's ranks
+"""The dense and MoE families' train and serve state placed on a layout's ranks
 (the port's counterpart of the shardings of ``repro.launch.steps``'
 ``build_train_step``, ``build_prefill_step`` and ``build_decode_step``,
 and of ``jax.device_put`` onto them).
@@ -39,9 +39,15 @@ nothing.  The decode caches (:func:`cache_placement`) are placed by
 slots over ``data`` and the sequence over ``model``, ``pos`` over
 ``data``; :meth:`Placement.zeros` makes them on the device already placed.
 
-Only the text-only dense family is placed here (``kind="dense"``, no
-vision frontend); the other families and the sequence-parallel layouts
-come later.
+The text-only dense and MoE families are placed here (``kind`` "dense"
+or "moe", no vision frontend).  An MoE's experts follow its dispatch
+plane, as the rule names them: under ``rafi_ep`` ``(E, D, F)`` split over
+``model`` on the expert dimension (each model rank owns E/model experts),
+under ``dense_tp`` every expert on every rank with d_ff split over
+``model``; the router is whole.  FSDP puts ``data`` on the layer stack of
+a stacked expert leaf, or on D where the stack does not divide.  The
+recurrent, rwkv and encoder-decoder families, the vision frontend and the
+sequence-parallel layouts come later (ROADMAP Queue 1 item 21c2).
 """
 from __future__ import annotations
 
@@ -245,11 +251,17 @@ class Placement:
         return ranks.comm.psum(local)
 
 
-def _dense_layout(model: Model, layout: Layout) -> Layout:
+_PLACED_KINDS = ("dense", "moe")
+
+
+def _placed_layout(model: Model, layout: Layout) -> Layout:
+    """``layout`` with its backend resolved, for a model of a placed
+    family (the text-only dense and MoE families)."""
     cfg = model.cfg
-    if cfg.kind != "dense" or cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: only the text-only dense family is placed (kind={cfg.kind!r}, "
-                                  f"frontend={cfg.frontend!r})")
+    if cfg.kind not in _PLACED_KINDS or cfg.frontend != "none":
+        raise NotImplementedError(f"{cfg.name}: only the text-only dense and MoE families are placed (kind="
+                                  f"{cfg.kind!r}, frontend={cfg.frontend!r}); the others are ROADMAP Queue 1 "
+                                  "item 21c2")
     return dataclasses.replace(layout, comm=backend(layout.comm))
 
 
@@ -257,9 +269,16 @@ def _axis_dims(spec: tuple, ax: str) -> List[int]:
     return [i for i, part in enumerate(spec) if ax in S.spec_axes(part)]
 
 
+def _what_model_splits(path: Tuple[str, ...], cfg) -> str:
+    """The dimension the rule puts ``model`` on, in words, for a refusal."""
+    if len(path) > 1 and path[-2] == "moe" and path[-1] != "router":
+        return f"the {cfg.num_experts} experts" if cfg.moe_dispatch == "rafi_ep" else f"d_ff ({cfg.d_ff})"
+    return "the dimension the rule names"
+
+
 def _param_placement(model: Model, layout: Layout, *, serve: bool) -> Placement:
     cfg = model.cfg
-    layout = _dense_layout(model, layout)
+    layout = _placed_layout(model, layout)
     axes = S.mesh_axes(layout.data, layout.model)
     specs, shapes = {}, {}
     for path, d in S.named_leaves(model.defs):
@@ -267,7 +286,8 @@ def _param_placement(model: Model, layout: Layout, *, serve: bool) -> Placement:
         spec = S.resolve_spec(d.shape, raw, axes)
         named, kept = _axis_dims(raw, S.MODEL), _axis_dims(spec, S.MODEL)
         if layout.model > 1 and named != kept:
-            raise ValueError(f"{'.'.join(path)} {d.shape}: the model axis moves from {named} to {kept} on {axes}")
+            raise ValueError(f"{'.'.join(path)} {d.shape}: the model axis ({layout.model}) does not divide "
+                             f"{_what_model_splits(path, cfg)} and moves from dimension {named} to {kept} on {axes}")
         specs[path], shapes[path] = spec, d.shape
     return Placement(layout, specs, shapes)
 
@@ -276,9 +296,11 @@ def train_placement(model: Model, layout: Layout) -> Placement:
     """The placement of ``model``'s train state on ``layout`` (its
     ``comm`` the backend: None stacked), as ``build_train_step``'s
     shardings place the reference's on the ``(data, model)`` mesh.
-    Raises for a model outside the text-only dense family, and where the
-    rule would move ``model`` off the dimension it names (no dense config
-    does on a layout of 8 ranks)."""
+    Raises for a model outside the text-only dense and MoE families, and
+    where the rule would move ``model`` off the dimension it names (no
+    dense config does on a layout of 8 ranks; an MoE's experts under
+    ``rafi_ep`` where ``model`` does not divide them, as the reference
+    asserts, and its d_ff under ``dense_tp``)."""
     return _param_placement(model, layout, serve=False)
 
 
@@ -303,7 +325,7 @@ def cache_placement(model: Model, layout: Layout, batch: int, max_len: int) -> P
     from repro_torch.launch.steps import abstract_caches
 
     cfg = model.cfg
-    layout = _dense_layout(model, layout)
+    layout = _placed_layout(model, layout)
     axes = S.mesh_axes(layout.data, layout.model)
     specs, shapes, dtypes = {}, {}, {}
     for path, a in S.named_leaves(abstract_caches(model, batch, max_len)):

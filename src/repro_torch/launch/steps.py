@@ -25,7 +25,11 @@ reference's scan slices it.  The gradients of a microbatch accumulate in
 the blocks (an FSDP leaf's ``reduce_scatter``'d over ``data`` in its
 gather's backward pass), a leaf replicated over ``data`` is ``psum``'d
 over it once, and AdamW updates each rank's blocks with the norm counted
-once over the world.  Whole parameters keep the unsharded step above.
+once over the world.  Under an MoE's ``rafi_ep`` plane the router, the
+experts and the norm that feeds them get no gradient (the plane carries
+none): their ``grad`` stays None through ``reduce`` and the norm, and
+AdamW decays them alone with their moments at zero, as the reference's
+zero gradients do.  Whole parameters keep the unsharded step above.
 ``build_prefill_step`` and ``build_decode_step`` return the model's
 ``prefill`` and ``decode`` functions as they are: the placement lives in
 the data here too.  Given serve-placed parameters

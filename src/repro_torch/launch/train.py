@@ -74,9 +74,10 @@ def train(
     rows (``launch.steps``), the replicas stay equal, process 0 alone
     writes the checkpoints and the others wait for it at a barrier.
 
-    ``place=True`` places the state on ``layout`` (the dense family only;
-    module docstring) and returns it placed (``launch.placement.Placed``
-    parameters, an AdamW state with placed moments).  It is not the
+    ``place=True`` places the state on ``layout`` (the text-only dense and
+    MoE families; module docstring) and returns it placed
+    (``launch.placement.Placed`` parameters, an AdamW state with placed
+    moments).  It is not the
     default: the data-parallel step's laws (a world of W processes equals
     W microbatches, one ``grad_all_reduce`` a step) hold for whole
     parameters only."""
@@ -158,7 +159,7 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None, help=f"default: {_default_ckpt_dir()}")
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--cpu", action="store_true", help="run on the CPU (plain PyTorch versions of the kernels)")
-    ap.add_argument("--place", action="store_true", help="place the state on the (2, 4) layout (dense family)")
+    ap.add_argument("--place", action="store_true", help="place the state on the (2, 4) layout (dense and MoE families)")
     args = ap.parse_args(argv)
     train(
         arch=args.arch, smoke=args.smoke, steps=args.steps, batch=args.batch,

@@ -20,7 +20,7 @@
 Parameters are ``nn.Module``s whose names follow the reference's tree paths
 (``blocks.k0_moe.attn.wq``); the layer functions are free functions over a
 nested dict of tensors, as in the reference.  R logical ranks run
-rank-stacked on one device (``launch.mesh.Layout``); the dense family's
-train state can be placed on them (``launch.placement``), and its
+rank-stacked on one device (``launch.mesh.Layout``); the dense and MoE
+families' state can be placed on them (``launch.placement``), and their
 ``*_placed`` layer functions run on each rank's blocks.
 """

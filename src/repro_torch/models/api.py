@@ -134,8 +134,8 @@ class Model:
 
         def step(params, token, caches):
             if getattr(params, "placement", None) is not None:
-                logits, new_caches, zero = placed_decode(params, token, caches, cfg)
-                return (logits, new_caches) + ((zero,) if drops else ())
+                logits, new_caches, moe_drops = placed_decode(params, token, caches, cfg)
+                return (logits, new_caches) + ((moe_drops,) if drops else ())
             pos0 = _first_cache_pos(caches, token.shape[0], token.device)
             positions = pos0[:, None].to(torch.int32)  # (B, 1) per-row depth
             with torch.no_grad():
@@ -164,7 +164,7 @@ def placed_loss(params, batch, cfg: ModelConfig) -> torch.Tensor:
     tokens = batch["tokens"]
     ranks = placement.ranks(tokens.device)
     tokens = _group_rows(tokens, ranks)
-    logits = TF.forward_placed(placement.unshard(params, ranks), tokens, cfg, ranks)
+    logits, _, _ = TF.forward_placed(placement.unshard(params, ranks), tokens, cfg, ranks)
     labels = _group_rows(batch["labels"], ranks) if "labels" in batch else tokens[:, :, 1:]
     if logits.shape[2] != labels.shape[2]:
         logits = logits[:, :, : labels.shape[2]]
@@ -194,7 +194,7 @@ def placed_prefill(params, batch, cfg: ModelConfig) -> torch.Tensor:
     tokens = batch["tokens"]
     ranks = placement.ranks(tokens.device)
     with torch.no_grad():
-        logits = TF.forward_placed(placement.unshard(params, ranks), _group_rows(tokens, ranks), cfg, ranks)
+        logits, _, _ = TF.forward_placed(placement.unshard(params, ranks), _group_rows(tokens, ranks), cfg, ranks)
         return _whole_logits(logits[:, :, -1], ranks)
 
 
@@ -203,17 +203,16 @@ def placed_decode(params, token, caches, cfg: ModelConfig):
     (``launch.placement.cache_placement``): the global token ``(B, 1)`` in
     every process, each rank its group's rows at their own depths (read
     from ``pos``).  Returns ``(logits (B, V)`` whole in every process, the
-    new caches placed, zero MoE drops)."""
+    new caches placed, the step's MoE drops summed over every rank)."""
     if getattr(caches, "placement", None) is None:
         raise ValueError("placed parameters decode on placed caches (launch.placement.cache_placement)")
     placement = params.placement
     ranks = placement.ranks(token.device)
     pos = _first_cache_pos(caches, 0, token.device, stacked=True)  # (L, b)
     with torch.no_grad():
-        logits, new = TF.forward_placed(placement.unshard(params, ranks), _group_rows(token, ranks), cfg, ranks,
-                                        caches=caches, positions=pos[..., None].to(torch.int32))
-        zero = torch.zeros((), dtype=torch.int32, device=token.device)
-        return _whole_logits(logits[:, :, -1], ranks), caches.like(new), zero
+        logits, new, moe_drops = TF.forward_placed(placement.unshard(params, ranks), _group_rows(token, ranks), cfg,
+                                                   ranks, caches=caches, positions=pos[..., None].to(torch.int32))
+        return _whole_logits(logits[:, :, -1], ranks), caches.like(new), moe_drops
 
 
 def _first_cache_pos(caches, batch: int, device, *, stacked: bool = False) -> torch.Tensor:

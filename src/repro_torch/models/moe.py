@@ -39,6 +39,21 @@ slices, its ranks' experts run on their buckets, the combine joins a
 group's model-rank slices with one ``all_gather`` over the model tier (the
 reference's), and the drops are one ``psum``.  The stacked backend runs
 the same calls on every rank at once.
+
+On placed parameters (``launch.placement``; :func:`moe_block_placed`) the
+input is rank-stacked, ``(L, b, S, D)``: each local rank's data group's
+rows, whole over ``model``, as the placed residual is.  Under ``rafi_ep``
+each rank holds its own ``(E/model, D, F)`` experts and the plane is the
+one above, its two rounds unchanged: the route takes the rank-stacked
+rows, the experts run on the rank's blocks, and the combine gives every
+rank its group's output.  Under ``dense_tp`` (:func:`moe_dense_tp_placed`)
+every rank holds every expert's ``F/model`` columns: the GLU is
+column-parallel, then row-parallel with one ``psum`` over ``model``.  Its
+capacity is the reference's, over the whole (micro)batch: the reference
+runs the plane on the logical global array, so a token's place in its
+expert's bucket counts the rows of every data group before it.  A rank
+learns the other groups' routing from one ``all_gather`` of the top-k ids
+over ``data``, ranks every assignment globally and keeps its own.
 """
 from __future__ import annotations
 
@@ -50,11 +65,13 @@ import torch
 
 from repro_torch.core import DISCARD, ForwardConfig, StackedCollectives, enqueue, forward_work, make_queue, work_item
 from repro_torch.core.collectives import backend
+from repro_torch.launch.mesh import DATA_TIER
+from repro_torch.models import parallel as P
 from repro_torch.models.common import ModelConfig, ParamDef, ParamTree, activation
 
 __all__ = [
-    "MoE", "Route", "TokenItem", "moe_block", "moe_defs", "moe_dense_tp", "moe_rafi_ep",
-    "rafi_ep_combine", "rafi_ep_dispatch", "rafi_ep_experts", "rafi_ep_return", "rafi_ep_route",
+    "MoE", "Route", "TokenItem", "moe_block", "moe_block_placed", "moe_defs", "moe_dense_tp", "moe_dense_tp_placed",
+    "moe_rafi_ep", "rafi_ep_combine", "rafi_ep_dispatch", "rafi_ep_experts", "rafi_ep_return", "rafi_ep_route",
 ]
 
 
@@ -81,7 +98,8 @@ def moe_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
 
 
 def _router(params, x2d, cfg: ModelConfig):
-    """x2d (N, D) → (topk_idx (N,k) int32, topk_w (N,k)) with softmax over the top k."""
+    """x2d (N, D) → (topk_idx (N,k) int32, topk_w (N,k)) with softmax over the top k;
+    rank-stacked, x (L, N, D) and the router (L, D, E) → (L, N, k)."""
     logits = x2d.to(torch.float32) @ params["router"].to(torch.float32)
     w, idx = torch.topk(logits, cfg.top_k, dim=-1)
     w = torch.softmax(w, dim=-1)
@@ -93,6 +111,14 @@ def _expert_ffn(wi, wg, wo, x, act: str):
     gate = torch.matmul(x, wg)
     up = torch.matmul(x, wi)
     return torch.matmul(activation(gate, act) * up, wo)
+
+
+def _expert_ffn_blocks(wi, wg, wo, x, act: str):
+    """Each local rank's experts on its buckets: x ``(L, e, C, D)``, wi/wg
+    ``(L, e, D, F)``, wo ``(L, e, F, D)`` → ``(L, e, C, D)``.  One batched
+    GEMM over the ranks an expert: a layer's view of a stacked leaf has no
+    flat ``(L·e)`` batch axis, and this reads each block where it lies."""
+    return torch.stack([_expert_ffn(wi[:, j], wg[:, j], wo[:, j], x[:, j], act) for j in range(x.shape[1])], dim=1)
 
 
 def _bucket_rows(e: torch.Tensor, valid: torch.Tensor, n_buckets: int):
@@ -152,9 +178,10 @@ class Route:
     n_all: int                # tokens of one data group
     n_loc: int                # tokens of one rank's slice
     cap_e: int                # rows of each expert's bucket
-    shape: Tuple[int, int, int]  # x's (B, S, D): the process's rows
+    shape: Tuple[int, int, int]  # x's (B, S, D): the process's rows; rank-stacked, a group's (b, S, D)
     comm: Any = None          # the backend the ranks run on (the layout's, resolved)
     first: int = 0            # the process's first rank: it holds ranks [first, first + L)
+    ranked: bool = False      # rank-stacked rows and expert blocks (placed parameters)
 
     def to(self, device) -> "Route":
         """The same route on ``device`` (the dispatch's inputs only)."""
@@ -189,29 +216,42 @@ def rafi_ep_route(params, x, cfg: ModelConfig, *, layout) -> Route:
     data groups (B/dp rows each) and replicated over the model ranks; model
     rank m takes tokens ``[m·n_loc, (m+1)·n_loc)`` of its group (lanes past
     the group's ``n_all`` tokens are masked).  Over a world ``x`` holds the
-    process's groups' rows and only its ranks' slices are routed."""
-    b, s, d = x.shape
+    process's groups' rows and only its ranks' slices are routed.
+    Rank-stacked ``x`` ``(L, b, S, D)`` (placed parameters) holds each
+    local rank's group's rows, and ``params["router"]`` each rank's whole
+    ``(L, D, E)`` copy."""
+    ranked = x.dim() == 4
+    b, s, d = x.shape[-3:]
     dp, tp = layout.data, layout.model
     e, k = cfg.num_experts, cfg.top_k
     if e % tp:
         raise ValueError(f"experts ({e}) must divide the model ranks ({tp})")
     comm = backend(layout.comm)
     R = dp * tp
-    _, held, _ = layout.groups()  # the data groups of the process's ranks (all dp on the stacked backend)
-    if b % held:
-        raise ValueError(f"the batch ({b}) must divide over the data groups ({held} of {dp})")
     e_loc = e // tp
     dev = x.device
     ranks = comm.ranks(R, dev)  # (L,) global ids: group r // tp, model rank r % tp
     L = ranks.shape[0]
-    n_all = (b // held) * s
+    if ranked:
+        if x.shape[0] != L:
+            raise ValueError(f"rank-stacked rows for {x.shape[0]} ranks, the process holds {L}")
+        n_all = b * s
+        x2 = x.reshape(L, n_all, d)
+        g_loc = torch.arange(L, device=dev)[:, None]  # each rank its own rows
+        router = {"router": params["router"][0]}  # whole on every rank: the plane carries no gradient
+    else:
+        _, held, _ = layout.groups()  # the data groups of the process's ranks (all dp on the stacked backend)
+        if b % held:
+            raise ValueError(f"the batch ({b}) must divide over the data groups ({held} of {dp})")
+        n_all = (b // held) * s
+        x2 = x.reshape(held, n_all, d)
+        g_loc = (ranks // tp - ranks[0] // tp)[:, None]  # the rank's group among the held ones
+        router = params
     n_loc = -(-n_all // tp)
-    x2 = x.reshape(held, n_all, d)
     gslot = (ranks % tp)[:, None] * n_loc + torch.arange(n_loc, device=dev)  # (L, n_loc)
     tok_ok = gslot < n_all
-    g_loc = (ranks // tp - ranks[0] // tp)[:, None]  # the rank's group among the held ones
     xs = x2[g_loc, gslot.clamp(0, n_all - 1)]  # (L, n_loc, D)
-    idx, w = _router(params, xs.reshape(L * n_loc, d), cfg)
+    idx, w = _router(router, xs.reshape(L * n_loc, d), cfg)
 
     n_emit = n_loc * k
     cap_send = n_emit
@@ -235,7 +275,7 @@ def rafi_ep_route(params, x, cfg: ModelConfig, *, layout) -> Route:
     dest = (group * tp + items.expert // e_loc).to(torch.int32)
     return Route(items=items, dest=dest, mask=tok_ok.repeat_interleave(k, dim=1), fcfg=fcfg, dp=dp, tp=tp,
                  e_loc=e_loc, n_all=n_all, n_loc=n_loc, cap_e=cap_e, shape=(b, s, d), comm=comm,
-                 first=comm.rank_offset(R))
+                 first=comm.rank_offset(R), ranked=ranked)
 
 
 def rafi_ep_dispatch(route: Route):
@@ -250,7 +290,8 @@ def rafi_ep_dispatch(route: Route):
 
 
 def rafi_ep_experts(params, q, route: Route, cfg: ModelConfig):
-    """Local expert compute with per-expert capacity buckets.  Returns the
+    """Local expert compute with per-expert capacity buckets (on a ranked
+    route, each rank's own ``(L, e_loc, …)`` expert blocks).  Returns the
     return trip's ``(items, dest, mask)`` and the bucket drops (of the
     process's ranks)."""
     L, C = route.local_ranks, route.fcfg.capacity
@@ -272,7 +313,11 @@ def rafi_ep_experts(params, q, route: Route, cfg: ModelConfig):
     at = torch.where(keep, le * cap_e + pos, trash)  # (R, C) row of the rank's bucket buffer
     buf = torch.zeros((L, trash + 1, d), dtype=it.h.dtype, device=dev)
     buf.scatter_(1, at[:, :, None].expand(L, C, d), it.h)
-    out = _expert_ffn_stacked(params, buf[:, :trash].reshape(L, e_loc, cap_e, d), route, cfg.act)
+    x = buf[:, :trash].reshape(L, e_loc, cap_e, d)
+    if route.ranked:
+        out = _expert_ffn_blocks(params["wi"], params["wg"], params["wo"], x, cfg.act)
+    else:
+        out = _expert_ffn_stacked(params, x, route, cfg.act)
     hout = torch.gather(out.reshape(L, trash, d), 1, torch.where(keep, at, 0)[:, :, None].expand(L, C, d))
 
     # return trip: dest = the stored origin rank of the sender's group (the 'pixelID' pattern)
@@ -312,7 +357,8 @@ def rafi_ep_combine(q2, route: Route):
     """Each rank's returned results, weighted and added at their slots,
     then the model ranks' slices joined back into ``(B, S, D)`` by one
     ``all_gather`` over the model tier, the reference's over its model
-    axis, held once a data group (``per_group``)."""
+    axis, held once a data group (``per_group``); on a ranked route held
+    by every rank, ``(L, b, S, D)``."""
     L, C = route.local_ranks, route.fcfg.capacity
     n_loc, d, tp = route.n_loc, route.shape[2], route.tp
     dev = q2.dest.device
@@ -322,6 +368,9 @@ def rafi_ep_combine(q2, route: Route):
     at = torch.where(valid2, r.slot.to(torch.int64), n_loc)  # slot n_loc: trash
     ys = torch.zeros((L, n_loc + 1, d), dtype=r.h.dtype, device=dev)
     ys.scatter_add_(1, at[:, :, None].expand(L, C, d), contrib)
+    if route.ranked:  # each rank its group's slices: (L, tp, n_loc, D)
+        y_all = route.comm.all_gather(ys[:, :n_loc], digits=(route.dp, tp), tier=1)
+        return y_all.reshape(L, tp * n_loc, d)[:, :route.n_all].reshape((L,) + tuple(route.shape))
     # each held group's slices once, in rank order: (groups, tp, n_loc, D)
     y_all = route.comm.all_gather(ys[:, :n_loc], digits=(route.dp, tp), tier=1, per_group=True)
     y_all = y_all.reshape(-1, tp * n_loc, d)[:, :route.n_all]
@@ -333,7 +382,8 @@ def moe_rafi_ep(params, x, cfg: ModelConfig, *, layout, comm: Optional[StackedCo
     ``(y (B, S, D), drops)``, drops the tokens lost to the expert buckets
     and to both rounds' queues (``drops_cap + q.drops + q2.drops``, summed
     over ranks by one ``psum``).  ``comm``, where given, replaces the
-    layout's backend."""
+    layout's backend.  Rank-stacked ``x`` ``(L, b, S, D)`` and rank blocks
+    of the parameters give ``y`` ``(L, b, S, D)`` (module docstring)."""
     if comm is not None:
         layout = dataclasses.replace(layout, comm=comm)
     route = rafi_ep_route(params, x, cfg, layout=layout)
@@ -353,6 +403,68 @@ def moe_block(params, x, cfg: ModelConfig, *, layout=None):
         with torch.no_grad():  # the plane carries no gradient (module docstring)
             return moe_rafi_ep(params, x, cfg, layout=layout)
     return moe_dense_tp(params, x, cfg)
+
+
+def _global_buckets(idx, cfg: ModelConfig, ranks):
+    """``dense_tp``'s buckets over the whole (micro)batch: ``idx`` ``(L,
+    n, k)`` each rank's group's top-k ids → ``(pos (L, n·k), cap,
+    drops)``, each own assignment's place in its expert's bucket among
+    every group's (in row order, the groups gathered over ``data``), the
+    capacity of the whole batch's ``G·n`` tokens, and the batch's drops
+    (the same on every rank)."""
+    L, n, k = idx.shape
+    G, e = ranks.data, cfg.num_experts
+    cap = int(np.ceil(G * n * k / e * cfg.capacity_factor))
+    ids = ranks.comm.all_gather(idx, digits=ranks.digits, tier=DATA_TIER) if G > 1 else idx[:, None]
+    flat = ids.reshape(L, G * n * k).to(torch.int64)
+    pos_all = _bucket_rows(flat, torch.ones_like(flat, dtype=torch.bool), e)
+    own = ranks.group.to(idx.device)[:, None] * (n * k) + torch.arange(n * k, device=idx.device)
+    return torch.gather(pos_all, 1, own), cap, torch.sum(pos_all[0] >= cap).to(torch.int32)
+
+
+def moe_dense_tp_placed(params, x, cfg: ModelConfig, ranks):
+    """:func:`moe_dense_tp` on every local rank (``models.parallel``): x
+    ``(L, b, S, D)`` each rank's group's rows, whole over ``model``; the
+    router ``(L, D, E)`` whole; wi/wg ``(L, E, D, F/model)`` column-
+    parallel, wo ``(L, E, F/model, D)`` row-parallel, the weighted combine
+    summed over ``model``.  The capacity and each assignment's place in
+    its expert's bucket are the reference's over the whole (micro)batch
+    (module docstring), so the drops, the same on every rank, are the
+    reference's.  Returns ``(y (L, b, S, D), drops)``.
+
+    The router weights pass through ``copy_model``: each rank's experts
+    give a part of the output, so a weight's gradient is the sum of the
+    ranks' parts.  The router itself reads the input as it is, the experts
+    through ``copy_model``."""
+    L, b, s, d = x.shape
+    n, e, k = b * s, cfg.num_experts, cfg.top_k
+    idx, w = _router(params, x.reshape(L, n, d), cfg)  # each rank's router copy: one product a rank
+    with torch.no_grad():
+        pos, cap, drops = _global_buckets(idx, cfg, ranks)
+    keep = pos < cap
+    flat_e = idx.reshape(L, n * k).to(torch.int64)
+    flat_t = torch.arange(n, device=x.device).repeat_interleave(k)  # token of each assignment
+    at = torch.where(keep, flat_e * cap + pos, e * cap)  # row e·cap: the dropped rows' trash
+    xc = P.copy_model(x, ranks).reshape(L, n, d)
+    buf = torch.zeros((L, e * cap + 1, d), dtype=x.dtype, device=x.device)
+    buf = buf.scatter(1, at[:, :, None].expand(L, n * k, d), xc[:, flat_t])
+    out = _expert_ffn_blocks(params["wi"], params["wg"], params["wo"], buf[:, :-1].reshape(L, e, cap, d), cfg.act)
+    gathered = torch.gather(out.reshape(L, e * cap, d), 1, torch.where(keep, at, 0)[:, :, None].expand(L, n * k, d))
+    wk = P.copy_model(w, ranks).reshape(L, n * k)
+    contrib = torch.where(keep[:, :, None], gathered * wk[:, :, None], 0.0)
+    y = torch.zeros((L, n, d), dtype=x.dtype, device=x.device).index_add(1, flat_t, contrib)
+    return P.psum_model(y, ranks).reshape(L, b, s, d), drops
+
+
+def moe_block_placed(params, x, cfg: ModelConfig, ranks):
+    """:func:`moe_block` on placed parameters: x ``(L, b, S, D)``, the
+    rank's blocks of the MoE leaves, ``ranks`` a ``models.parallel.Ranks``
+    (module docstring).  Returns ``(y (L, b, S, D), drops)``, the drops
+    summed over every rank as the reference sums its shards'."""
+    if cfg.moe_dispatch == "rafi_ep":
+        with torch.no_grad():  # the plane carries no gradient (module docstring)
+            return moe_rafi_ep(params, x, cfg, layout=ranks.layout)
+    return moe_dense_tp_placed(params, x, cfg, ranks)
 
 
 class MoE(ParamTree):

@@ -229,12 +229,12 @@ def forward(
 # ----------------------------------------------------------------- placed
 
 def apply_layer_placed(params, x, cfg: ModelConfig, kind: str, ranks, *, positions=None, cache=None):
-    """:func:`apply_layer` for a dense layer on every local rank
+    """:func:`apply_layer` for a dense or MoE layer on every local rank
     (``models.parallel``): x ``(L, b, S, D)``, the norms' gains ``(L, D)``
-    whole, attention and MLP tensor-parallel over ``model``; with
-    ``cache`` (a rank's blocks, the sequence split over ``model``) one
-    decode step at ``positions`` ``(L, b, 1)``.  Returns ``(x,
-    new_cache)``."""
+    whole, attention and MLP tensor-parallel over ``model``, an MoE layer's
+    experts on the rank's blocks (``moe.moe_block_placed``); with ``cache``
+    (a rank's blocks, the sequence split over ``model``) one decode step at
+    ``positions`` ``(L, b, 1)``.  Returns ``(x, new_cache, moe_drops)``."""
     gain = lambda g: g[:, None, None, :]
     h = rmsnorm(x, gain(params["ln1"]))
     window = cfg.window if kind == "local" else 0
@@ -242,33 +242,41 @@ def apply_layer_placed(params, x, cfg: ModelConfig, kind: str, ranks, *, positio
                                            theta=_theta_for(cfg, kind), cache=cache, positions=positions)
     x = x + y
     h = rmsnorm(x, gain(params["ln2"]))
+    if kind == "moe":
+        y, drops = M.moe_block_placed(params["moe"], h, cfg, ranks)
+        return x + y, new_cache, drops
     mlp = params["mlp"]
-    return x + glu_mlp_placed(h, mlp["wi"], mlp["wg"], mlp["wo"], cfg.act, ranks), new_cache
+    drops = torch.zeros((), dtype=torch.int32, device=x.device)
+    return x + glu_mlp_placed(h, mlp["wi"], mlp["wg"], mlp["wo"], cfg.act, ranks), new_cache, drops
 
 
 def _period_placed(block_params, x, cfg: ModelConfig, ranks, caches=None, positions=None):
     new_caches = {}
+    drops = torch.zeros((), dtype=torch.int32, device=x.device)
     for j, kind in enumerate(cfg.pattern):
         key = f"k{j}_{kind}"
-        x, nc = apply_layer_placed(block_params[key], x, cfg, kind, ranks, positions=positions,
-                                   cache=None if caches is None else caches[key])
+        x, nc, d = apply_layer_placed(block_params[key], x, cfg, kind, ranks, positions=positions,
+                                      cache=None if caches is None else caches[key])
+        drops = drops + d
         if nc is not None:
             new_caches[key] = nc
-    return x, new_caches
+    return x, new_caches, drops
 
 
 def forward_placed(params, tokens, cfg: ModelConfig, ranks, *, caches=None, positions=None):
-    """:func:`forward` on every local rank of a placement, the dense family
-    only.  ``params``: every leaf whole over ``data`` (``launch.placement.
-    Placement.unshard``; a serve placement's already are), ``(L,
-    *block)``; ``tokens`` ``(L, b, S)``, each rank's data group's rows.
-    The embedding over a vocabulary split over ``model`` is a masked lookup
-    and a ``psum``; the logits stay split: ``(L, b, S, V/model)``, rank
-    m's columns ``[m·V/model, …)``.  ``caches=None``: the parallel pass,
-    returns the logits.  Else one decode step (S == 1) at ``positions``
-    ``(L, b, 1)`` on the rank blocks of the caches (``launch.placement.
+    """:func:`forward` on every local rank of a placement, the dense and
+    MoE families.  ``params``: every leaf whole over ``data``
+    (``launch.placement.Placement.unshard``; a serve placement's already
+    are), ``(L, *block)``; ``tokens`` ``(L, b, S)``, each rank's data
+    group's rows.  The embedding over a vocabulary split over ``model`` is
+    a masked lookup and a ``psum``; the logits stay split: ``(L, b, S,
+    V/model)``, rank m's columns ``[m·V/model, …)``.  ``caches=None``: the
+    parallel pass.  Else one decode step (S == 1) at ``positions`` ``(L,
+    b, 1)`` on the rank blocks of the caches (``launch.placement.
     cache_placement``: a stacked leaf ``(L, n_blocks, …)``, layer i its
-    ``[:, i]``): returns ``(logits, new_caches)``."""
+    ``[:, i]``).  Returns ``(logits, new_caches, moe_drops)`` as
+    :func:`forward` does: ``new_caches`` None without caches, the drops
+    the layers' sum (zero for a dense model)."""
     L = tokens.shape[0]
     embed = params["embed"]  # (L, V/model, D)
     vm = embed.shape[1]
@@ -285,18 +293,21 @@ def forward_placed(params, tokens, cfg: ModelConfig, ranks, *, caches=None, posi
     if cfg.remat and caches is None and torch.is_grad_enabled():
         run = functools.partial(checkpoint, _period_placed, use_reentrant=False)
     per_block = []
+    total_drops = torch.zeros((), dtype=torch.int32, device=tokens.device)
     for i in range(n_blocks):
         block_caches = None if caches is None else {k: tree_map(lambda a: a[:, i], c)
                                                     for k, c in caches["blocks"].items()}
-        x, nc = run({key: tree_map(lambda a: a[:, i], blk) for key, blk in params["blocks"].items()}, x, cfg, ranks,
-                    block_caches, positions)
+        x, nc, d = run({key: tree_map(lambda a: a[:, i], blk) for key, blk in params["blocks"].items()}, x, cfg,
+                       ranks, block_caches, positions)
+        total_drops = total_drops + d
         per_block.append(nc)
     new_tail = {}
     for j in range(cfg.num_layers % len(cfg.pattern)):
         kind = cfg.pattern[j]
         key = f"k{j}_{kind}"
-        x, nc = apply_layer_placed(params["tail"][key], x, cfg, kind, ranks, positions=positions,
-                                   cache=None if caches is None else caches["tail"][key])
+        x, nc, d = apply_layer_placed(params["tail"][key], x, cfg, kind, ranks, positions=positions,
+                                      cache=None if caches is None else caches["tail"][key])
+        total_drops = total_drops + d
         if nc is not None:
             new_tail[key] = nc
 
@@ -304,9 +315,9 @@ def forward_placed(params, tokens, cfg: ModelConfig, ranks, *, caches=None, posi
     head = embed.transpose(1, 2) if cfg.tie_embeddings else params["lm_head"]
     logits = P.mm(x, head.to(x.dtype))
     if caches is None:
-        return logits
+        return logits, None, total_drops
     blocks = _stack(per_block, 1) if per_block else caches["blocks"]
-    return logits, {"blocks": blocks, "tail": new_tail}
+    return logits, {"blocks": blocks, "tail": new_tail}, total_drops
 
 
 # ----------------------------------------------------------------- caches

@@ -216,9 +216,9 @@ def test_a_planted_cache_misplacement_fails():
 def test_refusals():
     _, cfg, _, lm = _pair("qwen2-7b")
     model = build_model(cfg)
-    moe = build_model(get_smoke_config("llama4-scout-17b-16e"))
-    for fn in (lambda: PL.serve_placement(moe, make_test_layout(2, 4)),
-               lambda: PL.cache_placement(moe, make_test_layout(2, 4), 4, 16)):
+    unplaced = build_model(get_smoke_config("recurrentgemma-2b"))
+    for fn in (lambda: PL.serve_placement(unplaced, make_test_layout(2, 4)),
+               lambda: PL.cache_placement(unplaced, make_test_layout(2, 4), 4, 16)):
         with pytest.raises(NotImplementedError, match="dense"):
             fn()
     with pytest.raises(ValueError, match="model axis moves off the sequence"):
