@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all started together, linked into one library under
-``build/``) and runs twenty-four phases on ``cuda:0``:
+``build/``) and runs twenty-five phases on ``cuda:0``:
 
   1. kernels     — all ten kernels (K1 gather_rows, K2 unmarshal, K3
                    pack_and_histogram, K4 rank_and_histogram, K5
@@ -286,9 +286,11 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    bfloat16 the card's logits no farther from the CPU's
                    float32 ones than ``FAM_BF16_NOISE`` x the CPU's
                    bfloat16 ones are; (e) ``build_train_step``
-                   at batch (8, 512) (seamless: frames and tokens of 64) at
-                   every layer, 3 AdamW steps, losses finite; (f) the event
-                   median, device ms split into the scans, AdamW, the GEMMs
+                   at batch (8, 512) (seamless: frames and tokens of 64),
+                   seamless at every layer, rwkv6-3b at 4 of 32 layers and
+                   recurrentgemma-2b at 3 of 26 (``FAMILY_TRAIN_LAYERS``),
+                   3 AdamW steps, losses finite; (f) the event
+                   median, device ms split into the scans, attention, AdamW, the GEMMs
                    and the rest, and launches, of a decode and a train step,
                    and peak memory;
  18. dryrun      — the shape suite and the meta-device dry run
@@ -397,7 +399,31 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    decode within 1/16 of the bfloat16 distance, drops
                    equal; both smoke configs under both planes placed,
                    card against CPU;
- 24. report      — one JSON line of the kernels (launches on the paths that
+ 24. recurrent_shard — the recurrent families on placed parameters
+                   (``launch.placement`` for the ssm and hybrid kinds):
+                   rwkv6-3b at 4 of 32 layers (its 40 heads over
+                   ``model``) and recurrentgemma-2b at 3 of 26 (its
+                   RG-LRU's 2,560 channels over ``model``, ξ gathered for
+                   the gates; its local attention the dense family's) at
+                   full width, bf16, layout (2, 4) stacked: (a) every
+                   rank's block of the serve and fsdp train parameters, of
+                   AdamW's moments and of seeded caches (16 slots,
+                   ``max_len`` 128; the states' channels or heads over
+                   ``model``) equal to the chunk the rule names, bit for
+                   bit, its bytes ``specs.device_bytes``; (b)
+                   ``BatchedEngine`` on the placed parameters answering
+                   phase lm's 16 requests beside the unsharded engine:
+                   calls a step by kind and tier (the pinned budget) with
+                   their bytes, event medians, device ms by part (GEMMs,
+                   the recurrence, attention, the collectives), peak GiB;
+                   (c) fsdp, batch 8 × 512 in 2 microbatches, 3 steps:
+                   losses finite, event median, device ms by part and peak
+                   beside the unsharded step's; (d) float32 (rwkv6 at 1
+                   layer, recurrentgemma at 3): the placed decode and a
+                   2 × 64 prefill within 1/16 of the bfloat16 distance;
+                   each smoke config placed, card against CPU; (e) no
+                   kernel on the path;
+ 25. report      — one JSON line of the kernels (launches on the paths that
                    run them, errors, bounds; ``ms``, ``plain_ms`` and
                    ``library_ms`` are device times, ``call_ms`` the event
                    pair's; device events a call), the card's name and
@@ -4392,59 +4418,115 @@ FAM_F32_GAIN = 16.0
 # rounding: a fixed bound on bfloat16 logits fails (PERF.md §6)
 FAM_BF16_NOISE = 2.0
 GEMM_NAMES = ("gemm", "xmma", "cutlass", "nvjet", "cublas")
+# (e): the recurrent archs' train steps cut in depth (rwkv6-3b 4 of 32
+# layers, recurrentgemma-2b one period of 3 of 26): the RG-LRU's backward
+# issues tens of thousands of launches a step, and a step under the
+# profiler took 75 s at full depth; serving stays at full depth
+FAMILY_TRAIN_LAYERS = {"rwkv6-3b": 4, "recurrentgemma-2b": 3}
 
 
-def _family_split(fn, calls=1):
+def _ranged_kernels(raw, prefix):
+    """``[(part or None, device event)]`` of a profile's raw events
+    (``kineto_results.events()``): each device event (kernel, copy,
+    memset) with the innermost ``record_function`` range named
+    ``prefix + part`` open on its thread when the host op it was launched
+    from began (a sweep over each thread's ranges and launches in time
+    order).  A device event names its host op by ``linked_correlation_id``,
+    the op's ``correlation_id``, as ``torch.profiler`` links them.  The raw
+    events are read as they are, without building ``torch.profiler``'s
+    event tree, whose cost grows with a train step's tens of thousands of
+    launches."""
+    import torch
+
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    host, ranges, device = {}, {}, []
+    for e in raw:
+        if e.device_type() == cpu and e.linked_correlation_id() == 0 and not e.is_async():
+            if e.name().startswith(prefix):
+                ranges.setdefault(e.start_thread_id(), []).append((e.start_ns(), e.end_ns(), e.name()[len(prefix):]))
+            host[e.correlation_id()] = (e.start_thread_id(), e.start_ns())
+        elif e.device_type() == cuda and not e.name().startswith(prefix):
+            device.append(e)
+    launches = {}
+    out = []
+    for i, e in enumerate(device):
+        thread, t = host.get(e.linked_correlation_id(), (None, None))
+        if t is None:
+            out.append((None, e))
+        else:
+            launches.setdefault(thread, []).append((t, 1, i))
+            out.append(None)
+    for thread, points in launches.items():
+        sweep = sorted([(s, 0, (s, end, name)) for s, end, name in ranges.get(thread, [])] + points,
+                       key=lambda p: (p[0], p[1]))
+        stack = []
+        for t, kind, item in sweep:
+            while stack and stack[-1][1] < t:
+                stack.pop()
+            if kind == 0:
+                stack.append(item)
+            else:
+                out[item] = (stack[-1][2] if stack else None, device[item])
+    return out
+
+
+def _family_split(fn, calls=1, comm=None, warmup=True):
     """Device time of ``fn()`` by part, ms a call, from ``torch.profiler``:
-    ``scan`` (every kernel launched inside the recurrences, ``rwkv6.
+    each kernel goes to the innermost ``record_function`` range around it
+    (``_ranged_kernels``): ``scan`` (the recurrences, ``rwkv6.
     _chunk_scan`` and ``_state_step``, ``griffin._lru_scan`` and
-    ``_lru_step``, found through ``record_function`` ranges around them; the
-    checkpoint's recompute included, their backward not), ``adamw`` (inside
-    ``adamw_update``), ``gemm`` (cuBLAS and CUTLASS kernels elsewhere) and
-    ``rest``; and the device launches a call (kernels, copies, memsets), in
-    all and by part."""
+    ``_lru_step``; the checkpoint's recompute included, their backward
+    not), ``attention`` (``attention.self_attention`` and
+    ``self_attention_placed``), ``adamw`` (inside ``adamw_update``), with
+    ``comm`` ``collectives`` (its ``psum``, ``all_gather`` and
+    ``reduce_scatter`` calls); elsewhere ``gemm`` (cuBLAS and CUTLASS
+    kernels: the projections and the MLP) and ``rest``; and the device
+    launches a call (kernels, copies, memsets), in all and by part.
+    ``warmup``: one call before the profile."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.launch import steps as ST
+    from repro_torch.models import attention as A
     from repro_torch.models import griffin as G
     from repro_torch.models import rwkv6 as W
 
-    targets = {"scan": ((W, "_chunk_scan"), (W, "_state_step"), (G, "_lru_scan"), (G, "_lru_step")),
-               "adamw": ((ST, "adamw_update"),)}
-    orig = {}
+    targets = {"scan": [(W, "_chunk_scan"), (W, "_state_step"), (G, "_lru_scan"), (G, "_lru_step")],
+               "attention": [(A, "self_attention"), (A, "self_attention_placed")], "adamw": [(ST, "adamw_update")]}
+    if comm is not None:
+        targets["collectives"] = [(comm, "psum"), (comm, "all_gather"), (comm, "reduce_scatter")]
+    orig = [(m, n, getattr(m, n)) for items in targets.values() for m, n in items]
+
+    def ranged(part, f):
+        def w(*a, **kw):
+            with record_function(f"fam.{part}"):
+                return f(*a, **kw)
+        return w
+
     for part, items in targets.items():
         for m, n in items:
-            f = orig[(m, n)] = getattr(m, n)
-
-            def ranged(*a, _f=f, _p=part, **kw):
-                with record_function(f"fam.{_p}"):
-                    return _f(*a, **kw)
-
-            setattr(m, n, ranged)
+            setattr(m, n, ranged(part, getattr(m, n)))
     t0 = time.perf_counter()
     try:
-        fn()
+        if warmup:
+            fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
     finally:
-        for (m, n), f in orig.items():
-            setattr(m, n, f)
-    us = {"scan": 0.0, "adamw": 0.0, "gemm": 0.0, "rest": 0.0}
+        for m, n, f in orig:
+            if m is comm:
+                delattr(m, n)
+            else:
+                setattr(m, n, f)
+    us = {k: 0.0 for k in list(targets) + ["gemm", "rest"]}
     n = {k: 0 for k in us}
-    stack = [(e, None) for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU and e.cpu_parent is None]
-    while stack:
-        e, part = stack.pop()
-        if e.name.startswith("fam."):
-            part = e.name[4:]
-        for k in e.kernels:
-            p = part or ("gemm" if any(t in k.name.lower() for t in GEMM_NAMES) else "rest")
-            us[p] += k.duration
-            n[p] += 1
-        stack.extend((c, part) for c in e.cpu_children)
+    for part, e in _ranged_kernels(prof.profiler.kineto_results.events(), "fam."):
+        p = part or ("gemm" if any(t in e.name().lower() for t in GEMM_NAMES) else "rest")
+        us[p] += e.duration_ns() / 1e3
+        n[p] += 1
     return {"device_ms": sum(us.values()) / calls / 1e3, "parts_ms": {k: v / calls / 1e3 for k, v in us.items()},
             "launches": sum(n.values()) / calls, "launches_by_part": {k: v / calls for k, v in n.items()},
             "profile_s": time.perf_counter() - t0}
@@ -4658,7 +4740,7 @@ def _family_train(dev, model, params, label, out, *, batch, steps, profile):
     if cuda:
         r["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     check(all(math.isfinite(l) and math.isfinite(g) for l, g in mets),
-          f"(e) {label} at depth {depth} (every layer), batch {r['batch']}"
+          f"(e) {label} at depth {depth}, batch {r['batch']}"
           f"{' (frames and tokens of S // 8)' if cfg.kind == 'encdec' else ''}: {steps} AdamW steps, losses "
           f"{[round(l, 4) for l in r['losses']]}, gnorm {[round(g, 3) for g in r['gnorms']]} finite; step event median "
           f"{r['step_ms_median']} ms, {r['tokens_per_s']} tokens/s, peak {r.get('peak_gib')} GiB")
@@ -4792,12 +4874,14 @@ def _family_card_cpu(dev, arch, seed=30, B=2, S=32):
 
 
 def phase_families(dev, ARCHS=FAMILY_ARCHS, SLOTS=16, N_REQ=16, PROMPT=(8, 48), NEW=(8, 24), MAX_LEN=128, LONG=2048,
-                   PREFILL=(2, 64), FRAMES=(4, 512, 64), GREEDY=32, TRAIN=(8, 512), TRAIN_STEPS=3, configs=None,
-                   layer_checks=None, card_cpu=None, profile=True):
+                   PREFILL=(2, 64), FRAMES=(4, 512, 64), GREEDY=32, TRAIN=(8, 512), TRAIN_STEPS=3,
+                   TRAIN_LAYERS=FAMILY_TRAIN_LAYERS, configs=None, layer_checks=None, card_cpu=None, profile=True):
     """Phase families: rwkv6-3b, recurrentgemma-2b and seamless-m4t-medium
     at full width and full depth (``configs`` replaces them, and
     ``layer_checks`` / ``card_cpu`` the (c) / (d) functions, for a
-    rehearsal on the CPU)."""
+    rehearsal on the CPU); the train steps of an arch in ``TRAIN_LAYERS``
+    run at that depth, on a model of its own drawn from the same seed."""
+    import dataclasses
     import gc
 
     import torch
@@ -4839,7 +4923,16 @@ def phase_families(dev, ARCHS=FAMILY_ARCHS, SLOTS=16, N_REQ=16, PROMPT=(8, 48), 
             r["serve"]["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
         r["serve"]["s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        _family_train(dev, model, params, label, r, batch=TRAIN, steps=TRAIN_STEPS, profile=profile)
+        layers = min(TRAIN_LAYERS.get(arch, cfg.num_layers), cfg.num_layers)
+        if layers < cfg.num_layers:  # the train steps on a model cut in depth, drawn from the same seed
+            del params
+            if cuda:
+                gc.collect()
+                torch.cuda.empty_cache()
+            model = build_model(dataclasses.replace(cfg, num_layers=layers))
+            params = model.init(torch.Generator(device=dev).manual_seed(2525), device=dev)
+        _family_train(dev, model, params, f"{cfg.name} ({cfg.kind}, {cfg.num_layers} layers)", r, batch=TRAIN,
+                      steps=TRAIN_STEPS, profile=profile)
         r["train"]["s"] = time.perf_counter() - t0
         paths[f"families_{arch}"] = KN.launch_counts()
         check(not any(paths[f"families_{arch}"].values()),
@@ -4847,7 +4940,8 @@ def phase_families(dev, ARCHS=FAMILY_ARCHS, SLOTS=16, N_REQ=16, PROMPT=(8, 48), 
         for part in ("serve", "train"):
             sp = r[part].get("decode_split" if part == "serve" else "split")
             if sp:
-                print(f"  (f) {label} {'decode' if part == 'serve' else 'train'} step: device {sp['device_ms']:.3f} ms "
+                what = "decode" if part == "serve" else f"train (depth {r['train']['depth']})"
+                print(f"  (f) {label} {what} step: device {sp['device_ms']:.3f} ms "
                       f"(" + ", ".join(f"{k} {v:.3f}" for k, v in sp["parts_ms"].items()) + f"), {sp['launches']:.0f} "
                       f"launches a step (scan {sp['launches_by_part']['scan']:.0f}); event median "
                       f"{r[part].get('step_ms_median') or r[part].get('greedy', {}).get('step_ms_median')} ms; peak "
@@ -6276,6 +6370,32 @@ def phase_serve_shard(dev, ARCH="qwen2-7b", LAYERS=4, CHECK_LAYERS=2, LAYOUT=(2,
 MOE_SHARD_TOL_SMOKE = 1e-4  # (d): the float32 smoke configs' placed train step, card against CPU
 
 
+def _rank_bytes(tree, R):
+    """Each of the ``R`` ranks' bytes of a placed tree."""
+    return [sum(t[r].numel() * t.element_size() for t in _leaf_items(tree).values()) for r in range(R)]
+
+
+def _rule_bytes(pl, dtype):
+    """A rank's bytes of a placement's leaves in ``dtype`` by the rule
+    (``specs.device_bytes``)."""
+    import torch
+
+    from repro_torch.launch import specs as S
+
+    return sum(S.device_bytes(torch.empty(pl.shapes[k], dtype=dtype, device="meta"), spec, pl.axes)
+               for k, spec in pl.specs.items())
+
+
+def _calls_and_bytes(comm, steps):
+    """The backend's calls a step by kind and tier, and their bytes."""
+    calls = {k: v / steps for k, v in _call_counts(comm).items()}
+    nbytes = {}
+    for c, n in comm.calls.items():
+        key = c.kind if c.tier is None else f"{c.kind}{c.tier}"
+        nbytes[key] = nbytes.get(key, 0) + c.nbytes * n / steps
+    return calls, nbytes
+
+
 def _decayed(b16, steps, opt_cfg):
     """A bfloat16 leaf after ``steps`` AdamW updates of zero gradient, in
     the update's own float32 operations: weight decay alone at each
@@ -6407,21 +6527,6 @@ def phase_moe_shard(dev, LAYERS=4, TRAIN_LAYERS=1, CHECK_LAYERS=1, SERVE_LAYOUT=
     def peak():
         return torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else None
 
-    def rank_bytes(tree, R):
-        return [sum(t[r].numel() * t.element_size() for t in _leaf_items(tree).values()) for r in range(R)]
-
-    def rule_bytes(pl, dtype):
-        return sum(S.device_bytes(torch.empty(pl.shapes[k], dtype=dtype, device="meta"), spec, pl.axes)
-                   for k, spec in pl.specs.items())
-
-    def calls_and_bytes(comm, steps):
-        calls = {k: v / steps for k, v in _call_counts(comm).items()}
-        nbytes = {}
-        for c, n in comm.calls.items():
-            key = c.kind if c.tier is None else f"{c.kind}{c.tier}"
-            nbytes[key] = nbytes.get(key, 0) + c.nbytes * n / steps
-        return calls, nbytes
-
     free()
     # (a), (b) serving: phase lm's model, serve-placed on SERVE_LAYOUT
     cfg = dc.replace(full, num_layers=LAYERS, **(widths or {}))
@@ -6431,8 +6536,8 @@ def phase_moe_shard(dev, LAYERS=4, TRAIN_LAYERS=1, CHECK_LAYERS=1, SERVE_LAYOUT=
     sp = PL.serve_placement(model, Layout(*SERVE_LAYOUT))
     params = sp.place(lm)
     bad = _blocks_match(params, lm.tree(), sp)
-    rule, R = rule_bytes(sp, cfg.torch_dtype), SERVE_LAYOUT[0] * SERVE_LAYOUT[1]
-    sizes = rank_bytes(params, R)
+    rule, R = _rule_bytes(sp, cfg.torch_dtype), SERVE_LAYOUT[0] * SERVE_LAYOUT[1]
+    sizes = _rank_bytes(params, R)
     wi = sp.specs[("blocks", "k0_moe", "moe", "wi")]
     serve = {"layout": SERVE_LAYOUT, "param_bytes_per_rank": sizes,
              "param_bytes_whole": sum(t.numel() * t.element_size() for t in lm.parameters()),
@@ -6470,7 +6575,7 @@ def phase_moe_shard(dev, LAYERS=4, TRAIN_LAYERS=1, CHECK_LAYERS=1, SERVE_LAYOUT=
               f"in {r['steps']} steps)")
         if name == "placed":
             paths["moe_shard"] = launches
-            r["calls_per_step"], r["call_bytes_per_step"] = calls_and_bytes(sp.comm, engine.steps)
+            r["calls_per_step"], r["call_bytes_per_step"] = _calls_and_bytes(sp.comm, engine.steps)
             check(r["calls_per_step"].get("all_to_all") == 4 * LAYERS,
                   f"(b) the placed step's rounds: {r['calls_per_step'].get('all_to_all')} all_to_all a step == two "
                   f"rounds of a payload and a count call a layer ({4 * LAYERS}); calls {r['calls_per_step']}")
@@ -6521,8 +6626,8 @@ def phase_moe_shard(dev, LAYERS=4, TRAIN_LAYERS=1, CHECK_LAYERS=1, SERVE_LAYOUT=
     lm = model_t.init(torch.Generator(device=dev).manual_seed(2424), device=dev)
     params = pl.place(lm)
     bad = _blocks_match(params, lm.tree(), pl)
-    rule, R = rule_bytes(pl, cfg_t.torch_dtype), TRAIN_LAYOUT[0] * TRAIN_LAYOUT[1]
-    sizes = rank_bytes(params, R)
+    rule, R = _rule_bytes(pl, cfg_t.torch_dtype), TRAIN_LAYOUT[0] * TRAIN_LAYOUT[1]
+    sizes = _rank_bytes(params, R)
     wi = pl.specs[("blocks", "k0_moe", "moe", "wi")]
     label_t = f"{cfg_t.name} at {TRAIN_LAYERS} of {full.num_layers} layers, fsdp, {TRAIN_LAYOUT}"
     train = {"layout": TRAIN_LAYOUT, "batch": BATCH, "microbatches": cfg_t.microbatches, "wi_spec": wi,
@@ -6550,7 +6655,7 @@ def phase_moe_shard(dev, LAYERS=4, TRAIN_LAYERS=1, CHECK_LAYERS=1, SERVE_LAYOUT=
             ev.append(e)
         losses.append(float(met["loss"]))
         gnorms.append(float(met["gnorm"]))
-    train["calls_per_step"], train["call_bytes_per_step"] = calls_and_bytes(pl.comm, TRAIN_STEPS)
+    train["calls_per_step"], train["call_bytes_per_step"] = _calls_and_bytes(pl.comm, TRAIN_STEPS)
     ms = [a.elapsed_time(z) for a, z in ev] if cuda else []
     placed_t = {"losses": losses, "gnorms": gnorms, "peak_gib": peak(),
                 "step_ms": ms, "step_ms_median": statistics.median(ms[1:]) if len(ms) > 1 else None}
@@ -6647,6 +6752,340 @@ def phase_moe_shard(dev, LAYERS=4, TRAIN_LAYERS=1, CHECK_LAYERS=1, SERVE_LAYOUT=
     return out, paths
 
 
+# ------------------------------------------------------ 24. recurrent_shard
+# (arch, layers of CONFIG kept, layers of the float32 check (d)): rwkv6-3b at
+# one layer; recurrentgemma-2b at one period, so that (d) holds its local
+# attention layer too
+RECURRENT_SHARD_ARCHS = (("rwkv6-3b", 4, 1), ("recurrentgemma-2b", 3, 3))
+RECURRENT_SHARD_TOL_SMOKE = 1e-4  # (d): the float32 smoke configs' placed train step, card against CPU
+
+
+def _recurrent_decode_calls(cfg):
+    """The pinned calls of one placed decode step (``tests/
+    test_torch_recurrent_shard.py``'s budget): over ``model`` an rwkv layer
+    two ``psum``s, a recurrent layer ξ's ``all_gather`` and two ``psum``s,
+    a local attention layer three ``all_gather``s and three ``psum``s; the
+    embedding's ``psum`` and the logits' ``all_gather`` over ``model``,
+    the logits' rows' over ``data``."""
+    kinds = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.num_layers)]
+    gathers = sum({"recurrent": 1, "local": 3, "global": 3}.get(k, 0) for k in kinds)
+    psums = sum({"rwkv": 2, "recurrent": 2, "local": 3, "global": 3}[k] for k in kinds)
+    return {"all_gather1": gathers + 1, "psum1": psums + 1, "all_gather0": 1}
+
+
+def _recurrent_smoke_card_cpu(dev, arch, batch, seed=34):
+    """(d): ``arch``'s float32 smoke config with ``fsdp``, placed on (2, 4)
+    on the card and on the CPU from one CPU draw: one placed train step's
+    loss, ``{where: loss}``."""
+    import copy
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import placement as PL
+    from repro_torch.launch.mesh import Layout
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = dc.replace(get_smoke_config(arch), fsdp=True)
+    model = build_model(cfg)
+    lm_cpu = model.init(torch.Generator().manual_seed(seed), device="cpu")
+    tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size, batch).astype(np.int32)
+    out = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        pl = PL.train_placement(model, Layout(2, 4))
+        params = pl.place(copy.deepcopy(lm_cpu).to(d))
+        opt_cfg = AdamWConfig(warmup_steps=2)
+        met = build_train_step(model, None, opt_cfg)(params, adamw_init(params, opt_cfg), {"tokens": tokens})[2]
+        out[where] = float(met["loss"])
+    return out
+
+
+def phase_recurrent_shard(dev, ARCHS=RECURRENT_SHARD_ARCHS, LAYOUT=(2, 4), SLOTS=16, MAX_LEN=128, N_REQ=16,
+                          PROMPT=(8, 48), NEW=(8, 24), BATCH=(8, 512), MICRO=2, TRAIN_STEPS=3, CHECK_STEPS=16,
+                          PREFILL=(2, 64), SMOKE_BATCH=(8, 16), widths=None, profile=True):
+    """The recurrent families on placed parameters (``launch.placement``
+    for ``kind`` "ssm" and "hybrid"): rwkv6-3b (its heads over ``model``)
+    and recurrentgemma-2b (its RG-LRU's d_rnn channels over ``model``,
+    its local attention as the dense family's) at full width in bfloat16,
+    cut in depth (``ARCHS``), on ``LAYOUT`` stacked in one process.  For
+    each: (a) every rank's block of every parameter (serve and train
+    placements, and AdamW's moments) and of seeded decode caches equals
+    bit for bit the chunk of the whole leaf the rule names, a rank's bytes
+    ``specs.device_bytes``.  (b) ``BatchedEngine`` on the serve-placed
+    parameters answers phase lm's ``N_REQ`` requests at ``SLOTS`` slots,
+    ``MAX_LEN``, beside the unsharded engine on the same weights: event
+    median a step, one step's device ms by part (``_family_split``),
+    calls a step by kind and tier (the pinned budget,
+    ``_recurrent_decode_calls``) with their bytes, peak GiB.  (c)
+    ``fsdp``, ``BATCH`` in ``MICRO`` microbatches, ``TRAIN_STEPS`` AdamW
+    steps train-placed: losses finite, event median, device ms by part and
+    peak GiB beside the unsharded step's on the same weights.  (d)
+    float32 at the check depth: the placed decode against the unsharded
+    one, teacher-forced over ``CHECK_STEPS`` steps from seeded caches, and
+    a ``PREFILL`` placed prefill against the unsharded one, each within
+    1/``FAM_F32_GAIN`` of the bfloat16 model's distance from the unsharded
+    float32 logits; the smoke config placed on (2, 4), the card against
+    the CPU from one draw: a placed train step's loss within
+    ``RECURRENT_SHARD_TOL_SMOKE``.  (e) None of the ten kernels is
+    launched on the path ``recurrent_shard``.  ``widths`` (``{arch:
+    {field: value}}``) narrows the configs for a rehearsal on the CPU."""
+    import dataclasses as dc
+    import gc
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as KN
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import placement as PL
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import Layout
+    from repro_torch.launch.serve import BatchedEngine
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    out, launched = {}, {}
+    R = LAYOUT[0] * LAYOUT[1]
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    def peak_reset():
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def peak():
+        return torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else None
+
+    def count_launches():
+        for k, v in KN.launch_counts().items():
+            launched[k] = launched.get(k, 0) + v
+
+    def timed_steps(step, params, opt, batch):
+        ev, losses, gnorms = [], [], []
+        for _ in range(TRAIN_STEPS):
+            if cuda:
+                e = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                e[0].record()
+            met = step(params, opt, batch)[2]
+            if cuda:
+                e[1].record()
+                ev.append(e)
+            losses.append(float(met["loss"]))
+            gnorms.append(float(met["gnorm"]))
+        ms = [a.elapsed_time(z) for a, z in ev] if cuda else []
+        return {"losses": losses, "gnorms": gnorms, "step_ms": ms,
+                "step_ms_median": statistics.median(ms[1:]) if len(ms) > 1 else None}
+
+    free()
+    for arch, layers, check_layers in ARCHS:
+        t_arch = time.perf_counter()
+        full = get_config(arch)
+        narrow = (widths or {}).get(arch, {})
+        cfg = dc.replace(full, num_layers=layers, **narrow)
+        model = build_model(cfg)
+        label = f"{cfg.name} at {layers} of {full.num_layers} layers on {LAYOUT}"
+        rec = out[arch] = {}
+        lm = model.init(torch.Generator(device=dev).manual_seed(2626), device=dev)
+        whole_bytes = sum(t.numel() * t.element_size() for t in lm.parameters())
+
+        # (a) the serve placement and the caches
+        sp = PL.serve_placement(model, Layout(*LAYOUT))
+        params = sp.place(lm)
+        bad = _blocks_match(params, lm.tree(), sp)
+        rule, sizes = _rule_bytes(sp, cfg.torch_dtype), _rank_bytes(params, R)
+        key = ("blocks", "k0_rwkv", "rwkv", "u") if cfg.kind == "ssm" else ("blocks", "k0_recurrent", "rglru", "wr")
+        want_spec = (None, S.MODEL, None) if cfg.kind == "ssm" else (None, None, S.MODEL)
+        serve = {"param_bytes_per_rank": sizes, "param_bytes_whole": whole_bytes,
+                 "split_spec": {".".join(key): sp.specs[key]}}
+        check(not bad and set(sizes) == {rule} and sp.specs[key] == want_spec,
+              f"(a) {label}, serve placement: every rank's block of the {len(sp.specs)} parameter leaves == the "
+              f"chunk the rule names, bit for bit (mismatched: {bad}); {'.'.join(key)} {sp.specs[key]}; "
+              f"{sizes[0]} B a rank == specs.device_bytes {rule} (whole {whole_bytes} B)")
+        cp = PL.cache_placement(model, Layout(*LAYOUT), SLOTS, MAX_LEN)
+        depths = [(q * (MAX_LEN - 1)) // SLOTS for q in range(SLOTS)]
+        seeded = _seeded_caches(model, SLOTS, MAX_LEN, depths, 2627, dev)
+        pc = cp.place(seeded)
+        bad = _blocks_match(pc, seeded, cp)
+        csizes, crule = _rank_bytes(pc, R), sum(S.device_bytes(torch.empty(cp.shapes[k], dtype=cp.dtypes[k],
+                                                                           device="meta"), spec, cp.axes)
+                                                for k, spec in cp.specs.items())
+        states = {".".join(k): v for k, v in cp.specs.items() if k[-1] in ("h", "conv") or k[1].endswith("rwkv")}
+        serve["cache_bytes_per_rank"], serve["state_specs"] = csizes, states
+        check(not bad and set(csizes) == {crule} and all(S.MODEL in s and S.DATA in s for s in states.values()),
+              f"(a) {label}: every rank's block of the {len(cp.specs)} cache leaves ({SLOTS} slots, max_len "
+              f"{MAX_LEN}) == the chunk the rule names, bit for bit (mismatched: {bad}); the states {states}; "
+              f"{csizes[0]} B a rank == specs.device_bytes {crule}")
+        del pc, seeded
+
+        # (b) the engines, placed and whole, on the same weights
+        requests = _lm_requests(cfg.vocab_size, N_REQ, PROMPT, NEW)
+        first = torch.zeros((SLOTS, 1), dtype=torch.int32, device=dev)
+        engines = {}
+        for name, p in (("placed", params), ("whole", lm)):
+            engine = BatchedEngine(model, p, slots=SLOTS, max_len=MAX_LEN, device=dev)
+            srec = _StepRecorder(engine)
+            zeros = lambda: (cp.zeros(dev) if name == "placed" else model.init_caches(SLOTS, MAX_LEN, device=dev))
+            engine._step(p, first, zeros())  # warm-up: first-use costs
+            sp.comm.reset()
+            KN.reset_launch_counts()
+            peak_reset()
+            sync()
+            t0 = time.perf_counter()
+            served = engine.run(requests)
+            sync()
+            wall = time.perf_counter() - t0
+            if name == "placed":
+                count_launches()
+            step_ms = [a.elapsed_time(b) for a, b in srec.events] if cuda else []
+            r = {"steps": engine.steps, "tokens": sum(map(len, served.values())), "wall_s": wall,
+                 "step_ms_median": statistics.median(step_ms) if step_ms else None, "peak_gib": peak()}
+            check(all(len(served[q.rid]) == q.max_new_tokens for q in requests),
+                  f"(b) {label}: the {name} engine answers all {N_REQ} requests with their max_new_tokens "
+                  f"({r['tokens']} tokens in {r['steps']} steps)")
+            if name == "placed":
+                r["calls_per_step"], r["call_bytes_per_step"] = _calls_and_bytes(sp.comm, engine.steps)
+                want = _recurrent_decode_calls(cfg)
+                check(r["calls_per_step"] == want,
+                      f"(b) {label}: the placed decode step's calls {r['calls_per_step']} == the pinned budget {want}; "
+                      f"bytes a step {r['call_bytes_per_step']}")
+            if cuda:
+                c = zeros()
+                r["peak_gib_above_held"] = _peak_above_held(lambda: engine._step(p, srec.tokens[-1], c), dev)
+                if profile:
+                    r["split"] = _family_split(lambda: engine._step(p, srec.tokens[-1], c),
+                                               comm=sp.comm if name == "placed" else None, calls=3)
+                del c
+            engines[name] = (r, served)
+            serve[f"{name}_engine"] = r
+        del engine, p, srec
+        agree = sum(a == b for q in requests for a, b in zip(engines["placed"][1][q.rid], engines["whole"][1][q.rid]))
+        serve["engine_tokens_agree"] = (agree, sum(q.max_new_tokens for q in requests))
+        pe, we = serve["placed_engine"], serve["whole_engine"]
+        if pe["step_ms_median"] and we["step_ms_median"]:
+            serve["placed_over_whole_step"] = pe["step_ms_median"] / we["step_ms_median"]
+        print(f"  (b) {label}: placed {pe}; whole {we}; tokens equal {agree} of {serve['engine_tokens_agree'][1]} "
+              f"(bfloat16)", flush=True)
+        rec["serve"] = serve
+        del params, engines
+        free()
+
+        # (a), (c) training: fsdp, MICRO microbatches, train-placed on LAYOUT
+        opt_cfg = AdamWConfig(warmup_steps=20)
+        cfg_t = dc.replace(cfg, fsdp=True, microbatches=MICRO)
+        model_t = build_model(cfg_t)
+        b, s = BATCH
+        batch = SyntheticLM(cfg_t.vocab_size, s, b).batch_at(0)
+        pl = PL.train_placement(model_t, Layout(*LAYOUT))
+        params = pl.place(lm)
+        bad = _blocks_match(params, lm.tree(), pl)
+        rule, sizes = _rule_bytes(pl, cfg_t.torch_dtype), _rank_bytes(params, R)
+        train = {"batch": BATCH, "microbatches": MICRO, "param_bytes_per_rank": sizes}
+        check(not bad and set(sizes) == {rule},
+              f"(a) {label}, fsdp train placement: every rank's block of the {len(pl.specs)} parameter leaves == the "
+              f"chunk the rule names, bit for bit (mismatched: {bad}); {sizes[0]} B a rank == specs.device_bytes "
+              f"{rule}")
+        step = build_train_step(model_t, None, opt_cfg)
+        opt = adamw_init(params, opt_cfg)
+        pl.comm.reset()
+        KN.reset_launch_counts()
+        peak_reset()
+        placed_t = timed_steps(step, params, opt, batch)
+        count_launches()
+        placed_t["peak_gib"] = peak()
+        train["calls_per_step"], train["call_bytes_per_step"] = _calls_and_bytes(pl.comm, TRAIN_STEPS)
+        check(all(map(math.isfinite, placed_t["losses"] + placed_t["gnorms"])),
+              f"(c) {label}, fsdp, batch {b} x {s} in {MICRO} microbatches: {TRAIN_STEPS} placed steps, losses "
+              f"{[round(l, 4) for l in placed_t['losses']]} and gnorms {[round(g, 4) for g in placed_t['gnorms']]} "
+              f"finite")
+        bad = [f"{k}.{p}" for k in ("m", "v") for p in _blocks_match(opt[k], pl.gather(opt[k]), pl)]
+        check(not bad, f"(a) {label}: every rank's block of AdamW's m and v == the chunk of the gathered leaf, bit "
+                       f"for bit (mismatched: {bad})")
+        if cuda and profile:
+            placed_t["split"] = _family_split(lambda: step(params, opt, batch), comm=pl.comm, warmup=False)
+        train["placed"] = placed_t
+        del params, opt
+        free()
+        wstep = build_train_step(model_t, None, opt_cfg)
+        opt = adamw_init(lm, opt_cfg)
+        peak_reset()
+        whole_t = timed_steps(wstep, lm, opt, batch)
+        whole_t["peak_gib"] = peak()
+        if cuda and profile:
+            whole_t["split"] = _family_split(lambda: wstep(lm, opt, batch), warmup=False)
+        train["whole"] = whole_t
+        if placed_t["step_ms_median"] and whole_t["step_ms_median"]:
+            train["placed_over_whole_step"] = placed_t["step_ms_median"] / whole_t["step_ms_median"]
+        rec["train"] = train
+        print(f"  (c) {label}: placed {placed_t}; whole {whole_t}", flush=True)
+        del lm, opt
+        free()
+
+        # (d) float32 at check_layers: the placed decode and prefill against the unsharded ones
+        cfg_c = dc.replace(full, num_layers=check_layers, dtype="float32", **narrow)
+        model_c, model_b = build_model(cfg_c), build_model(dc.replace(cfg_c, dtype="bfloat16"))
+        lay = Layout(*LAYOUT)
+        lm32 = model_c.init(torch.Generator(device=dev).manual_seed(2628), device=dev)
+        p32 = PL.serve_placement(model_c, lay).place(lm32)
+        w16 = _cast_tree(lm32.tree(), torch.bfloat16)
+        cpc = PL.cache_placement(model_c, lay, SLOTS, MAX_LEN)
+        depths = [(q * (MAX_LEN - CHECK_STEPS)) // SLOTS for q in range(SLOTS)]
+        c16 = _seeded_caches(model_b, SLOTS, MAX_LEN, depths, 2629, dev)
+        runs = {"placed": [p32, cpc.place(_cast_tree(c16, torch.float32)), model_c.decode_fn()],
+                "whole": [lm32, _cast_tree(c16, torch.float32), model_c.decode_fn()],
+                "bf16": [w16, c16, model_b.decode_fn()]}
+        gen = np.random.default_rng(2630)
+        d_placed = d_bf16 = 0.0
+        for _ in range(CHECK_STEPS):
+            tok = torch.from_numpy(gen.integers(0, cfg_c.vocab_size, (SLOTS, 1)).astype(np.int32)).to(dev)
+            lg = {}
+            for name, run in runs.items():
+                lg[name], run[1] = run[2](run[0], tok, run[1])
+            d_placed = max(d_placed, float((lg["placed"] - lg["whole"]).abs().max()))
+            d_bf16 = max(d_bf16, float((lg["bf16"].float() - lg["whole"]).abs().max()))
+        pairs = [(a, b) for (k, a), b in zip(_leaf_items(cpc.gather(runs["placed"][1])).items(),
+                                             _leaf_items(runs["whole"][1]).values()) if k[-1] != "pos"]
+        state_gap = max(float((a - b).abs().max()) for a, b in pairs)
+        state_scale = max(float(b.abs().max()) for _, b in pairs)
+        tokens = torch.from_numpy(gen.integers(0, cfg_c.vocab_size, PREFILL).astype(np.int32)).to(dev)
+        pf = {name: m.prefill_fn()(p, {"tokens": tokens}).float()
+              for name, m, p in (("placed", model_c, p32), ("whole", model_c, lm32), ("bf16", model_b, w16))}
+        p_placed, p_bf16 = float((pf["placed"] - pf["whole"]).abs().max()), float((pf["bf16"] - pf["whole"]).abs().max())
+        rec["float32_check"] = {"layers": check_layers, "decode_placed_vs_whole": d_placed, "decode_bf16_vs_f32": d_bf16,
+                                "state_gap": state_gap, "state_scale": state_scale, "prefill_placed_vs_whole": p_placed,
+                                "prefill_bf16_vs_f32": p_bf16}
+        check(d_placed <= d_bf16 / FAM_F32_GAIN and p_placed <= p_bf16 / FAM_F32_GAIN,
+              f"(d) {cfg_c.name} at {check_layers} layer(s) in float32 on {LAYOUT}: {CHECK_STEPS} teacher-forced decode "
+              f"steps max |placed - unsharded| {d_placed:.4g} <= 1/{FAM_F32_GAIN:g} of the bfloat16 model's distance "
+              f"{d_bf16:.4g}; a {PREFILL} prefill {p_placed:.4g} <= 1/{FAM_F32_GAIN:g} of {p_bf16:.4g}; the caches "
+              f"{state_gap:.4g} apart (largest |value| {state_scale:.4g})")
+        del runs, lm32, p32, w16, c16, pf, pairs
+        free()
+        smoke = _recurrent_smoke_card_cpu(dev, arch, SMOKE_BATCH)
+        rec["smoke"] = smoke
+        check(abs(smoke["card"] - smoke["cpu"]) <= RECURRENT_SHARD_TOL_SMOKE,
+              f"(d) the {arch} smoke config, fsdp, placed on (2, 4), one train step: the card's loss "
+              f"{smoke['card']:.6f} within {RECURRENT_SHARD_TOL_SMOKE} of the CPU's {smoke['cpu']:.6f}")
+        rec["s"] = time.perf_counter() - t_arch
+    check(not any(launched.values()),
+          f"(e) path recurrent_shard: none of the ten kernels launched on the placed engines and steps ({launched})")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase recurrent_shard: {out['phase_s']:.1f} s", flush=True)
+    return out, {"recurrent_shard": launched}
+
+
 def _nest(flat):
     """``{path: leaf}`` → the nested dict."""
     out = {}
@@ -6690,7 +7129,7 @@ def main() -> int:
            "families": lambda: phase_families(dev), "dryrun": lambda: phase_dryrun(dev),
            "dist": lambda: phase_dist(dev), "dist_paths": lambda: phase_dist_paths(dev),
            "shard": lambda: phase_shard(dev), "serve_shard": lambda: phase_serve_shard(dev),
-           "moe_shard": lambda: phase_moe_shard(dev)}
+           "moe_shard": lambda: phase_moe_shard(dev), "recurrent_shard": lambda: phase_recurrent_shard(dev)}
     kernels, paths = {}, {}  # paths: launches per path, counted from 0
     for title in run:
         print(f"# phase {title}", flush=True)
@@ -6706,7 +7145,7 @@ def main() -> int:
             paths.update(more)
         elif title in ("lossless", "telemetry", "pipeline", "credit", "balance", "recovery", "obs", "apps2", "ragged",
                        "lm", "train", "families", "dryrun", "dist", "dist_paths", "shard", "serve_shard",
-                       "moe_shard"):
+                       "moe_shard", "recurrent_shard"):
             record[title], more = res
             paths.update(more)
         elif title in ("streamlines", "vopat", "nbody"):

@@ -37,17 +37,26 @@ with FSDP dropped (``specs.param_spec(serve=True)``): split over
 nothing.  The decode caches (:func:`cache_placement`) are placed by
 ``specs.cache_spec``: ``k`` and ``v`` ``(data, model, None, None)``, the
 slots over ``data`` and the sequence over ``model``, ``pos`` over
-``data``; :meth:`Placement.zeros` makes them on the device already placed.
+``data``; griffin's ``h`` and ``conv`` and rwkv's state the slots over
+``data`` and the channels or heads over ``model``;
+:meth:`Placement.zeros` makes them on the device already placed.
 
-The text-only dense and MoE families are placed here (``kind`` "dense"
-or "moe", no vision frontend).  An MoE's experts follow its dispatch
-plane, as the rule names them: under ``rafi_ep`` ``(E, D, F)`` split over
-``model`` on the expert dimension (each model rank owns E/model experts),
-under ``dense_tp`` every expert on every rank with d_ff split over
-``model``; the router is whole.  FSDP puts ``data`` on the layer stack of
-a stacked expert leaf, or on D where the stack does not divide.  The
-recurrent, rwkv and encoder-decoder families, the vision frontend and the
-sequence-parallel layouts come later (ROADMAP Queue 1 item 21c2).
+The text-only decoder families are placed here: dense, MoE, the hybrid
+(griffin's RG-LRU beside local attention) and the ssm (rwkv6), with no
+vision frontend.  An MoE's experts follow its dispatch plane, as the rule
+names them: under ``rafi_ep`` ``(E, D, F)`` split over ``model`` on the
+expert dimension (each model rank owns E/model experts), under
+``dense_tp`` every expert on every rank with d_ff split over ``model``;
+the router is whole.  Griffin's ``wa``/``wb``/``conv``/``wr``/``wi`` are
+split over ``model`` on their d_rnn output channels, ``lam`` on its
+channels and ``wo`` on its rows; its decode state ``h`` and ``conv`` on
+the channels.  rwkv6's five projections are split on their output
+columns (whole heads, head-major), ``w_bias`` on its channels, ``u`` on
+its heads and ``wo`` on its rows; its decode state on the heads.  FSDP
+puts ``data`` on the layer stack of a stacked leaf, or on the first
+unsplit dimension where the stack does not divide.  The encoder-decoder
+under ``dp_over_model``, the vision frontend and the sequence-parallel
+layouts come later (ROADMAP Queue 1 item 21c3).
 """
 from __future__ import annotations
 
@@ -63,6 +72,7 @@ from repro_torch.launch.mesh import DATA_TIER, Layout
 from repro_torch.models.api import Model
 from repro_torch.models.common import ParamTree
 from repro_torch.models.parallel import Ranks, gather
+from repro_torch.models.rwkv6 import _heads
 
 __all__ = ["Placed", "Placement", "cache_placement", "counted", "is_placed", "serve_placement", "train_placement"]
 
@@ -251,17 +261,17 @@ class Placement:
         return ranks.comm.psum(local)
 
 
-_PLACED_KINDS = ("dense", "moe")
+_PLACED_KINDS = ("dense", "moe", "hybrid", "ssm")
 
 
 def _placed_layout(model: Model, layout: Layout) -> Layout:
     """``layout`` with its backend resolved, for a model of a placed
-    family (the text-only dense and MoE families)."""
+    family (the text-only decoder families)."""
     cfg = model.cfg
     if cfg.kind not in _PLACED_KINDS or cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: only the text-only dense and MoE families are placed (kind="
-                                  f"{cfg.kind!r}, frontend={cfg.frontend!r}); the others are ROADMAP Queue 1 "
-                                  "item 21c2")
+        raise NotImplementedError(f"{cfg.name}: only the text-only dense, MoE, hybrid and ssm families are placed "
+                                  f"(kind={cfg.kind!r}, frontend={cfg.frontend!r}); the encoder-decoder and the "
+                                  "vision frontend are ROADMAP Queue 1 item 21c3")
     return dataclasses.replace(layout, comm=backend(layout.comm))
 
 
@@ -271,8 +281,13 @@ def _axis_dims(spec: tuple, ax: str) -> List[int]:
 
 def _what_model_splits(path: Tuple[str, ...], cfg) -> str:
     """The dimension the rule puts ``model`` on, in words, for a refusal."""
-    if len(path) > 1 and path[-2] == "moe" and path[-1] != "router":
+    parent = path[-2] if len(path) > 1 else ""
+    if parent == "moe" and path[-1] != "router":
         return f"the {cfg.num_experts} experts" if cfg.moe_dispatch == "rafi_ep" else f"d_ff ({cfg.d_ff})"
+    if parent == "rwkv":
+        return f"the {_heads(cfg)} heads"
+    if parent == "rglru":
+        return f"d_rnn ({cfg.d_model})"
     return "the dimension the rule names"
 
 
@@ -296,11 +311,12 @@ def train_placement(model: Model, layout: Layout) -> Placement:
     """The placement of ``model``'s train state on ``layout`` (its
     ``comm`` the backend: None stacked), as ``build_train_step``'s
     shardings place the reference's on the ``(data, model)`` mesh.
-    Raises for a model outside the text-only dense and MoE families, and
+    Raises for a model outside the text-only decoder families, and
     where the rule would move ``model`` off the dimension it names (no
     dense config does on a layout of 8 ranks; an MoE's experts under
     ``rafi_ep`` where ``model`` does not divide them, as the reference
-    asserts, and its d_ff under ``dense_tp``)."""
+    asserts, and its d_ff under ``dense_tp``; rwkv6 where ``model`` does
+    not divide its heads, griffin where it does not divide d_rnn)."""
     return _param_placement(model, layout, serve=False)
 
 
@@ -313,15 +329,23 @@ def serve_placement(model: Model, layout: Layout) -> Placement:
     return _param_placement(model, layout, serve=True)
 
 
+def _what_cache_model_splits(path: Tuple[str, ...]) -> str:
+    """What a cache leaf's spec puts ``model`` on, in words."""
+    kind = "global" if len(path) < 2 or "_" not in path[1] else path[1].split("_", 1)[1]
+    return {"rwkv": "the heads", "recurrent": "the channels"}.get(kind, "the sequence")
+
+
 def cache_placement(model: Model, layout: Layout, batch: int, max_len: int) -> Placement:
     """The placement of ``model``'s decode caches of ``batch`` slots and
     ``max_len`` positions on ``layout``, as ``build_decode_step``'s
     shardings place the reference's (``specs.cache_spec`` resolved against
     ``steps.abstract_caches``' shapes, moves allowed): ``k``/``v`` the
     slots over ``data`` and the sequence over ``model``, ``pos`` over
-    ``data``.  Raises where the resolved spec moves ``model`` off the
-    sequence (``max_len % model``: the placed decode attends over a
-    sequence split) or ``data`` off the slots (``batch % data``)."""
+    ``data``; griffin's ``h`` and ``conv`` the slots over ``data`` and the
+    channels over ``model``, rwkv's state the heads.  Raises where the
+    resolved spec moves ``model`` off what it names (``max_len % model``:
+    the placed decode attends over a sequence split; the channels or heads
+    the placed blocks hold) or ``data`` off the slots (``batch % data``)."""
     from repro_torch.launch.steps import abstract_caches
 
     cfg = model.cfg
@@ -334,7 +358,7 @@ def cache_placement(model: Model, layout: Layout, batch: int, max_len: int) -> P
         for ax, size in ((S.MODEL, layout.model), (S.DATA, layout.data)):
             named, kept = _axis_dims(raw, ax), _axis_dims(spec, ax)
             if size > 1 and named != kept:
-                what = "the sequence" if ax == S.MODEL else "the slots"
+                what = _what_cache_model_splits(path) if ax == S.MODEL else "the slots"
                 raise ValueError(f"{'.'.join(path)} {tuple(a.shape)}: the {ax} axis moves off {what} (dimension "
                                  f"{named} to {kept}) on {axes}: batch {batch}, max_len {max_len}")
         specs[path], shapes[path], dtypes[path] = spec, tuple(a.shape), a.dtype

@@ -1,9 +1,9 @@
 """How the reference's production mesh splits a step's state over its
 devices: the port's copy of the reference's partition rule, with no
 ``PartitionSpec``.  ``launch.dryrun`` reads it to give a cell's bytes per
-device, and ``launch.placement`` to place the dense and MoE families'
-train state, their serving parameters and their decode caches on a
-layout's ranks: :func:`cut` gives the rank blocks of a whole leaf under
+device, and ``launch.placement`` to place the text-only decoder families'
+(dense, MoE, griffin's hybrid and rwkv6) train state, their serving
+parameters and their decode caches on a layout's ranks: :func:`cut` gives the rank blocks of a whole leaf under
 its resolved spec, :func:`join` the whole leaf back.
 
 A spec is a tuple with one entry per dimension: None (not split), an

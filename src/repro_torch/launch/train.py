@@ -74,8 +74,8 @@ def train(
     rows (``launch.steps``), the replicas stay equal, process 0 alone
     writes the checkpoints and the others wait for it at a barrier.
 
-    ``place=True`` places the state on ``layout`` (the text-only dense and
-    MoE families; module docstring) and returns it placed
+    ``place=True`` places the state on ``layout`` (the text-only dense,
+    MoE, hybrid and ssm families; module docstring) and returns it placed
     (``launch.placement.Placed`` parameters, an AdamW state with placed
     moments).  It is not the
     default: the data-parallel step's laws (a world of W processes equals
@@ -159,7 +159,8 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None, help=f"default: {_default_ckpt_dir()}")
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--cpu", action="store_true", help="run on the CPU (plain PyTorch versions of the kernels)")
-    ap.add_argument("--place", action="store_true", help="place the state on the (2, 4) layout (dense and MoE families)")
+    ap.add_argument("--place", action="store_true",
+                    help="place the state on the (2, 4) layout (the dense, MoE, hybrid and ssm families)")
     args = ap.parse_args(argv)
     train(
         arch=args.arch, smoke=args.smoke, steps=args.steps, batch=args.batch,

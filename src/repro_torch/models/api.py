@@ -208,16 +208,19 @@ def placed_decode(params, token, caches, cfg: ModelConfig):
         raise ValueError("placed parameters decode on placed caches (launch.placement.cache_placement)")
     placement = params.placement
     ranks = placement.ranks(token.device)
-    pos = _first_cache_pos(caches, 0, token.device, stacked=True)  # (L, b)
+    pos = _first_cache_pos(caches, (ranks.ids.shape[0], token.shape[0] // ranks.data), token.device,
+                           stacked=True)  # (L, b)
     with torch.no_grad():
         logits, new, moe_drops = TF.forward_placed(placement.unshard(params, ranks), _group_rows(token, ranks), cfg,
                                                    ranks, caches=caches, positions=pos[..., None].to(torch.int32))
         return _whole_logits(logits[:, :, -1], ranks), caches.like(new), moe_drops
 
 
-def _first_cache_pos(caches, batch: int, device, *, stacked: bool = False) -> torch.Tensor:
+def _first_cache_pos(caches, batch, device, *, stacked: bool = False) -> torch.Tensor:
     """(B,) current decode positions from any attention cache (all agree);
-    ``stacked``: of placed caches, ``(L, b)``."""
+    ``stacked``: of placed caches, ``(L, b)``.  Zeros of shape ``batch``
+    (``B``, or ``(L, b)`` placed) where no layer has an attention cache
+    (rwkv6)."""
     lead = 1 if stacked else 0
     for c in caches["blocks"].values():
         if isinstance(c, dict) and "pos" in c:
@@ -225,7 +228,7 @@ def _first_cache_pos(caches, batch: int, device, *, stacked: bool = False) -> to
     for c in caches["tail"].values():
         if isinstance(c, dict) and "pos" in c:
             return c["pos"]
-    return torch.zeros((batch,), dtype=torch.int32, device=device)
+    return torch.zeros(batch, dtype=torch.int32, device=device)
 
 
 def build_model(cfg: ModelConfig) -> Model:

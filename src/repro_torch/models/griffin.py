@@ -14,6 +14,13 @@ gate weights with it, as the reference's type promotion does).  The
 training scan is a loop over S steps, two launches each, where the
 reference runs ``lax.scan``; decode carries (h, the conv tail of 3 inputs in
 the activation dtype).
+
+:func:`griffin_block_placed` runs the block on every local rank of a
+placement (``models.parallel``), d_rnn split over ``model``: ``wa``, ``wb``,
+``conv``, ``wr``, ``wi`` and ``lam`` on the rank's channels, ``wo`` on its
+rows.  The gates contract over the whole ξ, so the rank's conv output is
+gathered over ``model`` first (:func:`_whole_xi`); the scan and the decode
+state run on the rank's channels.
 """
 from __future__ import annotations
 
@@ -22,10 +29,11 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.models import parallel as P
 from repro_torch.models.common import ModelConfig, ParamDef, activation
 from repro_torch.models.rwkv6 import softplus
 
-__all__ = ["CONV_W", "LRU_C", "griffin_block", "griffin_defs", "griffin_state"]
+__all__ = ["CONV_W", "LRU_C", "griffin_block", "griffin_block_placed", "griffin_defs", "griffin_state"]
 
 CONV_W = 4
 LRU_C = 8.0
@@ -56,14 +64,18 @@ def _lru_coeffs(params, xi):
 
 
 def _causal_conv(x, w, tail: Optional[torch.Tensor] = None):
-    """Depthwise causal conv, width CONV_W.  x (B,S,D); tail (B,CONV_W-1,D)."""
+    """Depthwise causal conv, width CONV_W.  x (B,S,D), w (CONV_W,D); tail
+    (B,CONV_W-1,D).  On every rank of a placement: x (L,b,S,c), w
+    (L,CONV_W,c), tail (L,b,CONV_W-1,c)."""
     if tail is None:
-        pad = torch.zeros((x.shape[0], CONV_W - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+        pad = torch.zeros(x.shape[:-2] + (CONV_W - 1, x.shape[-1]), dtype=x.dtype, device=x.device)
     else:
         pad = tail.to(x.dtype)
-    xp = torch.cat([pad, x], dim=1)
-    out = sum(xp[:, i: i + x.shape[1]] * w[i][None, None, :] for i in range(CONV_W))
-    return out, xp[:, -(CONV_W - 1):]
+    xp = torch.cat([pad, x], dim=-2)
+    s = x.shape[-2]
+    tap = lambda i: w[..., i, :].reshape(w.shape[:-2] + (1,) * (x.dim() - w.dim() + 1) + w.shape[-1:])
+    out = sum(xp[..., i: i + s, :] * tap(i) for i in range(CONV_W))
+    return out, xp[..., -(CONV_W - 1):, :]
 
 
 def _lru_scan(a, gated):
@@ -99,6 +111,44 @@ def griffin_block(params, x, cfg: ModelConfig, *, state: Optional[Dict] = None
         y = h[:, None].to(x.dtype)
         new_state = {"h": h, "conv": tail}
     return (gate * y) @ params["wo"], new_state
+
+
+def _whole_xi(xi: torch.Tensor, ranks) -> torch.Tensor:
+    """The conv output ``(L, b, S, dr/model)`` gathered whole over
+    ``model`` (float32; its backward a ``reduce_scatter``): the gates
+    ``xi @ wr`` and ``xi @ wi`` contract over every channel."""
+    return P.gather(xi, ranks, P.MODEL_TIER, 2)
+
+
+def griffin_block_placed(params, x, cfg: ModelConfig, ranks, *, state: Optional[Dict] = None
+                         ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """:func:`griffin_block` on every local rank, d_rnn split over
+    ``model`` (module docstring): x ``(L, b, S, D)`` whole over ``model``;
+    ``state`` None → the scan over S, else the rank's ``{"h": (L, b, c),
+    "conv": (L, b, CONV_W-1, c)}``, c = d_rnn/model, and one step.
+    Returns ``(out (L, b, S, D)`` after the row-parallel ``psum``, the new
+    state)."""
+    L, b, s, _ = x.shape
+    x = P.copy_model(x, ranks)
+    gate = activation(P.mm(x, params["wa"]), "gelu")
+    xb = P.mm(x, params["wb"])
+    conv, tail = _causal_conv(xb, params["conv"], None if state is None else state["conv"])
+    own = conv.to(torch.float32)
+    xi = _whole_xi(own, ranks)
+    r = torch.sigmoid(P.mm(xi, params["wr"].to(xi.dtype)))
+    i = torch.sigmoid(P.mm(xi, params["wi"].to(xi.dtype)))
+    a = torch.exp(-LRU_C * softplus(params["lam"])[:, None, None, :] * r)
+    gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * own)
+    c = a.shape[-1]
+    if state is None:
+        y = _lru_scan(a.reshape(L * b, s, c), gated.reshape(L * b, s, c)).reshape(L, b, s, c).to(x.dtype)
+        new_state = None
+    else:
+        h = _lru_step(a.reshape(L * b, 1, c), gated.reshape(L * b, 1, c), state["h"].reshape(L * b, c))
+        h = h.reshape(L, b, c)
+        y = h[:, :, None].to(x.dtype)
+        new_state = {"h": h, "conv": tail}
+    return P.psum_model(P.mm(gate * y, params["wo"]), ranks), new_state
 
 
 def griffin_state(cfg: ModelConfig, batch: int, device=None) -> Dict:

@@ -20,6 +20,12 @@ port never turns on TF32.  Decode carries the state, one step a token.
 The projections run in the model dtype; the decay's softplus and clamp come
 before the cast to float32, and the scan's output is cast back before the
 ``g`` gate, step for step as the reference.
+
+:func:`rwkv_block_placed` runs the block on every local rank of a placement
+(``models.parallel``), the heads split over ``model``: the five projections
+column-parallel (a rank's columns are H/model whole heads, head-major),
+``w_bias`` and ``u`` the rank's blocks, ``wo`` row-parallel.  The chunk scan
+and the decode step run as they are, on the ranks' heads side by side.
 """
 from __future__ import annotations
 
@@ -29,9 +35,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import parallel as P
 from repro_torch.models.common import ModelConfig, ParamDef
 
-__all__ = ["CHUNK", "W_MIN", "naive_scan_oracle", "rwkv_block", "rwkv_defs", "rwkv_state"]
+__all__ = ["CHUNK", "W_MIN", "naive_scan_oracle", "rwkv_block", "rwkv_block_placed", "rwkv_defs", "rwkv_state"]
 
 CHUNK = 32
 W_MIN = -2.5  # per-step log-decay clamp: w ∈ [e^-2.5 ≈ 0.082, ~1)
@@ -138,6 +145,39 @@ def rwkv_block(params, x, cfg: ModelConfig, *, state: Optional[torch.Tensor] = N
         o, new_state = _state_step(r, k, v, logw, u, state)
     o = o.reshape(b, s, d).to(x.dtype) * g
     return o @ params["wo"], new_state
+
+
+def _heads_side_by_side(t: torch.Tensor, dh: int) -> torch.Tensor:
+    """``(L, b, S, n·dh)`` → ``(b, S, L·n, dh)``: each rank's n heads after
+    the rank before's, as one tensor of heads for the scan."""
+    L, b, s, _ = t.shape
+    return t.reshape(L, b, s, -1, dh).permute(1, 2, 0, 3, 4).reshape(b, s, -1, dh)
+
+
+def rwkv_block_placed(params, x, cfg: ModelConfig, ranks, *, state: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """:func:`rwkv_block` on every local rank, the heads split over
+    ``model`` (module docstring): x ``(L, b, S, D)`` whole over ``model``;
+    ``state`` None → the chunk scan, else the rank's ``(L, b, H/model, dk,
+    dv)`` state and one step.  Returns ``(out (L, b, S, D)`` after the
+    row-parallel ``psum``, the new state)."""
+    L, b, s, _ = x.shape
+    dh = cfg.d_model // _heads(cfg)
+    x = P.copy_model(x, ranks)
+    r, k, v = (_heads_side_by_side(P.mm(x, params[n]), dh) for n in ("wr", "wk", "wv"))
+    logw = -softplus(P.mm(x, params["ww"]) + params["w_bias"][:, None, None, :])
+    logw = _heads_side_by_side(torch.clamp(logw, W_MIN, -1e-4), dh)
+    g = F.silu(P.mm(x, params["wg"]))
+    u = params["u"].reshape(-1, dh)  # (L·H/model, dh), as the heads lie
+    if state is None:
+        o = _chunk_scan(r, k, v, logw, u)
+        new_state = None
+    else:
+        n = state.shape[2]
+        o, new = _state_step(r, k, v, logw, u, state.transpose(0, 1).reshape((b, L * n) + state.shape[3:]))
+        new_state = new.reshape((b, L, n) + state.shape[3:]).transpose(0, 1).contiguous()
+    o = o.reshape(b, s, L, -1).permute(2, 0, 1, 3).to(x.dtype) * g
+    return P.psum_model(P.mm(o, params["wo"]), ranks), new_state
 
 
 def rwkv_state(cfg: ModelConfig, batch: int, device=None) -> torch.Tensor:

@@ -229,17 +229,25 @@ def forward(
 # ----------------------------------------------------------------- placed
 
 def apply_layer_placed(params, x, cfg: ModelConfig, kind: str, ranks, *, positions=None, cache=None):
-    """:func:`apply_layer` for a dense or MoE layer on every local rank
-    (``models.parallel``): x ``(L, b, S, D)``, the norms' gains ``(L, D)``
-    whole, attention and MLP tensor-parallel over ``model``, an MoE layer's
-    experts on the rank's blocks (``moe.moe_block_placed``); with ``cache``
-    (a rank's blocks, the sequence split over ``model``) one decode step at
-    ``positions`` ``(L, b, 1)``.  Returns ``(x, new_cache, moe_drops)``."""
+    """:func:`apply_layer` on every local rank (``models.parallel``): x
+    ``(L, b, S, D)``, the norms' gains ``(L, D)`` whole; attention, the
+    RG-LRU block (``griffin.griffin_block_placed``: d_rnn over ``model``),
+    the rwkv block (``rwkv6.rwkv_block_placed``: the heads over ``model``)
+    and the MLP tensor-parallel over ``model``, an MoE layer's experts on
+    the rank's blocks (``moe.moe_block_placed``); with ``cache`` (a rank's
+    blocks: attention's sequence, griffin's channels, rwkv's heads split
+    over ``model``) one decode step at ``positions`` ``(L, b, 1)``.
+    Returns ``(x, new_cache, moe_drops)``."""
     gain = lambda g: g[:, None, None, :]
     h = rmsnorm(x, gain(params["ln1"]))
-    window = cfg.window if kind == "local" else 0
-    y, new_cache = A.self_attention_placed(params["attn"], h, cfg, ranks, window=window,
-                                           theta=_theta_for(cfg, kind), cache=cache, positions=positions)
+    if kind == "recurrent":
+        y, new_cache = G.griffin_block_placed(params["rglru"], h, cfg, ranks, state=cache)
+    elif kind == "rwkv":
+        y, new_cache = W.rwkv_block_placed(params["rwkv"], h, cfg, ranks, state=cache)
+    else:
+        window = cfg.window if kind == "local" else 0
+        y, new_cache = A.self_attention_placed(params["attn"], h, cfg, ranks, window=window,
+                                               theta=_theta_for(cfg, kind), cache=cache, positions=positions)
     x = x + y
     h = rmsnorm(x, gain(params["ln2"]))
     if kind == "moe":
@@ -264,8 +272,9 @@ def _period_placed(block_params, x, cfg: ModelConfig, ranks, caches=None, positi
 
 
 def forward_placed(params, tokens, cfg: ModelConfig, ranks, *, caches=None, positions=None):
-    """:func:`forward` on every local rank of a placement, the dense and
-    MoE families.  ``params``: every leaf whole over ``data``
+    """:func:`forward` on every local rank of a placement, the text-only
+    decoder families (dense, MoE, hybrid, ssm).  ``params``: every leaf
+    whole over ``data``
     (``launch.placement.Placement.unshard``; a serve placement's already
     are), ``(L, *block)``; ``tokens`` ``(L, b, S)``, each rank's data
     group's rows.  The embedding over a vocabulary split over ``model`` is

@@ -253,7 +253,7 @@ def test_a_planted_misplacement_fails():
 def test_refusals():
     """``rafi_ep`` where ``model`` does not divide the experts (4 experts on
     (1, 8)), ``dense_tp`` where it does not divide d_ff, and the families
-    still unplaced."""
+    still unplaced (the recurrent ones place)."""
     _, cfg, _, _ = _pair("llama4-scout-17b-16e", "rafi_ep")
     for fn in (PL.train_placement, PL.serve_placement):
         with pytest.raises(ValueError, match=r"blocks.k0_moe.moe.wi \(2, 4, 64, 128\): the model axis \(8\) does "
@@ -262,9 +262,11 @@ def test_refusals():
     odd = dataclasses.replace(cfg, moe_dispatch="dense_tp", d_ff=90)
     with pytest.raises(ValueError, match=r"moe.wi \(2, 4, 64, 90\): the model axis \(4\) does not divide d_ff"):
         PL.train_placement(build_model(odd), make_test_layout(2, 4))
-    for arch in ("recurrentgemma-2b", "rwkv6-3b", "seamless-m4t-medium", "qwen2-vl-72b"):
-        with pytest.raises(NotImplementedError, match="item 21c2"):
+    for arch in ("seamless-m4t-medium", "qwen2-vl-72b"):
+        with pytest.raises(NotImplementedError, match="item 21c3"):
             PL.serve_placement(build_model(get_smoke_config(arch)), make_test_layout(2, 4))
+    for arch in ("recurrentgemma-2b", "rwkv6-3b"):  # the recurrent families place now
+        assert PL.serve_placement(build_model(get_smoke_config(arch)), make_test_layout(2, 4)).specs
 
 
 # ------------------------------------------------------------------ the step

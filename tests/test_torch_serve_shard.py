@@ -216,10 +216,10 @@ def test_a_planted_cache_misplacement_fails():
 def test_refusals():
     _, cfg, _, lm = _pair("qwen2-7b")
     model = build_model(cfg)
-    unplaced = build_model(get_smoke_config("recurrentgemma-2b"))
+    unplaced = build_model(get_smoke_config("seamless-m4t-medium"))
     for fn in (lambda: PL.serve_placement(unplaced, make_test_layout(2, 4)),
                lambda: PL.cache_placement(unplaced, make_test_layout(2, 4), 4, 16)):
-        with pytest.raises(NotImplementedError, match="dense"):
+        with pytest.raises(NotImplementedError, match="item 21c3"):
             fn()
     with pytest.raises(ValueError, match="model axis moves off the sequence"):
         PL.cache_placement(model, make_test_layout(2, 4), 4, 18)
