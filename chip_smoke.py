@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all started together, linked into one library under
-``build/``) and runs twenty-five phases on ``cuda:0``:
+``build/``) and runs twenty-six phases on ``cuda:0``:
 
   1. kernels     — all ten kernels (K1 gather_rows, K2 unmarshal, K3
                    pack_and_histogram, K4 rank_and_histogram, K5
@@ -423,7 +423,35 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    2 × 64 prefill within 1/16 of the bfloat16 distance;
                    each smoke config placed, card against CPU; (e) no
                    kernel on the path;
- 25. report      — one JSON line of the kernels (launches on the paths that
+ 25. frontend_shard — the stub-frontend families on placed parameters,
+                   full width, bf16, stacked: qwen2-vl-72b (the dense
+                   family's placement, ``embeds`` in place of the lookup,
+                   M-RoPE) and seamless-m4t-medium under ``dp_over_model``
+                   (every weight whole on every rank, the rows over
+                   ``(data, model)``, the decoder caches' sequence over
+                   ``model``): (a) every rank's block of the serve and
+                   train parameters, AdamW's moments and seeded caches
+                   equal to the chunk the rule names, bit for bit, its
+                   bytes ``specs.device_bytes``; (b) qwen2-vl at 2 of 80
+                   layers on (2, 4): ``BatchedEngine`` answering phase
+                   lm's 16 requests beside the unsharded engine, a 2 × 64
+                   prefill of ``embeds``; (c) seamless at full depth on
+                   (2, 4): frames (8, 512, 1,024), a placed prefill, 64
+                   teacher-forced and 32 greedy ``decode_fn`` steps
+                   against the memory beside the unsharded model; for (b)
+                   and (c) event medians, device ms by part, calls a step
+                   by kind and tier (the pinned budgets) with their bytes,
+                   peak GiB; (d) training, placed then unsharded:
+                   qwen2-vl at 1 layer, ``fsdp`` on (2, 4), 8 × 512 with
+                   ``embeds`` and ``labels`` in 4 microbatches (``embed``
+                   gathered by no call and decayed alone), seamless at
+                   full depth on (2, 2), frames and tokens of 64, 3 steps
+                   each: losses finite, event median, device ms by part,
+                   calls, peak GiB; (e) float32 at 1 layer: each placed
+                   decode within 1/16 of the bfloat16 distance; both smoke
+                   configs placed, card against CPU; (f) no kernel on the
+                   path;
+ 26. report      — one JSON line of the kernels (launches on the paths that
                    run them, errors, bounds; ``ms``, ``plain_ms`` and
                    ``library_ms`` are device times, ``call_ms`` the event
                    pair's; device events a call), the card's name and
@@ -4470,7 +4498,7 @@ def _ranged_kernels(raw, prefix):
     return out
 
 
-def _family_split(fn, calls=1, comm=None, warmup=True):
+def _family_split(fn, calls=1, comm=None, warmup=True, more=()):
     """Device time of ``fn()`` by part, ms a call, from ``torch.profiler``:
     each kernel goes to the innermost ``record_function`` range around it
     (``_ranged_kernels``): ``scan`` (the recurrences, ``rwkv6.
@@ -4482,7 +4510,8 @@ def _family_split(fn, calls=1, comm=None, warmup=True):
     ``reduce_scatter`` calls); elsewhere ``gemm`` (cuBLAS and CUTLASS
     kernels: the projections and the MLP) and ``rest``; and the device
     launches a call (kernels, copies, memsets), in all and by part.
-    ``warmup``: one call before the profile."""
+    ``warmup``: one call before the profile; ``more``: ``((part, [(module,
+    name), …]), …)`` further functions whose kernels go to a part."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -4495,6 +4524,8 @@ def _family_split(fn, calls=1, comm=None, warmup=True):
                "attention": [(A, "self_attention"), (A, "self_attention_placed")], "adamw": [(ST, "adamw_update")]}
     if comm is not None:
         targets["collectives"] = [(comm, "psum"), (comm, "all_gather"), (comm, "reduce_scatter")]
+    for part, items in more:
+        targets[part] = targets.get(part, []) + list(items)
     orig = [(m, n, getattr(m, n)) for items in targets.values() for m, n in items]
 
     def ranged(part, f):
@@ -6773,34 +6804,28 @@ def _recurrent_decode_calls(cfg):
     return {"all_gather1": gathers + 1, "psum1": psums + 1, "all_gather0": 1}
 
 
-def _recurrent_smoke_card_cpu(dev, arch, batch, seed=34):
-    """(d): ``arch``'s float32 smoke config with ``fsdp``, placed on (2, 4)
-    on the card and on the CPU from one CPU draw: one placed train step's
-    loss, ``{where: loss}``."""
+def _placed_smoke_card_cpu(dev, cfg, batch, seed):
+    """A float32 smoke config placed on (2, 4) on the card and on the CPU
+    from one CPU draw: one placed train step's loss on ``batch`` (host
+    arrays or CPU tensors), ``{where: loss}``."""
     import copy
-    import dataclasses as dc
 
-    import numpy as np
     import torch
 
-    from repro_torch.configs import get_smoke_config
     from repro_torch.launch import placement as PL
     from repro_torch.launch.mesh import Layout
     from repro_torch.launch.steps import build_train_step
     from repro_torch.models.api import build_model
     from repro_torch.optim import AdamWConfig, adamw_init
 
-    cfg = dc.replace(get_smoke_config(arch), fsdp=True)
     model = build_model(cfg)
     lm_cpu = model.init(torch.Generator().manual_seed(seed), device="cpu")
-    tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size, batch).astype(np.int32)
     out = {}
     for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
         pl = PL.train_placement(model, Layout(2, 4))
         params = pl.place(copy.deepcopy(lm_cpu).to(d))
         opt_cfg = AdamWConfig(warmup_steps=2)
-        met = build_train_step(model, None, opt_cfg)(params, adamw_init(params, opt_cfg), {"tokens": tokens})[2]
-        out[where] = float(met["loss"])
+        out[where] = float(build_train_step(model, None, opt_cfg)(params, adamw_init(params, opt_cfg), batch)[2]["loss"])
     return out
 
 
@@ -6841,7 +6866,7 @@ def phase_recurrent_shard(dev, ARCHS=RECURRENT_SHARD_ARCHS, LAYOUT=(2, 4), SLOTS
     import torch
 
     from repro_torch import kernels as KN
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.data import SyntheticLM
     from repro_torch.launch import placement as PL
     from repro_torch.launch import specs as S
@@ -7073,7 +7098,9 @@ def phase_recurrent_shard(dev, ARCHS=RECURRENT_SHARD_ARCHS, LAYOUT=(2, 4), SLOTS
               f"{state_gap:.4g} apart (largest |value| {state_scale:.4g})")
         del runs, lm32, p32, w16, c16, pf, pairs
         free()
-        smoke = _recurrent_smoke_card_cpu(dev, arch, SMOKE_BATCH)
+        smoke_cfg = dc.replace(get_smoke_config(arch), fsdp=True)
+        tokens = np.random.default_rng(34).integers(0, smoke_cfg.vocab_size, SMOKE_BATCH).astype(np.int32)
+        smoke = _placed_smoke_card_cpu(dev, smoke_cfg, {"tokens": tokens}, 34)
         rec["smoke"] = smoke
         check(abs(smoke["card"] - smoke["cpu"]) <= RECURRENT_SHARD_TOL_SMOKE,
               f"(d) the {arch} smoke config, fsdp, placed on (2, 4), one train step: the card's loss "
@@ -7084,6 +7111,499 @@ def phase_recurrent_shard(dev, ARCHS=RECURRENT_SHARD_ARCHS, LAYOUT=(2, 4), SLOTS
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"  phase recurrent_shard: {out['phase_s']:.1f} s", flush=True)
     return out, {"recurrent_shard": launched}
+
+
+# ------------------------------------------------------ 25. frontend_shard
+FRONTEND_SHARD_TOL_SMOKE = 1e-4  # (e): the float32 smoke configs' placed train step, card against CPU
+VL_ARCH, SM_ARCH = "qwen2-vl-72b", "seamless-m4t-medium"
+
+
+def _dense_decode_calls(layers):
+    """The pinned calls of one placed dense decode step (``tests/
+    test_torch_frontend_shard.py``'s budget): over ``model`` a layer's q,
+    (k, v) and maxima ``all_gather``s and three ``psum``s, the embedding's
+    ``psum`` and the logits' vocabulary ``all_gather``; over ``data`` the
+    logits' rows."""
+    return {"all_gather1": 3 * layers + 1, "psum1": 3 * layers + 1, "all_gather0": 1}
+
+
+def _encdec_decode_calls(layers):
+    """The pinned calls of one placed encoder-decoder decode step under
+    ``dp_over_model``: over ``model`` a decoder layer's gather of q, k and v
+    on the rows, the maxima's and one ``psum``, and the logits' rows; over
+    ``data`` the logits' rows."""
+    return {"all_gather1": 2 * layers + 1, "psum1": layers, "all_gather0": 1}
+
+
+def _frontend_batch(cfg, b, s, dev, seed):
+    """A train batch on the card from ``seed``: qwen2-vl's ``tokens``,
+    ``embeds`` and ``labels`` (b, s), seamless's ``frames`` and ``tokens``
+    (b, s) as ``input_specs`` lays them out."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tok = lambda n: torch.randint(0, cfg.vocab_size, (b, n), generator=gen, device=dev, dtype=torch.int32)
+    if cfg.kind == "encdec":
+        return {"frames": torch.randn((b, s, cfg.d_model), generator=gen, device=dev).to(cfg.torch_dtype),
+                "tokens": tok(s)}
+    return {"tokens": tok(s), "embeds": torch.randn((b, s, cfg.d_model), generator=gen, device=dev).to(cfg.torch_dtype),
+            "labels": tok(s - 1)}
+
+
+def phase_frontend_shard(dev, LAYOUT=(2, 4), SM_TRAIN_LAYOUT=(2, 2), VL_LAYERS=(2, 1, 1), SM_LAYERS=(None, 1),
+                         SLOTS=16, MAX_LEN=128, N_REQ=16, PROMPT=(8, 48), NEW=(8, 24), VL_PREFILL=(2, 64),
+                         FRAMES=(4, 512, 64), GREEDY=32, VL_TRAIN=(8, 512), SM_TRAIN=(8, 64), TRAIN_STEPS=3,
+                         CHECK_STEPS=16, widths=None, profile=True):
+    """The stub-frontend families on placed parameters (``launch.placement``
+    for qwen2-vl's vision stub and the encoder-decoder under
+    ``dp_over_model``) at full width in bfloat16, stacked in one process.
+    qwen2-vl-72b at ``VL_LAYERS`` = (serve, train, float32 check) of its 80
+    layers, placed as the dense family on ``LAYOUT``; seamless-m4t-medium
+    at ``SM_LAYERS`` = (serve and train: None for its full 12 + 12, float32
+    check) under ``dp_over_model``: every weight whole on every rank, the
+    rows over ``(data, model)``.  (a) Every rank's block of every
+    parameter (serve and train placements), of AdamW's moments and of
+    seeded decode caches equals bit for bit the chunk of the whole leaf the
+    rule names, a rank's bytes ``specs.device_bytes``.  (b) qwen2-vl:
+    ``BatchedEngine`` on the serve-placed parameters answers phase lm's
+    ``N_REQ`` requests at ``SLOTS`` slots, ``MAX_LEN``, beside the
+    unsharded engine on the same weights; a ``VL_PREFILL`` prefill of
+    ``embeds``.  (c) seamless on ``LAYOUT``: ``FRAMES`` = (rows, frames,
+    tokens), the rows taken up to the ranks so that they split over every
+    rank: a placed prefill beside the unsharded one, then the prompt
+    teacher-forced and ``GREEDY`` greedy ``decode_fn`` steps against the
+    memory, placed and unsharded in lockstep on the unsharded run's
+    tokens.  For (b) and (c): event median and device ms of a decode step
+    by part (``_family_split``: GEMMs, attention, the collectives), its
+    calls by kind and tier (the pinned budgets) with their bytes, peak
+    GiB.  (d) Training, ``TRAIN_STEPS`` AdamW steps, placed then unsharded
+    on the same weights (the whole tree drawn again from the seed between,
+    so that one state is on the card at a time): qwen2-vl with ``fsdp`` on
+    ``LAYOUT``, ``VL_TRAIN`` with ``embeds`` and ``labels`` in the config's
+    microbatches (``embed`` read by no forward: gathered by no call, no
+    gradient, decayed alone with its moments at zero); seamless on
+    ``SM_TRAIN_LAYOUT``, ``SM_TRAIN`` frames and tokens; losses finite,
+    event median, device ms by part, calls a step, peak GiB.  (e) float32
+    at the check depths: each placed decode against the unsharded one,
+    teacher-forced over ``CHECK_STEPS`` steps from seeded caches, within
+    1/``FAM_F32_GAIN`` of the bfloat16 model's distance from the unsharded
+    float32 logits; both smoke configs placed on (2, 4), the card against
+    the CPU from one draw: a placed train step's loss within
+    ``FRONTEND_SHARD_TOL_SMOKE``.  (f) None of the ten kernels is launched
+    on the path ``frontend_shard``.  ``widths`` (``{arch: {field:
+    value}}``) narrows the configs for a rehearsal on the CPU."""
+    import dataclasses as dc
+    import gc
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as KN
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch import placement as PL
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import Layout
+    from repro_torch.launch.serve import BatchedEngine
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import attention as A
+    from repro_torch.models import encdec as ED
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    out, launched = {VL_ARCH: {}, SM_ARCH: {}}, {}
+    attention = (("attention", [(A, "decode_rows_placed"), (A, "cross_attention"), (ED, "_attend_placed"),
+                                (ED, "_bidir_attention")]),)
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    def peak_reset():
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def peak():
+        return torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else None
+
+    def count_launches():
+        for k, v in KN.launch_counts().items():
+            launched[k] = launched.get(k, 0) + v
+
+    def events(n):
+        return [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+
+    def median_ms(evs):
+        ms = [a.elapsed_time(b) for a, b in evs]
+        return statistics.median(ms) if ms else None
+
+    def config(arch, layers, **changes):
+        full = get_config(arch)
+        cfg = dc.replace(full, **(widths or {}).get(arch, {}), **changes)
+        if layers is not None:
+            cfg = dc.replace(cfg, num_layers=layers, **({"encoder_layers": layers} if cfg.kind == "encdec" else {}))
+        return cfg, full
+
+    def init(model, seed):
+        return model.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+
+    def smoke(arch):
+        """(e): the float32 smoke config (qwen2-vl with ``fsdp``, seamless
+        under ``dp_over_model``), card against CPU."""
+        cfg = dc.replace(get_smoke_config(arch), **({"dp_over_model": True} if arch == SM_ARCH else {"fsdp": True}))
+        return _placed_smoke_card_cpu(dev, cfg, _frontend_batch(cfg, 8, 16, torch.device("cpu"), 35), 35)
+
+    def rule_and_blocks(placement, placed, whole, label, what):
+        """(a): the blocks against the chunks, a rank's bytes against the rule."""
+        bad = _blocks_match(placed, whole, placement)
+        sizes, leaves = _rank_bytes(placed, placement.layout.num_ranks), _leaf_items(placed)
+        rule = sum(S.device_bytes(torch.empty(placement.shapes[k], dtype=leaves[k].dtype, device="meta"), spec,
+                                  placement.axes) for k, spec in placement.specs.items())
+        check(not bad and set(sizes) == {rule},
+              f"(a) {label}, {what}: every rank's block of the {len(placement.specs)} leaves == the chunk the rule "
+              f"names, bit for bit (mismatched: {bad}); {sizes[0]} B a rank == specs.device_bytes {rule}")
+        return sizes
+
+    def timed_steps(step, params, opt, batch):
+        ev, losses, gnorms = events(TRAIN_STEPS) if cuda else [], [], []
+        for i in range(TRAIN_STEPS):
+            if cuda:
+                ev[i][0].record()
+            met = step(params, opt, batch)[2]
+            if cuda:
+                ev[i][1].record()
+            losses.append(float(met["loss"]))
+            gnorms.append(float(met["gnorm"]))
+        ms = [a.elapsed_time(z) for a, z in ev]
+        return {"losses": losses, "gnorms": gnorms, "step_ms": ms,
+                "step_ms_median": statistics.median(ms[1:]) if len(ms) > 1 else None}
+
+    def train_pair(cfg_t, layout, batch, label, seed):
+        """(a), (d): the placed steps, then the unsharded ones on the same draw."""
+        opt_cfg = AdamWConfig(warmup_steps=20)
+        model_t = build_model(cfg_t)
+        pl = PL.train_placement(model_t, Layout(*layout))
+        lm = init(model_t, seed)
+        params = pl.place(lm)
+        rec = {"layout": layout, "batch": {k: tuple(v.shape) for k, v in batch.items()},
+               "microbatches": cfg_t.microbatches,
+               "param_bytes_per_rank": rule_and_blocks(pl, params, lm.tree(), label, f"train placement (fsdp "
+                                                                                     f"{cfg_t.fsdp})")}
+        rec["param_bytes_whole"] = sum(t.numel() * t.element_size() for t in lm.parameters())
+        del lm
+        free()
+        step = build_train_step(model_t, None, opt_cfg)
+        opt = adamw_init(params, opt_cfg)
+        pl.comm.reset()
+        KN.reset_launch_counts()
+        peak_reset()
+        placed_t = timed_steps(step, params, opt, batch)
+        count_launches()
+        placed_t["peak_gib"] = peak()
+        if cuda:
+            check(placed_t["peak_gib"] < 70, f"(d) {label}: the placed steps' peak {placed_t['peak_gib']:.2f} GiB < 70")
+        rec["calls_per_step"], rec["call_bytes_per_step"] = _calls_and_bytes(pl.comm, TRAIN_STEPS)
+        check(all(map(math.isfinite, placed_t["losses"] + placed_t["gnorms"])),
+              f"(d) {label}, {rec['batch']} in {cfg_t.microbatches} microbatch(es): {TRAIN_STEPS} placed steps, losses "
+              f"{[round(l, 4) for l in placed_t['losses']]} and gnorms {[round(g, 4) for g in placed_t['gnorms']]} "
+              f"finite; calls a step {rec['calls_per_step']}")
+        bad = [f"{k}.{p}" for k in ("m", "v") for p in _blocks_match(opt[k], pl.gather(opt[k]), pl)]
+        check(not bad, f"(a) {label}: every rank's block of AdamW's m and v == the chunk of the gathered leaf, bit "
+                       f"for bit (mismatched: {bad})")
+        if "embeds" in batch:
+            quiet = not bool(opt["m"]["embed"].any()) and not bool(opt["v"]["embed"].any())
+            split = [k for k, spec in pl.specs.items() if any(S.DATA in S.spec_axes(part) for part in spec)]
+            want = (len(split) - (("embed",) in split)) * cfg_t.microbatches
+            got = rec["calls_per_step"].get("all_gather0")
+            check(quiet and got == want,
+                  f"(d) {label}: embed (read by no forward under embeds) is gathered by no call ({got} all_gathers "
+                  f"over data a step == {len(split)} FSDP leaves less embed, x {cfg_t.microbatches} microbatches) and "
+                  f"gets no gradient: its m and v stay zero")
+        if cuda and profile:
+            placed_t["split"] = _family_split(lambda: step(params, opt, batch), comm=pl.comm, warmup=False)
+        rec["placed"] = placed_t
+        del params, opt
+        free()
+        lm = init(model_t, seed)
+        wstep = build_train_step(model_t, None, opt_cfg)
+        opt = adamw_init(lm, opt_cfg)
+        peak_reset()
+        whole_t = timed_steps(wstep, lm, opt, batch)
+        whole_t["peak_gib"] = peak()
+        if cuda and profile:
+            whole_t["split"] = _family_split(lambda: wstep(lm, opt, batch), warmup=False)
+        rec["whole"] = whole_t
+        if placed_t["step_ms_median"] and whole_t["step_ms_median"]:
+            rec["placed_over_whole_step"] = placed_t["step_ms_median"] / whole_t["step_ms_median"]
+        print(f"  (d) {label}: placed {placed_t}; whole {whole_t}", flush=True)
+        del lm, opt
+        free()
+        return rec
+
+    def cache_check(model, layout, slots, label, seed):
+        cp = PL.cache_placement(model, Layout(*layout), slots, MAX_LEN)
+        depths = [(q * (MAX_LEN - 1)) // slots for q in range(slots)]
+        seeded = _seeded_caches(model, slots, MAX_LEN, depths, seed, dev)
+        pc = cp.place(seeded)
+        sizes = rule_and_blocks(cp, pc, seeded, label, f"decode caches ({slots} slots, max_len {MAX_LEN}, specs "
+                                                       f"{ {'.'.join(k): v for k, v in cp.specs.items()} })")
+        return cp, sizes
+
+    # ------------------------------------------------ (a), (b) qwen2-vl serving
+    t_arch = time.perf_counter()
+    rec = out[VL_ARCH]
+    cfg, full = config(VL_ARCH, VL_LAYERS[0])
+    model = build_model(cfg)
+    label = f"{cfg.name} at {VL_LAYERS[0]} of {full.num_layers} layers on {LAYOUT}"
+    lm = init(model, 3535)
+    sp = PL.serve_placement(model, Layout(*LAYOUT))
+    params = sp.place(lm)
+    serve = {"param_bytes_per_rank": rule_and_blocks(sp, params, lm.tree(), label, "serve placement"),
+             "param_bytes_whole": sum(t.numel() * t.element_size() for t in lm.parameters())}
+    cp, serve["cache_bytes_per_rank"] = cache_check(model, LAYOUT, SLOTS, label, 3536)
+    requests = _lm_requests(cfg.vocab_size, N_REQ, PROMPT, NEW)
+    first = torch.zeros((SLOTS, 1), dtype=torch.int32, device=dev)
+    engines = {}
+    for name, p in (("placed", params), ("whole", lm)):
+        engine = BatchedEngine(model, p, slots=SLOTS, max_len=MAX_LEN, device=dev)
+        srec = _StepRecorder(engine)
+        zeros = lambda: (cp.zeros(dev) if name == "placed" else model.init_caches(SLOTS, MAX_LEN, device=dev))
+        engine._step(p, first, zeros())  # warm-up: first-use costs
+        sp.comm.reset()
+        KN.reset_launch_counts()
+        peak_reset()
+        sync()
+        t0 = time.perf_counter()
+        served = engine.run(requests)
+        sync()
+        wall = time.perf_counter() - t0
+        if name == "placed":
+            count_launches()
+        r = {"steps": engine.steps, "tokens": sum(map(len, served.values())), "wall_s": wall,
+             "step_ms_median": median_ms(srec.events), "peak_gib": peak()}
+        check(all(len(served[q.rid]) == q.max_new_tokens for q in requests),
+              f"(b) {label}: the {name} engine answers all {N_REQ} requests with their max_new_tokens "
+              f"({r['tokens']} tokens in {r['steps']} steps)")
+        if name == "placed":
+            r["calls_per_step"], r["call_bytes_per_step"] = _calls_and_bytes(sp.comm, engine.steps)
+            want = _dense_decode_calls(cfg.num_layers)
+            check(r["calls_per_step"] == want,
+                  f"(b) {label}: the placed decode step's calls {r['calls_per_step']} == the pinned budget {want}; "
+                  f"bytes a step {r['call_bytes_per_step']}")
+        if cuda:
+            c = zeros()
+            r["peak_gib_above_held"] = _peak_above_held(lambda: engine._step(p, srec.tokens[-1], c), dev)
+            if profile:
+                r["split"] = _family_split(lambda: engine._step(p, srec.tokens[-1], c),
+                                           comm=sp.comm if name == "placed" else None, calls=3)
+            del c
+        engines[name] = served
+        serve[f"{name}_engine"] = r
+    del engine, srec
+    agree = sum(a == b for q in requests for a, b in zip(engines["placed"][q.rid], engines["whole"][q.rid]))
+    serve["engine_tokens_agree"] = (agree, sum(q.max_new_tokens for q in requests))
+    pe, we = serve["placed_engine"], serve["whole_engine"]
+    if pe["step_ms_median"] and we["step_ms_median"]:
+        serve["placed_over_whole_step"] = pe["step_ms_median"] / we["step_ms_median"]
+    print(f"  (b) {label}: placed {pe}; whole {we}; tokens equal {agree} of {serve['engine_tokens_agree'][1]} "
+          f"(bfloat16)", flush=True)
+    b, s = VL_PREFILL
+    batch = {k: v for k, v in _frontend_batch(cfg, b, s, dev, 3537).items() if k != "labels"}
+    logits = {}
+    for name, p in (("placed", params), ("whole", lm)):
+        sync()
+        t0 = time.perf_counter()
+        logits[name] = model.prefill_fn()(p, batch).float()
+        sync()
+        serve[f"prefill_{name}_s"] = time.perf_counter() - t0
+    serve["prefill_placed_vs_whole"] = float((logits["placed"] - logits["whole"]).abs().max())
+    check(tuple(logits["placed"].shape) == (b, cfg.vocab_size) and bool(torch.isfinite(logits["placed"]).all()),
+          f"(b) {label}: a {VL_PREFILL} prefill of embeds gives finite logits ({b}, {cfg.vocab_size}), "
+          f"{serve['prefill_placed_vs_whole']:.4g} from the unsharded prefill's (bfloat16)")
+    rec["serve"] = serve
+    del params, lm, engines, logits
+    free()
+
+    # --------------------------------------------- (a), (d) qwen2-vl training
+    cfg_t, _ = config(VL_ARCH, VL_LAYERS[1], fsdp=True)
+    b, s = VL_TRAIN
+    rec["train"] = train_pair(cfg_t, LAYOUT, _frontend_batch(cfg_t, b, s, dev, 3538),
+                              f"{cfg.name} at {VL_LAYERS[1]} of {full.num_layers} layers, fsdp, on {LAYOUT}", 3539)
+
+    # ------------------------------------------------- (e) qwen2-vl float32
+    cfg_c, _ = config(VL_ARCH, VL_LAYERS[2], dtype="float32")
+    rec["float32_check"] = _frontend_f32(dev, cfg_c, LAYOUT, SLOTS, MAX_LEN, CHECK_STEPS, None, 3540)
+    free()
+    rec["smoke"] = smoke(VL_ARCH)
+    rec["s"] = time.perf_counter() - t_arch
+
+    # ------------------------------------------------ (a), (c) seamless serving
+    t_arch = time.perf_counter()
+    rec = out[SM_ARCH]
+    cfg, full = config(SM_ARCH, SM_LAYERS[0])
+    model = build_model(cfg)
+    R = LAYOUT[0] * LAYOUT[1]
+    label = f"{cfg.name} at {cfg.encoder_layers} + {cfg.num_layers} layers, dp_over_model, on {LAYOUT}"
+    lm = init(model, 3541)
+    sp = PL.serve_placement(model, Layout(*LAYOUT))
+    params = sp.place(lm)
+    serve = {"param_bytes_per_rank": rule_and_blocks(sp, params, lm.tree(), label, "serve placement"),
+             "param_bytes_whole": sum(t.numel() * t.element_size() for t in lm.parameters())}
+    rows, t_enc, s = FRAMES
+    rows = max(rows, R)
+    cp, serve["cache_bytes_per_rank"] = cache_check(model, LAYOUT, rows, label, 3542)
+    batch = _frontend_batch(cfg, rows, s, dev, 3543)
+    batch["frames"] = torch.randn((rows, t_enc, cfg.d_model), generator=torch.Generator(device=dev).manual_seed(3544),
+                                  device=dev).to(cfg.torch_dtype)
+    logits = {}
+    for name, p in (("placed", params), ("whole", lm)):
+        sync()
+        t0 = time.perf_counter()
+        logits[name] = model.prefill_fn()(p, batch).float()
+        sync()
+        serve[f"prefill_{name}_s"] = time.perf_counter() - t0
+    serve["frames"], serve["prefill_placed_vs_whole"] = (rows, t_enc, cfg.d_model), float(
+        (logits["placed"] - logits["whole"]).abs().max())
+    check(tuple(logits["placed"].shape) == (rows, cfg.vocab_size) and bool(torch.isfinite(logits["placed"]).all()),
+          f"(c) {label}: a placed prefill of frames {serve['frames']} and {s} tokens gives finite logits, "
+          f"{serve['prefill_placed_vs_whole']:.4g} from the unsharded prefill's (bfloat16)")
+    with torch.no_grad():
+        memory = ED.encode(lm, batch["frames"], cfg)
+    step = model.decode_fn()
+    caches = {"placed": cp.zeros(dev), "whole": model.init_caches(rows, MAX_LEN, device=dev)}
+    toks = [batch["tokens"][:, t:t + 1] for t in range(s)]
+    evs = {"placed": events(s + GREEDY) if cuda else [], "whole": events(s + GREEDY) if cuda else []}
+    sp.comm.reset()
+    KN.reset_launch_counts()
+    peak_reset()
+    gap, agree = 0.0, 0
+    for t in range(s + GREEDY):
+        lg = {}
+        for name, p in (("placed", params), ("whole", lm)):
+            if cuda:
+                evs[name][t][0].record()
+            lg[name], caches[name] = step(p, toks[t], caches[name], memory)
+            if cuda:
+                evs[name][t][1].record()
+        gap = max(gap, float((lg["placed"].float() - lg["whole"].float()).abs().max()))
+        agree += int((lg["placed"].argmax(-1) == lg["whole"].argmax(-1)).sum())
+        if t + 1 >= s:
+            toks.append(lg["whole"].argmax(-1, keepdim=True).to(torch.int32))
+    count_launches()
+    steps_run = s + GREEDY
+    r = {"steps": steps_run, "step_ms_median": median_ms(evs["placed"]), "whole_step_ms_median": median_ms(evs["whole"]),
+         "peak_gib": peak(), "logits_placed_vs_whole": gap, "argmax_agree": (agree, steps_run * rows),
+         "pos": int(caches["placed"]["pos"][0, 0, 0])}
+    r["calls_per_step"], r["call_bytes_per_step"] = _calls_and_bytes(sp.comm, steps_run)
+    want = _encdec_decode_calls(cfg.num_layers)
+    check(r["calls_per_step"] == want and r["pos"] == min(s + GREEDY, MAX_LEN - 1),
+          f"(c) {label}: {s} teacher-forced and {GREEDY} greedy placed decode_fn steps against the memory beside the "
+          f"unsharded model (max |dlogit| {gap:.4g}, argmax equal {agree} of {steps_run * rows}, bfloat16); position "
+          f"{r['pos']}; calls a step {r['calls_per_step']} == the pinned budget {want}; bytes a step "
+          f"{r['call_bytes_per_step']}")
+    if cuda:
+        fixed = {"placed": cp.zeros(dev), "whole": model.init_caches(rows, MAX_LEN, device=dev)}
+        tok = toks[-1]
+        r["peak_gib_above_held"] = _peak_above_held(lambda: step(params, tok, fixed["placed"], memory), dev)
+        if profile:
+            r["split"] = _family_split(lambda: step(params, tok, fixed["placed"], memory), comm=sp.comm, calls=3,
+                                       more=attention)
+            r["whole_split"] = _family_split(lambda: step(lm, tok, fixed["whole"], memory), calls=3, more=attention)
+        del fixed
+    serve["decode"] = r
+    print(f"  (c) {label}: {r}", flush=True)
+    rec["serve"] = serve
+    del params, lm, caches, memory, logits
+    free()
+
+    # --------------------------------------------- (a), (d) seamless training
+    b, s = SM_TRAIN
+    rec["train"] = train_pair(cfg, SM_TRAIN_LAYOUT, _frontend_batch(cfg, b, s, dev, 3545),
+                              f"{cfg.name} at {cfg.encoder_layers} + {cfg.num_layers} layers, dp_over_model, on "
+                              f"{SM_TRAIN_LAYOUT}", 3546)
+    want = {"psum": len(PL.train_placement(model, Layout(*SM_TRAIN_LAYOUT)).specs) + 2}
+    check(rec["train"]["calls_per_step"] == want,
+          f"(d) {cfg.name}: a placed train step's calls {rec['train']['calls_per_step']} == one flat psum a leaf over "
+          f"both batch axes and the loss's and the norm's, {want}")
+
+    # ------------------------------------------------- (e) seamless float32
+    cfg_c, _ = config(SM_ARCH, SM_LAYERS[1], dtype="float32")
+    rec["float32_check"] = _frontend_f32(dev, cfg_c, LAYOUT, R, MAX_LEN, CHECK_STEPS, FRAMES[1], 3547)
+    free()
+    rec["smoke"] = smoke(SM_ARCH)
+    rec["s"] = time.perf_counter() - t_arch
+
+    for arch in (VL_ARCH, SM_ARCH):
+        smoke = out[arch]["smoke"]
+        check(abs(smoke["card"] - smoke["cpu"]) <= FRONTEND_SHARD_TOL_SMOKE,
+              f"(e) the {arch} smoke config placed on (2, 4), one train step: the card's loss {smoke['card']:.6f} "
+              f"within {FRONTEND_SHARD_TOL_SMOKE} of the CPU's {smoke['cpu']:.6f}")
+    check(not any(launched.values()),
+          f"(f) path frontend_shard: none of the ten kernels launched on the placed engines and steps ({launched})")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase frontend_shard: {out['phase_s']:.1f} s", flush=True)
+    return out, {"frontend_shard": launched}
+
+
+def _frontend_f32(dev, cfg_c, layout, slots, max_len, steps, frames, seed):
+    """(e): ``cfg_c`` (float32) serve-placed on ``layout`` against its
+    unsharded twin and a bfloat16 copy of the same weights, teacher-forced
+    over ``steps`` decode steps from seeded caches (an encoder-decoder
+    against the memory of ``frames`` seeded frames a row, each run's own
+    encoder): the largest |placed - unsharded| and |bfloat16 - float32|
+    logit differences, held at 1/``FAM_F32_GAIN``."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import placement as PL
+    from repro_torch.launch.mesh import Layout
+    from repro_torch.models import encdec as ED
+    from repro_torch.models.api import build_model
+
+    model_c, model_b = build_model(cfg_c), build_model(dc.replace(cfg_c, dtype="bfloat16"))
+    lay = Layout(*layout)
+    lm32 = model_c.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+    p32 = PL.serve_placement(model_c, lay).place(lm32)
+    w16 = _cast_tree(lm32.tree(), torch.bfloat16)
+    cpc = PL.cache_placement(model_c, lay, slots, max_len)
+    depths = [(q * (max_len - steps)) // slots for q in range(slots)]
+    c16 = _seeded_caches(model_b, slots, max_len, depths, seed + 1, dev)
+    mem = {}
+    if frames is not None:
+        x = torch.randn((slots, frames, cfg_c.d_model), generator=torch.Generator(device=dev).manual_seed(seed + 2),
+                        device=dev)
+        with torch.no_grad():
+            mem = {"placed": ED.encode(lm32, x, cfg_c), "bf16": ED.encode(w16, x, model_b.cfg)}
+        mem["whole"] = mem["placed"]
+    runs = {"placed": [p32, cpc.place(_cast_tree(c16, torch.float32)), model_c.decode_fn()],
+            "whole": [lm32, _cast_tree(c16, torch.float32), model_c.decode_fn()],
+            "bf16": [w16, c16, model_b.decode_fn()]}
+    gen = np.random.default_rng(seed + 3)
+    d_placed = d_bf16 = 0.0
+    for _ in range(steps):
+        tok = torch.from_numpy(gen.integers(0, cfg_c.vocab_size, (slots, 1)).astype(np.int32)).to(dev)
+        lg = {}
+        for name, run in runs.items():
+            extra = (mem[name],) if mem else ()
+            lg[name], run[1] = run[2](run[0], tok, run[1], *extra)
+        d_placed = max(d_placed, float((lg["placed"] - lg["whole"]).abs().max()))
+        d_bf16 = max(d_bf16, float((lg["bf16"].float() - lg["whole"]).abs().max()))
+    pairs = [(a, b) for (k, a), b in zip(_leaf_items(cpc.gather(runs["placed"][1])).items(),
+                                         _leaf_items(runs["whole"][1]).values()) if k[-1] != "pos"]
+    cache_gap = max(float((a - b).abs().max()) for a, b in pairs)
+    rec = {"layers": cfg_c.num_layers, "slots": slots, "decode_placed_vs_whole": d_placed, "decode_bf16_vs_f32": d_bf16,
+           "cache_gap": cache_gap}
+    check(d_placed <= d_bf16 / FAM_F32_GAIN,
+          f"(e) {cfg_c.name} at {cfg_c.num_layers} layer(s) in float32 on {layout}: {steps} teacher-forced decode steps "
+          f"of {slots} slots max |placed - unsharded| {d_placed:.4g} <= 1/{FAM_F32_GAIN:g} of the bfloat16 model's "
+          f"distance {d_bf16:.4g}; the caches {cache_gap:.4g} apart")
+    return rec
 
 
 def _nest(flat):
@@ -7129,7 +7649,8 @@ def main() -> int:
            "families": lambda: phase_families(dev), "dryrun": lambda: phase_dryrun(dev),
            "dist": lambda: phase_dist(dev), "dist_paths": lambda: phase_dist_paths(dev),
            "shard": lambda: phase_shard(dev), "serve_shard": lambda: phase_serve_shard(dev),
-           "moe_shard": lambda: phase_moe_shard(dev), "recurrent_shard": lambda: phase_recurrent_shard(dev)}
+           "moe_shard": lambda: phase_moe_shard(dev), "recurrent_shard": lambda: phase_recurrent_shard(dev),
+           "frontend_shard": lambda: phase_frontend_shard(dev)}
     kernels, paths = {}, {}  # paths: launches per path, counted from 0
     for title in run:
         print(f"# phase {title}", flush=True)
@@ -7145,7 +7666,7 @@ def main() -> int:
             paths.update(more)
         elif title in ("lossless", "telemetry", "pipeline", "credit", "balance", "recovery", "obs", "apps2", "ragged",
                        "lm", "train", "families", "dryrun", "dist", "dist_paths", "shard", "serve_shard",
-                       "moe_shard", "recurrent_shard"):
+                       "moe_shard", "recurrent_shard", "frontend_shard"):
             record[title], more = res
             paths.update(more)
         elif title in ("streamlines", "vopat", "nbody"):

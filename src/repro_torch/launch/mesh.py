@@ -11,8 +11,9 @@ is rank ``g·model + m`` here.  As a tier layout of the collectives
 tier :data:`DATA_TIER` groups the ranks of one model rank across the data
 groups, tier :data:`MODEL_TIER` the model ranks of one data group.  Two
 planes run on it: the ``rafi_ep`` MoE dispatch, and the placed train and
-serve state of the text-only decoder families (``launch.placement``:
-tensor or expert parallelism over ``model``, FSDP over ``data``).
+serve state of the families (``launch.placement``: tensor or expert
+parallelism over ``model``, FSDP over ``data``; under ``dp_over_model``
+the batch rows over both).
 
 A layout may carry the collective backend its ranks run on (``comm``, a
 ``core.collectives.DistributedCollectives``; None: the stacked backend), so

@@ -1,5 +1,5 @@
-"""The dense and MoE families' train and serve state placed on a layout's ranks
-(the port's counterpart of the shardings of ``repro.launch.steps``'
+"""Every family's train and serve state placed on a layout's ranks (the
+port's counterpart of the shardings of ``repro.launch.steps``'
 ``build_train_step``, ``build_prefill_step`` and ``build_decode_step``,
 and of ``jax.device_put`` onto them).
 
@@ -25,8 +25,10 @@ bit for bit.
 
 The placed step's gradients and norm (``reduce``, ``sumsq``): a leaf
 split over ``data`` (FSDP) gets its gradient ``reduce_scatter``'d in the
-backward pass of its gather; one replicated over ``data`` is ``psum``'d
-over it here; both are then divided by the data groups and microbatches.
+backward pass of its gather; one replicated over a batch axis (``data``,
+and under ``dp_over_model`` ``model`` too) is ``psum``'d over it here;
+both are then divided by the row groups (``Ranks.row_groups``) and
+microbatches.
 The global norm counts every element once: a rank adds a leaf's squares
 only when it is the first replica on every axis the leaf is not split
 over (:func:`counted`), and one flat ``psum`` sums the ranks.
@@ -41,13 +43,19 @@ slots over ``data`` and the sequence over ``model``, ``pos`` over
 ``data`` and the channels or heads over ``model``;
 :meth:`Placement.zeros` makes them on the device already placed.
 
-The text-only decoder families are placed here: dense, MoE, the hybrid
-(griffin's RG-LRU beside local attention) and the ssm (rwkv6), with no
-vision frontend.  An MoE's experts follow its dispatch plane, as the rule
-names them: under ``rafi_ep`` ``(E, D, F)`` split over ``model`` on the
-expert dimension (each model rank owns E/model experts), under
-``dense_tp`` every expert on every rank with d_ff split over ``model``;
-the router is whole.  Griffin's ``wa``/``wb``/``conv``/``wr``/``wi`` are
+The decoder families are placed here: dense (text-only, or qwen2-vl's
+vision stub, whose ``embeds`` replace the lookup: the forward does not
+read ``embed``, so :meth:`Placement.unshard` leaves it ungathered), MoE,
+the hybrid (griffin's RG-LRU beside local attention) and the ssm (rwkv6);
+and the encoder-decoder under ``dp_over_model`` (seamless-m4t-medium's
+policy): the rule strips ``model`` from every weight, so each is whole on
+every rank (with FSDP's ``data`` where the config asks), the batch rows
+run over ``(data, model)``, and the decoder caches keep the slots over
+``data`` and the sequence over ``model``.  An MoE's experts follow its
+dispatch plane, as the rule names them: under ``rafi_ep`` ``(E, D, F)``
+split over ``model`` on the expert dimension (each model rank owns
+E/model experts), under ``dense_tp`` every expert on every rank with
+d_ff split over ``model``; the router is whole.  Griffin's ``wa``/``wb``/``conv``/``wr``/``wi`` are
 split over ``model`` on their d_rnn output channels, ``lam`` on its
 channels and ``wo`` on its rows; its decode state ``h`` and ``conv`` on
 the channels.  rwkv6's five projections are split on their output
@@ -55,8 +63,9 @@ columns (whole heads, head-major), ``w_bias`` on its channels, ``u`` on
 its heads and ``wo`` on its rows; its decode state on the heads.  FSDP
 puts ``data`` on the layer stack of a stacked leaf, or on the first
 unsplit dimension where the stack does not divide.  The encoder-decoder
-under ``dp_over_model``, the vision frontend and the sequence-parallel
-layouts come later (ROADMAP Queue 1 item 21c3).
+split over ``model`` (the smoke config's tensor parallelism: its
+bidirectional and cross-attention on the heads, the vocabulary-split
+embedding and head) is ROADMAP Queue 1 item 21c4, and refused here.
 """
 from __future__ import annotations
 
@@ -68,7 +77,7 @@ import torch
 from repro_torch import compat
 from repro_torch.core.collectives import backend
 from repro_torch.launch import specs as S
-from repro_torch.launch.mesh import DATA_TIER, Layout
+from repro_torch.launch.mesh import DATA_TIER, MODEL_TIER, Layout
 from repro_torch.models.api import Model
 from repro_torch.models.common import ParamTree
 from repro_torch.models.parallel import Ranks, gather
@@ -139,12 +148,15 @@ def _by_path(tree, paths, fn):
 class Placement:
     """The reference's placement of a model's parameters (or decode caches)
     on ``layout``: ``specs`` maps each leaf's path to its resolved spec,
-    ``shapes`` to its whole shape, ``dtypes`` (caches) to its dtype."""
+    ``shapes`` to its whole shape, ``dtypes`` (caches) to its dtype;
+    ``rows_over_model``: the config's ``dp_over_model`` (the batch rows
+    run over ``model`` too)."""
 
     layout: Layout
     specs: Dict[Tuple[str, ...], tuple]
     shapes: Dict[Tuple[str, ...], Tuple[int, ...]]
     dtypes: Dict[Tuple[str, ...], torch.dtype] = dataclasses.field(default_factory=dict)
+    rows_over_model: bool = False
 
     @property
     def axes(self) -> Dict[str, int]:
@@ -158,7 +170,7 @@ class Placement:
     def ranks(self, device) -> Ranks:
         """The process's ranks on ``device``, for the placed step's
         collectives."""
-        return Ranks(self.layout, self.layout.local_ranks(device))
+        return Ranks(self.layout, self.layout.local_ranks(device), self.rows_over_model)
 
     @property
     def paths(self) -> List[Tuple[str, ...]]:
@@ -220,28 +232,37 @@ class Placement:
         return {k: (self._gather_params(v) if is_placed(v) else v) for k, v in tree.items()}
 
     # ------------------------------------------------------------ the step
-    def unshard(self, placed: Placed, ranks: Ranks) -> Dict[str, Any]:
+    def unshard(self, placed: Placed, ranks: Ranks, *, skip=()) -> Dict[str, Any]:
         """Every leaf whole over ``data``: an FSDP leaf gathered over it
         along the dimension its spec names (the whole layer stack at once;
         its gradient is ``reduce_scatter``'d back), the rest as they are.
-        ``(L, *block)`` with only ``model`` still split."""
+        ``(L, *block)`` with only ``model`` still split.  The top-level
+        leaves named in ``skip`` (a forward that does not read them) are
+        left out, gathered by no call."""
         def one(path, t):
             dims = [i for i, part in enumerate(self.specs[path]) if S.DATA in S.spec_axes(part)]
             return t if not dims else gather(t, ranks, DATA_TIER, dims[0])
 
-        return _by_path(placed, self.paths, one)
+        return _by_path(placed, [p for p in self.paths if p[0] not in skip], one)
 
     def reduce(self, placed: Placed, ranks: Ranks, scale: float) -> Dict[str, Any]:
         """The gradients of the placed step, as a tree: each leaf's
-        ``.grad`` (None stays None), ``psum``'d over ``data`` where the leaf
-        is replicated over it (an FSDP leaf's was ``reduce_scatter``'d in
-        the backward pass), then divided by ``scale``."""
+        ``.grad`` (None stays None), ``psum``'d over every batch axis the
+        leaf is replicated over (``data``, and under ``dp_over_model``
+        ``model`` too: over both, one flat ``psum`` of every rank; an
+        FSDP leaf's ``data`` was ``reduce_scatter``'d in the backward
+        pass), then divided by ``scale``."""
+        batch_axes = ((S.DATA, ranks.data), (S.MODEL, ranks.model if ranks.rows_over_model else 1))
+
         def one(path, p):
             g = p.grad
             if g is None:
                 return None
-            if ranks.data > 1 and S.DATA not in _split_over(self.specs[path]):
-                g = ranks.comm.psum(g, digits=ranks.digits, tier=DATA_TIER)
+            over = [ax for ax, n in batch_axes if n > 1 and ax not in _split_over(self.specs[path])]
+            if len(over) == 2:
+                g.copy_(ranks.comm.psum(g))
+            elif over:
+                g = ranks.comm.psum(g, digits=ranks.digits, tier=DATA_TIER if over == [S.DATA] else MODEL_TIER)
             return g.div_(scale)
 
         return _by_path(placed, self.paths, one)
@@ -261,17 +282,23 @@ class Placement:
         return ranks.comm.psum(local)
 
 
-_PLACED_KINDS = ("dense", "moe", "hybrid", "ssm")
+_PLACED_KINDS = ("dense", "moe", "hybrid", "ssm", "encdec")
+_FRONTENDS = {"dense": ("none", "vision"), "encdec": ("audio",)}  # the stub frontends placed beside "none"
 
 
 def _placed_layout(model: Model, layout: Layout) -> Layout:
     """``layout`` with its backend resolved, for a model of a placed
-    family (the text-only decoder families)."""
+    family (module docstring)."""
     cfg = model.cfg
-    if cfg.kind not in _PLACED_KINDS or cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: only the text-only dense, MoE, hybrid and ssm families are placed "
-                                  f"(kind={cfg.kind!r}, frontend={cfg.frontend!r}); the encoder-decoder and the "
-                                  "vision frontend are ROADMAP Queue 1 item 21c3")
+    if cfg.kind == "encdec" and not cfg.dp_over_model:
+        raise NotImplementedError(f"{cfg.name}: the encoder-decoder is placed under dp_over_model only; split over "
+                                  "model (its bidirectional and cross-attention on the heads, the vocabulary-split "
+                                  "embedding and head) it is ROADMAP Queue 1 item 21c4")
+    if cfg.kind not in _PLACED_KINDS or cfg.frontend not in _FRONTENDS.get(cfg.kind, ("none",)):
+        raise NotImplementedError(f"{cfg.name}: kind={cfg.kind!r} with frontend={cfg.frontend!r} is not placed")
+    if cfg.dp_over_model and cfg.kind != "encdec":
+        raise NotImplementedError(f"{cfg.name}: dp_over_model is placed for the encoder-decoder only (the decoder "
+                                  "families' placed layers split their weights over model)")
     return dataclasses.replace(layout, comm=backend(layout.comm))
 
 
@@ -304,15 +331,15 @@ def _param_placement(model: Model, layout: Layout, *, serve: bool) -> Placement:
             raise ValueError(f"{'.'.join(path)} {d.shape}: the model axis ({layout.model}) does not divide "
                              f"{_what_model_splits(path, cfg)} and moves from dimension {named} to {kept} on {axes}")
         specs[path], shapes[path] = spec, d.shape
-    return Placement(layout, specs, shapes)
+    return Placement(layout, specs, shapes, rows_over_model=cfg.dp_over_model)
 
 
 def train_placement(model: Model, layout: Layout) -> Placement:
     """The placement of ``model``'s train state on ``layout`` (its
     ``comm`` the backend: None stacked), as ``build_train_step``'s
     shardings place the reference's on the ``(data, model)`` mesh.
-    Raises for a model outside the text-only decoder families, and
-    where the rule would move ``model`` off the dimension it names (no
+    Raises for the encoder-decoder without ``dp_over_model`` (item 21c4),
+    and where the rule would move ``model`` off the dimension it names (no
     dense config does on a layout of 8 ranks; an MoE's experts under
     ``rafi_ep`` where ``model`` does not divide them, as the reference
     asserts, and its d_ff under ``dense_tp``; rwkv6 where ``model`` does
@@ -362,4 +389,4 @@ def cache_placement(model: Model, layout: Layout, batch: int, max_len: int) -> P
                 raise ValueError(f"{'.'.join(path)} {tuple(a.shape)}: the {ax} axis moves off {what} (dimension "
                                  f"{named} to {kept}) on {axes}: batch {batch}, max_len {max_len}")
         specs[path], shapes[path], dtypes[path] = spec, tuple(a.shape), a.dtype
-    return Placement(layout, specs, shapes, dtypes)
+    return Placement(layout, specs, shapes, dtypes, rows_over_model=cfg.dp_over_model)

@@ -1,10 +1,12 @@
 """How the reference's production mesh splits a step's state over its
 devices: the port's copy of the reference's partition rule, with no
 ``PartitionSpec``.  ``launch.dryrun`` reads it to give a cell's bytes per
-device, and ``launch.placement`` to place the text-only decoder families'
-(dense, MoE, griffin's hybrid and rwkv6) train state, their serving
-parameters and their decode caches on a layout's ranks: :func:`cut` gives the rank blocks of a whole leaf under
-its resolved spec, :func:`join` the whole leaf back.
+device, and ``launch.placement`` to place a family's train state, its
+serving parameters and its decode caches on a layout's ranks (the decoder
+families, qwen2-vl's vision stub among the dense, and the
+encoder-decoder under ``dp_over_model``; the encoder-decoder split over
+``model`` is ROADMAP item 21c4): :func:`cut` gives the rank blocks of a
+whole leaf under its resolved spec, :func:`join` the whole leaf back.
 
 A spec is a tuple with one entry per dimension: None (not split), an
 axis name, or a tuple of axis names.  The axes are those of the

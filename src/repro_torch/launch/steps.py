@@ -18,27 +18,34 @@ bit.
 Given placed parameters (``launch.placement``: each leaf the blocks of
 the layout's ranks the process holds, the reference's sharded state) the
 same ``train_step`` runs the placed step instead: tensor parallelism over
-``model`` and FSDP over ``data``, on the placement's backend.  Every
-process takes the GLOBAL batch and each rank its data group's rows; each
-microbatch is a slice of the global batch, split over the groups, as the
-reference's scan slices it.  The gradients of a microbatch accumulate in
-the blocks (an FSDP leaf's ``reduce_scatter``'d over ``data`` in its
-gather's backward pass), a leaf replicated over ``data`` is ``psum``'d
-over it once, and AdamW updates each rank's blocks with the norm counted
-once over the world.  Under an MoE's ``rafi_ep`` plane the router, the
-experts and the norm that feeds them get no gradient (the plane carries
-none): their ``grad`` stays None through ``reduce`` and the norm, and
-AdamW decays them alone with their moments at zero, as the reference's
-zero gradients do.  Whole parameters keep the unsharded step above.
+``model`` and FSDP over ``data``, on the placement's backend; or, for the
+encoder-decoder under ``dp_over_model``, every weight whole on every rank
+(FSDP's ``data`` where the config asks) and the rows over ``(data,
+model)``.  Every process takes the GLOBAL batch and each rank its row
+group's rows (its data group's, or under ``dp_over_model`` its own
+block, ``Ranks.row_groups``); each microbatch is a slice of the global
+batch, split over the row groups, as the reference's scan slices it.  The
+gradients of a microbatch accumulate in the blocks (an FSDP leaf's
+``reduce_scatter``'d over ``data`` in its gather's backward pass), a leaf
+replicated over a batch axis is ``psum``'d over it once, and AdamW
+updates each rank's blocks with the norm counted once over the world.
+Under an MoE's ``rafi_ep`` plane the router, the experts and the norm that
+feeds them get no gradient (the plane carries none), nor does qwen2-vl's
+``embed`` when ``embeds`` replace the lookup: their ``grad`` stays None
+through ``reduce`` and the norm, and AdamW decays them alone with their
+moments at zero, as the reference's zero gradients do.  The
+encoder-decoder split over ``model`` is refused (ROADMAP item 21c4).
+Whole parameters keep the unsharded step above.
 ``build_prefill_step`` and ``build_decode_step`` return the model's
 ``prefill`` and ``decode`` functions as they are: the placement lives in
 the data here too.  Given serve-placed parameters
 (``placement.serve_placement``: FSDP dropped, split over ``model`` and
-replicated over ``data``) and, for decode, placed caches
-(``placement.cache_placement``: the slots over ``data``, the sequence
-over ``model``), they run ``api.placed_prefill`` / ``api.placed_decode``
-on the placement's backend; every process takes the global batch or
-token and returns the whole ``(B, V)`` logits.
+replicated over ``data``; whole under ``dp_over_model``) and, for
+decode, placed caches (``placement.cache_placement``: the slots over
+``data``, the sequence over ``model``), they run ``api.placed_prefill``
+/ ``api.placed_decode`` on the placement's backend; every process takes
+the global batch or token (and an encoder-decoder's global memory) and
+returns the whole ``(B, V)`` logits.
 ``abstract_opt_state`` and ``abstract_caches`` give the AdamW state and
 the decode caches on ``torch.device("meta")`` (shapes and dtypes, nothing
 allocated), where the reference gives ``jax.eval_shape`` results.  The
@@ -55,7 +62,6 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from repro_torch.launch.mesh import DATA_TIER
 from repro_torch.models.api import Model
 from repro_torch.models.common import ParamTree, tree_leaves, tree_map
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
@@ -188,19 +194,17 @@ def _placed_step(loss_fn, m: int, opt_cfg: AdamWConfig, params, opt_state, batch
     batch = _to_device(batch, dev)
     ranks = placement.ranks(dev)
     b = next(iter(batch.values())).shape[0]
-    if b % (m * ranks.data):
-        raise ValueError(f"the batch ({b}) does not split into {m} microbatches over {ranks.data} data groups")
+    G = ranks.row_groups
+    if b % (m * G):
+        raise ValueError(f"the batch ({b}) does not split into {m} microbatches over {ranks.row_groups_in_words()}")
     loss = torch.zeros((), dtype=torch.float32, device=dev)
     for i in range(m):
         per_rank = loss_fn(params, {k: v[i * (b // m):(i + 1) * (b // m)] for k, v in batch.items()})
-        per_rank.sum().backward()  # each rank's group's gradient, in its own blocks
-        per_rank = per_rank.detach()
-        if ranks.data > 1:
-            per_rank = ranks.comm.psum(per_rank, digits=ranks.digits, tier=DATA_TIER)
-        loss = loss + per_rank[0] / ranks.data
+        per_rank.sum().backward()  # each rank's row group's gradient, in its own blocks
+        loss = loss + ranks.psum_rows(per_rank.detach())[0] / G
     loss = loss / m
     with torch.no_grad():
-        grads = placement.reduce(params, ranks, float(ranks.data * m))
+        grads = placement.reduce(params, ranks, float(G * m))
     sumsq = lambda gs: placement.sumsq(gs, ranks)
     _, opt_state, gnorm = adamw_update(params, grads, opt_state, opt_cfg, sumsq=sumsq)
     for p in leaves:

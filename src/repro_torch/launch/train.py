@@ -77,7 +77,12 @@ def train(
     ``place=True`` places the state on ``layout`` (the text-only dense,
     MoE, hybrid and ssm families; module docstring) and returns it placed
     (``launch.placement.Placed`` parameters, an AdamW state with placed
-    moments).  It is not the
+    moments).  The stub-frontend families place too (``launch.
+    placement``), but train on no :class:`SyntheticLM` batch: qwen2-vl
+    takes ``embeds`` and ``labels``, seamless-m4t-medium ``frames``; drive
+    their placed step with ``build_train_step`` on such a batch (the
+    encoder-decoder split over ``model`` is refused, ROADMAP item 21c4).
+    It is not the
     default: the data-parallel step's laws (a world of W processes equals
     W microbatches, one ``grad_all_reduce`` a step) hold for whole
     parameters only."""
@@ -160,7 +165,8 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--cpu", action="store_true", help="run on the CPU (plain PyTorch versions of the kernels)")
     ap.add_argument("--place", action="store_true",
-                    help="place the state on the (2, 4) layout (the dense, MoE, hybrid and ssm families)")
+                    help="place the state on the (2, 4) layout (the text-only dense, MoE, hybrid and ssm families; "
+                         "the stub-frontend families take no token batch: build_train_step)")
     args = ap.parse_args(argv)
     train(
         arch=args.arch, smoke=args.smoke, steps=args.steps, batch=args.batch,

@@ -27,7 +27,8 @@ from repro_torch.models import encdec as ED
 from repro_torch.models import parallel as P
 from repro_torch.models import transformer as TF
 from repro_torch.models.common import (
-    ModelConfig, ParamDef, ParamTree, cross_entropy_loss, cross_entropy_loss_placed, init_params, tree_leaves,
+    ModelConfig, ParamDef, ParamTree, cross_entropy_loss, cross_entropy_loss_placed, cross_entropy_loss_rows,
+    init_params, tree_leaves,
 )
 
 __all__ = ["Model", "build_model", "params_from_jax", "placed_decode", "placed_loss", "placed_prefill"]
@@ -71,6 +72,8 @@ class Model:
         cfg = self.cfg
         if cfg.kind == "encdec":
             def loss(params, batch):
+                if getattr(params, "placement", None) is not None:
+                    return placed_loss(params, batch, cfg)
                 memory = ED.encode(params, batch["frames"], cfg)
                 logits, _ = ED.decode(params, batch["tokens"], memory, cfg)
                 return cross_entropy_loss(logits[:, :-1], batch["tokens"][:, 1:], vocab=cfg.vocab_size)
@@ -96,6 +99,8 @@ class Model:
         cfg = self.cfg
         if cfg.kind == "encdec":
             def prefill(params, batch):
+                if getattr(params, "placement", None) is not None:
+                    return placed_prefill(params, batch, cfg)
                 with torch.no_grad():
                     memory = ED.encode(params, batch["frames"], cfg)
                     logits, _ = ED.decode(params, batch["tokens"], memory, cfg)
@@ -120,14 +125,17 @@ class Model:
         ``drops``.  For ``encdec`` the step also takes the encoder memory:
         (params, token, caches, memory), its positions read from the first
         layer's cache.  On placed parameters the step is
-        :func:`placed_decode`, its caches placed too."""
+        :func:`placed_decode`, its caches placed too (an encoder-decoder's
+        ``memory`` the global ``(B, T, D)``)."""
         cfg = self.cfg
         if cfg.kind == "encdec":
             def encdec_step(params, token, caches, memory):
+                zero = torch.zeros((), dtype=torch.int32, device=token.device)
+                if getattr(params, "placement", None) is not None:
+                    return placed_decode(params, token, caches, cfg, memory=memory)[:2] + ((zero,) if drops else ())
                 positions = caches["pos"][0][:, None].to(torch.int32)  # (B, 1)
                 with torch.no_grad():
                     logits, new_caches = ED.decode(params, token, memory, cfg, caches=caches, positions=positions)
-                zero = torch.zeros((), dtype=torch.int32, device=token.device)
                 return (logits[:, -1], new_caches) + ((zero,) if drops else ())
 
             return encdec_step
@@ -156,63 +164,109 @@ class Model:
 
 def placed_loss(params, batch, cfg: ModelConfig) -> torch.Tensor:
     """``(L,)``: each local rank's mean next-token CE on placed parameters.
-    The global batch's rows split over the data groups in order; every
-    leaf is gathered whole over ``data`` first (the FSDP gather), then the
-    tensor-parallel pass (``TF.forward_placed``) and the loss over the
-    split vocabulary."""
+    The global batch's rows split over the row groups in order
+    (:func:`_group_rows`); every leaf is gathered whole over ``data``
+    first (the FSDP gather), then the placed pass and its loss: the
+    tensor-parallel decoder (``TF.forward_placed``; ``embeds`` feed it in
+    place of the lookup, whose table is then not gathered) and the loss
+    over the split vocabulary, or under ``dp_over_model`` the
+    encoder-decoder on each rank's own rows (``ED.encode_placed``,
+    ``ED.decode_placed``) and the loss over the whole vocabulary."""
     placement = params.placement
     tokens = batch["tokens"]
     ranks = placement.ranks(tokens.device)
     tokens = _group_rows(tokens, ranks)
-    logits, _, _ = TF.forward_placed(placement.unshard(params, ranks), tokens, cfg, ranks)
+    if cfg.kind == "encdec":
+        whole = placement.unshard(params, ranks)
+        memory = ED.encode_placed(whole, _group_rows(batch["frames"], ranks), cfg, ranks)
+        logits, _ = ED.decode_placed(whole, tokens, memory, cfg, ranks)
+        return cross_entropy_loss_rows(logits[:, :, :-1], tokens[:, :, 1:])
+    embeds = _frontend(batch, ranks)
+    logits, _, _ = TF.forward_placed(_unshard(placement, params, ranks, cfg, embeds), tokens, cfg, ranks,
+                                     frontend_embeds=embeds)
     labels = _group_rows(batch["labels"], ranks) if "labels" in batch else tokens[:, :, 1:]
     if logits.shape[2] != labels.shape[2]:
         logits = logits[:, :, : labels.shape[2]]
     return cross_entropy_loss_placed(logits, labels, ranks)
 
 
+def _frontend(batch, ranks) -> Optional[torch.Tensor]:
+    """The rank's rows of the batch's ``embeds`` (a stub frontend's), or None."""
+    return _group_rows(batch["embeds"], ranks) if "embeds" in batch else None
+
+
+def _unshard(placement, params, ranks, cfg: ModelConfig, embeds):
+    """``Placement.unshard``, leaving ``embed`` out where ``embeds`` replace
+    the lookup and the head is not tied: the forward reads no table, so
+    none is gathered (and ``embed`` gets no gradient)."""
+    skip = ("embed",) if embeds is not None and not cfg.tie_embeddings else ()
+    return placement.unshard(params, ranks, skip=skip)
+
+
 def _group_rows(t: torch.Tensor, ranks) -> torch.Tensor:
-    """``(B, …)`` global rows → ``(L, B/data, …)``: each local rank's data
-    group's rows (the rows split over the groups in order)."""
-    return t.reshape((ranks.data, t.shape[0] // ranks.data) + tuple(t.shape[1:]))[ranks.group]
+    """``(B, …)`` global rows → ``(L, B/G, …)``: each local rank's row
+    group's rows, the rows cut into ``G = ranks.row_groups`` blocks in
+    order (the data groups, or under ``dp_over_model`` every rank)."""
+    G = ranks.row_groups
+    if t.shape[0] % G:
+        raise ValueError(f"the batch ({t.shape[0]}) does not split over the {ranks.row_groups_in_words()}")
+    return t.reshape((G, t.shape[0] // G) + tuple(t.shape[1:]))[ranks.row_group]
 
 
 def _whole_logits(logits: torch.Tensor, ranks) -> torch.Tensor:
     """Each rank's ``(L, b, V/model)`` → the whole ``(B, V)``: the
-    vocabulary gathered over ``model``, then the rows over ``data``; the
-    same in every process."""
-    whole = P.gather(P.gather(logits, ranks, P.MODEL_TIER, 1), ranks, P.DATA_TIER, 0)
-    return whole[0]
+    vocabulary gathered over ``model``, then the rows over ``data``; under
+    ``dp_over_model`` each rank's ``(L, b, V)`` rows gathered over
+    ``model``, then over ``data``.  The same in every process."""
+    over_model = P.gather(logits, ranks, P.MODEL_TIER, 0 if ranks.rows_over_model else 1)
+    return P.gather(over_model, ranks, P.DATA_TIER, 0)[0]
 
 
 def placed_prefill(params, batch, cfg: ModelConfig) -> torch.Tensor:
     """The last position's logits ``(B, V)`` on serve-placed parameters
     (``launch.placement.serve_placement``), whole in every process: every
-    process takes the global batch, each rank its data group's rows, and
-    the tensor-parallel pass (``TF.forward_placed``) attends per head."""
+    process takes the global batch, each rank its row group's rows, and
+    the placed pass (``TF.forward_placed``, attending per head; or the
+    encoder-decoder on each rank's own rows)."""
     placement = params.placement
     tokens = batch["tokens"]
     ranks = placement.ranks(tokens.device)
     with torch.no_grad():
-        logits, _, _ = TF.forward_placed(placement.unshard(params, ranks), _group_rows(tokens, ranks), cfg, ranks)
+        if cfg.kind == "encdec":
+            whole = placement.unshard(params, ranks)
+            memory = ED.encode_placed(whole, _group_rows(batch["frames"], ranks), cfg, ranks)
+            logits, _ = ED.decode_placed(whole, _group_rows(tokens, ranks), memory, cfg, ranks)
+        else:
+            embeds = _frontend(batch, ranks)
+            logits, _, _ = TF.forward_placed(_unshard(placement, params, ranks, cfg, embeds),
+                                             _group_rows(tokens, ranks), cfg, ranks, frontend_embeds=embeds)
         return _whole_logits(logits[:, :, -1], ranks)
 
 
-def placed_decode(params, token, caches, cfg: ModelConfig):
+def placed_decode(params, token, caches, cfg: ModelConfig, *, memory=None):
     """One decode step on serve-placed parameters and placed caches
     (``launch.placement.cache_placement``): the global token ``(B, 1)`` in
-    every process, each rank its group's rows at their own depths (read
-    from ``pos``).  Returns ``(logits (B, V)`` whole in every process, the
-    new caches placed, the step's MoE drops summed over every rank)."""
+    every process, each rank its row group's rows at their own depths
+    (read from ``pos``; an encoder-decoder's ``memory`` the global ``(B,
+    T, D)``, each rank its own rows).  Returns ``(logits (B, V)`` whole in
+    every process, the new caches placed, the step's MoE drops summed over
+    every rank)."""
     if getattr(caches, "placement", None) is None:
         raise ValueError("placed parameters decode on placed caches (launch.placement.cache_placement)")
     placement = params.placement
     ranks = placement.ranks(token.device)
-    pos = _first_cache_pos(caches, (ranks.ids.shape[0], token.shape[0] // ranks.data), token.device,
-                           stacked=True)  # (L, b)
     with torch.no_grad():
-        logits, new, moe_drops = TF.forward_placed(placement.unshard(params, ranks), _group_rows(token, ranks), cfg,
-                                                   ranks, caches=caches, positions=pos[..., None].to(torch.int32))
+        if cfg.kind == "encdec":
+            positions = caches["pos"][:, 0, :, None].to(torch.int32)  # (L, b·model, 1): the group's, layer 0's
+            logits, new = ED.decode_placed(placement.unshard(params, ranks), _group_rows(token, ranks),
+                                           _group_rows(memory, ranks), cfg, ranks, caches=caches, positions=positions)
+            moe_drops = torch.zeros((), dtype=torch.int32, device=token.device)
+        else:
+            pos = _first_cache_pos(caches, (ranks.ids.shape[0], token.shape[0] // ranks.data), token.device,
+                                   stacked=True)  # (L, b)
+            logits, new, moe_drops = TF.forward_placed(placement.unshard(params, ranks), _group_rows(token, ranks),
+                                                       cfg, ranks, caches=caches,
+                                                       positions=pos[..., None].to(torch.int32))
         return _whole_logits(logits[:, :, -1], ranks), caches.like(new), moe_drops
 
 

@@ -22,7 +22,8 @@ from repro_torch.models import rope as R
 from repro_torch.models.common import ModelConfig, ParamDef, ParamTree
 
 __all__ = [
-    "Attention", "attn_defs", "causal_mask", "cross_attention", "make_cache", "self_attention", "self_attention_placed",
+    "Attention", "attn_defs", "causal_mask", "cross_attention", "decode_rows_placed", "make_cache", "self_attention",
+    "self_attention_placed",
 ]
 
 
@@ -191,14 +192,15 @@ def self_attention_placed(
     window: int = 0,
     theta: Optional[float] = None,
     cache: Optional[Dict] = None,     # {"k","v": (L, b, T/model, Hkv, Dh), "pos": (L, b)}
-    positions: Optional[torch.Tensor] = None,  # (L, b, 1): each row's position (decode)
+    positions: Optional[torch.Tensor] = None,  # (L, b, S) or (L, b, S, 3) for mrope; decode (L, b, 1)
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """:func:`self_attention` on every local rank, heads split over
     ``model``: ``wq``/``wk``/``wv`` (and their biases) column-parallel on
     the flat head×dim axis, ``wo`` row-parallel with a ``psum`` over
     ``model``.  Returns ``(out (L, b, S, D), new_cache)``.
 
-    The parallel pass (``cache`` None) attends per head.  Where ``model``
+    The parallel pass (``cache`` None) attends per head, at ``positions``
+    (None: ``0 … S-1``; M-RoPE's three streams where given).  Where ``model``
     does not divide the kv heads (or the q heads), its flat split cuts
     through a head: k and v (or q, k and v) are gathered over ``model``
     first, as the reference's reshard does; a rank then attends with the
@@ -223,7 +225,10 @@ def self_attention_placed(
     q = _split_heads(q.reshape(L * b, s, -1), nq, hd)
     k = _split_heads(k.reshape(L * b, s, -1), k.shape[-1] // hd, hd)
     v = _split_heads(v.reshape(L * b, s, -1), v.shape[-1] // hd, hd)
-    positions = torch.arange(s, device=x.device).expand(L * b, s)
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(L * b, s)
+    else:
+        positions = positions.reshape((L * b, s) + tuple(positions.shape[3:]))
     cos, sin = _angles(cfg, positions, theta)
     q = R.apply_rope(q, cos, sin)
     k = R.apply_rope(k, cos, sin)
@@ -273,25 +278,64 @@ def _combine(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor, ranks) -> torc
 
 def _decode_placed(params, x, cfg: ModelConfig, ranks, cache, positions, *, window: int, theta):
     """One decode step's attention on every local rank, the cache split
-    over the sequence: rank ``(g, m)`` holds positions ``[m·T/M,
-    (m+1)·T/M)`` of its group's ``b`` slots.  The new token's k and v are
-    gathered whole over ``model`` (one call), RoPE'd at each row's own
-    position and written by the rank whose block holds it (out of place);
-    q is gathered whole.  Each rank scores every head over its positions
-    (GQA grouped as in :func:`_sdpa`), masked on the global index
-    (``j ≤ pos``, the window), keeps float32 partials, and
-    :func:`_combine` joins the ranks.  Each rank then keeps its own
-    columns of the flat head×dim axis for the row-parallel ``wo``."""
-    L, b, s, _ = x.shape
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    dev = x.device
+    over the sequence (:func:`_decode_core`), heads split over ``model``:
+    the new token's q, k and v gathered whole over ``model`` (q in one
+    call, k and v in one), then each rank keeps its own columns of the
+    flat head×dim axis for the row-parallel ``wo``."""
     q, k, v = _qkv_placed(params, P.copy_model(x, ranks), cfg)
     q = P.gather(q, ranks, P.MODEL_TIER, 2)                                   # (L, b, 1, h·hd)
     kvn = P.gather(torch.stack([k, v], dim=3), ranks, P.MODEL_TIER, 3)        # (L, b, 1, 2, kv·hd)
+    out, new_cache = _decode_core(q, kvn[:, :, :, 0], kvn[:, :, :, 1], cfg, ranks, cache, positions, window=window,
+                                  theta=theta, dtype=x.dtype)
+    return P.psum_model(P.mm(P.pick_model(out, ranks), params["wo"]), ranks), new_cache
+
+
+def _gather_rows(t: torch.Tensor, ranks) -> torch.Tensor:
+    """``(L, b/M, …)`` each rank's own rows → ``(L, b, …)`` its data
+    group's rows in slot order: model rank m's rows are the group's
+    ``[m·b/M, (m+1)·b/M)``, as ``P(('data', 'model'))`` cuts them."""
+    return P.gather(t, ranks, P.MODEL_TIER, 0)
+
+
+def decode_rows_placed(params, x, cfg: ModelConfig, ranks, cache, positions, *, window: int = 0, theta=None):
+    """One decode step's self-attention on every local rank under
+    ``dp_over_model``: the weights whole on every rank, rank ``(g, m)``'s
+    rows ``x`` ``(L, b/M, 1, D)`` its own block ``[m·b/M, (m+1)·b/M)`` of
+    group g's b slots, but its cache block positions ``[m·T/M,
+    (m+1)·T/M)`` of all b slots (the rows and the cache do not line up).
+    q, k and v of the rank's rows are gathered over ``model`` on the rows
+    (one call), giving the group's b rows in slot order; the sequence-split
+    core (:func:`_decode_core`) runs every head over the rank's block at
+    ``positions`` ``(L, b, 1)``, the group's; each rank keeps its own rows
+    of the output and applies the whole ``wo`` (no ``psum``).  Returns
+    ``(out (L, b/M, 1, D), new_cache)``."""
+    L, r = x.shape[:2]
+    q, k, v = _qkv_placed(params, x, cfg)
+    widths = (q.shape[-1], k.shape[-1], v.shape[-1])
+    q, k, v = _gather_rows(torch.cat([q, k, v], dim=-1), ranks).split(widths, dim=-1)
+    out, new_cache = _decode_core(q, k, v, cfg, ranks, cache, positions, window=window, theta=theta, dtype=x.dtype)
+    own = out.reshape((L, ranks.model, r) + tuple(out.shape[2:]))[torch.arange(L, device=x.device), ranks.mrank]
+    return P.mm(own, params["wo"]), new_cache
+
+
+def _decode_core(q, k, v, cfg: ModelConfig, ranks, cache, positions, *, window: int, theta, dtype):
+    """The sequence-split core of a decode step: q ``(L, b, 1, h·hd)``, k
+    and v ``(L, b, 1, kv·hd)`` of the group's b slots, whole on every
+    model rank; rank ``(g, m)``'s cache holds positions ``[m·T/M,
+    (m+1)·T/M)`` of those slots.  q and k are RoPE'd at each row's own
+    position (``positions`` ``(L, b, 1)``), k and v written by the rank
+    whose block holds the row's position (out of place).  Each rank scores
+    every head over its positions (GQA grouped as in :func:`_sdpa`),
+    masked on the global index (``j ≤ pos``, the window), keeps float32
+    partials, and :func:`_combine` joins the ranks.  Returns ``(out (L, b,
+    1, h·hd)`` in ``dtype``, whole on every model rank, the new cache)."""
+    L, b, s = q.shape[:3]
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dev = q.device
     cos, sin = _angles(cfg, positions.reshape(L * b, s), theta)
     q = R.apply_rope(_split_heads(q.reshape(L * b, s, -1), h, hd), cos, sin)
-    k = R.apply_rope(_split_heads(kvn[:, :, :, 0].reshape(L * b, s, -1), kv, hd), cos, sin)
-    v = _split_heads(kvn[:, :, :, 1].reshape(L * b, s, -1), kv, hd)
+    k = R.apply_rope(_split_heads(k.reshape(L * b, s, -1), kv, hd), cos, sin)
+    v = _split_heads(v.reshape(L * b, s, -1), kv, hd)
 
     ck, cv = cache["k"], cache["v"]
     tm = ck.shape[2]
@@ -315,9 +359,8 @@ def _decode_placed(params, x, cfg: ModelConfig, ranks, cache, positions, *, wind
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
     acc = torch.einsum("lbkgt,lbtkd->lbkgd", p, cv.to(torch.float32))
-    out = _combine(m, p.sum(dim=-1, keepdim=True), acc, ranks).reshape(L, b, s, h * hd).to(x.dtype)
-    y = P.psum_model(P.mm(P.pick_model(out, ranks), params["wo"]), ranks)
-    return y, {"k": ck, "v": cv, "pos": _advance(cache["pos"], length)}
+    out = _combine(m, p.sum(dim=-1, keepdim=True), acc, ranks).reshape(L, b, s, h * hd).to(dtype)
+    return out, {"k": ck, "v": cv, "pos": _advance(cache["pos"], length)}
 
 
 def cross_attention(

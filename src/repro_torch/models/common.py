@@ -23,7 +23,8 @@ from torch import nn
 from repro_torch.models import parallel as P
 
 __all__ = [
-    "ModelConfig", "ParamDef", "ParamTree", "activation", "cross_entropy_loss", "cross_entropy_loss_placed", "dense",
+    "ModelConfig", "ParamDef", "ParamTree", "activation", "cross_entropy_loss", "cross_entropy_loss_placed",
+    "cross_entropy_loss_rows", "dense",
     "glu_mlp", "glu_mlp_placed", "init_params", "mlp_defs", "rmsnorm", "tree_map",
 ]
 
@@ -221,6 +222,16 @@ def cross_entropy_loss(logits, labels, *, vocab: int):
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
     return torch.mean(logz - gold)
+
+
+def cross_entropy_loss_rows(logits, labels):
+    """Each local rank's mean token CE in float32 over the whole
+    vocabulary (its own rows, ``dp_over_model``): logits ``(L, b, s,
+    V)``, labels ``(L, b, s)`` → ``(L,)``, as :func:`cross_entropy_loss`
+    rank by rank."""
+    logits = logits.to(torch.float32)
+    gold = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
+    return torch.mean(torch.logsumexp(logits, dim=-1) - gold, dim=(1, 2))
 
 
 def cross_entropy_loss_placed(logits, labels, ranks):

@@ -24,9 +24,11 @@ gradient its forward implies:
                       through a head over ``model``); backward: a
                       ``reduce_scatter`` over the tier
 
-Each rank's loss is its data group's; the backward pass from every
-rank's loss at once then gives each rank the gradient of its group's loss
-for its blocks, as each device of the reference's mesh computes it.  An
+Each rank's loss is its data group's (under ``dp_over_model``, whose
+weights are whole on every rank, its own rows', :attr:`Ranks.row_groups`);
+the backward pass from every rank's loss at once then gives each rank
+the gradient of its group's loss for its blocks, as each device of the
+reference's mesh computes it.  An
 axis of one rank issues no call.
 """
 from __future__ import annotations
@@ -45,10 +47,13 @@ __all__ = ["DATA_TIER", "MODEL_TIER", "Ranks", "copy_model", "gather", "mm", "pi
 class Ranks:
     """The ranks a process holds on a ``launch.mesh.Layout`` (its ``comm``
     the resolved backend): ``ids``, ``(L,)`` int64 global ids on the step's
-    device."""
+    device.  ``rows_over_model``: the batch rows run over ``model`` too
+    (the reference's ``dp_over_model``: every weight whole on every rank),
+    so each rank holds a row block of its own (:attr:`row_groups`)."""
 
     layout: Any
     ids: torch.Tensor
+    rows_over_model: bool = False
 
     @property
     def comm(self):
@@ -78,6 +83,36 @@ class Ranks:
 
     def size(self, tier: int) -> int:
         return self.digits[tier]
+
+    @property
+    def row_groups(self) -> int:
+        """The blocks a global batch's rows are cut into, major-first as
+        the reference's batch sharding cuts them: the data groups, or
+        ``data·model`` under ``rows_over_model`` (``P(('data',
+        'model'))``)."""
+        return self.data * self.model if self.rows_over_model else self.data
+
+    @property
+    def row_group(self) -> torch.Tensor:
+        """``(L,)``: the row block each local rank computes: its data
+        group's, or under ``rows_over_model`` its own (its global id)."""
+        return self.ids if self.rows_over_model else self.group
+
+    def row_groups_in_words(self) -> str:
+        """The row groups, for a refusal."""
+        if self.rows_over_model:
+            return f"{self.data} data groups x {self.model} model ranks (dp_over_model: the rows run over both)"
+        return f"{self.data} data groups"
+
+    def psum_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """``(L, …)`` summed over the row groups, held per rank: over
+        ``data``, or under ``rows_over_model`` over every rank (one flat
+        ``psum``); a single row group issues no call."""
+        if self.row_groups == 1:
+            return x
+        if self.rows_over_model:
+            return self.comm.psum(x).expand_as(x)
+        return self.comm.psum(x, digits=self.digits, tier=DATA_TIER)
 
 
 class _PsumModel(torch.autograd.Function):

@@ -123,12 +123,13 @@ def _index(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
-def _unstack(tree, n: int):
-    """``n`` trees, tree i holding every leaf's view ``i`` of its leading axis."""
+def _unstack(tree, n: int, dim: int = 0):
+    """``n`` trees, tree i holding every leaf's view ``i`` of its axis
+    ``dim`` (the leading axis; a rank-stacked leaf's layer axis is 1)."""
     if isinstance(tree, dict):
-        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        parts = {k: _unstack(v, n, dim) for k, v in tree.items()}
         return [{k: parts[k][i] for k in parts} for i in range(n)]
-    return list(tree.unbind(0))
+    return list(tree.unbind(dim))
 
 
 def _period_apply(block_params, x, cfg: ModelConfig, *, positions, layout=None, caches=None):
@@ -271,38 +272,44 @@ def _period_placed(block_params, x, cfg: ModelConfig, ranks, caches=None, positi
     return x, new_caches, drops
 
 
-def forward_placed(params, tokens, cfg: ModelConfig, ranks, *, caches=None, positions=None):
-    """:func:`forward` on every local rank of a placement, the text-only
-    decoder families (dense, MoE, hybrid, ssm).  ``params``: every leaf
-    whole over ``data``
+def forward_placed(params, tokens, cfg: ModelConfig, ranks, *, caches=None, positions=None, frontend_embeds=None):
+    """:func:`forward` on every local rank of a placement, the decoder
+    families (dense, MoE, hybrid, ssm; the encoder-decoder is
+    ``encdec.decode_placed``, and split over ``model`` ROADMAP item 21c4).
+    ``params``: every leaf whole over ``data``
     (``launch.placement.Placement.unshard``; a serve placement's already
     are), ``(L, *block)``; ``tokens`` ``(L, b, S)``, each rank's data
     group's rows.  The embedding over a vocabulary split over ``model`` is
-    a masked lookup and a ``psum``; the logits stay split: ``(L, b, S,
+    a masked lookup and a ``psum``; ``frontend_embeds`` ``(L, b, S, D)``
+    (qwen2-vl's vision stub, the rank's rows) replace it, and ``embed`` is
+    then read only by a tied head.  The logits stay split: ``(L, b, S,
     V/model)``, rank m's columns ``[m·V/model, …)``.  ``caches=None``: the
-    parallel pass.  Else one decode step (S == 1) at ``positions`` ``(L,
-    b, 1)`` on the rank blocks of the caches (``launch.placement.
-    cache_placement``: a stacked leaf ``(L, n_blocks, …)``, layer i its
-    ``[:, i]``).  Returns ``(logits, new_caches, moe_drops)`` as
-    :func:`forward` does: ``new_caches`` None without caches, the drops
-    the layers' sum (zero for a dense model)."""
-    L = tokens.shape[0]
-    embed = params["embed"]  # (L, V/model, D)
-    vm = embed.shape[1]
-    ids = tokens.to(torch.int64) - (ranks.mrank * vm).view(-1, 1, 1)
-    own = (ids >= 0) & (ids < vm)
-    rows = torch.arange(L, device=tokens.device).view(-1, 1, 1)
-    x = P.psum_model(embed[rows, ids.clamp(0, vm - 1)].masked_fill(~own[..., None], 0), ranks)
-    if cfg.scale_embed:
-        x = x.to(torch.float32) * float(np.float32(np.sqrt(cfg.d_model)))
-    x = x.to(cfg.torch_dtype)
+    parallel pass, at ``positions`` ``(L, b, S)`` or M-RoPE's ``(L, b, S,
+    3)`` (None: ``0 … S-1``).  Else one decode step (S == 1) at
+    ``positions`` ``(L, b, 1)`` on the rank blocks of the caches
+    (``launch.placement.cache_placement``: a stacked leaf ``(L, n_blocks,
+    …)``, layer i its ``[:, i]``).  Returns ``(logits, new_caches,
+    moe_drops)`` as :func:`forward` does: ``new_caches`` None without
+    caches, the drops the layers' sum (zero for a dense model)."""
+    if frontend_embeds is not None:
+        x = frontend_embeds.to(cfg.torch_dtype)
+    else:
+        embed = params["embed"]  # (L, V/model, D)
+        vm = embed.shape[1]
+        ids = tokens.to(torch.int64) - (ranks.mrank * vm).view(-1, 1, 1)
+        own = (ids >= 0) & (ids < vm)
+        rows = torch.arange(tokens.shape[0], device=tokens.device).view(-1, 1, 1)
+        x = P.psum_model(embed[rows, ids.clamp(0, vm - 1)].masked_fill(~own[..., None], 0), ranks)
+        if cfg.scale_embed:
+            x = x.to(torch.float32) * float(np.float32(np.sqrt(cfg.d_model)))
+        x = x.to(cfg.torch_dtype)
 
     n_blocks = cfg.num_layers // len(cfg.pattern)
     run = _period_placed
     if cfg.remat and caches is None and torch.is_grad_enabled():
         run = functools.partial(checkpoint, _period_placed, use_reentrant=False)
     per_block = []
-    total_drops = torch.zeros((), dtype=torch.int32, device=tokens.device)
+    total_drops = torch.zeros((), dtype=torch.int32, device=x.device)
     for i in range(n_blocks):
         block_caches = None if caches is None else {k: tree_map(lambda a: a[:, i], c)
                                                     for k, c in caches["blocks"].items()}
@@ -321,7 +328,7 @@ def forward_placed(params, tokens, cfg: ModelConfig, ranks, *, caches=None, posi
             new_tail[key] = nc
 
     x = P.copy_model(rmsnorm(x, params["final_ln"][:, None, None, :]), ranks)
-    head = embed.transpose(1, 2) if cfg.tie_embeddings else params["lm_head"]
+    head = params["embed"].transpose(1, 2) if cfg.tie_embeddings else params["lm_head"]
     logits = P.mm(x, head.to(x.dtype))
     if caches is None:
         return logits, None, total_drops

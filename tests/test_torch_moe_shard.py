@@ -253,7 +253,8 @@ def test_a_planted_misplacement_fails():
 def test_refusals():
     """``rafi_ep`` where ``model`` does not divide the experts (4 experts on
     (1, 8)), ``dense_tp`` where it does not divide d_ff, and the families
-    still unplaced (the recurrent ones place)."""
+    still unplaced: the encoder-decoder under tensor parallelism (item
+    21c4; the recurrent and the stub-frontend ones place)."""
     _, cfg, _, _ = _pair("llama4-scout-17b-16e", "rafi_ep")
     for fn in (PL.train_placement, PL.serve_placement):
         with pytest.raises(ValueError, match=r"blocks.k0_moe.moe.wi \(2, 4, 64, 128\): the model axis \(8\) does "
@@ -262,11 +263,13 @@ def test_refusals():
     odd = dataclasses.replace(cfg, moe_dispatch="dense_tp", d_ff=90)
     with pytest.raises(ValueError, match=r"moe.wi \(2, 4, 64, 90\): the model axis \(4\) does not divide d_ff"):
         PL.train_placement(build_model(odd), make_test_layout(2, 4))
-    for arch in ("seamless-m4t-medium", "qwen2-vl-72b"):
-        with pytest.raises(NotImplementedError, match="item 21c3"):
-            PL.serve_placement(build_model(get_smoke_config(arch)), make_test_layout(2, 4))
+    with pytest.raises(NotImplementedError, match="item 21c4"):
+        PL.serve_placement(build_model(get_smoke_config("seamless-m4t-medium")), make_test_layout(2, 4))
     for arch in ("recurrentgemma-2b", "rwkv6-3b"):  # the recurrent families place now
         assert PL.serve_placement(build_model(get_smoke_config(arch)), make_test_layout(2, 4)).specs
+    for cfg in (get_smoke_config("qwen2-vl-72b"),  # and the stub-frontend ones
+                dataclasses.replace(get_smoke_config("seamless-m4t-medium"), dp_over_model=True)):
+        assert PL.serve_placement(build_model(cfg), make_test_layout(2, 4)).specs
 
 
 # ------------------------------------------------------------------ the step

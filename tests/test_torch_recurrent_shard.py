@@ -255,8 +255,9 @@ def test_a_planted_misplacement_fails():
 def test_refusals():
     """rwkv6 where ``model`` does not divide its heads (4 heads on (1, 8)),
     griffin where it does not divide d_rnn, the caches where ``model``
-    moves off the heads or the channels, and the families still unplaced
-    (item 21c3)."""
+    moves off the heads or the channels, and the encoder-decoder under
+    tensor parallelism (item 21c4; qwen2-vl and the encoder-decoder under
+    ``dp_over_model`` place)."""
     _, cfg, _, _ = _pair("rwkv6-3b")
     for fn in (PL.train_placement, PL.serve_placement):
         with pytest.raises(ValueError, match=r"blocks.k0_rwkv.rwkv.u \(2, 4, 16\): the model axis \(8\) does not "
@@ -270,9 +271,11 @@ def test_refusals():
         PL.serve_placement(build_model(odd), make_test_layout(1, 8))
     with pytest.raises(ValueError, match=r"k0_recurrent.h \(1, 4, 60\): the model axis moves off the channels"):
         PL.cache_placement(build_model(odd), make_test_layout(1, 8), 4, 16)
-    for arch in ("seamless-m4t-medium", "qwen2-vl-72b"):
-        with pytest.raises(NotImplementedError, match="item 21c3"):
-            PL.train_placement(build_model(get_smoke_config(arch)), make_test_layout(2, 4))
+    with pytest.raises(NotImplementedError, match="item 21c4"):
+        PL.train_placement(build_model(get_smoke_config("seamless-m4t-medium")), make_test_layout(2, 4))
+    for cfg in (get_smoke_config("qwen2-vl-72b"),  # the stub-frontend families place
+                dataclasses.replace(get_smoke_config("seamless-m4t-medium"), dp_over_model=True)):
+        assert PL.train_placement(build_model(cfg), make_test_layout(2, 4)).specs
 
 
 # ------------------------------------------------------------------ the step

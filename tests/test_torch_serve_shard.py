@@ -219,7 +219,7 @@ def test_refusals():
     unplaced = build_model(get_smoke_config("seamless-m4t-medium"))
     for fn in (lambda: PL.serve_placement(unplaced, make_test_layout(2, 4)),
                lambda: PL.cache_placement(unplaced, make_test_layout(2, 4), 4, 16)):
-        with pytest.raises(NotImplementedError, match="item 21c3"):
+        with pytest.raises(NotImplementedError, match="item 21c4"):
             fn()
     with pytest.raises(ValueError, match="model axis moves off the sequence"):
         PL.cache_placement(model, make_test_layout(2, 4), 4, 18)
