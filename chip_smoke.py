@@ -450,7 +450,14 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
                    calls, peak GiB; (e) float32 at 1 layer: each placed
                    decode within 1/16 of the bfloat16 distance; both smoke
                    configs placed, card against CPU; (f) no kernel on the
-                   path;
+                   path; (g) seamless's full config split over ``model``
+                   (the smoke config's tensor parallelism: heads, d_ff
+                   and the vocabulary over ``model``, rows over
+                   ``data``) at full depth: (a) and (c) on (4, 2) with
+                   the decode step's top device events, (d) on (2, 2),
+                   (e) at 1 + 1 layers with every greedy token placed ==
+                   unsharded in float32, and its smoke config card
+                   against CPU;
  26. report      — one JSON line of the kernels (launches on the paths that
                    run them, errors, bounds; ``ms``, ``plain_ms`` and
                    ``library_ms`` are device times, ``call_ms`` the event
@@ -7116,6 +7123,10 @@ def phase_recurrent_shard(dev, ARCHS=RECURRENT_SHARD_ARCHS, LAYOUT=(2, 4), SLOTS
 # ------------------------------------------------------ 25. frontend_shard
 FRONTEND_SHARD_TOL_SMOKE = 1e-4  # (e): the float32 smoke configs' placed train step, card against CPU
 VL_ARCH, SM_ARCH = "qwen2-vl-72b", "seamless-m4t-medium"
+SM_TP = SM_ARCH + " split over model"  # (g): the full config without dp_over_model
+SM_TP_LAYOUT = (4, 2)  # (g)'s serving layout: the vocabulary 256,206 = 2 × 128,103 takes a model of 1 or 2
+ARGMAX_K = 2  # (g): a row's argmax is held where its top-2 margin exceeds this many times the largest logit gap
+ARGMAX_HELD = 0.75  # (g): the least share of the rows that must clear that margin
 
 
 def _dense_decode_calls(layers):
@@ -7135,6 +7146,34 @@ def _encdec_decode_calls(layers):
     return {"all_gather1": 2 * layers + 1, "psum1": layers, "all_gather0": 1}
 
 
+def _encdec_tp_decode_calls(layers):
+    """The pinned calls of one placed encoder-decoder decode step split over
+    ``model`` (``tests/test_torch_encdec_shard.py``'s budget): a decoder
+    layer's cached self-attention as the dense family's (q, (k, v) and the
+    maxima ``all_gather``s, the partials' and ``wo``'s ``psum``s), the
+    cross-attention's and the MLP's ``psum``s; the embedding's ``psum`` and
+    the logits' vocabulary ``all_gather`` over ``model``, their rows' over
+    ``data``."""
+    return {"all_gather1": 3 * layers + 1, "psum1": 4 * layers + 1, "all_gather0": 1}
+
+
+def _encdec_tp_train_calls(cfg, leaves):
+    """The pinned calls of one placed encoder-decoder train step split over
+    ``model``, one microbatch, no FSDP, of ``leaves`` leaves (``tests/
+    test_torch_encdec_shard.py``'s budget): over ``model`` 4 ``psum``s an
+    encoder layer and 6 a decoder layer (each row-parallel product's sum
+    forward, each column-parallel input's backward), 4 once (the
+    embedding's, the loss's sums', the memory's and the head input's
+    backward), and with ``remat`` the sums each layer's recompute issues
+    again before the checkpoint stops it (the attention ``wo``'s: one an
+    encoder layer, two a decoder layer; the MLP's output is saved by no
+    backward); the loss's maxima ``all_gather``; over ``data`` each leaf's
+    gradient ``psum`` and the loss's; the norm's flat ``psum``."""
+    e, n = cfg.encoder_layers, cfg.num_layers
+    again = e + 2 * n if cfg.remat else 0
+    return {"psum1": 4 * e + 6 * n + 4 + again, "all_gather1": 1, "psum0": leaves + 1, "psum": 1}
+
+
 def _frontend_batch(cfg, b, s, dev, seed):
     """A train batch on the card from ``seed``: qwen2-vl's ``tokens``,
     ``embeds`` and ``labels`` (b, s), seamless's ``frames`` and ``tokens``
@@ -7150,9 +7189,9 @@ def _frontend_batch(cfg, b, s, dev, seed):
             "labels": tok(s - 1)}
 
 
-def phase_frontend_shard(dev, LAYOUT=(2, 4), SM_TRAIN_LAYOUT=(2, 2), VL_LAYERS=(2, 1, 1), SM_LAYERS=(None, 1),
-                         SLOTS=16, MAX_LEN=128, N_REQ=16, PROMPT=(8, 48), NEW=(8, 24), VL_PREFILL=(2, 64),
-                         FRAMES=(4, 512, 64), GREEDY=32, VL_TRAIN=(8, 512), SM_TRAIN=(8, 64), TRAIN_STEPS=3,
+def phase_frontend_shard(dev, LAYOUT=(2, 4), SM_TRAIN_LAYOUT=(2, 2), VL_LAYERS=(2, 1, 1), SM_LAYERS=(None, 1), SLOTS=16,
+                         MAX_LEN=128, N_REQ=16, PROMPT=(8, 48), NEW=(8, 24), VL_PREFILL=(2, 64), FRAMES=(4, 512, 64),
+                         GREEDY=32, VL_TRAIN=(8, 512), SM_TRAIN=(8, 64), TRAIN_STEPS=3,
                          CHECK_STEPS=16, widths=None, profile=True):
     """The stub-frontend families on placed parameters (``launch.placement``
     for qwen2-vl's vision stub and the encoder-decoder under
@@ -7190,8 +7229,21 @@ def phase_frontend_shard(dev, LAYOUT=(2, 4), SM_TRAIN_LAYOUT=(2, 2), VL_LAYERS=(
     float32 logits; both smoke configs placed on (2, 4), the card against
     the CPU from one draw: a placed train step's loss within
     ``FRONTEND_SHARD_TOL_SMOKE``.  (f) None of the ten kernels is launched
-    on the path ``frontend_shard``.  ``widths`` (``{arch: {field:
-    value}}``) narrows the configs for a rehearsal on the CPU."""
+    on the path ``frontend_shard``.  (g) seamless-m4t-medium split over
+    ``model`` (its full config with ``dp_over_model`` off, at
+    ``SM_LAYERS``): (a) and (c) serve-placed on ``SM_TP_LAYOUT``, the
+    decode step's calls ``_encdec_tp_decode_calls`` and its top device
+    events; (d) on ``SM_TRAIN_LAYOUT``, its calls
+    ``_encdec_tp_train_calls``; (e) at the check depth on
+    ``SM_TP_LAYOUT``, in float32 each step's argmax (the greedy token)
+    placed == unsharded on every row whose unsharded top-2 margin exceeds
+    ``ARGMAX_K`` times the largest placed-against-unsharded logit gap (no
+    rounding within that gap can swap its top two), with at least
+    ``ARGMAX_HELD`` of the rows so held (in bfloat16 the tokens are
+    recorded: its own rounding moves the logits by ~3), and its smoke
+    config (tensor parallel as it ships) card against CPU.  ``widths``
+    (``{arch: {field: value}}``; (g) reads seamless's) narrows the configs
+    for a rehearsal on the CPU."""
     import dataclasses as dc
     import gc
     import math
@@ -7214,8 +7266,8 @@ def phase_frontend_shard(dev, LAYOUT=(2, 4), SM_TRAIN_LAYOUT=(2, 2), VL_LAYERS=(
     cuda = dev.type == "cuda"
     t_phase = time.perf_counter()
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    out, launched = {VL_ARCH: {}, SM_ARCH: {}}, {}
-    attention = (("attention", [(A, "decode_rows_placed"), (A, "cross_attention"), (ED, "_attend_placed"),
+    out, launched = {VL_ARCH: {}, SM_ARCH: {}, SM_TP: {}}, {}
+    attention = (("attention", [(A, "decode_rows_placed"), (A, "_decode_placed"), (A, "cross_attention"),
                                 (ED, "_bidir_attention")]),)
 
     def free():
@@ -7252,9 +7304,13 @@ def phase_frontend_shard(dev, LAYOUT=(2, 4), SM_TRAIN_LAYOUT=(2, 2), VL_LAYERS=(
         return model.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
 
     def smoke(arch):
-        """(e): the float32 smoke config (qwen2-vl with ``fsdp``, seamless
-        under ``dp_over_model``), card against CPU."""
-        cfg = dc.replace(get_smoke_config(arch), **({"dp_over_model": True} if arch == SM_ARCH else {"fsdp": True}))
+        """(e), (g): the float32 smoke config (qwen2-vl with ``fsdp``,
+        seamless under ``dp_over_model`` or split over ``model`` as it
+        ships), card against CPU."""
+        if arch == SM_TP:
+            cfg = get_smoke_config(SM_ARCH)
+        else:
+            cfg = dc.replace(get_smoke_config(arch), **({"dp_over_model": True} if arch == SM_ARCH else {"fsdp": True}))
         return _placed_smoke_card_cpu(dev, cfg, _frontend_batch(cfg, 8, 16, torch.device("cpu"), 35), 35)
 
     def rule_and_blocks(placement, placed, whole, label, what):
@@ -7441,6 +7497,91 @@ def phase_frontend_shard(dev, LAYOUT=(2, 4), SM_TRAIN_LAYOUT=(2, 2), VL_LAYERS=(
     rec["smoke"] = smoke(VL_ARCH)
     rec["s"] = time.perf_counter() - t_arch
 
+    def serve_seamless(cfg, layout, label, seed, want):
+        """(a), (c), (g): seamless serve-placed on ``layout``: the blocks, a
+        placed prefill beside the unsharded one, then the prompt
+        teacher-forced and ``GREEDY`` greedy steps in lockstep; the decode
+        step's calls held at ``want``."""
+        model = build_model(cfg)
+        R = layout[0] * layout[1]
+        lm = init(model, seed)
+        sp = PL.serve_placement(model, Layout(*layout))
+        params = sp.place(lm)
+        serve = {"layout": layout,
+                 "param_bytes_per_rank": rule_and_blocks(sp, params, lm.tree(), label, "serve placement"),
+                 "param_bytes_whole": sum(t.numel() * t.element_size() for t in lm.parameters())}
+        rows, t_enc, s = FRAMES
+        rows = max(rows, R)
+        cp, serve["cache_bytes_per_rank"] = cache_check(model, layout, rows, label, seed + 1)
+        batch = _frontend_batch(cfg, rows, s, dev, seed + 2)
+        batch["frames"] = torch.randn((rows, t_enc, cfg.d_model), generator=torch.Generator(device=dev).manual_seed(
+            seed + 3), device=dev).to(cfg.torch_dtype)
+        logits = {}
+        for name, p in (("placed", params), ("whole", lm)):
+            sync()
+            t0 = time.perf_counter()
+            logits[name] = model.prefill_fn()(p, batch).float()
+            sync()
+            serve[f"prefill_{name}_s"] = time.perf_counter() - t0
+        serve["frames"], serve["prefill_placed_vs_whole"] = (rows, t_enc, cfg.d_model), float(
+            (logits["placed"] - logits["whole"]).abs().max())
+        check(tuple(logits["placed"].shape) == (rows, cfg.vocab_size) and bool(torch.isfinite(logits["placed"]).all()),
+              f"(c) {label}: a placed prefill of frames {serve['frames']} and {s} tokens gives finite logits, "
+              f"{serve['prefill_placed_vs_whole']:.4g} from the unsharded prefill's (bfloat16)")
+        with torch.no_grad():
+            memory = ED.encode(lm, batch["frames"], cfg)
+        step = model.decode_fn()
+        caches = {"placed": cp.zeros(dev), "whole": model.init_caches(rows, MAX_LEN, device=dev)}
+        toks = [batch["tokens"][:, t:t + 1] for t in range(s)]
+        evs = {"placed": events(s + GREEDY) if cuda else [], "whole": events(s + GREEDY) if cuda else []}
+        sp.comm.reset()
+        KN.reset_launch_counts()
+        peak_reset()
+        gap, agree, greedy_agree = 0.0, 0, 0
+        for t in range(s + GREEDY):
+            lg = {}
+            for name, p in (("placed", params), ("whole", lm)):
+                if cuda:
+                    evs[name][t][0].record()
+                lg[name], caches[name] = step(p, toks[t], caches[name], memory)
+                if cuda:
+                    evs[name][t][1].record()
+            gap = max(gap, float((lg["placed"].float() - lg["whole"].float()).abs().max()))
+            same = int((lg["placed"].argmax(-1) == lg["whole"].argmax(-1)).sum())
+            agree += same
+            if t + 1 >= s:  # the greedy tokens: the argmax after the prompt's last token and each greedy step
+                greedy_agree += same
+                toks.append(lg["whole"].argmax(-1, keepdim=True).to(torch.int32))
+        count_launches()
+        steps_run = s + GREEDY
+        r = {"steps": steps_run, "step_ms_median": median_ms(evs["placed"]),
+             "whole_step_ms_median": median_ms(evs["whole"]), "peak_gib": peak(), "logits_placed_vs_whole": gap,
+             "argmax_agree": (agree, steps_run * rows), "greedy_agree": (greedy_agree, (GREEDY + 1) * rows),
+             "pos": int(caches["placed"]["pos"][0, 0, 0])}
+        r["calls_per_step"], r["call_bytes_per_step"] = _calls_and_bytes(sp.comm, steps_run)
+        check(r["calls_per_step"] == want and r["pos"] == min(s + GREEDY, MAX_LEN - 1),
+              f"(c) {label}: {s} teacher-forced and {GREEDY} greedy placed decode_fn steps against the memory beside "
+              f"the unsharded model (max |dlogit| {gap:.4g}, argmax equal {agree} of {steps_run * rows}, greedy "
+              f"{greedy_agree} of {(GREEDY + 1) * rows}, bfloat16); position {r['pos']}; calls a step "
+              f"{r['calls_per_step']} == the pinned budget {want}; bytes a step {r['call_bytes_per_step']}")
+        if cuda:
+            fixed = {"placed": cp.zeros(dev), "whole": model.init_caches(rows, MAX_LEN, device=dev)}
+            tok = toks[-1]
+            r["peak_gib_above_held"] = _peak_above_held(lambda: step(params, tok, fixed["placed"], memory), dev)
+            if profile:
+                r["split"] = _family_split(lambda: step(params, tok, fixed["placed"], memory), comm=sp.comm, calls=3,
+                                           more=attention)
+                r["whole_split"] = _family_split(lambda: step(lm, tok, fixed["whole"], memory), calls=3,
+                                                 more=attention)
+                r["top_events"] = _top_events(lambda: step(params, tok, fixed["placed"], memory))
+                r["whole_top_events"] = _top_events(lambda: step(lm, tok, fixed["whole"], memory))
+            del fixed
+        serve["decode"] = r
+        print(f"  (c) {label}: {r}", flush=True)
+        del params, lm, caches, memory, logits
+        free()
+        return serve
+
     # ------------------------------------------------ (a), (c) seamless serving
     t_arch = time.perf_counter()
     rec = out[SM_ARCH]
@@ -7448,77 +7589,7 @@ def phase_frontend_shard(dev, LAYOUT=(2, 4), SM_TRAIN_LAYOUT=(2, 2), VL_LAYERS=(
     model = build_model(cfg)
     R = LAYOUT[0] * LAYOUT[1]
     label = f"{cfg.name} at {cfg.encoder_layers} + {cfg.num_layers} layers, dp_over_model, on {LAYOUT}"
-    lm = init(model, 3541)
-    sp = PL.serve_placement(model, Layout(*LAYOUT))
-    params = sp.place(lm)
-    serve = {"param_bytes_per_rank": rule_and_blocks(sp, params, lm.tree(), label, "serve placement"),
-             "param_bytes_whole": sum(t.numel() * t.element_size() for t in lm.parameters())}
-    rows, t_enc, s = FRAMES
-    rows = max(rows, R)
-    cp, serve["cache_bytes_per_rank"] = cache_check(model, LAYOUT, rows, label, 3542)
-    batch = _frontend_batch(cfg, rows, s, dev, 3543)
-    batch["frames"] = torch.randn((rows, t_enc, cfg.d_model), generator=torch.Generator(device=dev).manual_seed(3544),
-                                  device=dev).to(cfg.torch_dtype)
-    logits = {}
-    for name, p in (("placed", params), ("whole", lm)):
-        sync()
-        t0 = time.perf_counter()
-        logits[name] = model.prefill_fn()(p, batch).float()
-        sync()
-        serve[f"prefill_{name}_s"] = time.perf_counter() - t0
-    serve["frames"], serve["prefill_placed_vs_whole"] = (rows, t_enc, cfg.d_model), float(
-        (logits["placed"] - logits["whole"]).abs().max())
-    check(tuple(logits["placed"].shape) == (rows, cfg.vocab_size) and bool(torch.isfinite(logits["placed"]).all()),
-          f"(c) {label}: a placed prefill of frames {serve['frames']} and {s} tokens gives finite logits, "
-          f"{serve['prefill_placed_vs_whole']:.4g} from the unsharded prefill's (bfloat16)")
-    with torch.no_grad():
-        memory = ED.encode(lm, batch["frames"], cfg)
-    step = model.decode_fn()
-    caches = {"placed": cp.zeros(dev), "whole": model.init_caches(rows, MAX_LEN, device=dev)}
-    toks = [batch["tokens"][:, t:t + 1] for t in range(s)]
-    evs = {"placed": events(s + GREEDY) if cuda else [], "whole": events(s + GREEDY) if cuda else []}
-    sp.comm.reset()
-    KN.reset_launch_counts()
-    peak_reset()
-    gap, agree = 0.0, 0
-    for t in range(s + GREEDY):
-        lg = {}
-        for name, p in (("placed", params), ("whole", lm)):
-            if cuda:
-                evs[name][t][0].record()
-            lg[name], caches[name] = step(p, toks[t], caches[name], memory)
-            if cuda:
-                evs[name][t][1].record()
-        gap = max(gap, float((lg["placed"].float() - lg["whole"].float()).abs().max()))
-        agree += int((lg["placed"].argmax(-1) == lg["whole"].argmax(-1)).sum())
-        if t + 1 >= s:
-            toks.append(lg["whole"].argmax(-1, keepdim=True).to(torch.int32))
-    count_launches()
-    steps_run = s + GREEDY
-    r = {"steps": steps_run, "step_ms_median": median_ms(evs["placed"]), "whole_step_ms_median": median_ms(evs["whole"]),
-         "peak_gib": peak(), "logits_placed_vs_whole": gap, "argmax_agree": (agree, steps_run * rows),
-         "pos": int(caches["placed"]["pos"][0, 0, 0])}
-    r["calls_per_step"], r["call_bytes_per_step"] = _calls_and_bytes(sp.comm, steps_run)
-    want = _encdec_decode_calls(cfg.num_layers)
-    check(r["calls_per_step"] == want and r["pos"] == min(s + GREEDY, MAX_LEN - 1),
-          f"(c) {label}: {s} teacher-forced and {GREEDY} greedy placed decode_fn steps against the memory beside the "
-          f"unsharded model (max |dlogit| {gap:.4g}, argmax equal {agree} of {steps_run * rows}, bfloat16); position "
-          f"{r['pos']}; calls a step {r['calls_per_step']} == the pinned budget {want}; bytes a step "
-          f"{r['call_bytes_per_step']}")
-    if cuda:
-        fixed = {"placed": cp.zeros(dev), "whole": model.init_caches(rows, MAX_LEN, device=dev)}
-        tok = toks[-1]
-        r["peak_gib_above_held"] = _peak_above_held(lambda: step(params, tok, fixed["placed"], memory), dev)
-        if profile:
-            r["split"] = _family_split(lambda: step(params, tok, fixed["placed"], memory), comm=sp.comm, calls=3,
-                                       more=attention)
-            r["whole_split"] = _family_split(lambda: step(lm, tok, fixed["whole"], memory), calls=3, more=attention)
-        del fixed
-    serve["decode"] = r
-    print(f"  (c) {label}: {r}", flush=True)
-    rec["serve"] = serve
-    del params, lm, caches, memory, logits
-    free()
+    rec["serve"] = serve_seamless(cfg, LAYOUT, label, 3541, _encdec_decode_calls(cfg.num_layers))
 
     # --------------------------------------------- (a), (d) seamless training
     b, s = SM_TRAIN
@@ -7537,7 +7608,39 @@ def phase_frontend_shard(dev, LAYOUT=(2, 4), SM_TRAIN_LAYOUT=(2, 2), VL_LAYERS=(
     rec["smoke"] = smoke(SM_ARCH)
     rec["s"] = time.perf_counter() - t_arch
 
-    for arch in (VL_ARCH, SM_ARCH):
+    # ----------------------------- (g) seamless split over model: serving
+    t_arch = time.perf_counter()
+    rec = out[SM_TP]
+    cfg, _ = config(SM_ARCH, SM_LAYERS[0], dp_over_model=False)
+    label = f"{cfg.name} at {cfg.encoder_layers} + {cfg.num_layers} layers, split over model, on {SM_TP_LAYOUT}"
+    rec["serve"] = serve_seamless(cfg, SM_TP_LAYOUT, label, 3551, _encdec_tp_decode_calls(cfg.num_layers))
+
+    # ---------------------------- (g) seamless split over model: training
+    b, s = SM_TRAIN
+    model = build_model(cfg)
+    rec["train"] = train_pair(cfg, SM_TRAIN_LAYOUT, _frontend_batch(cfg, b, s, dev, 3555),
+                              f"{cfg.name} at {cfg.encoder_layers} + {cfg.num_layers} layers, split over model, on "
+                              f"{SM_TRAIN_LAYOUT}", 3556)
+    want = _encdec_tp_train_calls(cfg, len(PL.train_placement(model, Layout(*SM_TRAIN_LAYOUT)).specs))
+    check(rec["train"]["calls_per_step"] == want,
+          f"(g) {cfg.name} split over model: a placed train step's calls {rec['train']['calls_per_step']} == the "
+          f"pinned budget {want}")
+
+    # ----------------------------- (g) seamless split over model: float32
+    cfg_c, _ = config(SM_ARCH, SM_LAYERS[1], dtype="float32", dp_over_model=False)
+    f32 = rec["float32_check"] = _frontend_f32(dev, cfg_c, SM_TP_LAYOUT, R, MAX_LEN, CHECK_STEPS, FRAMES[1], 3557)
+    same, held, rows = f32["argmax_held"]
+    check(same == held >= ARGMAX_HELD * rows,
+          f"(g) {cfg_c.name} split over model at 1 + 1 layers in float32 on {SM_TP_LAYOUT}: the greedy tokens (each "
+          f"step's argmax) placed == unsharded on {same} of the {held} rows whose top-2 margin exceeds {ARGMAX_K} x the "
+          f"largest logit gap {f32['decode_placed_vs_whole']:.3g}, {held} >= {ARGMAX_HELD:g} of {rows} rows (all rows: "
+          f"{f32['argmax_agree'][0]} equal; bfloat16's own rounding moves the logits {f32['decode_bf16_vs_f32']:.3g}: "
+          f"its tokens are recorded, not held)")
+    free()
+    rec["smoke"] = smoke(SM_TP)
+    rec["s"] = time.perf_counter() - t_arch
+
+    for arch in (VL_ARCH, SM_ARCH, SM_TP):
         smoke = out[arch]["smoke"]
         check(abs(smoke["card"] - smoke["cpu"]) <= FRONTEND_SHARD_TOL_SMOKE,
               f"(e) the {arch} smoke config placed on (2, 4), one train step: the card's loss {smoke['card']:.6f} "
@@ -7555,7 +7658,11 @@ def _frontend_f32(dev, cfg_c, layout, slots, max_len, steps, frames, seed):
     over ``steps`` decode steps from seeded caches (an encoder-decoder
     against the memory of ``frames`` seeded frames a row, each run's own
     encoder): the largest |placed - unsharded| and |bfloat16 - float32|
-    logit differences, held at 1/``FAM_F32_GAIN``."""
+    logit differences, held at 1/``FAM_F32_GAIN``; the argmax tokens placed
+    against unsharded and the unsharded logits' smallest top-2 margin,
+    recorded, and ``argmax_held``: (equal, rows, all rows) over the rows
+    whose top-2 margin exceeds ``ARGMAX_K`` times the largest placed
+    against unsharded gap."""
     import dataclasses as dc
 
     import numpy as np
@@ -7586,6 +7693,7 @@ def _frontend_f32(dev, cfg_c, layout, slots, max_len, steps, frames, seed):
             "bf16": [w16, c16, model_b.decode_fn()]}
     gen = np.random.default_rng(seed + 3)
     d_placed = d_bf16 = 0.0
+    same, margins = [], []
     for _ in range(steps):
         tok = torch.from_numpy(gen.integers(0, cfg_c.vocab_size, (slots, 1)).astype(np.int32)).to(dev)
         lg = {}
@@ -7594,11 +7702,17 @@ def _frontend_f32(dev, cfg_c, layout, slots, max_len, steps, frames, seed):
             lg[name], run[1] = run[2](run[0], tok, run[1], *extra)
         d_placed = max(d_placed, float((lg["placed"] - lg["whole"]).abs().max()))
         d_bf16 = max(d_bf16, float((lg["bf16"].float() - lg["whole"]).abs().max()))
+        same.append((lg["placed"].argmax(-1) == lg["whole"].argmax(-1)).reshape(-1).cpu())
+        top2 = lg["whole"].topk(2, dim=-1).values
+        margins.append((top2[..., 0] - top2[..., 1]).reshape(-1).cpu())
     pairs = [(a, b) for (k, a), b in zip(_leaf_items(cpc.gather(runs["placed"][1])).items(),
                                          _leaf_items(runs["whole"][1]).values()) if k[-1] != "pos"]
     cache_gap = max(float((a - b).abs().max()) for a, b in pairs)
+    same, margins = torch.cat(same), torch.cat(margins)
+    held = margins > ARGMAX_K * d_placed
     rec = {"layers": cfg_c.num_layers, "slots": slots, "decode_placed_vs_whole": d_placed, "decode_bf16_vs_f32": d_bf16,
-           "cache_gap": cache_gap}
+           "cache_gap": cache_gap, "argmax_agree": (int(same.sum()), len(same)), "min_top2_margin": float(margins.min()),
+           "argmax_held": (int(same[held].sum()), int(held.sum()), len(same))}
     check(d_placed <= d_bf16 / FAM_F32_GAIN,
           f"(e) {cfg_c.name} at {cfg_c.num_layers} layer(s) in float32 on {layout}: {steps} teacher-forced decode steps "
           f"of {slots} slots max |placed - unsharded| {d_placed:.4g} <= 1/{FAM_F32_GAIN:g} of the bfloat16 model's "

@@ -43,15 +43,19 @@ slots over ``data`` and the sequence over ``model``, ``pos`` over
 ``data`` and the channels or heads over ``model``;
 :meth:`Placement.zeros` makes them on the device already placed.
 
-The decoder families are placed here: dense (text-only, or qwen2-vl's
-vision stub, whose ``embeds`` replace the lookup: the forward does not
-read ``embed``, so :meth:`Placement.unshard` leaves it ungathered), MoE,
-the hybrid (griffin's RG-LRU beside local attention) and the ssm (rwkv6);
-and the encoder-decoder under ``dp_over_model`` (seamless-m4t-medium's
-policy): the rule strips ``model`` from every weight, so each is whole on
-every rank (with FSDP's ``data`` where the config asks), the batch rows
-run over ``(data, model)``, and the decoder caches keep the slots over
-``data`` and the sequence over ``model``.  An MoE's experts follow its
+Every family is placed here: dense (text-only, or qwen2-vl's vision stub,
+whose ``embeds`` replace the lookup: the forward does not read ``embed``,
+so :meth:`Placement.unshard` leaves it ungathered), MoE, the hybrid
+(griffin's RG-LRU beside local attention), the ssm (rwkv6) and the
+encoder-decoder in both of the reference's layouts.  Split over
+``model`` (the smoke config's tensor parallelism) it is placed as the
+dense family: the encoder's and the decoder's attention weights on the
+heads, the MLP on d_ff, ``embed`` and ``lm_head`` on the vocabulary, the
+rows over ``data``.  Under ``dp_over_model`` (the full config's policy)
+the rule strips ``model`` from every weight, so each is whole on every
+rank (with FSDP's ``data`` where the config asks), the batch rows run
+over ``(data, model)``.  Either way the decoder caches keep the slots
+over ``data`` and the sequence over ``model``.  An MoE's experts follow its
 dispatch plane, as the rule names them: under ``rafi_ep`` ``(E, D, F)``
 split over ``model`` on the expert dimension (each model rank owns
 E/model experts), under ``dense_tp`` every expert on every rank with
@@ -62,10 +66,11 @@ the channels.  rwkv6's five projections are split on their output
 columns (whole heads, head-major), ``w_bias`` on its channels, ``u`` on
 its heads and ``wo`` on its rows; its decode state on the heads.  FSDP
 puts ``data`` on the layer stack of a stacked leaf, or on the first
-unsplit dimension where the stack does not divide.  The encoder-decoder
-split over ``model`` (the smoke config's tensor parallelism: its
-bidirectional and cross-attention on the heads, the vocabulary-split
-embedding and head) is ROADMAP Queue 1 item 21c4, and refused here.
+unsplit dimension where the stack does not divide.  Where ``model`` does
+not divide the dimension the rule names, the reference moves it to
+another; the port refuses the layout instead, naming that dimension (the
+full seamless-m4t-medium config without ``dp_over_model``: its
+vocabulary of 256,206 = 2 × 128,103 takes a ``model`` of 1 or 2).
 """
 from __future__ import annotations
 
@@ -290,10 +295,6 @@ def _placed_layout(model: Model, layout: Layout) -> Layout:
     """``layout`` with its backend resolved, for a model of a placed
     family (module docstring)."""
     cfg = model.cfg
-    if cfg.kind == "encdec" and not cfg.dp_over_model:
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder is placed under dp_over_model only; split over "
-                                  "model (its bidirectional and cross-attention on the heads, the vocabulary-split "
-                                  "embedding and head) it is ROADMAP Queue 1 item 21c4")
     if cfg.kind not in _PLACED_KINDS or cfg.frontend not in _FRONTENDS.get(cfg.kind, ("none",)):
         raise NotImplementedError(f"{cfg.name}: kind={cfg.kind!r} with frontend={cfg.frontend!r} is not placed")
     if cfg.dp_over_model and cfg.kind != "encdec":
@@ -309,6 +310,8 @@ def _axis_dims(spec: tuple, ax: str) -> List[int]:
 def _what_model_splits(path: Tuple[str, ...], cfg) -> str:
     """The dimension the rule puts ``model`` on, in words, for a refusal."""
     parent = path[-2] if len(path) > 1 else ""
+    if path[-1] in ("embed", "lm_head"):
+        return f"the vocabulary ({cfg.vocab_size})"
     if parent == "moe" and path[-1] != "router":
         return f"the {cfg.num_experts} experts" if cfg.moe_dispatch == "rafi_ep" else f"d_ff ({cfg.d_ff})"
     if parent == "rwkv":
@@ -338,9 +341,9 @@ def train_placement(model: Model, layout: Layout) -> Placement:
     """The placement of ``model``'s train state on ``layout`` (its
     ``comm`` the backend: None stacked), as ``build_train_step``'s
     shardings place the reference's on the ``(data, model)`` mesh.
-    Raises for the encoder-decoder without ``dp_over_model`` (item 21c4),
-    and where the rule would move ``model`` off the dimension it names (no
-    dense config does on a layout of 8 ranks; an MoE's experts under
+    Raises where the rule would move ``model`` off the dimension it names
+    (no dense smoke config does on a layout of 8 ranks; a vocabulary
+    ``model`` does not divide; an MoE's experts under
     ``rafi_ep`` where ``model`` does not divide them, as the reference
     asserts, and its d_ff under ``dense_tp``; rwkv6 where ``model`` does
     not divide its heads, griffin where it does not divide d_rnn)."""

@@ -4,9 +4,9 @@ devices: the port's copy of the reference's partition rule, with no
 device, and ``launch.placement`` to place a family's train state, its
 serving parameters and its decode caches on a layout's ranks (the decoder
 families, qwen2-vl's vision stub among the dense, and the
-encoder-decoder under ``dp_over_model``; the encoder-decoder split over
-``model`` is ROADMAP item 21c4): :func:`cut` gives the rank blocks of a
-whole leaf under its resolved spec, :func:`join` the whole leaf back.
+encoder-decoder split over ``model`` or under ``dp_over_model``):
+:func:`cut` gives the rank blocks of a whole leaf under its resolved
+spec, :func:`join` the whole leaf back.
 
 A spec is a tuple with one entry per dimension: None (not split), an
 axis name, or a tuple of axis names.  The axes are those of the

@@ -34,7 +34,8 @@ feeds them get no gradient (the plane carries none), nor does qwen2-vl's
 ``embed`` when ``embeds`` replace the lookup: their ``grad`` stays None
 through ``reduce`` and the norm, and AdamW decays them alone with their
 moments at zero, as the reference's zero gradients do.  The
-encoder-decoder split over ``model`` is refused (ROADMAP item 21c4).
+encoder-decoder split over ``model`` is the dense family's step: rows
+over ``data``, the encoder and the decoder tensor-parallel.
 Whole parameters keep the unsharded step above.
 ``build_prefill_step`` and ``build_decode_step`` return the model's
 ``prefill`` and ``decode`` functions as they are: the placement lives in

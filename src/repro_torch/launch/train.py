@@ -81,7 +81,7 @@ def train(
     placement``), but train on no :class:`SyntheticLM` batch: qwen2-vl
     takes ``embeds`` and ``labels``, seamless-m4t-medium ``frames``; drive
     their placed step with ``build_train_step`` on such a batch (the
-    encoder-decoder split over ``model`` is refused, ROADMAP item 21c4).
+    encoder-decoder split over ``model`` or under ``dp_over_model``).
     It is not the
     default: the data-parallel step's laws (a world of W processes equals
     W microbatches, one ``grad_all_reduce`` a step) hold for whole

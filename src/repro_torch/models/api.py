@@ -168,10 +168,11 @@ def placed_loss(params, batch, cfg: ModelConfig) -> torch.Tensor:
     (:func:`_group_rows`); every leaf is gathered whole over ``data``
     first (the FSDP gather), then the placed pass and its loss: the
     tensor-parallel decoder (``TF.forward_placed``; ``embeds`` feed it in
-    place of the lookup, whose table is then not gathered) and the loss
-    over the split vocabulary, or under ``dp_over_model`` the
-    encoder-decoder on each rank's own rows (``ED.encode_placed``,
-    ``ED.decode_placed``) and the loss over the whole vocabulary."""
+    place of the lookup, whose table is then not gathered) or
+    encoder-decoder (``ED.encode_placed``, ``ED.decode_placed``) and the
+    loss over the split vocabulary; under ``dp_over_model`` the
+    encoder-decoder on each rank's own rows and the loss over the whole
+    vocabulary."""
     placement = params.placement
     tokens = batch["tokens"]
     ranks = placement.ranks(tokens.device)
@@ -180,7 +181,9 @@ def placed_loss(params, batch, cfg: ModelConfig) -> torch.Tensor:
         whole = placement.unshard(params, ranks)
         memory = ED.encode_placed(whole, _group_rows(batch["frames"], ranks), cfg, ranks)
         logits, _ = ED.decode_placed(whole, tokens, memory, cfg, ranks)
-        return cross_entropy_loss_rows(logits[:, :, :-1], tokens[:, :, 1:])
+        if ranks.rows_over_model:
+            return cross_entropy_loss_rows(logits[:, :, :-1], tokens[:, :, 1:])
+        return cross_entropy_loss_placed(logits[:, :, :-1], tokens[:, :, 1:], ranks)
     embeds = _frontend(batch, ranks)
     logits, _, _ = TF.forward_placed(_unshard(placement, params, ranks, cfg, embeds), tokens, cfg, ranks,
                                      frontend_embeds=embeds)
@@ -226,8 +229,8 @@ def placed_prefill(params, batch, cfg: ModelConfig) -> torch.Tensor:
     """The last position's logits ``(B, V)`` on serve-placed parameters
     (``launch.placement.serve_placement``), whole in every process: every
     process takes the global batch, each rank its row group's rows, and
-    the placed pass (``TF.forward_placed``, attending per head; or the
-    encoder-decoder on each rank's own rows)."""
+    the placed pass (``TF.forward_placed``, or the encoder-decoder's
+    ``ED.encode_placed`` and ``ED.decode_placed``)."""
     placement = params.placement
     tokens = batch["tokens"]
     ranks = placement.ranks(tokens.device)
@@ -248,7 +251,7 @@ def placed_decode(params, token, caches, cfg: ModelConfig, *, memory=None):
     (``launch.placement.cache_placement``): the global token ``(B, 1)`` in
     every process, each rank its row group's rows at their own depths
     (read from ``pos``; an encoder-decoder's ``memory`` the global ``(B,
-    T, D)``, each rank its own rows).  Returns ``(logits (B, V)`` whole in
+    T, D)``, each rank its row group's rows).  Returns ``(logits (B, V)`` whole in
     every process, the new caches placed, the step's MoE drops summed over
     every rank)."""
     if getattr(caches, "placement", None) is None:
@@ -257,7 +260,7 @@ def placed_decode(params, token, caches, cfg: ModelConfig, *, memory=None):
     ranks = placement.ranks(token.device)
     with torch.no_grad():
         if cfg.kind == "encdec":
-            positions = caches["pos"][:, 0, :, None].to(torch.int32)  # (L, b·model, 1): the group's, layer 0's
+            positions = caches["pos"][:, 0, :, None].to(torch.int32)  # (L, B/data, 1): the group's, layer 0's
             logits, new = ED.decode_placed(placement.unshard(params, ranks), _group_rows(token, ranks),
                                            _group_rows(memory, ranks), cfg, ranks, caches=caches, positions=positions)
             moe_drops = torch.zeros((), dtype=torch.int32, device=token.device)

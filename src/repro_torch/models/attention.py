@@ -2,7 +2,8 @@
 (counterpart of ``repro.models.attention``).
 
 Plain PyTorch, mirroring the reference's arithmetic: scores and the
-``p @ v`` product in float32 (``_sdpa``), or online softmax over 1,024-row
+``p @ v`` product in float32 (``_sdpa``; in float64 for a float64 model,
+which the tests run as a float32 decode's exact twin), or online softmax over 1,024-row
 KV blocks with float32 accumulation of bfloat16 operands
 (``_sdpa_blocked``, taken for a parallel pass longer than 1,024 rows).
 Decode writes each row's K/V at that row's own position (serving slots sit
@@ -66,13 +67,14 @@ def _sdpa(q, k, v, mask, dtype):
     hkv = k.shape[2]
     group = h // hkv
     qg = q.reshape(b, s, hkv, group, dh)
-    scores = torch.einsum("bskgd,btkd->bkgst", qg.to(torch.float32), k.to(torch.float32))
+    wide = torch.promote_types(q.dtype, torch.float32)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.to(wide), k.to(wide))
     scores = scores / np.sqrt(dh)
     if mask.dim() == 2:
         mask = mask[None]
     scores = torch.where(mask[:, None, None, :, :], scores, -1e30)
     p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgst,btkd->bskgd", p, v.to(torch.float32))
+    out = torch.einsum("bkgst,btkd->bskgd", p, v.to(wide))
     return out.reshape(b, s, h, dh).to(dtype)
 
 
@@ -193,28 +195,44 @@ def self_attention_placed(
     theta: Optional[float] = None,
     cache: Optional[Dict] = None,     # {"k","v": (L, b, T/model, Hkv, Dh), "pos": (L, b)}
     positions: Optional[torch.Tensor] = None,  # (L, b, S) or (L, b, S, 3) for mrope; decode (L, b, 1)
+    causal: bool = True,
+    src: Optional[torch.Tensor] = None,        # (L, b, T, D): cross-attention's keys and values
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """:func:`self_attention` on every local rank, heads split over
     ``model``: ``wq``/``wk``/``wv`` (and their biases) column-parallel on
     the flat head×dim axis, ``wo`` row-parallel with a ``psum`` over
     ``model``.  Returns ``(out (L, b, S, D), new_cache)``.
 
-    The parallel pass (``cache`` None) attends per head, at ``positions``
-    (None: ``0 … S-1``; M-RoPE's three streams where given).  Where ``model``
-    does not divide the kv heads (or the q heads), its flat split cuts
-    through a head: k and v (or q, k and v) are gathered over ``model``
-    first, as the reference's reshard does; a rank then attends with the
-    kv heads of its own q heads (or with all heads, keeping its own block
-    of the output).
+    The parallel pass (``cache`` None) serves three uses: the causal
+    self-attention (RoPE at ``positions``, None: ``0 … S-1``; M-RoPE's
+    three streams where given; the ``qkv_bias``; blocked past 1,024 rows),
+    the encoder's bidirectional self-attention (``causal=False``: RoPE at
+    ``0 … S-1``, a full mask, no bias, as the reference's
+    ``_bidir_attention``) and the decoder's cross-attention (``src``: k and
+    v from the encoder memory, no RoPE, a full ``(S, T)`` mask, no bias, as
+    ``cross_attention``).  ``src`` comes already through ``copy_model``
+    (the caller copies the memory once for all its layers, so that its
+    gradient is summed over ``model`` once).  Where ``model`` does not
+    divide the kv heads (or the q heads), its flat split cuts through a
+    head: k and v (or q, k and v) are gathered over ``model`` first, as
+    the reference's reshard does; a rank then attends with the kv heads of
+    its own q heads (or with all heads, keeping its own block of the
+    output).  Under ``dp_over_model`` (``ranks.rows_over_model``: every
+    weight whole, each rank its own rows) the same body runs with no
+    collective.
 
     Decode (``cache`` given, S == 1) attends over a cache split over the
-    sequence (:func:`_decode_placed`)."""
+    sequence (:func:`_decode_placed`; under ``dp_over_model``
+    :func:`decode_rows_placed`)."""
     if cache is not None:
-        return _decode_placed(params, x, cfg, ranks, cache, positions, window=window, theta=theta)
+        decode = decode_rows_placed if ranks.rows_over_model else _decode_placed
+        return decode(params, x, cfg, ranks, cache, positions, window=window, theta=theta)
     L, b, s, _ = x.shape
-    h, kv, hd, M = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, ranks.model
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    M = ranks.model if ranks.tensor_parallel else 1
     x = P.copy_model(x, ranks)
-    q, k, v = _qkv_placed(params, x, cfg)
+    q, k, v = _qkv_placed(params, x, cfg, src, bias=causal and src is None)
+    t = k.shape[2]
     q_whole = h % M != 0
     kv_whole = q_whole or kv % M != 0
     if q_whole:
@@ -223,20 +241,23 @@ def self_attention_placed(
         k, v = P.gather(k, ranks, P.MODEL_TIER, 2), P.gather(v, ranks, P.MODEL_TIER, 2)
     nq = q.shape[-1] // hd
     q = _split_heads(q.reshape(L * b, s, -1), nq, hd)
-    k = _split_heads(k.reshape(L * b, s, -1), k.shape[-1] // hd, hd)
-    v = _split_heads(v.reshape(L * b, s, -1), v.shape[-1] // hd, hd)
-    if positions is None:
-        positions = torch.arange(s, device=x.device).expand(L * b, s)
-    else:
-        positions = positions.reshape((L * b, s) + tuple(positions.shape[3:]))
-    cos, sin = _angles(cfg, positions, theta)
-    q = R.apply_rope(q, cos, sin)
-    k = R.apply_rope(k, cos, sin)
+    k = _split_heads(k.reshape(L * b, t, -1), k.shape[-1] // hd, hd)
+    v = _split_heads(v.reshape(L * b, t, -1), v.shape[-1] // hd, hd)
+    if src is None:
+        if positions is None:
+            positions = torch.arange(s, device=x.device).expand(L * b, s)
+        else:
+            positions = positions.reshape((L * b, s) + tuple(positions.shape[3:]))
+        cos, sin = _angles(cfg, positions, theta)
+        q = R.apply_rope(q, cos, sin)
+        k = R.apply_rope(k, cos, sin)
     if kv_whole and not q_whole:  # the kv head of each of the rank's q heads
         heads = (ranks.mrank[:, None] * nq + torch.arange(nq, device=x.device)) // (h // kv)  # (L, nq)
-        idx = heads.repeat_interleave(b, dim=0)[:, None, :, None].expand(L * b, s, nq, hd)
+        idx = heads.repeat_interleave(b, dim=0)[:, None, :, None].expand(L * b, t, nq, hd)
         k, v = torch.gather(k, 2, idx), torch.gather(v, 2, idx)
-    if cfg.blocked_attention and s > 1024:
+    if not causal or src is not None:
+        out = _sdpa(q, k, v, torch.ones((s, t), dtype=torch.bool, device=x.device), x.dtype)
+    elif cfg.blocked_attention and s > BLOCK_KV:
         out = _sdpa_blocked(q, k, v, x.dtype, causal=True, window=window)
     else:
         out = _sdpa(q, k, v, causal_mask(s, window, x.device), x.dtype)
@@ -246,10 +267,13 @@ def self_attention_placed(
     return P.psum_model(P.mm(out, params["wo"]), ranks), None
 
 
-def _qkv_placed(params, x, cfg):
-    """Each rank's columns of q, k and v (the column-parallel products)."""
-    q, k, v = P.mm(x, params["wq"]), P.mm(x, params["wk"]), P.mm(x, params["wv"])
-    if cfg.qkv_bias:
+def _qkv_placed(params, x, cfg, src=None, *, bias=True):
+    """Each rank's columns of q (from ``x``), k and v (from ``src``, None:
+    ``x``): the column-parallel products, with the ``qkv_bias`` where
+    ``bias``."""
+    src = x if src is None else src
+    q, k, v = P.mm(x, params["wq"]), P.mm(src, params["wk"]), P.mm(src, params["wv"])
+    if bias and cfg.qkv_bias:
         q, k, v = (t + params[n][:, None, None, :] for t, n in ((q, "bq"), (k, "bk"), (v, "bv")))
     return q, k, v
 
@@ -267,11 +291,13 @@ def _combine(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor, ranks) -> torc
     ``acc`` ``(..., Dh)``.  The group max is found by a gather of the
     maxima; each rank's partials are rescaled by ``exp(m - max)`` (a block
     with no live position, every score at -1e30, adds exactly 0), one
-    ``psum`` sums them, and the output is their quotient."""
+    ``psum`` over ``model`` sums them (a decode step's: no gradient), and
+    the output is their quotient."""
     if ranks.model > 1:
         top = ranks.comm.all_gather(m, digits=ranks.digits, tier=P.MODEL_TIER).amax(dim=1)
         scale = torch.exp(m - top)
-        parts = P.psum_model(torch.cat([acc * scale, l * scale], dim=-1), ranks)
+        parts = ranks.comm.psum(torch.cat([acc * scale, l * scale], dim=-1), digits=ranks.digits,
+                                tier=P.MODEL_TIER)
         acc, l = parts[..., :-1], parts[..., -1:]
     return acc / l
 

@@ -54,7 +54,7 @@ class ModelConfig:
     encoder_layers: int = 0
     frontend: str = "none"        # none | vision | audio (stub embeddings)
     scale_embed: bool = False     # gemma-style sqrt(d_model) embedding scale
-    dtype: str = "bfloat16"
+    dtype: str = "bfloat16"       # bfloat16 | float32 | float64 (the unsharded path only)
     fsdp: bool = False            # the reference's data-axis parameter sharding
     remat: bool = True            # the reference's per-layer rematerialisation
     scan_unroll: bool = False     # the reference's unrolled layer scan
@@ -66,7 +66,7 @@ class ModelConfig:
 
     @property
     def torch_dtype(self) -> torch.dtype:
-        return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+        return {"bfloat16": torch.bfloat16, "float64": torch.float64}.get(self.dtype, torch.float32)
 
     @property
     def jdtype(self) -> torch.dtype:
@@ -175,9 +175,10 @@ def init_params(module: ParamTree, generator: torch.Generator) -> ParamTree:
 # ------------------------------------------------------------------- layers
 
 def rmsnorm(x, gamma, eps=1e-6):
-    x32 = x.to(torch.float32)
+    wide = torch.promote_types(x.dtype, torch.float32)
+    x32 = x.to(wide)
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
-    return ((x32 * torch.rsqrt(var + eps)) * (1.0 + gamma.to(torch.float32))).to(x.dtype)
+    return ((x32 * torch.rsqrt(var + eps)) * (1.0 + gamma.to(wide))).to(x.dtype)
 
 
 def dense(x, w, b=None):

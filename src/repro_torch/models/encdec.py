@@ -12,12 +12,19 @@ layer runs under ``torch.utils.checkpoint``.
 Decode: self-attention KV caches stacked over ``num_layers`` (no
 blocks / tail split) plus the static encoder memory.
 
-On placed parameters under ``dp_over_model`` (``launch.placement``: every
-weight whole on every rank, the batch rows over ``(data, model)``)
-:func:`encode_placed` and :func:`decode_placed` run every local rank's
-own rows rank-stacked: activations ``(L, b, S, D)``, each product a
-batched GEMM of the rank's whole weights (``parallel.mm``), and the
-parallel pass issues no collective.  The cached decode's self-attention
+On placed parameters (``launch.placement``) :func:`encode_placed` and
+:func:`decode_placed` run every local rank rank-stacked, activations
+``(L, b, S, D)``, in either of the reference's two layouts.  Split over
+``model`` (the smoke config's tensor parallelism, as the dense family):
+each rank its data group's rows, the residual stream whole on every model
+rank; the encoder's bidirectional attention, the decoder's causal and
+cross-attention (``attention.self_attention_placed``) on the heads and
+the MLP (``common.glu_mlp_placed``) on d_ff, each column-parallel in and
+row-parallel out with a ``psum``; the embedding and the head over the
+vocabulary.  Under ``dp_over_model`` (the full config's policy: every
+weight whole on every rank, the batch rows over ``(data, model)``) the
+same functions run each rank's own rows with its whole weights, and the
+parallel pass issues no collective; the cached decode's self-attention
 gathers the group's rows over ``model`` to meet its cache blocks, which
 hold the sequence split over ``model`` (``attention.decode_rows_placed``).
 """
@@ -34,7 +41,7 @@ from repro_torch.models import parallel as P
 from repro_torch.models import rope as R
 from repro_torch.models import transformer as TF
 from repro_torch.models.common import (
-    ModelConfig, ParamDef, ParamTree, activation, glu_mlp, mlp_defs, rmsnorm, stack_defs, tree_map,
+    ModelConfig, ParamDef, ParamTree, glu_mlp, glu_mlp_placed, mlp_defs, rmsnorm, stack_defs, tree_map,
 )
 
 __all__ = ["EncDec", "decode", "decode_placed", "encdec_defs", "encode", "encode_placed", "init_dec_caches"]
@@ -136,80 +143,56 @@ def _gain(g):
     return g[:, None, None, :]
 
 
-def _attend_placed(params, x, src, cfg: ModelConfig, *, causal: bool, rope: bool, bias: bool = False):
-    """Each rank's attention with its whole weights: q from ``x`` ``(L, b,
-    S, D)``, k and v from ``src`` ``(L, b, T, D)``, RoPE at ``0 … S-1``
-    where ``rope`` (the encoder's bidirectional and the decoder's causal
-    self-attention; cross-attention has none), a causal or full mask; the
-    long causal pass blocked as :func:`attention.self_attention`'s.
-    Returns ``(L, b, S, D)``."""
-    L, b, s, _ = x.shape
-    t = src.shape[2]
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    if bias:
-        q, k, v = A._qkv_placed(params, x, cfg)
-    else:
-        q, k, v = P.mm(x, params["wq"]), P.mm(src, params["wk"]), P.mm(src, params["wv"])
-    q = q.reshape(L * b, s, h, hd)
-    k, v = k.reshape(L * b, t, kv, hd), v.reshape(L * b, t, kv, hd)
-    if rope:
-        cos, sin = A._angles(cfg, torch.arange(s, device=x.device).expand(L * b, s))
-        q, k = R.apply_rope(q, cos, sin), R.apply_rope(k, cos, sin)
-    if causal and cfg.blocked_attention and s > A.BLOCK_KV:
-        out = A._sdpa_blocked(q, k, v, x.dtype, causal=True, window=0)
-    else:
-        mask = A.causal_mask(s, 0, x.device) if causal else torch.ones((s, t), dtype=torch.bool, device=x.device)
-        out = A._sdpa(q, k, v, mask, x.dtype)
-    return P.mm(out.reshape(L, b, s, h * hd), params["wo"])
-
-
-def _mlp_placed(blk, h, cfg: ModelConfig):
+def _mlp_placed(blk, h, cfg: ModelConfig, ranks):
     mlp = blk["mlp"]
-    return P.mm(activation(P.mm(h, mlp["wg"]), cfg.act) * P.mm(h, mlp["wi"]), mlp["wo"])
+    return glu_mlp_placed(h, mlp["wi"], mlp["wg"], mlp["wo"], cfg.act, ranks)
 
 
-def _enc_layer_placed(blk, x, cfg: ModelConfig):
-    h = rmsnorm(x, _gain(blk["ln1"]))
-    x = x + _attend_placed(blk["attn"], h, h, cfg, causal=False, rope=True)
-    return x + _mlp_placed(blk, rmsnorm(x, _gain(blk["ln2"])), cfg)
+def _enc_layer_placed(blk, x, cfg: ModelConfig, ranks):
+    y, _ = A.self_attention_placed(blk["attn"], rmsnorm(x, _gain(blk["ln1"])), cfg, ranks, causal=False)
+    x = x + y
+    return x + _mlp_placed(blk, rmsnorm(x, _gain(blk["ln2"])), cfg, ranks)
 
 
 def _dec_layer_placed(blk, x, memory, cfg: ModelConfig, ranks, cache, positions):
-    h = rmsnorm(x, _gain(blk["ln1"]))
-    if cache is None:
-        y, nc = _attend_placed(blk["attn"], h, h, cfg, causal=True, rope=True, bias=cfg.qkv_bias), None
-    else:
-        y, nc = A.decode_rows_placed(blk["attn"], h, cfg, ranks, cache, positions)
+    y, nc = A.self_attention_placed(blk["attn"], rmsnorm(x, _gain(blk["ln1"])), cfg, ranks, cache=cache,
+                                    positions=positions)
     x = x + y
-    x = x + _attend_placed(blk["xattn"], rmsnorm(x, _gain(blk["lnx"])), memory, cfg, causal=False, rope=False)
-    return x + _mlp_placed(blk, rmsnorm(x, _gain(blk["ln2"])), cfg), nc
+    y, _ = A.self_attention_placed(blk["xattn"], rmsnorm(x, _gain(blk["lnx"])), cfg, ranks, src=memory)
+    x = x + y
+    return x + _mlp_placed(blk, rmsnorm(x, _gain(blk["ln2"])), cfg, ranks), nc
 
 
 def encode_placed(params, frames, cfg: ModelConfig, ranks):
     """:func:`encode` on every local rank's rows (module docstring):
-    ``params`` every leaf whole, ``(L, *leaf)`` (``Placement.unshard``);
-    ``frames`` ``(L, b, T, D)`` → the memory ``(L, b, T, D)``.  No
-    collective."""
+    ``params`` every leaf whole over ``data``, ``(L, *block)``
+    (``Placement.unshard``); ``frames`` ``(L, b, T, D)`` → the memory
+    ``(L, b, T, D)``, whole on every model rank."""
     x = frames.to(cfg.torch_dtype)
     run = _remat(_enc_layer_placed, cfg, True)
     for blk in TF._unstack(params["enc_blocks"], cfg.encoder_layers, dim=1):
-        x = run(blk, x, cfg)
+        x = run(blk, x, cfg, ranks)
     return rmsnorm(x, _gain(params["enc_ln"]))
 
 
 def decode_placed(params, tokens, memory, cfg: ModelConfig, ranks, *, caches=None, positions=None):
     """:func:`decode` on every local rank's rows (module docstring):
     ``tokens`` ``(L, b, S)`` and ``memory`` ``(L, b, T, D)``, the rank's
-    own rows; the embedding a plain lookup in the rank's whole table, the
-    logits ``(L, b, S, V)``.  ``caches=None``: the parallel pass, no
-    collective.  Else one decode step (S == 1) on the placed caches (a
-    stacked leaf ``(L, num_layers, …)``: ``k``/``v`` the group's slots
-    over the rank's block of the sequence, ``pos`` the group's) at
-    ``positions`` ``(L, b·model, 1)``, the group's rows' in slot order.
-    Returns ``(logits, new_caches)``."""
-    L = tokens.shape[0]
-    rows = torch.arange(L, device=tokens.device).view(-1, 1, 1)
-    x = params["embed"][rows, tokens.to(torch.int64)].to(cfg.torch_dtype)
+    rows (its data group's, or under ``dp_over_model`` its own).  The
+    embedding is ``transformer.embed_placed`` (over a vocabulary split over
+    ``model``, a masked lookup and a ``psum``), the logits
+    ``transformer.head_placed``'s ``(L, b, S, V/model)`` (whole ``V``
+    under ``dp_over_model``).  The memory passes through ``copy_model``
+    once, before the layers: each layer's column-parallel ``wk``/``wv``
+    give a rank only its heads' share of the memory's gradient, and the
+    copy sums it over ``model`` on its way to the encoder.
+    ``caches=None``: the parallel pass.  Else one decode step (S == 1) on
+    the placed caches (a stacked leaf ``(L, num_layers, …)``: ``k``/``v``
+    the group's slots over the rank's block of the sequence, ``pos`` the
+    group's) at ``positions`` ``(L, b_group, 1)``, the group's rows' in
+    slot order.  Returns ``(logits, new_caches)``."""
+    x = TF.embed_placed(params["embed"], tokens, ranks).to(cfg.torch_dtype)
+    memory = P.copy_model(memory, ranks)
     run = _remat(_dec_layer_placed, cfg, caches is None)
     n = cfg.num_layers
     layer_caches = [None] * n if caches is None else TF._unstack(caches, n, dim=1)
@@ -217,8 +200,7 @@ def decode_placed(params, tokens, memory, cfg: ModelConfig, ranks, *, caches=Non
     for blk, cache in zip(TF._unstack(params["dec_blocks"], n, dim=1), layer_caches):
         x, nc = run(blk, x, memory, cfg, ranks, cache, positions)
         new.append(nc)
-    x = rmsnorm(x, _gain(params["final_ln"]))
-    logits = P.mm(x, params["lm_head"].to(x.dtype))
+    logits = TF.head_placed(rmsnorm(x, _gain(params["final_ln"])), params["lm_head"], ranks)
     return logits, (None if caches is None else TF._stack(new, 1))
 
 

@@ -11,7 +11,9 @@ vocabulary split over ``model``.
 
 The collectives are those of Megatron-style tensor parallelism, over a
 tier of the layout's digits (``core.collectives``), each with the
-gradient its forward implies:
+gradient its forward implies (``psum_model`` and ``copy_model`` only where
+weights are split over ``model``, :attr:`Ranks.tensor_parallel`; under
+``dp_over_model`` every weight is whole and both are the identity):
 
   psum_model(x)       the sum over the model ranks of a data group
                       (a row-parallel product's partial sums); backward:
@@ -98,6 +100,13 @@ class Ranks:
         group's, or under ``rows_over_model`` its own (its global id)."""
         return self.ids if self.rows_over_model else self.group
 
+    @property
+    def tensor_parallel(self) -> bool:
+        """Whether weights are split over ``model`` (more than one model
+        rank, the rows not over it): the row-parallel sums and the copies
+        of :func:`psum_model` and :func:`copy_model` are then calls."""
+        return self.model > 1 and not self.rows_over_model
+
     def row_groups_in_words(self) -> str:
         """The row groups, for a refusal."""
         if self.rows_over_model:
@@ -165,11 +174,11 @@ class _Gather(torch.autograd.Function):
 
 
 def psum_model(x: torch.Tensor, ranks: Ranks) -> torch.Tensor:
-    return x if ranks.model == 1 else _PsumModel.apply(x, ranks)
+    return _PsumModel.apply(x, ranks) if ranks.tensor_parallel else x
 
 
 def copy_model(x: torch.Tensor, ranks: Ranks) -> torch.Tensor:
-    return x if ranks.model == 1 else _CopyModel.apply(x, ranks)
+    return _CopyModel.apply(x, ranks) if ranks.tensor_parallel else x
 
 
 def gather(x: torch.Tensor, ranks: Ranks, tier: int, dim: int) -> torch.Tensor:
@@ -183,7 +192,7 @@ def pick_model(x: torch.Tensor, ranks: Ranks) -> torch.Tensor:
     the last dimension (a tensor whole over ``model`` cut back to the
     rank's columns)."""
     M = ranks.model
-    if M == 1:
+    if not ranks.tensor_parallel:
         return x
     blk = x.reshape(x.shape[:-1] + (M, x.shape[-1] // M))
     idx = ranks.mrank.view((-1,) + (1,) * (x.dim() - 1) + (1,)).expand(blk.shape[:-2] + (1, blk.shape[-1]))

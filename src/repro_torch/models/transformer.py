@@ -34,8 +34,8 @@ from repro_torch.models.common import (
     ModelConfig, ParamDef, ParamTree, glu_mlp, glu_mlp_placed, mlp_defs, rmsnorm, stack_defs, tree_map,
 )
 
-__all__ = ["LM", "Layer", "apply_layer", "apply_layer_placed", "forward", "forward_placed", "init_caches", "layer_defs",
-           "model_defs"]
+__all__ = ["LM", "Layer", "apply_layer", "apply_layer_placed", "embed_placed", "forward", "forward_placed", "head_placed",
+           "init_caches", "layer_defs", "model_defs"]
 
 # ----------------------------------------------------------------- defs
 
@@ -272,18 +272,45 @@ def _period_placed(block_params, x, cfg: ModelConfig, ranks, caches=None, positi
     return x, new_caches, drops
 
 
+def embed_placed(embed, tokens, ranks):
+    """Each local rank's rows of the lookup of ``tokens`` ``(L, b, S)`` in
+    ``embed`` ``(L, V/model, D)``, the vocabulary split over ``model``
+    (rank m holds rows ``[m·V/model, …)``): a masked lookup in the rank's
+    rows, then a ``psum`` over ``model`` (exact: one rank holds each
+    token).  Where no weight is split over ``model`` (``dp_over_model``'s
+    whole table, or one model rank) the plain lookup.  ``(L, b, S, D)`` in
+    the table's dtype."""
+    rows = torch.arange(tokens.shape[0], device=tokens.device).view(-1, 1, 1)
+    ids = tokens.to(torch.int64)
+    if not ranks.tensor_parallel:
+        return embed[rows, ids]
+    vm = embed.shape[1]
+    ids = ids - (ranks.mrank * vm).view(-1, 1, 1)
+    own = (ids >= 0) & (ids < vm)
+    return P.psum_model(embed[rows, ids.clamp(0, vm - 1)].masked_fill(~own[..., None], 0), ranks)
+
+
+def head_placed(x, head, ranks):
+    """The logits of the final normed state ``x`` ``(L, b, S, D)``, whole
+    on every model rank, through the column-parallel ``head`` ``(L, D,
+    V/model)``: ``(L, b, S, V/model)``, rank m's columns ``[m·V/model,
+    …)`` (``x`` through ``copy_model``, so its gradient is summed over
+    ``model``)."""
+    return P.mm(P.copy_model(x, ranks), head.to(x.dtype))
+
+
 def forward_placed(params, tokens, cfg: ModelConfig, ranks, *, caches=None, positions=None, frontend_embeds=None):
     """:func:`forward` on every local rank of a placement, the decoder
-    families (dense, MoE, hybrid, ssm; the encoder-decoder is
-    ``encdec.decode_placed``, and split over ``model`` ROADMAP item 21c4).
-    ``params``: every leaf whole over ``data``
+    families (dense, MoE, hybrid, ssm; the encoder-decoder's is
+    ``encdec.decode_placed``).  ``params``: every leaf whole over ``data``
     (``launch.placement.Placement.unshard``; a serve placement's already
     are), ``(L, *block)``; ``tokens`` ``(L, b, S)``, each rank's data
     group's rows.  The embedding over a vocabulary split over ``model`` is
-    a masked lookup and a ``psum``; ``frontend_embeds`` ``(L, b, S, D)``
-    (qwen2-vl's vision stub, the rank's rows) replace it, and ``embed`` is
-    then read only by a tied head.  The logits stay split: ``(L, b, S,
-    V/model)``, rank m's columns ``[m·V/model, …)``.  ``caches=None``: the
+    a masked lookup and a ``psum`` (:func:`embed_placed`);
+    ``frontend_embeds`` ``(L, b, S, D)`` (qwen2-vl's vision stub, the
+    rank's rows) replace it, and ``embed`` is then read only by a tied
+    head.  The logits stay split: ``(L, b, S, V/model)``, rank m's columns
+    ``[m·V/model, …)`` (:func:`head_placed`).  ``caches=None``: the
     parallel pass, at ``positions`` ``(L, b, S)`` or M-RoPE's ``(L, b, S,
     3)`` (None: ``0 … S-1``).  Else one decode step (S == 1) at
     ``positions`` ``(L, b, 1)`` on the rank blocks of the caches
@@ -294,12 +321,7 @@ def forward_placed(params, tokens, cfg: ModelConfig, ranks, *, caches=None, posi
     if frontend_embeds is not None:
         x = frontend_embeds.to(cfg.torch_dtype)
     else:
-        embed = params["embed"]  # (L, V/model, D)
-        vm = embed.shape[1]
-        ids = tokens.to(torch.int64) - (ranks.mrank * vm).view(-1, 1, 1)
-        own = (ids >= 0) & (ids < vm)
-        rows = torch.arange(tokens.shape[0], device=tokens.device).view(-1, 1, 1)
-        x = P.psum_model(embed[rows, ids.clamp(0, vm - 1)].masked_fill(~own[..., None], 0), ranks)
+        x = embed_placed(params["embed"], tokens, ranks)
         if cfg.scale_embed:
             x = x.to(torch.float32) * float(np.float32(np.sqrt(cfg.d_model)))
         x = x.to(cfg.torch_dtype)
@@ -327,9 +349,8 @@ def forward_placed(params, tokens, cfg: ModelConfig, ranks, *, caches=None, posi
         if nc is not None:
             new_tail[key] = nc
 
-    x = P.copy_model(rmsnorm(x, params["final_ln"][:, None, None, :]), ranks)
     head = params["embed"].transpose(1, 2) if cfg.tie_embeddings else params["lm_head"]
-    logits = P.mm(x, head.to(x.dtype))
+    logits = head_placed(rmsnorm(x, params["final_ln"][:, None, None, :]), head, ranks)
     if caches is None:
         return logits, None, total_drops
     blocks = _stack(per_block, 1) if per_block else caches["blocks"]

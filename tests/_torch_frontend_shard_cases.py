@@ -1,14 +1,16 @@
 """The placed stub-frontend runs ``tests/test_torch_frontend_shard_dist.py``
 makes in every process of a gloo world, and once on the stacked backend in
 the test's own process, from seed-0 weights of the smoke configs: a few
-placed seamless-m4t-medium decode steps under ``dp_over_model`` from
-seeded caches and a seeded memory on layout (2, 4) (a process holds one
-data group: the rows' gathers over ``model`` stay in the process, the
+placed seamless-m4t-medium decode steps from seeded caches and a seeded
+memory on layout (2, 4), under ``dp_over_model`` and split over ``model``
+(``SM_TP``, the smoke config as it ships) (a process holds one data
+group: the gathers and sums over ``model`` stay in the process, the
 logits' rows cross it); and two placed train steps of each arch on (2,
 4): qwen2-vl with ``fsdp`` on ``embeds`` and ``labels`` (the FSDP gathers
 and ``reduce_scatter``s cross the processes), seamless under
 ``dp_over_model`` (each leaf's flat ``psum`` over every rank crosses
-them).  Every process returns the same numpy arrays: each decode step's
+them) and split over ``model`` (the gradients' ``psum``s over ``data``
+cross them).  Every process returns the same numpy arrays: each decode step's
 logits and the caches gathered whole; each train step's loss and
 gradient norm and the parameters and AdamW moments gathered whole.  This
 module imports neither ``jax`` nor ``repro``.
@@ -27,7 +29,8 @@ from repro_torch.models.api import build_model
 from repro_torch.optim import AdamWConfig, adamw_init
 
 VL, SM = "qwen2-vl-72b", "seamless-m4t-medium"
-TRAIN = (VL, SM)
+SM_TP = SM + "-tp"  # seamless's smoke config as it ships: split over model, no dp_over_model
+TRAIN = (VL, SM, SM_TP)
 B, T, FRAMES, DEPTHS, DECODE_STEPS = 8, 16, 8, (0, 3, 5, 9, 1, 7, 2, 4), 4
 TRAIN_STEPS = 2
 OPT = dict(lr=1e-3, warmup_steps=2, eps=1e-6)
@@ -35,18 +38,18 @@ OPT = dict(lr=1e-3, warmup_steps=2, eps=1e-6)
 
 def _cfg(arch, **changes):
     extra = {"dp_over_model": True} if arch == SM else {}
-    return dataclasses.replace(get_smoke_config(arch), **extra, **changes)
+    return dataclasses.replace(get_smoke_config(SM if arch == SM_TP else arch), **extra, **changes)
 
 
 def _flat(prefix, tree):
     return {f"{prefix}.{'.'.join(p)}": t.detach().numpy().copy() for p, t in S.named_leaves(tree)}
 
 
-def decode(comm) -> dict:
-    """``DECODE_STEPS`` placed seamless decode steps of the global token
-    batch against a seeded global memory, from seeded caches (numpy, the
-    same in every process)."""
-    model = build_model(_cfg(SM))
+def decode(comm, arch=SM) -> dict:
+    """``DECODE_STEPS`` placed seamless decode steps (``arch``: ``SM`` or
+    ``SM_TP``) of the global token batch against a seeded global memory,
+    from seeded caches (numpy, the same in every process)."""
+    model = build_model(_cfg(arch))
     layout = Layout(2, 4, comm=comm)
     params = PL.serve_placement(model, layout).place(model.init(torch.Generator().manual_seed(0), device="cpu"))
     cp = PL.cache_placement(model, layout, B, T)
@@ -101,7 +104,7 @@ def train(comm, arch: str) -> dict:
 
 def run_all(comm) -> dict:
     """The decode run and every train run."""
-    out = {"decode": decode(comm)}
+    out = {"decode": decode(comm), "decode_tp": decode(comm, SM_TP)}
     for arch in TRAIN:
         out[f"train_{arch}"] = train(comm, arch)
     return out

@@ -22,9 +22,11 @@ model)``.
   shardings (``jax.device_put`` on ``make_test_mesh``), compared as 32-bit
   words; a rank's bytes are ``specs.device_bytes``.  A planted
   misplacement (seamless's decoder ``wq`` split over ``model`` on its
-  columns, as tensor parallelism would) fails; the encoder-decoder
-  without ``dp_over_model`` (item 21c4), ``dp_over_model`` on a decoder
-  family and a batch that does not split over ``data·model`` are refused.
+  columns, as tensor parallelism would) fails; the full encoder-decoder
+  config without ``dp_over_model`` where ``model`` does not divide its
+  vocabulary, ``dp_over_model`` on a decoder family and a batch that does
+  not split over ``data·model`` are refused (the smoke config split over
+  ``model`` places: ``tests/test_torch_encdec_shard.py``).
 * The train step: both archs, ``microbatches`` 1 and 2, on (2, 4) (qwen2-vl
   with ``fsdp``, seamless without and, at 2 microbatches, with), against
   the reference's step jitted on ``mesh24`` with its shardings and
@@ -84,7 +86,7 @@ from repro.models.api import build_model as jbuild
 from repro.optim import AdamWConfig as JAdamWConfig
 from repro.optim import adamw_init as jadamw_init
 from jax.sharding import NamedSharding, PartitionSpec
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.launch import placement as PL
 from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import make_test_layout
@@ -127,8 +129,10 @@ def _path(p):
     return tuple(str(k.key) for k in p)
 
 
-def _changes(arch, fsdp, micro):
-    return dict(fsdp=fsdp, microbatches=micro, **({"dp_over_model": True} if arch == SM else {}))
+def _changes(arch, fsdp, micro, tp=False):
+    """The config changes: seamless under ``dp_over_model`` unless ``tp``
+    (the smoke config as it ships, split over ``model``)."""
+    return dict(fsdp=fsdp, microbatches=micro, **({"dp_over_model": True} if arch == SM and not tp else {}))
 
 
 @functools.lru_cache(maxsize=None)
@@ -139,11 +143,12 @@ def _weights(arch):
 
 
 @functools.lru_cache(maxsize=None)
-def _pair(arch, fsdp=False, micro=1):
+def _pair(arch, fsdp=False, micro=1, tp=False):
     """(JAX config, port config, JAX params, port LM) of a smoke arch
-    (seamless under ``dp_over_model``)."""
-    jcfg = dataclasses.replace(jget_smoke(arch), **_changes(arch, fsdp, micro))
-    cfg = dataclasses.replace(get_smoke_config(arch), **_changes(arch, fsdp, micro))
+    (seamless under ``dp_over_model``, or split over ``model`` where
+    ``tp``)."""
+    jcfg = dataclasses.replace(jget_smoke(arch), **_changes(arch, fsdp, micro, tp))
+    cfg = dataclasses.replace(get_smoke_config(arch), **_changes(arch, fsdp, micro, tp))
     jp = _weights(arch)
     return jcfg, cfg, jp, params_from_jax(cfg, jax.tree.map(np.asarray, jp), device="cpu")
 
@@ -296,15 +301,21 @@ def test_a_planted_misplacement_fails():
 
 
 def test_refusals():
-    """The encoder-decoder without ``dp_over_model`` (item 21c4),
-    ``dp_over_model`` on a decoder family, and a batch whose rows do not
-    split over ``data·model``."""
+    """The encoder-decoder split over ``model`` where ``model`` does not
+    divide the full config's vocabulary (its smoke config places on (2, 4),
+    the full config on (4, 2)), ``dp_over_model`` on a decoder family, and
+    a batch whose rows do not split over ``data·model``."""
     tp = build_model(get_smoke_config(SM))
     for fn in (lambda: PL.train_placement(tp, make_test_layout(2, 4)),
                lambda: PL.serve_placement(tp, make_test_layout(2, 4)),
                lambda: PL.cache_placement(tp, make_test_layout(2, 4), B, T)):
-        with pytest.raises(NotImplementedError, match=r"dp_over_model only; split over model .* item 21c4"):
-            fn()
+        assert not fn().rows_over_model
+    full = build_model(dataclasses.replace(get_config(SM), dp_over_model=False))
+    for fn in (PL.train_placement, PL.serve_placement):
+        with pytest.raises(ValueError, match=r"embed \(256206, 1024\): the model axis \(4\) does not divide the "
+                                             r"vocabulary \(256206\)"):
+            fn(full, make_test_layout(2, 4))
+        assert fn(full, make_test_layout(4, 2)).specs
     with pytest.raises(NotImplementedError, match="dp_over_model is placed for the encoder-decoder only"):
         PL.serve_placement(build_model(dataclasses.replace(get_smoke_config("qwen2-7b"), dp_over_model=True)),
                            make_test_layout(2, 4))
@@ -340,9 +351,9 @@ def _opt(cfg):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference_run(arch, fsdp, micro):
-    jcfg, _, jp, _ = _pair(arch, fsdp, micro)
-    mesh = make_test_mesh(2, 4)
+def _reference_run(arch, fsdp, micro, tp=False, layout=(2, 4)):
+    jcfg, _, jp, _ = _pair(arch, fsdp, micro, tp)
+    mesh = make_test_mesh(*layout)
     opt_kw, steps = _opt(jcfg)
     step, shardings = jbuild_train_step(jbuild(jcfg), mesh, JAdamWConfig(**opt_kw))
     first = _batch(jcfg, 30)
@@ -434,13 +445,13 @@ def _reference_steps(step, params, caches, vocab, memory=None, put=lambda c: c, 
 
 
 @functools.lru_cache(maxsize=None)
-def _reference_decode(arch):
+def _reference_decode(arch, tp=False):
     """The reference's decode jitted with its shardings on ``make_test_mesh(2,
     4)`` (seamless's token and memory over ``(data, model)``, as
     ``lower_cell`` shards them), from seeded caches: each step's logits,
     the caches at the end, the mesh, and the largest |difference| of those
     caches from the ones its unsharded jitted decode ends with."""
-    jcfg, _, jp, _ = _pair(arch)
+    jcfg, _, jp, _ = _pair(arch, tp=tp)
     jmodel, mesh = jbuild(jcfg), make_test_mesh(2, 4)
     fn, shardings = jbuild_decode_step(jmodel, mesh, batch=B, max_len=T)
     baxes = ("data", "model") if jcfg.dp_over_model else "data"
@@ -465,8 +476,8 @@ def _reference_decode(arch):
     return logits, caches, mesh, own
 
 
-def _port_decode(arch):
-    jcfg, cfg, _, lm = _pair(arch)
+def _port_decode(arch, tp=False):
+    jcfg, cfg, _, lm = _pair(arch, tp=tp)
     model, layout = build_model(cfg), make_test_layout(2, 4)
     params = PL.serve_placement(model, layout).place(lm)
     cp = PL.cache_placement(model, layout, B, T)
@@ -482,12 +493,12 @@ def _port_decode(arch):
     return np.stack(logits), caches
 
 
-def _decode_gaps(arch):
+def _decode_gaps(arch, tp=False):
     """(max |logit difference|, max |cache difference| over the float
     leaves, ``pos`` bit-equal) of the port's placed decode against the
     reference's sharded decode."""
-    want, jcaches, mesh, _ = _reference_decode(arch)
-    got, caches = _port_decode(arch)
+    want, jcaches, mesh, _ = _reference_decode(arch, tp)
+    got, caches = _port_decode(arch, tp)
     diffs = _shard_diffs(jcaches, caches, mesh)
     floats = max(v for (p, _r), v in diffs.items() if p[-1] != "pos")
     pos_equal = all(v == 0.0 for (p, _r), v in diffs.items() if p[-1] == "pos")
@@ -732,8 +743,9 @@ def test_one_train_step_call_budget(arch, fsdp):
 
 
 def test_chip_smoke_phase_frontend_shard_rehearses_on_the_cpu(monkeypatch):
-    """``chip_smoke.phase_frontend_shard`` at a small width on the CPU:
-    every check passes."""
+    """``chip_smoke.phase_frontend_shard`` at a small width on the CPU, part
+    (g) (seamless split over ``model``) at 1 + 1 layers on (4, 2) and (2,
+    2): every check passes."""
     import pathlib
     import sys
 
@@ -748,5 +760,8 @@ def test_chip_smoke_phase_frontend_shard_rehearses_on_the_cpu(monkeypatch):
                                          FRAMES=(4, 8, 4), GREEDY=2, VL_TRAIN=(8, 16), SM_TRAIN=(8, 8),
                                          TRAIN_STEPS=2, CHECK_STEPS=4, profile=False)
     assert cs.FAILURES == [] and not any(paths["frontend_shard"].values())
-    for arch in ARCHS:
+    for arch in ARCHS + (cs.SM_TP,):
         assert len(set(out[arch]["serve"]["param_bytes_per_rank"])) == 1
+    assert out[cs.SM_TP]["serve"]["layout"] == cs.SM_TP_LAYOUT and out[cs.SM_TP]["train"]["layout"] == (2, 2)
+    same, held, rows = out[cs.SM_TP]["float32_check"]["argmax_held"]
+    assert same == held >= cs.ARGMAX_HELD * rows

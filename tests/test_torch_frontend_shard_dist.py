@@ -3,15 +3,18 @@ on the CPU, against the stacked backend.
 
 ``tests/_torch_frontend_shard_cases.py``'s runs, from seed-0 weights of the
 smoke configs on layout (2, 4), process p holding data group p.  seamless-
-m4t-medium's placed decode under ``dp_over_model``: each decoder layer's
-gather of q, k and v on the rows and its ``_combine`` stay in the process,
-the logits' rows cross it.  Bit for bit (tolerance: none): each step's
-logits and the caches gathered whole at the end equal the stacked run's.
+m4t-medium's placed decode under ``dp_over_model`` (each decoder layer's
+gather of q, k and v on the rows and its ``_combine`` stay in the
+process) and split over ``model`` (every gather and ``psum`` over
+``model`` stays in the process); the logits' rows cross it.  Bit for bit
+(tolerance: none): each step's logits and the caches gathered whole at
+the end equal the stacked run's.
 
 The placed train steps, two of each arch (qwen2-vl with ``fsdp`` on
 ``embeds`` and ``labels``: the FSDP gathers and ``reduce_scatter``s cross
 the processes; seamless under ``dp_over_model``: every leaf's flat
-``psum`` over the eight ranks crosses them), within
+``psum`` over the eight ranks crosses them; seamless split over
+``model``: each leaf's gradient ``psum`` over ``data`` crosses them), within
 ``tests/test_torch_dist_paths.py``'s stated tolerance of the stacked run
 (its ``TOL``, 1e-5): the parameters and AdamW's two moments within 1e-5
 of the largest |value| of their kind, the losses and each step's gradient
@@ -44,16 +47,24 @@ def world():
     return LD.spawn_world(FC.run_all, WORLD, timeout_s=WORLD_TIMEOUT_S)
 
 
-def test_world_decode_equals_stacked(world, stacked):
-    want = stacked["decode"]
+def _decode_equal(world, stacked, key):
+    want = stacked[key]
     assert any(k.startswith("caches.") for k in want)
     for p, res in enumerate(world):
-        got = res["decode"]
+        got = res[key]
         assert set(got) == set(want)
         for k in sorted(want):
             a, b = np.ascontiguousarray(got[k]), np.ascontiguousarray(want[k])
             assert a.shape == b.shape and a.dtype == b.dtype, f"process {p} {k}"
             assert np.array_equal(a.view(np.uint8), b.view(np.uint8)), f"process {p} {k}"
+
+
+def test_world_decode_equals_stacked(world, stacked):
+    _decode_equal(world, stacked, "decode")
+
+
+def test_world_tp_decode_equals_stacked(world, stacked):
+    _decode_equal(world, stacked, "decode_tp")
 
 
 @pytest.mark.parametrize("arch", FC.TRAIN)

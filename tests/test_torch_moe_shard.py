@@ -68,7 +68,7 @@ from repro.models.api import _first_cache_pos as jfirst_cache_pos
 from repro.models.api import build_model as jbuild
 from repro.optim import AdamWConfig as JAdamWConfig
 from repro.optim import adamw_init as jadamw_init
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.launch import placement as PL
 from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import make_test_layout
@@ -252,9 +252,10 @@ def test_a_planted_misplacement_fails():
 
 def test_refusals():
     """``rafi_ep`` where ``model`` does not divide the experts (4 experts on
-    (1, 8)), ``dense_tp`` where it does not divide d_ff, and the families
-    still unplaced: the encoder-decoder under tensor parallelism (item
-    21c4; the recurrent and the stub-frontend ones place)."""
+    (1, 8)), ``dense_tp`` where it does not divide d_ff; every other family
+    places, the encoder-decoder split over ``model`` too: its smoke config
+    on (2, 4), and the full config without ``dp_over_model`` on (4, 2) but
+    not on (2, 4), where ``model`` does not divide its vocabulary."""
     _, cfg, _, _ = _pair("llama4-scout-17b-16e", "rafi_ep")
     for fn in (PL.train_placement, PL.serve_placement):
         with pytest.raises(ValueError, match=r"blocks.k0_moe.moe.wi \(2, 4, 64, 128\): the model axis \(8\) does "
@@ -263,8 +264,12 @@ def test_refusals():
     odd = dataclasses.replace(cfg, moe_dispatch="dense_tp", d_ff=90)
     with pytest.raises(ValueError, match=r"moe.wi \(2, 4, 64, 90\): the model axis \(4\) does not divide d_ff"):
         PL.train_placement(build_model(odd), make_test_layout(2, 4))
-    with pytest.raises(NotImplementedError, match="item 21c4"):
-        PL.serve_placement(build_model(get_smoke_config("seamless-m4t-medium")), make_test_layout(2, 4))
+    assert PL.serve_placement(build_model(get_smoke_config("seamless-m4t-medium")), make_test_layout(2, 4)).specs
+    full = build_model(dataclasses.replace(get_config("seamless-m4t-medium"), dp_over_model=False))
+    with pytest.raises(ValueError, match=r"embed \(256206, 1024\): the model axis \(4\) does not divide the "
+                                         r"vocabulary \(256206\)"):
+        PL.serve_placement(full, make_test_layout(2, 4))
+    assert PL.serve_placement(full, make_test_layout(4, 2)).specs
     for arch in ("recurrentgemma-2b", "rwkv6-3b"):  # the recurrent families place now
         assert PL.serve_placement(build_model(get_smoke_config(arch)), make_test_layout(2, 4)).specs
     for cfg in (get_smoke_config("qwen2-vl-72b"),  # and the stub-frontend ones

@@ -69,7 +69,7 @@ from repro.models.api import build_model as jbuild
 from repro.optim import AdamWConfig as JAdamWConfig
 from repro.optim import adamw_init as jadamw_init
 from repro_torch.ckpt import restore_checkpoint
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.launch import placement as PL
 from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import make_test_layout
@@ -255,9 +255,11 @@ def test_a_planted_misplacement_fails():
 def test_refusals():
     """rwkv6 where ``model`` does not divide its heads (4 heads on (1, 8)),
     griffin where it does not divide d_rnn, the caches where ``model``
-    moves off the heads or the channels, and the encoder-decoder under
-    tensor parallelism (item 21c4; qwen2-vl and the encoder-decoder under
-    ``dp_over_model`` place)."""
+    moves off the heads or the channels; the encoder-decoder split over
+    ``model`` places (its smoke config on (2, 4), the full config without
+    ``dp_over_model`` on (4, 2) but not on (2, 4), where ``model`` does not
+    divide its vocabulary), as do qwen2-vl and the encoder-decoder under
+    ``dp_over_model``."""
     _, cfg, _, _ = _pair("rwkv6-3b")
     for fn in (PL.train_placement, PL.serve_placement):
         with pytest.raises(ValueError, match=r"blocks.k0_rwkv.rwkv.u \(2, 4, 16\): the model axis \(8\) does not "
@@ -271,8 +273,12 @@ def test_refusals():
         PL.serve_placement(build_model(odd), make_test_layout(1, 8))
     with pytest.raises(ValueError, match=r"k0_recurrent.h \(1, 4, 60\): the model axis moves off the channels"):
         PL.cache_placement(build_model(odd), make_test_layout(1, 8), 4, 16)
-    with pytest.raises(NotImplementedError, match="item 21c4"):
-        PL.train_placement(build_model(get_smoke_config("seamless-m4t-medium")), make_test_layout(2, 4))
+    assert PL.train_placement(build_model(get_smoke_config("seamless-m4t-medium")), make_test_layout(2, 4)).specs
+    full = build_model(dataclasses.replace(get_config("seamless-m4t-medium"), dp_over_model=False))
+    with pytest.raises(ValueError, match=r"embed \(256206, 1024\): the model axis \(4\) does not divide the "
+                                         r"vocabulary \(256206\)"):
+        PL.train_placement(full, make_test_layout(2, 4))
+    assert PL.train_placement(full, make_test_layout(4, 2)).specs
     for cfg in (get_smoke_config("qwen2-vl-72b"),  # the stub-frontend families place
                 dataclasses.replace(get_smoke_config("seamless-m4t-medium"), dp_over_model=True)):
         assert PL.train_placement(build_model(cfg), make_test_layout(2, 4)).specs

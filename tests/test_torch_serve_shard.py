@@ -62,7 +62,7 @@ from repro.launch.steps import build_prefill_step as jbuild_prefill_step
 from repro.launch.steps import build_train_step as jbuild_train_step
 from repro.models.api import build_model as jbuild
 from repro_torch.ckpt import restore_checkpoint, save_checkpoint
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.launch import placement as PL
 from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import make_test_layout
@@ -214,13 +214,22 @@ def test_a_planted_cache_misplacement_fails():
 
 
 def test_refusals():
+    """The caches where ``model`` leaves the sequence or ``data`` the slots,
+    an engine whose slots do not split over the data groups, and the
+    encoder-decoder split over ``model``: its smoke config places on (2,
+    4); the full config without ``dp_over_model`` is refused there (its
+    vocabulary of 256,206 takes a ``model`` of 1 or 2) and places on (4,
+    2)."""
     _, cfg, _, lm = _pair("qwen2-7b")
     model = build_model(cfg)
-    unplaced = build_model(get_smoke_config("seamless-m4t-medium"))
-    for fn in (lambda: PL.serve_placement(unplaced, make_test_layout(2, 4)),
-               lambda: PL.cache_placement(unplaced, make_test_layout(2, 4), 4, 16)):
-        with pytest.raises(NotImplementedError, match="item 21c4"):
-            fn()
+    tp = build_model(get_smoke_config("seamless-m4t-medium"))
+    assert PL.serve_placement(tp, make_test_layout(2, 4)).specs
+    assert PL.cache_placement(tp, make_test_layout(2, 4), 4, 16).specs
+    full = build_model(dataclasses.replace(get_config("seamless-m4t-medium"), dp_over_model=False))
+    with pytest.raises(ValueError, match=r"embed \(256206, 1024\): the model axis \(4\) does not divide the "
+                                         r"vocabulary \(256206\)"):
+        PL.serve_placement(full, make_test_layout(2, 4))
+    assert PL.serve_placement(full, make_test_layout(4, 2)).specs
     with pytest.raises(ValueError, match="model axis moves off the sequence"):
         PL.cache_placement(model, make_test_layout(2, 4), 4, 18)
     with pytest.raises(ValueError, match="data axis moves off the slots"):
